@@ -1,0 +1,95 @@
+"""Core 1-bit delta math (port of ``repro.core.delta``): sign extraction,
+bit packing, per-axis scales.
+
+    What = v (.) B + W_b,   B = sign(W_f - W_b) in {-1,+1}^(dout x din)
+
+Conventions match the JAX package exactly, so packed planes are
+byte-identical between the two:
+
+* weights are (d_out, d_in); a linear layer computes ``y = x @ W.T``;
+* ``row`` mode scales output rows (v is (d_out,)), ``col`` mode input
+  columns (v is (d_in,)), ``scalar`` mode one value per matrix;
+* signs map {-1 -> 0, +1 -> 1} and pack little-endian along d_in: bit j
+  of byte i is column 8i+j, planes are uint8 (..., d_in // 8).
+"""
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+AxisMode = Literal["row", "col", "scalar"]
+
+PACK = 8  # bits per uint8 plane
+
+
+def _shifts(device) -> torch.Tensor:
+    return torch.arange(PACK, dtype=torch.uint8, device=device)
+
+
+def sign_mask(delta: torch.Tensor) -> torch.Tensor:
+    """sign(delta) in {-1, +1} as int8; zeros map to +1."""
+    one = torch.ones((), dtype=torch.int8, device=delta.device)
+    return torch.where(delta >= 0, one, -one)
+
+
+def pack_signs(signs: torch.Tensor) -> torch.Tensor:
+    """Pack a {-1,+1} (..., d_in) tensor into (..., d_in//8) uint8."""
+    if signs.shape[-1] % PACK != 0:
+        raise ValueError(f"last dim {signs.shape[-1]} not a multiple of {PACK}")
+    bits = (signs > 0).to(torch.uint8)
+    bits = bits.reshape(*signs.shape[:-1], signs.shape[-1] // PACK, PACK)
+    return (bits << _shifts(signs.device)).sum(dim=-1).to(torch.uint8)
+
+
+def unpack_signs(packed: torch.Tensor, d_in: int,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`pack_signs`: (..., d_in//8) uint8 -> (..., d_in) ±1."""
+    if packed.shape[-1] * PACK != d_in:
+        raise ValueError(
+            f"packed last dim {packed.shape[-1]} * {PACK} != d_in {d_in}")
+    bits = (packed[..., None] >> _shifts(packed.device)) & 1
+    bits = bits.reshape(*packed.shape[:-1], d_in)
+    return bits.to(dtype) * 2 - 1
+
+
+def init_scale(delta: torch.Tensor, mode: AxisMode) -> torch.Tensor:
+    """v0 = mean(|ΔW|, axis); leading (stacked) dims are preserved."""
+    a = delta.abs()
+    if mode == "row":
+        return a.mean(dim=-1)
+    if mode == "col":
+        return a.mean(dim=-2)
+    if mode == "scalar":
+        return a.mean(dim=(-2, -1))
+    raise ValueError(mode)
+
+
+def broadcast_scale(v: torch.Tensor, mode: AxisMode) -> torch.Tensor:
+    """Reshape v so it broadcasts against a (..., d_out, d_in) sign matrix."""
+    if mode == "row":
+        return v[..., :, None]
+    if mode == "col":
+        return v[..., None, :]
+    if mode == "scalar":
+        return v[..., None, None] if v.dim() else v
+    raise ValueError(mode)
+
+
+def compress(w_base: torch.Tensor, w_ft: torch.Tensor, mode: AxisMode
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compress a fine-tuned weight to (packed_mask, v0 in fp16)."""
+    delta = (w_ft - w_base).to(torch.float32)
+    packed = pack_signs(sign_mask(delta))
+    v0 = init_scale(delta, mode).to(torch.float16)
+    return packed, v0
+
+
+def reconstruct(packed: torch.Tensor, v: torch.Tensor, w_base: torch.Tensor,
+                mode: AxisMode, dtype=None) -> torch.Tensor:
+    """Ŵ = v ⊙ unpack(B) + W_b in fp32, cast to ``dtype`` (default: the
+    base's).  The plain path; ``kernels/unpack_apply`` is the CUDA one."""
+    dtype = dtype or w_base.dtype
+    signs = unpack_signs(packed, w_base.shape[-1], dtype=torch.float32)
+    vb = broadcast_scale(v.to(torch.float32), mode)
+    return (vb * signs + w_base.to(torch.float32)).to(dtype)

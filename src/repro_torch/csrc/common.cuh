@@ -1,0 +1,50 @@
+// Shared helpers for the delta kernels: dtype codes and 8-wide loads and
+// stores.  Eight elements is one packed sign byte's worth of a row, so every
+// kernel here moves weights in groups of eight (32 bytes of fp32, 16 bytes of
+// bf16) — one or two 16-byte vector accesses per thread.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// dtype codes shared with kernels/build.py
+enum DType : int { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+// Eight consecutive elements starting at p (p 32-byte aligned for fp32,
+// 16-byte aligned for bf16), widened to fp32.
+__device__ __forceinline__ void load8(const float* p, float o[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float o[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float o[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(o[4], o[5], o[6], o[7]);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float o[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(o[2 * i], o[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}

@@ -1,0 +1,45 @@
+"""Plain PyTorch versions of the delta kernels (port of
+``repro.kernels.ref``).
+
+Each CUDA kernel in this package must match its plain version here to
+within dtype tolerance.  The wrappers in ``kernels/ops.py`` take these for
+tensors that lie on the CPU; on the card ``chip_smoke.py`` holds each kernel
+against them.  All arithmetic is fp32 (bf16 operands are upcast first, the
+counterpart of ``preferred_element_type=float32``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import delta as D
+
+
+def _deq(w_base: torch.Tensor, w_scale=None) -> torch.Tensor:
+    """fp32 base; with a per-output-channel ``w_scale`` (d_out,) the int8
+    payload is dequantized (broadcast over the contracted dim)."""
+    wb = w_base.to(torch.float32)
+    if w_scale is not None:
+        wb = wb * w_scale.to(torch.float32)[..., None]
+    return wb
+
+
+def unpack_apply_ref(packed: torch.Tensor, v: torch.Tensor,
+                     w_base: torch.Tensor, mode: str, dtype=torch.float32,
+                     w_scale=None) -> torch.Tensor:
+    """Ŵ = v ⊙ unpack(B) + W_b — dense reconstruction.  Leading (stacked)
+    dims broadcast: packed (..., d_out, d_in/8), v (..., d_out) | (..., d_in)
+    | (...), w_base (..., d_out, d_in)."""
+    return D.reconstruct(packed, v, _deq(w_base, w_scale), mode, dtype=dtype)
+
+
+def bitlinear_axes_ref(x: torch.Tensor, packed: torch.Tensor,
+                       v_row: torch.Tensor, v_col: torch.Tensor,
+                       w_base: torch.Tensor, w_scale=None) -> torch.Tensor:
+    """Dual-axis fused GEMM: v[n,k] = v_row[n] + v_col[k] (the overlay zeroes
+    the unselected vector, so the sum IS the selected scale).
+    x (M, K) -> (M, N) in x.dtype."""
+    d_out, d_in = w_base.shape
+    signs = D.unpack_signs(packed, d_in, torch.float32)
+    v = (v_row.to(torch.float32)[:, None] + v_col.to(torch.float32)[None, :])
+    w_hat = v * signs + _deq(w_base, w_scale)
+    return (x.to(torch.float32) @ w_hat.T).to(x.dtype)

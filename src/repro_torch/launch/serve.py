@@ -1,0 +1,115 @@
+"""Serving launcher (port of ``repro.launch.serve``): a deployment over
+synthetic delta variants, driven through ``serving/api.Deployment``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+        --num-layers 4 --mode fused
+
+Builds a random base model from a seed, makes ``--variants`` synthetic
+fine-tunes (base + 0.005·noise on every matrix), compresses each with
+calibration stage 0, publishes them, and serves ``--requests`` requests
+round-robin over the base and the variants with the group scheduler.
+``--mode dense`` materialises each variant (the ``unpack_apply`` kernel);
+``--mode fused`` keeps it packed (the ``bitlinear_axes`` kernel in every
+overlaid projection).  ``--num-layers`` cuts depth only; ``--reduced``
+selects the small test widths.  Runs on ``--device`` (default cuda).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import calibration as C
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.models.param import split
+from repro_torch.serving import Deployment
+from repro_torch.tree import tree_leaves, tree_map
+
+PROMPT_LEN = 16
+MAX_LEN = 64
+
+
+def make_config(arch: str, reduced: bool = False, num_layers: int = 0):
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    return cfg
+
+
+def fine_tune(base, seed: int, scale: float = 0.005):
+    """Synthetic fine-tune: every matrix (ndim >= 2) plus scaled normal
+    noise drawn from a generator seeded with ``seed``."""
+    dev = tree_leaves(base)[0].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def noisy(t):
+        if t.dim() < 2:
+            return t
+        return t + scale * torch.randn(t.shape, generator=gen, device=dev,
+                                       dtype=t.dtype)
+    return tree_map(noisy, base)
+
+
+def build_deployment(cfg, *, mode: str, n_variants: int, batch: int,
+                     device, seed: int = 0, max_resident: int = 0):
+    """Base model (seeded) + ``n_variants`` published synthetic variants
+    v0..v{n-1}.  Returns the Deployment; each fine-tune is freed once
+    compressed."""
+    model = build_model(cfg)
+    base, _ = split(model.init(seed, device=device))
+    dep = Deployment(model, base, mode=mode, batch_size=batch,
+                     prompt_len=PROMPT_LEN, max_len=MAX_LEN,
+                     max_resident=max_resident or (8 if mode == "fused"
+                                                   else 2),
+                     device=device)
+    for i in range(n_variants):
+        dep.publish(f"v{i}", C.compress(base, fine_tune(base, 100 + i)))
+    return dep
+
+
+def submit_requests(dep, cfg, n_requests: int, new_tokens: int,
+                    seed: int = 0) -> list:
+    """Queue ``n_requests`` random 8-token prompts round-robin over the
+    deployment's variants (base first); returns the request ids."""
+    rng = np.random.default_rng(seed)
+    names = dep.variants()
+    return [dep.submit(rng.integers(1, cfg.vocab_size, size=8),
+                       variant=names[i % len(names)],
+                       max_new_tokens=new_tokens)
+            for i in range(n_requests)]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut depth to this many layers (0: as configured)")
+    ap.add_argument("--variants", type=int, default=3)
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--mode", choices=("dense", "fused"), default="dense")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = make_config(args.arch, args.reduced, args.num_layers)
+    dep = build_deployment(cfg, mode=args.mode, n_variants=args.variants,
+                           batch=args.batch, device=device)
+    submit_requests(dep, cfg, args.requests, args.new_tokens)
+    dep.drain()
+    print("metrics:", dep.metrics)
+    print("registry:", dep.stats)
+    dep.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,204 @@
+"""Attention (port of ``repro.models.attention``): GQA with a chunked
+online-softmax forward, KV caches and single-token decode.
+
+Plain PyTorch: the JAX model computes attention with jnp einsums, not a
+Pallas kernel.  Numerics follow it: operands stay in their storage dtype
+(bf16 in serving) and are upcast to fp32 right before each product — the
+counterpart of ``preferred_element_type=float32`` — with fp32 softmax
+statistics and the same casts ((q·scale) to k's dtype, probabilities to
+v's dtype).
+
+Caches are updated in place (the JAX functions return new caches; here
+the returned dict is the same storage, which saves a cache-sized copy per
+step).  Mesh sharding constraints of the JAX module are dropped: one card
+has no mesh.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import _oget, apply_rope, linear, psel, rmsnorm
+from repro_torch.models.param import dense_init, ones_init
+
+NEG_INF = -1e30
+
+
+def attn_init(gen: torch.Generator, cfg) -> dict:
+    d = cfg.d_model
+    p = {
+        "wq": dense_init(gen, (cfg.q_dim, d), ("q_heads", "embed")),
+        "wk": dense_init(gen, (cfg.kv_dim, d), ("kv_heads", "embed")),
+        "wv": dense_init(gen, (cfg.kv_dim, d), ("kv_heads", "embed")),
+        "wo": dense_init(gen, (d, cfg.q_dim), ("embed", "q_heads")),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = ones_init((cfg.head_dim,), (None,), gen.device)
+        p["k_norm"] = ones_init((cfg.head_dim,), (None,), gen.device)
+    return p
+
+
+def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+                theta, ov=None):
+    """x (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), qk-normed, RoPE'd."""
+    b, s, _ = x.shape
+    q = linear(x, p["wq"], _oget(ov, "wq"))
+    k = linear(x, p["wk"], _oget(ov, "wk"))
+    v = linear(x, p["wv"], _oget(ov, "wv"))
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(q, psel(p["q_norm"], _oget(ov, "q_norm")), cfg.norm_eps)
+        k = rmsnorm(k, psel(p["k_norm"], _oget(ov, "k_norm")), cfg.norm_eps)
+    if theta is not None:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# chunked (flash-style) attention forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _pick_chunk(t: int, chunk: int) -> int:
+    chunk = min(chunk, t)
+    while t % chunk:
+        chunk //= 2
+    return chunk
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    kv_offset: int = 0, chunk: int = 512) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (what the JAX ``_flash_fwd``
+    computes).  q (B,S,Hq,hd); k, v (B,T,Hkv,hd); GQA by head grouping;
+    window > 0 keeps the last ``window`` keys.  Returns (B,S,Hq,hd) in
+    q.dtype."""
+    b, s, hq, hd = q.shape
+    _, t, hkv, _ = k.shape
+    g = hq // hkv
+    chunk = _pick_chunk(t, chunk)
+    dev = q.device
+    qf = ((q.to(torch.float32) * hd ** -0.5).to(k.dtype)
+          .reshape(b, s, hkv, g, hd).to(torch.float32))
+    q_pos = q_offset + torch.arange(s, device=dev)
+    m = torch.full((b, s, hkv, g), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, s, hkv, g), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, s, hkv, g, hd), dtype=torch.float32, device=dev)
+    for idx in range(t // chunk):
+        k_blk = k[:, idx * chunk:(idx + 1) * chunk].to(torch.float32)
+        v_blk = v[:, idx * chunk:(idx + 1) * chunk]
+        logits = torch.einsum("bskgh,bckh->bskgc", qf, k_blk)
+        k_pos = kv_offset + idx * chunk + torch.arange(chunk, device=dev)
+        mask = torch.ones((s, chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window > 0:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        logits = torch.where(mask[None, :, None, None, :], logits,
+                             torch.tensor(NEG_INF, device=dev))
+        new_m = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - new_m)
+        p_exp = torch.exp(logits - new_m[..., None])
+        l = l * alpha + p_exp.sum(dim=-1)
+        upd = torch.einsum("bskgc,bckh->bskgh",
+                           p_exp.to(v.dtype).to(torch.float32),
+                           v_blk.to(torch.float32))
+        o = o * alpha[..., None] + upd
+        m = new_m
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, s, hq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode attention (single new token against a cache)
+# ---------------------------------------------------------------------------
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                     pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """q (B,1,Hq,hd); caches (B,T,Hkv,hd); slot_pos (T,) or (B,T) absolute
+    position per slot (-1 empty); pos scalar or (B,) current position."""
+    b, _, hq, hd = q.shape
+    _, t, hkv, _ = k_cache.shape
+    g = hq // hkv
+    qf = ((q.to(torch.float32) * hd ** -0.5).to(k_cache.dtype)
+          .reshape(b, hkv, g, hd).to(torch.float32))
+    logits = torch.einsum("bkgh,btkh->bkgt", qf, k_cache.to(torch.float32))
+    sp = torch.broadcast_to(slot_pos.to(torch.int32), (b, t))
+    pos_b = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
+                                               device=q.device), (b,))[:, None]
+    valid = (sp >= 0) & (sp <= pos_b)
+    if window > 0:
+        valid &= sp > pos_b - window
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.tensor(NEG_INF, device=q.device))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p_norm = (p / torch.clamp(l, min=1e-30)).to(v_cache.dtype)
+    out = torch.einsum("bkgt,btkh->bkgh", p_norm.to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def make_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
+                  device, dtype=torch.bfloat16) -> dict:
+    """One layer's cache; ``slot_pos`` is the absolute position held in
+    each slot, per batch row (-1 = empty)."""
+    return {
+        "k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
+                         device=device),
+        "slot_pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def _row_pos(pos, b: int, device) -> torch.Tensor:
+    """Normalise a scalar-or-(B,) position to (B,) int64 indices."""
+    return torch.broadcast_to(torch.as_tensor(pos, device=device),
+                              (b,)).to(torch.int64)
+
+
+def cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos) -> dict:
+    """Write (B, n, Hkv, hd) at absolute position(s) from ``pos`` in place.
+    n > 1 (prefill) writes contiguously at a scalar offset; single tokens
+    scatter per row (``pos`` scalar or (B,)).  Ring (sliding-window)
+    caches are not ported yet."""
+    b, t = cache["k"].shape[:2]
+    n = k_new.shape[1]
+    dtype = cache["k"].dtype
+    if n > 1:
+        p = int(pos)
+        cache["k"][:, p:p + n] = k_new.to(dtype)
+        cache["v"][:, p:p + n] = v_new.to(dtype)
+        cache["slot_pos"][:, p:p + n] = torch.arange(
+            p, p + n, dtype=torch.int32, device=k_new.device)
+        return cache
+    pos_b = _row_pos(pos, b, k_new.device)
+    idx = pos_b.clamp(0, t - 1)
+    rows = torch.arange(b, device=k_new.device)
+    cache["k"][rows, idx] = k_new[:, 0].to(dtype)
+    cache["v"][rows, idx] = v_new[:, 0].to(dtype)
+    cache["slot_pos"][rows, idx] = pos_b.to(torch.int32)
+    return cache
+
+
+def cache_layer_view(caches: dict, layer_idx: int) -> dict:
+    """One layer's (B, T, H, hd) slice of a stacked cache (a view)."""
+    return {name: caches[name][layer_idx] for name in ("k", "v", "slot_pos")}
+
+
+def cache_insert_stacked(caches: dict, layer_idx: int, k_new: torch.Tensor,
+                         v_new: torch.Tensor, pos) -> dict:
+    """Single-token insert into a STACKED (L, B, T, H, hd) cache at
+    (layer_idx, b, pos_b), in place."""
+    cache_insert(cache_layer_view(caches, layer_idx), k_new, v_new, pos)
+    return caches

@@ -1,0 +1,115 @@
+"""Common building blocks (port of ``repro.models.layers``): the shared
+linear, norms, RoPE, embeddings, gated MLP.
+
+Cast order follows the JAX package in the reduced-precision data path
+(e.g. rmsnorm multiplies in x.dtype after computing fp32 statistics), so
+the two packages round at the same places.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.param import Param, dense_init, ones_init
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# shared linear: every projection routes through here so a delta overlay
+# entry swaps the dense GEMM for the fused on-the-fly delta GEMM
+# ---------------------------------------------------------------------------
+
+def linear(x: torch.Tensor, w: torch.Tensor, ov=None) -> torch.Tensor:
+    """y = x @ Ŵᵀ where Ŵ = w without an overlay entry, else the variant
+    weight v ⊙ unpack(B) + w applied on the fly (never densified)."""
+    if ov is None:
+        return x @ w.T.to(x.dtype)
+    from repro_torch.kernels import ops as K
+    return K.bitlinear_axes(x, ov.packed, ov.v_row, ov.v_col, w)
+
+
+def psel(w: torch.Tensor, bank=None) -> torch.Tensor:
+    """Per-row parameter select for banked extras — ``w`` itself for the
+    unbanked overlays this slice serves (they never carry extras)."""
+    if bank is not None:
+        raise ValueError("banked overlays are not ported yet")
+    return w
+
+
+def _oget(ov, key):
+    from repro_torch.models.delta_overlay import oget
+    return oget(ov, key)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm (fp32 statistics, x.dtype data path) — forward only
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, device) -> Param:
+    return ones_init((d,), (None,), device)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    exps = -torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device), exps)
+    ang = positions[..., None].to(torch.float32) * freqs   # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                      # broadcast heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def embed_init(gen: torch.Generator, vocab: int, d: int) -> Param:
+    return dense_init(gen, (vocab, d), ("vocab", "embed"), scale=1.0)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 dtype: str) -> torch.Tensor:
+    return table[tokens].to(dtype_of(dtype))
+
+
+def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return x @ table.T.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int) -> dict:
+    return {
+        "w_gate": dense_init(gen, (d_ff, d), ("ffn", "embed")),
+        "w_up": dense_init(gen, (d_ff, d), ("ffn", "embed")),
+        "w_down": dense_init(gen, (d, d_ff), ("embed", "ffn")),
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor, ov=None) -> torch.Tensor:
+    h = (F.silu(linear(x, p["w_gate"], _oget(ov, "w_gate")))
+         * linear(x, p["w_up"], _oget(ov, "w_up")))
+    return linear(h, p["w_down"], _oget(ov, "w_down"))

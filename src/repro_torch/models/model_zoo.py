@@ -1,0 +1,56 @@
+"""Model facade (port of ``repro.models.model_zoo``) for the dense family.
+
+    model = build_model(cfg)
+    params, axes = split(model.init(seed, device="cuda"))
+    logits, aux = model.forward(params, batch, overlay=None)
+    last, cache = model.prefill(params, batch, max_len)
+    logits, cache = model.decode_step(params, token, cache)
+
+``overlay`` (models/delta_overlay.py) is an optional tree of packed deltas
+riding alongside ``params``: matmuls with an entry run the fused delta GEMM.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, seed: int = 0, device=None) -> dict:
+        """Param tree drawn from a generator seeded with ``seed`` on
+        ``device`` (default ``cuda``)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return transformer.init(gen, self.cfg)
+
+    def forward(self, params, batch, overlay=None):
+        return transformer.forward(params, batch, self.cfg, overlay=overlay)
+
+    def prefill(self, params, batch, max_len: int,
+                cache_dtype=torch.bfloat16, overlay=None):
+        return transformer.prefill(params, batch, self.cfg, max_len,
+                                   cache_dtype=cache_dtype, overlay=overlay)
+
+    def decode_step(self, params, token, cache, overlay=None):
+        return transformer.decode_step(params, token, cache, self.cfg,
+                                       overlay=overlay)
+
+    def init_cache(self, batch: int, max_len: int, device=None,
+                   dtype=torch.bfloat16):
+        return transformer.init_cache(self.cfg, batch, max_len,
+                                      resolve_device(device), dtype)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family != "dense":
+        raise ValueError(f"family {cfg.family!r} is not ported yet")
+    return Model(cfg=cfg)

@@ -1,0 +1,207 @@
+"""Decoder-only transformer LM, dense family (port of the dense path of
+``repro.models.transformer``).
+
+Parameters keep the JAX tree: per-layer leaves are stacked along a leading
+layer dim (``params["layers"]["attn"]["wq"]`` is (L, d_out, d_in)), and an
+overlay tree shadows them with the same leading dim.  Where the JAX module
+``lax.scan``s over that dim, the port loops over the layer index and takes
+views of the stacked tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models.delta_overlay import oget
+from repro_torch.models.layers import (embed_init, embed_lookup, linear,
+                                       mlp_apply, mlp_init, psel, rmsnorm,
+                                       rmsnorm_init, unembed_logits)
+from repro_torch.models.param import dense_init, stack_layers
+from repro_torch.tree import tree_map
+
+
+def layer_pattern(cfg) -> list[dict]:
+    """Per-super-block layer descriptors: one entry for uniform archs,
+    [local x N, global] for local:global archs."""
+    if cfg.local_global_pattern > 0:
+        local = {"window": cfg.sliding_window, "theta": cfg.rope_theta_local}
+        glob = {"window": 0, "theta": cfg.rope_theta}
+        return [dict(local) for _ in range(cfg.local_global_pattern)] + [glob]
+    return [{"window": cfg.sliding_window, "theta": cfg.rope_theta}]
+
+
+def _check_dense(cfg) -> None:
+    if cfg.family != "dense":
+        raise ValueError(f"family {cfg.family!r} is not ported yet")
+    if any(e["window"] > 0 for e in layer_pattern(cfg)):
+        raise ValueError("sliding-window (ring-cache) layers are not "
+                         "ported yet")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _block_init(gen: torch.Generator, cfg) -> dict:
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, gen.device),
+        "attn": A.attn_init(gen, cfg),
+        "ln2": rmsnorm_init(cfg.d_model, gen.device),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff),
+    }
+
+
+def init(gen: torch.Generator, cfg) -> dict:
+    """Param tree on ``gen``'s device (float32 leaves, as the JAX init)."""
+    _check_dense(cfg)
+    params = {
+        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model),
+        "final_norm": rmsnorm_init(cfg.d_model, gen.device),
+        "layers": stack_layers(lambda g: _block_init(g, cfg), gen,
+                               cfg.num_layers),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                       ("vocab", "embed"),
+                                       scale=cfg.d_model ** -0.5)
+    return params
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked params or overlay subtree (views)."""
+    return tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+def _ffn_part(p, x, cfg, ov=None):
+    h = rmsnorm(x, psel(p["ln2"], oget(ov, "ln2")), cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h, ov=oget(ov, "mlp"))
+
+
+def block_apply(p, x, cfg, positions, theta, window, ov=None):
+    """One layer over a full sequence; returns (x, (k, v))."""
+    ov_a = oget(ov, "attn")
+    h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1")), cfg.norm_eps)
+    q, k, v = A.qkv_project(p["attn"], h, cfg, positions, theta, ov=ov_a)
+    o = A.flash_attention(q, k, v, causal=True, window=window)
+    o = o.reshape(*x.shape[:-1], cfg.q_dim)
+    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"))
+    return _ffn_part(p, x, cfg, ov=ov), (k, v)
+
+
+def _unembed(params, x, cfg):
+    key = "embed" if cfg.tie_embeddings else "unembed"
+    return unembed_logits(x, params[key])
+
+
+# ---------------------------------------------------------------------------
+# forward (teacher-forced) and prefill
+# ---------------------------------------------------------------------------
+
+def forward(params, batch, cfg, collect_kv: bool = False, overlay=None):
+    """-> (logits (B,S,V), aux).  aux["kv"] = (k, v) stacked (L,B,S,Hkv,hd)
+    when collect_kv.  ``overlay`` (optional) shadows params: matmuls with an
+    entry run the fused delta GEMM against the base weight."""
+    _check_dense(cfg)
+    x = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    pat = layer_pattern(cfg)
+    ov_layers = oget(overlay, "layers")
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        entry = pat[i % len(pat)]
+        x, (k, v) = block_apply(_layer(params["layers"], i), x, cfg,
+                                positions, entry["theta"], entry["window"],
+                                ov=_layer(ov_layers, i))
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    x = rmsnorm(x, psel(params["final_norm"], oget(overlay, "final_norm")),
+                cfg.norm_eps)
+    logits = _unembed(params, x, cfg)
+    aux = {}
+    if collect_kv:
+        aux["kv"] = (torch.stack(ks), torch.stack(vs))
+    return logits, aux
+
+
+def init_cache(cfg, batch: int, max_len: int, device,
+               dtype=torch.bfloat16) -> dict:
+    """{"pos": (B,) int32, "slots": [stacked (L/len(pattern), B, T, Hkv, hd)
+    cache per pattern position]}."""
+    pat = layer_pattern(cfg)
+    assert cfg.num_layers % len(pat) == 0, \
+        f"num_layers {cfg.num_layers} incompatible with pattern {len(pat)}"
+    n_super = cfg.num_layers // len(pat)
+
+    def stacked(size):
+        one = A.make_kv_cache(batch, size, cfg.num_kv_heads, cfg.head_dim,
+                              device, dtype)
+        return {k: v.expand((n_super,) + v.shape).clone()
+                for k, v in one.items()}
+
+    sizes = [min(e["window"], max_len) if e["window"] > 0 else max_len
+             for e in pat]
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "slots": [stacked(sz) for sz in sizes]}
+
+
+def prefill(params, batch, cfg, max_len: int, cache_dtype=torch.bfloat16,
+            overlay=None):
+    """Teacher-forced pass over the prompt; returns (last_logits, cache)."""
+    logits, aux = forward(params, batch, cfg, collect_kv=True,
+                          overlay=overlay)
+    b, s = batch["tokens"].shape
+    cache = init_cache(cfg, b, max_len, logits.device, cache_dtype)
+    k_all, v_all = aux["kv"]                  # (L, B, S, Hkv, hd)
+    pat_len = len(cache["slots"])
+    for i in range(cfg.num_layers):
+        slot = cache["slots"][i % pat_len]
+        A.cache_insert(A.cache_layer_view(slot, i // pat_len), k_all[i],
+                       v_all[i], 0)
+    cache["pos"] = torch.full((b,), s, dtype=torch.int32,
+                              device=logits.device)
+    return logits[:, -1, :], cache
+
+
+# ---------------------------------------------------------------------------
+# decode: single-token step against the stacked cache
+# ---------------------------------------------------------------------------
+
+def _decode_block_stacked(p, x, cfg, caches, idx, pat_entry, pos, ov=None):
+    window = pat_entry["window"]
+    ov_a = oget(ov, "attn")
+    h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1")), cfg.norm_eps)
+    q, k, v = A.qkv_project(p["attn"], h, cfg, pos.to(torch.int32)[:, None],
+                            pat_entry["theta"], ov=ov_a)
+    A.cache_insert_stacked(caches, idx, k, v, pos)
+    view = A.cache_layer_view(caches, idx)
+    o = A.decode_attention(q, view["k"], view["v"], view["slot_pos"], pos,
+                           window=window)
+    o = o.reshape(*x.shape[:-1], cfg.q_dim)
+    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"))
+    return _ffn_part(p, x, cfg, ov=ov)
+
+
+def decode_step(params, token, cache, cfg, overlay=None):
+    """token (B,) -> (logits (B,V), cache advanced by one, updated in
+    place).  cache["pos"] is (B,) per-lane positions."""
+    _check_dense(cfg)
+    pos = cache["pos"]
+    x = embed_lookup(params["embed"], token[:, None], cfg.compute_dtype)
+    pat = layer_pattern(cfg)
+    ov_layers = oget(overlay, "layers")
+    for i in range(cfg.num_layers):
+        j = i % len(pat)
+        x = _decode_block_stacked(
+            _layer(params["layers"], i), x, cfg, cache["slots"][j],
+            i // len(pat), pat[j], pos, ov=_layer(ov_layers, i))
+    x = rmsnorm(x, psel(params["final_norm"], oget(overlay, "final_norm")),
+                cfg.norm_eps)
+    logits = _unembed(params, x, cfg)
+    cache["pos"] = pos + 1
+    return logits[:, 0, :], cache

@@ -1,0 +1,58 @@
+"""Shared fixtures for the port's parity tests: the JAX package's weights
+and delta models as numpy dicts keyed by flat dot-path, which is what
+``repro_torch.bridge`` takes.  Inputs are made from a seed with numpy."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.configs import get_config
+from repro.core import calibration as JC
+from repro.models import build_model
+from repro.models.param import split
+
+import repro_torch.configs as TC
+
+
+def configs(num_layers: int = 2, compute_dtype: str = "float32"):
+    """(JAX config, port config) of reduced qwen3-8b, identical fields."""
+    kw = dict(num_layers=num_layers, compute_dtype=compute_dtype,
+              remat=False)
+    jcfg = dataclasses.replace(get_config("qwen3-8b").reduced(), **kw)
+    tcfg = dataclasses.replace(TC.get_config("qwen3-8b").reduced(), **kw)
+    return jcfg, tcfg
+
+
+def jax_base(jcfg):
+    """(JAX model, JAX params, {path: np.ndarray}) from PRNGKey(0)."""
+    model = build_model(jcfg)
+    params, _ = split(model.init(jax.random.PRNGKey(0)))
+    return model, params, numpy_flat(params)
+
+
+def numpy_flat(params) -> dict:
+    return {k: np.asarray(v) for k, v in JC.flatten_params(params).items()}
+
+
+def fine_tune_flat(flat: dict, seed: int, scale: float = 0.005) -> dict:
+    """numpy-seeded synthetic fine-tune: noise on every matrix."""
+    rng = np.random.default_rng(seed)
+    return {k: (v + scale * rng.standard_normal(v.shape).astype(v.dtype)
+                if v.ndim >= 2 else v) for k, v in flat.items()}
+
+
+def jax_tree(params_like, flat: dict):
+    return JC.unflatten_like(params_like, {k: jnp.asarray(v)
+                                           for k, v in flat.items()})
+
+
+def delta_model_numpy(dm) -> dict:
+    """A JAX DeltaModel in the bridge's exchange format."""
+    return {"deltas": {p: {"packed": np.asarray(e.packed),
+                           "v_row": np.asarray(e.v_row),
+                           "v_col": np.asarray(e.v_col),
+                           "use_row": np.asarray(e.use_row),
+                           "scalar": e.scalar}
+                       for p, e in dm.deltas.items()},
+            "extras": {p: np.asarray(v) for p, v in dm.extras.items()}}
