@@ -135,19 +135,6 @@ __global__ void __launch_bounds__(NTHREADS) bitlinear_axes_kernel(
   }
 }
 
-// y[i] = sum over splits of partial[z][i], in split order
-__global__ void __launch_bounds__(256) splitk_reduce_kernel(
-    const float* __restrict__ partial, float* __restrict__ y, int64_t mn,
-    int splits) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
-       i += step) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += partial[z * mn + i];
-    y[i] = s;
-  }
-}
-
 struct Args {
   const void* x;
   const void* packed;
@@ -216,12 +203,8 @@ extern "C" int repro_bitlinear_axes(const void* x, int x_dtype, const void* pack
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const int64_t mn = (int64_t)M * N;
-  int64_t blocks = (mn + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  splitk_reduce_kernel<<<(unsigned)blocks, 256, 0, a.stream>>>(
-      a.workspace, a.y, mn, splits);
-  return (int)cudaGetLastError();
+  return (int)launch_splitk_reduce(a.workspace, a.y, (int64_t)M * N, splits,
+                                   a.stream);
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -1,7 +1,8 @@
-// Shared helpers for the delta kernels: dtype codes and 8-wide loads and
-// stores.  Eight elements is one packed sign byte's worth of a row, so every
-// kernel here moves weights in groups of eight (32 bytes of fp32, 16 bytes of
-// bf16) — one or two 16-byte vector accesses per thread.
+// Shared helpers for the delta kernels: dtype codes, 8-wide loads and
+// stores, and the split-K reduction pass.  Eight elements is one packed sign
+// byte's worth of a row, so every kernel here moves weights in groups of
+// eight (32 bytes of fp32, 16 bytes of bf16 or fp16) — one or two 16-byte
+// vector accesses per thread.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,8 +17,8 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
-// Eight consecutive elements starting at p (p 32-byte aligned for fp32,
-// 16-byte aligned for bf16), widened to fp32.
+// Eight consecutive elements starting at p (16-byte aligned), widened to
+// fp32.
 __device__ __forceinline__ void load8(const float* p, float o[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
@@ -36,6 +37,17 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float o[8]) {
   }
 }
 
+__device__ __forceinline__ void load8(const __half* p, float o[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store8(float* p, const float o[8]) {
   *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(o[4], o[5], o[6], o[7]);
@@ -48,3 +60,31 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float o[8]) {
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(o[2 * i], o[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
 }
+
+namespace {
+
+// Second pass of a split-K GEMM: y[i] = sum over splits of partial[z][i],
+// summed in split order (deterministic, no atomics).
+__global__ void __launch_bounds__(256) splitk_reduce_kernel(
+    const float* __restrict__ partial, float* __restrict__ y, int64_t mn,
+    int splits) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
+       i += step) {
+    float s = 0.f;
+    for (int z = 0; z < splits; ++z) s += partial[z * mn + i];
+    y[i] = s;
+  }
+}
+
+inline cudaError_t launch_splitk_reduce(const float* partial, float* y,
+                                        int64_t mn, int splits,
+                                        cudaStream_t stream) {
+  int64_t blocks = (mn + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  splitk_reduce_kernel<<<(unsigned)blocks, 256, 0, stream>>>(partial, y, mn,
+                                                             splits);
+  return cudaGetLastError();
+}
+
+}  // namespace

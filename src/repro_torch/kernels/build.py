@@ -25,7 +25,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("unpack_apply.cu", "bitlinear_axes.cu")
+SOURCES = ("unpack_apply.cu", "bitlinear_axes.cu",
+           "bitlinear_axes_banked.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "repro_unpack_apply": [_P, _P, _L, _L, _L, _P, _I, _P, _I, _L, _L, _L, _P],
     "repro_bitlinear_axes": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P,
                              _I, _I, _I, _I, _I, _P],
+    "repro_bitlinear_axes_banked": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P,
+                                    _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -13,6 +13,7 @@ run through the kernels.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
@@ -96,4 +97,42 @@ def bitlinear_axes(x: torch.Tensor, packed: torch.Tensor,
                                  w_base).to(x.dtype)
     else:
         y = _ref.bitlinear_axes_ref(x2, packed, v_row, v_col, w_base)
+    return y.reshape(*lead, n)
+
+
+def flatten_vidx(variant_idx: torch.Tensor, lead: tuple) -> torch.Tensor:
+    """Per-row variant indices -> flattened batch rows (m,) int32.
+
+    ``variant_idx`` has shape ``lead`` (one slot per row) or ``(lead[0],)``
+    (broadcast over the remaining lead dims: one variant per batch lane)."""
+    m = math.prod(lead)
+    if tuple(variant_idx.shape) == tuple(lead):
+        return variant_idx.to(torch.int32).reshape(m)
+    return variant_idx.reshape(variant_idx.shape[0],
+                               *([1] * (len(lead) - 1))).expand(
+        tuple(lead)).to(torch.int32).reshape(m)
+
+
+def bitlinear_axes_banked(x: torch.Tensor, variant_idx: torch.Tensor,
+                          packed: torch.Tensor, v_row: torch.Tensor,
+                          v_col: torch.Tensor,
+                          w_base: torch.Tensor) -> torch.Tensor:
+    """Mixed-variant fused y: row m of x computes against bank slot
+    ``variant_idx[m]`` of a stacked overlay (slot 0 = base, zero delta).
+
+    packed (V, N, K/8) · v_row (V, N) · v_col (V, K) stack the per-variant
+    overlay leaves along a leading bank axis; ``variant_idx`` is integer
+    with shape x.shape[:-1] or (x.shape[0],).  x may carry leading batch
+    dims; fp32 accumulation, result in x.dtype."""
+    *lead, k_dim = x.shape
+    n = w_base.shape[0]
+    x2 = x.reshape(-1, k_dim)
+    vidx = flatten_vidx(variant_idx, tuple(lead))
+    if _use_kernel(x, variant_idx, packed, v_row, v_col, w_base):
+        y = _bl.bitlinear_axes_banked_p(x2.contiguous(), vidx.contiguous(),
+                                        packed, v_row, v_col,
+                                        w_base).to(x.dtype)
+    else:
+        y = _ref.bitlinear_axes_banked_ref(x2, vidx, packed, v_row, v_col,
+                                           w_base)
     return y.reshape(*lead, n)

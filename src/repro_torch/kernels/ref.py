@@ -43,3 +43,32 @@ def bitlinear_axes_ref(x: torch.Tensor, packed: torch.Tensor,
     v = (v_row.to(torch.float32)[:, None] + v_col.to(torch.float32)[None, :])
     w_hat = v * signs + _deq(w_base, w_scale)
     return (x.to(torch.float32) @ w_hat.T).to(x.dtype)
+
+
+def bitlinear_axes_banked_ref(x: torch.Tensor, variant_idx: torch.Tensor,
+                              packed: torch.Tensor, v_row: torch.Tensor,
+                              v_col: torch.Tensor, w_base: torch.Tensor,
+                              w_scale=None) -> torch.Tensor:
+    """Banked version: overlay operands carry a leading bank axis V and row
+    m of x computes against bank slot ``variant_idx[m]`` (slot 0 = base:
+    its vectors are zero, so Ŵ[0] = W_b exactly).
+
+    x (M, K) · variant_idx (M,) int · packed (V, N, K/8) · v_row (V, N) ·
+    v_col (V, K) · w_base (N, K) -> (M, N) in x.dtype.
+
+    The JAX oracle gathers a (M, N, K) Ŵ per row; here each slot's Ŵ is
+    built once and its product selected into the rows that name it, which
+    computes the same values without M copies of the weight (at the
+    serving shapes that would be gigabytes)."""
+    d_out, d_in = w_base.shape
+    xf = x.to(torch.float32)
+    wb = _deq(w_base, w_scale)
+    vidx = variant_idx.reshape(-1, 1)
+    y = torch.zeros((x.shape[0], d_out), dtype=torch.float32,
+                    device=x.device)
+    for s in range(packed.shape[0]):
+        signs = D.unpack_signs(packed[s], d_in, torch.float32)
+        v = (v_row[s].to(torch.float32)[:, None]
+             + v_col[s].to(torch.float32)[None, :])
+        y = torch.where(vidx == s, xf @ (v * signs + wb).T, y)
+    return y.to(x.dtype)

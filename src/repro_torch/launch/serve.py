@@ -2,15 +2,18 @@
 synthetic delta variants, driven through ``serving/api.Deployment``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
-        --num-layers 4 --mode fused
+        --num-layers 4 --mode fused --scheduler continuous
 
 Builds a random base model from a seed, makes ``--variants`` synthetic
 fine-tunes (base + 0.005·noise on every matrix), compresses each with
 calibration stage 0, publishes them, and serves ``--requests`` requests
-round-robin over the base and the variants with the group scheduler.
-``--mode dense`` materialises each variant (the ``unpack_apply`` kernel);
-``--mode fused`` keeps it packed (the ``bitlinear_axes`` kernel in every
-overlaid projection).  ``--num-layers`` cuts depth only; ``--reduced``
+round-robin over the base and the variants.  ``--scheduler group`` (the
+default) serves one variant per batch: ``--mode dense`` materialises each
+variant (the ``unpack_apply`` kernel), ``--mode fused`` keeps it packed
+(the ``bitlinear_axes`` kernel in every overlaid projection).
+``--scheduler continuous`` serves mixed-variant batches from an overlay
+bank of ``variants + 2`` slots (the ``bitlinear_axes_banked`` kernel) and
+needs ``--mode fused``.  ``--num-layers`` cuts depth only; ``--reduced``
 selects the small test widths.  Runs on ``--device`` (default cuda).
 """
 from __future__ import annotations
@@ -57,32 +60,53 @@ def fine_tune(base, seed: int, scale: float = 0.005):
     return tree_map(noisy, base)
 
 
-def build_deployment(cfg, *, mode: str, n_variants: int, batch: int,
-                     device, seed: int = 0, max_resident: int = 0):
-    """Base model (seeded) + ``n_variants`` published synthetic variants
-    v0..v{n-1}.  Returns the Deployment; each fine-tune is freed once
-    compressed."""
+def build_variants(cfg, n_variants: int, device, seed: int = 0):
+    """(model, base params (seeded), [DeltaModel of each synthetic
+    fine-tune]); each fine-tune is freed once compressed."""
     model = build_model(cfg)
     base, _ = split(model.init(seed, device=device))
-    dep = Deployment(model, base, mode=mode, batch_size=batch,
-                     prompt_len=PROMPT_LEN, max_len=MAX_LEN,
+    dms = [C.compress(base, fine_tune(base, 100 + i))
+           for i in range(n_variants)]
+    return model, base, dms
+
+
+def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
+           device, max_resident: int = 0, bank_size: int = 0):
+    """A Deployment over ``base`` with ``dms`` published as v0..v{n-1}."""
+    dep = Deployment(model, base, mode=mode, scheduler=scheduler,
+                     batch_size=batch, prompt_len=PROMPT_LEN,
+                     max_len=MAX_LEN,
                      max_resident=max_resident or (8 if mode == "fused"
                                                    else 2),
-                     device=device)
-    for i in range(n_variants):
-        dep.publish(f"v{i}", C.compress(base, fine_tune(base, 100 + i)))
+                     bank_size=bank_size or len(dms) + 2, device=device)
+    for i, dm in enumerate(dms):
+        dep.publish(f"v{i}", dm)
     return dep
 
 
-def submit_requests(dep, cfg, n_requests: int, new_tokens: int,
+def build_deployment(cfg, *, mode: str, n_variants: int, batch: int,
+                     device, scheduler: str = "group", seed: int = 0,
+                     max_resident: int = 0):
+    """Base model (seeded) + ``n_variants`` published synthetic variants
+    v0..v{n-1}, behind a Deployment with a bank of ``n_variants + 2``
+    slots."""
+    model, base, dms = build_variants(cfg, n_variants, device, seed)
+    return deploy(model, base, dms, mode=mode, scheduler=scheduler,
+                  batch=batch, device=device, max_resident=max_resident)
+
+
+def submit_requests(dep, cfg, n_requests: int, new_tokens,
                     seed: int = 0) -> list:
     """Queue ``n_requests`` random 8-token prompts round-robin over the
-    deployment's variants (base first); returns the request ids."""
+    deployment's variants (base first); ``new_tokens`` is one budget or a
+    sequence of budgets cycled over the requests.  Returns the request
+    ids."""
     rng = np.random.default_rng(seed)
     names = dep.variants()
+    budgets = [new_tokens] if isinstance(new_tokens, int) else new_tokens
     return [dep.submit(rng.integers(1, cfg.vocab_size, size=8),
                        variant=names[i % len(names)],
-                       max_new_tokens=new_tokens)
+                       max_new_tokens=budgets[i % len(budgets)])
             for i in range(n_requests)]
 
 
@@ -97,13 +121,22 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--mode", choices=("dense", "fused"), default="dense")
+    ap.add_argument("--scheduler", choices=("group", "continuous"),
+                    default="group",
+                    help="continuous: mixed-variant lanes over the overlay "
+                         "bank (needs --mode fused); group: one variant "
+                         "per batch")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.scheduler == "continuous" and args.mode != "fused":
+        ap.error("--scheduler continuous serves from the overlay bank and "
+                 "needs --mode fused")
 
     device = resolve_device(args.device)
     cfg = make_config(args.arch, args.reduced, args.num_layers)
     dep = build_deployment(cfg, mode=args.mode, n_variants=args.variants,
-                           batch=args.batch, device=device)
+                           batch=args.batch, device=device,
+                           scheduler=args.scheduler)
     submit_requests(dep, cfg, args.requests, args.new_tokens)
     dep.drain()
     print("metrics:", dep.metrics)

@@ -38,18 +38,21 @@ def attn_init(gen: torch.Generator, cfg) -> dict:
 
 
 def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-                theta, ov=None):
-    """x (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), qk-normed, RoPE'd."""
+                theta, ov=None, vidx=None):
+    """x (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), qk-normed, RoPE'd.
+    ``vidx`` (B,) selects each row's bank slot of a banked overlay."""
     b, s, _ = x.shape
-    q = linear(x, p["wq"], _oget(ov, "wq"))
-    k = linear(x, p["wk"], _oget(ov, "wk"))
-    v = linear(x, p["wv"], _oget(ov, "wv"))
+    q = linear(x, p["wq"], _oget(ov, "wq"), vidx)
+    k = linear(x, p["wk"], _oget(ov, "wk"), vidx)
+    v = linear(x, p["wv"], _oget(ov, "wv"), vidx)
     q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = rmsnorm(q, psel(p["q_norm"], _oget(ov, "q_norm")), cfg.norm_eps)
-        k = rmsnorm(k, psel(p["k_norm"], _oget(ov, "k_norm")), cfg.norm_eps)
+        q = rmsnorm(q, psel(p["q_norm"], _oget(ov, "q_norm"), vidx, lead=2),
+                    cfg.norm_eps)
+        k = rmsnorm(k, psel(p["k_norm"], _oget(ov, "k_norm"), vidx, lead=2),
+                    cfg.norm_eps)
     if theta is not None:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)

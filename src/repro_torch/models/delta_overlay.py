@@ -1,5 +1,6 @@
 """Delta overlay: packed per-module deltas that ride alongside the base
-params (port of the single-variant part of ``repro.models.delta_overlay``).
+params (port of ``repro.models.delta_overlay`` without the mesh sharding
+part).
 
 A variant kept "fused" lives on the device as a tree of
 :class:`OverlayEntry` — packed sign mask + per-axis fp16 vectors — that
@@ -12,7 +13,8 @@ axis vector zeroed per matrix (scalar entries broadcast their per-matrix
 scalar into v_row), so one kernel serves every axis choice and stacked
 entries slice per layer like the weights they shadow.
 
-Banked (mixed-variant) overlays wait for the continuous-scheduler slice.
+A BANKED overlay (mixed-variant batches) stacks every leaf along a bank
+axis of ``size`` slots; see the bank helpers below.
 """
 from __future__ import annotations
 
@@ -88,3 +90,91 @@ def oget(overlay, key: str):
 def overlay_nbytes(overlay) -> int:
     """Device-resident bytes of an overlay tree."""
     return sum(t.numel() * t.element_size() for t in tree_leaves(overlay))
+
+
+# ---------------------------------------------------------------------------
+# banked overlays (mixed-variant batches)
+#
+# A BANKED overlay tree mirrors the params tree like a single-variant
+# overlay, but every leaf is stacked along a bank axis of ``size`` slots.
+# Slot 0 is the base: zero vectors (zero delta) for OverlayEntry leaves,
+# the base leaf value for extras leaves.  Model forwards take a per-batch-
+# row ``variant_idx`` selecting the slot each row fuses.
+#
+# Bank-axis placement: leaves under a stacked layer group keep the layer
+# dim leading (the forward takes layer i as ``leaf[i]``), so the bank axis
+# sits at position 1 there and at position 0 everywhere else.  Layer i of
+# a banked entry is then a contiguous (V, d_out, d_in/8) view, the layout
+# the banked kernel takes.
+#
+# JAX arrays are immutable, so the JAX helpers return updated copies; here
+# slot writes update the bank in place (``bank_clear_entry``,
+# ``bank_set_extra_base``, ``OverlayBank`` admission), which keeps the bank
+# at one allocation for its lifetime.
+# ---------------------------------------------------------------------------
+
+STACKED_TOP_KEYS = frozenset({"layers", "pre_layers", "enc_layers",
+                              "dec_layers", "mlstm", "slstm", "mamba"})
+
+
+def bank_axis(path: str) -> int:
+    """Bank-axis position for a dot-path: after the stacked layer dim if
+    the leaf lives under a stacked top-level group, else leading."""
+    return 1 if path.split(".")[0] in STACKED_TOP_KEYS else 0
+
+
+def entry_slot(entry, v: int):
+    """One bank slot of a banked OverlayEntry whose bank axis has become
+    leading (after layer slicing) — the per-variant entry shape."""
+    if entry is None:
+        return None
+    return OverlayEntry(packed=entry.packed[v], v_row=entry.v_row[v],
+                        v_col=entry.v_col[v])
+
+
+def _with_bank_dim(t: torch.Tensor, axis: int, size: int) -> tuple:
+    return tuple(t.shape[:axis]) + (size,) + tuple(t.shape[axis:])
+
+
+def bank_index(path: str, slot: int) -> tuple:
+    """Index of one bank slot of the leaf at ``path`` (along its bank
+    axis)."""
+    return (slice(None),) * bank_axis(path) + (slot,)
+
+
+def bank_zeros(path: str, entry: OverlayEntry, size: int) -> OverlayEntry:
+    """All-slots-zero banked entry shaped after one variant's entry (slot 0
+    = base stays all-zero forever: zero vectors mean Ŵ = W_b exactly)."""
+    ax = bank_axis(path)
+
+    def z(t):
+        return torch.zeros(_with_bank_dim(t, ax, size), dtype=t.dtype,
+                           device=t.device)
+    return OverlayEntry(packed=z(entry.packed), v_row=z(entry.v_row),
+                        v_col=z(entry.v_col))
+
+
+def bank_extra_base(path: str, base_leaf: torch.Tensor,
+                    size: int) -> torch.Tensor:
+    """Banked extras leaf with every slot holding the base value (so
+    unassigned slots serve base semantics); a contiguous copy."""
+    ax = bank_axis(path)
+    return base_leaf.unsqueeze(ax).expand(
+        _with_bank_dim(base_leaf, ax, size)).contiguous()
+
+
+def bank_clear_entry(path: str, bank: OverlayEntry,
+                     slot: int) -> OverlayEntry:
+    """Zero one slot of a banked entry, in place."""
+    idx = bank_index(path, slot)
+    for t in (bank.packed, bank.v_row, bank.v_col):
+        t[idx] = 0
+    return bank
+
+
+def bank_set_extra_base(path: str, bank: torch.Tensor, slot: int,
+                        base_leaf: torch.Tensor) -> torch.Tensor:
+    """Reset one slot of a banked extras leaf to the base value, in
+    place."""
+    bank[bank_index(path, slot)] = base_leaf.to(bank.dtype)
+    return bank

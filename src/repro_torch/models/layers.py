@@ -25,21 +25,35 @@ def dtype_of(name: str) -> torch.dtype:
 # entry swaps the dense GEMM for the fused on-the-fly delta GEMM
 # ---------------------------------------------------------------------------
 
-def linear(x: torch.Tensor, w: torch.Tensor, ov=None) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor, ov=None,
+           vidx=None) -> torch.Tensor:
     """y = x @ Ŵᵀ where Ŵ = w without an overlay entry, else the variant
-    weight v ⊙ unpack(B) + w applied on the fly (never densified)."""
+    weight v ⊙ unpack(B) + w applied on the fly (never densified).
+
+    With ``vidx`` (per-batch-row variant indices, 0 = base) the overlay
+    entry is BANKED — leaves carry a leading bank axis and every row fuses
+    its own variant's delta in one mixed-variant GEMM."""
     if ov is None:
         return x @ w.T.to(x.dtype)
     from repro_torch.kernels import ops as K
-    return K.bitlinear_axes(x, ov.packed, ov.v_row, ov.v_col, w)
+    if vidx is None:
+        return K.bitlinear_axes(x, ov.packed, ov.v_row, ov.v_col, w)
+    return K.bitlinear_axes_banked(x, vidx, ov.packed, ov.v_row, ov.v_col, w)
 
 
-def psel(w: torch.Tensor, bank=None) -> torch.Tensor:
-    """Per-row parameter select for banked extras — ``w`` itself for the
-    unbanked overlays this slice serves (they never carry extras)."""
-    if bank is not None:
-        raise ValueError("banked overlays are not ported yet")
-    return w
+def psel(w: torch.Tensor, bank=None, vidx=None, *,
+         lead: int = 1) -> torch.Tensor:
+    """Per-row parameter select for BANKED extras (norm scales: fine-tuned
+    leaves that are not delta targets).
+
+    ``bank`` is (V, *w.shape) with slot 0 holding the base value; returns
+    ``w`` untouched when unbanked, else ``bank[vidx]`` with ``lead``
+    singleton axes inserted after the batch dim so the result broadcasts
+    against (B, S, ...) activations."""
+    if bank is None or vidx is None:
+        return w
+    sel = bank.index_select(0, vidx.to(torch.int64))
+    return sel.reshape(sel.shape[0], *([1] * lead), *sel.shape[1:])
 
 
 def _oget(ov, key):
@@ -88,13 +102,34 @@ def embed_init(gen: torch.Generator, vocab: int, d: int) -> Param:
     return dense_init(gen, (vocab, d), ("vocab", "embed"), scale=1.0)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
-                 dtype: str) -> torch.Tensor:
-    return table[tokens].to(dtype_of(dtype))
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype: str,
+                 bank=None, vidx=None) -> torch.Tensor:
+    """Token embedding; with a banked extras table (V, vocab, d) and per-row
+    variant indices, each batch row looks up its own variant's table."""
+    if bank is None or vidx is None:
+        return table[tokens].to(dtype_of(dtype))
+    idx = vidx.to(torch.int64).reshape(vidx.shape[0],
+                                       *([1] * (tokens.dim() - 1)))
+    return bank[idx, tokens].to(dtype_of(dtype))
 
 
-def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return x @ table.T.to(x.dtype)
+def unembed_logits(x: torch.Tensor, table: torch.Tensor, bank=None,
+                   vidx=None) -> torch.Tensor:
+    """logits = x @ tableᵀ; with a banked table each row contracts against
+    its own variant's (fine-tuned, fp16-rounded) unembedding.
+
+    The banked path is a masked select over the V bank slots: the table is
+    read at most V times per step — never gathered per ROW, which would
+    cost B copies of (vocab, d) and make the traffic depend on the batch
+    mix — and each row's logits come from the same product the per-variant
+    path runs, so greedy tokens match it exactly."""
+    if bank is None or vidx is None:
+        return x @ table.T.to(x.dtype)
+    logits = x @ bank[0].T.to(x.dtype)                     # slot 0 = base
+    sel = vidx.reshape(-1, *([1] * (x.dim() - 1)))
+    for v in range(1, bank.shape[0]):
+        logits = torch.where(sel == v, x @ bank[v].T.to(x.dtype), logits)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +144,7 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int) -> dict:
     }
 
 
-def mlp_apply(p: dict, x: torch.Tensor, ov=None) -> torch.Tensor:
-    h = (F.silu(linear(x, p["w_gate"], _oget(ov, "w_gate")))
-         * linear(x, p["w_up"], _oget(ov, "w_up")))
-    return linear(h, p["w_down"], _oget(ov, "w_down"))
+def mlp_apply(p: dict, x: torch.Tensor, ov=None, vidx=None) -> torch.Tensor:
+    h = (F.silu(linear(x, p["w_gate"], _oget(ov, "w_gate"), vidx))
+         * linear(x, p["w_up"], _oget(ov, "w_up"), vidx))
+    return linear(h, p["w_down"], _oget(ov, "w_down"), vidx)

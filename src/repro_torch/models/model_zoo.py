@@ -8,6 +8,9 @@
 
 ``overlay`` (models/delta_overlay.py) is an optional tree of packed deltas
 riding alongside ``params``: matmuls with an entry run the fused delta GEMM.
+``variant_idx`` (B,) int marks the overlay as BANKED (a bank axis on every
+leaf, slot 0 = base): each batch row fuses its own variant's delta, so one
+call serves a mixed-variant batch.
 """
 from __future__ import annotations
 
@@ -32,17 +35,24 @@ class Model:
         gen.manual_seed(seed)
         return transformer.init(gen, self.cfg)
 
-    def forward(self, params, batch, overlay=None):
-        return transformer.forward(params, batch, self.cfg, overlay=overlay)
+    def forward(self, params, batch, overlay=None, variant_idx=None):
+        return transformer.forward(params, batch, self.cfg, overlay=overlay,
+                                   variant_idx=variant_idx)
 
     def prefill(self, params, batch, max_len: int,
-                cache_dtype=torch.bfloat16, overlay=None):
+                cache_dtype=torch.bfloat16, overlay=None, variant_idx=None):
         return transformer.prefill(params, batch, self.cfg, max_len,
-                                   cache_dtype=cache_dtype, overlay=overlay)
+                                   cache_dtype=cache_dtype, overlay=overlay,
+                                   variant_idx=variant_idx)
 
-    def decode_step(self, params, token, cache, overlay=None):
+    def decode_step(self, params, token, cache, overlay=None,
+                    variant_idx=None):
         return transformer.decode_step(params, token, cache, self.cfg,
-                                       overlay=overlay)
+                                       overlay=overlay,
+                                       variant_idx=variant_idx)
+
+    def cache_batch_axes(self) -> dict:
+        return transformer.cache_batch_axes(self.cfg)
 
     def init_cache(self, batch: int, max_len: int, device=None,
                    dtype=torch.bfloat16):

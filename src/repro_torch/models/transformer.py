@@ -76,37 +76,44 @@ def _layer(tree, i: int):
 # block application
 # ---------------------------------------------------------------------------
 
-def _ffn_part(p, x, cfg, ov=None):
-    h = rmsnorm(x, psel(p["ln2"], oget(ov, "ln2")), cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, ov=oget(ov, "mlp"))
+def _ffn_part(p, x, cfg, ov=None, vidx=None):
+    h = rmsnorm(x, psel(p["ln2"], oget(ov, "ln2"), vidx), cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h, ov=oget(ov, "mlp"), vidx=vidx)
 
 
-def block_apply(p, x, cfg, positions, theta, window, ov=None):
+def block_apply(p, x, cfg, positions, theta, window, ov=None, vidx=None):
     """One layer over a full sequence; returns (x, (k, v))."""
     ov_a = oget(ov, "attn")
-    h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1")), cfg.norm_eps)
-    q, k, v = A.qkv_project(p["attn"], h, cfg, positions, theta, ov=ov_a)
+    h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1"), vidx), cfg.norm_eps)
+    q, k, v = A.qkv_project(p["attn"], h, cfg, positions, theta, ov=ov_a,
+                            vidx=vidx)
     o = A.flash_attention(q, k, v, causal=True, window=window)
     o = o.reshape(*x.shape[:-1], cfg.q_dim)
-    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"))
-    return _ffn_part(p, x, cfg, ov=ov), (k, v)
+    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx)
+    return _ffn_part(p, x, cfg, ov=ov, vidx=vidx), (k, v)
 
 
-def _unembed(params, x, cfg):
+def _unembed(params, x, cfg, ov=None, vidx=None):
     key = "embed" if cfg.tie_embeddings else "unembed"
-    return unembed_logits(x, params[key])
+    return unembed_logits(x, params[key], bank=oget(ov, key), vidx=vidx)
 
 
 # ---------------------------------------------------------------------------
 # forward (teacher-forced) and prefill
 # ---------------------------------------------------------------------------
 
-def forward(params, batch, cfg, collect_kv: bool = False, overlay=None):
+def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
+            variant_idx=None):
     """-> (logits (B,S,V), aux).  aux["kv"] = (k, v) stacked (L,B,S,Hkv,hd)
     when collect_kv.  ``overlay`` (optional) shadows params: matmuls with an
-    entry run the fused delta GEMM against the base weight."""
+    entry run the fused delta GEMM against the base weight.
+    ``variant_idx`` (optional (B,) int) marks the overlay as BANKED (bank
+    axis on every leaf, extras included): every batch row serves its own
+    variant, slot 0 meaning base."""
     _check_dense(cfg)
-    x = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype)
+    vidx = variant_idx
+    x = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype,
+                     bank=oget(overlay, "embed"), vidx=vidx)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     pat = layer_pattern(cfg)
@@ -116,13 +123,13 @@ def forward(params, batch, cfg, collect_kv: bool = False, overlay=None):
         entry = pat[i % len(pat)]
         x, (k, v) = block_apply(_layer(params["layers"], i), x, cfg,
                                 positions, entry["theta"], entry["window"],
-                                ov=_layer(ov_layers, i))
+                                ov=_layer(ov_layers, i), vidx=vidx)
         if collect_kv:
             ks.append(k)
             vs.append(v)
-    x = rmsnorm(x, psel(params["final_norm"], oget(overlay, "final_norm")),
-                cfg.norm_eps)
-    logits = _unembed(params, x, cfg)
+    x = rmsnorm(x, psel(params["final_norm"], oget(overlay, "final_norm"),
+                        vidx), cfg.norm_eps)
+    logits = _unembed(params, x, cfg, ov=overlay, vidx=vidx)
     aux = {}
     if collect_kv:
         aux["kv"] = (torch.stack(ks), torch.stack(vs))
@@ -150,11 +157,22 @@ def init_cache(cfg, batch: int, max_len: int, device,
             "slots": [stacked(sz) for sz in sizes]}
 
 
+def cache_batch_axes(cfg) -> dict:
+    """Where the batch axis of each ``init_cache`` leaf sits, in the
+    cache's own structure: ``pos`` 0; ``k``, ``v`` and ``slot_pos`` 1
+    (behind the stacked layer dim).  Every leaf is row-separable, so the
+    continuous scheduler merges freshly prefilled lanes into the live
+    cache by a row select along these axes."""
+    return {"pos": 0,
+            "slots": [{"k": 1, "v": 1, "slot_pos": 1}
+                      for _ in layer_pattern(cfg)]}
+
+
 def prefill(params, batch, cfg, max_len: int, cache_dtype=torch.bfloat16,
-            overlay=None):
+            overlay=None, variant_idx=None):
     """Teacher-forced pass over the prompt; returns (last_logits, cache)."""
     logits, aux = forward(params, batch, cfg, collect_kv=True,
-                          overlay=overlay)
+                          overlay=overlay, variant_idx=variant_idx)
     b, s = batch["tokens"].shape
     cache = init_cache(cfg, b, max_len, logits.device, cache_dtype)
     k_all, v_all = aux["kv"]                  # (L, B, S, Hkv, hd)
@@ -172,36 +190,40 @@ def prefill(params, batch, cfg, max_len: int, cache_dtype=torch.bfloat16,
 # decode: single-token step against the stacked cache
 # ---------------------------------------------------------------------------
 
-def _decode_block_stacked(p, x, cfg, caches, idx, pat_entry, pos, ov=None):
+def _decode_block_stacked(p, x, cfg, caches, idx, pat_entry, pos, ov=None,
+                          vidx=None):
     window = pat_entry["window"]
     ov_a = oget(ov, "attn")
-    h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1")), cfg.norm_eps)
+    h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1"), vidx), cfg.norm_eps)
     q, k, v = A.qkv_project(p["attn"], h, cfg, pos.to(torch.int32)[:, None],
-                            pat_entry["theta"], ov=ov_a)
+                            pat_entry["theta"], ov=ov_a, vidx=vidx)
     A.cache_insert_stacked(caches, idx, k, v, pos)
     view = A.cache_layer_view(caches, idx)
     o = A.decode_attention(q, view["k"], view["v"], view["slot_pos"], pos,
                            window=window)
     o = o.reshape(*x.shape[:-1], cfg.q_dim)
-    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"))
-    return _ffn_part(p, x, cfg, ov=ov)
+    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx)
+    return _ffn_part(p, x, cfg, ov=ov, vidx=vidx)
 
 
-def decode_step(params, token, cache, cfg, overlay=None):
+def decode_step(params, token, cache, cfg, overlay=None, variant_idx=None):
     """token (B,) -> (logits (B,V), cache advanced by one, updated in
-    place).  cache["pos"] is (B,) per-lane positions."""
+    place).  cache["pos"] is (B,) per-lane positions; ``variant_idx`` as in
+    ``forward``."""
     _check_dense(cfg)
+    vidx = variant_idx
     pos = cache["pos"]
-    x = embed_lookup(params["embed"], token[:, None], cfg.compute_dtype)
+    x = embed_lookup(params["embed"], token[:, None], cfg.compute_dtype,
+                     bank=oget(overlay, "embed"), vidx=vidx)
     pat = layer_pattern(cfg)
     ov_layers = oget(overlay, "layers")
     for i in range(cfg.num_layers):
         j = i % len(pat)
         x = _decode_block_stacked(
             _layer(params["layers"], i), x, cfg, cache["slots"][j],
-            i // len(pat), pat[j], pos, ov=_layer(ov_layers, i))
-    x = rmsnorm(x, psel(params["final_norm"], oget(overlay, "final_norm")),
-                cfg.norm_eps)
-    logits = _unembed(params, x, cfg)
+            i // len(pat), pat[j], pos, ov=_layer(ov_layers, i), vidx=vidx)
+    x = rmsnorm(x, psel(params["final_norm"], oget(overlay, "final_norm"),
+                        vidx), cfg.norm_eps)
+    logits = _unembed(params, x, cfg, ov=overlay, vidx=vidx)
     cache["pos"] = pos + 1
     return logits[:, 0, :], cache

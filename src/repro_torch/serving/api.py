@@ -1,7 +1,7 @@
 """Deployment: the versioned variant lifecycle as one control plane (port
 of ``repro.serving.api`` without a store).
 
-    dep = Deployment(model, base_params, mode="fused")   # device="cuda"
+    dep = Deployment(model, base_params)   # fused, continuous, device="cuda"
     v1  = dep.publish("support-bot", dm)
     rid = dep.submit(prompt, variant="support-bot")
     v2  = dep.update("support-bot", dm_next)             # hot-swap
@@ -11,7 +11,9 @@ of ``repro.serving.api`` without a store).
 
 Versions live in memory, as the JAX ``Deployment`` keeps them when it has
 no store.  The deployment runs on ``device`` (default ``cuda``); the base
-params are moved there.
+params are moved there.  ``scheduler="continuous"`` (the default) serves
+mixed-variant batches from the overlay bank and needs ``mode="fused"``;
+``scheduler="group"`` serves one variant per batch, dense or fused.
 """
 from __future__ import annotations
 
@@ -26,30 +28,44 @@ from repro_torch.tree import tree_map
 
 class Deployment:
     """One resident base model, in-memory variant version lineages and a
-    group-scheduled serving engine behind publish/update/rollback/submit/
-    drain/status."""
+    serving engine behind publish/update/rollback/submit/drain/status."""
 
     def __init__(self, model, base_params, *, mode: str = "fused",
-                 batch_size: int = 4, prompt_len: int = 32,
-                 max_len: int = 128, max_resident: int = 8, device=None):
+                 scheduler: str = "continuous", batch_size: int = 4,
+                 prompt_len: int = 32, max_len: int = 128,
+                 bank_size: int = 8, max_resident: int = 8, device=None):
+        if scheduler == "continuous" and mode != "fused":
+            # the continuous scheduler admits through the overlay bank,
+            # which is fused-only: accepting mode="dense" here would
+            # silently serve fused residents
+            raise ValueError(
+                f"scheduler={scheduler!r} requires mode='fused' (mixed "
+                "batches serve from the packed overlay bank); use "
+                "scheduler='group' for dense residency")
         self.device = resolve_device(device)
         base_params = tree_map(lambda t: t.to(self.device), base_params)
         self.model = model
         self.registry = VariantRegistry(base_params,
-                                        max_resident=max_resident, mode=mode)
+                                        max_resident=max_resident, mode=mode,
+                                        bank_size=bank_size)
         self.engine = ServingEngine(model, self.registry,
                                     batch_size=batch_size,
-                                    prompt_len=prompt_len, max_len=max_len)
+                                    prompt_len=prompt_len, max_len=max_len,
+                                    scheduler=scheduler)
 
     # -- control plane -----------------------------------------------------
     def publish(self, name: str, dm: DeltaModel, *,
                 mode: Optional[str] = None, wait: bool = False) -> int:
         """Register ``dm`` as the next version of ``name`` and point serving
         at it; ``wait=True`` makes it resident now.  Returns the version."""
+        if mode == "dense" and self.engine.scheduler == "continuous":
+            raise ValueError(
+                "per-variant mode='dense' cannot serve under the "
+                "continuous scheduler (overlay-bank admission is "
+                "fused-only)")
         v = self.registry.next_version(name)
         self.registry.set_version(name, v, dm, mode=mode)
-        if wait:
-            self.registry.resolve(name)
+        self._after_swap(name, wait)
         return v
 
     def update(self, name: str, dm: DeltaModel, *, wait: bool = False) -> int:
@@ -58,17 +74,26 @@ class Deployment:
             raise KeyError(f"unknown variant {name!r}; publish first")
         v = self.registry.next_version(name)
         self.registry.set_version(name, v, dm)
-        if wait:
-            self.registry.resolve(name)
+        self._after_swap(name, wait)
         return v
 
     def rollback(self, name: str, to_version: Optional[int] = None, *,
                  wait: bool = False) -> int:
         """Pointer move back to ``to_version`` (default: previous)."""
         v = self.registry.rollback(name, to_version)
-        if wait:
-            self.registry.resolve(name)
+        self._after_swap(name, wait)
         return v
+
+    def _after_swap(self, name: str, wait: bool) -> None:
+        """``wait=True`` makes the new current version resident now: a
+        bank slot under the continuous scheduler, a dense or fused
+        resident under the group scheduler."""
+        if not wait:
+            return
+        if self.engine.scheduler == "continuous":
+            self.registry.bank_resolve(name)
+        else:
+            self.registry.resolve(name)
 
     def current(self, name: str) -> Optional[int]:
         return self.registry.current_version(name)

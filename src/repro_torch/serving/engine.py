@@ -1,15 +1,23 @@
-"""Serving engine, group scheduler (port of ``scheduler="group"`` of
-``repro.serving.engine``).
+"""Serving engine (port of ``repro.serving.engine`` without mesh, pods,
+async admission and speculative decoding).  Two schedulers:
 
-Pending requests are grouped BY VARIANT (the FIFO head decides), and each
-group runs one prefill over a fixed (batch_size, prompt_len) batch plus
-decode steps up to the largest token budget in the group.  Variants
-resolve to (params, overlay): dense residents pass a materialised copy
-with overlay None; fused residents pass the shared base params plus a
-packed overlay fused into every GEMM.
+* ``continuous`` (mixed-variant slot scheduler) — the engine keeps ONE
+  persistent decode batch of ``batch_size`` lanes.  Each lane carries its
+  own request, bank slot (``variant_idx``; slot 0 = base), decode position
+  and token budget.  Every step: free lanes admit queued requests
+  (prefill-on-admit, cache rows merged in), every active lane appends its
+  pending token (one host sync per step), exhausted lanes retire at once
+  and free their lane, and one decode serves the whole mixed batch through
+  the banked fused delta GEMM.  Every variant is served fused, from the
+  registry's overlay bank.
+* ``group`` — pending requests are grouped BY VARIANT (the FIFO head
+  decides), and each group runs one prefill over a fixed (batch_size,
+  prompt_len) batch plus decode steps up to the largest token budget in
+  the group.  Variants resolve to (params, overlay): dense residents pass
+  a materialised copy with overlay None; fused residents pass the shared
+  base params plus a packed overlay fused into every GEMM.
 
-PyTorch runs eagerly, so there is no step compilation or warmup.  The
-continuous and speculative schedulers are not ported yet.
+PyTorch runs eagerly, so there is no step compilation or warmup.
 """
 from __future__ import annotations
 
@@ -41,15 +49,29 @@ class Request:
     submitted_at: float = 0.0     # perf_counter at submit()
 
 
-class ServingEngine:
-    """Fixed-shape batched serving: groups of ``batch_size``, prompts padded
-    to ``prompt_len``, KV capacity ``max_len``."""
+@dataclasses.dataclass
+class _Slot:
+    """One lane of the persistent continuous-batching decode batch."""
+    request: Request
+    variant_slot: int             # bank slot index (0 for base rows)
+    remaining: int                # tokens still owed
+    vkey: str = "__base__"        # pinned version key, unpinned at retire
+                                  # even if the variant was hot-swapped
 
-    scheduler = "group"   # the continuous scheduler is not ported yet
+
+class ServingEngine:
+    """Fixed-shape batched serving: ``batch_size`` lanes, prompts padded to
+    ``prompt_len``, KV capacity ``max_len``.  ``scheduler`` is
+    "continuous" (mixed-variant lanes over the overlay bank) or "group"
+    (grouped by variant — required for dense residency)."""
 
     def __init__(self, model, registry: VariantRegistry, *,
                  batch_size: int = 4, prompt_len: int = 32,
-                 max_len: int = 128, max_retries: int = 1):
+                 max_len: int = 128, max_retries: int = 1,
+                 scheduler: str = "group"):
+        if scheduler not in ("group", "continuous"):
+            raise ValueError(f"unknown scheduler {scheduler!r}")
+        self.scheduler = scheduler
         self.model = model
         self.registry = registry
         self.batch_size = batch_size
@@ -60,8 +82,17 @@ class ServingEngine:
         self._queue: collections.deque[Request] = collections.deque()
         self._done: dict[int, Request] = {}
         self._next_rid = 0
+        # continuous-scheduler state (persists across run_until_drained
+        # calls: the decode batch is a long-lived object)
+        self._slots: list[Optional[_Slot]] = [None] * batch_size
+        self._cache = None
+        self._next_tok = None
+        # per-lane bank slot; idle lanes sit on slot 0 (the base)
+        self._variant_idx = np.zeros(batch_size, np.int32)
+        self._variant_idx_dev = None     # device copy, rebuilt on change
         self.metrics = {"batches": 0, "tokens_generated": 0, "prefills": 0,
-                        "failed": 0, "decode_steps": 0,
+                        "failed": 0, "admitted": 0, "retired": 0,
+                        "decode_steps": 0,
                         "prefill_seconds": 0.0, "decode_seconds": 0.0,
                         "ttft_count": 0, "ttft_seconds_sum": 0.0,
                         "ttft_seconds_max": 0.0}
@@ -91,9 +122,13 @@ class ServingEngine:
         return self._done[rid]
 
     def request(self, rid: int) -> Optional[Request]:
-        """The Request wherever it lives (done or queued); None if unknown."""
+        """The Request wherever it lives (done, in a decode lane, or
+        queued); None if unknown."""
         if rid in self._done:
             return self._done[rid]
+        for s in self._slots:
+            if s is not None and s.request.rid == rid:
+                return s.request
         for r in self._queue:
             if r.rid == rid:
                 return r
@@ -107,6 +142,7 @@ class ServingEngine:
             return "unknown" if r is None else r.status
         n = self.metrics["ttft_count"]
         return {"scheduler": self.scheduler, "pending": self.pending(),
+                "active": self.active(),
                 "ttft": {"count": n,
                          "mean_seconds": (self.metrics["ttft_seconds_sum"]
                                           / n if n else 0.0),
@@ -116,7 +152,13 @@ class ServingEngine:
     def pending(self) -> int:
         return len(self._queue)
 
+    def active(self) -> int:
+        return sum(1 for s in self._slots if s is not None)
+
     def run_until_drained(self, max_rounds: int = 1000) -> dict:
+        if self.scheduler == "continuous":
+            self._serve_continuous(max_rounds)
+            return self.metrics
         rounds = 0
         while self._queue and rounds < max_rounds:
             self._serve_one_group()
@@ -197,10 +239,170 @@ class ServingEngine:
             self._done[r.rid] = r
         self.metrics["batches"] += 1
 
+    # -- continuous slot scheduler (mixed-variant batches) -------------------
+    def _merge_admitted(self, old: dict, fresh: dict, rows: list) -> dict:
+        """Copy the freshly prefilled rows ``rows`` into the live batch
+        cache, in place, along each leaf's batch axis
+        (``Model.cache_batch_axes``): per-row ``slot_pos`` and ``pos`` make
+        every leaf row-separable, so admission is a pure row select."""
+        idx = torch.tensor(rows, dtype=torch.int64, device=self.device)
+
+        def merge(o, f, axis):
+            if isinstance(axis, int):
+                o.index_copy_(axis, idx, f.index_select(axis, idx))
+            elif isinstance(axis, dict):
+                for key, ax in axis.items():
+                    merge(o[key], f[key], ax)
+            else:
+                for o_i, f_i, ax in zip(o, f, axis, strict=True):
+                    merge(o_i, f_i, ax)
+        merge(old, fresh, self.model.cache_batch_axes())
+        return old
+
+    def _admit_free_slots(self) -> list:
+        """Pop queued requests into free lanes: resolve each request's
+        variant to a bank slot (admitting it on a miss) and pin it for the
+        request's lifetime.  Unknown variants re-queue up to max_retries
+        then fail; a fully pinned bank re-queues the head and waits for
+        retirements."""
+        newly: list = []
+        free = [i for i in range(self.batch_size) if self._slots[i] is None]
+        while free and self._queue:
+            r = self._queue.popleft()
+            try:
+                # admission-time resolution: the request serves the
+                # version the pointer names NOW, and the pin holds that
+                # version's slot until it retires
+                vslot, vkey = self.registry.bank_acquire(r.variant)
+            except RuntimeError:
+                # every bank slot pinned by in-flight requests: retry
+                # after retirements free pins
+                self._queue.appendleft(r)
+                break
+            except Exception as e:
+                r.retries += 1
+                if r.retries > self.max_retries:
+                    r.status, r.error = "failed", str(e)
+                    self._done[r.rid] = r
+                    self.metrics["failed"] += 1
+                else:
+                    self._queue.append(r)
+                continue
+            i = free.pop(0)
+            r.served_version = self.registry.current_version(r.variant)
+            self._slots[i] = _Slot(request=r, variant_slot=vslot,
+                                   remaining=r.max_new_tokens, vkey=vkey)
+            self._variant_idx[i] = vslot
+            self._variant_idx_dev = None
+            r.status = "running"
+            newly.append(i)
+            self.metrics["admitted"] += 1
+        return newly
+
+    def _bank_tree(self):
+        bank = self.registry.bank
+        return bank.tree if bank is not None else None
+
+    def _prefill_admitted(self, newly: list) -> None:
+        """Prefill-on-admit: one fixed-shape (batch_size, prompt_len)
+        prefill per admission wave, rows not admitted on the base slot;
+        only the newly admitted rows of its cache and first tokens are
+        merged into the persistent batch."""
+        pvidx = np.zeros(self.batch_size, np.int32)
+        for i in newly:
+            pvidx[i] = self._slots[i].variant_slot
+        batch = self._prompt_batch(
+            {i: self._slots[i].request for i in newly})
+        t0 = time.perf_counter()
+        last_logits, fresh = self.model.prefill(
+            self.registry.base_params, batch, self.max_len,
+            overlay=self._bank_tree(),
+            variant_idx=torch.from_numpy(pvidx).to(self.device))
+        first_tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
+        synchronize(self.device)
+        self.metrics["prefill_seconds"] += time.perf_counter() - t0
+        self.metrics["prefills"] += 1
+        if self._next_tok is None:
+            self._next_tok = first_tok
+            self._cache = fresh
+            return
+        mask = np.zeros(self.batch_size, bool)
+        mask[newly] = True
+        self._next_tok = torch.where(torch.from_numpy(mask).to(self.device),
+                                     first_tok, self._next_tok)
+        self._cache = self._merge_admitted(self._cache, fresh, newly)
+
+    def _retire(self, i: int) -> None:
+        """Release lane ``i``: mark its request done, unpin the bank slot
+        it decoded from, and free the lane for the next admission wave."""
+        s = self._slots[i]
+        s.request.status = "done"
+        self._done[s.request.rid] = s.request
+        self.registry.bank_unpin(s.vkey)
+        self._slots[i] = None
+        self._variant_idx[i] = 0
+        self._variant_idx_dev = None
+        self.metrics["retired"] += 1
+
+    def _serve_continuous(self, max_rounds: int) -> None:
+        # max_rounds bounds STALLED rounds (no admission, no token, no
+        # failure), not decode steps: productive rounds are bounded by the
+        # submitted token budgets
+        stalls = 0
+        while (self._queue or self.active()) and stalls < max_rounds:
+            failed0 = self.metrics["failed"]
+            newly = self._admit_free_slots()
+            if newly:
+                self._prefill_admitted(newly)
+            if not self.active():
+                if not self._queue:
+                    break
+                # admissions failed this round: retry (a stall unless
+                # requests were failed — retries terminate)
+                stalls = 0 if self.metrics["failed"] > failed0 \
+                    else stalls + 1
+                continue
+            stalls = 0
+            # ONE host sync per step: every active lane has exactly one
+            # pending token in next_tok
+            host_tok = self._next_tok.cpu().numpy()
+            retired = []
+            for i, s in enumerate(self._slots):
+                if s is None:
+                    continue
+                s.request.out_tokens.append(int(host_tok[i]))
+                self._note_first_token(s.request)
+                s.remaining -= 1
+                self.metrics["tokens_generated"] += 1
+                if s.remaining <= 0:
+                    retired.append(i)
+            # retire exhausted lanes at once: they are free for the next
+            # admission wave instead of padding to the batch's largest budget
+            for i in retired:
+                self._retire(i)
+            if not (self.active() or self._queue):
+                break           # drained: skip the decode nobody consumes
+            if not self.active():
+                continue        # lanes empty but queue pending: admit next
+            if self._variant_idx_dev is None:
+                self._variant_idx_dev = torch.from_numpy(
+                    self._variant_idx.copy()).to(self.device)
+            t0 = time.perf_counter()
+            logits, self._cache = self.model.decode_step(
+                self.registry.base_params, self._next_tok, self._cache,
+                overlay=self._bank_tree(),
+                variant_idx=self._variant_idx_dev)
+            self._next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            synchronize(self.device)
+            self.metrics["decode_seconds"] += time.perf_counter() - t0
+            self.metrics["decode_steps"] += 1
+        self.metrics["batches"] += 1
+
     def _prompt_batch(self, requests: dict) -> dict:
         """Fixed-shape (batch_size, prompt_len) prefill batch: row i holds
         requests[i]'s prompt tail, right-padded with zeros; unmapped rows
-        stay zero."""
+        stay zero.  The one place prompt padding happens: both schedulers
+        build identical batches."""
         toks = np.zeros((self.batch_size, self.prompt_len), np.int64)
         for i, r in requests.items():
             p = r.tokens[-self.prompt_len:]

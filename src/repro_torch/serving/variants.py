@@ -1,5 +1,6 @@
-"""Multi-tenant variant registry (port of the dense/fused part of
-``repro.serving.variants``): many fine-tunes over one resident base.
+"""Multi-tenant variant registry (port of ``repro.serving.variants``
+without mesh, pod-local banks, artifact paths and async admission): many
+fine-tunes over one resident base.
 
 Residency modes:
 
@@ -14,18 +15,206 @@ residents.  Variants are versioned: residents are keyed ``name@vN``,
 ``set_version`` moves the serving pointer (the hot-swap) and ``rollback``
 moves it back.
 
-The overlay bank (mixed-variant batches), the int8 base and the compile
-cache are not ported yet.
+For MIXED-VARIANT batches (the continuous scheduler) the registry also
+keeps an :class:`OverlayBank`: fused residents stacked along a bank axis,
+slot 0 reserved for the base, with pin/unpin guarding in-flight variants
+and slot reuse on eviction.  ``bank_resolve(name)`` admits a variant and
+returns its slot index — the per-batch-row ``variant_idx`` the banked
+kernel consumes.
+
+The int8 base and the compile cache are not ported yet.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Optional
+
+import torch
 
 from repro_torch.core import loader as L
 from repro_torch.core import store as S
+from repro_torch.core.calibration import DeltaModel, flatten_params
+from repro_torch.device import synchronize
+from repro_torch.models import delta_overlay as DO
 from repro_torch.tree import tree_leaves
+
+
+class OverlayBank:
+    """Stacked fused residents: one banked overlay tree whose leaves carry
+    a bank axis of ``size`` slots (``delta_overlay.bank_axis``).
+
+    * slot 0 is the BASE: zero delta vectors (Ŵ = W_b exactly) and base
+      extras — ``variant_idx == 0`` means "serve this row from the base";
+    * slots 1..size-1 hold fused variants (packed masks, fp16 axis vectors,
+      fp16-rounded extras), admitted and evicted with slot reuse;
+    * pinned variants (in-flight requests) are never evicted — ``evict``
+      raises and LRU pressure skips them.
+
+    The bank is allocated at full size on the first admit, so resident-byte
+    accounting is per bank, not per variant.  Admission writes one slot of
+    every leaf in place (the JAX bank runs a donated jitted scatter for the
+    same effect)."""
+
+    def __init__(self, base_params, size: int):
+        if size < 2:
+            raise ValueError("bank needs >= 2 slots (base + 1 variant)")
+        self.size = size
+        self._base_flat = flatten_params(base_params)
+        self._flat: Optional[dict] = None   # path -> banked leaf
+        self.tree: Optional[dict] = None    # nested view of _flat
+        self._slots: dict = {}              # vkey -> slot
+        self._pins: dict = {}               # vkey -> in-flight count
+        self._lru: "collections.OrderedDict[str, None]" = \
+            collections.OrderedDict()
+        self._free = list(range(size - 1, 0, -1))   # pop() -> lowest slot
+        self.stats = {"admits": 0, "evictions": 0}
+
+    def base_slot(self) -> int:
+        """Slot serving base semantics (never admitted or evicted)."""
+        return 0
+
+    # -- structure ---------------------------------------------------------
+    def _ensure_tree(self, dm: DeltaModel) -> None:
+        if self._flat is not None:
+            if set(dm.deltas) != self._template_deltas or \
+                    set(dm.extras) != self._template_extras:
+                raise ValueError(
+                    "variant structure differs from the bank template "
+                    "(all banked variants must share one calibration "
+                    "recipe)")
+            return
+        flat = {}
+        for path, e in dm.deltas.items():
+            dev = self._base_flat[path].device
+            ent = DO.from_delta_entry(e)
+            ent = DO.OverlayEntry(packed=ent.packed.to(dev),
+                                  v_row=ent.v_row.to(dev),
+                                  v_col=ent.v_col.to(dev))
+            flat[path] = DO.bank_zeros(path, ent, self.size)
+        for path in dm.extras:
+            flat[path] = DO.bank_extra_base(path, self._base_flat[path],
+                                            self.size)
+        self._flat = flat
+        self._template_deltas = set(dm.deltas)
+        self._template_extras = set(dm.extras)
+        self._rebuild()
+
+    def _rebuild(self) -> None:
+        tree: dict = {}
+        for path, leaf in self._flat.items():
+            DO.insert_entry(tree, path, leaf)
+        self.tree = tree
+
+    def _write(self, dm: DeltaModel, slot: int) -> None:
+        """Write one variant into ``slot`` of every leaf, in place:
+        canonicalise each DeltaEntry (fp16 axis vectors, zeroed unselected
+        axis) and fp16-round each extras leaf into the base dtype."""
+        for path, e in dm.deltas.items():
+            ent = DO.from_delta_entry(e)
+            bank = self._flat[path]
+            idx = DO.bank_index(path, slot)
+            bank.packed[idx] = ent.packed.to(bank.packed.device)
+            bank.v_row[idx] = ent.v_row.to(bank.v_row.device,
+                                           bank.v_row.dtype)
+            bank.v_col[idx] = ent.v_col.to(bank.v_col.device,
+                                           bank.v_col.dtype)
+        for path, v in dm.extras.items():
+            bank = self._flat[path]
+            idx = DO.bank_index(path, slot)
+            bank[idx] = v.to(torch.float16).to(bank.device, bank.dtype)
+
+    # -- lifecycle ---------------------------------------------------------
+    def holds(self, name: str) -> bool:
+        return name in self._slots
+
+    def slot_of(self, name: str) -> int:
+        if name == "__base__":
+            return self.base_slot()
+        return self._slots[name]
+
+    def resident(self) -> list:
+        return list(self._lru)
+
+    def has_capacity(self) -> bool:
+        """A new variant can be admitted: a free slot exists or some
+        resident is unpinned (evictable).  Lets callers refuse before
+        paying for the admission."""
+        return bool(self._free) or any(
+            self._pins.get(c, 0) == 0 for c in self._lru)
+
+    def admit(self, name: str, dm: Optional[DeltaModel]) -> tuple[int, int]:
+        """Place ``dm`` into a slot (reusing evicted slots, evicting the
+        LRU unpinned resident when full).  A resident ``name`` is an LRU
+        touch.  Returns (slot, payload_bytes)."""
+        if name == "__base__":
+            return self.base_slot(), 0
+        if name in self._slots:
+            self._lru.move_to_end(name)
+            return self._slots[name], 0
+        self._ensure_tree(dm)
+        if not self._free:
+            for cand in self._lru:
+                if self._pins.get(cand, 0) == 0:
+                    # the slot is reassigned at once and admit overwrites
+                    # every leaf of it: skip the clear
+                    self._release(cand, clear=False)
+                    break
+            else:
+                raise RuntimeError(
+                    "overlay bank full: every resident is pinned by an "
+                    "in-flight request")
+        slot = self._free.pop()
+        payload = sum(e.packed.numel() + 2 * e.v_row.numel()
+                      + 2 * e.v_col.numel() for e in dm.deltas.values())
+        payload += sum(2 * v.numel() for v in dm.extras.values())
+        self._write(dm, slot)
+        self._slots[name] = slot
+        self._lru[name] = None
+        self.stats["admits"] += 1
+        return slot, payload
+
+    def pin(self, name: str) -> None:
+        if name != "__base__":
+            self._pins[name] = self._pins.get(name, 0) + 1
+
+    def unpin(self, name: str) -> None:
+        if name != "__base__" and name in self._pins:
+            self._pins[name] = max(0, self._pins[name] - 1)
+
+    def pinned(self, name: str) -> bool:
+        return self._pins.get(name, 0) > 0
+
+    def evict(self, name: str) -> None:
+        """Free ``name``'s slot for reuse; refuses while the variant is
+        pinned (mid-flight requests reference its slot index)."""
+        if name in self._slots and self.pinned(name):
+            raise RuntimeError(
+                f"variant {name!r} is pinned by in-flight requests; "
+                "retire them before evicting")
+        if name in self._slots:
+            self._release(name, clear=True)
+
+    def _release(self, name: str, *, clear: bool) -> None:
+        """Drop a resident and recycle its slot; ``clear`` resets the slot
+        to base semantics (skipped when the slot is reassigned at once)."""
+        slot = self._slots.pop(name)
+        self._lru.pop(name, None)
+        self._pins.pop(name, None)
+        if clear:
+            for path in self._template_deltas:
+                DO.bank_clear_entry(path, self._flat[path], slot)
+            for path in self._template_extras:
+                DO.bank_set_extra_base(path, self._flat[path], slot,
+                                       self._base_flat[path])
+        self._free.append(slot)
+        self.stats["evictions"] += 1
+
+    def nbytes(self) -> int:
+        if self._flat is None:
+            return 0
+        return DO.overlay_nbytes(self._flat)
 
 
 @dataclasses.dataclass
@@ -43,7 +232,7 @@ class VariantRegistry:
     variant and an LRU of device residents keyed per version."""
 
     def __init__(self, base_params, *, max_resident: int = 2,
-                 mode: str = "dense"):
+                 mode: str = "dense", bank_size: int = 8):
         if mode not in ("dense", "fused"):
             raise ValueError(f"unknown residency mode {mode!r}")
         self._base_fp = S.base_fingerprint(base_params)
@@ -52,6 +241,9 @@ class VariantRegistry:
         self.base_params = base_params
         self.max_resident = max_resident
         self.mode = mode
+        self.bank_size = bank_size
+        self.bank: Optional[OverlayBank] = None   # created on first use
+        self._bank_evictions_seen = 0
         self._versions: dict[str, dict] = {}   # name -> {version: artifact}
         self._current: dict[str, Optional[int]] = {}   # serving pointer
         self._modes: dict[str, str] = {}          # per-variant override
@@ -174,3 +366,102 @@ class VariantRegistry:
             self.stats["resident_bytes"] -= evicted.nbytes
             self.stats["evictions"] += 1
         return resident.params, resident.overlay
+
+    # -- banked resolution (mixed-variant batches) -------------------------
+    def _ensure_bank(self) -> OverlayBank:
+        """The overlay bank, created on first use."""
+        if self.bank is None:
+            self.bank = OverlayBank(self.base_params, self.bank_size)
+        return self.bank
+
+    def _bank_admit(self, vkey: str, dm: DeltaModel) -> int:
+        """Write ``dm`` into the bank under ``vkey`` and book the swap
+        stats; ``resident_bytes`` tracks the bank allocation (charged when
+        the bank is allocated, not per admitted variant)."""
+        bank = self._ensure_bank()
+        before = bank.nbytes()
+        t0 = time.perf_counter()
+        slot, payload = bank.admit(vkey, dm)
+        leaves = tree_leaves(bank.tree)
+        if leaves:
+            synchronize(leaves[0].device)
+        self.stats["swaps"] += 1
+        self.stats["swap_seconds"] += time.perf_counter() - t0
+        self.stats["transferred_bytes"] += payload
+        self.stats["resident_bytes"] += bank.nbytes() - before
+        self.stats["evictions"] += (bank.stats["evictions"]
+                                    - self._bank_evictions_seen)
+        self._bank_evictions_seen = bank.stats["evictions"]
+        return slot
+
+    def bank_resolve(self, nameish: str) -> int:
+        """Admit the current version of ``nameish`` (or an explicit
+        ``name@vN``) into the overlay bank and return its slot index — the
+        per-row ``variant_idx`` value; '__base__' is slot 0."""
+        bank = self._ensure_bank()
+        if nameish == "__base__":
+            return bank.base_slot()
+        name, version = self._parse(nameish)
+        vkey = self._vkey(name, version)
+        if bank.holds(vkey):
+            self.stats["hits"] += 1
+            return bank.admit(vkey, None)[0]   # LRU touch, no payload
+        if bank.tree is not None and not bank.has_capacity():
+            raise RuntimeError(
+                "overlay bank full: every resident is pinned by an "
+                "in-flight request")
+        return self._bank_admit(vkey, self._versions[name][version])
+
+    def bank_acquire(self, nameish: str) -> tuple:
+        """Admit AND pin in one step: returns (slot, version_key).  The
+        caller unpins with the returned KEY, not the request's variant
+        name: the serving pointer may move while the request is in flight,
+        and the pin must stay on the version the request decodes."""
+        slot = self.bank_resolve(nameish)
+        vkey = "__base__" if nameish == "__base__" \
+            else self._vkey(*self._parse(nameish))
+        self.bank.pin(vkey)
+        return slot, vkey
+
+    def _bank_key(self, nameish: str) -> str:
+        """Caller-facing name -> bank/resident key: version keys and
+        unversioned names pass through; plain names of versioned variants
+        follow the serving pointer."""
+        if nameish == "__base__":
+            return nameish
+        if self.bank is not None and self.bank.holds(nameish):
+            return nameish
+        if nameish in self._resident:
+            return nameish
+        try:
+            return self._vkey(*self._parse(nameish))
+        except KeyError:
+            return nameish
+
+    def bank_pin(self, nameish: str) -> None:
+        if self.bank is not None:
+            self.bank.pin(self._bank_key(nameish))
+
+    def bank_unpin(self, nameish: str) -> None:
+        if self.bank is not None:
+            self.bank.unpin(self._bank_key(nameish))
+
+    def evict(self, nameish: str) -> None:
+        """Evict a variant's device residency by name (current version),
+        explicit ``name@vN``, or raw version key.  A banked variant pinned
+        by in-flight requests is refused before anything is dropped."""
+        key = self._bank_key(nameish)
+        if self.bank is not None and self.bank.pinned(key):
+            raise RuntimeError(
+                f"variant {key!r} is pinned by in-flight requests; "
+                "retire them before evicting")
+        r = self._resident.pop(key, None)
+        if r is not None:
+            self.stats["resident_bytes"] -= r.nbytes
+            self.stats["evictions"] += 1
+        if self.bank is not None and self.bank.holds(key):
+            # bank bytes stay allocated: the slot is reusable, not freed
+            before = self.bank.stats["evictions"]
+            self.bank.evict(key)
+            self.stats["evictions"] += self.bank.stats["evictions"] - before
+            self._bank_evictions_seen = self.bank.stats["evictions"]

@@ -10,7 +10,9 @@ Tolerances: ``unpack_apply`` does the plain version's arithmetic exactly
 (one fp32 add per element), so it must be bit-identical.
 ``bitlinear_axes`` builds the same fp32 Ŵ and sums the products in another
 order; the bound is 1e-5 relative to Σ|x||Ŵ| per output (fp32 summation of
-K ≤ 1032 terms).
+K ≤ 4096 terms).  ``bitlinear_axes_banked`` is held to the same bound, with
+Ŵ of each row's own bank slot; with every row on one slot it must equal
+``bitlinear_axes`` bit for bit (same tiles, same split-K order).
 """
 import numpy as np
 import pytest
@@ -106,6 +108,155 @@ def test_bitlinear_axes_wrapper_batch_dims_and_col_axis(cuda):
     assert diff <= 2 ** -7 * want.float().abs().max().item()
 
 
+def _bank_case(rng, nbank, n, k, device, vdt=torch.float16):
+    """A bank of ``nbank`` slots over one (n, k) base: slot 0 all zero,
+    odd slots row-scaled, even slots col-scaled (the overlay's canonical
+    form), each from its own random delta."""
+    wb = (rng.standard_normal((n, k)) * 0.1).astype(np.float32)
+    packed = torch.zeros((nbank, n, k // 8), dtype=torch.uint8)
+    v_row = torch.zeros((nbank, n))
+    v_col = torch.zeros((nbank, k))
+    for s in range(1, nbank):
+        delta = torch.from_numpy((rng.standard_normal((n, k)) * 0.01
+                                  ).astype(np.float32))
+        packed[s] = D.pack_signs(D.sign_mask(delta))
+        if s % 2:
+            v_row[s] = D.init_scale(delta, "row")
+        else:
+            v_col[s] = D.init_scale(delta, "col")
+    return (torch.from_numpy(wb).to(device), packed.to(device),
+            v_row.to(vdt).to(device), v_col.to(vdt).to(device))
+
+
+def _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wb):
+    """|kernel - plain| <= 1e-5 · Σ_k |x||Ŵ| + 1e-6 per output, Ŵ of the
+    row's own slot."""
+    want = R.bitlinear_axes_banked_ref(x.float(), vidx, packed, v_row, v_col,
+                                       wb)
+    scale = torch.zeros_like(want)
+    for s in range(packed.shape[0]):
+        signs = D.unpack_signs(packed[s], x.shape[1])
+        w_abs = ((v_row[s].float()[:, None] + v_col[s].float()[None, :])
+                 * signs + wb.float()).abs()
+        scale = torch.where(vidx[:, None] == s, x.float().abs() @ w_abs.T,
+                            scale)
+    return bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("mnk", [(4, 64, 128), (5, 100, 40), (4, 1024, 4096),
+                                 (64, 96, 256), (33, 130, 1032)])
+@pytest.mark.parametrize("nbank", [2, 5])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_bitlinear_axes_banked_matches_plain(cuda, mnk, nbank, xdt, wdt):
+    m, n, k = mnk
+    rng = np.random.default_rng(4)
+    wb, packed, v_row, v_col = _bank_case(rng, nbank, n, k, cuda)
+    wb = wb.to(wdt)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
+                         ).to(cuda).to(xdt)
+    vidx = torch.from_numpy(rng.integers(0, nbank, m).astype(np.int32)
+                            ).to(cuda)
+    before = BL.banked_launches
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wb)
+    torch.cuda.synchronize()
+    assert BL.banked_launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wb)
+
+
+@pytest.mark.parametrize("m", [16, 64])
+def test_bitlinear_axes_banked_more_slots_than_one_pass(cuda, m):
+    """Eight distinct slots among one block's rows: the kernel stages four
+    Ŵ tiles at a time and makes two passes over each x tile."""
+    rng = np.random.default_rng(5)
+    wb, packed, v_row, v_col = _bank_case(rng, 8, 96, 512, cuda,
+                                          vdt=torch.float32)
+    x = torch.from_numpy(rng.standard_normal((m, 512)).astype(np.float32)
+                         ).to(cuda)
+    vidx = torch.arange(m, dtype=torch.int32, device=cuda) % 8
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wb)
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wb)
+
+
+def test_bitlinear_axes_banked_base_rows_equal_plain_product(cuda):
+    rng = np.random.default_rng(6)
+    wb, packed, v_row, v_col = _bank_case(rng, 4, 1024, 4096, cuda)
+    x = torch.from_numpy(rng.standard_normal((4, 4096)).astype(np.float32)
+                         ).to(cuda)
+    vidx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wb)
+    want = x @ wb.T
+    scale = x.abs() @ wb.abs().T
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def test_bitlinear_axes_banked_uniform_equals_single_variant(cuda):
+    """Every row on one slot: the banked kernel builds the same Ŵ tiles as
+    bitlinear_axes_p and sums over the same K splits in the same order."""
+    rng = np.random.default_rng(7)
+    wb, packed, v_row, v_col = _bank_case(rng, 3, 1024, 4096, cuda)
+    x = torch.from_numpy(rng.standard_normal((4, 4096)).astype(np.float32)
+                         ).to(cuda).to(torch.bfloat16)
+    for s in range(3):
+        vidx = torch.full((4,), s, dtype=torch.int32, device=cuda)
+        got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wb)
+        want = BL.bitlinear_axes_p(x, packed[s].contiguous(), v_row[s],
+                                   v_col[s], wb)
+        assert torch.equal(got, want), s
+
+
+def test_bitlinear_axes_banked_wrapper_batch_dims(cuda):
+    rng = np.random.default_rng(8)
+    wb, packed, v_row, v_col = _bank_case(rng, 3, 48, 64, cuda)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 64)).astype(np.float32)
+                         ).to(cuda).to(torch.bfloat16)
+    vidx = torch.tensor([2, 0, 1], device=cuda)
+    got = K.bitlinear_axes_banked(x, vidx, packed, v_row, v_col, wb)
+    assert got.shape == (3, 5, 48) and got.dtype == torch.bfloat16
+    with K.plain_versions():
+        want = K.bitlinear_axes_banked(x, vidx, packed, v_row, v_col, wb)
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= 2 ** -7 * want.float().abs().max().item()
+
+
+OUT_OF_RANGE = r"""
+import sys, torch
+sys.path.insert(0, "src")
+from repro_torch.kernels import bitlinear as BL
+dev = torch.device("cuda")
+x = torch.ones((4, 64), device=dev)
+packed = torch.zeros((2, 32, 8), dtype=torch.uint8, device=dev)
+vr = torch.zeros((2, 32), dtype=torch.float16, device=dev)
+vc = torch.zeros((2, 64), dtype=torch.float16, device=dev)
+wb = torch.ones((32, 64), device=dev)
+vidx = torch.tensor([0, 1, %d, 0], dtype=torch.int32, device=dev)
+try:
+    y = BL.bitlinear_axes_banked_p(x, vidx, packed, vr, vc, wb)
+    torch.cuda.synchronize()
+    print("RESULT", y.sum().item())
+except RuntimeError as e:    # torch's CUDA errors subclass RuntimeError
+    print("RAISED", type(e).__name__, str(e).splitlines()[0])
+"""
+
+
+@pytest.mark.parametrize("bad", [2, -1])
+def test_bitlinear_axes_banked_refuses_out_of_range_slot(cuda, bad):
+    """A slot index outside [0, V) fails the launch (the kernel traps
+    before any bank read); a trap ends the process's CUDA context, so the
+    call runs in a child process."""
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", OUT_OF_RANGE % bad],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert "RESULT" not in out.stdout, out.stdout
+    assert "RAISED" in out.stdout and "CUDA error" in out.stdout, (
+        out.stdout, out.stderr)
+
+
 def test_kernel_wrappers_reject_what_they_cannot_run(cuda):
     rng = np.random.default_rng(3)
     wb, packed, delta = _delta_case(rng, (), 32, 64, cuda)
@@ -118,3 +269,21 @@ def test_kernel_wrappers_reject_what_they_cannot_run(cuda):
     x = torch.ones((4, 64), dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError):                          # fp16 x
         BL.bitlinear_axes_p(x, packed, v, torch.zeros(64, device=cuda), wb)
+
+
+def test_banked_wrapper_rejects_what_it_cannot_run(cuda):
+    rng = np.random.default_rng(9)
+    wb, packed, v_row, v_col = _bank_case(rng, 3, 32, 64, cuda)
+    x = torch.ones((4, 64), device=cuda)
+    vidx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                          # vidx on the CPU
+        BL.bitlinear_axes_banked_p(x, vidx.cpu(), packed, v_row, v_col, wb)
+    with pytest.raises(ValueError):                          # int64 vidx
+        BL.bitlinear_axes_banked_p(x, vidx.long(), packed, v_row, v_col, wb)
+    with pytest.raises(ValueError):                          # not contiguous
+        BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col,
+                                   wb.T.contiguous().T)
+    with pytest.raises(ValueError):                          # bank mismatch
+        BL.bitlinear_axes_banked_p(x, vidx, packed, v_row[:2], v_col, wb)
+    with pytest.raises(ValueError):                          # fp16 x
+        BL.bitlinear_axes_banked_p(x.half(), vidx, packed, v_row, v_col, wb)

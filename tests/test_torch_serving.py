@@ -2,7 +2,8 @@
 (no store), dense and fused residency, same base and the same two delta
 models, reduced qwen3-8b (2 layers, fp32 compute).  Per-request greedy
 tokens must be identical and the registries must count the same swaps
-and hits."""
+and hits.  The continuous scheduler's parity tests are in
+tests/test_torch_continuous.py."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -49,7 +50,7 @@ def test_deployment_tokens_and_stats_match_jax(setup, mode):
                          scheduler="group", **KW)
     dep = Deployment(build_model(s["tcfg"]),
                      bridge.params_from_numpy(s["flat"], "cpu"), mode=mode,
-                     device="cpu", **KW)
+                     scheduler="group", device="cpu", **KW)
     for i, (jdm, dm) in enumerate(zip(s["jdms"], s["dms"])):
         assert jdep.publish(f"v{i}", jdm) == dep.publish(
             f"v{i}", bridge.delta_model_from_numpy(dm, "cpu"))
@@ -69,7 +70,7 @@ def test_deployment_lifecycle_versions(setup):
     s = setup
     dep = Deployment(build_model(s["tcfg"]),
                      bridge.params_from_numpy(s["flat"], "cpu"),
-                     mode="dense", device="cpu", **KW)
+                     mode="dense", scheduler="group", device="cpu", **KW)
     dms = [bridge.delta_model_from_numpy(d, "cpu") for d in s["dms"]]
     assert dep.publish("a", dms[0], wait=True) == 1
     assert dep.update("a", dms[1]) == 2
