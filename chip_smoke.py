@@ -9,35 +9,48 @@ Phases (any failure raises and the script exits non-zero):
 1. card: ``nvidia-smi`` name and power limit; fails without a CUDA device;
 2. build: compiles the CUDA kernels from ``src/repro_torch/csrc`` and prints
    ``nvcc -Xptxas -v`` (registers, shared memory, spills per kernel);
-3. kernels: each kernel's wrapper at the serving path's shapes of qwen3-8b
-   (full width), held against its plain PyTorch version on the same inputs
-   and timed with CUDA events (L2 flushed before every launch) beside its
-   bound, the plain version and, where one exists, a single PyTorch call;
-   the banked kernel also beside the single-variant kernel on the same x;
+3. kernels: each kernel body's wrapper at the serving path's shapes of
+   qwen3-8b (full width), over an fp32 base and over an int8 base
+   (``core/quantize``), held against its plain PyTorch version on the same
+   inputs and timed with CUDA events (L2 flushed before every launch)
+   beside its bound, the plain version and, where one exists, a single
+   PyTorch call; the banked kernel also beside the single-variant kernel on
+   the same x; ``bitlinear_p`` in row, col and scalar mode;
 4. reference: a reduced qwen3-8b served on the card through the kernels
    and on the CPU through the plain versions, same weights and requests,
    with the group scheduler (dense and fused) and the continuous scheduler
-   (heterogeneous budgets): greedy tokens must be identical;
-5. serve: qwen3-8b at full width cut to 4 layers, 2 synthetic variants,
+   (heterogeneous budgets), over an fp32 and an int8 base: greedy tokens
+   must be identical; the int8 base quantized on the card must equal the
+   one quantized on the CPU byte for byte;
+5. DeltaLinear: ``core/bitdelta.DeltaLinear`` in apply mode "onfly" (the
+   caller of ``bitlinear_p``) over the seven projections of one full-width
+   qwen3-8b layer at M=4 and M=64, over an fp32 and an int8 base, counters
+   zeroed right before each run and held against the dense apply mode;
+6. serve: qwen3-8b at full width cut to 4 layers, 2 synthetic variants,
    batch 4, through ``Deployment``: 8 requests x 8 new tokens with the
    group scheduler in dense and in fused mode, then 12 requests with
    budgets 4, 6, .. 12 round-robin over base, v0 and v1 with the
-   continuous scheduler (bank of 4 slots).  The launch counters are zeroed
-   right before each run and must show the run's kernel; the continuous run
-   must launch the banked kernel 28 times (7 projections x 4 layers) per
-   prefill and per decode step.  One fused prefill is repeated through the
-   plain versions and the logit difference printed; one decode step of
-   each run is profiled.
+   continuous scheduler (bank of 4 slots); then the same three runs over
+   an int8 base (``base_dtype="int8"``, same weights, variants, requests
+   and bank).  The launch counters are zeroed right before each run and
+   must show the run's kernel; the continuous runs must launch the banked
+   kernel 28 times (7 projections x 4 layers) per prefill and per decode
+   step; the int8 runs must hold the targets at under 0.3 of their fp32
+   bytes.  One fused prefill is repeated through the plain versions and the
+   logit difference printed; one decode step of each run is profiled;
+   int8-vs-fp greedy agreement is printed, not asserted (random weights at
+   full width give near-tied logits).
 
 Then it prints the kernel summary as one JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Tolerances: ``unpack_apply`` performs the plain version's arithmetic
-exactly (one fp32 add per element), so it must be bit-identical.
-``bitlinear_axes`` and ``bitlinear_axes_banked`` form the same fp32 Ŵ and
-sum products in another order: |kernel - plain| <= 1e-5 · Σ_k |x||Ŵ| + 1e-6
-per output (Ŵ of the row's own bank slot).  TF32 is off for every fp32
-product run here (the plain versions and the library yardstick included).
+exactly (one fp32 add per element; over an int8 base one fp32 product
+first), so it must be bit-identical.  The GEMMs (``bitlinear_axes``,
+``bitlinear_axes_banked``, ``bitlinear_p``) form the same fp32 Ŵ and sum
+products in another order: |kernel - plain| <= 1e-5 · Σ_k |x||Ŵ| + 1e-6 per
+output (Ŵ of the row's own bank slot).  TF32 is off for every fp32 product
+run here (the plain versions and the library yardstick included).
 """
 from __future__ import annotations
 
@@ -109,7 +122,8 @@ def counters() -> dict:
     from repro_torch.kernels import bitlinear as BL
     from repro_torch.kernels import unpack_apply as UA
     return {"unpack_apply": UA.launches, "bitlinear_axes": BL.launches,
-            "bitlinear_axes_banked": BL.banked_launches}
+            "bitlinear_axes_banked": BL.banked_launches,
+            "bitlinear": BL.static_launches}
 
 
 def zero_counters() -> None:
@@ -118,22 +132,116 @@ def zero_counters() -> None:
     UA.launches = 0
     BL.launches = 0
     BL.banked_launches = 0
+    BL.static_launches = 0
 
 
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def banked_rows(name, n, k, gen, dev, timer, wb, packed, v_row, v_col):
-    """``bitlinear_axes_banked`` at one projection shape, over a bank of 4
-    slots built from the stack's first three layers (slot 0 zero = base,
-    slot 1 row-scaled, slot 2 col-scaled, slot 3 row-scaled):
-    M=4 lanes with vidx [0,1,2,1], M=64 (the same lanes x 16 tokens) and
-    an all-base M=4 batch held against the plain fp32 x @ W_bᵀ."""
+def _base(base) -> tuple:
+    """(payload, scale or None, fp32 dense, resident bytes) of a base
+    operand: an fp32 tensor or an int8 ``QuantWeight``."""
+    from repro_torch.core import quantize as Q
+    if Q.is_quant(base):
+        return base.q, base.scale, Q.dequantize(base), base.nbytes()
+    return base, None, base, base.numel() * base.element_size()
+
+
+def _check_gemm(label, got, want, x, w_abs) -> float:
+    """|kernel - plain| <= 1e-5 · Σ_k |x||Ŵ| + 1e-6 per output."""
+    scale = x.float().abs() @ w_abs.T
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all()), (
+        label, err)
+    return err
+
+
+def _build_flops(n, k, q8) -> int:
+    """Ŵ-tile work per weight element: the delta add (the dual-axis scale
+    sum folds into it) and, over an int8 base, the dequant product."""
+    return n * k * (2 + int(q8))
+
+
+def unpack_rows(name, timer, packed, v_row, v_col, base) -> list:
+    """``unpack_apply`` over the L-layer stack: the dense load's row and
+    col launches; bit-identical to the plain version."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import unpack_apply as UA
+
+    wq, ws, _, base_bytes = _base(base)
+    rows = []
+    for mode, v in (("row", v_row), ("col", v_col)):
+        got = K.unpack_apply(packed, v, base, mode=mode,
+                             out_dtype=torch.float32)
+        want = UA.plain(packed, v, wq, mode, dtype=torch.float32,
+                        w_scale=ws)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert torch.equal(got, want), (name, mode, ws is not None, err)
+        del got, want
+        nbytes = packed.numel() + v.numel() * 4 + base_bytes + wq.numel() * 4
+        b, by = bound_ms(nbytes, wq.numel() * (1 + int(ws is not None)))
+        rows.append({
+            "shape": f"{name} {mode} {tuple(wq.shape)}", "max_abs_err": err,
+            "ms": timer.ms(lambda: K.unpack_apply(
+                packed, v, base, mode=mode, out_dtype=torch.float32)),
+            "plain_ms": timer.ms(lambda: UA.plain(
+                packed, v, wq, mode, dtype=torch.float32, w_scale=ws)),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+    return rows
+
+
+def axes_rows(name, n, k, gen, dev, timer, p0, vr0, base) -> list:
+    """``bitlinear_axes`` on layer 0's overlay entry, row-selected, at M=4
+    (decode) and M=64 (prefill)."""
     from repro_torch.core import delta as D
     from repro_torch.kernels import bitlinear as BL
 
-    w0 = wb[0].contiguous()
+    wq, ws, wf, base_bytes = _base(base)
+    vr = vr0.to(torch.float16)
+    vc = torch.zeros(k, dtype=torch.float16, device=dev)
+    signs = D.unpack_signs(p0, k)
+    w_hat = (vr.float()[:, None] + vc.float()[None, :]) * signs + wf
+    w_abs = w_hat.abs()
+    del signs
+    rows = []
+    for m in (LANES, LANES * PROMPT):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        got = BL.bitlinear_axes_p(x, p0, vr, vc, wq, ws)
+        want = BL.plain(x.float(), p0, vr, vc, wq, w_scale=ws)
+        err = _check_gemm((name, m), got, want, x, w_abs)
+        x32 = x.float()
+        nbytes = (x.numel() * 2 + p0.numel() + (n + k) * 2 + base_bytes
+                  + m * n * 4)
+        b, by = bound_ms(nbytes, 2 * m * n * k + _build_flops(
+            n, k, ws is not None))
+        rows.append({
+            "shape": f"{name} M={m} N={n} K={k}", "m": m,
+            "max_abs_err": err,
+            "ms": timer.ms(lambda: BL.bitlinear_axes_p(x, p0, vr, vc, wq, ws),
+                           reps=20, warmup=3),
+            "plain_ms": timer.ms(lambda: BL.plain(x, p0, vr, vc, wq,
+                                                  w_scale=ws),
+                                 reps=20, warmup=3),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": timer.ms(lambda: torch.matmul(x32, w_hat.T),
+                                   reps=20, warmup=3)})
+    return rows
+
+
+def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
+                base) -> list:
+    """``bitlinear_axes_banked`` at one projection shape, over a bank of 4
+    slots built from the stack's first three layers (slot 0 zero = base,
+    slot 1 row-scaled, slot 2 col-scaled, slot 3 row-scaled) and layer 0's
+    base: M=4 lanes with vidx [0,1,2,1], M=64 (the same lanes x 16 tokens)
+    and an all-base M=4 batch held against the plain fp32 x @ W_bᵀ."""
+    from repro_torch.core import delta as D
+    from repro_torch.kernels import bitlinear as BL
+
+    wq, ws, w0, base_bytes = _base(base)
     zero_n = torch.zeros_like(v_row[0])
     zero_k = torch.zeros_like(v_col[0])
     bp = torch.stack([torch.zeros_like(packed[0]), packed[0], packed[1],
@@ -156,11 +264,12 @@ def banked_rows(name, n, k, gen, dev, timer, wb, packed, v_row, v_col):
         m = len(vlist)
         vidx = torch.tensor(vlist, dtype=torch.int32, device=dev)
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        got = BL.bitlinear_axes_banked_p(x, vidx, bp, bvr, bvc, w0)
+        got = BL.bitlinear_axes_banked_p(x, vidx, bp, bvr, bvc, wq, ws)
         if label.endswith("all-base"):
             want = x.float() @ w0.T
         else:
-            want = BL.plain_banked(x.float(), vidx, bp, bvr, bvc, w0)
+            want = BL.plain_banked(x.float(), vidx, bp, bvr, bvc, wq,
+                                   w_scale=ws)
         scale = torch.zeros_like(want)
         for s in set(vlist):
             scale = torch.where(vidx[:, None] == s,
@@ -168,37 +277,99 @@ def banked_rows(name, n, k, gen, dev, timer, wb, packed, v_row, v_col):
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         ok = bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
-        assert ok, (name, label, err)
+        assert ok, (name, label, ws is not None, err)
         named = sorted(set(vlist) - {0})
-        nbytes = (x.numel() * 2 + m * 4 + w0.numel() * 4 + m * n * 4
+        nbytes = (x.numel() * 2 + m * 4 + base_bytes + m * n * 4
                   + len(named) * (n * k // 8 + (n + k) * 2))
-        b, by = bound_ms(nbytes, 2 * m * n * k + 2 * n * k * len(named))
+        b, by = bound_ms(nbytes, 2 * m * n * k
+                         + n * k * (2 * len(named) + int(ws is not None)))
         vr1, vc1, p1 = bvr[1], bvc[1], bp[1]
         rows.append({
             "shape": f"{name} {label} N={n} K={k}", "m": m, "case": label,
             "max_abs_err": err,
             "ms": timer.ms(lambda: BL.bitlinear_axes_banked_p(
-                x, vidx, bp, bvr, bvc, w0), reps=20, warmup=3),
+                x, vidx, bp, bvr, bvc, wq, ws), reps=20, warmup=3),
             "plain_ms": timer.ms(lambda: BL.plain_banked(
-                x, vidx, bp, bvr, bvc, w0), reps=10, warmup=2),
+                x, vidx, bp, bvr, bvc, wq, w_scale=ws), reps=10, warmup=2),
             "bound_ms": b, "bound_by": by, "library_ms": None,
             # the single-variant kernel on the same x: a uniform batch
             "uniform_ms": timer.ms(lambda: BL.bitlinear_axes_p(
-                x, p1, vr1, vc1, w0), reps=20, warmup=3)})
+                x, p1, vr1, vc1, wq, ws), reps=20, warmup=3)})
         del got, want, scale
     return rows
 
 
-def kernel_phase(cfg, dev, timer) -> tuple:
+def static_rows(name, n, k, gen, dev, timer, p0, vr0, vc0, base) -> list:
+    """``bitlinear_p`` (static mode) on layer 0's sign plane in row, col
+    and scalar mode, at M=4 and M=64; the vector is fp32, as the wrapper
+    hands it to the kernel."""
     from repro_torch.core import delta as D
     from repro_torch.kernels import bitlinear as BL
     from repro_torch.kernels import ops as K
-    from repro_torch.kernels import unpack_apply as UA
+
+    wq, ws, wf, base_bytes = _base(base)
+    rows = []
+    for mode, v in (("row", vr0), ("col", vc0), ("scalar", vr0.mean())):
+        v = v.float().contiguous()
+        v2d = K._v2d(v, mode, (), n, k)
+        w_hat = D.reconstruct(p0, v, wf, mode, dtype=torch.float32)
+        w_abs = w_hat.abs()
+        for m in (LANES, LANES * PROMPT):
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            got = BL.bitlinear_p(x, p0, v2d, wq, ws)
+            want = BL.plain_static(x.float(), p0, v, wq, mode, w_scale=ws)
+            err = _check_gemm((name, mode, m), got, want, x, w_abs)
+            x32 = x.float()
+            nbytes = (x.numel() * 2 + p0.numel() + v.numel() * 4
+                      + base_bytes + m * n * 4)
+            b, by = bound_ms(nbytes, 2 * m * n * k + _build_flops(
+                n, k, ws is not None) - n * k)
+            rows.append({
+                "shape": f"{name} {mode} M={m} N={n} K={k}", "m": m,
+                "mode": mode, "max_abs_err": err,
+                "ms": timer.ms(lambda: BL.bitlinear_p(x, p0, v2d, wq, ws),
+                               reps=20, warmup=3),
+                "plain_ms": timer.ms(lambda: BL.plain_static(
+                    x, p0, v, wq, mode, w_scale=ws), reps=10, warmup=2),
+                "bound_ms": b, "bound_by": by,
+                "library_ms": timer.ms(lambda: torch.matmul(x32, w_hat.T),
+                                       reps=20, warmup=3)})
+        del w_hat, w_abs
+    return rows
+
+
+# kernel-body entries of the JSON line: (name, source, replaces)
+KERNELS = [
+    ("unpack_apply", "src/repro_torch/csrc/unpack_apply.cu",
+     "src/repro/kernels/unpack_apply.py:54"),
+    ("unpack_apply_q8", "src/repro_torch/csrc/unpack_apply.cu",
+     "src/repro/kernels/unpack_apply.py:44"),
+    ("bitlinear_axes", "src/repro_torch/csrc/bitlinear_axes.cu",
+     "src/repro/kernels/bitlinear.py:222"),
+    ("bitlinear_axes_q8", "src/repro_torch/csrc/bitlinear_axes.cu",
+     "src/repro/kernels/bitlinear.py:98"),
+    ("bitlinear_axes_banked", "src/repro_torch/csrc/bitlinear_axes_banked.cu",
+     "src/repro/kernels/bitlinear.py:178"),
+    ("bitlinear_axes_banked_q8",
+     "src/repro_torch/csrc/bitlinear_axes_banked.cu",
+     "src/repro/kernels/bitlinear.py:152"),
+    ("bitlinear", "src/repro_torch/csrc/bitlinear.cu",
+     "src/repro/kernels/bitlinear.py:35"),
+    ("bitlinear_q8", "src/repro_torch/csrc/bitlinear.cu",
+     "src/repro/kernels/bitlinear.py:76"),
+]
+
+
+def kernel_phase(cfg, dev, timer) -> dict:
+    """{kernel-body name: per-shape rows} over the seven projections."""
+    from repro_torch.core import delta as D
+    from repro_torch.core import quantize as Q
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     L = SERVE_LAYERS
-    ua_rows, bl_rows, bk_rows = [], [], []
+    rows = {name: [] for name, _, _ in KERNELS}
     for name, n, k in projections(cfg):
         wb = torch.randn((L, n, k), generator=gen, device=dev) * k ** -0.5
         delta = torch.randn((L, n, k), generator=gen, device=dev) * 0.005
@@ -206,74 +377,36 @@ def kernel_phase(cfg, dev, timer) -> tuple:
         v_row = D.init_scale(delta, "row")
         v_col = D.init_scale(delta, "col")
         del delta
-        # -- unpack_apply: the dense load's row and col launches ----------
-        for mode, v in (("row", v_row), ("col", v_col)):
-            got = K.unpack_apply(packed, v, wb, mode=mode,
-                                 out_dtype=torch.float32)
-            want = UA.plain(packed, v, wb, mode, dtype=torch.float32)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            assert torch.equal(got, want), (name, mode, err)
-            del got, want
-            nbytes = packed.numel() + v.numel() * 4 + 2 * wb.numel() * 4
-            b, by = bound_ms(nbytes, wb.numel())
-            ua_rows.append({
-                "shape": f"{name} {mode} ({L},{n},{k})", "max_abs_err": err,
-                "ms": timer.ms(lambda: K.unpack_apply(
-                    packed, v, wb, mode=mode, out_dtype=torch.float32)),
-                "plain_ms": timer.ms(lambda: UA.plain(
-                    packed, v, wb, mode, dtype=torch.float32)),
-                "bound_ms": b, "bound_by": by, "library_ms": None})
-        # -- bitlinear_axes: layer 0's overlay entry, row-selected ---------
-        w0, p0 = wb[0].contiguous(), packed[0].contiguous()
-        vr = v_row[0].to(torch.float16)
-        vc = torch.zeros(k, dtype=torch.float16, device=dev)
-        signs = D.unpack_signs(p0, k)
-        w_hat = (vr.float()[:, None] + vc.float()[None, :]) * signs + w0
-        w_abs = w_hat.abs()
-        del signs
-        for m in (LANES, LANES * PROMPT):
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            got = BL.bitlinear_axes_p(x, p0, vr, vc, w0)
-            want = BL.plain(x.float(), p0, vr, vc, w0)
-            scale = x.float().abs() @ w_abs.T
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            ok = bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
-            assert ok, (name, m, err)
-            x32 = x.float()
-            nbytes = (x.numel() * 2 + p0.numel() + (n + k) * 2
-                      + w0.numel() * 4 + m * n * 4)
-            b, by = bound_ms(nbytes, 2 * m * n * k + 2 * n * k)
-            bl_rows.append({
-                "shape": f"{name} M={m} N={n} K={k}", "m": m,
-                "max_abs_err": err,
-                "ms": timer.ms(lambda: BL.bitlinear_axes_p(x, p0, vr, vc, w0),
-                               reps=20, warmup=3),
-                "plain_ms": timer.ms(lambda: BL.plain(x, p0, vr, vc, w0),
-                                     reps=20, warmup=3),
-                "bound_ms": b, "bound_by": by,
-                "library_ms": timer.ms(lambda: torch.matmul(x32, w_hat.T),
-                                       reps=20, warmup=3)})
-        del w_hat, w_abs
-        # -- bitlinear_axes_banked: a bank of 4 slots ----------------------
-        bk_rows += banked_rows(name, n, k, gen, dev, timer, wb, packed,
-                               v_row, v_col)
-        del wb, packed, v_row, v_col, w0, p0
+        qw = Q.quantize_weight(wb)
+        p0 = packed[0].contiguous()
+        for suffix, stack, layer0 in (
+                ("", wb, wb[0].contiguous()),
+                ("_q8", qw, Q.QuantWeight(q=qw.q[0], scale=qw.scale[0]))):
+            rows["unpack_apply" + suffix] += unpack_rows(
+                name, timer, packed, v_row, v_col, stack)
+            rows["bitlinear_axes" + suffix] += axes_rows(
+                name, n, k, gen, dev, timer, p0, v_row[0], layer0)
+            rows["bitlinear_axes_banked" + suffix] += banked_rows(
+                name, n, k, gen, dev, timer, packed, v_row, v_col, layer0)
+            rows["bitlinear" + suffix] += static_rows(
+                name, n, k, gen, dev, timer, p0, v_row[0], v_col[0], layer0)
+        del wb, qw, packed, v_row, v_col, p0
         torch.cuda.empty_cache()
-    for r in ua_rows + bl_rows + bk_rows:
-        extra = (f" uniform_ms={r['uniform_ms']:.4f}" if "uniform_ms" in r
-                 else "")
-        print(f"  {r['shape']:40s} err={r['max_abs_err']:.3g} "
-              f"kernel_ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-              f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']}{extra}")
-    print("kernels: [unpack_apply: bit-identical to plain at "
-          f"{len(ua_rows)} shapes, bitlinear_axes: within 1e-5 relative at "
-          f"{len(bl_rows)} shapes, bitlinear_axes_banked: within 1e-5 "
-          f"relative at {len(bk_rows)} shapes]")
-    return ua_rows, bl_rows, bk_rows
+    for kname, krows in rows.items():
+        print(f"  -- {kname}")
+        for r in krows:
+            extra = (f" uniform_ms={r['uniform_ms']:.4f}"
+                     if "uniform_ms" in r else "")
+            print(f"  {r['shape']:44s} err={r['max_abs_err']:.3g} "
+                  f"kernel_ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                  f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']}{extra}")
+    print("kernels: unpack_apply bit-identical to plain at "
+          f"{len(rows['unpack_apply']) + len(rows['unpack_apply_q8'])} "
+          "shapes (fp32 and int8 base); every GEMM within 1e-5 relative at "
+          + ", ".join(f"{len(r)} shapes ({k})" for k, r in rows.items()
+                      if not k.startswith("unpack")))
+    return rows
 
 
 def summary(name, source, replaces, rows, unit):
@@ -299,12 +432,19 @@ def summary(name, source, replaces, rows, unit):
 # serving phases
 # ---------------------------------------------------------------------------
 
+# the kernel each serving run must show in its launch counters
+RUN_KERNEL = {"dense": "unpack_apply", "fused": "bitlinear_axes",
+              "continuous": "bitlinear_axes_banked"}
+
+
 def reference_phase(dev) -> None:
     """Reduced qwen3-8b, fp32 compute: kernels on the card vs the plain
-    versions on the CPU, same base, variants and requests."""
+    versions on the CPU, same base, variants and requests, over an fp32 and
+    an int8 base."""
     import dataclasses
 
     from repro_torch.core import calibration as C
+    from repro_torch.core import quantize as Q
     from repro_torch.launch import serve as SV
     from repro_torch.models import build_model
     from repro_torch.models.param import split
@@ -315,26 +455,104 @@ def reference_phase(dev) -> None:
     model = build_model(cfg)
     base, _ = split(model.init(0, device="cpu"))
     dms = [C.compress(base, SV.fine_tune(base, 100 + i)) for i in range(2)]
+    # the int8 base quantized on the card equals the CPU's, byte for byte
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    weights = [leaf for path, leaf in C.flatten_params(base).items()
+               if C.is_target(path, leaf)]
+    weights.append(torch.randn((12288, 4096), generator=gen) * 4096 ** -0.5)
+    for w in weights:
+        on_cpu, on_card = Q.quantize_weight(w), Q.quantize_weight(w.to(dev))
+        assert torch.equal(on_card.q.cpu(), on_cpu.q) and torch.equal(
+            on_card.scale.cpu().view(torch.int16),
+            on_cpu.scale.view(torch.int16))
+    print(f"reference: int8 quantization on the card == on the cpu for "
+          f"{len(weights)} weights (bytes and scale bits)")
     runs = [("group", "dense", 4), ("group", "fused", 4),
             ("continuous", "fused", [2, 5, 3, 4])]
-    for scheduler, mode, budgets in runs:
-        tokens = {}
-        for where in ("cpu", dev):
-            zero_counters()
-            dep = Deployment(model, base, mode=mode, scheduler=scheduler,
-                             batch_size=4, prompt_len=SV.PROMPT_LEN,
-                             max_len=SV.MAX_LEN, bank_size=4, device=where)
-            for i, dm in enumerate(dms):
-                dep.publish(f"v{i}", dm)
-            rids = SV.submit_requests(dep, cfg, 6, budgets)
-            dep.drain()
-            tokens[str(where)] = [dep.result(r).out_tokens for r in rids]
-        launched = {k: v for k, v in counters().items() if v}
-        assert tokens["cpu"] == tokens[str(dev)], (scheduler, mode, tokens)
-        assert launched, (scheduler, mode, "no kernel launched on the card")
-        print(f"reference {scheduler} {mode}: card tokens == cpu plain "
-              f"tokens ({sum(map(len, tokens['cpu']))} tokens, card "
-              f"launches {launched})")
+    for base_dtype in ("fp", "int8"):
+        for scheduler, mode, budgets in runs:
+            tokens = {}
+            for where in ("cpu", dev):
+                zero_counters()
+                dep = Deployment(model, base, mode=mode,
+                                 scheduler=scheduler, batch_size=4,
+                                 prompt_len=SV.PROMPT_LEN,
+                                 max_len=SV.MAX_LEN, bank_size=4,
+                                 device=where, base_dtype=base_dtype)
+                for i, dm in enumerate(dms):
+                    dep.publish(f"v{i}", dm)
+                rids = SV.submit_requests(dep, cfg, 6, budgets)
+                dep.drain()
+                tokens[str(where)] = [dep.result(r).out_tokens for r in rids]
+            launched = {k: v for k, v in counters().items() if v}
+            run = mode if scheduler == "group" else scheduler
+            assert tokens["cpu"] == tokens[str(dev)], (
+                base_dtype, scheduler, mode, tokens)
+            assert launched.get(RUN_KERNEL[run], 0) > 0, (
+                base_dtype, scheduler, mode, launched)
+            print(f"reference {base_dtype} {scheduler} {mode}: card tokens "
+                  f"== cpu plain tokens ({sum(map(len, tokens['cpu']))} "
+                  f"tokens, card launches {launched})")
+
+
+def deltalinear_phase(cfg, dev) -> dict:
+    """``DeltaLinear(apply_mode="onfly")`` — the path of ``bitlinear_p`` —
+    over the seven projections of one full-width layer, each on its
+    best static axis, at M=4 and M=64, over an fp32 and an int8 base.
+    Counters are zeroed right before each run; every output is held against
+    the dense apply mode (over the dequantized base for int8).  Returns
+    {base dtype: launches}."""
+    from repro_torch.core import bitdelta as BD
+    from repro_torch.core import delta as D
+    from repro_torch.core import quantize as Q
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    lins = []
+    for name, n, k in projections(cfg):
+        wb = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
+        wf = wb + 0.005 * torch.randn((n, k), generator=gen, device=dev)
+        mode = BD.best_static_axis(wb, wf)
+        lins.append((name, BD.DeltaLinear.from_pair(wb, wf, mode)))
+        del wf
+    xs = {k: [torch.randn((m, k), generator=gen, device=dev)
+              for m in (LANES, LANES * PROMPT)]
+          for k in {k for _, _, k in projections(cfg)}}
+    launches = {}
+    for base_dtype in ("fp", "int8"):
+        if base_dtype == "int8":
+            lins = [(name, BD.DeltaLinear(lin.packed, lin.v,
+                                          Q.quantize_weight(lin.w_base),
+                                          lin.mode))
+                    for name, lin in lins]
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        ys = [[lin(x, apply_mode="onfly") for x in xs[lin.shape[1]]]
+              for _, lin in lins]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[base_dtype] = counters()
+        assert launches[base_dtype]["bitlinear"] == 2 * len(lins), launches
+        err = 0.0
+        for (name, lin), ys_lin in zip(lins, ys):
+            wf = Q.dequantize(lin.w_base) if Q.is_quant(lin.w_base) \
+                else lin.w_base
+            dense = BD.DeltaLinear(lin.packed, lin.v, wf, lin.mode)
+            w_abs = D.reconstruct(lin.packed, lin.v, wf, lin.mode,
+                                  dtype=torch.float32).abs()
+            for x, y in zip(xs[lin.shape[1]], ys_lin):
+                err = max(err, _check_gemm((name, base_dtype), y,
+                                           dense(x, apply_mode="dense"),
+                                           x, w_abs))
+        print(f"deltalinear {base_dtype}: {len(lins)} projections x M=4, "
+              f"M=64 onfly, modes {[lin.mode for _, lin in lins]}, within "
+              f"1e-5 relative of dense (max |err| {err:.3g}), wall "
+              f"{wall * 1e3:.2f} ms, launches {launches[base_dtype]}")
+    del lins, xs, ys
+    torch.cuda.empty_cache()
+    return launches
 
 
 def profile_decode(model, params, overlay, dev, label, step_ms,
@@ -511,10 +729,97 @@ def serve_phase(dev) -> dict:
     profile_decode(model, dep.registry.base_params, bank.tree, dev,
                    f"continuous mixed (vidx {vidx.tolist()})",
                    mean_step_ms(dep), vidx=vidx)
-    del dep, bank, model, base, dms
+    del dep, bank
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the same three runs over an int8 base ------------------------------
+    for run, scheduler, mode, n_req, budgets in (
+            ("dense", "group", "dense", 8, [8]),
+            ("fused", "group", "fused", 8, [8]),
+            ("continuous", "continuous", "fused", 12, CONT_BUDGETS)):
+        label = f"{run} int8"
+        t0 = time.perf_counter()
+        dep = SV.deploy(model, base, dms, mode=mode, scheduler=scheduler,
+                        batch=LANES, bank_size=4, device=dev,
+                        base_dtype="int8")
+        torch.cuda.synchronize()
+        qs = dep.registry.quant_stats
+        assert qs["ratio"] < 0.3, qs
+        tokens[label], launches[label] = drive(
+            dep, cfg, label, n_req, budgets, time.perf_counter() - t0)
+        assert launches[label][RUN_KERNEL[run]] > 0, launches[label]
+        m = dep.metrics
+        if run == "continuous":
+            calls = m["prefills"] + m["decode_steps"]
+            assert launches[label]["bitlinear_axes_banked"] == \
+                7 * SERVE_LAYERS * calls, (launches[label], calls)
+            assert m["admitted"] == m["retired"] == n_req, m
+        same = sum(a == b for ra, rb in zip(tokens[label], tokens[run])
+                   for a, b in zip(ra, rb))
+        total = sum(len(r) for r in tokens[run])
+        print(f"{label}: quant_stats {qs}; hbm {dep.status()['hbm']}; "
+              f"int8 vs fp greedy agreement {same}/{total} tokens (printed, "
+              "not asserted: random weights at full width give near-tied "
+              "logits)")
+        if run == "continuous":
+            bank = dep.registry.bank
+            slots = [dep.registry.bank_resolve(v) for v in ("v0", "v1")]
+            vidx = torch.tensor([0, slots[0], slots[1], slots[0]],
+                                dtype=torch.int32, device=dev)
+            profile_decode(model, dep.registry.base_params, bank.tree, dev,
+                           f"{label} mixed (vidx {vidx.tolist()})",
+                           mean_step_ms(dep), vidx=vidx)
+            del bank
+        else:
+            params, overlay = dep.registry.resolve("v0")
+            profile_decode(model, params, overlay, dev, label,
+                           mean_step_ms(dep))
+            del params, overlay
+        del dep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, base, dms
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def kernel_entries(rows, launches, dl_launches) -> list:
+    """One JSON entry per kernel body: times summed over one unit of its
+    path, launches from the main-path run that drives it."""
+    units = {
+        "unpack_apply": (lambda r: True, "dense", "unpack_apply",
+                         f"one dense variant load: 7 stacks x (row, col), "
+                         f"L={SERVE_LAYERS}"),
+        "bitlinear_axes": (lambda r: r["m"] == LANES, "fused",
+                           "bitlinear_axes",
+                           "one layer's decode step: 7 projections at M=4"),
+        "bitlinear_axes_banked": (
+            lambda r: r["case"] == "M=4", "continuous",
+            "bitlinear_axes_banked",
+            "one layer's mixed decode step: 7 projections at M=4, "
+            f"vidx {BANK_VIDX} over a bank of 4 slots"),
+        "bitlinear": (lambda r: r["m"] == LANES and r["mode"] == "row",
+                      "deltalinear", "bitlinear",
+                      "7 projections at M=4, row mode"),
+    }
+    entries = []
+    for name, source, replaces in KERNELS:
+        q8 = name.endswith("_q8")
+        keep, run, counter, unit = units[name.removesuffix("_q8")]
+        entry = summary(name, source, replaces,
+                        [r for r in rows[name] if keep(r)],
+                        unit + (" (int8 base)" if q8 else " (fp32 base)"))
+        entry["shapes"] = rows[name]
+        if run == "deltalinear":
+            entry["launches"] = dl_launches["int8" if q8 else "fp"][counter]
+        else:
+            entry["launches"] = launches[run + (" int8" if q8 else "")][
+                counter]
+        assert entry["launches"] > 0, (name, entry["launches"])
+        entries.append(entry)
+    return entries
 
 
 def main() -> None:
@@ -537,32 +842,14 @@ def main() -> None:
 
     cfg = get_config(ARCH)
     timer = Timer(dev)
-    ua_rows, bl_rows, bk_rows = kernel_phase(cfg, dev, timer)
+    rows = kernel_phase(cfg, dev, timer)
     del timer
     torch.cuda.empty_cache()
     reference_phase(dev)
+    dl_launches = deltalinear_phase(cfg, dev)
     launches = serve_phase(dev)
-
-    ua = summary("unpack_apply", "src/repro_torch/csrc/unpack_apply.cu",
-                 "src/repro/kernels/unpack_apply.py:54", ua_rows,
-                 f"one dense variant load: 7 stacks x (row, col), "
-                 f"L={SERVE_LAYERS}")
-    ua["launches"] = launches["dense"]["unpack_apply"]
-    bl = summary("bitlinear_axes", "src/repro_torch/csrc/bitlinear_axes.cu",
-                 "src/repro/kernels/bitlinear.py:222",
-                 [r for r in bl_rows if r["m"] == LANES],
-                 "one layer's decode step: 7 projections at M=4")
-    bl["shapes"] = bl_rows
-    bl["launches"] = launches["fused"]["bitlinear_axes"]
-    bk = summary("bitlinear_axes_banked",
-                 "src/repro_torch/csrc/bitlinear_axes_banked.cu",
-                 "src/repro/kernels/bitlinear.py:178",
-                 [r for r in bk_rows if r["case"] == "M=4"],
-                 "one layer's mixed decode step: 7 projections at M=4, "
-                 f"vidx {BANK_VIDX} over a bank of 4 slots")
-    bk["shapes"] = bk_rows
-    bk["launches"] = launches["continuous"]["bitlinear_axes_banked"]
-    print(json.dumps({"kernels": [ua, bl, bk]}))
+    print(json.dumps({"kernels": kernel_entries(rows, launches,
+                                                dl_launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

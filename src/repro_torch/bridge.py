@@ -4,8 +4,10 @@ Both packages name parameters by the same flat dot-paths
 (``core/calibration.flatten_params``), so weights and delta models cross
 as ``{path: np.ndarray}`` dicts.  bf16 leaves cross as ``uint16`` bit
 patterns (numpy has no bf16 of its own); a numpy array whose dtype is named
-``bfloat16`` is accepted as well.  This module never imports JAX: the
-caller flattens the JAX side and hands numpy arrays over.
+``bfloat16`` is accepted as well.  An int8-quantized base leaf
+(``core/quantize.QuantWeight``) crosses as ``{"q": int8 array, "scale":
+fp16 array}``, its bytes and scale bits unchanged.  This module never
+imports JAX: the caller flattens the JAX side and hands numpy arrays over.
 
 DeltaModel exchange format::
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.core.calibration import (DeltaEntry, DeltaModel,
                                           flatten_params)
+from repro_torch.core.quantize import QuantWeight, is_quant
 
 
 def to_tensor(arr, device) -> torch.Tensor:
@@ -39,6 +42,22 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def to_leaf(a, device):
+    """One params leaf from the exchange format: an array -> tensor, a
+    ``{"q", "scale"}`` pair -> QuantWeight."""
+    if isinstance(a, dict):
+        return QuantWeight(q=to_tensor(a["q"], device),
+                           scale=to_tensor(a["scale"], device))
+    return to_tensor(a, device)
+
+
+def leaf_to_numpy(t):
+    """Inverse of :func:`to_leaf`."""
+    if is_quant(t):
+        return {"q": to_numpy(t.q), "scale": to_numpy(t.scale)}
+    return to_numpy(t)
+
+
 def nest(flat: dict) -> dict:
     """{dot-path -> leaf} -> nested dicts (the params tree layout)."""
     tree: dict = {}
@@ -52,13 +71,14 @@ def nest(flat: dict) -> dict:
 
 
 def params_from_numpy(flat: dict, device) -> dict:
-    """{path: np.ndarray} -> the port's nested params tree on ``device``."""
-    return nest({p: to_tensor(a, device) for p, a in flat.items()})
+    """{path: np.ndarray or quantized pair} -> the port's nested params
+    tree on ``device``."""
+    return nest({p: to_leaf(a, device) for p, a in flat.items()})
 
 
 def params_to_numpy(params) -> dict:
-    """The port's params tree -> {path: np.ndarray}."""
-    return {p: to_numpy(t) for p, t in flatten_params(params).items()}
+    """The port's params tree -> {path: np.ndarray or quantized pair}."""
+    return {p: leaf_to_numpy(t) for p, t in flatten_params(params).items()}
 
 
 def delta_model_from_numpy(d: dict, device) -> DeltaModel:

@@ -93,3 +93,43 @@ def reconstruct(packed: torch.Tensor, v: torch.Tensor, w_base: torch.Tensor,
     signs = unpack_signs(packed, w_base.shape[-1], dtype=torch.float32)
     vb = broadcast_scale(v.to(torch.float32), mode)
     return (vb * signs + w_base.to(torch.float32)).to(dtype)
+
+
+def delta_matmul(x: torch.Tensor, packed: torch.Tensor, v: torch.Tensor,
+                 w_base: torch.Tensor, mode: AxisMode) -> torch.Tensor:
+    """y = x @ Ŵᵀ without forming Ŵ, in x.dtype (the plain reference of the
+    fused GEMM; ``core/bitdelta.DeltaLinear`` apply mode "ref")::
+
+        row:    y = x @ W_bᵀ + (x @ Sᵀ) * v
+        col:    y = x @ W_bᵀ + (x * v) @ Sᵀ
+        scalar: y = x @ W_bᵀ + v * (x @ Sᵀ)
+    """
+    signs = unpack_signs(packed, w_base.shape[-1], dtype=x.dtype)
+    base = x @ w_base.T.to(x.dtype)
+    if mode == "row":
+        return base + (x @ signs.T) * v.to(x.dtype)
+    if mode == "col":
+        return base + (x * v.to(x.dtype)) @ signs.T
+    if mode == "scalar":
+        return base + v.to(x.dtype) * (x @ signs.T)
+    raise ValueError(mode)
+
+
+def artifact_bytes(d_out: int, d_in: int, mode: AxisMode) -> int:
+    """Bytes to store one compressed matrix: packed mask + fp16 vector."""
+    mask = d_out * d_in // PACK
+    if mode == "row":
+        vec = 2 * d_out
+    elif mode == "col":
+        vec = 2 * d_in
+    else:
+        vec = 2
+    return mask + vec
+
+
+def fp16_bytes(d_out: int, d_in: int) -> int:
+    return 2 * d_out * d_in
+
+
+def compression_ratio(d_out: int, d_in: int, mode: AxisMode) -> float:
+    return fp16_bytes(d_out, d_in) / artifact_bytes(d_out, d_in, mode)

@@ -8,8 +8,9 @@ a resident base model, in either residency mode.
   device as a ``models/delta_overlay`` tree; forward fuses it into each GEMM
   and no dense Ŵ is ever built.
 
-Both return byte accounting next to their result.  Mesh placements, async
-staging and incremental updates are not ported yet.
+Both take a full-precision base or an int8 one (``core/quantize``
+QuantWeight leaves) and return byte accounting next to their result.  Mesh
+placements, async staging and incremental updates are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,22 +20,32 @@ import torch
 
 from repro_torch.core.calibration import (DeltaModel, flatten_params,
                                           unflatten_like)
+from repro_torch.core.quantize import dequantize, is_quant
 from repro_torch.device import synchronize
 from repro_torch.tree import tree_leaves
 
 
-def _reconstruct_entry(entry, w_base: torch.Tensor, use_kernel: bool):
+def _reconstruct_entry(entry, w_base, use_kernel: bool):
     """Dense Ŵ from one (possibly stacked) entry.  The kernel path mirrors
     the JAX loader: one ``unpack_apply`` in row mode and one in col mode
-    over the whole stack, then a per-matrix select by ``use_row``."""
+    over the whole stack, then a per-matrix select by ``use_row``.
+
+    ``w_base`` may be a QuantWeight (int8 base): the kernel dequantizes in
+    the same pass and Ŵ lands in the scale's dtype (fp16).  The plain
+    branch dequantizes to that dtype first and reconstructs from it, as the
+    JAX loader does (one more fp16 rounding, kept for parity)."""
+    quant = is_quant(w_base)
     if use_kernel and not entry.scalar:
         from repro_torch.kernels import ops as K
+        odt = w_base.scale.dtype if quant else w_base.dtype
         w_r = K.unpack_apply(entry.packed, entry.v_row.to(torch.float32),
                              w_base, mode="row", out_dtype=torch.float32)
         w_c = K.unpack_apply(entry.packed, entry.v_col.to(torch.float32),
                              w_base, mode="col", out_dtype=torch.float32)
         return torch.where(entry.use_row[..., None, None], w_r,
-                           w_c).to(w_base.dtype)
+                           w_c).to(odt)
+    if quant:
+        w_base = dequantize(w_base, w_base.scale.dtype)
     return entry.reconstruct(w_base)
 
 

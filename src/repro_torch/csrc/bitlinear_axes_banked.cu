@@ -4,13 +4,15 @@
 // so rows naming it compute x[m] @ W_b^T, and the kernel reads W_b for them
 // without touching slot 0's sign plane or vectors.
 //
-// Replaces: src/repro/kernels/bitlinear.py, bitlinear_axes_banked_p (its
-// `_kernel_axes_banked` body).
+// Replaces: src/repro/kernels/bitlinear.py, bitlinear_axes_banked_p — its
+// `_kernel_axes_banked` body (fp32/bf16 W_b) and its `_kernel_axes_banked_q8`
+// body (int8 W_b with one fp16 scale per output row, shared by every slot).
 //
-// Bound on an H100 at the serving path's shapes (W_b fp32):
+// Bound on an H100 at the serving path's shapes:
 //   * decode, M = 4 lanes: bytes.  The function must stream W_b once (4 B per
-//     weight) plus the sign plane (1/8 B per weight) and vectors of each
-//     distinct non-zero slot the rows name, against 2*M = 8 flops per weight.
+//     weight of fp32, 1 B of int8) plus the sign plane (1/8 B per weight) and
+//     vectors of each distinct non-zero slot the rows name, against
+//     2*M = 8 flops per weight.
 //   * prefill, M = 4 lanes x 16 tokens = 64: operations (128 fp32 flops per
 //     weight on the CUDA cores against about 4.3 B).
 //
@@ -22,7 +24,9 @@
 //   * The TPU kernel pulls the whole bank block into VMEM on every grid step
 //     and forms a Ŵ per ROW (bm x bn x bk).  Here a block first loads its
 //     rows' slot indices and lists the distinct slots among them.  Per K step
-//     each thread loads its eight W_b values once, into registers, and writes
+//     each thread loads its eight W_b values once, into registers (an int8
+//     base is dequantized there, once, against the row's scale — the
+//     counterpart of the TPU kernel's one dequant per tile), and writes
 //     one shared-memory Ŵ tile per distinct slot: W_b +- (vr[s,n] + vc[s,k])
 //     from that slot's sign byte and vectors (the same fp32 values, one
 //     rounding, that the plain version forms), or W_b itself for slot 0.  The
@@ -36,6 +40,8 @@
 //   * A slot index outside [0, V) traps before any bank read: the launch
 //     fails with a CUDA error, as a device-side assert does in PyTorch.
 //     Nothing is clamped.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -53,11 +59,13 @@ __global__ void __launch_bounds__(NTHREADS) bitlinear_axes_banked_kernel(
     const TX* __restrict__ x, const int* __restrict__ vidx,
     const uint8_t* __restrict__ packed, const TV* __restrict__ vr,
     const TV* __restrict__ vc, const TW* __restrict__ wb,
-    float* __restrict__ y, int M, int N, int K, int V, int k_per_split) {
+    const __half* __restrict__ wsc, float* __restrict__ y, int M, int N, int K,
+    int V, int k_per_split) {
+  constexpr bool Q8 = std::is_same<TW, int8_t>::value;
   constexpr int TY = BM / TM;
   static_assert(TY * (BN / TN) == NTHREADS, "thread layout must cover the tile");
   __shared__ float xs[BK][BM + 1];
-  __shared__ float ws[DMAX * TILE];
+  __shared__ float wt[DMAX * TILE];
   __shared__ int row_slot[BM];   // bank slot of each row; -1 past M
   __shared__ int row_d[BM];      // the slot's index in dslots; -1 past M
   __shared__ int dslots[BM];     // distinct slots, in order of first use
@@ -106,6 +114,8 @@ __global__ void __launch_bounds__(NTHREADS) bitlinear_axes_banked_kernel(
   const int wk = (tid & 3) * 8;
   const int gn = n0 + wn;
   const bool n_ok = gn < N;
+  float wscale = 1.f;
+  if constexpr (Q8) wscale = n_ok ? __half2float(wsc[gn]) : 0.f;
 
   float acc[TM][TN];
 #pragma unroll
@@ -136,6 +146,7 @@ __global__ void __launch_bounds__(NTHREADS) bitlinear_axes_banked_kernel(
     float w8[8];
     if (w_ok) {
       load8(wb + (int64_t)gn * K + gk, w8);
+      if constexpr (Q8) dequant8(w8, wscale);   // once, for every slot
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) w8[j] = 0.f;
@@ -161,7 +172,7 @@ __global__ void __launch_bounds__(NTHREADS) bitlinear_axes_banked_kernel(
 #pragma unroll
           for (int j = 0; j < 8; ++j) o[j] = w8[j];
         }
-        float* tile = ws + t * TILE;
+        float* tile = wt + t * TILE;
 #pragma unroll
         for (int j = 0; j < 8; ++j) tile[(wk + j) * WSTRIDE + wn] = o[j];
       }
@@ -177,7 +188,7 @@ __global__ void __launch_bounds__(NTHREADS) bitlinear_axes_banked_kernel(
       }
       if (uniform) {
         if (tt[0] >= 0) {
-          const float* tile = ws + tt[0] * TILE;
+          const float* tile = wt + tt[0] * TILE;
 #pragma unroll
           for (int k = 0; k < BK; ++k) {
             float a[TM], b[TN];
@@ -200,7 +211,7 @@ __global__ void __launch_bounds__(NTHREADS) bitlinear_axes_banked_kernel(
           for (int i = 0; i < TM; ++i) {
             if (tt[i] < 0) continue;
             const float a = xs[k][ty * TM + i];
-            const float* row = ws + tt[i] * TILE + k * WSTRIDE + tx;
+            const float* row = wt + tt[i] * TILE + k * WSTRIDE + tx;
 #pragma unroll
             for (int j = 0; j < TN; ++j)
               acc[i][j] = fmaf(a, row[(BN / TN) * j], acc[i][j]);
@@ -231,6 +242,7 @@ struct Args {
   const void* vr;
   const void* vc;
   const void* wb;
+  const void* ws;      // int8 base: (N,) fp16 row scales; else nullptr
   float* y;
   float* workspace;
   int M, N, K, V, splits, k_per_split;
@@ -245,8 +257,9 @@ void launch_tiles(const Args& a) {
       <<<grid, NTHREADS, 0, a.stream>>>(
           static_cast<const TX*>(a.x), a.vidx,
           static_cast<const uint8_t*>(a.packed), static_cast<const TV*>(a.vr),
-          static_cast<const TV*>(a.vc), static_cast<const TW*>(a.wb), dst,
-          a.M, a.N, a.K, a.V, a.k_per_split);
+          static_cast<const TV*>(a.vc), static_cast<const TW*>(a.wb),
+          static_cast<const __half*>(a.ws), dst, a.M, a.N, a.K, a.V,
+          a.k_per_split);
 }
 
 template <typename TX, typename TV, typename TW>
@@ -261,6 +274,7 @@ template <typename TX, typename TV>
 bool launch_w(const Args& a, int wb_dtype) {
   if (wb_dtype == DT_F32) launch_m<TX, TV, float>(a);
   else if (wb_dtype == DT_BF16) launch_m<TX, TV, __nv_bfloat16>(a);
+  else if (wb_dtype == DT_I8) launch_m<TX, TV, int8_t>(a);
   else return false;
   return true;
 }
@@ -275,18 +289,20 @@ bool launch_v(const Args& a, int v_dtype, int wb_dtype) {
 }  // namespace
 
 // x (M, K) fp32|bf16; vidx (M,) int32 in [0, V); packed (V, N, K/8) u8;
-// vr (V, N), vc (V, K) fp16|fp32 with slot 0 all zero; wb (N, K) fp32|bf16;
-// y (M, N) fp32.  With splits > 1, workspace holds (splits, M, N) fp32
-// partials and k_per_split is a multiple of 32.  All contiguous; x, vc and
-// wb 16-byte aligned; K a multiple of 8.  Returns cudaGetLastError() after
-// the launches.
+// vr (V, N), vc (V, K) fp16|fp32 with slot 0 all zero; wb (N, K)
+// fp32|bf16|int8; ws (N,) fp16 with an int8 wb, else nullptr; y (M, N) fp32.
+// With splits > 1, workspace holds (splits, M, N) fp32 partials and
+// k_per_split is a multiple of 32.  All contiguous; x and vc 16-byte
+// aligned, wb 16-byte aligned (8-byte for int8); K a multiple of 8.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int repro_bitlinear_axes_banked(
     const void* x, int x_dtype, const void* vidx, const void* packed,
     const void* vr, const void* vc, int v_dtype, const void* wb, int wb_dtype,
-    void* y, void* workspace, int M, int N, int K, int V, int splits,
-    int k_per_split, void* stream) {
+    const void* ws, void* y, void* workspace, int M, int N, int K, int V,
+    int splits, int k_per_split, void* stream) {
   if (M == 0 || N == 0) return 0;
-  Args a{x, static_cast<const int*>(vidx), packed, vr, vc, wb,
+  if ((wb_dtype == DT_I8) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
+  Args a{x, static_cast<const int*>(vidx), packed, vr, vc, wb, ws,
          static_cast<float*>(y), static_cast<float*>(workspace), M, N, K, V,
          splits, k_per_split, static_cast<cudaStream_t>(stream)};
   bool ok;

@@ -1,5 +1,4 @@
-"""CUDA kernels: fused on-the-fly delta GEMMs (port of the
-``bitlinear_axes_p`` and ``bitlinear_axes_banked_p`` parts of
+"""CUDA kernels: fused on-the-fly delta GEMMs (port of
 ``repro.kernels.bitlinear``).
 
 * ``bitlinear_axes_p`` — y = x @ ((v_row ⊕ v_col) ⊙ unpack(B) + W_b)ᵀ for
@@ -8,15 +7,19 @@
 * ``bitlinear_axes_banked_p`` — the same with a bank of V variants and one
   slot index per row (source ``csrc/bitlinear_axes_banked.cu``): every
   overlaid projection of the continuous scheduler's mixed batches.
+* ``bitlinear_p`` — y = x @ (v ⊙ unpack(B) + W_b)ᵀ with one static-mode
+  vector v (source ``csrc/bitlinear.cu``): ``core/bitdelta.DeltaLinear``
+  in apply mode "onfly".
 
-The dense Ŵ is built tile by tile in shared memory and never written to
-device memory.  ``plain`` and ``plain_banked`` are the plain PyTorch
-versions of the two functions.
+Each takes W_b in fp32, bf16 or int8; an int8 W_b comes with ``w_scale``,
+one fp16 scale per output row (the int8 base of ``core/quantize``), and is
+dequantized in the tile pass.  The dense Ŵ is built tile by tile in shared
+memory and never written to device memory.  ``plain``, ``plain_banked`` and
+``plain_static`` are the plain PyTorch versions of the three functions.
 
-``launches`` and ``banked_launches`` count kernel launches (one per call;
-a split-K call's reduction pass belongs to the same launch).
-
-The static-mode and int8-base GEMMs of the JAX module are not ported yet.
+``launches``, ``banked_launches`` and ``static_launches`` count kernel
+launches (one per call; a split-K call's reduction pass belongs to the same
+launch).
 """
 from __future__ import annotations
 
@@ -28,14 +31,19 @@ from repro_torch.kernels import build as B
 from repro_torch.kernels.ref import bitlinear_axes_ref as plain  # noqa: F401
 from repro_torch.kernels.ref import \
     bitlinear_axes_banked_ref as plain_banked  # noqa: F401
+from repro_torch.kernels.ref import bitlinear_ref as plain_static  # noqa: F401
 
 PACK = 8
-BLOCK_N = 64        # csrc/bitlinear_axes{,_banked}.cu BN
-BLOCK_K = 32        # csrc/bitlinear_axes{,_banked}.cu BK
+BLOCK_N = 64        # csrc/delta_gemm.cuh, csrc/bitlinear_axes_banked.cu BN
+BLOCK_K = 32        # csrc/delta_gemm.cuh, csrc/bitlinear_axes_banked.cu BK
 TARGET_BLOCKS = 264  # two blocks per SM of an H100 (132 SMs)
+# alignment the kernels' vector loads need, per W_b dtype (eight elements
+# per load: two 16-byte loads of fp32, one of bf16, one 8-byte load of int8)
+W_ALIGN = {torch.float32: 16, torch.bfloat16: 16, torch.int8: 8}
 
 launches = 0
 banked_launches = 0
+static_launches = 0
 
 
 def block_m(m: int) -> int:
@@ -54,11 +62,36 @@ def split_k(m: int, n: int, k: int) -> tuple[int, int]:
     return math.ceil(ktiles / per), per * BLOCK_K
 
 
-def _check(name: str, x: torch.Tensor, w_base: torch.Tensor,
+def check_base(name: str, w_base: torch.Tensor, w_scale, n: int) -> None:
+    """What every kernel refuses of a base weight (N, ...): a dtype it has
+    no instantiation for, an int8 payload without its (N,) fp16 scale (or a
+    scale beside a full-precision one), a payload off its dtype's alignment
+    (``W_ALIGN``), a non-contiguous scale or one on another device.  A
+    misaligned payload raises; it is never copied."""
+    if w_base.dtype not in W_ALIGN:
+        raise ValueError(f"{name}: unsupported w_base dtype {w_base.dtype}")
+    if (w_base.dtype == torch.int8) != (w_scale is not None):
+        raise ValueError(f"{name}: an int8 w_base needs its w_scale and a "
+                         f"{w_base.dtype} one takes none")
+    if w_base.data_ptr() % W_ALIGN[w_base.dtype]:
+        raise ValueError(f"{name}: {w_base.dtype} w_base must be "
+                         f"{W_ALIGN[w_base.dtype]}-byte aligned")
+    if w_scale is not None and (
+            tuple(w_scale.shape) != (n,) or w_scale.dtype != torch.float16
+            or not w_scale.is_contiguous()
+            or w_scale.device != w_base.device):
+        raise ValueError(f"{name}: w_scale must be a contiguous ({n},) "
+                         f"fp16 tensor beside w_base, got "
+                         f"{tuple(w_scale.shape)} {w_scale.dtype} on "
+                         f"{w_scale.device}")
+
+
+def _check(name: str, x: torch.Tensor, w_base: torch.Tensor, w_scale,
            vec: torch.Tensor, ops: tuple) -> None:
-    """What both GEMM wrappers refuse: operands off one CUDA device, K not
+    """What the GEMM wrappers refuse: operands off one CUDA device, K not
     a multiple of 8, dtypes the kernels have no instantiation for,
-    non-contiguous operands, x or w_base off 16-byte alignment."""
+    non-contiguous operands, x off 16-byte alignment, and what
+    ``check_base`` refuses of the base."""
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in ops):
         raise ValueError(f"{name} needs every operand on one CUDA device, "
@@ -66,14 +99,18 @@ def _check(name: str, x: torch.Tensor, w_base: torch.Tensor,
     if x.shape[1] % PACK:
         raise ValueError(f"K {x.shape[1]} is not a multiple of {PACK}")
     if x.dtype not in (torch.float32, torch.bfloat16) \
-            or w_base.dtype not in (torch.float32, torch.bfloat16) \
             or vec.dtype not in (torch.float16, torch.float32):
-        raise ValueError(f"unsupported dtypes x={x.dtype} w_base="
-                         f"{w_base.dtype} vectors={vec.dtype}")
+        raise ValueError(f"unsupported dtypes x={x.dtype} "
+                         f"vectors={vec.dtype}")
     if not all(t.is_contiguous() for t in (x, *ops)):
         raise ValueError(f"{name} operands must be contiguous")
-    if x.data_ptr() % 16 or w_base.data_ptr() % 16:
-        raise ValueError("x and w_base must be 16-byte aligned")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
+    check_base(name, w_base, w_scale, w_base.shape[0])
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _outputs(m: int, n: int, k_dim: int, dev) -> tuple:
@@ -87,15 +124,15 @@ def _outputs(m: int, n: int, k_dim: int, dev) -> tuple:
 
 def bitlinear_axes_p(x: torch.Tensor, packed: torch.Tensor,
                      v_row: torch.Tensor, v_col: torch.Tensor,
-                     w_base: torch.Tensor) -> torch.Tensor:
+                     w_base: torch.Tensor, w_scale=None) -> torch.Tensor:
     """x (M, K) fp32|bf16 · packed (N, K/8) uint8 · v_row (N,) · v_col (K,)
-    fp16|fp32 · w_base (N, K) fp32|bf16 -> y (M, N) fp32.  Every operand on
-    one CUDA device."""
+    fp16|fp32 · w_base (N, K) fp32|bf16|int8 (int8 with w_scale (N,) fp16)
+    -> y (M, N) fp32.  Every operand on one CUDA device."""
     global launches
     m, k_dim = x.shape
     n = w_base.shape[0]
     dev = x.device
-    _check("bitlinear_axes_p", x, w_base, v_row,
+    _check("bitlinear_axes_p", x, w_base, w_scale, v_row,
            (packed, v_row, v_col, w_base))
     if tuple(w_base.shape) != (n, k_dim) or tuple(packed.shape) != (
             n, k_dim // PACK) or packed.dtype != torch.uint8:
@@ -110,9 +147,9 @@ def bitlinear_axes_p(x: torch.Tensor, packed: torch.Tensor,
     rc = B.library().repro_bitlinear_axes(
         x.data_ptr(), B.DTYPE_CODES[x.dtype], packed.data_ptr(),
         v_row.data_ptr(), v_col.data_ptr(), B.DTYPE_CODES[v_row.dtype],
-        w_base.data_ptr(), B.DTYPE_CODES[w_base.dtype], y.data_ptr(),
-        None if work is None else work.data_ptr(), m, n, k_dim, splits,
-        k_per_split, B.stream_handle(dev))
+        w_base.data_ptr(), B.DTYPE_CODES[w_base.dtype], _ptr(w_scale),
+        y.data_ptr(), _ptr(work), m, n, k_dim, splits, k_per_split,
+        B.stream_handle(dev))
     B.check(rc, "bitlinear_axes")
     launches += 1
     return y
@@ -120,12 +157,12 @@ def bitlinear_axes_p(x: torch.Tensor, packed: torch.Tensor,
 
 def bitlinear_axes_banked_p(x: torch.Tensor, vidx: torch.Tensor,
                             packed: torch.Tensor, v_row: torch.Tensor,
-                            v_col: torch.Tensor,
-                            w_base: torch.Tensor) -> torch.Tensor:
+                            v_col: torch.Tensor, w_base: torch.Tensor,
+                            w_scale=None) -> torch.Tensor:
     """x (M, K) fp32|bf16 · vidx (M,) int32 · packed (V, N, K/8) uint8 ·
-    v_row (V, N) · v_col (V, K) fp16|fp32 · w_base (N, K) fp32|bf16 ->
-    y (M, N) fp32; row m computes against bank slot vidx[m].  Every operand
-    on one CUDA device.
+    v_row (V, N) · v_col (V, K) fp16|fp32 · w_base (N, K) fp32|bf16|int8
+    (int8 with w_scale (N,) fp16) -> y (M, N) fp32; row m computes against
+    bank slot vidx[m].  Every operand on one CUDA device.
 
     Slot 0 is the base and must hold zero vectors (the overlay bank keeps it
     so): the kernel serves its rows from W_b alone.  A vidx outside [0, V)
@@ -136,7 +173,7 @@ def bitlinear_axes_banked_p(x: torch.Tensor, vidx: torch.Tensor,
     n = w_base.shape[0]
     nbank = packed.shape[0]
     dev = x.device
-    _check("bitlinear_axes_banked_p", x, w_base, v_row,
+    _check("bitlinear_axes_banked_p", x, w_base, w_scale, v_row,
            (vidx, packed, v_row, v_col, w_base))
     if tuple(w_base.shape) != (n, k_dim) or tuple(packed.shape) != (
             nbank, n, k_dim // PACK) or packed.dtype != torch.uint8:
@@ -158,9 +195,43 @@ def bitlinear_axes_banked_p(x: torch.Tensor, vidx: torch.Tensor,
         x.data_ptr(), B.DTYPE_CODES[x.dtype], vidx.data_ptr(),
         packed.data_ptr(), v_row.data_ptr(), v_col.data_ptr(),
         B.DTYPE_CODES[v_row.dtype], w_base.data_ptr(),
-        B.DTYPE_CODES[w_base.dtype], y.data_ptr(),
-        None if work is None else work.data_ptr(), m, n, k_dim, nbank,
-        splits, k_per_split, B.stream_handle(dev))
+        B.DTYPE_CODES[w_base.dtype], _ptr(w_scale), y.data_ptr(),
+        _ptr(work), m, n, k_dim, nbank, splits, k_per_split,
+        B.stream_handle(dev))
     B.check(rc, "bitlinear_axes_banked")
     banked_launches += 1
+    return y
+
+
+def bitlinear_p(x: torch.Tensor, packed: torch.Tensor, v2d: torch.Tensor,
+                w_base: torch.Tensor, w_scale=None) -> torch.Tensor:
+    """x (M, K) fp32|bf16 · packed (N, K/8) uint8 · v2d (N, 1) | (1, K) |
+    (1, 1) fp16|fp32 (row, col or scalar mode) · w_base (N, K)
+    fp32|bf16|int8 (int8 with w_scale (N,) fp16) -> y (M, N) fp32.  Every
+    operand on one CUDA device."""
+    global static_launches
+    m, k_dim = x.shape
+    n = w_base.shape[0]
+    dev = x.device
+    _check("bitlinear_p", x, w_base, w_scale, v2d, (packed, v2d, w_base))
+    if tuple(w_base.shape) != (n, k_dim) or tuple(packed.shape) != (
+            n, k_dim // PACK) or packed.dtype != torch.uint8:
+        raise ValueError(f"shapes x{tuple(x.shape)} packed{tuple(packed.shape)}"
+                         f" w_base{tuple(w_base.shape)} do not match")
+    vn, vk = v2d.shape
+    if vn not in (1, n) or vk not in (1, k_dim) or (vn > 1 and vk > 1):
+        raise ValueError(f"v2d {tuple(v2d.shape)} is not (N, 1), (1, K) or "
+                         f"(1, 1) for N={n}, K={k_dim}")
+    v32 = v2d.to(torch.float32)
+    # the scale is read as v[n*vs_n + k*vs_k]; a broadcast dim strides 0
+    vs_n = 1 if vn > 1 else 0
+    vs_k = 1 if vk > 1 else 0
+    splits, k_per_split, y, work = _outputs(m, n, k_dim, dev)
+    rc = B.library().repro_bitlinear(
+        x.data_ptr(), B.DTYPE_CODES[x.dtype], packed.data_ptr(),
+        v32.data_ptr(), vs_n, vs_k, w_base.data_ptr(),
+        B.DTYPE_CODES[w_base.dtype], _ptr(w_scale), y.data_ptr(), _ptr(work),
+        m, n, k_dim, splits, k_per_split, B.stream_handle(dev))
+    B.check(rc, "bitlinear")
+    static_launches += 1
     return y

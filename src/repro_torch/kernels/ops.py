@@ -3,8 +3,9 @@
 Each wrapper dispatches on where its tensors lie: CUDA tensors launch the
 hand-written kernel (or the wrapper raises — there is no fallback), CPU
 tensors take the plain PyTorch version of ``kernels/ref.py``.  Mode
-handling (the per-axis ``v`` reshape) and the flattening of leading batch
-dims live here, shared by both routes.
+handling (the per-axis ``v`` reshape), the flattening of leading batch
+dims and the split of an int8 base into payload and scale
+(``_unwrap_quant``) live here, shared by both routes.
 
 ``plain_versions()`` is for comparisons only: inside it the wrappers run
 the plain version on any device, so a run can be held against the same
@@ -17,6 +18,7 @@ import math
 
 import torch
 
+from repro_torch.core.quantize import is_quant
 from repro_torch.kernels import bitlinear as _bl
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import unpack_apply as _ua
@@ -36,8 +38,10 @@ def plain_versions():
         _force_plain = prev
 
 
-def _use_kernel(*tensors: torch.Tensor) -> bool:
-    devices = {t.device for t in tensors}
+def _use_kernel(*tensors) -> bool:
+    """Whether the operands (None entries ignored: an absent scale) take
+    the kernel; they must lie on one device."""
+    devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f"operands lie on several devices: {devices}")
     dev = devices.pop()
@@ -46,6 +50,16 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel and no plain version for device {dev}")
+
+
+def _unwrap_quant(w):
+    """Split a base-weight operand into (payload, scale or None).  An int8
+    base arrives as a ``core/quantize.QuantWeight``; a full-precision base
+    passes through with no scale.  Every wrapper routes its weight operand here, so both base
+    dtypes share one code path."""
+    if is_quant(w):
+        return w.q, w.scale
+    return w, None
 
 
 def _v2d(v: torch.Tensor, mode: str, lead: tuple, d_out: int,
@@ -66,37 +80,62 @@ def _v2d(v: torch.Tensor, mode: str, lead: tuple, d_out: int,
     return v.reshape(shape)
 
 
-def unpack_apply(packed: torch.Tensor, v: torch.Tensor, w_base: torch.Tensor,
+def unpack_apply(packed: torch.Tensor, v: torch.Tensor, w_base,
                  mode: str = "row", out_dtype=None) -> torch.Tensor:
     """Ŵ = v ⊙ unpack(B) + W_b (the loader's dense reconstruction).
 
     ``w_base`` may carry leading stacked dims (layers); ``packed`` and ``v``
-    carry the same ones.  One kernel launch covers the whole stack."""
-    out_dtype = out_dtype or w_base.dtype
-    *lead, d_out, d_in = w_base.shape
+    carry the same ones.  One kernel launch covers the whole stack.
+    ``w_base`` may be a QuantWeight (int8 base): the kernel dequantizes in
+    the same pass and the default output dtype is the scale's (fp16)."""
+    wq, ws = _unwrap_quant(w_base)
+    out_dtype = out_dtype or (ws.dtype if ws is not None else wq.dtype)
+    *lead, d_out, d_in = wq.shape
     v2d = _v2d(v, mode, tuple(lead), d_out, d_in)
-    if _use_kernel(packed, v, w_base):
-        return _ua.unpack_apply_p(packed, v2d, w_base, out_dtype)
-    return _ref.unpack_apply_ref(packed, v, w_base, mode, dtype=out_dtype)
+    if _use_kernel(packed, v, wq, ws):
+        return _ua.unpack_apply_p(packed, v2d, wq, out_dtype, w_scale=ws)
+    return _ref.unpack_apply_ref(packed, v, wq, mode, dtype=out_dtype,
+                                 w_scale=ws)
+
+
+def bitlinear(x: torch.Tensor, packed: torch.Tensor, v: torch.Tensor,
+              w_base, mode: str = "row") -> torch.Tensor:
+    """Static-mode fused y = x @ (v ⊙ unpack(B) + W_b)ᵀ with one per-axis
+    vector v ((N,) row, (K,) col or () scalar, by ``mode``).  x may carry
+    leading batch dims (flattened into M); ``w_base`` may be a QuantWeight;
+    fp32 accumulation, result in x.dtype."""
+    wq, ws = _unwrap_quant(w_base)
+    *lead, k_dim = x.shape
+    n = wq.shape[0]
+    x2 = x.reshape(-1, k_dim)
+    v2d = _v2d(v, mode, (), n, k_dim)
+    if _use_kernel(x, packed, v, wq, ws):
+        y = _bl.bitlinear_p(x2.contiguous(), packed, v2d, wq,
+                            w_scale=ws).to(x.dtype)
+    else:
+        y = _ref.bitlinear_ref(x2, packed, v, wq, mode, w_scale=ws)
+    return y.reshape(*lead, n)
 
 
 def bitlinear_axes(x: torch.Tensor, packed: torch.Tensor,
                    v_row: torch.Tensor, v_col: torch.Tensor,
-                   w_base: torch.Tensor) -> torch.Tensor:
+                   w_base) -> torch.Tensor:
     """Fused y = x @ ((v_row ⊕ v_col) ⊙ unpack(B) + W_b)ᵀ.
 
     v[n,k] = v_row[n] + v_col[k]; the overlay zeroes the unselected axis, so
     one kernel covers row-, col- and scalar-scaled deltas.  x may carry
-    leading batch dims (flattened into M); fp32 accumulation, result in
-    x.dtype."""
+    leading batch dims (flattened into M); ``w_base`` may be a QuantWeight;
+    fp32 accumulation, result in x.dtype."""
+    wq, ws = _unwrap_quant(w_base)
     *lead, k_dim = x.shape
-    n = w_base.shape[0]
+    n = wq.shape[0]
     x2 = x.reshape(-1, k_dim)
-    if _use_kernel(x, packed, v_row, v_col, w_base):
-        y = _bl.bitlinear_axes_p(x2.contiguous(), packed, v_row, v_col,
-                                 w_base).to(x.dtype)
+    if _use_kernel(x, packed, v_row, v_col, wq, ws):
+        y = _bl.bitlinear_axes_p(x2.contiguous(), packed, v_row, v_col, wq,
+                                 w_scale=ws).to(x.dtype)
     else:
-        y = _ref.bitlinear_axes_ref(x2, packed, v_row, v_col, w_base)
+        y = _ref.bitlinear_axes_ref(x2, packed, v_row, v_col, wq,
+                                    w_scale=ws)
     return y.reshape(*lead, n)
 
 
@@ -115,24 +154,25 @@ def flatten_vidx(variant_idx: torch.Tensor, lead: tuple) -> torch.Tensor:
 
 def bitlinear_axes_banked(x: torch.Tensor, variant_idx: torch.Tensor,
                           packed: torch.Tensor, v_row: torch.Tensor,
-                          v_col: torch.Tensor,
-                          w_base: torch.Tensor) -> torch.Tensor:
+                          v_col: torch.Tensor, w_base) -> torch.Tensor:
     """Mixed-variant fused y: row m of x computes against bank slot
     ``variant_idx[m]`` of a stacked overlay (slot 0 = base, zero delta).
 
     packed (V, N, K/8) · v_row (V, N) · v_col (V, K) stack the per-variant
     overlay leaves along a leading bank axis; ``variant_idx`` is integer
     with shape x.shape[:-1] or (x.shape[0],).  x may carry leading batch
-    dims; fp32 accumulation, result in x.dtype."""
+    dims; ``w_base`` may be a QuantWeight (one dequant serves every slot);
+    fp32 accumulation, result in x.dtype."""
+    wq, ws = _unwrap_quant(w_base)
     *lead, k_dim = x.shape
-    n = w_base.shape[0]
+    n = wq.shape[0]
     x2 = x.reshape(-1, k_dim)
     vidx = flatten_vidx(variant_idx, tuple(lead))
-    if _use_kernel(x, variant_idx, packed, v_row, v_col, w_base):
+    if _use_kernel(x, variant_idx, packed, v_row, v_col, wq, ws):
         y = _bl.bitlinear_axes_banked_p(x2.contiguous(), vidx.contiguous(),
-                                        packed, v_row, v_col,
-                                        w_base).to(x.dtype)
+                                        packed, v_row, v_col, wq,
+                                        w_scale=ws).to(x.dtype)
     else:
         y = _ref.bitlinear_axes_banked_ref(x2, vidx, packed, v_row, v_col,
-                                           w_base)
+                                           wq, w_scale=ws)
     return y.reshape(*lead, n)

@@ -32,6 +32,17 @@ def unpack_apply_ref(packed: torch.Tensor, v: torch.Tensor,
     return D.reconstruct(packed, v, _deq(w_base, w_scale), mode, dtype=dtype)
 
 
+def bitlinear_ref(x: torch.Tensor, packed: torch.Tensor, v: torch.Tensor,
+                  w_base: torch.Tensor, mode: str,
+                  w_scale=None) -> torch.Tensor:
+    """Static-mode fused GEMM y = x @ (v ⊙ unpack(B) + W_b)ᵀ, computed the
+    dense way (reconstruct, then one product) in fp32.  x (M, K) ·
+    v (N,) | (K,) | () by ``mode`` -> (M, N) in x.dtype."""
+    w_hat = D.reconstruct(packed, v, _deq(w_base, w_scale), mode,
+                          dtype=torch.float32)
+    return (x.to(torch.float32) @ w_hat.T).to(x.dtype)
+
+
 def bitlinear_axes_ref(x: torch.Tensor, packed: torch.Tensor,
                        v_row: torch.Tensor, v_col: torch.Tensor,
                        w_base: torch.Tensor, w_scale=None) -> torch.Tensor:

@@ -13,8 +13,11 @@ variant (the ``unpack_apply`` kernel), ``--mode fused`` keeps it packed
 (the ``bitlinear_axes`` kernel in every overlaid projection).
 ``--scheduler continuous`` serves mixed-variant batches from an overlay
 bank of ``variants + 2`` slots (the ``bitlinear_axes_banked`` kernel) and
-needs ``--mode fused``.  ``--num-layers`` cuts depth only; ``--reduced``
-selects the small test widths.  Runs on ``--device`` (default cuda).
+needs ``--mode fused``.  ``--base-dtype int8`` holds the base's target
+matrices as int8 plus fp16 per-channel scales (the kernels dequantize in
+their tile pass) and prints the quantized bytes.  ``--num-layers`` cuts
+depth only; ``--reduced`` selects the small test widths.  Runs on
+``--device`` (default cuda).
 """
 from __future__ import annotations
 
@@ -71,14 +74,16 @@ def build_variants(cfg, n_variants: int, device, seed: int = 0):
 
 
 def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
-           device, max_resident: int = 0, bank_size: int = 0):
+           device, max_resident: int = 0, bank_size: int = 0,
+           base_dtype: str = "fp"):
     """A Deployment over ``base`` with ``dms`` published as v0..v{n-1}."""
     dep = Deployment(model, base, mode=mode, scheduler=scheduler,
                      batch_size=batch, prompt_len=PROMPT_LEN,
                      max_len=MAX_LEN,
                      max_resident=max_resident or (8 if mode == "fused"
                                                    else 2),
-                     bank_size=bank_size or len(dms) + 2, device=device)
+                     bank_size=bank_size or len(dms) + 2, device=device,
+                     base_dtype=base_dtype)
     for i, dm in enumerate(dms):
         dep.publish(f"v{i}", dm)
     return dep
@@ -86,13 +91,14 @@ def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
 
 def build_deployment(cfg, *, mode: str, n_variants: int, batch: int,
                      device, scheduler: str = "group", seed: int = 0,
-                     max_resident: int = 0):
+                     max_resident: int = 0, base_dtype: str = "fp"):
     """Base model (seeded) + ``n_variants`` published synthetic variants
     v0..v{n-1}, behind a Deployment with a bank of ``n_variants + 2``
     slots."""
     model, base, dms = build_variants(cfg, n_variants, device, seed)
     return deploy(model, base, dms, mode=mode, scheduler=scheduler,
-                  batch=batch, device=device, max_resident=max_resident)
+                  batch=batch, device=device, max_resident=max_resident,
+                  base_dtype=base_dtype)
 
 
 def submit_requests(dep, cfg, n_requests: int, new_tokens,
@@ -126,6 +132,9 @@ def main(argv=None):
                     help="continuous: mixed-variant lanes over the overlay "
                          "bank (needs --mode fused); group: one variant "
                          "per batch")
+    ap.add_argument("--base-dtype", choices=("fp", "int8"), default="fp",
+                    help="int8: target matrices held as int8 + fp16 "
+                         "per-channel scales")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.scheduler == "continuous" and args.mode != "fused":
@@ -136,11 +145,20 @@ def main(argv=None):
     cfg = make_config(args.arch, args.reduced, args.num_layers)
     dep = build_deployment(cfg, mode=args.mode, n_variants=args.variants,
                            batch=args.batch, device=device,
-                           scheduler=args.scheduler)
+                           scheduler=args.scheduler,
+                           base_dtype=args.base_dtype)
+    if args.base_dtype == "int8":
+        qs = dep.registry.quant_stats
+        print(f"int8 base: {qs['targets']} targets, "
+              f"{qs['fp_bytes']} -> {qs['int8_bytes']} bytes "
+              f"(ratio {qs['ratio']:.3f})")
     submit_requests(dep, cfg, args.requests, args.new_tokens)
     dep.drain()
     print("metrics:", dep.metrics)
     print("registry:", dep.stats)
+    hbm = dep.status()["hbm"]
+    print("hbm:", {k: hbm[k] for k in ("base_dtype", "base_bytes",
+                                       "bank_bytes")})
     dep.close()
 
 

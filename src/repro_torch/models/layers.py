@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quantize import is_quant
 from repro_torch.models.param import Param, dense_init, ones_init
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -32,8 +33,16 @@ def linear(x: torch.Tensor, w: torch.Tensor, ov=None,
 
     With ``vidx`` (per-batch-row variant indices, 0 = base) the overlay
     entry is BANKED — leaves carry a leading bank axis and every row fuses
-    its own variant's delta in one mixed-variant GEMM."""
+    its own variant's delta in one mixed-variant GEMM.
+
+    ``w`` may be a ``core/quantize.QuantWeight`` (int8 base, one fp16 scale
+    per output channel).  Without an overlay the product factors exactly,
+    x @ Ŵᵀ = (x @ qᵀ) ⊙ scale, as the JAX package computes it outside any
+    kernel; overlay paths hand the QuantWeight to the kernels, which
+    dequantize in the tile pass."""
     if ov is None:
+        if is_quant(w):
+            return (x @ w.q.T.to(x.dtype)) * w.scale.to(x.dtype)
         return x @ w.T.to(x.dtype)
     from repro_torch.kernels import ops as K
     if vidx is None:

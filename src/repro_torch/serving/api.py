@@ -14,6 +14,8 @@ no store.  The deployment runs on ``device`` (default ``cuda``); the base
 params are moved there.  ``scheduler="continuous"`` (the default) serves
 mixed-variant batches from the overlay bank and needs ``mode="fused"``;
 ``scheduler="group"`` serves one variant per batch, dense or fused.
+``base_dtype="int8"`` keeps the base's target matrices as int8 plus fp16
+per-channel scales (``core/quantize``).
 """
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ class Deployment:
     def __init__(self, model, base_params, *, mode: str = "fused",
                  scheduler: str = "continuous", batch_size: int = 4,
                  prompt_len: int = 32, max_len: int = 128,
-                 bank_size: int = 8, max_resident: int = 8, device=None):
+                 bank_size: int = 8, max_resident: int = 8, device=None,
+                 base_dtype: str = "fp"):
+        if base_dtype not in ("fp", "int8"):
+            raise ValueError(f"unknown base dtype {base_dtype!r}")
         if scheduler == "continuous" and mode != "fused":
             # the continuous scheduler admits through the overlay bank,
             # which is fused-only: accepting mode="dense" here would
@@ -45,9 +50,11 @@ class Deployment:
         self.device = resolve_device(device)
         base_params = tree_map(lambda t: t.to(self.device), base_params)
         self.model = model
+        # the registry fingerprints the fp base, then quantizes it
         self.registry = VariantRegistry(base_params,
                                         max_resident=max_resident, mode=mode,
-                                        bank_size=bank_size)
+                                        bank_size=bank_size,
+                                        base_dtype=base_dtype)
         self.engine = ServingEngine(model, self.registry,
                                     batch_size=batch_size,
                                     prompt_len=prompt_len, max_len=max_len,

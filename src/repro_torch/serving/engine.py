@@ -141,13 +141,22 @@ class ServingEngine:
             r = self.request(rid)
             return "unknown" if r is None else r.status
         n = self.metrics["ttft_count"]
+        reg = self.registry
+        bank = reg.bank
         return {"scheduler": self.scheduler, "pending": self.pending(),
                 "active": self.active(),
                 "ttft": {"count": n,
                          "mean_seconds": (self.metrics["ttft_seconds_sum"]
                                           / n if n else 0.0),
                          "max_seconds": self.metrics["ttft_seconds_max"]},
-                "metrics": dict(self.metrics)}
+                "metrics": dict(self.metrics),
+                # resident device memory: the base weights (int8 cuts the
+                # targets to about a quarter of fp32) next to the bank
+                "hbm": {"base_dtype": reg.base_dtype,
+                        "base_bytes": reg.base_nbytes(),
+                        "base_per_device": reg.base_per_device_nbytes(),
+                        "bank_bytes": bank.nbytes() if bank is not None
+                        else 0}}
 
     def pending(self) -> int:
         return len(self._queue)

@@ -22,7 +22,11 @@ and slot reuse on eviction.  ``bank_resolve(name)`` admits a variant and
 returns its slot index — the per-batch-row ``variant_idx`` the banked
 kernel consumes.
 
-The int8 base and the compile cache are not ported yet.
+The base is held in full precision or, with ``base_dtype="int8"``, as
+int8 plus one fp16 scale per output channel on every target matrix
+(``core/quantize``): the fused and banked kernels and the dense load
+dequantize it in their tile pass.  Artifacts are fingerprinted against the
+fp base, before quantization.  The compile cache is not ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import loader as L
+from repro_torch.core import quantize as Q
 from repro_torch.core import store as S
 from repro_torch.core.calibration import DeltaModel, flatten_params
 from repro_torch.device import synchronize
@@ -232,12 +237,22 @@ class VariantRegistry:
     variant and an LRU of device residents keyed per version."""
 
     def __init__(self, base_params, *, max_resident: int = 2,
-                 mode: str = "dense", bank_size: int = 8):
+                 mode: str = "dense", bank_size: int = 8,
+                 base_dtype: str = "fp"):
         if mode not in ("dense", "fused"):
             raise ValueError(f"unknown residency mode {mode!r}")
+        if base_dtype not in ("fp", "int8"):
+            raise ValueError(f"unknown base dtype {base_dtype!r}")
+        # fingerprint and dense-copy accounting come from the FP base:
+        # artifacts are calibrated against (and verified by) the full-
+        # precision weights, and a dense resident reconstructs to fp
         self._base_fp = S.base_fingerprint(base_params)
         self._dense_nbytes = sum(t.numel() * t.element_size()
                                  for t in tree_leaves(base_params))
+        self.base_dtype = base_dtype
+        self.quant_stats = None
+        if base_dtype == "int8":
+            base_params, _, self.quant_stats = Q.quantize_base(base_params)
         self.base_params = base_params
         self.max_resident = max_resident
         self.mode = mode
@@ -256,6 +271,22 @@ class VariantRegistry:
     @property
     def base_fp(self) -> str:
         return self._base_fp
+
+    # -- base residency accounting -----------------------------------------
+    def base_nbytes(self) -> int:
+        """Resident base-weight bytes (int8 payloads + scales when
+        quantized: a QuantWeight's leaves are both tensors)."""
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(self.base_params))
+
+    def base_per_device_nbytes(self) -> dict:
+        """{device -> resident base-weight bytes}; the port's base lives on
+        one device, so one key."""
+        out: dict = {}
+        for t in tree_leaves(self.base_params):
+            key = str(t.device)
+            out[key] = out.get(key, 0) + t.numel() * t.element_size()
+        return out
 
     # -- names and versions ------------------------------------------------
     def _parse(self, nameish: str) -> tuple:

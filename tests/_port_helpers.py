@@ -32,7 +32,13 @@ def jax_base(jcfg):
 
 
 def numpy_flat(params) -> dict:
-    return {k: np.asarray(v) for k, v in JC.flatten_params(params).items()}
+    """{path: np.ndarray}; a quantized leaf (JAX QuantWeight) crosses as
+    ``{"q", "scale"}``, the bridge's exchange form."""
+    def leaf(v):
+        if getattr(v, "__quant_leaf__", False):
+            return {"q": np.asarray(v.q), "scale": np.asarray(v.scale)}
+        return np.asarray(v)
+    return {k: leaf(v) for k, v in JC.flatten_params(params).items()}
 
 
 def fine_tune_flat(flat: dict, seed: int, scale: float = 0.005) -> dict:

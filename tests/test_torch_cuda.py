@@ -13,6 +13,11 @@ order; the bound is 1e-5 relative to Σ|x||Ŵ| per output (fp32 summation of
 K ≤ 4096 terms).  ``bitlinear_axes_banked`` is held to the same bound, with
 Ŵ of each row's own bank slot; with every row on one slot it must equal
 ``bitlinear_axes`` bit for bit (same tiles, same split-K order).
+
+Over an int8 base (``core/quantize``) the same bounds hold with Ŵ built
+from the dequantized base: the kernels form q·s in fp32 as the plain
+versions do, so ``unpack_apply`` stays bit-identical.  ``bitlinear_p`` (the
+static-mode GEMM) is held to the GEMM bound in its three modes.
 """
 import numpy as np
 import pytest
@@ -20,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import delta as D  # noqa: E402
+from repro_torch.core import quantize as Q  # noqa: E402
 from repro_torch.kernels import bitlinear as BL  # noqa: E402
 from repro_torch.kernels import ops as K  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
@@ -287,3 +293,191 @@ def test_banked_wrapper_rejects_what_it_cannot_run(cuda):
         BL.bitlinear_axes_banked_p(x, vidx, packed, v_row[:2], v_col, wb)
     with pytest.raises(ValueError):                          # fp16 x
         BL.bitlinear_axes_banked_p(x.half(), vidx, packed, v_row, v_col, wb)
+
+
+# ---------------------------------------------------------------------------
+# int8 base (the _q8 bodies) and the static-mode bitlinear_p
+# ---------------------------------------------------------------------------
+
+def _gemm_within_tolerance(got, x, w_hat):
+    """|kernel - plain| <= 1e-5 · Σ_k |x||Ŵ| + 1e-6 per output."""
+    want = x.float() @ w_hat.T
+    scale = x.float().abs() @ w_hat.abs().T
+    return bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("scale", [0.1, 1.0, 37.0])
+def test_quantize_weight_on_the_card_equals_the_cpu(cuda, scale):
+    """The int8 base quantized on the card has the CPU's (and so the JAX
+    package's) bytes and scale bits."""
+    rng = np.random.default_rng(17)
+    w = torch.from_numpy((rng.standard_normal((4, 1024, 4096)) * scale
+                          ).astype(np.float32))
+    on_cpu, on_card = Q.quantize_weight(w), Q.quantize_weight(w.to(cuda))
+    assert torch.equal(on_card.q.cpu(), on_cpu.q)
+    assert torch.equal(on_card.scale.cpu().view(torch.int16),
+                       on_cpu.scale.view(torch.int16))
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 16), (3, 100, 40), (2, 64, 512),
+                                   (4, 1024, 4096)])
+@pytest.mark.parametrize("mode", ["row", "col", "scalar"])
+@pytest.mark.parametrize("odt", [torch.float32, torch.bfloat16,
+                                 torch.float16])
+def test_unpack_apply_q8_matches_plain(cuda, shape, mode, odt):
+    rng = np.random.default_rng(10)
+    wb, packed, delta = _delta_case(rng, shape[:1], shape[1], shape[2], cuda)
+    qw = Q.quantize_weight(wb)
+    v = D.init_scale(delta, mode)
+    before = UA.launches
+    got = K.unpack_apply(packed, v, qw, mode=mode, out_dtype=odt)
+    torch.cuda.synchronize()
+    assert UA.launches == before + 1
+    want = R.unpack_apply_ref(packed, v, qw.q, mode, dtype=odt,
+                              w_scale=qw.scale)
+    assert got.dtype == odt and torch.equal(got, want)
+    # the wrapper's default output dtype over an int8 base is the scale's
+    assert K.unpack_apply(packed, v, qw, mode=mode).dtype == torch.float16
+
+
+@pytest.mark.parametrize("mnk", [(4, 64, 128), (5, 100, 40), (4, 1024, 4096),
+                                 (64, 96, 256), (33, 130, 1032)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vdt", [torch.float16, torch.float32])
+def test_bitlinear_axes_q8_matches_plain(cuda, mnk, xdt, vdt):
+    m, n, k = mnk
+    rng = np.random.default_rng(11)
+    wb, packed, delta = _delta_case(rng, (), n, k, cuda)
+    qw = Q.quantize_weight(wb)
+    vr = D.init_scale(delta, "row").to(vdt)
+    vc = D.init_scale(delta, "col").to(vdt)    # both axes: the kernel sums
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
+                         ).to(cuda).to(xdt)
+    before = BL.launches
+    got = BL.bitlinear_axes_p(x, packed, vr, vc, qw.q, w_scale=qw.scale)
+    torch.cuda.synchronize()
+    assert BL.launches == before + 1 and got.dtype == torch.float32
+    signs = D.unpack_signs(packed, k)
+    w_hat = ((vr.float()[:, None] + vc.float()[None, :]) * signs
+             + Q.dequantize(qw))
+    assert _gemm_within_tolerance(got, x, w_hat)
+    want = R.bitlinear_axes_ref(x.float(), packed, vr, vc, qw.q,
+                                w_scale=qw.scale)
+    scale = x.float().abs() @ w_hat.abs().T
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("mnk", [(4, 64, 128), (5, 100, 40), (4, 1024, 4096),
+                                 (64, 96, 256), (33, 130, 1032)])
+@pytest.mark.parametrize("nbank", [2, 5])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_bitlinear_axes_banked_q8_matches_plain(cuda, mnk, nbank, xdt):
+    m, n, k = mnk
+    rng = np.random.default_rng(12)
+    wb, packed, v_row, v_col = _bank_case(rng, nbank, n, k, cuda)
+    qw = Q.quantize_weight(wb)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
+                         ).to(cuda).to(xdt)
+    vidx = torch.from_numpy(rng.integers(0, nbank, m).astype(np.int32)
+                            ).to(cuda)
+    before = BL.banked_launches
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, qw.q,
+                                     w_scale=qw.scale)
+    torch.cuda.synchronize()
+    assert BL.banked_launches == before + 1
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col,
+                                    Q.dequantize(qw))
+
+
+def test_bitlinear_axes_banked_q8_uniform_equals_single_variant(cuda):
+    rng = np.random.default_rng(13)
+    wb, packed, v_row, v_col = _bank_case(rng, 3, 1024, 4096, cuda)
+    qw = Q.quantize_weight(wb)
+    x = torch.from_numpy(rng.standard_normal((4, 4096)).astype(np.float32)
+                         ).to(cuda).to(torch.bfloat16)
+    for s in range(3):
+        vidx = torch.full((4,), s, dtype=torch.int32, device=cuda)
+        got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col,
+                                         qw.q, w_scale=qw.scale)
+        want = BL.bitlinear_axes_p(x, packed[s].contiguous(), v_row[s],
+                                   v_col[s], qw.q, w_scale=qw.scale)
+        assert torch.equal(got, want), s
+
+
+@pytest.mark.parametrize("mnk", [(4, 64, 128), (5, 100, 40), (4, 1024, 4096),
+                                 (64, 96, 256), (33, 130, 1032)])
+@pytest.mark.parametrize("mode", ["row", "col", "scalar"])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_bitlinear_matches_plain(cuda, mnk, mode, wdt, xdt):
+    m, n, k = mnk
+    rng = np.random.default_rng(14)
+    wb, packed, delta = _delta_case(rng, (), n, k, cuda)
+    base = Q.quantize_weight(wb) if wdt == torch.int8 else wb.to(wdt)
+    v = D.init_scale(delta, mode).to(torch.float16)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
+                         ).to(cuda).to(xdt)
+    before = BL.static_launches
+    got = K.bitlinear(x, packed, v, base, mode=mode)
+    torch.cuda.synchronize()
+    assert BL.static_launches == before + 1
+    assert got.dtype == xdt and got.shape == (m, n)
+    wbf = Q.dequantize(base) if wdt == torch.int8 else base.float()
+    w_hat = D.reconstruct(packed, v, wbf, mode, dtype=torch.float32)
+    if xdt == torch.float32:
+        assert _gemm_within_tolerance(got, x, w_hat)
+    else:   # one bf16 rounding of the output
+        with K.plain_versions():
+            want = K.bitlinear(x, packed, v, base, mode=mode)
+        diff = (got.float() - want.float()).abs().max().item()
+        assert diff <= 2 ** -7 * want.float().abs().max().item()
+    raw = BL.bitlinear_p(x, packed, K._v2d(v, mode, (), n, k),
+                         *K._unwrap_quant(base))
+    assert _gemm_within_tolerance(raw, x, w_hat)
+
+
+def test_bitlinear_row_mode_equals_axes_kernel(cuda):
+    """Row mode through the strided scale builds the same Ŵ tiles as the
+    dual-axis kernel with a zero v_col: equal bit for bit."""
+    rng = np.random.default_rng(15)
+    wb, packed, delta = _delta_case(rng, (), 1024, 4096, cuda)
+    vr = D.init_scale(delta, "row")
+    x = torch.from_numpy(rng.standard_normal((4, 4096)).astype(np.float32)
+                         ).to(cuda)
+    got = BL.bitlinear_p(x, packed, vr.reshape(-1, 1), wb)
+    want = BL.bitlinear_axes_p(x, packed, vr,
+                               torch.zeros(4096, device=cuda), wb)
+    assert torch.equal(got, want)
+
+
+def test_q8_wrappers_reject_what_they_cannot_run(cuda):
+    rng = np.random.default_rng(16)
+    wb, packed, delta = _delta_case(rng, (), 32, 64, cuda)
+    qw = Q.quantize_weight(wb)
+    v = D.init_scale(delta, "row")
+    x = torch.ones((4, 64), device=cuda)
+    vc = torch.zeros(64, device=cuda)
+    # an int8 payload 4 bytes off its 8-byte alignment raises, never copies
+    buf = torch.empty(32 * 64 + 4, dtype=torch.int8, device=cuda)
+    off = buf[4:].view(32, 64)
+    off.copy_(qw.q)
+    assert off.data_ptr() % 8 == 4
+    with pytest.raises(ValueError, match="aligned"):
+        BL.bitlinear_axes_p(x, packed, v, vc, off, w_scale=qw.scale)
+    with pytest.raises(ValueError, match="aligned"):
+        UA.unpack_apply_p(packed, v.reshape(32, 1), off, torch.float32,
+                          w_scale=qw.scale)
+    with pytest.raises(ValueError, match="aligned"):
+        BL.bitlinear_p(x, packed, v.reshape(32, 1), off, w_scale=qw.scale)
+    # an int8 payload without its scale, a scale beside an fp base
+    with pytest.raises(ValueError):
+        BL.bitlinear_axes_p(x, packed, v, vc, qw.q)
+    with pytest.raises(ValueError):
+        BL.bitlinear_axes_p(x, packed, v, vc, wb, w_scale=qw.scale)
+    with pytest.raises(ValueError):                           # fp32 scale
+        BL.bitlinear_axes_banked_p(
+            x, torch.zeros(4, dtype=torch.int32, device=cuda),
+            packed[None], v[None].half(), vc[None].half(), qw.q,
+            w_scale=qw.scale.float())
+    with pytest.raises(ValueError):                           # (N, K) v2d
+        BL.bitlinear_p(x, packed, torch.ones((32, 64), device=cuda), wb)
