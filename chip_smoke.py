@@ -39,7 +39,28 @@ Phases (any failure raises and the script exits non-zero):
    bytes.  One fused prefill is repeated through the plain versions and the
    logit difference printed; one decode step of each run is profiled;
    int8-vs-fp greedy agreement is printed, not asserted (random weights at
-   full width give near-tied logits).
+   full width give near-tied logits);
+7. flash (run right after the kernel phase): ``ops.flash_attention_fwd``
+   (the ``flash_attn.cu`` kernel) over qwen3-8b's heads (32 q, 8 kv,
+   hd 128) at B=1 for S=T in {16, 512, 4096}, causal and not, fp32 and
+   bf16, plus hd 256, an odd S (77), absolute offsets and a block whose
+   first rows see no key; counters zeroed right before; each output held
+   against the plain version; kernel, plain version and
+   ``scaled_dot_product_attention`` timed;
+8. lifecycle (the paper's pipeline, full width, 4 layers): the kernel on a
+   real prefill's q/k/v (layer 0 after qk-norm and RoPE) against
+   ``attention.flash_attention``; ``calibrate_transformer`` (stages 0-3) of
+   a synthetic fine-tune on 2 SyntheticLM batches of 4 x 64 tokens; publish
+   into a store under ``build/`` (removed at exit); 8 continuous requests
+   over base and the variant; an attention-only refresh shipped as a patch;
+   rollback; a second Deployment over the same directory.  Tokens served
+   from the store must equal those of the same DeltaModel served without a
+   store, and rollback and restart must serve version 1's tokens; prints
+   each step's seconds, artifact and patch bytes against the fp16
+   checkpoint, held-out logit MSE at stage 0 and after calibration, and
+   peak device memory.  A reduced copy (calibrated on the CPU) runs the
+   same lifecycle through a store on the card and on the CPU, right after
+   the reference phase: tokens must be identical.
 
 Then it prints the kernel summary as one JSON line, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -49,8 +70,12 @@ exactly (one fp32 add per element; over an int8 base one fp32 product
 first), so it must be bit-identical.  The GEMMs (``bitlinear_axes``,
 ``bitlinear_axes_banked``, ``bitlinear_p``) form the same fp32 Ŵ and sum
 products in another order: |kernel - plain| <= 1e-5 · Σ_k |x||Ŵ| + 1e-6 per
-output (Ŵ of the row's own bank slot).  TF32 is off for every fp32 product
-run here (the plain versions and the library yardstick included).
+output (Ŵ of the row's own bank slot).  ``flash_attention`` sums its
+products and softmax in another order than its dense plain version: within
+2e-4 abs+rel in fp32; in bf16 within 5e-4 + 1e-2·|plain| (both round one
+fp32 value to bf16, so they differ by one bf16 step at most), asserted to
+stay under a tenth of the median |output| at S=T=4096.  TF32 is off for every fp32 product run here
+(the plain versions and the library yardstick included).
 """
 from __future__ import annotations
 
@@ -68,7 +93,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+# dense peak rate of one H100 SXM by operand type (NVIDIA's data sheet):
+# bf16 x bf16 on the tensor cores; a product with an fp32 operand at the
+# fp32 rate outside the tensor cores
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 ARCH = "qwen3-8b"
 SERVE_LAYERS = 4
 LANES, PROMPT = 4, 16         # serving batch and padded prompt length
@@ -106,10 +134,15 @@ class Timer:
         return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, dtype=torch.float32) -> dict:
+    """A row's ``bound_ms``: the larger of bytes over the memory rate and
+    operations over the peak for the operands' type (``peak_tflops``)."""
+    peak = PEAK_FLOPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "peak_tflops": peak / 1e12}
 
 
 def projections(cfg) -> list:
@@ -120,19 +153,23 @@ def projections(cfg) -> list:
 
 def counters() -> dict:
     from repro_torch.kernels import bitlinear as BL
+    from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import unpack_apply as UA
     return {"unpack_apply": UA.launches, "bitlinear_axes": BL.launches,
             "bitlinear_axes_banked": BL.banked_launches,
-            "bitlinear": BL.static_launches}
+            "bitlinear": BL.static_launches,
+            "flash_attention": FA.launches}
 
 
 def zero_counters() -> None:
     from repro_torch.kernels import bitlinear as BL
+    from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import unpack_apply as UA
     UA.launches = 0
     BL.launches = 0
     BL.banked_launches = 0
     BL.static_launches = 0
+    FA.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -182,14 +219,14 @@ def unpack_rows(name, timer, packed, v_row, v_col, base) -> list:
         assert torch.equal(got, want), (name, mode, ws is not None, err)
         del got, want
         nbytes = packed.numel() + v.numel() * 4 + base_bytes + wq.numel() * 4
-        b, by = bound_ms(nbytes, wq.numel() * (1 + int(ws is not None)))
         rows.append({
             "shape": f"{name} {mode} {tuple(wq.shape)}", "max_abs_err": err,
             "ms": timer.ms(lambda: K.unpack_apply(
                 packed, v, base, mode=mode, out_dtype=torch.float32)),
             "plain_ms": timer.ms(lambda: UA.plain(
                 packed, v, wq, mode, dtype=torch.float32, w_scale=ws)),
-            "bound_ms": b, "bound_by": by, "library_ms": None})
+            **bound(nbytes, wq.numel() * (1 + int(ws is not None))),
+            "library_ms": None})
     return rows
 
 
@@ -215,8 +252,6 @@ def axes_rows(name, n, k, gen, dev, timer, p0, vr0, base) -> list:
         x32 = x.float()
         nbytes = (x.numel() * 2 + p0.numel() + (n + k) * 2 + base_bytes
                   + m * n * 4)
-        b, by = bound_ms(nbytes, 2 * m * n * k + _build_flops(
-            n, k, ws is not None))
         rows.append({
             "shape": f"{name} M={m} N={n} K={k}", "m": m,
             "max_abs_err": err,
@@ -225,7 +260,8 @@ def axes_rows(name, n, k, gen, dev, timer, p0, vr0, base) -> list:
             "plain_ms": timer.ms(lambda: BL.plain(x, p0, vr, vc, wq,
                                                   w_scale=ws),
                                  reps=20, warmup=3),
-            "bound_ms": b, "bound_by": by,
+            **bound(nbytes, 2 * m * n * k + _build_flops(
+                n, k, ws is not None)),
             "library_ms": timer.ms(lambda: torch.matmul(x32, w_hat.T),
                                    reps=20, warmup=3)})
     return rows
@@ -281,8 +317,8 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
         named = sorted(set(vlist) - {0})
         nbytes = (x.numel() * 2 + m * 4 + base_bytes + m * n * 4
                   + len(named) * (n * k // 8 + (n + k) * 2))
-        b, by = bound_ms(nbytes, 2 * m * n * k
-                         + n * k * (2 * len(named) + int(ws is not None)))
+        row_bound = bound(nbytes, 2 * m * n * k
+                          + n * k * (2 * len(named) + int(ws is not None)))
         vr1, vc1, p1 = bvr[1], bvc[1], bp[1]
         rows.append({
             "shape": f"{name} {label} N={n} K={k}", "m": m, "case": label,
@@ -291,7 +327,7 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
                 x, vidx, bp, bvr, bvc, wq, ws), reps=20, warmup=3),
             "plain_ms": timer.ms(lambda: BL.plain_banked(
                 x, vidx, bp, bvr, bvc, wq, w_scale=ws), reps=10, warmup=2),
-            "bound_ms": b, "bound_by": by, "library_ms": None,
+            **row_bound, "library_ms": None,
             # the single-variant kernel on the same x: a uniform batch
             "uniform_ms": timer.ms(lambda: BL.bitlinear_axes_p(
                 x, p1, vr1, vc1, wq, ws), reps=20, warmup=3)})
@@ -323,8 +359,6 @@ def static_rows(name, n, k, gen, dev, timer, p0, vr0, vc0, base) -> list:
             x32 = x.float()
             nbytes = (x.numel() * 2 + p0.numel() + v.numel() * 4
                       + base_bytes + m * n * 4)
-            b, by = bound_ms(nbytes, 2 * m * n * k + _build_flops(
-                n, k, ws is not None) - n * k)
             rows.append({
                 "shape": f"{name} {mode} M={m} N={n} K={k}", "m": m,
                 "mode": mode, "max_abs_err": err,
@@ -332,7 +366,8 @@ def static_rows(name, n, k, gen, dev, timer, p0, vr0, vc0, base) -> list:
                                reps=20, warmup=3),
                 "plain_ms": timer.ms(lambda: BL.plain_static(
                     x, p0, v, wq, mode, w_scale=ws), reps=10, warmup=2),
-                "bound_ms": b, "bound_by": by,
+                **bound(nbytes, 2 * m * n * k + _build_flops(
+                    n, k, ws is not None) - n * k),
                 "library_ms": timer.ms(lambda: torch.matmul(x32, w_hat.T),
                                        reps=20, warmup=3)})
         del w_hat, w_abs
@@ -358,6 +393,8 @@ KERNELS = [
      "src/repro/kernels/bitlinear.py:35"),
     ("bitlinear_q8", "src/repro_torch/csrc/bitlinear.cu",
      "src/repro/kernels/bitlinear.py:76"),
+    ("flash_attention", "src/repro_torch/csrc/flash_attn.cu",
+     "src/repro/kernels/flash_attn.py:73"),
 ]
 
 
@@ -399,8 +436,8 @@ def kernel_phase(cfg, dev, timer) -> dict:
                      if "uniform_ms" in r else "")
             print(f"  {r['shape']:44s} err={r['max_abs_err']:.3g} "
                   f"kernel_ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                  f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms={r['library_ms']}{extra}")
+                  f"({r['bound_by']}, {r['peak_tflops']:.0f} TF/s) "
+                  f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']}{extra}")
     print("kernels: unpack_apply bit-identical to plain at "
           f"{len(rows['unpack_apply']) + len(rows['unpack_apply_q8'])} "
           "shapes (fp32 and int8 base); every GEMM within 1e-5 relative at "
@@ -417,15 +454,201 @@ def summary(name, source, replaces, rows, unit):
     bound = sum(r["bound_ms"] for r in rows)
     by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     by = "bytes" if by_bytes >= bound - by_bytes else "operations"
+    (peak,) = {r["peak_tflops"] for r in rows}
     lib = [r["library_ms"] for r in rows]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": bound, "bound_by": by,
+            "bound_ms": bound, "bound_by": by, "peak_tflops": peak,
             "library_ms": None if None in lib else sum(lib),
             "unit": unit, "shapes": rows}
+
+
+# ---------------------------------------------------------------------------
+# flash phase
+# ---------------------------------------------------------------------------
+
+# (atol, rtol) against the plain version.  Both sum in fp32 and round once
+# to the output type, so in bf16 they differ by at most one bf16 step of the
+# output (2^-7 of it at most) plus fp32 noise.
+FLASH_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (5e-4, 1e-2)}
+
+
+def flash_within(got, want) -> tuple[bool, float, float]:
+    """(|got - want| <= atol + rtol·|want| everywhere, max |err|, the
+    limit at the median |want|)."""
+    atol, rtol = FLASH_TOL[want.dtype]
+    want = want.float()
+    diff = (got.float() - want).abs()
+    typical = want.abs().median().item()
+    return (bool((diff <= atol + rtol * want.abs()).all()),
+            diff.max().item(), typical)
+FLASH_UNIT = "S=T=4096 causal bf16"
+
+
+def flash_cases(cfg) -> list:
+    """(label, B, Hq, Hkv, hd, S, T, causal, q_offset, kv_offset, dtype):
+    qwen3-8b's heads at B=1 for S=T in {16, 512, 4096}, causal and not, fp32
+    and bf16; one hd-256 shape; an odd S; absolute offsets, including a
+    block whose first rows see no key (q_offset < kv_offset)."""
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cases = [(f"S=T={s} {'causal' if c else 'full'} {n}", 1, hq, hkv, hd, s,
+              s, c, 0, 0, dt)
+             for s in (16, 512, 4096) for c in (True, False)
+             for n, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16))]
+    for n, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cases += [
+            (f"hd=256 S=T=512 causal {n}", 1, 16, 8, 256, 512, 512, True, 0,
+             0, dt),
+            (f"S=T=77 causal {n}", 1, hq, hkv, hd, 77, 77, True, 0, 0, dt),
+            (f"S=128 T=512 q_off=384 {n}", 1, hq, hkv, hd, 128, 512, True,
+             384, 0, dt),
+            (f"S=T=256 kv_off=40 (no-key rows) {n}", 1, hq, hkv, hd, 256,
+             256, True, 0, 40, dt)]
+    return cases
+
+
+def _visible_pairs(s, t, causal, q_off, kv_off) -> int:
+    """(query, key) pairs this run's data needs: under the causal mask the
+    visible keys of each row; a row that sees none averages all T keys."""
+    if not causal:
+        return s * t
+    i = np.arange(s)
+    seen = np.clip(q_off + i - kv_off + 1, 0, t)
+    return int(np.where(seen == 0, t, seen).sum())
+
+
+def flash_phase(cfg, dev, timer) -> tuple:
+    """``ops.flash_attention_fwd`` over the flash cases, the launch counters
+    zeroed right before; each output held against the plain version
+    (``plain_versions()``); then per case the kernel, the plain version and
+    SDPA (where one call computes the same function) timed.  Returns
+    (rows, launches)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import ops as K
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cases = flash_cases(cfg)
+    inputs = []
+    for _, b, hq, hkv, hd, s, t, _, _, _, dt in cases:
+        inputs.append(tuple(torch.randn(shape, generator=gen, device=dev
+                                        ).to(dt)
+                            for shape in ((b, s, hq, hd), (b, t, hkv, hd),
+                                          (b, t, hkv, hd))))
+    torch.cuda.synchronize()
+    zero_counters()
+    outs = [K.flash_attention_fwd(q, k, v, causal=c, q_offset=qo,
+                                  kv_offset=ko)
+            for (q, k, v), (_, _, _, _, _, _, _, c, qo, ko, _)
+            in zip(inputs, cases)]
+    torch.cuda.synchronize()
+    launches = counters()
+    assert launches["flash_attention"] == len(cases), launches
+    rows = []
+    for (q, k, v), out, case in zip(inputs, outs, cases):
+        label, b, hq, hkv, hd, s, t, causal, qo, ko, dt = case
+        with K.plain_versions():
+            want = K.flash_attention_fwd(q, k, v, causal=causal,
+                                         q_offset=qo, kv_offset=ko)
+        ok, err, typical = flash_within(out, want)
+        assert bool(torch.isfinite(out).all()) and ok, (label, err)
+        atol, rtol = FLASH_TOL[dt]
+        if s == 4096:
+            # the limit must stay well below the values it checks, whose
+            # typical size falls as sqrt(e/T)
+            assert atol + rtol * typical < 0.1 * typical, (label, typical)
+        del want
+        qf = q.transpose(1, 2).contiguous().reshape(b * hq, s, hd)
+        kf = k.transpose(1, 2).contiguous().reshape(b * hkv, t, hd)
+        vf = v.transpose(1, 2).contiguous().reshape(b * hkv, t, hd)
+        kw = dict(group=hq // hkv, causal=causal, q_offset=qo, kv_offset=ko)
+        es = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
+        flops = 4 * b * hq * hd * _visible_pairs(s, t, causal, qo, ko)
+        library = None
+        if qo == ko == 0 and s == t:
+            q4, k4, v4 = (x.reshape(b, -1, x.shape[1], hd)
+                          for x in (qf, kf, vf))
+            library = timer.ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, enable_gqa=True),
+                reps=10, warmup=2)
+        rows.append({
+            "shape": label, "case": label, "max_abs_err": err,
+            "median_abs_out": typical,
+            "ms": timer.ms(lambda: FA.flash_attention_fwd_p(qf, kf, vf, **kw),
+                           reps=10, warmup=2),
+            "plain_ms": timer.ms(lambda: FA.plain(qf, kf, vf, **kw), reps=3,
+                                 warmup=1),
+            **bound(nbytes, flops, dt), "library_ms": library})
+        del qf, kf, vf
+    del inputs, outs
+    torch.cuda.empty_cache()
+    print("  -- flash_attention")
+    for r in rows:
+        print(f"  {r['shape']:38s} err={r['max_abs_err']:.3g} "
+              f"median|o|={r['median_abs_out']:.3g} "
+              f"kernel_ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}, {r['peak_tflops']:.0f} TF/s) "
+              f"plain_ms={r['plain_ms']:.4f} sdpa_ms={r['library_ms']}")
+    worst = {n: max(r["max_abs_err"] for r in rows if r["shape"].endswith(n))
+             for n in ("fp32", "bf16")}
+    print(f"flash: {len(cases)} cases within {FLASH_TOL[torch.float32]} "
+          f"(fp32) / {FLASH_TOL[torch.bfloat16]} (bf16) (atol, rtol) of the "
+          f"plain version; largest |err| fp32 {worst['fp32']:.3g}, bf16 "
+          f"{worst['bf16']:.3g}; launches {launches}")
+    return rows, launches
+
+
+def prefill_flash_check(model, params, cfg, dev) -> None:
+    """The kernel on the q/k/v a full-width prefill computes (layer 0 after
+    qk-norm and RoPE, 2 x 512 tokens): within ``FLASH_TOL`` of the plain
+    version, and against the chunked ``attention.flash_attention`` the
+    model runs.  That one rounds q·hd^-½ and the probabilities to bf16, as
+    the JAX one does, which moves each weight by up to about 2^-8 of itself:
+    it is held within 2e-2 of the attention-weighted |v| (the plain version
+    on |v|), the most such reweighting can move an output."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import embed_lookup, rmsnorm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 512), generator=gen,
+                           device=dev)
+    layer0 = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    with torch.no_grad():
+        x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+        h = rmsnorm(x, params["layers"]["ln1"][0], cfg.norm_eps)
+        q, k, v = A.qkv_project(layer0, h, cfg,
+                                torch.arange(512, device=dev),
+                                cfg.rope_theta)
+        zero_counters()
+        got = K.flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        launched = counters()["flash_attention"]
+        with K.plain_versions():
+            exact = K.flash_attention_fwd(q, k, v, causal=True)
+            v_abs = K.flash_attention_fwd(q.float(), k.float(),
+                                          v.float().abs(), causal=True)
+        chunked = A.flash_attention(q, k, v, causal=True)
+    assert launched == 1 and got.dtype == q.dtype == torch.bfloat16
+    ok, err, typical = flash_within(got, exact)
+    assert ok, err
+    diff = (got.float() - chunked.float()).abs()
+    err_chunked = diff.max().item()
+    assert bool((diff <= 2e-2 * v_abs).all()), err_chunked
+    print(f"flash on full-width prefill q/k/v {tuple(q.shape)} / "
+          f"{tuple(k.shape)} (layer 0, after qk-norm and RoPE): within "
+          f"{FLASH_TOL[torch.bfloat16]} (atol, rtol) of the plain version, "
+          f"max |err| {err:.3g} (median |o| {typical:.3g}); against "
+          f"attention.flash_attention max |err| {err_chunked:.3g}, at most "
+          f"{(diff / v_abs).max().item():.3g} of the attention-weighted |v| "
+          f"(limit 2e-2)")
 
 
 # ---------------------------------------------------------------------------
@@ -785,7 +1008,246 @@ def serve_phase(dev) -> dict:
     return launches
 
 
-def kernel_entries(rows, launches, dl_launches) -> list:
+# ---------------------------------------------------------------------------
+# lifecycle phases: calibrate -> publish -> serve -> update -> rollback ->
+# restart, with a store
+# ---------------------------------------------------------------------------
+
+ATTN = ("wq", "wk", "wv", "wo")
+
+
+def attention_refresh(base, ft, seed: int, scale: float = 0.002):
+    """The fine-tune with fresh noise on its attention matrices only: the
+    localized update that ships as a patch."""
+    from repro_torch.core import calibration as C
+
+    gen = torch.Generator(device=next(iter(C.flatten_params(ft).values()))
+                          .device)
+    gen.manual_seed(seed)
+    flat = {p: (t + scale * torch.randn(t.shape, generator=gen,
+                                        device=t.device, dtype=t.dtype)
+                if p.split(".")[-1] in ATTN else t)
+            for p, t in C.flatten_params(ft).items()}
+    return C.compress(base, C.unflatten_like(base, flat))
+
+
+def lifecycle_serve(dep, cfg, requests) -> list:
+    """Serve ``requests`` (tokens, variant, budget); every request must
+    finish with its budget.  Returns (tokens, served version) per
+    request."""
+    rids = [dep.submit(t, variant=v, max_new_tokens=n)
+            for t, v, n in requests]
+    dep.drain()
+    out = []
+    for r, (_, _, n) in zip(rids, requests):
+        req = dep.result(r)
+        assert req.status == "done" and len(req.out_tokens) == n, (
+            req.status, len(req.out_tokens), n, req.error)
+        assert all(0 <= t < cfg.padded_vocab for t in req.out_tokens)
+        out.append((req.out_tokens, dep.status(r)["version"]))
+    return out
+
+
+def lifecycle_requests(cfg, n: int, budgets) -> list:
+    rng = np.random.default_rng(11)
+    return [(rng.integers(1, cfg.vocab_size, size=8),
+             ("__base__", "task")[i % 2], budgets[i % len(budgets)])
+            for i in range(n)]
+
+
+def lifecycle_phase(dev) -> dict:
+    """The paper's pipeline at full width (qwen3-8b, 4 layers): calibrate a
+    synthetic fine-tune (stages 0-3) on SyntheticLM batches, publish it into
+    a store, serve continuous requests from it, update with an
+    attention-only refresh (a patch), roll back, then restart a second
+    Deployment over the same directory; the store-served tokens must equal
+    those of the same DeltaModel served without a store.  Also checks the
+    flash kernel on a real prefill's q/k/v.  Returns the serving run's
+    launches."""
+    import tempfile
+
+    from repro_torch.core import calibration as C
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Deployment
+
+    cfg = SV.make_config(ARCH, num_layers=SERVE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    secs = {}
+    t0 = time.perf_counter()
+    model, base, _ = SV.build_variants(cfg, 0, dev)   # the serve phase's base
+    ft = SV.fine_tune(base, 100)
+    torch.cuda.synchronize()
+    secs["setup"] = time.perf_counter() - t0
+    prefill_flash_check(model, base, cfg, dev)
+
+    src = SyntheticLM(cfg.vocab_size, seed=7)
+    batches = [src.lm_batch(1000 + i, LANES, 64) for i in range(2)]
+    held = {"tokens": torch.from_numpy(src.lm_batch(9999, LANES, 64)[
+        "tokens"]).to(dev).long()}
+
+    def held_out_mse(dm) -> float:
+        with torch.no_grad():
+            student = C.apply_delta(base, dm)
+            got = T.forward(student, held, cfg)[0].float()
+            del student
+            return float(((teacher - got) ** 2).mean())
+
+    with torch.no_grad():
+        teacher = T.forward(ft, held, cfg)[0].float()
+    mse0 = held_out_mse(C.compress(base, ft))
+    t0 = time.perf_counter()
+    dm, report = C.calibrate_transformer(model, base, ft, batches, epochs=1,
+                                         e2e_epochs=1)
+    torch.cuda.synchronize()
+    secs["calibrate"] = time.perf_counter() - t0
+    mse1 = held_out_mse(dm)
+    del teacher
+    fp16_bytes = C.fp16_checkpoint_nbytes(ft)
+    update = attention_refresh(base, ft, seed=200)
+    del ft
+    gc.collect()
+    torch.cuda.empty_cache()
+    axes = {p: "".join(a[0] for a in v) for p, v in report["axis"].items()}
+    print(f"lifecycle calibrate: {secs['calibrate']:.2f} s (2 batches x "
+          f"{LANES} x 64 tokens, epochs=1, e2e_epochs=1, lr 1e-4); held-out "
+          f"logit MSE stage 0 {mse0:.6g} -> calibrated {mse1:.6g}; axes "
+          f"{axes}; e2e losses {report['e2e_losses']}")
+
+    requests = lifecycle_requests(cfg, 8, [4, 6, 8])
+    kw = dict(mode="fused", scheduler="continuous", batch_size=LANES,
+              prompt_len=PROMPT, max_len=SV.MAX_LEN, bank_size=4, device=dev)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        t0 = time.perf_counter()
+        dep = Deployment(model, base, root_dir=root, **kw)
+        assert dep.publish("task", dm) == 1
+        secs["publish"] = time.perf_counter() - t0
+        full_bytes = dep.store.artifact_bytes("task", 1)
+        zero_counters()
+        t0 = time.perf_counter()
+        served = {"v1": lifecycle_serve(dep, cfg, requests)}
+        torch.cuda.synchronize()
+        secs["serve v1"] = time.perf_counter() - t0
+        launches = counters()
+        m = dep.metrics
+        assert launches["bitlinear_axes_banked"] == 7 * SERVE_LAYERS * (
+            m["prefills"] + m["decode_steps"]), (launches, m)
+        t0 = time.perf_counter()
+        assert dep.update("task", update) == 2
+        secs["update"] = time.perf_counter() - t0
+        patch_bytes = dep.store.artifact_bytes("task", 2)
+        assert dep.store.version_info("task", 2)["kind"] == "patch"
+        t0 = time.perf_counter()
+        served["v2"] = lifecycle_serve(dep, cfg, requests)
+        secs["serve v2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        assert dep.rollback("task") == 1
+        secs["rollback"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served["rollback"] = lifecycle_serve(dep, cfg, requests)
+        secs["serve rollback"] = time.perf_counter() - t0
+        stats = dict(dep.stats)
+        del dep
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dep = Deployment(model, base, root_dir=root, **kw)
+        secs["restart"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served["restart"] = lifecycle_serve(dep, cfg, requests)
+        secs["serve restart"] = time.perf_counter() - t0
+        del dep
+        gc.collect()
+        torch.cuda.empty_cache()
+    dep = Deployment(model, base, **kw)               # no store
+    dep.publish("task", dm)
+    served["no store"] = lifecycle_serve(dep, cfg, requests)
+    del dep, dm, update
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated()
+
+    def toks(run):
+        return [t for t, _ in served[run]]
+    versions = {run: [v for _, v in served[run]] for run in served}
+    assert versions["v1"] == [None, 1] * 4 and versions["v2"] == [None, 2] * 4
+    assert versions["rollback"] == versions["restart"] == versions["v1"]
+    assert toks("v1") == toks("no store"), "store vs in-memory tokens"
+    assert toks("rollback") == toks("v1") and toks("restart") == toks("v1")
+    changed = sum(a != b for a, b in zip(toks("v1"), toks("v2")))
+    print(f"lifecycle: artifact {full_bytes} B vs fp16 checkpoint "
+          f"{fp16_bytes} B ({fp16_bytes / full_bytes:.2f}x smaller); patch "
+          f"{patch_bytes} B ({patch_bytes / full_bytes:.4f} of the full "
+          f"artifact); seconds {({k: round(v, 3) for k, v in secs.items()})}"
+          f"; peak device memory {peak / 1e9:.2f} GB; registry {stats}")
+    print(f"lifecycle: store-served tokens == in-memory tokens (8 requests, "
+          f"{sum(map(len, toks('v1')))} tokens); rollback and restart serve "
+          f"v1's tokens; v2 changed {changed} of 8 requests; serve launches "
+          f"{launches}")
+    del model, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lifecycle_reference_phase(dev) -> None:
+    """The lifecycle at reduced widths (fp32 compute): one calibrated
+    DeltaModel (calibrated on the CPU), published, served, updated by patch
+    and rolled back through a store on the card and on the CPU; every
+    stage's tokens must be identical."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core import calibration as C
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.models.param import split
+    from repro_torch.serving import Deployment
+
+    cfg = dataclasses.replace(SV.make_config(ARCH, reduced=True),
+                              num_layers=2, compute_dtype="float32")
+    model = build_model(cfg)
+    base, _ = split(model.init(0, device="cpu"))
+    ft = SV.fine_tune(base, 100)
+    src = SyntheticLM(cfg.vocab_size, seed=7)
+    dm, _ = C.calibrate_transformer(
+        model, base, ft, [src.lm_batch(1000 + i, 4, 32) for i in range(2)],
+        epochs=2, e2e_epochs=2, lr=1e-3, e2e_lr=1e-3)
+    update = attention_refresh(base, ft, seed=200)
+    requests = lifecycle_requests(cfg, 6, [2, 5, 3])
+    served = {}
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    for where in ("cpu", dev):
+        with tempfile.TemporaryDirectory(dir=build) as root:
+            zero_counters()
+            dep = Deployment(model, base, root_dir=root, batch_size=4,
+                             prompt_len=SV.PROMPT_LEN, max_len=SV.MAX_LEN,
+                             bank_size=4, device=where)
+            dep.publish("task", dm)
+            runs = [lifecycle_serve(dep, cfg, requests)]
+            dep.update("task", update)
+            runs.append(lifecycle_serve(dep, cfg, requests))
+            dep.rollback("task")
+            runs.append(lifecycle_serve(dep, cfg, requests))
+            restart = Deployment(model, base, root_dir=root, batch_size=4,
+                                 prompt_len=SV.PROMPT_LEN,
+                                 max_len=SV.MAX_LEN, bank_size=4,
+                                 device=where)
+            runs.append(lifecycle_serve(restart, cfg, requests))
+            served[str(where)] = runs
+            if str(where) != "cpu":
+                assert counters()["bitlinear_axes_banked"] > 0, counters()
+    assert served["cpu"] == served[str(dev)], served
+    print(f"reference lifecycle: card tokens and versions == cpu at publish, "
+          f"update (patch), rollback and restart "
+          f"({sum(len(t) for run in served['cpu'] for t, _ in run)} tokens)")
+
+
+def kernel_entries(rows, launches, dl_launches, fl_launches) -> list:
     """One JSON entry per kernel body: times summed over one unit of its
     path, launches from the main-path run that drives it."""
     units = {
@@ -803,16 +1265,25 @@ def kernel_entries(rows, launches, dl_launches) -> list:
         "bitlinear": (lambda r: r["m"] == LANES and r["mode"] == "row",
                       "deltalinear", "bitlinear",
                       "7 projections at M=4, row mode"),
+        "flash_attention": (lambda r: r["case"] == FLASH_UNIT, "flash",
+                            "flash_attention",
+                            "one layer's prefill attention, qwen3-8b heads "
+                            f"(32 q, 8 kv, hd 128), B=1, {FLASH_UNIT}"),
     }
     entries = []
     for name, source, replaces in KERNELS:
         q8 = name.endswith("_q8")
         keep, run, counter, unit = units[name.removesuffix("_q8")]
+        if run == "flash":
+            unit_name = unit
+        else:
+            unit_name = unit + (" (int8 base)" if q8 else " (fp32 base)")
         entry = summary(name, source, replaces,
-                        [r for r in rows[name] if keep(r)],
-                        unit + (" (int8 base)" if q8 else " (fp32 base)"))
+                        [r for r in rows[name] if keep(r)], unit_name)
         entry["shapes"] = rows[name]
-        if run == "deltalinear":
+        if run == "flash":
+            entry["launches"] = fl_launches[counter]
+        elif run == "deltalinear":
             entry["launches"] = dl_launches["int8" if q8 else "fp"][counter]
         else:
             entry["launches"] = launches[run + (" int8" if q8 else "")][
@@ -843,13 +1314,16 @@ def main() -> None:
     cfg = get_config(ARCH)
     timer = Timer(dev)
     rows = kernel_phase(cfg, dev, timer)
+    rows["flash_attention"], fl_launches = flash_phase(cfg, dev, timer)
     del timer
     torch.cuda.empty_cache()
     reference_phase(dev)
+    lifecycle_reference_phase(dev)
     dl_launches = deltalinear_phase(cfg, dev)
     launches = serve_phase(dev)
-    print(json.dumps({"kernels": kernel_entries(rows, launches,
-                                                dl_launches)}))
+    launches["lifecycle"] = lifecycle_phase(dev)
+    print(json.dumps({"kernels": kernel_entries(rows, launches, dl_launches,
+                                                fl_launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

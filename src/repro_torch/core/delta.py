@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Literal
 
+import numpy as np
 import torch
 
 AxisMode = Literal["row", "col", "scalar"]
@@ -113,6 +114,64 @@ def delta_matmul(x: torch.Tensor, packed: torch.Tensor, v: torch.Tensor,
     if mode == "scalar":
         return base + v.to(x.dtype) * (x @ signs.T)
     raise ValueError(mode)
+
+
+# ---------------------------------------------------------------------------
+# incremental update patches (version-to-version wire format)
+#
+# A patch ships the change between two versions in the WIRE domain, the
+# bytes a full publish stores: packed sign planes, fp16 vectors and extras
+# (as bit patterns), bool selectors.
+#   1. XOR the old and new wire buffers (zero where nothing changed);
+#   2. suppress the zero runs: maximal nonzero stretches become (start,
+#      length, literal bytes) segments, short zero gaps merged into one.
+# Exact at the bit level: a patched version is bit-identical to a full
+# publish of it.  Pure numpy, byte-identical to the JAX package's encoding.
+# ---------------------------------------------------------------------------
+
+def xor_bytes(old: np.ndarray, new: np.ndarray) -> np.ndarray:
+    """Flat uint8 XOR of two wire buffers (same shape + dtype)."""
+    old = np.ascontiguousarray(old)
+    new = np.ascontiguousarray(new)
+    if old.shape != new.shape or old.dtype != new.dtype:
+        raise ValueError(
+            f"wire buffers must match, got {old.dtype}{old.shape} vs "
+            f"{new.dtype}{new.shape}; incremental patches require an "
+            "unchanged module structure (publish full)")
+    return old.view(np.uint8).ravel() ^ new.view(np.uint8).ravel()
+
+
+def zrle_encode(flat: np.ndarray, *, merge_gap: int = 16
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Zero-run suppression of a flat uint8 XOR stream ->
+    (starts int64, lengths int32, literals uint8).  Nonzero stretches
+    separated by at most ``merge_gap`` zero bytes merge into one segment."""
+    flat = np.ascontiguousarray(flat, dtype=np.uint8).ravel()
+    nz = np.flatnonzero(flat)
+    if nz.size == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int32),
+                np.zeros(0, np.uint8))
+    brk = np.flatnonzero(np.diff(nz) > merge_gap)
+    starts = nz[np.concatenate([[0], brk + 1])]
+    ends = nz[np.concatenate([brk, [nz.size - 1]])] + 1
+    lits = np.concatenate([flat[s:e] for s, e in zip(starts, ends)])
+    return (starts.astype(np.int64), (ends - starts).astype(np.int32), lits)
+
+
+def zrle_decode(starts: np.ndarray, lens: np.ndarray, lits: np.ndarray,
+                size: int) -> np.ndarray:
+    """Inverse of :func:`zrle_encode` -> dense flat uint8 of ``size``."""
+    out = np.zeros(size, np.uint8)
+    off = 0
+    for s, n in zip(np.asarray(starts, np.int64), np.asarray(lens)):
+        if s + n > size:
+            raise ValueError(
+                f"XOR segment [{s}, {s + n}) exceeds buffer size {size}")
+        out[s:s + n] = lits[off:off + n]
+        off += int(n)
+    if off != len(lits):
+        raise ValueError("XOR literal stream length mismatch")
+    return out
 
 
 def artifact_bytes(d_out: int, d_in: int, mode: AxisMode) -> int:

@@ -9,13 +9,19 @@ a resident base model, in either residency mode.
   and no dense Ŵ is ever built.
 
 Both take a full-precision base or an int8 one (``core/quantize``
-QuantWeight leaves) and return byte accounting next to their result.  Mesh
-placements, async staging and incremental updates are not ported yet.
+QuantWeight leaves) and return byte accounting next to their result.
+
+``apply_update`` materialises the next version of a variant from its parent
+and a decoded update patch (``core/store``), bit-exactly in the wire domain;
+``load_full_checkpoint`` reads the fp16 checkpoint the paper compares load
+time against.  Mesh placements and async staging
+(``stage_overlay_transfer``) are not ported.
 """
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core.calibration import (DeltaModel, flatten_params,
@@ -124,3 +130,83 @@ def fused_resident_bytes(base_params, params_view, overlay) -> int:
     extra = sum(t.numel() * t.element_size()
                 for t in tree_leaves(params_view) if id(t) not in base_ids)
     return overlay_nbytes(overlay) + extra
+
+
+# ---------------------------------------------------------------------------
+# incremental version updates (store patch artifacts)
+# ---------------------------------------------------------------------------
+
+def _xor16(v: torch.Tensor, xr: torch.Tensor) -> torch.Tensor:
+    """XOR a (possibly fp32-held) fp16 wire buffer with 16-bit XOR bits —
+    exact at the bit level, so a patched vector is bit-identical to the new
+    version's full publish."""
+    bits = v.to(torch.float16).view(torch.int16)
+    out = (bits ^ xr.reshape(v.shape)).view(torch.float16)
+    return out.to(v.dtype)
+
+
+def _patch_entry(packed, v_row, v_col, use_row, pk_xor, vr_xor, vc_xor,
+                 ur_xor):
+    """One module's update: XOR the packed sign plane, the fp16 axis
+    vectors and the axis-selector flags with their decoded XOR buffers."""
+    return (packed ^ pk_xor.reshape(packed.shape),
+            _xor16(v_row, vr_xor),
+            _xor16(v_col, vc_xor),
+            use_row ^ ur_xor.reshape(use_row.shape))
+
+
+def _patch_extra(arr: torch.Tensor, xr: torch.Tensor) -> torch.Tensor:
+    return _xor16(arr, xr).to(torch.float16)
+
+
+def _wire(buf: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """Decoded XOR buffer -> tensor on ``like``'s device, in ``like``'s
+    shape; 16-bit patterns travel as int16 (the same bits)."""
+    buf = np.ascontiguousarray(buf)
+    if buf.dtype == np.uint16:
+        buf = buf.view(np.int16)
+    return torch.from_numpy(buf.copy()).reshape(like.shape).to(like.device)
+
+
+def apply_update(dm: DeltaModel, delta_patches: dict,
+                 extras_patches: dict) -> DeltaModel:
+    """The next version of a variant from its parent plus a decoded update
+    patch.  ``delta_patches``: path -> dict(packed, v_row, v_col, use_row)
+    dense XOR buffers (uint8 for the packed planes, uint16 for the fp16
+    vectors' bit patterns, bool for the selector); ``extras_patches``: path
+    -> uint16 XOR buffer.  Untouched modules are shared with the parent (no
+    copy).  The patched leaves land on the parent leaves' devices."""
+    deltas = dict(dm.deltas)
+    extras = dict(dm.extras)
+    for path, p in delta_patches.items():
+        e = deltas[path]
+        packed, v_row, v_col, use_row = _patch_entry(
+            e.packed, e.v_row, e.v_col, e.use_row,
+            _wire(p["packed"], e.packed), _wire(p["v_row"], e.v_row),
+            _wire(p["v_col"], e.v_col), _wire(p["use_row"], e.use_row))
+        deltas[path] = type(e)(packed=packed, v_row=v_row, v_col=v_col,
+                               use_row=use_row, scalar=e.scalar)
+    for path, xr in extras_patches.items():
+        like = extras[path]
+        extras[path] = _patch_extra(like, _wire(xr, like))
+    return DeltaModel(deltas=deltas, extras=extras)
+
+
+def load_full_checkpoint(npz_path, template_params):
+    """Baseline loader: read a full fp16 checkpoint (``store.
+    save_checkpoint_fp16``) into the template's structure, dtypes and
+    devices (the paper's full-checkpoint load comparison)."""
+    t0 = time.perf_counter()
+    data = np.load(npz_path)
+    flat = {}
+    device = None
+    for path, leaf in flatten_params(template_params).items():
+        device = leaf.device
+        arr = torch.from_numpy(data[path.replace(".", "__")])
+        flat[path] = arr.to(device=device, dtype=leaf.dtype)
+    params = unflatten_like(template_params, flat)
+    if device is not None:
+        synchronize(device)
+    return params, {"seconds": time.perf_counter() - t0,
+                    "transferred_bytes": int(sum(
+                        2 * t.numel() for t in tree_leaves(params)))}

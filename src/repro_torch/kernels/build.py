@@ -26,7 +26,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("unpack_apply.cu", "bitlinear_axes.cu",
-           "bitlinear_axes_banked.cu", "bitlinear.cu")
+           "bitlinear_axes_banked.cu", "bitlinear.cu", "flash_attn.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
@@ -38,6 +38,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 _SIGNATURES = {
     "repro_unpack_apply": [_P, _P, _L, _L, _L, _P, _I, _P, _P, _I, _L, _L,
                            _L, _P],
@@ -47,6 +48,8 @@ _SIGNATURES = {
                                     _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_bitlinear": [_P, _I, _P, _P, _L, _L, _P, _I, _P, _P, _P, _I, _I,
                         _I, _I, _I, _P],
+    "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Public wrappers for the delta kernels (port of ``repro.kernels.ops``).
+"""Public wrappers for the kernels (port of ``repro.kernels.ops``).
 
 Each wrapper dispatches on where its tensors lie: CUDA tensors launch the
 hand-written kernel (or the wrapper raises — there is no fallback), CPU
@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.quantize import is_quant
 from repro_torch.kernels import bitlinear as _bl
+from repro_torch.kernels import flash_attn as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import unpack_apply as _ua
 
@@ -176,3 +177,26 @@ def bitlinear_axes_banked(x: torch.Tensor, variant_idx: torch.Tensor,
         y = _ref.bitlinear_axes_banked_ref(x2, vidx, packed, v_row, v_col,
                                            wq, w_scale=ws)
     return y.reshape(*lead, n)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, q_offset: int = 0,
+                        kv_offset: int = 0) -> torch.Tensor:
+    """Forward flash attention: q (B, S, Hq, hd) · k, v (B, T, Hkv, hd) ->
+    (B, S, Hq, hd) in q.dtype, query head h reading KV head h // (Hq/Hkv),
+    the causal mask by absolute position.  Heads are flattened into the
+    kernel's (B·H, S, hd) layout and back, as the JAX wrapper does."""
+    b, s, hq, hd = q.shape
+    _, t, hkv, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads are not a multiple of {hkv} KV "
+                         "heads")
+    if not _use_kernel(q, k, v):
+        return _ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                  kv_offset=kv_offset)
+    qf = q.transpose(1, 2).reshape(b * hq, s, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(b * hkv, t, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(b * hkv, t, hd).contiguous()
+    o = _fa.flash_attention_fwd_p(qf, kf, vf, group=hq // hkv, causal=causal,
+                                  q_offset=q_offset, kv_offset=kv_offset)
+    return o.reshape(b, hq, s, hd).transpose(1, 2)

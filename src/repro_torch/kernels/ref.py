@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import delta as D
+from repro_torch.models.attention import attention_ref
 
 
 def _deq(w_base: torch.Tensor, w_scale=None) -> torch.Tensor:
@@ -83,3 +84,18 @@ def bitlinear_axes_banked_ref(x: torch.Tensor, variant_idx: torch.Tensor,
              + v_col[s].to(torch.float32)[None, :])
         y = torch.where(vidx == s, xf @ (v * signs + wb).T, y)
     return y.to(x.dtype)
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, group: int,
+                            causal: bool = True, q_offset: int = 0,
+                            kv_offset: int = 0) -> torch.Tensor:
+    """Attention in the flattened-head layout of the flash kernel: q (BH, S,
+    hd), k/v (BH/group, T, hd), query head b reading KV head b // group;
+    (BH, S, hd) in q.dtype.  The heads become one batch row of the dense
+    ``attention_ref``, whose grouping maps head b to KV head b // group."""
+    assert q.shape[0] == k.shape[0] * group
+    out = attention_ref(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+                        v.transpose(0, 1)[None], causal=causal,
+                        q_offset=q_offset, kv_offset=kv_offset)
+    return out[0].transpose(0, 1)

@@ -15,7 +15,9 @@ variant (the ``unpack_apply`` kernel), ``--mode fused`` keeps it packed
 bank of ``variants + 2`` slots (the ``bitlinear_axes_banked`` kernel) and
 needs ``--mode fused``.  ``--base-dtype int8`` holds the base's target
 matrices as int8 plus fp16 per-channel scales (the kernels dequantize in
-their tile pass) and prints the quantized bytes.  ``--num-layers`` cuts
+their tile pass) and prints the quantized bytes.  ``--store-dir DIR``
+publishes the variants as artifacts in a ``core/store.VariantStore`` under
+DIR and serves them from it (default: in memory).  ``--num-layers`` cuts
 depth only; ``--reduced`` selects the small test widths.  Runs on
 ``--device`` (default cuda).
 """
@@ -75,9 +77,11 @@ def build_variants(cfg, n_variants: int, device, seed: int = 0):
 
 def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
            device, max_resident: int = 0, bank_size: int = 0,
-           base_dtype: str = "fp"):
-    """A Deployment over ``base`` with ``dms`` published as v0..v{n-1}."""
-    dep = Deployment(model, base, mode=mode, scheduler=scheduler,
+           base_dtype: str = "fp", root_dir=None):
+    """A Deployment over ``base`` with ``dms`` published as v0..v{n-1}
+    (as store artifacts under ``root_dir`` when given)."""
+    dep = Deployment(model, base, root_dir=root_dir, mode=mode,
+                     scheduler=scheduler,
                      batch_size=batch, prompt_len=PROMPT_LEN,
                      max_len=MAX_LEN,
                      max_resident=max_resident or (8 if mode == "fused"
@@ -91,14 +95,15 @@ def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
 
 def build_deployment(cfg, *, mode: str, n_variants: int, batch: int,
                      device, scheduler: str = "group", seed: int = 0,
-                     max_resident: int = 0, base_dtype: str = "fp"):
+                     max_resident: int = 0, base_dtype: str = "fp",
+                     root_dir=None):
     """Base model (seeded) + ``n_variants`` published synthetic variants
     v0..v{n-1}, behind a Deployment with a bank of ``n_variants + 2``
     slots."""
     model, base, dms = build_variants(cfg, n_variants, device, seed)
     return deploy(model, base, dms, mode=mode, scheduler=scheduler,
                   batch=batch, device=device, max_resident=max_resident,
-                  base_dtype=base_dtype)
+                  base_dtype=base_dtype, root_dir=root_dir)
 
 
 def submit_requests(dep, cfg, n_requests: int, new_tokens,
@@ -135,6 +140,9 @@ def main(argv=None):
     ap.add_argument("--base-dtype", choices=("fp", "int8"), default="fp",
                     help="int8: target matrices held as int8 + fp16 "
                          "per-channel scales")
+    ap.add_argument("--store-dir", default=None,
+                    help="persist the variants as store artifacts here and "
+                         "serve them from it (default: in memory)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.scheduler == "continuous" and args.mode != "fused":
@@ -146,7 +154,8 @@ def main(argv=None):
     dep = build_deployment(cfg, mode=args.mode, n_variants=args.variants,
                            batch=args.batch, device=device,
                            scheduler=args.scheduler,
-                           base_dtype=args.base_dtype)
+                           base_dtype=args.base_dtype,
+                           root_dir=args.store_dir)
     if args.base_dtype == "int8":
         qs = dep.registry.quant_stats
         print(f"int8 base: {qs['targets']} targets, "
@@ -154,6 +163,11 @@ def main(argv=None):
               f"(ratio {qs['ratio']:.3f})")
     submit_requests(dep, cfg, args.requests, args.new_tokens)
     dep.drain()
+    if dep.store is not None:
+        print("store:", {n: {"versions": dep.store.versions(n),
+                             "artifact_bytes": dep.store.artifact_bytes(
+                                 n, dep.store.latest(n))}
+                         for n in dep.store.names()})
     print("metrics:", dep.metrics)
     print("registry:", dep.stats)
     hbm = dep.status()["hbm"]

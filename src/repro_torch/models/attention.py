@@ -113,6 +113,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, s, hq, hd).to(q.dtype)
 
 
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, q_offset: int = 0,
+                  kv_offset: int = 0) -> torch.Tensor:
+    """Dense reference attention (tests and comparisons): the full (S, T)
+    fp32 logits, masked with ``NEG_INF``, one softmax.  Shapes as
+    :func:`flash_attention`."""
+    b, s, hq, hd = q.shape
+    _, t, hkv, _ = k.shape
+    g = hq // hkv
+    dev = q.device
+    qf = (q.to(torch.float32) * hd ** -0.5).reshape(b, s, hkv, g, hd)
+    logits = torch.einsum("bskgh,btkh->bskgt", qf, k.to(torch.float32))
+    q_pos = q_offset + torch.arange(s, device=dev)
+    k_pos = kv_offset + torch.arange(t, device=dev)
+    mask = torch.ones((s, t), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    logits = torch.where(mask[None, :, None, None, :], logits,
+                         torch.tensor(NEG_INF, device=dev))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bskgt,btkh->bskgh", w, v.to(torch.float32))
+    return out.reshape(b, s, hq, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # decode attention (single new token against a cache)
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ views of the stacked tensors.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import attention as A
 from repro_torch.models.delta_overlay import oget
@@ -76,21 +77,41 @@ def _layer(tree, i: int):
 # block application
 # ---------------------------------------------------------------------------
 
-def _ffn_part(p, x, cfg, ov=None, vidx=None):
+def _ffn_part(p, x, cfg, io=None, ov=None, vidx=None):
     h = rmsnorm(x, psel(p["ln2"], oget(ov, "ln2"), vidx), cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, ov=oget(ov, "mlp"), vidx=vidx)
+    y = mlp_apply(p["mlp"], h, ov=oget(ov, "mlp"), vidx=vidx)
+    if io is not None:
+        # as the JAX module: gate/up outputs from a second product with the
+        # layer's own weights, outside mlp_apply; w_down's input rebuilt
+        gate = linear(h, p["mlp"]["w_gate"])
+        up = linear(h, p["mlp"]["w_up"])
+        io["mlp.w_gate"] = (h, gate)
+        io["mlp.w_up"] = (h, up)
+        io["mlp.w_down"] = (F.silu(gate) * up, y)
+    return x + y
 
 
-def block_apply(p, x, cfg, positions, theta, window, ov=None, vidx=None):
-    """One layer over a full sequence; returns (x, (k, v))."""
+def block_apply(p, x, cfg, positions, theta, window, io=None, ov=None,
+                vidx=None):
+    """One layer over a full sequence; returns (x, (k, v)).  ``io`` (a dict
+    or None) collects each projection's (input, output) pair — the
+    calibration cache.  As in the JAX module, the pairs of ``attn.wq`` and
+    ``attn.wk`` hold q and k AFTER qk-norm and RoPE, not the bare
+    projection outputs."""
     ov_a = oget(ov, "attn")
     h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1"), vidx), cfg.norm_eps)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions, theta, ov=ov_a,
                             vidx=vidx)
     o = A.flash_attention(q, k, v, causal=True, window=window)
     o = o.reshape(*x.shape[:-1], cfg.q_dim)
-    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx)
-    return _ffn_part(p, x, cfg, ov=ov, vidx=vidx), (k, v)
+    wo_out = linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx)
+    if io is not None:
+        b, s, _ = x.shape
+        io["attn.wq"] = (h, q.reshape(b, s, -1))
+        io["attn.wk"] = (h, k.reshape(b, s, -1))
+        io["attn.wv"] = (h, v.reshape(b, s, -1))
+        io["attn.wo"] = (o, wo_out)
+    return _ffn_part(p, x + wo_out, cfg, io=io, ov=ov, vidx=vidx), (k, v)
 
 
 def _unembed(params, x, cfg, ov=None, vidx=None):
@@ -103,13 +124,15 @@ def _unembed(params, x, cfg, ov=None, vidx=None):
 # ---------------------------------------------------------------------------
 
 def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
-            variant_idx=None):
+            variant_idx=None, collect_io: bool = False):
     """-> (logits (B,S,V), aux).  aux["kv"] = (k, v) stacked (L,B,S,Hkv,hd)
-    when collect_kv.  ``overlay`` (optional) shadows params: matmuls with an
-    entry run the fused delta GEMM against the base weight.
-    ``variant_idx`` (optional (B,) int) marks the overlay as BANKED (bank
-    axis on every leaf, extras included): every batch row serves its own
-    variant, slot 0 meaning base."""
+    when collect_kv.  aux["io"] = {projection: (X (L,B,S,d_in),
+    Y (L,B,S,d_out))} over the seven projections when collect_io (the
+    calibration cache; see ``block_apply``).  ``overlay`` (optional)
+    shadows params: matmuls with an entry run the fused delta GEMM against
+    the base weight.  ``variant_idx`` (optional (B,) int) marks the overlay
+    as BANKED (bank axis on every leaf, extras included): every batch row
+    serves its own variant, slot 0 meaning base."""
     _check_dense(cfg)
     vidx = variant_idx
     x = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype,
@@ -118,21 +141,28 @@ def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
     positions = torch.arange(s, device=x.device)
     pat = layer_pattern(cfg)
     ov_layers = oget(overlay, "layers")
-    ks, vs = [], []
+    ks, vs, ios = [], [], []
     for i in range(cfg.num_layers):
         entry = pat[i % len(pat)]
+        io = {} if collect_io else None
         x, (k, v) = block_apply(_layer(params["layers"], i), x, cfg,
                                 positions, entry["theta"], entry["window"],
-                                ov=_layer(ov_layers, i), vidx=vidx)
+                                io=io, ov=_layer(ov_layers, i), vidx=vidx)
         if collect_kv:
             ks.append(k)
             vs.append(v)
+        if collect_io:
+            ios.append(io)
     x = rmsnorm(x, psel(params["final_norm"], oget(overlay, "final_norm"),
                         vidx), cfg.norm_eps)
     logits = _unembed(params, x, cfg, ov=overlay, vidx=vidx)
     aux = {}
     if collect_kv:
         aux["kv"] = (torch.stack(ks), torch.stack(vs))
+    if collect_io:
+        aux["io"] = {proj: tuple(torch.stack([io[proj][j] for io in ios])
+                                 for j in (0, 1))
+                     for proj in ios[0]}
     return logits, aux
 
 

@@ -1,26 +1,35 @@
 """Deployment: the versioned variant lifecycle as one control plane (port
-of ``repro.serving.api`` without a store).
+of ``repro.serving.api``).
 
-    dep = Deployment(model, base_params)   # fused, continuous, device="cuda"
-    v1  = dep.publish("support-bot", dm)
+    dep = Deployment(model, base_params, root_dir="/srv/variants")
+    v1  = dep.publish("support-bot", dm)          # full artifact, version 1
     rid = dep.submit(prompt, variant="support-bot")
-    v2  = dep.update("support-bot", dm_next)             # hot-swap
+    v2  = dep.update("support-bot", dm_next)      # XOR/RLE patch, hot-swap
     dep.drain()
     dep.status(rid)
-    dep.rollback("support-bot")
+    dep.rollback("support-bot")                   # pointer move
 
-Versions live in memory, as the JAX ``Deployment`` keeps them when it has
-no store.  The deployment runs on ``device`` (default ``cuda``); the base
-params are moved there.  ``scheduler="continuous"`` (the default) serves
-mixed-variant batches from the overlay bank and needs ``mode="fused"``;
+With a store (``root_dir=`` or ``store=``, a ``core/store.VariantStore``)
+``publish`` writes a full artifact, ``update`` an incremental patch against
+the current version, and ``rollback`` moves the store's pointer; the
+registry holds lazy references and loads a version only when a request
+needs it.  A second Deployment over the same directory hydrates each name's
+lineage on first reference (``eager=True``: all at construction).  Without
+a store, versions live in memory, as the JAX ``Deployment`` keeps them.
+
+The deployment runs on ``device`` (default ``cuda``); the base params are
+moved there.  ``scheduler="continuous"`` (the default) serves mixed-variant
+batches from the overlay bank and needs ``mode="fused"``;
 ``scheduler="group"`` serves one variant per batch, dense or fused.
 ``base_dtype="int8"`` keeps the base's target matrices as int8 plus fp16
-per-channel scales (``core/quantize``).
+per-channel scales (``core/quantize``).  Mesh sharding, async admission,
+speculative decoding and the compile cache are not ported.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.core import store as S
 from repro_torch.core.calibration import DeltaModel
 from repro_torch.device import resolve_device
 from repro_torch.serving.engine import Request, ServingEngine
@@ -29,14 +38,18 @@ from repro_torch.tree import tree_map
 
 
 class Deployment:
-    """One resident base model, in-memory variant version lineages and a
-    serving engine behind publish/update/rollback/submit/drain/status."""
+    """One resident base model, a store (or in-memory lineages) of variant
+    versions and a serving engine behind
+    publish/update/rollback/submit/drain/status."""
 
-    def __init__(self, model, base_params, *, mode: str = "fused",
+    def __init__(self, model, base_params, *, root_dir=None,
+                 store: Optional[S.VariantStore] = None, mode: str = "fused",
                  scheduler: str = "continuous", batch_size: int = 4,
                  prompt_len: int = 32, max_len: int = 128,
-                 bank_size: int = 8, max_resident: int = 8, device=None,
-                 base_dtype: str = "fp"):
+                 bank_size: int = 8, max_resident: int = 8,
+                 eager: bool = False, device=None, base_dtype: str = "fp"):
+        if store is not None and root_dir is not None:
+            raise ValueError("pass either store or root_dir, not both")
         if base_dtype not in ("fp", "int8"):
             raise ValueError(f"unknown base dtype {base_dtype!r}")
         if scheduler == "continuous" and mode != "fused":
@@ -55,39 +68,95 @@ class Deployment:
                                         max_resident=max_resident, mode=mode,
                                         bank_size=bank_size,
                                         base_dtype=base_dtype)
+        if store is None and root_dir is not None:
+            store = S.VariantStore(root_dir, base_fp=self.registry.base_fp)
+        if store is not None and store.base_fp is None:
+            store.base_fp = self.registry.base_fp
+        self.store = store
+        # restart hydration is lazy by default: a store-backed node
+        # registers a name's lineage on its first reference (admission, an
+        # explicit name@vN, rollback) through the registry's hydrator hook
+        self._hydrated: set = set()
+        if store is not None:
+            if eager:
+                for name in store.names():
+                    self._hydrate(name)
+            else:
+                self.registry.hydrator = self._hydrate
         self.engine = ServingEngine(model, self.registry,
                                     batch_size=batch_size,
                                     prompt_len=prompt_len, max_len=max_len,
                                     scheduler=scheduler)
 
+    def _hydrate(self, name: str) -> bool:
+        """Register every persisted version of ``name`` from the store
+        (idempotent per name; False when the store does not know it)."""
+        if self.store is None or name in self._hydrated:
+            return False
+        try:
+            versions = self.store.versions(name)
+        except (KeyError, IOError):
+            return False
+        self._hydrated.add(name)
+        for v in versions:
+            self.registry.set_version(name, v, self._store_ref(name, v))
+        self.registry.set_version(name, self.store.latest(name))
+        return True
+
+    def _store_ref(self, name: str, version: int):
+        """Lazy materialisation: the registry loads (and the store caches)
+        the version only when a request needs it."""
+        store = self.store
+        return lambda: store.load(name, version)
+
     # -- control plane -----------------------------------------------------
     def publish(self, name: str, dm: DeltaModel, *,
                 mode: Optional[str] = None, wait: bool = False) -> int:
-        """Register ``dm`` as the next version of ``name`` and point serving
-        at it; ``wait=True`` makes it resident now.  Returns the version."""
+        """Publish ``dm`` as the next full version of ``name`` (a full
+        artifact when a store backs this deployment) and point serving at
+        it; ``wait=True`` makes it resident now.  Returns the version."""
         if mode == "dense" and self.engine.scheduler == "continuous":
             raise ValueError(
                 "per-variant mode='dense' cannot serve under the "
                 "continuous scheduler (overlay-bank admission is "
                 "fused-only)")
-        v = self.registry.next_version(name)
-        self.registry.set_version(name, v, dm, mode=mode)
+        if self.store is not None:
+            v = self.store.publish(name, dm)
+            artifact = self._store_ref(name, v)
+        else:
+            v = self.registry.next_version(name)
+            artifact = dm
+        self.registry.set_version(name, v, artifact, mode=mode)
         self._after_swap(name, wait)
         return v
 
     def update(self, name: str, dm: DeltaModel, *, wait: bool = False) -> int:
-        """Next version of an existing variant + atomic pointer move."""
-        if not self.registry.has_variant(name):
-            raise KeyError(f"unknown variant {name!r}; publish first")
-        v = self.registry.next_version(name)
-        self.registry.set_version(name, v, dm)
+        """Next version of an existing variant + atomic pointer move; with
+        a store it ships as an XOR/RLE patch against the current version.
+        In-flight requests finish on the version they pinned."""
+        if self.store is not None:
+            v = self.store.publish_update(name, dm)
+            artifact = self._store_ref(name, v)
+        else:
+            if not self.registry.has_variant(name):
+                raise KeyError(f"unknown variant {name!r}; publish first")
+            v = self.registry.next_version(name)
+            artifact = dm
+        self.registry.set_version(name, v, artifact)
         self._after_swap(name, wait)
         return v
 
     def rollback(self, name: str, to_version: Optional[int] = None, *,
                  wait: bool = False) -> int:
-        """Pointer move back to ``to_version`` (default: previous)."""
-        v = self.registry.rollback(name, to_version)
+        """Pointer move back to ``to_version`` (default: previous); with a
+        store, the store's pointer moves and no artifact is touched."""
+        if self.store is not None:
+            v = self.store.rollback(name, to_version)
+            # the registry may not know this version yet (a fresh
+            # Deployment over an existing store directory)
+            self.registry.set_version(name, v, self._store_ref(name, v))
+        else:
+            v = self.registry.rollback(name, to_version)
         self._after_swap(name, wait)
         return v
 
@@ -106,10 +175,16 @@ class Deployment:
         return self.registry.current_version(name)
 
     def versions(self, name: str) -> list:
-        return self.registry.versions(name)
+        return (self.store.versions(name) if self.store is not None
+                else self.registry.versions(name))
 
     def variants(self) -> list:
-        return self.registry.registered()
+        """Servable variant names.  Under lazy hydration the registry only
+        knows referenced names; the store's listing fills in the rest."""
+        names = set(self.registry.registered())
+        if self.store is not None:
+            names.update(self.store.names())
+        return ["__base__"] + sorted(names - {"__base__"})
 
     def close(self) -> None:
         """Nothing runs in the background of a synchronous deployment."""

@@ -199,7 +199,7 @@ class ServingEngine:
         try:
             params, overlay = self.registry.resolve(variant)
             version = self.registry.current_version(variant)
-        except KeyError as e:   # unknown variant/version: re-queue or fail
+        except Exception as e:  # unknown variant, failed load: retry/fail
             for r in group:
                 r.retries += 1
                 if r.retries > self.max_retries:

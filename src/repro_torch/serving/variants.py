@@ -1,6 +1,13 @@
 """Multi-tenant variant registry (port of ``repro.serving.variants``
-without mesh, pod-local banks, artifact paths and async admission): many
-fine-tunes over one resident base.
+without mesh, pod-local banks and async admission): many fine-tunes over
+one resident base.
+
+A registered artifact is a ``DeltaModel``, a zero-argument callable that
+returns one (lazy store materialisation, ``serving/api.Deployment``) or an
+artifact directory (``core/store.load_artifact``, verified against the
+base's fingerprint).  A failed load counts in ``stats["load_failures"]``
+and re-raises, so the engine's retry budget applies.  An unknown name
+consults the ``hydrator`` hook once before raising.
 
 Residency modes:
 
@@ -259,14 +266,17 @@ class VariantRegistry:
         self.bank_size = bank_size
         self.bank: Optional[OverlayBank] = None   # created on first use
         self._bank_evictions_seen = 0
+        # lazy-hydration hook (serving/api.Deployment): called with a
+        # variant name when _parse misses; True -> retry the parse
+        self.hydrator = None
         self._versions: dict[str, dict] = {}   # name -> {version: artifact}
         self._current: dict[str, Optional[int]] = {}   # serving pointer
         self._modes: dict[str, str] = {}          # per-variant override
         self._resident: "collections.OrderedDict[str, _Resident]" = \
             collections.OrderedDict()
         self.stats = {"swaps": 0, "hits": 0, "swap_seconds": 0.0,
-                      "transferred_bytes": 0, "resident_bytes": 0,
-                      "evictions": 0}
+                      "transferred_bytes": 0, "load_failures": 0,
+                      "resident_bytes": 0, "evictions": 0}
 
     @property
     def base_fp(self) -> str:
@@ -290,7 +300,20 @@ class VariantRegistry:
 
     # -- names and versions ------------------------------------------------
     def _parse(self, nameish: str) -> tuple:
-        """A plain name follows the serving pointer; ``name@vN`` pins N."""
+        """A plain name follows the serving pointer; ``name@vN`` pins N.
+        An unknown name consults the ``hydrator`` once before raising."""
+        try:
+            return self._parse_known(nameish)
+        except KeyError:
+            if self.hydrator is None:
+                raise
+            base = nameish.rpartition("@v")[0] if "@v" in nameish \
+                else nameish
+            if not self.hydrator(base):
+                raise
+            return self._parse_known(nameish)
+
+    def _parse_known(self, nameish: str) -> tuple:
         if nameish == "__base__" or nameish in self._versions:
             return nameish, self._current.get(nameish)
         if "@v" in nameish:
@@ -306,9 +329,10 @@ class VariantRegistry:
 
     def set_version(self, name: str, version, artifact=None,
                     mode: Optional[str] = None):
-        """Register ``artifact`` under (name, version) if given, then move
-        the serving pointer to ``version``; the previous version's resident
-        is dropped."""
+        """Register ``artifact`` (a DeltaModel, a zero-argument callable
+        returning one, or an artifact directory) under (name, version) if
+        given, then move the serving pointer to ``version``; the previous
+        version's resident is dropped."""
         if mode is not None:
             if mode not in ("dense", "fused"):
                 raise ValueError(f"unknown residency mode {mode!r}")
@@ -379,7 +403,7 @@ class VariantRegistry:
             self.stats["hits"] += 1
             r = self._resident[vkey]
             return r.params, r.overlay
-        dm = self._versions[name][version]
+        dm = self._load(name, version)
         if self.variant_mode(name) == "fused":
             params, overlay, st = L.device_put_overlay(self.base_params, dm)
             nbytes = L.fused_resident_bytes(self.base_params, params, overlay)
@@ -397,6 +421,21 @@ class VariantRegistry:
             self.stats["resident_bytes"] -= evicted.nbytes
             self.stats["evictions"] += 1
         return resident.params, resident.overlay
+
+    def _load(self, name: str, version) -> DeltaModel:
+        """The registered artifact of (name, version) as a DeltaModel."""
+        art = self._versions[name][version]
+        if isinstance(art, DeltaModel):
+            return art
+        try:
+            if callable(art):
+                return art()
+            return S.load_artifact(str(art), expect_base_fp=self._base_fp)
+        except Exception:
+            # a corrupt or missing artifact must not take the node down:
+            # count it and let the engine re-queue or fail the request
+            self.stats["load_failures"] += 1
+            raise
 
     # -- banked resolution (mixed-variant batches) -------------------------
     def _ensure_bank(self) -> OverlayBank:
@@ -441,7 +480,7 @@ class VariantRegistry:
             raise RuntimeError(
                 "overlay bank full: every resident is pinned by an "
                 "in-flight request")
-        return self._bank_admit(vkey, self._versions[name][version])
+        return self._bank_admit(vkey, self._load(name, version))
 
     def bank_acquire(self, nameish: str) -> tuple:
         """Admit AND pin in one step: returns (slot, version_key).  The

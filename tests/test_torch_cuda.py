@@ -18,6 +18,11 @@ Over an int8 base (``core/quantize``) the same bounds hold with Ŵ built
 from the dequantized base: the kernels form q·s in fp32 as the plain
 versions do, so ``unpack_apply`` stays bit-identical.  ``bitlinear_p`` (the
 static-mode GEMM) is held to the GEMM bound in its three modes.
+
+``flash_attention_fwd_p`` sums its products and its softmax in another
+order than its plain version (a dense fp32 softmax): within 2e-4 abs+rel in
+fp32; in bf16 within 5e-4 + 1e-2·|plain|, since both round one fp32 value
+to bf16 and so differ by one bf16 step of the output at most.
 """
 import numpy as np
 import pytest
@@ -27,6 +32,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import delta as D  # noqa: E402
 from repro_torch.core import quantize as Q  # noqa: E402
 from repro_torch.kernels import bitlinear as BL  # noqa: E402
+from repro_torch.kernels import flash_attn as FA  # noqa: E402
 from repro_torch.kernels import ops as K  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels import unpack_apply as UA  # noqa: E402
@@ -481,3 +487,110 @@ def test_q8_wrappers_reject_what_they_cannot_run(cuda):
             w_scale=qw.scale.float())
     with pytest.raises(ValueError):                           # (N, K) v2d
         BL.bitlinear_p(x, packed, torch.ones((32, 64), device=cuda), wb)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (5e-4, 1e-2)}
+
+
+def _flash_case(seed, bh, s, t, hd, group, dtype, device):
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    q = torch.randn((bh, s, hd), generator=gen)
+    k = torch.randn((bh // group, t, hd), generator=gen)
+    v = torch.randn((bh // group, t, hd), generator=gen)
+    return [x.to(device=device, dtype=dtype) for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("s,t", [(16, 16), (77, 77), (8, 200), (130, 64)])
+@pytest.mark.parametrize("causal,q_off,kv_off", [
+    (False, 0, 0), (True, 0, 0), (True, 40, 0), (True, 0, 5), (True, 3, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, hd, s, t, causal, q_off, kv_off,
+                                       dtype):
+    q, k, v = _flash_case(hd + s + t, 8, s, t, hd, 4, dtype, cuda)
+    before = FA.launches
+    got = FA.flash_attention_fwd_p(q, k, v, group=4, causal=causal,
+                                   q_offset=q_off, kv_offset=kv_off)
+    assert FA.launches == before + 1
+    want = FA.plain(q, k, v, group=4, causal=causal, q_offset=q_off,
+                    kv_offset=kv_off)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("s", [16, 512, 4096])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_qwen3_8b_heads(cuda, s, causal, dtype):
+    """The serving shapes of chip_smoke.py: 32 query heads over 8 KV heads,
+    hd 128, B=1, S=T."""
+    q, k, v = _flash_case(s, 32, s, s, 128, 4, dtype, cuda)
+    got = FA.flash_attention_fwd_p(q, k, v, group=4, causal=causal)
+    want = FA.plain(q, k, v, group=4, causal=causal)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_attention_rows_without_a_key_average_v(cuda):
+    """q_offset < kv_offset: the tile's first rows see no key and come out
+    as the mean of v over all T (the TPU kernel's -1e30 masking)."""
+    q, k, v = _flash_case(1, 4, 100, 300, 128, 2, torch.float32, cuda)
+    got = FA.flash_attention_fwd_p(q, k, v, group=2, causal=True,
+                                   q_offset=0, kv_offset=30)
+    mean_v = v.mean(dim=1).repeat_interleave(2, dim=0)      # (BH, hd)
+    torch.testing.assert_close(got[:, :30], mean_v[:, None].expand(
+        4, 30, 128), rtol=1e-4, atol=1e-5)
+    want = FA.plain(q, k, v, group=2, causal=True, q_offset=0, kv_offset=30)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_wrapper_layout_matches_attention_ref(cuda):
+    """``ops.flash_attention_fwd`` on (B, S, H, hd) with GQA against the
+    dense ``attention_ref``."""
+    from repro_torch.models import attention as A
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(4)
+    q = torch.randn((2, 50, 8, 64), generator=gen).to(cuda)
+    k = torch.randn((2, 50, 2, 64), generator=gen).to(cuda)
+    v = torch.randn((2, 50, 2, 64), generator=gen).to(cuda)
+    before = FA.launches
+    got = K.flash_attention_fwd(q, k, v, causal=True)
+    assert FA.launches == before + 1
+    want = A.attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    with K.plain_versions():
+        plain = K.flash_attention_fwd(q, k, v, causal=True)
+    assert FA.launches == before + 1
+    torch.testing.assert_close(got, plain, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_wrapper_rejects_what_it_cannot_run(cuda):
+    q, k, v = _flash_case(2, 4, 16, 16, 128, 2, torch.float32, cuda)
+    with pytest.raises(ValueError):          # K on the CPU
+        FA.flash_attention_fwd_p(q, k.cpu(), v, group=2)
+    with pytest.raises(ValueError):          # mixed dtypes
+        FA.flash_attention_fwd_p(q, k.bfloat16(), v, group=2)
+    with pytest.raises(ValueError):          # fp16 is not a kernel dtype
+        FA.flash_attention_fwd_p(q.half(), k.half(), v.half(), group=2)
+    with pytest.raises(ValueError):          # heads do not group
+        FA.flash_attention_fwd_p(q, k, v, group=3)
+    with pytest.raises(ValueError):          # hd 96 has no instantiation
+        a, b, c = _flash_case(2, 4, 16, 16, 96, 2, torch.float32, cuda)
+        FA.flash_attention_fwd_p(a, b, c, group=2)
+    with pytest.raises(ValueError):          # not contiguous
+        FA.flash_attention_fwd_p(q.transpose(0, 1).contiguous()
+                                 .transpose(0, 1), k, v, group=2)
+    with pytest.raises(ValueError):          # Hq not a multiple of Hkv
+        K.flash_attention_fwd(torch.zeros((1, 4, 3, 64), device=cuda),
+                              torch.zeros((1, 4, 2, 64), device=cuda),
+                              torch.zeros((1, 4, 2, 64), device=cuda))
