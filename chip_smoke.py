@@ -8,14 +8,19 @@ Phases (any failure raises and the script exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit; fails without a CUDA device;
 2. build: compiles the CUDA kernels from ``src/repro_torch/csrc`` and prints
-   ``nvcc -Xptxas -v`` (registers, shared memory, spills per kernel);
+   ``nvcc -Xptxas -v`` (registers, shared memory, spills per kernel), then
+   that report's lines for the redesigned kernels under demangled names;
 3. kernels: each kernel body's wrapper at the serving path's shapes of
    qwen3-8b (full width), over an fp32 base and over an int8 base
    (``core/quantize``), held against its plain PyTorch version on the same
    inputs and timed with CUDA events (L2 flushed before every launch)
    beside its bound, the plain version and, where one exists, a single
-   PyTorch call; the banked kernel also beside the single-variant kernel on
-   the same x; ``bitlinear_p`` in row, col and scalar mode;
+   PyTorch call; ``bitlinear_axes`` also beside ``torch.sum`` over its fp32
+   W_b (the read rate the timer sees); the banked kernel also beside
+   the single-variant kernel on the same x; ``bitlinear_p`` in row, col and
+   scalar mode; the streaming kernel's 8- and 16-row tiers (M=8, 16 at wo
+   and w_gate) beside its 4-row tier once per four rows and the tiled
+   kernel;
 4. reference: a reduced qwen3-8b served on the card through the kernels
    and on the CPU through the plain versions, same weights and requests,
    with the group scheduler (dense and fused) and the continuous scheduler
@@ -41,7 +46,8 @@ Phases (any failure raises and the script exits non-zero):
    int8-vs-fp greedy agreement is printed, not asserted (random weights at
    full width give near-tied logits);
 7. flash (run right after the kernel phase): ``ops.flash_attention_fwd``
-   (the ``flash_attn.cu`` kernel) over qwen3-8b's heads (32 q, 8 kv,
+   (the ``flash_attn.cu`` kernels: fp32 on the CUDA cores, bf16 on the
+   tensor cores) over qwen3-8b's heads (32 q, 8 kv,
    hd 128) at B=1 for S=T in {16, 512, 4096}, causal and not, fp32 and
    bf16, plus hd 256, an odd S (77), absolute offsets and a block whose
    first rows see no key; counters zeroed right before; each output held
@@ -62,8 +68,10 @@ Phases (any failure raises and the script exits non-zero):
    same lifecycle through a store on the card and on the CPU, right after
    the reference phase: tokens must be identical.
 
-Then it prints the kernel summary as one JSON line, the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``.
+Then it prints the kernel summary as one JSON line (the entries of a kernel
+whose first CUDA design was replaced carry ``design``: the design now run),
+the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.
 
 Tolerances: ``unpack_apply`` performs the plain version's arithmetic
 exactly (one fp32 add per element; over an int8 base one fp32 product
@@ -101,6 +109,7 @@ ARCH = "qwen3-8b"
 SERVE_LAYERS = 4
 LANES, PROMPT = 4, 16         # serving batch and padded prompt length
 BANK_VIDX = [0, 1, 2, 1]      # kernel phase: base, two variants, mixed
+TIER_SHAPES = ("wo", "w_gate")  # kernel phase: the M=8, 16 streaming tiers
 CONT_BUDGETS = [4, 6, 8, 10, 12]
 
 
@@ -264,6 +273,50 @@ def axes_rows(name, n, k, gen, dev, timer, p0, vr0, base) -> list:
                 n, k, ws is not None)),
             "library_ms": timer.ms(lambda: torch.matmul(x32, w_hat.T),
                                    reps=20, warmup=3)})
+        if ws is None:
+            # the read rate this timer sees: one PyTorch reduction reading
+            # the fp32 W_b once (a reference for the byte bound)
+            rows[-1]["read_ms"] = timer.ms(lambda: wq.sum(), reps=20,
+                                           warmup=3)
+    return rows
+
+
+def tier_rows(name, n, k, gen, dev, timer, p0, vr0, base) -> list:
+    """``bitlinear_axes`` at M=8 and M=16, where the streaming kernel runs
+    its 8- and 16-row tiers, against the 4-row tier launched once per group
+    of four rows (W_b read once per group) and the tiled kernel, timed at
+    M=17 (its one 64-row tile costs the same for M = 1..64); each result
+    held to the GEMM bound."""
+    from repro_torch.core import delta as D
+    from repro_torch.kernels import bitlinear as BL
+
+    wq, ws, wf, _ = _base(base)
+    vr = vr0.to(torch.float16)
+    vc = torch.zeros(k, dtype=torch.float16, device=dev)
+    w_abs = ((vr.float()[:, None] + vc.float()[None, :])
+             * D.unpack_signs(p0, k) + wf).abs()
+    x = torch.randn((17, k), generator=gen, device=dev).to(torch.bfloat16)
+    _check_gemm((name, 17), BL.bitlinear_axes_p(x, p0, vr, vc, wq, ws),
+                BL.plain(x.float(), p0, vr, vc, wq, w_scale=ws), x, w_abs)
+    tiles_ms = timer.ms(lambda: BL.bitlinear_axes_p(x, p0, vr, vc, wq, ws),
+                        reps=20, warmup=3)
+    rows = []
+    for m in (8, 16):
+        xm = x[:m]
+        groups = [x[g:g + 4] for g in range(0, m, 4)]
+        want = BL.plain(xm.float(), p0, vr, vc, wq, w_scale=ws)
+        for got in (BL.bitlinear_axes_p(xm, p0, vr, vc, wq, ws),
+                    torch.cat([BL.bitlinear_axes_p(g, p0, vr, vc, wq, ws)
+                               for g in groups])):
+            _check_gemm((name, m), got, want, xm, w_abs)
+        rows.append({
+            "shape": f"{name} M={m} N={n} K={k}"
+                     + (" int8" if ws is not None else " fp32"),
+            "tier_ms": timer.ms(lambda: BL.bitlinear_axes_p(
+                xm, p0, vr, vc, wq, ws), reps=20, warmup=3),
+            "groups_of_4_ms": timer.ms(lambda: [BL.bitlinear_axes_p(
+                g, p0, vr, vc, wq, ws) for g in groups], reps=20, warmup=3),
+            "tiles_m17_ms": tiles_ms})
     return rows
 
 
@@ -407,6 +460,7 @@ def kernel_phase(cfg, dev, timer) -> dict:
     gen.manual_seed(0)
     L = SERVE_LAYERS
     rows = {name: [] for name, _, _ in KERNELS}
+    tiers = []
     for name, n, k in projections(cfg):
         wb = torch.randn((L, n, k), generator=gen, device=dev) * k ** -0.5
         delta = torch.randn((L, n, k), generator=gen, device=dev) * 0.005
@@ -423,6 +477,9 @@ def kernel_phase(cfg, dev, timer) -> dict:
                 name, timer, packed, v_row, v_col, stack)
             rows["bitlinear_axes" + suffix] += axes_rows(
                 name, n, k, gen, dev, timer, p0, v_row[0], layer0)
+            if name in TIER_SHAPES:
+                tiers += tier_rows(name, n, k, gen, dev, timer, p0,
+                                   v_row[0], layer0)
             rows["bitlinear_axes_banked" + suffix] += banked_rows(
                 name, n, k, gen, dev, timer, packed, v_row, v_col, layer0)
             rows["bitlinear" + suffix] += static_rows(
@@ -432,12 +489,19 @@ def kernel_phase(cfg, dev, timer) -> dict:
     for kname, krows in rows.items():
         print(f"  -- {kname}")
         for r in krows:
-            extra = (f" uniform_ms={r['uniform_ms']:.4f}"
-                     if "uniform_ms" in r else "")
+            extra = "".join(f" {key}={r[key]:.4f}" for key in
+                            ("uniform_ms", "read_ms") if key in r)
             print(f"  {r['shape']:44s} err={r['max_abs_err']:.3g} "
                   f"kernel_ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                   f"({r['bound_by']}, {r['peak_tflops']:.0f} TF/s) "
                   f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']}{extra}")
+    print("  -- bitlinear_axes streaming row tiers (M=8: 8 rows, M=16: 16 "
+          "rows) vs the 4-row tier once per 4 rows vs the tiled kernel at "
+          "M=17")
+    for r in tiers:
+        print(f"  {r['shape']:44s} tier_ms={r['tier_ms']:.4f} "
+              f"groups_of_4_ms={r['groups_of_4_ms']:.4f} "
+              f"tiles_m17_ms={r['tiles_m17_ms']:.4f}")
     print("kernels: unpack_apply bit-identical to plain at "
           f"{len(rows['unpack_apply']) + len(rows['unpack_apply_q8'])} "
           "shapes (fp32 and int8 base); every GEMM within 1e-5 relative at "
@@ -1247,6 +1311,13 @@ def lifecycle_reference_phase(dev) -> None:
           f"({sum(len(t) for run in served['cpu'] for t, _ in run)} tokens)")
 
 
+# kernel bodies whose first CUDA design was replaced: the design now run
+GEMM_DESIGN = "streaming (M <= 16) + cp.async tiles (M > 16)"
+REDESIGNED = {"bitlinear_axes": GEMM_DESIGN, "bitlinear_axes_q8": GEMM_DESIGN,
+              "bitlinear": GEMM_DESIGN, "bitlinear_q8": GEMM_DESIGN,
+              "flash_attention": "bf16: wgmma + TMA; fp32: CUDA cores"}
+
+
 def kernel_entries(rows, launches, dl_launches, fl_launches) -> list:
     """One JSON entry per kernel body: times summed over one unit of its
     path, launches from the main-path run that drives it."""
@@ -1289,8 +1360,36 @@ def kernel_entries(rows, launches, dl_launches, fl_launches) -> list:
             entry["launches"] = launches[run + (" int8" if q8 else "")][
                 counter]
         assert entry["launches"] > 0, (name, entry["launches"])
+        if name in REDESIGNED:
+            entry["design"] = REDESIGNED[name]
         entries.append(entry)
     return entries
+
+
+def resources(report: str) -> list[str]:
+    """The ``nvcc -Xptxas -v`` lines of every instantiation of the
+    redesigned kernels (the streaming and tiled delta GEMMs, the bf16 wgmma
+    flash kernel): registers, spill bytes and static shared memory, under
+    the kernel's name demangled by the toolkit's ``cu++filt`` (mangled where
+    it is missing).  Their shared memory is dynamic, sized at launch."""
+    import re
+    from repro_torch.kernels import build
+    keep = ("stream_gemm_kernel", "tile_gemm_kernel", "flash_fwd_wgmma_kernel")
+    found, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if any(k in m.group(1) for k in keep) else None
+            if name:
+                found.append([name])
+        elif name and ("spill stores" in line or "Used" in line):
+            found[-1].append(line.split(" : ")[-1].strip())
+    filt = os.path.join(os.path.dirname(build.nvcc()), "cu++filt")
+    names = [f[0] for f in found]
+    if found and os.path.exists(filt):
+        names = subprocess.run([filt, *names], capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    return [f"  {n}: {'; '.join(f[1:])}" for n, f in zip(names, found)]
 
 
 def main() -> None:
@@ -1310,6 +1409,8 @@ def main() -> None:
     t0 = time.perf_counter()
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s\n{build.ptxas_report()}")
+    print("redesigned kernels (registers, spills, shared memory):")
+    print("\n".join(resources(build.ptxas_report())))
 
     cfg = get_config(ARCH)
     timer = Timer(dev)

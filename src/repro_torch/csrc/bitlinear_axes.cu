@@ -14,13 +14,17 @@
 //   * prefill, M = batch * prompt = 64: operations.  128 fp32 flops per weight
 //     element on the CUDA cores (67 TFLOP/s) outweigh 4.1 B at 3.35 TB/s.
 //
-// Design: the tiled GEMM of delta_gemm.cuh with the dual-axis scale policy.
+// Design: the delta GEMM of delta_gemm.cuh (a streaming kernel for M <= 16,
+// a double-buffered tiled one above) with the dual-axis scale policy.
 #include "delta_gemm.cuh"
 
 // x (M, K) fp32|bf16; packed (N, K/8) u8; vr (N,), vc (K,) fp16|fp32;
 // wb (N, K) fp32|bf16|int8; ws (N,) fp16 with an int8 wb, else nullptr;
 // y (M, N) fp32.  With splits > 1, workspace holds (splits, M, N) fp32
-// partials and k_per_split is a multiple of 32.  All contiguous; x 16-byte
+// partials.  splits and k_per_split follow kernels/bitlinear.gemm_plan: a
+// multiple of 512 for M <= 16 (the x slice and column scales fit 48 KB of
+// shared memory), of 32 above; a launch off the plan fails with
+// cudaErrorInvalidValue.  All contiguous; x 16-byte
 // aligned, wb 16-byte aligned (8-byte for int8); K a multiple of 8.
 // Returns cudaGetLastError() after the launches.
 extern "C" int repro_bitlinear_axes(const void* x, int x_dtype, const void* packed,

@@ -16,10 +16,11 @@
 //   * prefill, M = 4 lanes x 16 tokens = 64: operations (128 fp32 flops per
 //     weight on the CUDA cores against about 4.3 B).
 //
-// Design (simple and correct first; wgmma/TMA come later):
-//   * The block and split-K layout of bitlinear_axes.cu: a block owns a
-//     BM x 64 output tile and walks K in steps of 32; decode-sized calls split
-//     K across blockIdx.z and a second pass sums the splits in a fixed order
+// Design (a tile build in shared memory; the streaming scheme of
+// delta_gemm.cuh is not applied here yet):
+//   * A block owns a BM x 64 output tile and walks K in steps of 32 (launch
+//     plan: kernels/bitlinear.banked_plan); decode-sized calls split K across
+//     blockIdx.z and a second pass sums the splits in a fixed order
 //     (deterministic, no atomics).
 //   * The TPU kernel pulls the whole bank block into VMEM on every grid step
 //     and forms a Ŵ per ROW (bm x bn x bk).  Here a block first loads its

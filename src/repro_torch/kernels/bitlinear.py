@@ -13,9 +13,12 @@
 
 Each takes W_b in fp32, bf16 or int8; an int8 W_b comes with ``w_scale``,
 one fp16 scale per output row (the int8 base of ``core/quantize``), and is
-dequantized in the tile pass.  The dense Ŵ is built tile by tile in shared
-memory and never written to device memory.  ``plain``, ``plain_banked`` and
-``plain_static`` are the plain PyTorch versions of the three functions.
+dequantized where Ŵ is formed.  The dense Ŵ never reaches device memory:
+at M <= 16 the kernel streams W_b and forms Ŵ in registers, above it and in
+the banked kernel Ŵ is built tile by tile in shared memory.  ``gemm_plan``
+and ``banked_plan`` choose each launch's K split.  ``plain``,
+``plain_banked`` and ``plain_static`` are the plain PyTorch versions of the
+three functions.
 
 ``launches``, ``banked_launches`` and ``static_launches`` count kernel
 launches (one per call; a split-K call's reduction pass belongs to the same
@@ -34,9 +37,22 @@ from repro_torch.kernels.ref import \
 from repro_torch.kernels.ref import bitlinear_ref as plain_static  # noqa: F401
 
 PACK = 8
-BLOCK_N = 64        # csrc/delta_gemm.cuh, csrc/bitlinear_axes_banked.cu BN
-BLOCK_K = 32        # csrc/delta_gemm.cuh, csrc/bitlinear_axes_banked.cu BK
-TARGET_BLOCKS = 264  # two blocks per SM of an H100 (132 SMs)
+SM_COUNT = 132           # an H100 SXM
+# the delta GEMM of csrc/delta_gemm.cuh (bitlinear_axes_p, bitlinear_p)
+STREAM_MAX_M = 16        # M up to this streams W_b (decode); above, tiles
+STREAM_ROWS = 32         # output rows per streaming block: 8 warps x 4
+STREAM_SPAN = {4: 256, 2: 512, 1: 512}   # K per warp step, by W_b bytes
+STREAM_SMEM = 48 * 1024  # a block's x slice and column scales, bytes
+STREAM_BLOCKS_PER_SM = 1  # resident (over 128 registers a thread)
+TILE_M, TILE_N, TILE_K = 64, 128, 32
+TILE_MAX_K = 4096        # a split's column scales stay within 16 KB
+TILE_BLOCKS_PER_SM = 2
+TILE_MAX_SPLITS = 32
+# the banked GEMM of csrc/bitlinear_axes_banked.cu (BN, BK)
+BANKED_BLOCK_N = 64
+BANKED_BLOCK_K = 32
+BANKED_TARGET = 264
+BANKED_MAX_SPLITS = 16
 # alignment the kernels' vector loads need, per W_b dtype (eight elements
 # per load: two 16-byte loads of fp32, one of bf16, one 8-byte load of int8)
 W_ALIGN = {torch.float32: 16, torch.bfloat16: 16, torch.int8: 8}
@@ -46,20 +62,67 @@ banked_launches = 0
 static_launches = 0
 
 
-def block_m(m: int) -> int:
-    """Output-tile height the kernel picks for ``m`` rows."""
-    return 16 if m <= 16 else 64
+def m_tier(m: int) -> int:
+    """Rows of x the streaming kernel computes for ``m`` (4, 8 or 16);
+    the rows past ``m`` are zeros in shared memory, not weight traffic."""
+    return 4 if m <= 4 else 8 if m <= 8 else 16
 
 
-def split_k(m: int, n: int, k: int) -> tuple[int, int]:
-    """(splits, k_per_split): split the contraction across blocks when the
-    output tiles alone cannot fill the card (decode-sized M).  Each split
-    covers at least four K steps; no split is empty."""
-    tiles = math.ceil(m / block_m(m)) * math.ceil(n / BLOCK_N)
-    ktiles = math.ceil(k / BLOCK_K)
-    splits = max(1, min(math.ceil(TARGET_BLOCKS / tiles), ktiles // 4, 16))
+def _wave_split(tiles: int, steps: int, slots: int, least: int,
+                most: int, cap: int) -> tuple[int, int]:
+    """(splits, K steps per split) for ``tiles`` output tiles over
+    ``steps`` K steps on ``slots`` resident blocks: the fewest splits whose
+    last wave of blocks fills within 5% as many slots as the best choice
+    does.  Each split is at least ``least`` steps (unless that leaves one)
+    and at most ``most``; at most ``cap`` splits unless ``most`` forces
+    more; no split is empty."""
+    lo = math.ceil(steps / most)
+    hi = max(lo, min(cap, steps // least))
+    options = []
+    for want in range(lo, hi + 1):
+        per = math.ceil(steps / want)
+        splits = math.ceil(steps / per)
+        blocks = tiles * splits
+        options.append((blocks / (math.ceil(blocks / slots) * slots),
+                        splits, per))
+    best = max(fill for fill, _, _ in options)
+    return next((s, p) for fill, s, p in options if fill >= best - 0.05)
+
+
+def gemm_plan(m: int, n: int, k: int, x_size: int,
+              w_size: int) -> tuple[int, int]:
+    """(splits, k_per_split) of the delta GEMM for x (m, k) of ``x_size``
+    bytes per element against an (n, k) weight of ``w_size``.  M <= 16
+    streams: blocks of 32 rows, K split in multiples of the warp step
+    (``STREAM_SPAN``), a block's x slice and column scales within
+    ``STREAM_SMEM``.  Above, 64 x 128 tiles and K split in multiples of 32,
+    each split at least four steps and at most ``TILE_MAX_K``.  Either way
+    the split count fills the card's last wave of blocks."""
+    if m <= STREAM_MAX_M:
+        tier, span = m_tier(m), STREAM_SPAN[w_size]
+        most = STREAM_SMEM // ((4 + tier * x_size) * span)
+        splits, per = _wave_split(
+            math.ceil(n / STREAM_ROWS), math.ceil(k / span),
+            SM_COUNT * STREAM_BLOCKS_PER_SM, 1, most, k)
+        return splits, per * span
+    splits, per = _wave_split(
+        math.ceil(m / TILE_M) * math.ceil(n / TILE_N), math.ceil(k / TILE_K),
+        SM_COUNT * TILE_BLOCKS_PER_SM, 4, TILE_MAX_K // TILE_K,
+        TILE_MAX_SPLITS)
+    return splits, per * TILE_K
+
+
+def banked_plan(m: int, n: int, k: int) -> tuple[int, int]:
+    """(splits, k_per_split) of the banked GEMM: BM x 64 tiles (BM 16 for
+    M <= 16, else 64), K split in multiples of 32 when the tiles alone
+    cannot fill the card, each split at least four K steps."""
+    tiles = math.ceil(m / (16 if m <= 16 else 64)) * math.ceil(
+        n / BANKED_BLOCK_N)
+    ktiles = math.ceil(k / BANKED_BLOCK_K)
+    splits = max(1, min(math.ceil(BANKED_TARGET / tiles), ktiles // 4,
+                        BANKED_MAX_SPLITS))
     per = math.ceil(ktiles / splits)
-    return math.ceil(ktiles / per), per * BLOCK_K
+    return math.ceil(ktiles / per), per * BANKED_BLOCK_K
 
 
 def check_base(name: str, w_base: torch.Tensor, w_scale, n: int) -> None:
@@ -113,9 +176,9 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _outputs(m: int, n: int, k_dim: int, dev) -> tuple:
+def _outputs(plan: tuple, m: int, n: int, dev) -> tuple:
     """(splits, k_per_split, y, split-K workspace or None)."""
-    splits, k_per_split = split_k(m, n, k_dim)
+    splits, k_per_split = plan
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
             if splits > 1 else None)
@@ -143,7 +206,9 @@ def bitlinear_axes_p(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"vectors v_row{tuple(v_row.shape)} {v_row.dtype}, "
                          f"v_col{tuple(v_col.shape)} {v_col.dtype} do not "
                          f"match N={n}, K={k_dim}")
-    splits, k_per_split, y, work = _outputs(m, n, k_dim, dev)
+    splits, k_per_split, y, work = _outputs(
+        gemm_plan(m, n, k_dim, x.element_size(), w_base.element_size()),
+        m, n, dev)
     rc = B.library().repro_bitlinear_axes(
         x.data_ptr(), B.DTYPE_CODES[x.dtype], packed.data_ptr(),
         v_row.data_ptr(), v_col.data_ptr(), B.DTYPE_CODES[v_row.dtype],
@@ -190,7 +255,8 @@ def bitlinear_axes_banked_p(x: torch.Tensor, vidx: torch.Tensor,
                          f"{tuple(vidx.shape)} {vidx.dtype}")
     if v_col.data_ptr() % 16:
         raise ValueError("v_col must be 16-byte aligned")
-    splits, k_per_split, y, work = _outputs(m, n, k_dim, dev)
+    splits, k_per_split, y, work = _outputs(banked_plan(m, n, k_dim), m, n,
+                                            dev)
     rc = B.library().repro_bitlinear_axes_banked(
         x.data_ptr(), B.DTYPE_CODES[x.dtype], vidx.data_ptr(),
         packed.data_ptr(), v_row.data_ptr(), v_col.data_ptr(),
@@ -226,7 +292,9 @@ def bitlinear_p(x: torch.Tensor, packed: torch.Tensor, v2d: torch.Tensor,
     # the scale is read as v[n*vs_n + k*vs_k]; a broadcast dim strides 0
     vs_n = 1 if vn > 1 else 0
     vs_k = 1 if vk > 1 else 0
-    splits, k_per_split, y, work = _outputs(m, n, k_dim, dev)
+    splits, k_per_split, y, work = _outputs(
+        gemm_plan(m, n, k_dim, x.element_size(), w_base.element_size()),
+        m, n, dev)
     rc = B.library().repro_bitlinear(
         x.data_ptr(), B.DTYPE_CODES[x.dtype], packed.data_ptr(),
         v32.data_ptr(), vs_n, vs_k, w_base.data_ptr(),

@@ -104,7 +104,7 @@ def _compile() -> tuple[pathlib.Path, str]:
         tmp_lib = pathlib.Path(tmp) / lib_path.name
         link = subprocess.run(
             [exe, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
-             *(str(obj) for _, obj, _ in procs)],
+             *(str(obj) for _, obj, _ in procs), "-ldl"],
             capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed\n" + link.stdout + link.stderr)

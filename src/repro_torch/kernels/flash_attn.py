@@ -6,7 +6,9 @@ kernel — q (BH, S, hd), k/v (BH/group, T, hd), query head b reading KV
 head b // group — and returns o (BH, S, hd) in q's dtype.  Scores, softmax
 statistics and the accumulator are fp32; the causal mask is by absolute
 position (``q_offset``, ``kv_offset``).  Any S and T; hd 64, 128 or 256;
-fp32 or bf16.  ``plain`` is the plain PyTorch version of the same function.
+fp32 (CUDA cores) or bf16 (tensor cores, ``wgmma`` fed by TMA; P enters
+the second product as two bf16 terms, P_hi + P_lo).  ``plain`` is the
+plain PyTorch version of the same function.
 
 ``launches`` counts kernel launches (one per call); a caller resets it to
 0 to see which path a run took.
@@ -23,8 +25,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q_TILES = 65535          # the kernel's second grid dimension
 
 
-def block_q(hd: int) -> int:
-    """Query rows per block (csrc/flash_attn.cu ``BQ``)."""
+def block_q(hd: int, dtype: torch.dtype) -> int:
+    """Query rows per block: the bf16 (tensor-core) kernel's two
+    warpgroups of 64 (csrc/flash_attn.cu ``kWgBQ``), the fp32 kernel's
+    ``BQ``."""
+    if dtype == torch.bfloat16:
+        return 128
     return 32 if hd == 256 else 64
 
 
@@ -57,7 +63,7 @@ def flash_attention_fwd_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if group < 1 or bh != bkv * group:
         raise ValueError(f"{bh} query heads do not form groups of {group} "
                          f"over {bkv} KV heads")
-    if s < 1 or t < 1 or -(-s // block_q(hd)) > MAX_Q_TILES:
+    if s < 1 or t < 1 or -(-s // block_q(hd, q.dtype)) > MAX_Q_TILES:
         raise ValueError(f"S={s}, T={t} out of the kernel's range")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")

@@ -109,3 +109,63 @@ def test_plain_versions_agree_with_chunked_flash_attention():
     got = K.flash_attention_fwd(q, k, v, causal=True)
     want = A.flash_attention(q, k, v, causal=True, chunk=8)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _emulate_bf16_kernel(q, k, v, *, group, causal, q_offset, kv_offset,
+                         bk):
+    """The arithmetic of csrc/flash_attn.cu's bf16 (wgmma) kernel on the
+    CPU: bf16·bf16 scores summed in fp32, then × hd^-½·log2(e); -1e30 for a
+    masked score; an online softmax over key tiles of ``bk`` in base 2 with
+    fp32 statistics; P split into P_hi = bf16(P) and P_lo = bf16(P - P_hi),
+    each multiplied by bf16 V in fp32; o = acc / max(l, 1e-30), rounded once
+    to bf16.  q (BH, S, hd), k and v (BH/group, T, hd), bf16."""
+    bh, s, hd = q.shape
+    t = k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    scores = (q.float() @ kf.transpose(1, 2)) * (hd ** -0.5 * np.log2(np.e))
+    if causal:
+        q_pos = q_offset + torch.arange(s)[:, None]
+        k_pos = kv_offset + torch.arange(t)[None, :]
+        scores = torch.where(q_pos >= k_pos, scores,
+                             torch.tensor(-1e30, dtype=torch.float32))
+    m = torch.full((bh, s, 1), -1e30)
+    l = torch.zeros((bh, s, 1))
+    acc = torch.zeros((bh, s, hd))
+    for k0 in range(0, t, bk):
+        st = scores[:, :, k0:k0 + bk]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(st - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        acc = (acc * alpha + p_hi @ vf[:, k0:k0 + bk]
+               + p_lo @ vf[:, k0:k0 + bk])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd,bk", [(64, 128), (128, 128), (256, 64)])
+@pytest.mark.parametrize("s,t,q_off,kv_off", [
+    (8, 8, 0, 0),        # row i sees i + 1 keys: 1..8
+    (12, 20, 0, 0),      # 1..12 visible keys, the rest masked
+    (8, 16, 2, 12),      # rows 0..9 of the block see no key: mean of v
+    (5, 200, 190, 0),    # long rows spanning key tiles, ragged T
+])
+def test_bf16_kernel_arithmetic_stays_within_tolerance(hd, bk, s, t, q_off,
+                                                       kv_off):
+    """The bf16 kernel's arithmetic (emulated, ``_emulate_bf16_kernel``)
+    against the plain version and the JAX kernel: within FLASH_TOL[bf16]
+    (5e-4 + 1e-2·|plain|) on rows with 1-8 visible keys, rows that see no
+    key, and rows over several key tiles."""
+    (jq, jk, jv), (q, k, v) = _both(_qkv(hd + s + t, 1, s, t, 4, 2, hd),
+                                    "bfloat16")
+    kw = dict(causal=True, q_offset=q_off, kv_offset=kv_off)
+    want = K.flash_attention_fwd(q, k, v, **kw).float()   # (B, S, H, hd)
+    flat = [x.transpose(1, 2).reshape(-1, x.shape[1], hd) for x in (q, k, v)]
+    got = _emulate_bf16_kernel(*flat, group=2, bk=bk, **kw)
+    got = got.reshape(1, 4, s, hd).transpose(1, 2)
+    _close(got, want.numpy(), 5e-4, 1e-2)
+    jwant = JK.flash_attention_fwd(jq, jk, jv, **kw)
+    _close(got, jwant, 5e-4, 1e-2)

@@ -83,18 +83,70 @@ def test_bitlinear_axes_matches_jax(lead, axis, dtype):
                                atol=tol)
 
 
+# qwen3-8b's seven projections (N, K) and ragged ones (K a multiple of 8)
+PROJECTIONS = [(4096, 4096), (1024, 4096), (1024, 4096), (4096, 4096),
+               (12288, 4096), (12288, 4096), (4096, 12288)]
+RAGGED = [(100, 40), (130, 1032), (64, 4096), (33, 8), (4100, 12296)]
+PLAN_MS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 33, 64]
+
+
 @pytest.mark.parametrize("mnk", [(4, 1024, 4096), (4, 12288, 4096),
                                  (64, 4096, 12288), (5, 100, 40),
-                                 (4, 64, 4096)])
-def test_split_k_covers_the_contraction(mnk):
-    """The CUDA wrapper's K split: every split non-empty, whole K covered,
-    at most 16 splits, each at least four K steps unless K is short."""
+                                 (4, 64, 4096)]
+                         + [(m, n, k) for n, k in sorted(set(PROJECTIONS))
+                            + RAGGED for m in PLAN_MS])
+@pytest.mark.parametrize("x_size,w_size", [(2, 4), (4, 4), (2, 2), (2, 1),
+                                           (4, 1)])
+def test_split_k_covers_the_contraction(mnk, x_size, w_size):
+    """The delta GEMM's launch plan: every split non-empty, the whole K
+    covered once, each split a whole number of the kernel's K steps (the
+    streaming kernel's warp step at M <= 16, 32 above), the streaming
+    block's x slice and column scales within its shared memory, the tiled
+    kernel's split within ``TILE_MAX_K``."""
     m, n, k = mnk
-    splits, per = BL.split_k(m, n, k)
-    assert 1 <= splits <= 16 and per % BL.BLOCK_K == 0
+    splits, per = BL.gemm_plan(m, n, k, x_size, w_size)
+    assert splits >= 1 and (splits - 1) * per < k <= splits * per
+    if m <= BL.STREAM_MAX_M:
+        assert per % BL.STREAM_SPAN[w_size] == 0
+        assert per * (4 + BL.m_tier(m) * x_size) <= BL.STREAM_SMEM
+        assert BL.m_tier(m) >= m
+    else:
+        assert per % BL.TILE_K == 0 and per <= BL.TILE_MAX_K
+        assert splits <= BL.TILE_MAX_SPLITS or per == BL.TILE_MAX_K
+        if splits > 1:
+            assert per >= 4 * BL.TILE_K
+
+
+@pytest.mark.parametrize("mnk", [(m, n, k) for n, k in PROJECTIONS[:5:2]
+                                 + RAGGED[:2] for m in (1, 4, 16, 17, 64)])
+def test_banked_plan_keeps_its_tiles(mnk):
+    """The banked kernel keeps its own plan: K in steps of 32, at most 16
+    splits, each non-empty and at least four steps."""
+    m, n, k = mnk
+    splits, per = BL.banked_plan(m, n, k)
+    assert per % BL.BANKED_BLOCK_K == 0
+    assert 1 <= splits <= BL.BANKED_MAX_SPLITS
     assert (splits - 1) * per < k <= splits * per
     if splits > 1:
-        assert per >= 4 * BL.BLOCK_K
+        assert per >= 4 * BL.BANKED_BLOCK_K
+
+
+@pytest.mark.parametrize("n,k", PROJECTIONS[:5:2])
+@pytest.mark.parametrize("m,w_size", [(4, 4), (4, 1), (64, 4)])
+def test_plan_fills_the_last_wave(m, n, k, w_size):
+    """At qwen3-8b's shapes the plan's blocks fill at least 90% of the
+    card's last wave (one streaming block per SM, two tiled ones), or the
+    split is as fine as its limits allow."""
+    splits, per = BL.gemm_plan(m, n, k, 2, w_size)
+    if m <= BL.STREAM_MAX_M:
+        tiles, slots = -(-n // BL.STREAM_ROWS), BL.SM_COUNT
+        finest = per == BL.STREAM_SPAN[w_size]
+    else:
+        tiles = -(-m // BL.TILE_M) * -(-n // BL.TILE_N)
+        slots = BL.SM_COUNT * BL.TILE_BLOCKS_PER_SM
+        finest = per == 4 * BL.TILE_K or splits == BL.TILE_MAX_SPLITS
+    blocks = tiles * splits
+    assert blocks / (-(-blocks // slots) * slots) >= 0.9 or finest
 
 
 def test_wrappers_refuse_a_device_without_a_version():
