@@ -16,7 +16,8 @@ Phases (any failure raises and the script exits non-zero):
    inputs and timed with CUDA events (L2 flushed before every launch)
    beside its bound, the plain version and, where one exists, a single
    PyTorch call; ``bitlinear_axes`` also beside ``torch.sum`` over its fp32
-   W_b (the read rate the timer sees); the banked kernel also beside
+   W_b (the read rate the timer sees); the banked kernel at M=4 over two
+   and three distinct slots, M=8, 16, 17 and 64 and all-base, each beside
    the single-variant kernel on the same x; ``bitlinear_p`` in row, col and
    scalar mode; the streaming kernel's 8- and 16-row tiers (M=8, 16 at wo
    and w_gate) beside its 4-row tier once per four rows and the tiled
@@ -325,8 +326,12 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
     """``bitlinear_axes_banked`` at one projection shape, over a bank of 4
     slots built from the stack's first three layers (slot 0 zero = base,
     slot 1 row-scaled, slot 2 col-scaled, slot 3 row-scaled) and layer 0's
-    base: M=4 lanes with vidx [0,1,2,1], M=64 (the same lanes x 16 tokens)
-    and an all-base M=4 batch held against the plain fp32 x @ W_bᵀ."""
+    base: M=4 lanes with vidx [0,1,2,1] and with [1,2,3,1] (three distinct
+    slots), each lane's row repeated (its tokens, lane-major as the engine
+    lays them out) to M=8 and M=16 (two and four groups of four rows of the
+    streaming kernel), M=17 (4 tokens a lane and one more row: the tiled
+    kernel, microtiles that span slots) and M=64 (16 tokens a lane), and an all-base M=4 batch held against the plain fp32
+    x @ W_bᵀ; each timed beside the single-variant kernel on the same x."""
     from repro_torch.core import delta as D
     from repro_torch.kernels import bitlinear as BL
 
@@ -346,8 +351,13 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
                       * signs + w0).abs())
         del signs
     rows = []
-    cases = [("M=4", BANK_VIDX), ("M=64", [s for s in BANK_VIDX
-                                           for _ in range(PROMPT)]),
+    def lanes(tokens):
+        return [s for s in BANK_VIDX for _ in range(tokens)]
+
+    cases = [("M=4", BANK_VIDX), ("M=4 three slots", [1, 2, 3, 1]),
+             ("M=8", lanes(2)), ("M=16", lanes(4)),
+             ("M=17", lanes(4) + BANK_VIDX[:1]),
+             ("M=64", [s for s in BANK_VIDX for _ in range(PROMPT)]),
              ("M=4 all-base", [0] * LANES)]
     for label, vlist in cases:
         m = len(vlist)
@@ -1313,7 +1323,11 @@ def lifecycle_reference_phase(dev) -> None:
 
 # kernel bodies whose first CUDA design was replaced: the design now run
 GEMM_DESIGN = "streaming (M <= 16) + cp.async tiles (M > 16)"
+BANKED_DESIGN = ("streaming, one Ŵ per distinct slot in registers (M <= 16)"
+                 " + cp.async tiles, one Ŵ tile per distinct slot (M > 16)")
 REDESIGNED = {"bitlinear_axes": GEMM_DESIGN, "bitlinear_axes_q8": GEMM_DESIGN,
+              "bitlinear_axes_banked": BANKED_DESIGN,
+              "bitlinear_axes_banked_q8": BANKED_DESIGN,
               "bitlinear": GEMM_DESIGN, "bitlinear_q8": GEMM_DESIGN,
               "flash_attention": "bf16: wgmma + TMA; fp32: CUDA cores"}
 
@@ -1368,13 +1382,14 @@ def kernel_entries(rows, launches, dl_launches, fl_launches) -> list:
 
 def resources(report: str) -> list[str]:
     """The ``nvcc -Xptxas -v`` lines of every instantiation of the
-    redesigned kernels (the streaming and tiled delta GEMMs, the bf16 wgmma
-    flash kernel): registers, spill bytes and static shared memory, under
+    redesigned kernels (the streaming and tiled delta GEMMs, single-variant
+    and banked, the bf16 wgmma flash kernel): registers, spill bytes and static shared memory, under
     the kernel's name demangled by the toolkit's ``cu++filt`` (mangled where
     it is missing).  Their shared memory is dynamic, sized at launch."""
     import re
     from repro_torch.kernels import build
-    keep = ("stream_gemm_kernel", "tile_gemm_kernel", "flash_fwd_wgmma_kernel")
+    keep = ("stream_gemm_kernel", "tile_gemm_kernel", "banked_stream_kernel",
+            "banked_tile_kernel", "flash_fwd_wgmma_kernel")
     found, name = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)

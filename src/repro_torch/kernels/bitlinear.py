@@ -14,9 +14,10 @@
 Each takes W_b in fp32, bf16 or int8; an int8 W_b comes with ``w_scale``,
 one fp16 scale per output row (the int8 base of ``core/quantize``), and is
 dequantized where Ŵ is formed.  The dense Ŵ never reaches device memory:
-at M <= 16 the kernel streams W_b and forms Ŵ in registers, above it and in
-the banked kernel Ŵ is built tile by tile in shared memory.  ``gemm_plan``
-and ``banked_plan`` choose each launch's K split.  ``plain``,
+at M <= 16 the kernels stream W_b and form Ŵ in registers (the banked one
+once per distinct slot its rows name), above it Ŵ is built tile by tile in
+shared memory (one tile per distinct slot).  ``gemm_plan`` chooses each
+launch's K split from M, N, K and the dtypes alone.  ``plain``,
 ``plain_banked`` and ``plain_static`` are the plain PyTorch versions of the
 three functions.
 
@@ -48,11 +49,14 @@ TILE_M, TILE_N, TILE_K = 64, 128, 32
 TILE_MAX_K = 4096        # a split's column scales stay within 16 KB
 TILE_BLOCKS_PER_SM = 2
 TILE_MAX_SPLITS = 32
-# the banked GEMM of csrc/bitlinear_axes_banked.cu (BN, BK)
-BANKED_BLOCK_N = 64
-BANKED_BLOCK_K = 32
-BANKED_TARGET = 264
-BANKED_MAX_SPLITS = 16
+# the banked GEMM of csrc/bitlinear_axes_banked.cu: the same two designs
+# with a slot per row (kBankPass, kBankStreamSmem, kBankTiles, kBankTileMaxK)
+BANK_GROUP = 4           # rows of x per streaming block (M <= 16)
+BANK_PASS = 3            # distinct non-base slots per streaming pass
+BANK_STREAM_SMEM = 192 * 1024  # their column scales and the fp32 x slice
+BANK_TILES = 3           # Ŵ tiles per tiled pass (the base counts)
+BANK_TILE_MAX_K = 512    # a split's column scales: BANK_TILES x 2 KB
+SMEM_PER_SM = 228 * 1024  # an SM's shared memory; 1 KB of it per block
 # alignment the kernels' vector loads need, per W_b dtype (eight elements
 # per load: two 16-byte loads of fp32, one of bf16, one 8-byte load of int8)
 W_ALIGN = {torch.float32: 16, torch.bfloat16: 16, torch.int8: 8}
@@ -89,40 +93,49 @@ def _wave_split(tiles: int, steps: int, slots: int, least: int,
     return next((s, p) for fill, s, p in options if fill >= best - 0.05)
 
 
-def gemm_plan(m: int, n: int, k: int, x_size: int,
-              w_size: int) -> tuple[int, int]:
+def banked_tile_smem(x_size: int, w_size: int, k_per_split: int) -> int:
+    """Shared memory of one banked tile block: two raw x and W_b stages
+    (row pitch 32 elements + 16 B), ``BANK_TILES`` fp32 Ŵ tiles, the fp32
+    x tile and ``BANK_TILES`` slots' column scales over the split."""
+    raw = 2 * (TILE_N * (TILE_K * w_size + 16)
+               + TILE_M * (TILE_K * x_size + 16))
+    return (raw + 4 * (BANK_TILES * TILE_K * TILE_N + TILE_K * TILE_M)
+            + 4 * BANK_TILES * k_per_split)
+
+
+def gemm_plan(m: int, n: int, k: int, x_size: int, w_size: int,
+              banked: bool = False) -> tuple[int, int]:
     """(splits, k_per_split) of the delta GEMM for x (m, k) of ``x_size``
     bytes per element against an (n, k) weight of ``w_size``.  M <= 16
-    streams: blocks of 32 rows, K split in multiples of the warp step
-    (``STREAM_SPAN``), a block's x slice and column scales within
-    ``STREAM_SMEM``.  Above, 64 x 128 tiles and K split in multiples of 32,
-    each split at least four steps and at most ``TILE_MAX_K``.  Either way
-    the split count fills the card's last wave of blocks."""
+    streams: blocks of 32 rows (the banked kernel: one per 32 rows and
+    group of ``BANK_GROUP`` rows of x), K split in multiples of the warp
+    step (``STREAM_SPAN``), a block's x slice and column scales (banked:
+    ``BANK_PASS`` slots', x widened to fp32) within its shared memory.
+    Above, 64 x 128 tiles and K split in multiples of 32, each split at
+    least four steps and at most ``TILE_MAX_K`` (``BANK_TILE_MAX_K``).
+    Either way the split count fills the card's last wave of blocks.  The
+    banked plan sees no bank depth and no slot index: the host never reads
+    vidx."""
     if m <= STREAM_MAX_M:
-        tier, span = m_tier(m), STREAM_SPAN[w_size]
-        most = STREAM_SMEM // ((4 + tier * x_size) * span)
-        splits, per = _wave_split(
-            math.ceil(n / STREAM_ROWS), math.ceil(k / span),
-            SM_COUNT * STREAM_BLOCKS_PER_SM, 1, most, k)
+        span = STREAM_SPAN[w_size]
+        if banked:   # a block per 4 rows: BANK_PASS column scales, x fp32
+            tiles = math.ceil(n / STREAM_ROWS) * math.ceil(m / BANK_GROUP)
+            most = BANK_STREAM_SMEM // ((BANK_PASS + BANK_GROUP) * 4 * span)
+        else:
+            tiles = math.ceil(n / STREAM_ROWS)
+            most = STREAM_SMEM // ((4 + m_tier(m) * x_size) * span)
+        splits, per = _wave_split(tiles, math.ceil(k / span),
+                                  SM_COUNT * STREAM_BLOCKS_PER_SM, 1, most, k)
         return splits, per * span
+    max_k, per_sm = TILE_MAX_K, TILE_BLOCKS_PER_SM
+    if banked:
+        max_k = BANK_TILE_MAX_K
+        per_sm = max(1, min(per_sm, SMEM_PER_SM // (
+            banked_tile_smem(x_size, w_size, max_k) + 1024)))
     splits, per = _wave_split(
         math.ceil(m / TILE_M) * math.ceil(n / TILE_N), math.ceil(k / TILE_K),
-        SM_COUNT * TILE_BLOCKS_PER_SM, 4, TILE_MAX_K // TILE_K,
-        TILE_MAX_SPLITS)
+        SM_COUNT * per_sm, 4, max_k // TILE_K, TILE_MAX_SPLITS)
     return splits, per * TILE_K
-
-
-def banked_plan(m: int, n: int, k: int) -> tuple[int, int]:
-    """(splits, k_per_split) of the banked GEMM: BM x 64 tiles (BM 16 for
-    M <= 16, else 64), K split in multiples of 32 when the tiles alone
-    cannot fill the card, each split at least four K steps."""
-    tiles = math.ceil(m / (16 if m <= 16 else 64)) * math.ceil(
-        n / BANKED_BLOCK_N)
-    ktiles = math.ceil(k / BANKED_BLOCK_K)
-    splits = max(1, min(math.ceil(BANKED_TARGET / tiles), ktiles // 4,
-                        BANKED_MAX_SPLITS))
-    per = math.ceil(ktiles / splits)
-    return math.ceil(ktiles / per), per * BANKED_BLOCK_K
 
 
 def check_base(name: str, w_base: torch.Tensor, w_scale, n: int) -> None:
@@ -255,8 +268,9 @@ def bitlinear_axes_banked_p(x: torch.Tensor, vidx: torch.Tensor,
                          f"{tuple(vidx.shape)} {vidx.dtype}")
     if v_col.data_ptr() % 16:
         raise ValueError("v_col must be 16-byte aligned")
-    splits, k_per_split, y, work = _outputs(banked_plan(m, n, k_dim), m, n,
-                                            dev)
+    splits, k_per_split, y, work = _outputs(
+        gemm_plan(m, n, k_dim, x.element_size(), w_base.element_size(),
+                  banked=True), m, n, dev)
     rc = B.library().repro_bitlinear_axes_banked(
         x.data_ptr(), B.DTYPE_CODES[x.dtype], vidx.data_ptr(),
         packed.data_ptr(), v_row.data_ptr(), v_col.data_ptr(),

@@ -223,8 +223,9 @@ def test_bitlinear_axes_banked_matches_plain(cuda, mnk, nbank, xdt, wdt):
 
 @pytest.mark.parametrize("m", [16, 64])
 def test_bitlinear_axes_banked_more_slots_than_one_pass(cuda, m):
-    """Eight distinct slots among one block's rows: the kernel stages four
-    Ŵ tiles at a time and makes two passes over each x tile."""
+    """Eight distinct slots among the rows: at M=16 the streaming kernel's
+    groups of four sorted rows, at M=64 more slots in one 64-row block than
+    the tiled kernel's three Ŵ tiles, so three passes over each x tile."""
     rng = np.random.default_rng(5)
     wb, packed, v_row, v_col = _bank_case(rng, 8, 96, 512, cuda,
                                           vdt=torch.float32)
@@ -509,6 +510,84 @@ def test_bitlinear_axes_banked_q8_uniform_matches_single_variant_kernel(
         bound = _uniform_bound(x, packed[s], v_row[s], v_col[s], qw.q,
                                qw.scale)
         assert bool(((got - want).abs() <= bound).all()), s
+
+
+def _banked_base(wb, wdt):
+    """(payload, scale or None, dense fp32 base) of a test base in ``wdt``."""
+    if wdt == torch.int8:
+        qw = Q.quantize_weight(wb)
+        return qw.q, qw.scale, Q.dequantize(qw)
+    w = wb.to(wdt)
+    return w, None, w.float()
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 9, 16, 17, 64])
+@pytest.mark.parametrize("slots", [1, 2, 4, 5, 8, "one"])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_bitlinear_axes_banked_edges(cuda, m, slots, wdt, xdt):
+    """The banked kernels at their edges: one to four groups of four rows
+    of the streaming kernel (M 1..16) and the tiled one (17, 64); 1 to
+    min(M, 8) distinct non-zero slots with base rows between them (a group
+    of four distinct slots, at M 8..16 with 8 slots, takes two streaming
+    passes), or every row on one slot; N a multiple of neither 32 nor 128
+    and K of no stream step.  The GEMM bound against the plain version, Ŵ
+    of each row's own slot."""
+    n, k = 130, 1288
+    rng = np.random.default_rng(100 + m)
+    wb, packed, v_row, v_col = _bank_case(rng, 9, n, k, cuda)
+    wq, ws, wf = _banked_base(wb, wdt)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
+                         ).to(cuda).to(xdt)
+    if slots == "one":
+        vlist = [3] * m
+    else:
+        used = min(slots, m)
+        vlist = [r % (used + 1) for r in range(m)]   # slot 0 between
+    vidx = torch.tensor(vlist, dtype=torch.int32, device=cuda)
+    before = BL.banked_launches
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wq, ws)
+    torch.cuda.synchronize()
+    assert BL.banked_launches == before + 1 and got.shape == (m, n)
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wf)
+
+
+@pytest.mark.parametrize("lanes", [[0, 1, 2, 1], [1, 2, 3, 4, 5]])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16, torch.int8])
+def test_bitlinear_axes_banked_prefill_lanes_span_microtiles(cuda, lanes,
+                                                              wdt):
+    """A continuous prefill whose lanes are 13 tokens long: a thread's eight
+    rows span two lanes, so two slots (and with five distinct slots in one
+    64-row block, more than one tiled pass of four tiles)."""
+    rng = np.random.default_rng(21)
+    wb, packed, v_row, v_col = _bank_case(rng, 6, 200, 1032, cuda)
+    wq, ws, wf = _banked_base(wb, wdt)
+    vlist = [s for s in lanes for _ in range(13)]
+    x = torch.from_numpy(rng.standard_normal((len(vlist), 1032)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    vidx = torch.tensor(vlist, dtype=torch.int32, device=cuda)
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wq, ws)
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wf)
+
+
+@pytest.mark.parametrize("m", [4, 64])
+def test_bitlinear_axes_banked_does_not_synchronise(cuda, m):
+    """The wrapper never reads vidx on the host: one call raises nothing
+    under PyTorch's synchronisation debug mode."""
+    rng = np.random.default_rng(22)
+    wb, packed, v_row, v_col = _bank_case(rng, 3, 256, 1024, cuda)
+    x = torch.from_numpy(rng.standard_normal((m, 1024)).astype(np.float32)
+                         ).to(cuda).to(torch.bfloat16)
+    vidx = torch.tensor([0, 1, 2, 1] * (m // 4), dtype=torch.int32,
+                        device=cuda)
+    BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wb)  # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wb)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wb)
 
 
 @pytest.mark.parametrize("mnk", [(4, 64, 128), (5, 100, 40), (4, 1024, 4096),

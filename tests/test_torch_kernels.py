@@ -4,6 +4,8 @@ interpret mode here, as tests/test_kernels.py does.
 
 Tolerances as in tests/test_kernels.py: 1e-5 for fp32 (summation order),
 2e-2 for a bf16 x (one bf16 rounding of the output)."""
+import inspect
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -119,16 +121,29 @@ def test_split_k_covers_the_contraction(mnk, x_size, w_size):
 
 @pytest.mark.parametrize("mnk", [(m, n, k) for n, k in PROJECTIONS[:5:2]
                                  + RAGGED[:2] for m in (1, 4, 16, 17, 64)])
-def test_banked_plan_keeps_its_tiles(mnk):
-    """The banked kernel keeps its own plan: K in steps of 32, at most 16
-    splits, each non-empty and at least four steps."""
+@pytest.mark.parametrize("x_size,w_size", [(2, 4), (4, 4), (2, 2), (2, 1)])
+def test_banked_plan_covers_k_and_fits_shared_memory(mnk, x_size, w_size):
+    """The banked GEMM's launch plan: the whole K covered once with no
+    empty split, each split a whole number of its kernel's K steps, and what
+    the block stages within shared memory: at M <= 16 its group of rows of
+    the x slice (as fp32) and ``BANK_PASS`` slots' column scales, above it the raw and Ŵ tiles and
+    ``BANK_TILES`` slots' column scales (at most 227 KB a block).  The plan
+    is a function of M, N, K and the element sizes alone, so it is the same
+    for every bank depth and slot mix and the host never reads vidx."""
     m, n, k = mnk
-    splits, per = BL.banked_plan(m, n, k)
-    assert per % BL.BANKED_BLOCK_K == 0
-    assert 1 <= splits <= BL.BANKED_MAX_SPLITS
-    assert (splits - 1) * per < k <= splits * per
-    if splits > 1:
-        assert per >= 4 * BL.BANKED_BLOCK_K
+    splits, per = BL.gemm_plan(m, n, k, x_size, w_size, banked=True)
+    assert splits >= 1 and (splits - 1) * per < k <= splits * per
+    if m <= BL.STREAM_MAX_M:
+        assert per % BL.STREAM_SPAN[w_size] == 0
+        assert per * 4 * (BL.BANK_PASS + BL.BANK_GROUP) \
+            <= BL.BANK_STREAM_SMEM
+    else:
+        assert per % BL.TILE_K == 0 and per <= BL.BANK_TILE_MAX_K
+        assert BL.banked_tile_smem(x_size, w_size, per) <= 227 * 1024
+        if splits > 1:
+            assert per >= 4 * BL.TILE_K
+    assert list(inspect.signature(BL.gemm_plan).parameters) == [
+        "m", "n", "k", "x_size", "w_size", "banked"]
 
 
 @pytest.mark.parametrize("n,k", PROJECTIONS[:5:2])
