@@ -69,7 +69,37 @@ Phases (any failure raises and the script exits non-zero):
    same lifecycle through a store on the card and on the CPU, right after
    the reference phase: tokens must be identical.
 
-Then it prints the kernel summary as one JSON line (the entries of a kernel
+9. other archs, kernels (after the flash phase): ``bitlinear_axes`` at
+   M=4 and M=64 and the banked GEMM at M=4 ([0,1,2,1]) and M=64 at every
+   distinct projection shape of deepseek-7b, starcoder2-3b, gemma3-12b and
+   deepseek-moe-16b (attention, its dense first layer and its shared
+   experts), fp32 and int8 base, each against its plain version;
+10. stacked: ``bitlinear_axes_stacked_p`` over deepseek-moe-16b's 64
+   experts (1408 x 2048 and 2048 x 1408) at 1, 4, 7 and 120 rows an
+   expert (1 and 7 the serving path's decode and prefill capacity), fp32
+   and int8 base, one launch a call, against its plain version and timed
+   beside ``torch.bmm`` over a built Ŵ stack;
+11. other archs, reference (after the lifecycle reference): each of
+   deepseek-7b, starcoder2-3b, gemma3-12b, deepseek-moe-16b and
+   moonshot-v1-16b-a3b reduced, group fused and continuous over an fp32
+   and an int8 base, card against CPU plain tokens (identical); gemma3's
+   padded prompt of 20 and its budgets run past its reduced window of 16;
+12. other archs, full width (after the lifecycle phase): deepseek-7b and
+   starcoder2-3b, 2 layers, 4 requests x 8 tokens, group fused;
+   deepseek-moe-16b, 4 layers (64 experts, top-6, capacity 1.25), group
+   fused and continuous over an fp32 and an int8 base (the stacked kernel
+   counted per call); gemma3-12b, 6 layers (one 5:1 period), continuous
+   over an fp32 and an int8 base with prompts of 1100-1300 tokens, so
+   every local layer's 1024-slot ring wraps.  After each MoE and gemma3
+   run one fused prefill (same batch, on the card) holds every delta GEMM
+   launch to the GEMM bound against its plain version on the same
+   operands (whatever the routing) and prints its max |logit diff|
+   against the plain versions; an MoE prefill run twice must give the
+   same logits bit for bit; then one profiled decode step (device-busy
+   time, idle share) and the run's peak device memory.
+
+Each phase prints its seconds.  Then it prints the kernel summary as one
+JSON line (the entries of a kernel
 whose first CUDA design was replaced carry ``design``: the design now run),
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
@@ -77,7 +107,8 @@ the card's name and power limit, and as its last line
 Tolerances: ``unpack_apply`` performs the plain version's arithmetic
 exactly (one fp32 add per element; over an int8 base one fp32 product
 first), so it must be bit-identical.  The GEMMs (``bitlinear_axes``,
-``bitlinear_axes_banked``, ``bitlinear_p``) form the same fp32 Ŵ and sum
+``bitlinear_axes_banked``, ``bitlinear_axes_stacked``, ``bitlinear_p``)
+form the same fp32 Ŵ and sum
 products in another order: |kernel - plain| <= 1e-5 · Σ_k |x||Ŵ| + 1e-6 per
 output (Ŵ of the row's own bank slot).  ``flash_attention`` sums its
 products and softmax in another order than its dense plain version: within
@@ -88,6 +119,7 @@ stay under a tenth of the median |output| at S=T=4096.  TF32 is off for every fp
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -167,6 +199,7 @@ def counters() -> dict:
     from repro_torch.kernels import unpack_apply as UA
     return {"unpack_apply": UA.launches, "bitlinear_axes": BL.launches,
             "bitlinear_axes_banked": BL.banked_launches,
+            "bitlinear_axes_stacked": BL.stacked_launches,
             "bitlinear": BL.static_launches,
             "flash_attention": FA.launches}
 
@@ -178,6 +211,7 @@ def zero_counters() -> None:
     UA.launches = 0
     BL.launches = 0
     BL.banked_launches = 0
+    BL.stacked_launches = 0
     BL.static_launches = 0
     FA.launches = 0
 
@@ -322,7 +356,7 @@ def tier_rows(name, n, k, gen, dev, timer, p0, vr0, base) -> list:
 
 
 def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
-                base) -> list:
+                base, only=None) -> list:
     """``bitlinear_axes_banked`` at one projection shape, over a bank of 4
     slots built from the stack's first three layers (slot 0 zero = base,
     slot 1 row-scaled, slot 2 col-scaled, slot 3 row-scaled) and layer 0's
@@ -331,7 +365,8 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
     lays them out) to M=8 and M=16 (two and four groups of four rows of the
     streaming kernel), M=17 (4 tokens a lane and one more row: the tiled
     kernel, microtiles that span slots) and M=64 (16 tokens a lane), and an all-base M=4 batch held against the plain fp32
-    x @ W_bᵀ; each timed beside the single-variant kernel on the same x."""
+    x @ W_bᵀ; each timed beside the single-variant kernel on the same x.
+    ``only`` keeps the cases of those labels."""
     from repro_torch.core import delta as D
     from repro_torch.kernels import bitlinear as BL
 
@@ -359,6 +394,8 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
              ("M=17", lanes(4) + BANK_VIDX[:1]),
              ("M=64", [s for s in BANK_VIDX for _ in range(PROMPT)]),
              ("M=4 all-base", [0] * LANES)]
+    if only is not None:
+        cases = [c for c in cases if c[0] in only]
     for label, vlist in cases:
         m = len(vlist)
         vidx = torch.tensor(vlist, dtype=torch.int32, device=dev)
@@ -456,6 +493,14 @@ KERNELS = [
      "src/repro/kernels/bitlinear.py:35"),
     ("bitlinear_q8", "src/repro_torch/csrc/bitlinear.cu",
      "src/repro/kernels/bitlinear.py:76"),
+    # bitlinear_axes_p as the JAX MoE layer vmaps it over the experts
+    # (src/repro/models/moe.py:83, `_expert_mm`)
+    ("bitlinear_axes_stacked",
+     "src/repro_torch/csrc/bitlinear_axes_stacked.cu",
+     "src/repro/kernels/bitlinear.py:222"),
+    ("bitlinear_axes_stacked_q8",
+     "src/repro_torch/csrc/bitlinear_axes_stacked.cu",
+     "src/repro/kernels/bitlinear.py:98"),
     ("flash_attention", "src/repro_torch/csrc/flash_attn.cu",
      "src/repro/kernels/flash_attn.py:73"),
 ]
@@ -496,15 +541,7 @@ def kernel_phase(cfg, dev, timer) -> dict:
                 name, n, k, gen, dev, timer, p0, v_row[0], v_col[0], layer0)
         del wb, qw, packed, v_row, v_col, p0
         torch.cuda.empty_cache()
-    for kname, krows in rows.items():
-        print(f"  -- {kname}")
-        for r in krows:
-            extra = "".join(f" {key}={r[key]:.4f}" for key in
-                            ("uniform_ms", "read_ms") if key in r)
-            print(f"  {r['shape']:44s} err={r['max_abs_err']:.3g} "
-                  f"kernel_ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                  f"({r['bound_by']}, {r['peak_tflops']:.0f} TF/s) "
-                  f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']}{extra}")
+    print_rows(rows)
     print("  -- bitlinear_axes streaming row tiers (M=8: 8 rows, M=16: 16 "
           "rows) vs the 4-row tier once per 4 rows vs the tiled kernel at "
           "M=17")
@@ -516,8 +553,22 @@ def kernel_phase(cfg, dev, timer) -> dict:
           f"{len(rows['unpack_apply']) + len(rows['unpack_apply_q8'])} "
           "shapes (fp32 and int8 base); every GEMM within 1e-5 relative at "
           + ", ".join(f"{len(r)} shapes ({k})" for k, r in rows.items()
-                      if not k.startswith("unpack")))
+                      if r and not k.startswith("unpack")))
     return rows
+
+
+def print_rows(rows: dict, heading: str = "") -> None:
+    """One line per kernel row: error, times, bound."""
+    for kname, krows in rows.items():
+        print(f"  -- {kname}{heading}")
+        for r in krows:
+            extra = "".join(f" {key}={r[key]:.4f}" for key in
+                            ("uniform_ms", "read_ms") if key in r)
+            print(f"  {r['shape']:44s} err={r['max_abs_err']:.3g} "
+                  f"kernel_ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                  f"({r['bound_by']}, {r['peak_tflops']:.0f} TF/s) "
+                  f"plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']}{extra}")
 
 
 def summary(name, source, replaces, rows, unit):
@@ -765,8 +816,24 @@ def reference_phase(dev) -> None:
             on_cpu.scale.view(torch.int16))
     print(f"reference: int8 quantization on the card == on the cpu for "
           f"{len(weights)} weights (bytes and scale bits)")
-    runs = [("group", "dense", 4), ("group", "fused", 4),
-            ("continuous", "fused", [2, 5, 3, 4])]
+    reference_runs(dev, model, base, dms,
+                   [("group", "dense", 4), ("group", "fused", 4),
+                    ("continuous", "fused", [2, 5, 3, 4])],
+                   SV.PROMPT_LEN, SV.MAX_LEN)
+
+
+def reference_runs(dev, model, base, dms, runs, prompt_len,
+                   max_len) -> None:
+    """Each (scheduler, mode, budgets) run over an fp32 and an int8 base,
+    on the CPU through the plain versions and on the card through the
+    kernels: 6 requests round-robin over base, v0 and v1, prompts padded to
+    ``prompt_len``, caches of ``max_len``; tokens must be identical and the
+    card run must launch the run's kernel (and, for an MoE model in fused
+    mode, the stacked expert GEMM)."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import Deployment
+
+    cfg = model.cfg
     for base_dtype in ("fp", "int8"):
         for scheduler, mode, budgets in runs:
             tokens = {}
@@ -774,9 +841,10 @@ def reference_phase(dev) -> None:
                 zero_counters()
                 dep = Deployment(model, base, mode=mode,
                                  scheduler=scheduler, batch_size=4,
-                                 prompt_len=SV.PROMPT_LEN,
-                                 max_len=SV.MAX_LEN, bank_size=4,
-                                 device=where, base_dtype=base_dtype)
+                                 prompt_len=prompt_len,
+                                 max_len=max_len,
+                                 bank_size=4, device=where,
+                                 base_dtype=base_dtype)
                 for i, dm in enumerate(dms):
                     dep.publish(f"v{i}", dm)
                 rids = SV.submit_requests(dep, cfg, 6, budgets)
@@ -785,12 +853,16 @@ def reference_phase(dev) -> None:
             launched = {k: v for k, v in counters().items() if v}
             run = mode if scheduler == "group" else scheduler
             assert tokens["cpu"] == tokens[str(dev)], (
-                base_dtype, scheduler, mode, tokens)
+                cfg.name, base_dtype, scheduler, mode, tokens)
             assert launched.get(RUN_KERNEL[run], 0) > 0, (
-                base_dtype, scheduler, mode, launched)
-            print(f"reference {base_dtype} {scheduler} {mode}: card tokens "
-                  f"== cpu plain tokens ({sum(map(len, tokens['cpu']))} "
-                  f"tokens, card launches {launched})")
+                cfg.name, base_dtype, scheduler, mode, launched)
+            if cfg.family == "moe" and mode == "fused":
+                assert launched.get("bitlinear_axes_stacked", 0) > 0, (
+                    cfg.name, base_dtype, scheduler, launched)
+            print(f"reference {cfg.name} {base_dtype} {scheduler} {mode}: "
+                  f"card tokens == cpu plain tokens "
+                  f"({sum(map(len, tokens['cpu']))} tokens, card launches "
+                  f"{launched})")
 
 
 def deltalinear_phase(cfg, dev) -> dict:
@@ -853,16 +925,19 @@ def deltalinear_phase(cfg, dev) -> dict:
 
 
 def profile_decode(model, params, overlay, dev, label, step_ms,
-                   vidx=None) -> None:
+                   vidx=None, prompt_len=None, max_len=None) -> None:
     """One decode step of batch 4 under ``torch.profiler``: summed device
     time, the kernels that take the most, and the device's idle share of
-    the serve run's mean decode step (``step_ms``, unprofiled)."""
+    the serve run's mean decode step (``step_ms``, unprofiled).  The cache
+    comes from a prefill of ``prompt_len`` tokens (default the serve
+    launcher's) into ``max_len`` slots."""
     from repro_torch.launch import serve as SV
 
-    batch = {"tokens": torch.ones((LANES, SV.PROMPT_LEN), dtype=torch.int64,
+    prompt_len = prompt_len or SV.PROMPT_LEN
+    batch = {"tokens": torch.ones((LANES, prompt_len), dtype=torch.int64,
                                   device=dev)}
-    _, cache = model.prefill(params, batch, SV.MAX_LEN, overlay=overlay,
-                             variant_idx=vidx)
+    _, cache = model.prefill(params, batch, max_len or SV.MAX_LEN,
+                             overlay=overlay, variant_idx=vidx)
     tok = torch.ones(LANES, dtype=torch.int32, device=dev)
     model.decode_step(params, tok, cache, overlay=overlay,
                       variant_idx=vidx)   # warm-up
@@ -898,16 +973,22 @@ def profile_decode(model, params, overlay, dev, label, step_ms,
               f"{e.key[:70]}")
 
 
-def drive(dep, cfg, label, n_requests, budgets, setup_s) -> tuple:
+def drive(dep, cfg, label, n_requests, budgets, setup_s,
+          prompt_range=None) -> tuple:
     """Serve ``n_requests`` round-robin over the deployment's variants with
     the launch counters zeroed right before; every request must finish
-    with exactly its budget.  Returns (tokens per request, launches)."""
+    with exactly its budget.  Prompts are the serve launcher's 8 random
+    tokens, or ``long_requests`` of a (lo, hi) ``prompt_range``.  Returns
+    (tokens per request, launches)."""
     from repro_torch.launch import serve as SV
 
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
     t0 = time.perf_counter()
-    rids = SV.submit_requests(dep, cfg, n_requests, budgets)
+    if prompt_range is None:
+        rids = SV.submit_requests(dep, cfg, n_requests, budgets)
+    else:
+        rids = long_requests(dep, cfg, n_requests, budgets, *prompt_range)
     dep.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1321,6 +1402,489 @@ def lifecycle_reference_phase(dev) -> None:
           f"({sum(len(t) for run in served['cpu'] for t, _ in run)} tokens)")
 
 
+# ---------------------------------------------------------------------------
+# the other decoder archs: deepseek-7b, starcoder2-3b, gemma3-12b (ring
+# caches), deepseek-moe-16b and moonshot-v1-16b-a3b (MoE)
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ("deepseek-7b", "starcoder2-3b", "gemma3-12b",
+             "deepseek-moe-16b", "moonshot-v1-16b-a3b")
+# reduced reference phase: layers (gemma3: its [local, global] pattern once;
+# MoE: the dense first layer and two expert layers) and a padded prompt of
+# 20 tokens, past gemma3's reduced window of 16, so its ring wraps in
+# prefill and again in decode
+REF_LAYERS = {"deepseek-moe-16b": 3, "moonshot-v1-16b-a3b": 3}
+REF_PROMPT = 20
+
+
+def stacked_ms(cfg) -> tuple:
+    """An expert's rows in the stacked GEMM: the main path's, the capacity
+    of one group of a decode step's ``LANES`` tokens (1) and of a
+    ``LANES`` x ``PROMPT`` prefill (7, the streaming kernel's 8-row tier),
+    and beside them 4 (the 4-row tier) and 120 (a 4 x 256-token prefill,
+    the tiled kernel)."""
+    from repro_torch.models.moe import capacity
+    return tuple(sorted({capacity(LANES, cfg), capacity(LANES * PROMPT, cfg),
+                         4, capacity(LANES * 256, cfg)}))
+
+
+def arch_shapes(cfg) -> list:
+    """The distinct (N, K) of an arch's overlaid 2-D projections:
+    attention and the dense MLP; for an MoE arch the dense MLP of its
+    first layers and its shared experts' MLP (the expert stacks are the
+    stacked GEMM's)."""
+    d = cfg.d_model
+    mlps = [("", cfg.d_ff)]
+    if cfg.family == "moe":
+        mlps = ([("dense ", cfg.d_ff)] if cfg.moe_first_dense else []) + [
+            ("shared ", cfg.expert_d_ff * cfg.num_shared_experts)]
+    seen, out = set(), []
+    for name, n, k in (("wq", cfg.q_dim, d), ("wk", cfg.kv_dim, d),
+                       ("wo", d, cfg.q_dim),
+                       *((f"{pre}{w}", nk[0], nk[1]) for pre, ff in mlps
+                         for w, nk in (("w_gate", (ff, d)),
+                                       ("w_down", (d, ff))))):
+        if (n, k) not in seen:
+            seen.add((n, k))
+            out.append((name, n, k))
+    return out
+
+
+def arch_kernel_phase(dev, timer) -> dict:
+    """``bitlinear_axes`` at M=4 and M=64 and the banked GEMM at M=4
+    ([0,1,2,1]) and M=64 at every distinct projection shape of the new
+    archs (moonshot-v1-16b-a3b has deepseek-moe-16b's widths), over an
+    fp32 and an int8 base, each held against its plain version with the
+    GEMM bound; K of 11008, 3840, 2816 and 1408 are no whole number of
+    the streaming kernel's warp steps.  Returns {kernel body: rows}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import delta as D
+    from repro_torch.core import quantize as Q
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    rows = {name: [] for name in ("bitlinear_axes", "bitlinear_axes_q8",
+                                  "bitlinear_axes_banked",
+                                  "bitlinear_axes_banked_q8")}
+    for arch in NEW_ARCHS[:4]:
+        for name, n, k in arch_shapes(get_config(arch)):
+            label = f"{arch} {name}"
+            wb = torch.randn((3, n, k), generator=gen, device=dev) * k ** -0.5
+            delta = torch.randn((3, n, k), generator=gen, device=dev) * 0.005
+            packed = D.pack_signs(D.sign_mask(delta))
+            v_row = D.init_scale(delta, "row")
+            v_col = D.init_scale(delta, "col")
+            del delta
+            qw = Q.quantize_weight(wb[0])
+            p0 = packed[0].contiguous()
+            for suffix, layer0 in (("", wb[0].contiguous()), ("_q8", qw)):
+                rows["bitlinear_axes" + suffix] += axes_rows(
+                    label, n, k, gen, dev, timer, p0, v_row[0], layer0)
+                rows["bitlinear_axes_banked" + suffix] += banked_rows(
+                    label, n, k, gen, dev, timer, packed, v_row, v_col,
+                    layer0, only=("M=4", "M=64"))
+            del wb, qw, packed, v_row, v_col, p0
+            torch.cuda.empty_cache()
+    print_rows(rows, " (other archs)")
+    print("arch kernels: every GEMM within 1e-5 relative at "
+          + ", ".join(f"{len(r)} shapes ({k})" for k, r in rows.items()))
+    return rows
+
+
+def stacked_phase(dev, timer) -> dict:
+    """``bitlinear_axes_stacked_p`` over deepseek-moe-16b's expert stacks
+    (E=64: w_gate/w_up 1408 x 2048, w_down 2048 x 1408; half the experts
+    row-scaled, half col-scaled) at M in ``stacked_ms`` rows per expert,
+    bf16 x, over an fp32 and an int8 base: one launch per call (counter),
+    held against its plain version with the GEMM bound per expert, timed
+    beside the plain version and ``torch.bmm`` over a pre-built fp32 Ŵ
+    stack (the yardstick: one PyTorch call for the same product).  Returns
+    {kernel body: rows}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import delta as D
+    from repro_torch.core import quantize as Q
+    from repro_torch.kernels import bitlinear as BL
+
+    cfg = get_config("deepseek-moe-16b")
+    e, f, d = cfg.num_experts, cfg.expert_d_ff, cfg.d_model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    rows = {"bitlinear_axes_stacked": [], "bitlinear_axes_stacked_q8": []}
+    for name, n, k in (("w_gate", f, d), ("w_down", d, f)):
+        wb = torch.randn((e, n, k), generator=gen, device=dev) * k ** -0.5
+        delta = torch.randn((e, n, k), generator=gen, device=dev) * 0.005
+        packed = D.pack_signs(D.sign_mask(delta))
+        use_row = (torch.arange(e, device=dev) % 2 == 0)[:, None]
+        v_row = torch.where(use_row, D.init_scale(delta, "row"), 0.0).to(
+            torch.float16)
+        v_col = torch.where(use_row, 0.0, D.init_scale(delta, "col")).to(
+            torch.float16)
+        del delta
+        qw = Q.quantize_weight(wb)
+        signs = D.unpack_signs(packed, k)
+        for suffix, base in (("", wb), ("_q8", qw)):
+            wq, ws, wf, base_bytes = _base(base)
+            w_hat = (v_row.float()[:, :, None] + v_col.float()[:, None, :]
+                     ) * signs + wf
+            w_abs_t = w_hat.abs().transpose(1, 2)
+            for m in stacked_ms(cfg):
+                x = torch.randn((e, m, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                before = BL.stacked_launches
+                got = BL.bitlinear_axes_stacked_p(x, packed, v_row, v_col,
+                                                  wq, ws)
+                torch.cuda.synchronize()
+                assert BL.stacked_launches == before + 1
+                want = BL.plain_stacked(x.float(), packed, v_row, v_col, wq,
+                                        w_scale=ws)
+                scale = torch.bmm(x.float().abs(), w_abs_t)
+                err = (got - want).abs().max().item()
+                assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6
+                             ).all()), (name, m, suffix, err)
+                del got, want, scale
+                x32 = x.float()
+                w_hat_t = w_hat.transpose(1, 2)
+                nbytes = (x.numel() * 2 + packed.numel()
+                          + (v_row.numel() + v_col.numel()) * 2 + base_bytes
+                          + e * m * n * 4)
+                rows["bitlinear_axes_stacked" + suffix].append({
+                    "shape": f"deepseek-moe-16b {name} E={e} M={m} N={n} "
+                             f"K={k}", "m": m, "proj": name,
+                    "max_abs_err": err,
+                    "ms": timer.ms(lambda: BL.bitlinear_axes_stacked_p(
+                        x, packed, v_row, v_col, wq, ws), reps=20, warmup=3),
+                    "plain_ms": timer.ms(lambda: BL.plain_stacked(
+                        x, packed, v_row, v_col, wq, w_scale=ws), reps=3,
+                        warmup=1),
+                    **bound(nbytes, 2 * e * m * n * k + _build_flops(
+                        e * n, k, ws is not None)),
+                    "library_ms": timer.ms(lambda: torch.bmm(x32, w_hat_t),
+                                           reps=20, warmup=3)})
+            del w_hat, w_abs_t
+        del wb, qw, packed, v_row, v_col, signs
+        torch.cuda.empty_cache()
+    print_rows(rows, " (library_ms: torch.bmm over a built Ŵ stack)")
+    print(f"stacked: {sum(map(len, rows.values()))} cases within 1e-5 "
+          "relative of the plain version, one launch each")
+    return rows
+
+
+def arch_reference_phase(dev) -> None:
+    """Each new arch reduced, fp32 compute: group fused and continuous over
+    an fp32 and an int8 base, card kernels against the CPU plain versions
+    (``reference_runs``); tokens identical.  gemma3's 20-token padded
+    prompt and budgets up to 5 run past its reduced window of 16."""
+    import dataclasses
+
+    from repro_torch.core import calibration as C
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.models.param import split
+
+    for arch in NEW_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(SV.make_config(arch, reduced=True),
+                                  num_layers=REF_LAYERS.get(arch, 2),
+                                  compute_dtype="float32")
+        model = build_model(cfg)
+        base, _ = split(model.init(0, device="cpu"))
+        dms = [C.compress(base, SV.fine_tune(base, 100 + i))
+               for i in range(2)]
+        reference_runs(dev, model, base, dms,
+                       [("group", "fused", 4),
+                        ("continuous", "fused", [2, 5, 3, 4])],
+                       REF_PROMPT, REF_PROMPT + SV.MAX_LEN)
+        print(f"reference {arch}: {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def gemms_checked():
+    """Inside the block every launch of the three fused delta GEMMs is held
+    against its plain version on the same operands, to the GEMM bound
+    1e-5 · Σ|x||Ŵ| + 1e-6 (Ŵ of the row's own bank slot or expert):
+    whatever routing a run took, each kernel is checked at the shapes the
+    path gave it.  The checks launch no kernel.  Yields a list of
+    (kernel, x shape, max |err|), one per launch."""
+    from repro_torch.core import delta as D
+    from repro_torch.kernels import bitlinear as BL
+
+    log = []
+    kernels = {name: getattr(BL, name) for name in (
+        "bitlinear_axes_p", "bitlinear_axes_banked_p",
+        "bitlinear_axes_stacked_p")}
+
+    def w_abs(packed, v_row, v_col, wq, ws):
+        wf = wq.float() if ws is None else wq.float() * ws.float()[..., None]
+        return ((v_row.float()[..., :, None] + v_col.float()[..., None, :])
+                * D.unpack_signs(packed, wq.shape[-1]) + wf).abs()
+
+    def held(name, x, got, want, scale):
+        diff = (got - want).abs()
+        err = diff.max().item()
+        assert bool((diff <= 1e-5 * scale + 1e-6).all()), (
+            name, tuple(x.shape), err)
+        log.append((name, tuple(x.shape), err))
+        return got
+
+    def axes(x, packed, v_row, v_col, wq, w_scale=None):
+        got = kernels["bitlinear_axes_p"](x, packed, v_row, v_col, wq,
+                                          w_scale=w_scale)
+        want = BL.plain(x.float(), packed, v_row, v_col, wq, w_scale=w_scale)
+        scale = x.float().abs() @ w_abs(packed, v_row, v_col, wq,
+                                        w_scale).T
+        return held("bitlinear_axes", x, got, want, scale)
+
+    def banked(x, vidx, packed, v_row, v_col, wq, w_scale=None):
+        got = kernels["bitlinear_axes_banked_p"](x, vidx, packed, v_row,
+                                                 v_col, wq, w_scale=w_scale)
+        want = BL.plain_banked(x.float(), vidx, packed, v_row, v_col, wq,
+                               w_scale=w_scale)
+        scale = torch.zeros_like(want)
+        for v in vidx.unique().tolist():
+            scale = torch.where(vidx[:, None] == v, x.float().abs() @ w_abs(
+                packed[v], v_row[v], v_col[v], wq, w_scale).T, scale)
+        return held("bitlinear_axes_banked", x, got, want, scale)
+
+    def stacked(x, packed, v_row, v_col, wq, w_scale=None):
+        got = kernels["bitlinear_axes_stacked_p"](x, packed, v_row, v_col,
+                                                  wq, w_scale=w_scale)
+        want = BL.plain_stacked(x.float(), packed, v_row, v_col, wq,
+                                w_scale=w_scale)
+        scale = torch.bmm(x.float().abs(), w_abs(
+            packed, v_row, v_col, wq, w_scale).transpose(1, 2))
+        return held("bitlinear_axes_stacked", x, got, want, scale)
+
+    BL.bitlinear_axes_p, BL.bitlinear_axes_banked_p = axes, banked
+    BL.bitlinear_axes_stacked_p = stacked
+    try:
+        yield log
+    finally:
+        for name, fn in kernels.items():
+            setattr(BL, name, fn)
+
+
+def serve_checks(dep, model, cfg, dev, label, prompt_len, max_len,
+                 continuous: bool, repeat: bool = False) -> list:
+    """After a full-width run: the fused prefill through the kernels (one
+    batch, on the card; continuous: the bank over a mixed vidx), each of
+    its delta GEMM launches held to the GEMM bound against its plain
+    version on the same operands (``gemms_checked``), its logits beside
+    the same prefill through the plain versions; with ``repeat`` the
+    prefill is run again and must give the same logits bit for bit.  Then
+    one decode step under the profiler (device-busy time, idle share).
+    Returns the checked launches."""
+    from repro_torch.kernels import ops as K
+
+    m = dep.metrics
+    step_ms = 1e3 * m["decode_seconds"] / max(m["decode_steps"], 1)
+    if continuous:
+        slots = [dep.registry.bank_resolve(v) for v in ("v0", "v1")]
+        vidx = torch.tensor([0, slots[0], slots[1], slots[0]],
+                            dtype=torch.int32, device=dev)
+        params, overlay = dep.registry.base_params, dep.registry.bank.tree
+        label = f"{label} mixed (vidx {vidx.tolist()})"
+    else:
+        vidx = None
+        params, overlay = dep.registry.resolve("v0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (LANES, prompt_len),
+                                     generator=gen, device=dev)}
+    with gemms_checked() as checked:
+        got, _ = model.prefill(params, batch, max_len, overlay=overlay,
+                               variant_idx=vidx)
+        torch.cuda.synchronize()
+    assert checked, label
+    if repeat:
+        again, _ = model.prefill(params, batch, max_len, overlay=overlay,
+                                 variant_idx=vidx)
+        assert torch.equal(got, again), (
+            label, (got.float() - again.float()).abs().max().item())
+        del again
+    with K.plain_versions():
+        want, _ = model.prefill(params, batch, max_len, overlay=overlay,
+                                variant_idx=vidx)
+    assert bool(torch.isfinite(got).all()) and got.shape == (
+        LANES, cfg.padded_vocab), got.shape
+    errs = {}
+    for name, shape, err in checked:
+        errs.setdefault(name, []).append(err)
+    print(f"{label}: fused prefill ({LANES} x {prompt_len} tokens): "
+          + ", ".join(f"{len(e)} {n} launches within the GEMM bound (max "
+                      f"|err| {max(e):.3g})" for n, e in errs.items())
+          + (", a repeat bit-identical" if repeat else "")
+          + f"; logits vs plain versions: max |diff| = "
+          f"{(got.float() - want.float()).abs().max().item():.4g} (max "
+          f"|logit| = {want.float().abs().max().item():.4g})")
+    del got, want
+    profile_decode(model, params, overlay, dev, label, step_ms, vidx=vidx,
+                   prompt_len=prompt_len, max_len=max_len)
+    del params, overlay
+    return checked
+
+
+def long_requests(dep, cfg, n: int, budgets, lo: int, hi: int) -> list:
+    """``n`` prompts of ``lo``..``hi`` random tokens round-robin over base,
+    v0 and v1, budgets cycled; returns the request ids."""
+    rng = np.random.default_rng(12)
+    names = dep.variants()
+    return [dep.submit(rng.integers(1, cfg.vocab_size,
+                                    size=int(rng.integers(lo, hi + 1))),
+                       variant=names[i % len(names)],
+                       max_new_tokens=budgets[i % len(budgets)])
+            for i in range(n)]
+
+
+# gemma3-12b at full width, one 5:1 period: prompts of 1100-1300 tokens
+# (padded to 1300), so every local layer's 1024-slot ring wraps in the
+# prefill, and budgets of 8-16.
+GEMMA_LAYERS, GEMMA_BUDGETS = 6, [8, 12, 16, 10, 14, 9]
+GEMMA_PROMPTS = (1100, 1300)
+
+
+def gemma3_phase(dev) -> dict:
+    """gemma3-12b, full width, 6 layers (one period: 5 local layers with a
+    1024-slot ring, one global), 2 variants, continuous serving over a bank
+    of 4 slots, over an fp32 and an int8 base.  Memory, reckoned before
+    the run (fp32): base 9.4 GB (the tied 262144 x 3840 table 4.0 GB);
+    each variant's DeltaModel about 2.2 GB (its fp16 table); the bank holds
+    every slot's table as an fp32 extra, 4 x 4.0 GB; the continuous step
+    casts each slot's table to bf16 (2.0 GB at a time); prefill logits of
+    4 x 1300 positions 2.7 GB: about 40 GB at peak, under the card's 80.
+    The measured peaks are printed.  Returns {run: launches}."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.models.transformer import layer_pattern
+
+    cfg = SV.make_config("gemma3-12b", num_layers=GEMMA_LAYERS)
+    prompt_len = GEMMA_PROMPTS[1]
+    max_len = prompt_len + max(GEMMA_BUDGETS)
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, base, dms = SV.build_variants(cfg, 2, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"gemma3-12b: {GEMMA_LAYERS} layers, windows "
+          f"{[e['window'] for e in layer_pattern(cfg)]}, setup "
+          f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    for base_dtype in ("fp", "int8"):
+        label = f"gemma3-12b continuous {base_dtype}"
+        t0 = time.perf_counter()
+        dep = SV.deploy(model, base, dms, mode="fused",
+                        scheduler="continuous", batch=LANES, bank_size=4,
+                        device=dev, base_dtype=base_dtype,
+                        prompt_len=prompt_len, max_len=max_len)
+        torch.cuda.synchronize()
+        _, launches[label] = drive(
+            dep, cfg, label, 6, GEMMA_BUDGETS, time.perf_counter() - t0,
+            prompt_range=GEMMA_PROMPTS)
+        m = dep.metrics
+        assert launches[label]["bitlinear_axes_banked"] == \
+            7 * GEMMA_LAYERS * (m["prefills"] + m["decode_steps"]), \
+            launches[label]
+        assert m["admitted"] == m["retired"] == 6, m
+        serve_checks(dep, model, cfg, dev, label, prompt_len, max_len,
+                     continuous=True)
+        del dep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, base, dms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+MOE_LAYERS = 4   # deepseek-moe-16b: the dense first layer + 3 expert layers
+
+
+def moe_phase(dev) -> dict:
+    """deepseek-moe-16b, full width (64 experts, top-6, capacity 1.25, two
+    shared experts), 4 layers, 2 variants: group fused and continuous (a
+    bank of 4 slots), over an fp32 and an int8 base.  Memory, reckoned
+    before the run (fp32): base 8.8 GB (the three expert layers 6.6 GB);
+    the bank's extras (both tables and the routers) 4 x 1.7 GB; under 30
+    GB at peak.  The stacked expert GEMM must launch in every run: at
+    decode with 4 lanes each expert gets capacity 1 (M=1), at a 4 x 16
+    prefill 7 rows; the prefill's launches must have the rows
+    ``stacked_phase`` checked.  Returns {run: launches}."""
+    from repro_torch.launch import serve as SV
+
+    cfg = SV.make_config("deepseek-moe-16b", num_layers=MOE_LAYERS)
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, base, dms = SV.build_variants(cfg, 2, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"deepseek-moe-16b: {MOE_LAYERS} layers, setup peak_mem_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    n_moe = MOE_LAYERS - cfg.moe_first_dense
+    for base_dtype in ("fp", "int8"):
+        for scheduler in ("group", "continuous"):
+            run = "fused" if scheduler == "group" else "continuous"
+            label = f"deepseek-moe-16b {run}" + (
+                " int8" if base_dtype == "int8" else "")
+            t0 = time.perf_counter()
+            dep = SV.deploy(model, base, dms, mode="fused",
+                            scheduler=scheduler, batch=LANES, bank_size=4,
+                            device=dev, base_dtype=base_dtype)
+            torch.cuda.synchronize()
+            budgets = [8] if scheduler == "group" else CONT_BUDGETS
+            _, launches[label] = drive(dep, cfg, label, 8, budgets,
+                                       time.perf_counter() - t0 + setup_s)
+            got = launches[label]
+            m = dep.metrics
+            calls = m["prefills"] + m["decode_steps"]
+            # three stacked GEMMs per expert layer per pass; the continuous
+            # step runs one pass per bank slot, every call; the group
+            # scheduler's base batches run no overlay
+            per_call = 3 * n_moe * (4 if scheduler == "continuous" else 1)
+            stacked = got["bitlinear_axes_stacked"]
+            if scheduler == "continuous":
+                assert stacked == per_call * calls, (got, calls)
+            else:
+                assert 0 < stacked < per_call * calls and \
+                    stacked % per_call == 0, (got, calls)
+            assert got[RUN_KERNEL[run]] > 0, got
+            checked = serve_checks(
+                dep, model, cfg, dev, label, SV.PROMPT_LEN, SV.MAX_LEN,
+                continuous=scheduler == "continuous", repeat=True)
+            ms = {shape[1] for name, shape, _ in checked
+                  if name == "bitlinear_axes_stacked"}
+            assert ms and ms <= set(stacked_ms(cfg)), (ms, stacked_ms(cfg))
+            del dep
+            gc.collect()
+            torch.cuda.empty_cache()
+    del model, base, dms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_archs_phase(dev) -> dict:
+    """deepseek-7b and starcoder2-3b at full width, 2 layers: 4 requests x
+    8 tokens, group scheduler, fused (``bitlinear_axes`` in every
+    projection).  Returns {run: launches}."""
+    from repro_torch.launch import serve as SV
+
+    launches = {}
+    for arch in ("deepseek-7b", "starcoder2-3b"):
+        cfg = SV.make_config(arch, num_layers=2)
+        t0 = time.perf_counter()
+        model, base, dms = SV.build_variants(cfg, 2, dev)
+        dep = SV.deploy(model, base, dms, mode="fused", scheduler="group",
+                        batch=LANES, device=dev)
+        torch.cuda.synchronize()
+        label = f"{arch} fused"
+        _, launches[label] = drive(dep, cfg, label, 4, [8],
+                                   time.perf_counter() - t0)
+        assert launches[label]["bitlinear_axes"] > 0, launches[label]
+        del dep, model, base, dms
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 # kernel bodies whose first CUDA design was replaced: the design now run
 GEMM_DESIGN = "streaming (M <= 16) + cp.async tiles (M > 16)"
 BANKED_DESIGN = ("streaming, one Ŵ per distinct slot in registers (M <= 16)"
@@ -1332,9 +1896,14 @@ REDESIGNED = {"bitlinear_axes": GEMM_DESIGN, "bitlinear_axes_q8": GEMM_DESIGN,
               "flash_attention": "bf16: wgmma + TMA; fp32: CUDA cores"}
 
 
-def kernel_entries(rows, launches, dl_launches, fl_launches) -> list:
+def kernel_entries(rows, launches, dl_launches, fl_launches,
+                   arch_rows) -> list:
     """One JSON entry per kernel body: times summed over one unit of its
-    path, launches from the main-path run that drives it."""
+    path (a unit's first member gives each row's multiplicity in it),
+    launches from the main-path run that drives it; the rows at the other
+    archs' projection shapes ride beside as ``arch_shapes``."""
+    # an expert layer runs the w_gate-shaped stack twice (w_gate, w_up)
+    expert_uses = {"w_gate": 2, "w_down": 1}
     units = {
         "unpack_apply": (lambda r: True, "dense", "unpack_apply",
                          f"one dense variant load: 7 stacks x (row, col), "
@@ -1354,6 +1923,13 @@ def kernel_entries(rows, launches, dl_launches, fl_launches) -> list:
                             "flash_attention",
                             "one layer's prefill attention, qwen3-8b heads "
                             f"(32 q, 8 kv, hd 128), B=1, {FLASH_UNIT}"),
+        "bitlinear_axes_stacked": (
+            lambda r: (r["m"] == 1) * expert_uses[r["proj"]],
+            "deepseek-moe-16b fused",
+            "bitlinear_axes_stacked",
+            "one deepseek-moe-16b expert layer's decode step at batch 4: "
+            "w_gate, w_up (w_gate's row again) and w_down stacks, E=64, "
+            "M=1 (capacity 1)"),
     }
     entries = []
     for name, source, replaces in KERNELS:
@@ -1363,9 +1939,11 @@ def kernel_entries(rows, launches, dl_launches, fl_launches) -> list:
             unit_name = unit
         else:
             unit_name = unit + (" (int8 base)" if q8 else " (fp32 base)")
-        entry = summary(name, source, replaces,
-                        [r for r in rows[name] if keep(r)], unit_name)
+        unit_rows = [r for r in rows[name] for _ in range(int(keep(r)))]
+        entry = summary(name, source, replaces, unit_rows, unit_name)
         entry["shapes"] = rows[name]
+        if name in arch_rows:
+            entry["arch_shapes"] = arch_rows[name]
         if run == "flash":
             entry["launches"] = fl_launches[counter]
         elif run == "deltalinear":
@@ -1390,6 +1968,8 @@ def resources(report: str) -> list[str]:
     from repro_torch.kernels import build
     keep = ("stream_gemm_kernel", "tile_gemm_kernel", "banked_stream_kernel",
             "banked_tile_kernel", "flash_fwd_wgmma_kernel")
+    # (the stacked expert GEMM's instantiations are stream_gemm_kernel and
+    # tile_gemm_kernel with the ExpertStack policy)
     found, name = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1427,19 +2007,37 @@ def main() -> None:
     print("redesigned kernels (registers, spills, shared memory):")
     print("\n".join(resources(build.ptxas_report())))
 
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
     cfg = get_config(ARCH)
     timer = Timer(dev)
-    rows = kernel_phase(cfg, dev, timer)
-    rows["flash_attention"], fl_launches = flash_phase(cfg, dev, timer)
+    rows = timed("kernels", kernel_phase, cfg, dev, timer)
+    rows["flash_attention"], fl_launches = timed("flash", flash_phase, cfg,
+                                                 dev, timer)
+    arch_rows = timed("arch kernels", arch_kernel_phase, dev, timer)
+    rows.update(timed("stacked", stacked_phase, dev, timer))
     del timer
     torch.cuda.empty_cache()
-    reference_phase(dev)
-    lifecycle_reference_phase(dev)
-    dl_launches = deltalinear_phase(cfg, dev)
-    launches = serve_phase(dev)
-    launches["lifecycle"] = lifecycle_phase(dev)
+    timed("reference", reference_phase, dev)
+    timed("lifecycle reference", lifecycle_reference_phase, dev)
+    timed("arch reference", arch_reference_phase, dev)
+    dl_launches = timed("deltalinear", deltalinear_phase, cfg, dev)
+    launches = timed("serve", serve_phase, dev)
+    launches["lifecycle"] = timed("lifecycle", lifecycle_phase, dev)
+    launches.update(timed("dense archs", dense_archs_phase, dev))
+    launches.update(timed("deepseek-moe-16b", moe_phase, dev))
+    launches.update(timed("gemma3-12b", gemma3_phase, dev))
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in seconds.items()}))
     print(json.dumps({"kernels": kernel_entries(rows, launches, dl_launches,
-                                                fl_launches)}))
+                                                fl_launches, arch_rows)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

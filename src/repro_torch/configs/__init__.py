@@ -9,6 +9,11 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 _ARCH_MODULES = {
     "qwen3-8b": "qwen3_8b",
+    "deepseek-7b": "deepseek_7b",
+    "starcoder2-3b": "starcoder2_3b",
+    "gemma3-12b": "gemma3_12b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

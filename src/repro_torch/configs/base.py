@@ -2,8 +2,9 @@
 
 The same ``ModelConfig`` fields as the JAX package, so a configuration
 means the same model in both.  ``reduced()`` gives the small CPU test
-variant of a family.  Only the dense family is served by the port so far;
-the other fields are carried so configurations stay field-for-field equal.
+variant of a family.  The port serves the dense family (local:global
+layers included) and the MoE family; the other fields are carried so
+configurations stay field-for-field equal.
 """
 from __future__ import annotations
 
@@ -83,6 +84,10 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
 
     def reduced(self) -> "ModelConfig":
         """Same family, tiny dims — used by CPU tests only."""

@@ -7,6 +7,10 @@
 * ``bitlinear_axes_banked_p`` — the same with a bank of V variants and one
   slot index per row (source ``csrc/bitlinear_axes_banked.cu``): every
   overlaid projection of the continuous scheduler's mixed batches.
+* ``bitlinear_axes_stacked_p`` — ``bitlinear_axes_p`` over a stack of E
+  experts in one launch, expert e's rows against expert e's Ŵ (source
+  ``csrc/bitlinear_axes_stacked.cu``): every overlaid expert GEMM of an MoE
+  layer.
 * ``bitlinear_p`` — y = x @ (v ⊙ unpack(B) + W_b)ᵀ with one static-mode
   vector v (source ``csrc/bitlinear.cu``): ``core/bitdelta.DeltaLinear``
   in apply mode "onfly".
@@ -17,13 +21,13 @@ dequantized where Ŵ is formed.  The dense Ŵ never reaches device memory:
 at M <= 16 the kernels stream W_b and form Ŵ in registers (the banked one
 once per distinct slot its rows name), above it Ŵ is built tile by tile in
 shared memory (one tile per distinct slot).  ``gemm_plan`` chooses each
-launch's K split from M, N, K and the dtypes alone.  ``plain``,
-``plain_banked`` and ``plain_static`` are the plain PyTorch versions of the
-three functions.
+launch's K split from M, N, K and the dtypes alone (``stacked_plan``: and
+the expert count).  ``plain``, ``plain_banked``, ``plain_stacked`` and
+``plain_static`` are the plain PyTorch versions of the four functions.
 
-``launches``, ``banked_launches`` and ``static_launches`` count kernel
-launches (one per call; a split-K call's reduction pass belongs to the same
-launch).
+``launches``, ``banked_launches``, ``stacked_launches`` and
+``static_launches`` count kernel launches (one per call; a split-K call's
+reduction pass belongs to the same launch).
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ from repro_torch.kernels import build as B
 from repro_torch.kernels.ref import bitlinear_axes_ref as plain  # noqa: F401
 from repro_torch.kernels.ref import \
     bitlinear_axes_banked_ref as plain_banked  # noqa: F401
+from repro_torch.kernels.ref import \
+    bitlinear_axes_stacked_ref as plain_stacked  # noqa: F401
 from repro_torch.kernels.ref import bitlinear_ref as plain_static  # noqa: F401
 
 PACK = 8
@@ -63,6 +69,7 @@ W_ALIGN = {torch.float32: 16, torch.bfloat16: 16, torch.int8: 8}
 
 launches = 0
 banked_launches = 0
+stacked_launches = 0
 static_launches = 0
 
 
@@ -116,13 +123,27 @@ def gemm_plan(m: int, n: int, k: int, x_size: int, w_size: int,
     Either way the split count fills the card's last wave of blocks.  The
     banked plan sees no bank depth and no slot index: the host never reads
     vidx."""
+    return _plan(m, n, k, x_size, w_size, banked, 1)
+
+
+def stacked_plan(m: int, n: int, k: int, x_size: int, w_size: int,
+                 experts: int) -> tuple[int, int]:
+    """``gemm_plan`` of a stack of ``experts`` products in one launch
+    (``bitlinear_axes_stacked_p``, m rows per expert): the stack counts
+    ``experts`` times the tiles of one product when it fills the card's
+    last wave, so it splits K less."""
+    return _plan(m, n, k, x_size, w_size, False, experts)
+
+
+def _plan(m: int, n: int, k: int, x_size: int, w_size: int, banked: bool,
+          experts: int) -> tuple[int, int]:
     if m <= STREAM_MAX_M:
         span = STREAM_SPAN[w_size]
         if banked:   # a block per 4 rows: BANK_PASS column scales, x fp32
             tiles = math.ceil(n / STREAM_ROWS) * math.ceil(m / BANK_GROUP)
             most = BANK_STREAM_SMEM // ((BANK_PASS + BANK_GROUP) * 4 * span)
         else:
-            tiles = math.ceil(n / STREAM_ROWS)
+            tiles = math.ceil(n / STREAM_ROWS) * experts
             most = STREAM_SMEM // ((4 + m_tier(m) * x_size) * span)
         splits, per = _wave_split(tiles, math.ceil(k / span),
                                   SM_COUNT * STREAM_BLOCKS_PER_SM, 1, most, k)
@@ -133,14 +154,16 @@ def gemm_plan(m: int, n: int, k: int, x_size: int, w_size: int,
         per_sm = max(1, min(per_sm, SMEM_PER_SM // (
             banked_tile_smem(x_size, w_size, max_k) + 1024)))
     splits, per = _wave_split(
-        math.ceil(m / TILE_M) * math.ceil(n / TILE_N), math.ceil(k / TILE_K),
+        math.ceil(m / TILE_M) * math.ceil(n / TILE_N) * experts,
+        math.ceil(k / TILE_K),
         SM_COUNT * per_sm, 4, max_k // TILE_K, TILE_MAX_SPLITS)
     return splits, per * TILE_K
 
 
-def check_base(name: str, w_base: torch.Tensor, w_scale, n: int) -> None:
+def check_base(name: str, w_base: torch.Tensor, w_scale, n) -> None:
     """What every kernel refuses of a base weight (N, ...): a dtype it has
-    no instantiation for, an int8 payload without its (N,) fp16 scale (or a
+    no instantiation for, an int8 payload without its ``n`` fp16 scale (an
+    int, (N,), or a shape tuple: (E, N) for an expert stack) (or a
     scale beside a full-precision one), a payload off its dtype's alignment
     (``W_ALIGN``), a non-contiguous scale or one on another device.  A
     misaligned payload raises; it is never copied."""
@@ -152,18 +175,19 @@ def check_base(name: str, w_base: torch.Tensor, w_scale, n: int) -> None:
     if w_base.data_ptr() % W_ALIGN[w_base.dtype]:
         raise ValueError(f"{name}: {w_base.dtype} w_base must be "
                          f"{W_ALIGN[w_base.dtype]}-byte aligned")
+    want = (n,) if isinstance(n, int) else tuple(n)
     if w_scale is not None and (
-            tuple(w_scale.shape) != (n,) or w_scale.dtype != torch.float16
+            tuple(w_scale.shape) != want or w_scale.dtype != torch.float16
             or not w_scale.is_contiguous()
             or w_scale.device != w_base.device):
-        raise ValueError(f"{name}: w_scale must be a contiguous ({n},) "
+        raise ValueError(f"{name}: w_scale must be a contiguous {want} "
                          f"fp16 tensor beside w_base, got "
                          f"{tuple(w_scale.shape)} {w_scale.dtype} on "
                          f"{w_scale.device}")
 
 
 def _check(name: str, x: torch.Tensor, w_base: torch.Tensor, w_scale,
-           vec: torch.Tensor, ops: tuple) -> None:
+           vec: torch.Tensor, ops: tuple, scale_shape=None) -> None:
     """What the GEMM wrappers refuse: operands off one CUDA device, K not
     a multiple of 8, dtypes the kernels have no instantiation for,
     non-contiguous operands, x off 16-byte alignment, and what
@@ -172,8 +196,8 @@ def _check(name: str, x: torch.Tensor, w_base: torch.Tensor, w_scale,
     if dev.type != "cuda" or any(t.device != dev for t in ops):
         raise ValueError(f"{name} needs every operand on one CUDA device, "
                          f"got {[str(t.device) for t in (x, *ops)]}")
-    if x.shape[1] % PACK:
-        raise ValueError(f"K {x.shape[1]} is not a multiple of {PACK}")
+    if x.shape[-1] % PACK:
+        raise ValueError(f"K {x.shape[-1]} is not a multiple of {PACK}")
     if x.dtype not in (torch.float32, torch.bfloat16) \
             or vec.dtype not in (torch.float16, torch.float32):
         raise ValueError(f"unsupported dtypes x={x.dtype} "
@@ -182,7 +206,7 @@ def _check(name: str, x: torch.Tensor, w_base: torch.Tensor, w_scale,
         raise ValueError(f"{name} operands must be contiguous")
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: x must be 16-byte aligned")
-    check_base(name, w_base, w_scale, w_base.shape[0])
+    check_base(name, w_base, w_scale, scale_shape or w_base.shape[0])
 
 
 def _ptr(t):
@@ -280,6 +304,47 @@ def bitlinear_axes_banked_p(x: torch.Tensor, vidx: torch.Tensor,
         B.stream_handle(dev))
     B.check(rc, "bitlinear_axes_banked")
     banked_launches += 1
+    return y
+
+
+def bitlinear_axes_stacked_p(x: torch.Tensor, packed: torch.Tensor,
+                             v_row: torch.Tensor, v_col: torch.Tensor,
+                             w_base: torch.Tensor,
+                             w_scale=None) -> torch.Tensor:
+    """x (E, M, K) fp32|bf16 · packed (E, N, K/8) uint8 · v_row (E, N) ·
+    v_col (E, K) fp16|fp32 · w_base (E, N, K) fp32|bf16|int8 (int8 with
+    w_scale (E, N) fp16) -> y (E, M, N) fp32: expert e's rows against
+    expert e's Ŵ, one launch for the stack.  Every operand on one CUDA
+    device."""
+    global stacked_launches
+    e, m, k_dim = x.shape
+    n = w_base.shape[1]
+    dev = x.device
+    _check("bitlinear_axes_stacked_p", x, w_base, w_scale, v_row,
+           (packed, v_row, v_col, w_base), scale_shape=(e, n))
+    if tuple(w_base.shape) != (e, n, k_dim) or tuple(packed.shape) != (
+            e, n, k_dim // PACK) or packed.dtype != torch.uint8:
+        raise ValueError(f"shapes x{tuple(x.shape)} "
+                         f"packed{tuple(packed.shape)} "
+                         f"w_base{tuple(w_base.shape)} do not match")
+    if tuple(v_row.shape) != (e, n) or tuple(v_col.shape) != (e, k_dim) \
+            or v_row.dtype != v_col.dtype:
+        raise ValueError(f"vectors v_row{tuple(v_row.shape)} {v_row.dtype}, "
+                         f"v_col{tuple(v_col.shape)} {v_col.dtype} do not "
+                         f"match E={e}, N={n}, K={k_dim}")
+    splits, k_per_split = stacked_plan(m, n, k_dim, x.element_size(),
+                                       w_base.element_size(), e)
+    y = torch.empty((e, m, n), dtype=torch.float32, device=dev)
+    work = (torch.empty((splits, e, m, n), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    rc = B.library().repro_bitlinear_axes_stacked(
+        x.data_ptr(), B.DTYPE_CODES[x.dtype], packed.data_ptr(),
+        v_row.data_ptr(), v_col.data_ptr(), B.DTYPE_CODES[v_row.dtype],
+        w_base.data_ptr(), B.DTYPE_CODES[w_base.dtype], _ptr(w_scale),
+        y.data_ptr(), _ptr(work), e, m, n, k_dim, splits, k_per_split,
+        B.stream_handle(dev))
+    B.check(rc, "bitlinear_axes_stacked")
+    stacked_launches += 1
     return y
 
 

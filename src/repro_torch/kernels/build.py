@@ -26,7 +26,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("unpack_apply.cu", "bitlinear_axes.cu",
-           "bitlinear_axes_banked.cu", "bitlinear.cu", "flash_attn.cu")
+           "bitlinear_axes_banked.cu", "bitlinear_axes_stacked.cu",
+           "bitlinear.cu", "flash_attn.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
@@ -46,6 +47,8 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _P],
     "repro_bitlinear_axes_banked": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P,
                                     _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_bitlinear_axes_stacked": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P,
+                                     _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_bitlinear": [_P, _I, _P, _P, _L, _L, _P, _I, _P, _P, _P, _I, _I,
                         _I, _I, _I, _P],
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -140,6 +140,23 @@ def bitlinear_axes(x: torch.Tensor, packed: torch.Tensor,
     return y.reshape(*lead, n)
 
 
+def bitlinear_axes_stacked(x: torch.Tensor, packed: torch.Tensor,
+                           v_row: torch.Tensor, v_col: torch.Tensor,
+                           w_base) -> torch.Tensor:
+    """``bitlinear_axes`` over a leading expert axis, in one launch:
+    x (E, M, K) · packed (E, N, K/8) · v_row (E, N) · v_col (E, K) ·
+    w_base (E, N, K) or a QuantWeight with scale (E, N) -> (E, M, N) in
+    x.dtype, expert e's rows against expert e's Ŵ (the JAX package vmaps
+    its kernel over the experts)."""
+    wq, ws = _unwrap_quant(w_base)
+    if _use_kernel(x, packed, v_row, v_col, wq, ws):
+        return _bl.bitlinear_axes_stacked_p(
+            x.contiguous(), packed, v_row, v_col, wq,
+            w_scale=ws).to(x.dtype)
+    return _ref.bitlinear_axes_stacked_ref(x, packed, v_row, v_col, wq,
+                                           w_scale=ws)
+
+
 def flatten_vidx(variant_idx: torch.Tensor, lead: tuple) -> torch.Tensor:
     """Per-row variant indices -> flattened batch rows (m,) int32.
 

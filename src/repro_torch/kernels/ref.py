@@ -57,6 +57,20 @@ def bitlinear_axes_ref(x: torch.Tensor, packed: torch.Tensor,
     return (x.to(torch.float32) @ w_hat.T).to(x.dtype)
 
 
+def bitlinear_axes_stacked_ref(x: torch.Tensor, packed: torch.Tensor,
+                               v_row: torch.Tensor, v_col: torch.Tensor,
+                               w_base: torch.Tensor,
+                               w_scale=None) -> torch.Tensor:
+    """``bitlinear_axes_ref`` over a leading expert axis E: expert e's
+    rows of x against expert e's Ŵ.  x (E, M, K) · packed (E, N, K/8) ·
+    v_row (E, N) · v_col (E, K) · w_base (E, N, K) · w_scale (E, N) or
+    None -> (E, M, N) in x.dtype."""
+    return torch.stack([
+        bitlinear_axes_ref(x[e], packed[e], v_row[e], v_col[e], w_base[e],
+                           w_scale=None if w_scale is None else w_scale[e])
+        for e in range(x.shape[0])])
+
+
 def bitlinear_axes_banked_ref(x: torch.Tensor, variant_idx: torch.Tensor,
                               packed: torch.Tensor, v_row: torch.Tensor,
                               v_col: torch.Tensor, w_base: torch.Tensor,

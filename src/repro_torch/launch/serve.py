@@ -4,6 +4,10 @@ synthetic delta variants, driven through ``serving/api.Deployment``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --num-layers 4 --mode fused --scheduler continuous
 
+``--arch`` is any registered arch (``repro_torch.configs.ARCHS``):
+qwen3-8b, deepseek-7b, starcoder2-3b, gemma3-12b, deepseek-moe-16b,
+moonshot-v1-16b-a3b.
+
 Builds a random base model from a seed, makes ``--variants`` synthetic
 fine-tunes (base + 0.005·noise on every matrix), compresses each with
 calibration stage 0, publishes them, and serves ``--requests`` requests
@@ -77,13 +81,15 @@ def build_variants(cfg, n_variants: int, device, seed: int = 0):
 
 def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
            device, max_resident: int = 0, bank_size: int = 0,
-           base_dtype: str = "fp", root_dir=None):
+           base_dtype: str = "fp", root_dir=None,
+           prompt_len: int = PROMPT_LEN, max_len: int = MAX_LEN):
     """A Deployment over ``base`` with ``dms`` published as v0..v{n-1}
-    (as store artifacts under ``root_dir`` when given)."""
+    (as store artifacts under ``root_dir`` when given); prompts padded to
+    ``prompt_len``, caches of ``max_len``."""
     dep = Deployment(model, base, root_dir=root_dir, mode=mode,
                      scheduler=scheduler,
-                     batch_size=batch, prompt_len=PROMPT_LEN,
-                     max_len=MAX_LEN,
+                     batch_size=batch, prompt_len=prompt_len,
+                     max_len=max_len,
                      max_resident=max_resident or (8 if mode == "fused"
                                                    else 2),
                      bank_size=bank_size or len(dms) + 2, device=device,

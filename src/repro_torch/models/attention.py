@@ -196,15 +196,16 @@ def _row_pos(pos, b: int, device) -> torch.Tensor:
 
 
 def cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos) -> dict:
+                 pos, ring: bool = False) -> dict:
     """Write (B, n, Hkv, hd) at absolute position(s) from ``pos`` in place.
-    n > 1 (prefill) writes contiguously at a scalar offset; single tokens
-    scatter per row (``pos`` scalar or (B,)).  Ring (sliding-window)
-    caches are not ported yet."""
+    n > 1 without ``ring`` (prefill) writes contiguously at a scalar
+    offset; single tokens scatter per row (``pos`` scalar or (B,)).
+    ``ring`` (sliding-window layers) wraps the write to slot ``pos % t``;
+    otherwise the slot is ``pos`` clipped to the cache."""
     b, t = cache["k"].shape[:2]
     n = k_new.shape[1]
     dtype = cache["k"].dtype
-    if n > 1:
+    if not ring and n > 1:
         p = int(pos)
         cache["k"][:, p:p + n] = k_new.to(dtype)
         cache["v"][:, p:p + n] = v_new.to(dtype)
@@ -212,11 +213,29 @@ def cache_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
             p, p + n, dtype=torch.int32, device=k_new.device)
         return cache
     pos_b = _row_pos(pos, b, k_new.device)
-    idx = pos_b.clamp(0, t - 1)
+    idx = pos_b % t if ring else pos_b.clamp(0, t - 1)
     rows = torch.arange(b, device=k_new.device)
     cache["k"][rows, idx] = k_new[:, 0].to(dtype)
     cache["v"][rows, idx] = v_new[:, 0].to(dtype)
     cache["slot_pos"][rows, idx] = pos_b.to(torch.int32)
+    return cache
+
+
+def prefill_ring(cache: dict, k_all: torch.Tensor, v_all: torch.Tensor
+                 ) -> dict:
+    """Fill one layer's ring cache of ``w`` slots with the last ``w``
+    positions of a prefill's (B, S, Hkv, hd) keys and values, in place:
+    position p lands in slot p % w and ``slot_pos`` records it."""
+    s = k_all.shape[1]
+    w = cache["k"].shape[1]
+    start = max(0, s - w)
+    n = min(s, w)
+    positions = torch.arange(start, start + n, dtype=torch.int32,
+                             device=k_all.device)
+    slots = (positions % w).to(torch.int64)
+    cache["k"][:, slots] = k_all[:, start:start + n].to(cache["k"].dtype)
+    cache["v"][:, slots] = v_all[:, start:start + n].to(cache["v"].dtype)
+    cache["slot_pos"][:, slots] = positions
     return cache
 
 
@@ -226,8 +245,9 @@ def cache_layer_view(caches: dict, layer_idx: int) -> dict:
 
 
 def cache_insert_stacked(caches: dict, layer_idx: int, k_new: torch.Tensor,
-                         v_new: torch.Tensor, pos) -> dict:
+                         v_new: torch.Tensor, pos, ring: bool = False) -> dict:
     """Single-token insert into a STACKED (L, B, T, H, hd) cache at
-    (layer_idx, b, pos_b), in place."""
-    cache_insert(cache_layer_view(caches, layer_idx), k_new, v_new, pos)
+    (layer_idx, b, pos_b), in place (``ring`` as in :func:`cache_insert`)."""
+    cache_insert(cache_layer_view(caches, layer_idx), k_new, v_new, pos,
+                 ring=ring)
     return caches

@@ -1,4 +1,5 @@
-"""Model facade (port of ``repro.models.model_zoo``) for the dense family.
+"""Model facade (port of ``repro.models.model_zoo``) for the dense family
+(local:global archs included) and the MoE family.
 
     model = build_model(cfg)
     params, axes = split(model.init(seed, device="cuda"))
@@ -61,6 +62,5 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r} is not ported yet")
+    transformer.check_family(cfg)
     return Model(cfg=cfg)

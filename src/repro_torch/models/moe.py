@@ -1,0 +1,219 @@
+"""Mixture-of-Experts (port of ``repro.models.moe``): fine-grained routed
+experts plus shared experts, with group-limited capacity dispatch.
+
+1. tokens are reshaped to (G, N, D) groups (``_group_tokens``);
+2. each token picks its ``top_k`` experts from a softmax over the router's
+   logits, and each (group, expert) keeps its top ``C`` tokens by gate
+   score, ``C = N·top_k/E·capacity_factor``: static shapes, and tokens past
+   an expert's capacity are dropped;
+3. the kept tokens are gathered to (G, E, C, D), run through the expert
+   stacks (gated SwiGLU, one grouped GEMM per projection) and summed
+   back, weighted by their gate scores.
+
+With a delta overlay on the expert stacks each grouped GEMM is one launch
+of the expert-stacked fused delta GEMM
+(``kernels/ops.bitlinear_axes_stacked``), where the JAX module vmaps its
+kernel over the expert axis.  A BANKED overlay (``vidx`` per batch row)
+routes every token by its own variant's router and runs the expert pass
+once per bank slot with the other rows zeroed, as the JAX module does.  Mesh sharding constraints and the
+shard-local ``local_top_k`` wrapper are dropped: one card has no mesh, and
+outside a mesh the JAX ``local_top_k`` is ``lax.top_k``.
+
+Ties: ``lax.top_k`` returns the lower index first among equal values
+(unrouted tokens all score 0 in the capacity selection); ``top_k`` here
+takes a stable descending sort, which orders ties the same way, where
+``torch.topk`` promises no order.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quantize import is_quant
+from repro_torch.models.delta_overlay import entry_slot, oget
+from repro_torch.models.layers import mlp_apply
+from repro_torch.models.param import dense_init
+
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def moe_init(gen: torch.Generator, cfg) -> dict:
+    d, e_ff, e = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
+    p = {
+        "router": dense_init(gen, (e, d), ("experts", "embed"), scale=0.02),
+        "w_gate": dense_init(gen, (e, e_ff, d), ("experts", "ffn", "embed")),
+        "w_up": dense_init(gen, (e, e_ff, d), ("experts", "ffn", "embed")),
+        "w_down": dense_init(gen, (e, d, e_ff), ("experts", "embed", "ffn")),
+    }
+    if cfg.num_shared_experts:
+        sh_ff = cfg.expert_d_ff * cfg.num_shared_experts
+        p["shared"] = {
+            "w_gate": dense_init(gen, (sh_ff, d), ("ffn_small", "embed")),
+            "w_up": dense_init(gen, (sh_ff, d), ("ffn_small", "embed")),
+            "w_down": dense_init(gen, (d, sh_ff), ("embed", "ffn_small")),
+        }
+    return p
+
+
+def _group_tokens(x: torch.Tensor, target_group: int = 4096
+                  ) -> tuple[torch.Tensor, tuple]:
+    """(B, S, D) -> (G, N, D), N the largest divisor of B·S up to
+    ``target_group``."""
+    b, s, d = x.shape
+    t = b * s
+    n = min(target_group, t)
+    while t % n:
+        n -= 1
+    return x.reshape(t // n, n, d), (b, s, d)
+
+
+def top_k(score: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the ``k`` largest entries of the last dim,
+    descending, the lower index first among equal values (``lax.top_k``'s
+    order)."""
+    vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity(n: int, cfg) -> int:
+    """Rows each expert keeps from a group of ``n`` tokens:
+    ``N·top_k/E·capacity_factor``, at least 1 and at most ``n``."""
+    return min(max(1, int(n * cfg.top_k / cfg.num_experts
+                          * cfg.capacity_factor)), n)
+
+
+def _combine(yd: torch.Tensor, c_idx: torch.Tensor, top_idx: torch.Tensor
+             ) -> torch.Tensor:
+    """Weighted expert outputs yd (G, E, C, D) back to token order
+    (G, N, D): each token gathers the slots it holds in its top-k experts'
+    lists and sums them in one reduction, accumulating in at least fp32.
+    The JAX module scatter-adds; on CUDA a scatter-add sums with atomics in
+    no fixed order, so a repeat run could differ in the last bit.  A token
+    an expert dropped reads a zero slot; a list's zero-score filler tokens
+    do not have that expert in their top-k, so their slots are never
+    read."""
+    g, e, cap, d = yd.shape
+    n = top_idx.shape[1]
+    # slot_of[g, e, t] = token t's slot in expert e's list, else cap
+    slot_of = torch.full((g, e, n), cap, dtype=torch.int64,
+                         device=yd.device)
+    slot_of.scatter_(2, c_idx, torch.arange(cap, device=yd.device).expand(
+        g, e, cap))
+    pos = slot_of.transpose(1, 2).gather(2, top_idx)            # (G,N,k)
+    yd_pad = torch.cat([yd, yd.new_zeros((g, e, 1, d))], dim=2)
+    g_idx = torch.arange(g, device=yd.device)[:, None, None]
+    acc = torch.promote_types(yd.dtype, torch.float32)
+    return yd_pad[g_idx, top_idx, pos].sum(dim=2, dtype=acc).to(yd.dtype)
+
+
+def _expert_mm(xe: torch.Tensor, w, ent) -> torch.Tensor:
+    """Per-expert matmul xe (E, M, D) · w (E, F, D) -> (E, M, F).  With a
+    delta-overlay entry stacked over the experts the whole stack is one
+    launch of the fused delta GEMM against the base weights; an int8 base
+    without an entry factors its per-channel scale out of the product."""
+    if ent is None:
+        if is_quant(w):
+            return (torch.einsum("emd,efd->emf", xe, w.q.to(xe.dtype))
+                    * w.scale.to(xe.dtype)[:, None, :])
+        return torch.einsum("emd,efd->emf", xe, w.to(xe.dtype))
+    from repro_torch.kernels import ops as K
+    return K.bitlinear_axes_stacked(xe, ent.packed, ent.v_row, ent.v_col, w)
+
+
+def _experts(p: dict, xe: torch.Tensor, ents: dict) -> torch.Tensor:
+    """Gated SwiGLU over the expert stacks: xe (E, M, D) -> (E, M, D)."""
+    h = (F.silu(_expert_mm(xe, p["w_gate"], ents["w_gate"]))
+         * _expert_mm(xe, p["w_up"], ents["w_up"]))
+    return _expert_mm(h, p["w_down"], ents["w_down"])
+
+
+def _emm(eq: str, xop: torch.Tensor, w, dtype) -> torch.Tensor:
+    """Grouped product over a possibly int8 expert stack: its scale (E, F)
+    broadcasts onto the (G, E, C, F) output, an exact factoring."""
+    if is_quant(w):
+        return (torch.einsum(eq, xop, w.q.to(dtype))
+                * w.scale.to(dtype)[None, :, None, :])
+    return torch.einsum(eq, xop, w.to(dtype))
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (y (B, S, D), Switch aux loss (fp32 scalar)).
+
+    ``vidx`` (B,) serves a mixed-variant batch over a BANKED overlay: the
+    router (an uncompressed extra) is applied per token by a masked select
+    over the bank slots, and the expert pass runs once per slot with the
+    rows of other slots zeroed.  Capacity dispatch couples rows: a token's
+    survival depends on the other tokens of its group."""
+    b, s, _ = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    xg, orig = _group_tokens(x)
+    g, n, d = xg.shape
+    cap = capacity(n, cfg)
+    # per-token variant indices in group layout (tokens are row-major)
+    vidx_gn = (None if vidx is None
+               else vidx[:, None].expand(b, s).reshape(g, n))
+
+    rb = oget(ov, "router")
+    if rb is None or vidx_gn is None:
+        logits = (xg @ p["router"].T.to(x.dtype)).to(torch.float32)
+    else:
+        # banked router: the same product per bank slot, each row keeping
+        # its own variant's scores (slot 0 = base)
+        logits = xg @ rb[0].T.to(x.dtype)
+        for vi in range(1, rb.shape[0]):
+            logits = torch.where((vidx_gn == vi)[..., None],
+                                 xg @ rb[vi].T.to(x.dtype), logits)
+        logits = logits.to(torch.float32)                       # (G,N,E)
+    probs = torch.softmax(logits, dim=-1)
+    top_val, top_idx = top_k(probs, k)
+    top_val = top_val / torch.clamp(top_val.sum(-1, keepdim=True), min=1e-9)
+
+    # score[g, e, n] = the token's normalised gate if e is in its top-k
+    sel = F.one_hot(top_idx, e).to(torch.float32) * top_val[..., None]
+    score = sel.sum(dim=2).transpose(1, 2)                      # (G,E,N)
+    c_val, c_idx = top_k(score, cap)                            # (G,E,C)
+    g_idx = torch.arange(g, device=x.device)[:, None, None]
+    xd = xg[g_idx, c_idx]                                       # (G,E,C,D)
+
+    ents = {key: oget(ov, key) for key in EXPERT_KEYS}
+    has_delta = any(v is not None for v in ents.values())
+    if has_delta:
+        # expert-major (E, G·C, ·): one stacked GEMM per projection
+        xe = xd.transpose(0, 1).reshape(e, g * cap, d)
+        if vidx_gn is None:
+            ye = _experts(p, xe, ents)
+        else:
+            vidx_e = vidx_gn[g_idx, c_idx].transpose(0, 1).reshape(e, g * cap)
+            nbank = next(v.packed.shape[0] for v in ents.values()
+                         if v is not None)
+            ye = torch.zeros((e, g * cap, d), dtype=x.dtype, device=x.device)
+            for vi in range(nbank):
+                mask = (vidx_e == vi)[..., None]
+                xv = torch.where(mask, xe, torch.zeros((), dtype=xe.dtype,
+                                                       device=xe.device))
+                yv = _experts(p, xv, {key: entry_slot(v, vi)
+                                      for key, v in ents.items()})
+                ye = torch.where(mask, yv, ye)
+        yd = ye.reshape(e, g, cap, d).transpose(0, 1)
+    else:
+        h = (F.silu(_emm("gecd,efd->gecf", xd, p["w_gate"], x.dtype))
+             * _emm("gecd,efd->gecf", xd, p["w_up"], x.dtype))
+        yd = _emm("gecf,edf->gecd", h, p["w_down"], x.dtype)
+    yd = yd * c_val[..., None].to(x.dtype)           # combine weight
+    # capacity slots that hold zero-score (unrouted) tokens add nothing
+    yd = torch.where((c_val > 0)[..., None], yd,
+                     torch.zeros((), dtype=yd.dtype, device=yd.device))
+
+    y = _combine(yd, c_idx, top_idx)
+
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], xg, ov=oget(ov, "shared"),
+                          vidx=vidx_gn)
+
+    # Switch-style load-balancing loss: E · Σ_e f_e · P_e
+    frac_tokens = F.one_hot(top_idx, e).to(torch.float32).sum(2).mean(
+        dim=(0, 1)) / k
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = e * torch.sum(frac_tokens * frac_probs)
+    return y.reshape(orig), aux.to(torch.float32)

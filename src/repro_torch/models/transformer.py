@@ -1,11 +1,14 @@
-"""Decoder-only transformer LM, dense family (port of the dense path of
-``repro.models.transformer``).
+"""Decoder-only transformer LM (port of ``repro.models.transformer``):
+the dense family, local:global layers (gemma3: ring caches of
+``sliding_window`` slots on local layers, per-layer RoPE theta) and the
+MoE family (expert blocks of ``models/moe.py`` behind ``moe_first_dense``
+unrolled dense ``pre_layers``).
 
 Parameters keep the JAX tree: per-layer leaves are stacked along a leading
-layer dim (``params["layers"]["attn"]["wq"]`` is (L, d_out, d_in)), and an
-overlay tree shadows them with the same leading dim.  Where the JAX module
-``lax.scan``s over that dim, the port loops over the layer index and takes
-views of the stacked tensors.
+layer dim (``params["layers"]["attn"]["wq"]`` is (L, d_out, d_in); expert
+stacks (L, E, d_out, d_in)), and an overlay tree shadows them with the
+same leading dims.  Where the JAX module ``lax.scan``s over that dim, the
+port loops over the layer index and takes views of the stacked tensors.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models.delta_overlay import oget
 from repro_torch.models.layers import (embed_init, embed_lookup, linear,
                                        mlp_apply, mlp_init, psel, rmsnorm,
@@ -31,36 +35,60 @@ def layer_pattern(cfg) -> list[dict]:
     return [{"window": cfg.sliding_window, "theta": cfg.rope_theta}]
 
 
-def _check_dense(cfg) -> None:
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r} is not ported yet")
-    if any(e["window"] > 0 for e in layer_pattern(cfg)):
-        raise ValueError("sliding-window (ring-cache) layers are not "
-                         "ported yet")
+FAMILIES = ("dense", "moe")
+
+
+def check_family(cfg) -> None:
+    """Refuse the families this module does not serve yet."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not ported yet; "
+                         f"ported: {FAMILIES}")
+
+
+def n_pre_layers(cfg) -> int:
+    """Unrolled dense layers in front of the stacked ones (MoE archs)."""
+    return cfg.moe_first_dense if cfg.family == "moe" else 0
+
+
+def _pre_entry(cfg, decode: bool = False) -> dict:
+    """Pattern entry of the ``pre_layers``: the config's window and theta
+    in the forward, a windowless full cache in decode (as the JAX
+    module)."""
+    return {"window": 0 if decode else cfg.sliding_window,
+            "theta": cfg.rope_theta}
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _block_init(gen: torch.Generator, cfg) -> dict:
-    return {
+def _block_init(gen: torch.Generator, cfg, moe_layer: bool) -> dict:
+    p = {
         "ln1": rmsnorm_init(cfg.d_model, gen.device),
         "attn": A.attn_init(gen, cfg),
         "ln2": rmsnorm_init(cfg.d_model, gen.device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff),
     }
+    if moe_layer:
+        p["moe"] = MOE.moe_init(gen, cfg)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def init(gen: torch.Generator, cfg) -> dict:
     """Param tree on ``gen``'s device (float32 leaves, as the JAX init)."""
-    _check_dense(cfg)
+    check_family(cfg)
+    is_moe = cfg.family == "moe"
+    n_pre = n_pre_layers(cfg)
     params = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model),
         "final_norm": rmsnorm_init(cfg.d_model, gen.device),
-        "layers": stack_layers(lambda g: _block_init(g, cfg), gen,
-                               cfg.num_layers),
+        "layers": stack_layers(lambda g: _block_init(g, cfg, is_moe), gen,
+                               cfg.num_layers - n_pre),
     }
+    if n_pre:
+        params["pre_layers"] = stack_layers(
+            lambda g: _block_init(g, cfg, False), gen, n_pre)
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (cfg.padded_vocab, cfg.d_model),
                                        ("vocab", "embed"),
@@ -78,7 +106,14 @@ def _layer(tree, i: int):
 # ---------------------------------------------------------------------------
 
 def _ffn_part(p, x, cfg, io=None, ov=None, vidx=None):
+    """-> (x + FFN(x), MoE aux loss or 0).  An expert layer records no
+    calibration pairs for its stacks (as the JAX module: MoE variants stay
+    at calibration stage 0)."""
     h = rmsnorm(x, psel(p["ln2"], oget(ov, "ln2"), vidx), cfg.norm_eps)
+    if "moe" in p:
+        y, aux = MOE.moe_apply(p["moe"], h, cfg, ov=oget(ov, "moe"),
+                               vidx=vidx)
+        return x + y, aux
     y = mlp_apply(p["mlp"], h, ov=oget(ov, "mlp"), vidx=vidx)
     if io is not None:
         # as the JAX module: gate/up outputs from a second product with the
@@ -88,13 +123,14 @@ def _ffn_part(p, x, cfg, io=None, ov=None, vidx=None):
         io["mlp.w_gate"] = (h, gate)
         io["mlp.w_up"] = (h, up)
         io["mlp.w_down"] = (F.silu(gate) * up, y)
-    return x + y
+    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_apply(p, x, cfg, positions, theta, window, io=None, ov=None,
                 vidx=None):
-    """One layer over a full sequence; returns (x, (k, v)).  ``io`` (a dict
-    or None) collects each projection's (input, output) pair — the
+    """One layer over a full sequence; returns (x, (k, v), MoE aux).
+    ``io`` (a dict or None) collects each projection's (input, output)
+    pair — the
     calibration cache.  As in the JAX module, the pairs of ``attn.wq`` and
     ``attn.wk`` hold q and k AFTER qk-norm and RoPE, not the bare
     projection outputs."""
@@ -111,7 +147,8 @@ def block_apply(p, x, cfg, positions, theta, window, io=None, ov=None,
         io["attn.wk"] = (h, k.reshape(b, s, -1))
         io["attn.wv"] = (h, v.reshape(b, s, -1))
         io["attn.wo"] = (o, wo_out)
-    return _ffn_part(p, x + wo_out, cfg, io=io, ov=ov, vidx=vidx), (k, v)
+    x, aux = _ffn_part(p, x + wo_out, cfg, io=io, ov=ov, vidx=vidx)
+    return x, (k, v), aux
 
 
 def _unembed(params, x, cfg, ov=None, vidx=None):
@@ -123,94 +160,144 @@ def _unembed(params, x, cfg, ov=None, vidx=None):
 # forward (teacher-forced) and prefill
 # ---------------------------------------------------------------------------
 
+def _stack_io(ios: list) -> dict:
+    return {proj: tuple(torch.stack([io[proj][j] for io in ios])
+                        for j in (0, 1))
+            for proj in ios[0]}
+
+
 def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
             variant_idx=None, collect_io: bool = False):
-    """-> (logits (B,S,V), aux).  aux["kv"] = (k, v) stacked (L,B,S,Hkv,hd)
-    when collect_kv.  aux["io"] = {projection: (X (L,B,S,d_in),
-    Y (L,B,S,d_out))} over the seven projections when collect_io (the
-    calibration cache; see ``block_apply``).  ``overlay`` (optional)
-    shadows params: matmuls with an entry run the fused delta GEMM against
-    the base weight.  ``variant_idx`` (optional (B,) int) marks the overlay
-    as BANKED (bank axis on every leaf, extras included): every batch row
-    serves its own variant, slot 0 meaning base."""
-    _check_dense(cfg)
+    """-> (logits (B,S,V), aux).  aux["moe_aux"] is the summed MoE
+    load-balancing loss (0 for dense archs).  aux["kv"] = (k, v) stacked
+    (L,B,S,Hkv,hd) over the stacked layers when collect_kv, aux["pre_kv"]
+    the same over the ``pre_layers``.  aux["io"] = {projection: (X
+    (L,B,S,d_in), Y (L,B,S,d_out))} over the stacked layers' projections
+    when collect_io (the calibration cache; see ``block_apply``; an expert
+    layer records its attention only), aux["pre_io"] the same over the
+    ``pre_layers``.  ``overlay`` (optional) shadows params: matmuls with an
+    entry run the fused delta GEMM against the base weight.
+    ``variant_idx`` (optional (B,) int) marks the overlay as BANKED (bank
+    axis on every leaf, extras included): every batch row serves its own
+    variant, slot 0 meaning base."""
+    check_family(cfg)
     vidx = variant_idx
     x = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype,
                      bank=oget(overlay, "embed"), vidx=vidx)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
-    pat = layer_pattern(cfg)
-    ov_layers = oget(overlay, "layers")
-    ks, vs, ios = [], [], []
-    for i in range(cfg.num_layers):
-        entry = pat[i % len(pat)]
-        io = {} if collect_io else None
-        x, (k, v) = block_apply(_layer(params["layers"], i), x, cfg,
-                                positions, entry["theta"], entry["window"],
-                                io=io, ov=_layer(ov_layers, i), vidx=vidx)
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
-        if collect_io:
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {}
+
+    def run(stack, ov_stack, n_layers, entry_of):
+        nonlocal x, aux_total
+        ks, vs, ios = [], [], []
+        for i in range(n_layers):
+            entry = entry_of(i)
+            io = {} if collect_io else None
+            x, (k, v), a = block_apply(_layer(stack, i), x, cfg, positions,
+                                       entry["theta"], entry["window"],
+                                       io=io, ov=_layer(ov_stack, i),
+                                       vidx=vidx)
+            aux_total = aux_total + a
+            if collect_kv:
+                ks.append(k)
+                vs.append(v)
             ios.append(io)
+        kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+        return kv, (_stack_io(ios) if collect_io else None)
+
+    n_pre = n_pre_layers(cfg)
+    if n_pre:
+        pre_kv, pre_io = run(params["pre_layers"],
+                             oget(overlay, "pre_layers"), n_pre,
+                             lambda i: _pre_entry(cfg))
+        if collect_kv:
+            aux["pre_kv"] = pre_kv
+        if collect_io:
+            aux["pre_io"] = pre_io
+    pat = layer_pattern(cfg)
+    kv, io = run(params["layers"], oget(overlay, "layers"),
+                 cfg.num_layers - n_pre, lambda i: pat[i % len(pat)])
     x = rmsnorm(x, psel(params["final_norm"], oget(overlay, "final_norm"),
                         vidx), cfg.norm_eps)
     logits = _unembed(params, x, cfg, ov=overlay, vidx=vidx)
-    aux = {}
+    aux["moe_aux"] = aux_total
     if collect_kv:
-        aux["kv"] = (torch.stack(ks), torch.stack(vs))
+        aux["kv"] = kv
     if collect_io:
-        aux["io"] = {proj: tuple(torch.stack([io[proj][j] for io in ios])
-                                 for j in (0, 1))
-                     for proj in ios[0]}
+        aux["io"] = io
     return logits, aux
+
+
+def _stacked_cache(cfg, n_stack: int, batch: int, size: int, device,
+                   dtype) -> dict:
+    one = A.make_kv_cache(batch, size, cfg.num_kv_heads, cfg.head_dim,
+                          device, dtype)
+    return {k: v.expand((n_stack,) + v.shape).clone() for k, v in one.items()}
 
 
 def init_cache(cfg, batch: int, max_len: int, device,
                dtype=torch.bfloat16) -> dict:
     """{"pos": (B,) int32, "slots": [stacked (L/len(pattern), B, T, Hkv, hd)
-    cache per pattern position]}."""
+    cache per pattern position], and for MoE archs "pre": the
+    ``pre_layers``' stacked (n_pre, B, max_len, Hkv, hd) cache}.  A
+    windowed pattern position holds a ring of min(window, max_len)
+    slots."""
     pat = layer_pattern(cfg)
-    assert cfg.num_layers % len(pat) == 0, \
+    n_pre = n_pre_layers(cfg)
+    n_scan = cfg.num_layers - n_pre
+    assert n_scan % len(pat) == 0, \
         f"num_layers {cfg.num_layers} incompatible with pattern {len(pat)}"
-    n_super = cfg.num_layers // len(pat)
-
-    def stacked(size):
-        one = A.make_kv_cache(batch, size, cfg.num_kv_heads, cfg.head_dim,
-                              device, dtype)
-        return {k: v.expand((n_super,) + v.shape).clone()
-                for k, v in one.items()}
-
     sizes = [min(e["window"], max_len) if e["window"] > 0 else max_len
              for e in pat]
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "slots": [stacked(sz) for sz in sizes]}
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+             "slots": [_stacked_cache(cfg, n_scan // len(pat), batch, sz,
+                                      device, dtype) for sz in sizes]}
+    if n_pre:
+        cache["pre"] = _stacked_cache(cfg, n_pre, batch, max_len, device,
+                                      dtype)
+    return cache
 
 
 def cache_batch_axes(cfg) -> dict:
     """Where the batch axis of each ``init_cache`` leaf sits, in the
     cache's own structure: ``pos`` 0; ``k``, ``v`` and ``slot_pos`` 1
-    (behind the stacked layer dim).  Every leaf is row-separable, so the
-    continuous scheduler merges freshly prefilled lanes into the live
-    cache by a row select along these axes."""
-    return {"pos": 0,
-            "slots": [{"k": 1, "v": 1, "slot_pos": 1}
-                      for _ in layer_pattern(cfg)]}
+    (behind the stacked layer dim), ring caches and the ``pre`` cache
+    alike.  Every leaf is row-separable, so the continuous scheduler merges
+    freshly prefilled lanes into the live cache by a row select along these
+    axes."""
+    kv = {"k": 1, "v": 1, "slot_pos": 1}
+    axes = {"pos": 0, "slots": [dict(kv) for _ in layer_pattern(cfg)]}
+    if n_pre_layers(cfg):
+        axes["pre"] = dict(kv)
+    return axes
 
 
 def prefill(params, batch, cfg, max_len: int, cache_dtype=torch.bfloat16,
             overlay=None, variant_idx=None):
-    """Teacher-forced pass over the prompt; returns (last_logits, cache)."""
+    """Teacher-forced pass over the prompt; returns (last_logits, cache).
+    Windowed layers keep the prompt's last ``window`` positions in their
+    ring (``attention.prefill_ring``); the others are written
+    contiguously."""
     logits, aux = forward(params, batch, cfg, collect_kv=True,
                           overlay=overlay, variant_idx=variant_idx)
     b, s = batch["tokens"].shape
     cache = init_cache(cfg, b, max_len, logits.device, cache_dtype)
+    pat = layer_pattern(cfg)
     k_all, v_all = aux["kv"]                  # (L, B, S, Hkv, hd)
-    pat_len = len(cache["slots"])
-    for i in range(cfg.num_layers):
-        slot = cache["slots"][i % pat_len]
-        A.cache_insert(A.cache_layer_view(slot, i // pat_len), k_all[i],
-                       v_all[i], 0)
+    for i in range(k_all.shape[0]):
+        j = i % len(pat)
+        view = A.cache_layer_view(cache["slots"][j], i // len(pat))
+        if pat[j]["window"] > 0:
+            A.prefill_ring(view, k_all[i], v_all[i])
+        else:
+            A.cache_insert(view, k_all[i], v_all[i], 0)
+    if "pre_kv" in aux:
+        pk, pv = aux["pre_kv"]
+        for i in range(pk.shape[0]):
+            A.cache_insert(A.cache_layer_view(cache["pre"], i), pk[i], pv[i],
+                           0)
     cache["pos"] = torch.full((b,), s, dtype=torch.int32,
                               device=logits.device)
     return logits[:, -1, :], cache
@@ -227,27 +314,34 @@ def _decode_block_stacked(p, x, cfg, caches, idx, pat_entry, pos, ov=None,
     h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1"), vidx), cfg.norm_eps)
     q, k, v = A.qkv_project(p["attn"], h, cfg, pos.to(torch.int32)[:, None],
                             pat_entry["theta"], ov=ov_a, vidx=vidx)
-    A.cache_insert_stacked(caches, idx, k, v, pos)
+    A.cache_insert_stacked(caches, idx, k, v, pos, ring=window > 0)
     view = A.cache_layer_view(caches, idx)
     o = A.decode_attention(q, view["k"], view["v"], view["slot_pos"], pos,
                            window=window)
     o = o.reshape(*x.shape[:-1], cfg.q_dim)
     x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx)
-    return _ffn_part(p, x, cfg, ov=ov, vidx=vidx)
+    return _ffn_part(p, x, cfg, ov=ov, vidx=vidx)[0]
 
 
 def decode_step(params, token, cache, cfg, overlay=None, variant_idx=None):
     """token (B,) -> (logits (B,V), cache advanced by one, updated in
     place).  cache["pos"] is (B,) per-lane positions; ``variant_idx`` as in
     ``forward``."""
-    _check_dense(cfg)
+    check_family(cfg)
     vidx = variant_idx
     pos = cache["pos"]
     x = embed_lookup(params["embed"], token[:, None], cfg.compute_dtype,
                      bank=oget(overlay, "embed"), vidx=vidx)
+    n_pre = n_pre_layers(cfg)
+    ov_pre = oget(overlay, "pre_layers")
+    for i in range(n_pre):
+        x = _decode_block_stacked(
+            _layer(params["pre_layers"], i), x, cfg, cache["pre"], i,
+            _pre_entry(cfg, decode=True), pos, ov=_layer(ov_pre, i),
+            vidx=vidx)
     pat = layer_pattern(cfg)
     ov_layers = oget(overlay, "layers")
-    for i in range(cfg.num_layers):
+    for i in range(cfg.num_layers - n_pre):
         j = i % len(pat)
         x = _decode_block_stacked(
             _layer(params["layers"], i), x, cfg, cache["slots"][j],

@@ -15,12 +15,14 @@ from repro.models.param import split
 import repro_torch.configs as TC
 
 
-def configs(num_layers: int = 2, compute_dtype: str = "float32"):
-    """(JAX config, port config) of reduced qwen3-8b, identical fields."""
+def configs(num_layers: int = 2, compute_dtype: str = "float32",
+            arch: str = "qwen3-8b", **fields):
+    """(JAX config, port config) of reduced ``arch``, identical fields;
+    ``fields`` override more of them."""
     kw = dict(num_layers=num_layers, compute_dtype=compute_dtype,
-              remat=False)
-    jcfg = dataclasses.replace(get_config("qwen3-8b").reduced(), **kw)
-    tcfg = dataclasses.replace(TC.get_config("qwen3-8b").reduced(), **kw)
+              remat=False, **fields)
+    jcfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    tcfg = dataclasses.replace(TC.get_config(arch).reduced(), **kw)
     return jcfg, tcfg
 
 

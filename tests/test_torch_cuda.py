@@ -20,7 +20,11 @@ orders: the single-variant one streams W_b at decode-sized M).
 Over an int8 base (``core/quantize``) the same bounds hold with Ŵ built
 from the dequantized base: the kernels form q·s in fp32 as the plain
 versions do, so ``unpack_apply`` stays bit-identical.  ``bitlinear_p`` (the
-static-mode GEMM) is held to the GEMM bound in its three modes.
+static-mode GEMM) is held to the GEMM bound in its three modes, and
+``bitlinear_axes_stacked_p`` (one launch over an MoE layer's expert stack)
+to the same bound per expert, Ŵ of the row's own expert; over a stack of
+one expert it plans and sums as ``bitlinear_axes_p`` and must equal it bit
+for bit.
 
 ``flash_attention_fwd_p`` sums its products and its softmax in another
 order than its plain version (a dense fp32 softmax): within 2e-4 abs+rel in
@@ -799,3 +803,159 @@ def test_flash_attention_wrapper_rejects_what_it_cannot_run(cuda):
         K.flash_attention_fwd(torch.zeros((1, 4, 3, 64), device=cuda),
                               torch.zeros((1, 4, 2, 64), device=cuda),
                               torch.zeros((1, 4, 2, 64), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the expert-stacked delta GEMM (bitlinear_axes_stacked_p) and the delta
+# GEMMs at the K of the other archs
+# ---------------------------------------------------------------------------
+
+def _stack_case(rng, e, n, k, wdt, device):
+    """An expert stack: base, sign planes, even experts row-scaled and odd
+    ones col-scaled; returns (payload, scale or None, fp32 base, packed,
+    v_row, v_col) on ``device``."""
+    wb = torch.from_numpy((rng.standard_normal((e, n, k)) * k ** -0.5
+                           ).astype(np.float32)).to(device)
+    delta = torch.from_numpy((rng.standard_normal((e, n, k)) * 0.005
+                              ).astype(np.float32)).to(device)
+    packed = D.pack_signs(D.sign_mask(delta))
+    rows = (torch.arange(e, device=device) % 2 == 0)[:, None]
+    v_row = torch.where(rows, D.init_scale(delta, "row"), 0.0).half()
+    v_col = torch.where(rows, 0.0, D.init_scale(delta, "col")).half()
+    wq, ws, wf = _banked_base(wb, wdt)
+    return wq, ws, wf, packed, v_row, v_col
+
+
+def _stacked_within_tolerance(got, x, packed, v_row, v_col, wq, ws, wf):
+    """|kernel - plain| <= 1e-5 · Σ_k |x||Ŵ| + 1e-6 per output, Ŵ of the
+    row's own expert."""
+    want = R.bitlinear_axes_stacked_ref(x.float(), packed, v_row, v_col, wq,
+                                        w_scale=ws)
+    signs = D.unpack_signs(packed, x.shape[-1])
+    w_abs = ((v_row.float()[:, :, None] + v_col.float()[:, None, :]) * signs
+             + wf).abs()
+    scale = torch.bmm(x.float().abs(), w_abs.transpose(1, 2))
+    return bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("e", [4, 64])
+@pytest.mark.parametrize("m", [1, 4, 5, 17, 64])
+@pytest.mark.parametrize("k", [1408, 2048])
+@pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.int8)])
+def test_bitlinear_axes_stacked_matches_plain(cuda, e, m, k, xdt, wdt):
+    """deepseek-moe-16b's expert shapes (w_gate 1408 x 2048, w_down 2048 x
+    1408; 1408 is no whole number of the streaming kernel's warp steps):
+    one launch for the whole stack, through the streaming kernel (M <= 16)
+    and the tiled one, within the GEMM bound of the plain version."""
+    n = 2048 if k == 1408 else 1408
+    rng = np.random.default_rng(e + m + k)
+    wq, ws, wf, packed, v_row, v_col = _stack_case(rng, e, n, k, wdt, cuda)
+    x = torch.from_numpy(rng.standard_normal((e, m, k)).astype(np.float32)
+                         ).to(cuda).to(xdt)
+    before = BL.stacked_launches
+    got = BL.bitlinear_axes_stacked_p(x, packed, v_row, v_col, wq, ws)
+    torch.cuda.synchronize()
+    assert BL.stacked_launches == before + 1
+    assert got.shape == (e, m, n) and got.dtype == torch.float32
+    assert _stacked_within_tolerance(got, x, packed, v_row, v_col, wq, ws, wf)
+
+
+@pytest.mark.parametrize("m", [1, 4, 17])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.int8])
+def test_bitlinear_axes_stacked_one_expert_equals_single_kernel(cuda, m, wdt):
+    """A stack of one expert plans and sums as ``bitlinear_axes_p`` does:
+    bit-equal to it."""
+    rng = np.random.default_rng(m)
+    wq, ws, _, packed, v_row, v_col = _stack_case(rng, 1, 260, 1288, wdt,
+                                                  cuda)
+    x = torch.from_numpy(rng.standard_normal((1, m, 1288)).astype(
+        np.float32)).to(cuda)
+    got = BL.bitlinear_axes_stacked_p(x, packed, v_row, v_col, wq, ws)
+    want = BL.bitlinear_axes_p(x[0], packed[0], v_row[0], v_col[0], wq[0],
+                               None if ws is None else ws[0])
+    assert torch.equal(got[0], want)
+
+
+def test_bitlinear_axes_stacked_wrapper_and_refusals(cuda):
+    """``ops.bitlinear_axes_stacked`` over a QuantWeight stack: one launch,
+    x's dtype out, equal to the plain version within one bf16 step (both
+    round an fp32 sum to bf16); the kernel refuses operands it cannot
+    run."""
+    rng = np.random.default_rng(3)
+    wq, ws, _, packed, v_row, v_col = _stack_case(rng, 6, 96, 264,
+                                                  torch.int8, cuda)
+    x = torch.from_numpy(rng.standard_normal((6, 3, 264)).astype(np.float32)
+                         ).to(cuda).bfloat16()
+    before = BL.stacked_launches
+    got = K.bitlinear_axes_stacked(x, packed, v_row, v_col,
+                                   Q.QuantWeight(q=wq, scale=ws))
+    torch.cuda.synchronize()
+    assert BL.stacked_launches == before + 1 and got.dtype == torch.bfloat16
+    with K.plain_versions():
+        plain = K.bitlinear_axes_stacked(x, packed, v_row, v_col,
+                                         Q.QuantWeight(q=wq, scale=ws))
+    assert BL.stacked_launches == before + 1
+    torch.testing.assert_close(got.float(), plain.float(), rtol=1e-2,
+                               atol=1e-2)
+    with pytest.raises(ValueError):          # int8 without its scale
+        BL.bitlinear_axes_stacked_p(x, packed, v_row, v_col, wq)
+    with pytest.raises(ValueError):          # scale of one matrix
+        BL.bitlinear_axes_stacked_p(x, packed, v_row, v_col, wq, ws[0])
+    with pytest.raises(ValueError):          # expert counts differ
+        BL.bitlinear_axes_stacked_p(x[:5].contiguous(), packed, v_row,
+                                    v_col, wq, ws)
+    with pytest.raises(ValueError):          # x on the CPU
+        BL.bitlinear_axes_stacked_p(x.cpu(), packed, v_row, v_col, wq, ws)
+
+
+@pytest.mark.parametrize("k", [1408, 2816, 3840, 11008])
+@pytest.mark.parametrize("m", [1, 4, 64])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.int8])
+def test_delta_gemms_at_other_archs_k(cuda, k, m, wdt):
+    """``bitlinear_axes_p`` and ``bitlinear_axes_banked_p`` at the K of
+    the new archs (expert and shared w_down, gemma3's d_model,
+    deepseek-7b's w_down), none a whole number of the int8 warp step (512)
+    and 1408 and 2816 not of the fp32 one (256): the GEMM bound against
+    the plain versions."""
+    n = 96
+    rng = np.random.default_rng(k + m)
+    wb, packed, v_row, v_col = _bank_case(rng, 4, n, k, cuda)
+    wq, ws, wf = _banked_base(wb, wdt)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)
+                         ).to(cuda).to(torch.bfloat16)
+    got = BL.bitlinear_axes_p(x, packed[1], v_row[1], v_col[1], wq, ws)
+    want = R.bitlinear_axes_ref(x.float(), packed[1], v_row[1], v_col[1], wq,
+                                w_scale=ws)
+    w_abs = ((v_row[1].float()[:, None] + v_col[1].float()[None, :])
+             * D.unpack_signs(packed[1], k) + wf).abs()
+    scale = x.float().abs() @ w_abs.T
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+    vidx = torch.tensor([r % 4 for r in range(m)], dtype=torch.int32,
+                        device=cuda)
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wq, ws)
+    torch.cuda.synchronize()
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wf)
+
+
+def test_moe_combine_repeats_bit_for_bit(cuda):
+    """The MoE combine (``moe._combine``) over a deepseek-moe-16b-sized
+    prefill dispatch (64 tokens, 64 experts, top-6, capacity 7) in bf16:
+    two runs on the card are equal bit for bit, and agree with the same
+    combine on the CPU within one bf16 step."""
+    from repro_torch.models import moe as M
+    g, n, e, k, cap, d = 1, 64, 64, 6, 7, 2048
+    gen = torch.Generator().manual_seed(4)
+    probs = torch.softmax(torch.randn((g, n, e), generator=gen), -1)
+    top_val, top_idx = M.top_k(probs, k)
+    sel = torch.nn.functional.one_hot(top_idx, e).float() * top_val[..., None]
+    c_val, c_idx = M.top_k(sel.sum(2).transpose(1, 2), cap)
+    yd = (torch.randn((g, e, cap, d), generator=gen)
+          * c_val[..., None]).to(torch.bfloat16)
+    got = M._combine(yd.to(cuda), c_idx.to(cuda), top_idx.to(cuda))
+    again = M._combine(yd.to(cuda), c_idx.to(cuda), top_idx.to(cuda))
+    assert torch.equal(got, again)
+    want = M._combine(yd, c_idx, top_idx).float()
+    assert bool(((got.cpu().float() - want).abs()
+                 <= 2 ** -7 * want.abs() + 1e-6).all())
