@@ -75,10 +75,10 @@ Phases (any failure raises and the script exits non-zero):
    deepseek-moe-16b (attention, its dense first layer and its shared
    experts), fp32 and int8 base, each against its plain version;
 10. stacked: ``bitlinear_axes_stacked_p`` over deepseek-moe-16b's 64
-   experts (1408 x 2048 and 2048 x 1408) at 1, 4, 7 and 120 rows an
-   expert (1 and 7 the serving path's decode and prefill capacity), fp32
-   and int8 base, one launch a call, against its plain version and timed
-   beside ``torch.bmm`` over a built Ŵ stack;
+   experts (1408 x 2048 and 2048 x 1408), every expert live, at 1, 4, 7
+   and 120 rows an expert (1 and 7 the serving path's decode and prefill
+   capacity), fp32 and int8 base, one launch a call, against its plain
+   version and timed beside ``torch.bmm`` over a built Ŵ stack;
 11. other archs, reference (after the lifecycle reference): each of
    deepseek-7b, starcoder2-3b, gemma3-12b, deepseek-moe-16b and
    moonshot-v1-16b-a3b reduced, group fused and continuous over an fp32
@@ -96,7 +96,17 @@ Phases (any failure raises and the script exits non-zero):
    operands (whatever the routing) and prints its max |logit diff|
    against the plain versions; an MoE prefill run twice must give the
    same logits bit for bit; then one profiled decode step (device-busy
-   time, idle share) and the run's peak device memory.
+   time, idle share, the stacked kernels' share) and the run's peak device
+   memory.  Then the routed rows: the stacked launches of the first
+   expert layer in one prefill and one decode step (group fused) or in
+   the four slot passes of one continuous decode step over the mixed
+   batch [0, v0, v1, v0] are captured and replayed on their own operands:
+   each held to the GEMM bound, the outputs of its dead experts (no routed
+   row: all-zero x) exactly 0 and those of its live ones bit-equal to a
+   launch with the dead rows filled with random values, each row printing
+   its live experts and timed beside the plain version and ``torch.bmm``
+   over the full built Ŵ stack, its bound counting the live experts'
+   weights (the full stack's beside it).
 
 Each phase prints its seconds.  Then it prints the kernel summary as one
 JSON line (the entries of a kernel
@@ -563,7 +573,8 @@ def print_rows(rows: dict, heading: str = "") -> None:
         print(f"  -- {kname}{heading}")
         for r in krows:
             extra = "".join(f" {key}={r[key]:.4f}" for key in
-                            ("uniform_ms", "read_ms") if key in r)
+                            ("uniform_ms", "read_ms", "full_bound_ms")
+                        if key in r)
             print(f"  {r['shape']:44s} err={r['max_abs_err']:.3g} "
                   f"kernel_ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                   f"({r['bound_by']}, {r['peak_tflops']:.0f} TF/s) "
@@ -930,15 +941,21 @@ def profile_decode(model, params, overlay, dev, label, step_ms,
     time, the kernels that take the most, and the device's idle share of
     the serve run's mean decode step (``step_ms``, unprofiled).  The cache
     comes from a prefill of ``prompt_len`` tokens (default the serve
-    launcher's) into ``max_len`` slots."""
+    launcher's) into ``max_len`` slots.  Prompts and the decoded token
+    differ between lanes (seeded), so an MoE layer routes them as serving
+    does: its stacked GEMM skips only the experts none of them picks."""
     from repro_torch.launch import serve as SV
 
     prompt_len = prompt_len or SV.PROMPT_LEN
-    batch = {"tokens": torch.ones((LANES, prompt_len), dtype=torch.int64,
-                                  device=dev)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    vocab = model.cfg.vocab_size
+    batch = {"tokens": torch.randint(1, vocab, (LANES, prompt_len),
+                                     generator=gen, device=dev)}
     _, cache = model.prefill(params, batch, max_len or SV.MAX_LEN,
                              overlay=overlay, variant_idx=vidx)
-    tok = torch.ones(LANES, dtype=torch.int32, device=dev)
+    tok = torch.randint(1, vocab, (LANES,), generator=gen, device=dev,
+                        dtype=torch.int32)
     model.decode_step(params, tok, cache, overlay=overlay,
                       variant_idx=vidx)   # warm-up
     torch.cuda.synchronize()
@@ -961,13 +978,18 @@ def profile_decode(model, params, overlay, dev, label, step_ms,
               if getattr(e, "device_type", None)
               == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
+    stacked = [e for e in events if "stacked_" in e.key
+               or "live_kernel" in e.key]
     if not events:
         print(f"profile {label} decode step: wall_ms={wall_ms:.3f} "
               "device time not measured (the profiler saw no device work)")
         return
     print(f"profile {label} decode step: device_busy_ms={busy_ms:.3f} "
           f"profiled_wall_ms={wall_ms:.3f} serve_step_ms={step_ms:.3f} "
-          f"idle_share={max(0.0, 1 - busy_ms / step_ms):.3f}")
+          f"idle_share={max(0.0, 1 - busy_ms / step_ms):.3f}"
+          + (f" stacked_ms={sum(map(dev_us, stacked)) / 1e3:.3f} "
+             f"stacked_launches={sum(e.count for e in stacked)}"
+             if stacked else ""))
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms  calls={e.count:4d}  "
               f"{e.key[:70]}")
@@ -1663,6 +1685,145 @@ def gemms_checked():
             setattr(BL, name, fn)
 
 
+@contextlib.contextmanager
+def stacked_captured():
+    """Inside the block every launch of the stacked GEMM runs as usual and
+    leaves its operands in the yielded list: (x copied, then the weight
+    operands by reference, which the caller's model keeps alive)."""
+    from repro_torch.kernels import bitlinear as BL
+
+    log = []
+    kernel = BL.bitlinear_axes_stacked_p
+
+    def stacked(x, packed, v_row, v_col, wq, w_scale=None):
+        log.append((x.clone(), packed, v_row, v_col, wq, w_scale))
+        return kernel(x, packed, v_row, v_col, wq, w_scale=w_scale)
+
+    BL.bitlinear_axes_stacked_p = stacked
+    try:
+        yield log
+    finally:
+        BL.bitlinear_axes_stacked_p = kernel
+
+
+def routed_row(tag, proj, ops, timer, seed) -> dict:
+    """A captured stacked launch replayed on its own operands: held to the
+    GEMM bound against the plain version; its dead experts' outputs (all-0
+    rows of x) exactly 0 and its live ones bit-equal to a launch in which
+    the dead rows hold random values; timed beside the plain version and
+    ``torch.bmm`` over a built fp32 Ŵ stack.  Its bound counts the live
+    experts' weights; the full stack's bound rides beside it."""
+    from repro_torch.core import delta as D
+    from repro_torch.kernels import bitlinear as BL
+
+    x, packed, v_row, v_col, wq, ws = ops
+    e, m, k = x.shape
+    n = wq.shape[1]
+    live = x.reshape(e, -1).ne(0).any(1)
+    n_live = int(live.sum())
+    got = BL.bitlinear_axes_stacked_p(x, packed, v_row, v_col, wq, ws)
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    filled = torch.where(live[:, None, None], x, torch.randn(
+        x.shape, generator=gen, device=x.device).to(x.dtype))
+    again = BL.bitlinear_axes_stacked_p(filled, packed, v_row, v_col, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got[~live], torch.zeros_like(got[~live])), tag
+    assert torch.equal(got[live], again[live]), tag
+    del filled, again
+    wf = wq.float() if ws is None else wq.float() * ws.float()[..., None]
+    w_hat = (v_row.float()[:, :, None] + v_col.float()[:, None, :]) \
+        * D.unpack_signs(packed, k) + wf
+    del wf
+    want = BL.plain_stacked(x.float(), packed, v_row, v_col, wq, w_scale=ws)
+    scale = torch.bmm(x.float().abs(), w_hat.abs().transpose(1, 2))
+    err = (got - want).abs().max().item()
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all()), (
+        tag, proj, err)
+    del got, want, scale
+    per_expert = (wq.element_size() * n * k + packed[0].numel()
+                  + (v_row[0].numel() + v_col[0].numel())
+                  * v_row.element_size() + (2 * n if ws is not None else 0))
+    io = x.numel() * x.element_size() + e * m * n * 4
+
+    def bound_of(experts):
+        return bound(experts * per_expert + io,
+                     2 * experts * m * n * k + _build_flops(
+                         experts * n, k, ws is not None))
+
+    x32, w_hat_t = x.float(), w_hat.transpose(1, 2)
+    row = {"shape": f"deepseek-moe-16b {tag} {proj} E={e} M={m} N={n} K={k} "
+                    f"live={n_live}",
+           "m": m, "proj": proj, "routed": tag, "live": n_live,
+           "max_abs_err": err,
+           "ms": timer.ms(lambda: BL.bitlinear_axes_stacked_p(
+               x, packed, v_row, v_col, wq, ws), reps=20, warmup=3),
+           "plain_ms": timer.ms(lambda: BL.plain_stacked(
+               x, packed, v_row, v_col, wq, w_scale=ws), reps=3, warmup=1),
+           **bound_of(n_live),
+           "full_bound_ms": bound_of(e)["bound_ms"],
+           "library_ms": timer.ms(lambda: torch.bmm(x32, w_hat_t), reps=20,
+                                  warmup=3)}
+    del w_hat, w_hat_t, x32
+    return row
+
+
+def routed_phase(dep, model, cfg, dev, label, continuous) -> list:
+    """The stacked launches of the first expert layer, as the main path
+    routes them, replayed (``routed_row``): the group fused pass of one
+    prefill (LANES x PROMPT tokens: capacity 7) and one decode step
+    (capacity 1), or the four slot passes of one continuous decode step
+    over a mixed batch [0, v0, v1, v0] (the fourth slot no lane names)."""
+    from repro_torch.launch import serve as SV
+
+    if continuous:
+        slots = [dep.registry.bank_resolve(v) for v in ("v0", "v1")]
+        vidx = torch.tensor([0, slots[0], slots[1], slots[0]],
+                            dtype=torch.int32, device=dev)
+        params, overlay = dep.registry.base_params, dep.registry.bank.tree
+        passes = dep.registry.bank.size
+    else:
+        vidx = None
+        params, overlay = dep.registry.resolve("v0")
+        passes = 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (LANES, SV.PROMPT_LEN),
+                                     generator=gen, device=dev)}
+    with stacked_captured() as pre:
+        _, cache = model.prefill(params, batch, SV.MAX_LEN, overlay=overlay,
+                                 variant_idx=vidx)
+    tok = torch.randint(1, cfg.vocab_size, (LANES,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    with stacked_captured() as dec:
+        model.decode_step(params, tok, cache, overlay=overlay,
+                          variant_idx=vidx)
+    torch.cuda.synchronize()
+    del cache
+    run = "continuous" if continuous else "fused"
+    captured = [("decode", dec)] + ([] if continuous else [("prefill", pre)])
+    timer = Timer(dev)
+    rows = []
+    for step, log in captured:
+        assert len(log) % (3 * passes) == 0, (step, len(log))
+        for i, ops in enumerate(log[:3 * passes]):
+            tag = f"{run} {step}" + (f" slot {i // 3}" if continuous else "")
+            rows.append(routed_row(tag, EXPERT_PROJ[i % 3], ops, timer,
+                                   seed=i))
+    del pre, dec, timer, params, overlay
+    torch.cuda.empty_cache()
+    print(f"{label}: routed stacked launches of the first expert layer "
+          f"(live experts of 64): "
+          + ", ".join(f"{r['routed']} {r['proj']} {r['live']}"
+                      for r in rows)
+          + "; dead outputs exactly 0, live ones bit-equal with the dead "
+          "rows filled")
+    return rows
+
+
+EXPERT_PROJ = ("w_gate", "w_up", "w_down")   # an expert pass's launch order
+
+
 def serve_checks(dep, model, cfg, dev, label, prompt_len, max_len,
                  continuous: bool, repeat: bool = False) -> list:
     """After a full-width run: the fused prefill through the kernels (one
@@ -1806,11 +1967,14 @@ def moe_phase(dev) -> dict:
     GB at peak.  The stacked expert GEMM must launch in every run: at
     decode with 4 lanes each expert gets capacity 1 (M=1), at a 4 x 16
     prefill 7 rows; the prefill's launches must have the rows
-    ``stacked_phase`` checked.  Returns {run: launches}."""
+    ``stacked_phase`` checked.  After each run its stacked launches are
+    captured and replayed as routed (``routed_phase``).  Returns ({run:
+    launches}, {kernel body: routed rows})."""
     from repro_torch.launch import serve as SV
 
     cfg = SV.make_config("deepseek-moe-16b", num_layers=MOE_LAYERS)
     launches = {}
+    routed = {"bitlinear_axes_stacked": [], "bitlinear_axes_stacked_q8": []}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, base, dms = SV.build_variants(cfg, 2, dev)
@@ -1852,13 +2016,18 @@ def moe_phase(dev) -> dict:
             ms = {shape[1] for name, shape, _ in checked
                   if name == "bitlinear_axes_stacked"}
             assert ms and ms <= set(stacked_ms(cfg)), (ms, stacked_ms(cfg))
+            routed["bitlinear_axes_stacked" + (
+                "_q8" if base_dtype == "int8" else "")] += routed_phase(
+                dep, model, cfg, dev, label, scheduler == "continuous")
             del dep
             gc.collect()
             torch.cuda.empty_cache()
     del model, base, dms
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    print_rows(routed, " routed (library_ms: torch.bmm over the full built Ŵ"
+               " stack)")
+    return launches, routed
 
 
 def dense_archs_phase(dev) -> dict:
@@ -1889,10 +2058,16 @@ def dense_archs_phase(dev) -> dict:
 GEMM_DESIGN = "streaming (M <= 16) + cp.async tiles (M > 16)"
 BANKED_DESIGN = ("streaming, one Ŵ per distinct slot in registers (M <= 16)"
                  " + cp.async tiles, one Ŵ tile per distinct slot (M > 16)")
+STACKED_DESIGN = ("blocks with all-zero x write zeros and read no weight; "
+                  "streaming at 1, 2, 4, 8, 16 rows (M <= 16; int8 at 1-2 "
+                  "rows: the split sum) + 128 x 128 cp.async tiles, Ŵ built "
+                  "once per launch at M <= 128")
 REDESIGNED = {"bitlinear_axes": GEMM_DESIGN, "bitlinear_axes_q8": GEMM_DESIGN,
               "bitlinear_axes_banked": BANKED_DESIGN,
               "bitlinear_axes_banked_q8": BANKED_DESIGN,
               "bitlinear": GEMM_DESIGN, "bitlinear_q8": GEMM_DESIGN,
+              "bitlinear_axes_stacked": STACKED_DESIGN,
+              "bitlinear_axes_stacked_q8": STACKED_DESIGN,
               "flash_attention": "bf16: wgmma + TMA; fp32: CUDA cores"}
 
 
@@ -1902,8 +2077,6 @@ def kernel_entries(rows, launches, dl_launches, fl_launches,
     path (a unit's first member gives each row's multiplicity in it),
     launches from the main-path run that drives it; the rows at the other
     archs' projection shapes ride beside as ``arch_shapes``."""
-    # an expert layer runs the w_gate-shaped stack twice (w_gate, w_up)
-    expert_uses = {"w_gate": 2, "w_down": 1}
     units = {
         "unpack_apply": (lambda r: True, "dense", "unpack_apply",
                          f"one dense variant load: 7 stacks x (row, col), "
@@ -1924,12 +2097,13 @@ def kernel_entries(rows, launches, dl_launches, fl_launches,
                             "one layer's prefill attention, qwen3-8b heads "
                             f"(32 q, 8 kv, hd 128), B=1, {FLASH_UNIT}"),
         "bitlinear_axes_stacked": (
-            lambda r: (r["m"] == 1) * expert_uses[r["proj"]],
+            lambda r: r.get("routed") == "fused decode",
             "deepseek-moe-16b fused",
             "bitlinear_axes_stacked",
-            "one deepseek-moe-16b expert layer's decode step at batch 4: "
-            "w_gate, w_up (w_gate's row again) and w_down stacks, E=64, "
-            "M=1 (capacity 1)"),
+            "one deepseek-moe-16b expert layer's group fused decode step at "
+            "batch 4, as the main path routed it: the w_gate, w_up and "
+            "w_down stacks, E=64, M=1 (capacity 1), the step's live "
+            "experts"),
     }
     entries = []
     for name, source, replaces in KERNELS:
@@ -1960,16 +2134,16 @@ def kernel_entries(rows, launches, dl_launches, fl_launches,
 
 def resources(report: str) -> list[str]:
     """The ``nvcc -Xptxas -v`` lines of every instantiation of the
-    redesigned kernels (the streaming and tiled delta GEMMs, single-variant
-    and banked, the bf16 wgmma flash kernel): registers, spill bytes and static shared memory, under
+    redesigned kernels (the streaming and tiled delta GEMMs, single-variant,
+    banked and expert-stacked with the stacked one's pre-pass, the bf16
+    wgmma flash kernel): registers, spill bytes and static shared memory, under
     the kernel's name demangled by the toolkit's ``cu++filt`` (mangled where
     it is missing).  Their shared memory is dynamic, sized at launch."""
     import re
     from repro_torch.kernels import build
     keep = ("stream_gemm_kernel", "tile_gemm_kernel", "banked_stream_kernel",
-            "banked_tile_kernel", "flash_fwd_wgmma_kernel")
-    # (the stacked expert GEMM's instantiations are stream_gemm_kernel and
-    # tile_gemm_kernel with the ExpertStack policy)
+            "banked_tile_kernel", "flash_fwd_wgmma_kernel",
+            "stacked_stream_kernel", "stacked_tile_kernel", "live_kernel")
     found, name = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -2032,7 +2206,10 @@ def main() -> None:
     launches = timed("serve", serve_phase, dev)
     launches["lifecycle"] = timed("lifecycle", lifecycle_phase, dev)
     launches.update(timed("dense archs", dense_archs_phase, dev))
-    launches.update(timed("deepseek-moe-16b", moe_phase, dev))
+    moe_launches, routed = timed("deepseek-moe-16b", moe_phase, dev)
+    launches.update(moe_launches)
+    for name, extra in routed.items():
+        rows[name] += extra
     launches.update(timed("gemma3-12b", gemma3_phase, dev))
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))

@@ -1,5 +1,5 @@
-// The delta GEMM shared by bitlinear_axes.cu, bitlinear.cu and
-// bitlinear_axes_stacked.cu:
+// The delta GEMM shared by bitlinear_axes.cu and bitlinear.cu (and its
+// helpers by bitlinear_axes_banked.cu and bitlinear_axes_stacked.cu):
 //   y = x @ (scale(n, k) (.) unpack(B) + W_b)^T,   fp32 accumulation,
 // with W_b fp32, bf16 or int8 (dequantized against one fp16 scale per output
 // row, `ws`).  The two entry points differ only in how the delta scale of
@@ -15,9 +15,8 @@
 // order of the sums differs from it.
 //
 // Replaces, through those entry points: src/repro/kernels/bitlinear.py,
-// bitlinear_axes_p (`_kernel_axes`, `_kernel_axes_q8`; also as the JAX MoE
-// layer vmaps it over an expert stack, src/repro/models/moe.py
-// `_expert_mm`) and bitlinear_p (`_kernel`, `_kernel_q8`).
+// bitlinear_axes_p (`_kernel_axes`, `_kernel_axes_q8`) and bitlinear_p
+// (`_kernel`, `_kernel_q8`).
 //
 // Bound on an H100: at decode-sized M the bytes (W_b once, 4 B, 2 B or 1 B
 // per weight, plus 1/8 B of signs; 2*M flops per weight); at M = 64 the
@@ -49,11 +48,6 @@
 //     float4 loads (two of x, two of Ŵ per k: 64 FMAs per four loads).
 //   * Split-K partials go to a workspace and a second small kernel sums them
 //     in a fixed order (common.cuh: deterministic, no atomics).
-//   * A stack of E products (an MoE layer's experts) is one launch: the
-//     `Lead` policy puts the expert on the grid (the stream kernel's z, the
-//     tile kernel's z beside its K split) and moves every operand pointer by
-//     the expert's strides; `OneMatrix` adds no instruction to a launch of
-//     one product.
 #pragma once
 
 #include <type_traits>
@@ -81,11 +75,6 @@ struct AxesScale {
   const TV* vc;
   __device__ __forceinline__ float row(int64_t n) const { return to_f32(vr[n]); }
   __device__ __forceinline__ float col(int64_t k) const { return to_f32(vc[k]); }
-  // expert e's vectors in a stack (ExpertStack strides)
-  __device__ __forceinline__ AxesScale expert(int e, int64_t sr,
-                                              int64_t sc) const {
-    return {vr + e * sr, vc + e * sc};
-  }
 };
 
 // v[n*sn + k*sk] with (sn, sk) in {(1, 0), (0, 1), (0, 0)}: the row part
@@ -100,25 +89,6 @@ struct StridedScale {
   __device__ __forceinline__ float col(int64_t k) const {
     return sk != 0 ? v[k * sk] : 0.f;
   }
-};
-
-// Where a launch's products lie.  OneMatrix: one product.  ExpertStack: E
-// products with element strides between experts' operands (x (E, M, K),
-// packed (E, N, K/8), v_row (E, N), v_col (E, K), W_b (E, N, K), its scale
-// (E, N)); the stream kernel takes expert blockIdx.z, the tile kernel
-// expert blockIdx.z / splits and K split blockIdx.z % splits.  Split s of
-// expert e writes output matrix s * E + e, so y and the split-K workspace
-// are (splits, E, M, N) and the reduction pass sums E * M * N outputs as it
-// sums the M * N of one product.
-struct OneMatrix {
-  static constexpr bool kStacked = false;
-  __host__ __device__ int count() const { return 1; }
-};
-struct ExpertStack {
-  static constexpr bool kStacked = true;
-  int experts, splits;
-  int64_t x, packed, v_row, v_col, wb, ws;
-  __host__ __device__ int count() const { return experts; }
 };
 
 // W_b + s where the sign bit is set, W_b - s where not.
@@ -199,23 +169,14 @@ __device__ __forceinline__ void x4(const __nv_bfloat16* p, float o[4]) {
   o[3] = __uint_as_float(u.y & 0xffff0000u);
 }
 
-template <int MT, typename TX, typename TW, typename Scale, typename Lead>
+template <int MT, typename TX, typename TW, typename Scale>
 __global__ void __launch_bounds__(kThreads) stream_gemm_kernel(
     const TX* __restrict__ x, const uint8_t* __restrict__ packed, Scale sc,
     const TW* __restrict__ wb, const __half* __restrict__ ws,
-    float* __restrict__ y, int M, int N, int K, int k_per_split, Lead lead) {
+    float* __restrict__ y, int M, int N, int K, int k_per_split) {
   using S = Stream<TW>;
   constexpr bool Q8 = std::is_same<TW, int8_t>::value;
-  int64_t out_mat = blockIdx.y;   // the (M, N) matrix of y this block writes
-  if constexpr (Lead::kStacked) {   // expert blockIdx.z's operands
-    const int e = blockIdx.z;
-    x += e * lead.x;
-    packed += e * lead.packed;
-    sc = sc.expert(e, lead.v_row, lead.v_col);
-    wb += e * lead.wb;
-    if constexpr (Q8) ws += e * lead.ws;
-    out_mat = out_mat * lead.experts + e;
-  }
+  const int64_t out_mat = blockIdx.y;   // the (M, N) matrix of y it writes
   constexpr int R = kRowsPerWarp;
   constexpr int XV = 16 / sizeof(TX);   // x elements per 16-byte chunk
   extern __shared__ float4 smem4[];
@@ -379,24 +340,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename TX, typename TW, typename Scale, typename Lead>
+template <typename TX, typename TW, typename Scale>
 __global__ void __launch_bounds__(kTileThreads) tile_gemm_kernel(
     const TX* __restrict__ x, const uint8_t* __restrict__ packed, Scale sc,
     const TW* __restrict__ wb, const __half* __restrict__ ws,
-    float* __restrict__ y, int M, int N, int K, int k_per_split, Lead lead) {
+    float* __restrict__ y, int M, int N, int K, int k_per_split) {
   constexpr bool Q8 = std::is_same<TW, int8_t>::value;
-  int split = blockIdx.z;
-  int64_t out_mat = blockIdx.z;   // the (M, N) matrix of y this block writes
-  if constexpr (Lead::kStacked) {
-    const int e = blockIdx.z / lead.splits;
-    split = blockIdx.z - e * lead.splits;
-    x += e * lead.x;
-    packed += e * lead.packed;
-    sc = sc.expert(e, lead.v_row, lead.v_col);
-    wb += e * lead.wb;
-    if constexpr (Q8) ws += e * lead.ws;
-    out_mat = (int64_t)split * lead.experts + e;
-  }
+  const int split = blockIdx.z;
+  const int64_t out_mat = blockIdx.z;   // the (M, N) matrix of y it writes
   using RW = RawTile<TW>;
   using RX = RawTile<TX>;
   using L = TileSmem<TX, TW>;
@@ -549,72 +500,68 @@ struct GemmArgs {
   cudaStream_t stream;
 };
 
-template <int MT, typename TX, typename TW, typename Scale, typename Lead>
-cudaError_t launch_stream(const GemmArgs& a, const Scale& sc, const Lead& ld) {
+template <int MT, typename TX, typename TW, typename Scale>
+cudaError_t launch_stream(const GemmArgs& a, const Scale& sc) {
   const size_t smem = (size_t)a.k_per_split * (sizeof(float) + MT * sizeof(TX));
   if (a.k_per_split % Stream<TW>::SPAN || smem > (size_t)kStreamSmem)
     return cudaErrorInvalidValue;
-  const dim3 grid((a.N + kStreamRows - 1) / kStreamRows, a.splits, ld.count());
+  const dim3 grid((a.N + kStreamRows - 1) / kStreamRows, a.splits);
   float* dst = a.splits > 1 ? a.workspace : a.y;
-  stream_gemm_kernel<MT, TX, TW, Scale, Lead>
+  stream_gemm_kernel<MT, TX, TW, Scale>
       <<<grid, kThreads, smem, a.stream>>>(
           static_cast<const TX*>(a.x), static_cast<const uint8_t*>(a.packed),
           sc, static_cast<const TW*>(a.wb), static_cast<const __half*>(a.ws),
-          dst, a.M, a.N, a.K, a.k_per_split, ld);
+          dst, a.M, a.N, a.K, a.k_per_split);
   return cudaGetLastError();
 }
 
-template <typename TX, typename TW, typename Scale, typename Lead>
-cudaError_t launch_tiles(const GemmArgs& a, const Scale& sc, const Lead& ld) {
+template <typename TX, typename TW, typename Scale>
+cudaError_t launch_tiles(const GemmArgs& a, const Scale& sc) {
   if (a.k_per_split % kTK || a.k_per_split > kTileMaxK)
     return cudaErrorInvalidValue;
-  auto kern = tile_gemm_kernel<TX, TW, Scale, Lead>;
+  auto kern = tile_gemm_kernel<TX, TW, Scale>;
   const int bytes = TileSmem<TX, TW>::bytes(a.k_per_split);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + kTN - 1) / kTN, (a.M + kTM - 1) / kTM,
-                  a.splits * ld.count());
+  const dim3 grid((a.N + kTN - 1) / kTN, (a.M + kTM - 1) / kTM, a.splits);
   float* dst = a.splits > 1 ? a.workspace : a.y;
   kern<<<grid, kTileThreads, bytes, a.stream>>>(
       static_cast<const TX*>(a.x), static_cast<const uint8_t*>(a.packed), sc,
       static_cast<const TW*>(a.wb), static_cast<const __half*>(a.ws), dst,
-      a.M, a.N, a.K, a.k_per_split, ld);
+      a.M, a.N, a.K, a.k_per_split);
   return cudaGetLastError();
 }
 
-template <typename TX, typename TW, typename Scale, typename Lead>
-cudaError_t launch_m(const GemmArgs& a, const Scale& sc, const Lead& ld) {
-  if (a.M <= 4) return launch_stream<4, TX, TW>(a, sc, ld);
-  if (a.M <= 8) return launch_stream<8, TX, TW>(a, sc, ld);
-  if (a.M <= 16) return launch_stream<16, TX, TW>(a, sc, ld);
-  return launch_tiles<TX, TW>(a, sc, ld);
+template <typename TX, typename TW, typename Scale>
+cudaError_t launch_m(const GemmArgs& a, const Scale& sc) {
+  if (a.M <= 4) return launch_stream<4, TX, TW>(a, sc);
+  if (a.M <= 8) return launch_stream<8, TX, TW>(a, sc);
+  if (a.M <= 16) return launch_stream<16, TX, TW>(a, sc);
+  return launch_tiles<TX, TW>(a, sc);
 }
 
-template <typename TX, typename Scale, typename Lead>
-cudaError_t launch_w(const GemmArgs& a, const Scale& sc, int wb_dtype,
-                     const Lead& ld) {
-  if (wb_dtype == DT_F32) return launch_m<TX, float>(a, sc, ld);
-  if (wb_dtype == DT_BF16) return launch_m<TX, __nv_bfloat16>(a, sc, ld);
-  if (wb_dtype == DT_I8) return launch_m<TX, int8_t>(a, sc, ld);
+template <typename TX, typename Scale>
+cudaError_t launch_w(const GemmArgs& a, const Scale& sc, int wb_dtype) {
+  if (wb_dtype == DT_F32) return launch_m<TX, float>(a, sc);
+  if (wb_dtype == DT_BF16) return launch_m<TX, __nv_bfloat16>(a, sc);
+  if (wb_dtype == DT_I8) return launch_m<TX, int8_t>(a, sc);
   return cudaErrorInvalidValue;
 }
 
-// Instantiate over x and W_b types, launch, then the split-K pass (over all
-// of a stack's products at once).  Returns a cudaError_t as int.
-template <typename Scale, typename Lead = OneMatrix>
-int run_gemm(const GemmArgs& a, const Scale& sc, int x_dtype, int wb_dtype,
-             const Lead& ld = Lead{}) {
-  if (a.M == 0 || a.N == 0 || ld.count() == 0) return 0;
+// Instantiate over x and W_b types, launch, then the split-K pass.  Returns
+// a cudaError_t as int.
+template <typename Scale>
+int run_gemm(const GemmArgs& a, const Scale& sc, int x_dtype, int wb_dtype) {
+  if (a.M == 0 || a.N == 0) return 0;
   if ((wb_dtype == DT_I8) != (a.ws != nullptr)) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (x_dtype == DT_F32) err = launch_w<float>(a, sc, wb_dtype, ld);
-  else if (x_dtype == DT_BF16) err = launch_w<__nv_bfloat16>(a, sc, wb_dtype, ld);
+  if (x_dtype == DT_F32) err = launch_w<float>(a, sc, wb_dtype);
+  else if (x_dtype == DT_BF16) err = launch_w<__nv_bfloat16>(a, sc, wb_dtype);
   else err = cudaErrorInvalidValue;
   if (err != cudaSuccess || a.splits == 1) return (int)err;
-  return (int)launch_splitk_reduce(a.workspace, a.y,
-                                   (int64_t)a.M * a.N * ld.count(), a.splits,
-                                   a.stream);
+  return (int)launch_splitk_reduce(a.workspace, a.y, (int64_t)a.M * a.N,
+                                   a.splits, a.stream);
 }
 
 }  // namespace

@@ -10,7 +10,8 @@
 * ``bitlinear_axes_stacked_p`` — ``bitlinear_axes_p`` over a stack of E
   experts in one launch, expert e's rows against expert e's Ŵ (source
   ``csrc/bitlinear_axes_stacked.cu``): every overlaid expert GEMM of an MoE
-  layer.
+  layer.  A block whose rows of x are all zero (an expert no token routes
+  to) writes zeros and reads no weight.
 * ``bitlinear_p`` — y = x @ (v ⊙ unpack(B) + W_b)ᵀ with one static-mode
   vector v (source ``csrc/bitlinear.cu``): ``core/bitdelta.DeltaLinear``
   in apply mode "onfly".
@@ -22,7 +23,7 @@ at M <= 16 the kernels stream W_b and form Ŵ in registers (the banked one
 once per distinct slot its rows name), above it Ŵ is built tile by tile in
 shared memory (one tile per distinct slot).  ``gemm_plan`` chooses each
 launch's K split from M, N, K and the dtypes alone (``stacked_plan``: and
-the expert count).  ``plain``, ``plain_banked``, ``plain_stacked`` and
+the expert count, for the stacked kernel's own tiers and tiles).  ``plain``, ``plain_banked``, ``plain_stacked`` and
 ``plain_static`` are the plain PyTorch versions of the four functions.
 
 ``launches``, ``banked_launches``, ``stacked_launches`` and
@@ -63,6 +64,17 @@ BANK_STREAM_SMEM = 192 * 1024  # their column scales and the fp32 x slice
 BANK_TILES = 3           # Ŵ tiles per tiled pass (the base counts)
 BANK_TILE_MAX_K = 512    # a split's column scales: BANK_TILES x 2 KB
 SMEM_PER_SM = 228 * 1024  # an SM's shared memory; 1 KB of it per block
+# the expert-stacked GEMM of csrc/bitlinear_axes_stacked.cu (StackTier,
+# kStackSmem, StackTile).  Its plan counts what splits K least, as
+# measured faster on an H100 (tools/stacked_gemm_bench.py): row tiles of
+# eight warps' rows by x-row tier (a block streams four of them) on the
+# resident blocks an SM, and tile blocks an SM by tile height (two fit;
+# counting one splits K less at 128 rows)
+STACK_ROWS = {1: 16, 2: 16, 4: 16, 8: 16, 16: 8}
+STACK_BLOCKS_PER_SM = {1: 3, 2: 3, 4: 2, 8: 2, 16: 2}
+STACK_Q8_BLOCKS_PER_SM = 4   # over an int8 base at 1-2 rows of x
+STACK_STREAM_SMEM = 96 * 1024
+STACK_TILE_BLOCKS_PER_SM = {64: 2, 128: 1}
 # alignment the kernels' vector loads need, per W_b dtype (eight elements
 # per load: two 16-byte loads of fp32, one of bf16, one 8-byte load of int8)
 W_ALIGN = {torch.float32: 16, torch.bfloat16: 16, torch.int8: 8}
@@ -77,6 +89,20 @@ def m_tier(m: int) -> int:
     """Rows of x the streaming kernel computes for ``m`` (4, 8 or 16);
     the rows past ``m`` are zeros in shared memory, not weight traffic."""
     return 4 if m <= 4 else 8 if m <= 8 else 16
+
+
+def stack_tile_m(m: int) -> int:
+    """Rows of x a tile of the stacked GEMM's tiled kernel covers (m > 16
+    rows an expert): 64 up to 64 rows, else 128; the tile has 16384 / that
+    weight rows."""
+    return 64 if m <= 64 else 128
+
+
+def stack_tier(m: int) -> int:
+    """Rows of x the stacked GEMM's streaming kernel computes for ``m``
+    rows an expert (1, 2, 4, 8 or 16): a decode row costs one FMA a
+    weight."""
+    return next(t for t in (1, 2, 4, 8, 16) if m <= t)
 
 
 def _wave_split(tiles: int, steps: int, slots: int, least: int,
@@ -123,27 +149,13 @@ def gemm_plan(m: int, n: int, k: int, x_size: int, w_size: int,
     Either way the split count fills the card's last wave of blocks.  The
     banked plan sees no bank depth and no slot index: the host never reads
     vidx."""
-    return _plan(m, n, k, x_size, w_size, banked, 1)
-
-
-def stacked_plan(m: int, n: int, k: int, x_size: int, w_size: int,
-                 experts: int) -> tuple[int, int]:
-    """``gemm_plan`` of a stack of ``experts`` products in one launch
-    (``bitlinear_axes_stacked_p``, m rows per expert): the stack counts
-    ``experts`` times the tiles of one product when it fills the card's
-    last wave, so it splits K less."""
-    return _plan(m, n, k, x_size, w_size, False, experts)
-
-
-def _plan(m: int, n: int, k: int, x_size: int, w_size: int, banked: bool,
-          experts: int) -> tuple[int, int]:
     if m <= STREAM_MAX_M:
         span = STREAM_SPAN[w_size]
         if banked:   # a block per 4 rows: BANK_PASS column scales, x fp32
             tiles = math.ceil(n / STREAM_ROWS) * math.ceil(m / BANK_GROUP)
             most = BANK_STREAM_SMEM // ((BANK_PASS + BANK_GROUP) * 4 * span)
         else:
-            tiles = math.ceil(n / STREAM_ROWS) * experts
+            tiles = math.ceil(n / STREAM_ROWS)
             most = STREAM_SMEM // ((4 + m_tier(m) * x_size) * span)
         splits, per = _wave_split(tiles, math.ceil(k / span),
                                   SM_COUNT * STREAM_BLOCKS_PER_SM, 1, most, k)
@@ -154,9 +166,39 @@ def _plan(m: int, n: int, k: int, x_size: int, w_size: int, banked: bool,
         per_sm = max(1, min(per_sm, SMEM_PER_SM // (
             banked_tile_smem(x_size, w_size, max_k) + 1024)))
     splits, per = _wave_split(
-        math.ceil(m / TILE_M) * math.ceil(n / TILE_N) * experts,
+        math.ceil(m / TILE_M) * math.ceil(n / TILE_N),
         math.ceil(k / TILE_K),
         SM_COUNT * per_sm, 4, max_k // TILE_K, TILE_MAX_SPLITS)
+    return splits, per * TILE_K
+
+
+def stacked_plan(m: int, n: int, k: int, x_size: int, w_size: int,
+                 experts: int) -> tuple[int, int]:
+    """(splits, k_per_split) of the stacked GEMM
+    (``bitlinear_axes_stacked_p``): ``experts`` products of x (m, k)
+    against (n, k) in one launch.  m <= 16 streams at ``stack_tier(m)``
+    rows, tiles of ``STACK_ROWS`` weight rows, K split in warp steps
+    (``STREAM_SPAN``) within ``STACK_STREAM_SMEM``; above, tiles of
+    ``stack_tile_m(m)`` rows by 16384 / that weight rows and K split in
+    steps of 32 as ``gemm_plan``'s tiles.  The stack
+    counts ``experts`` times the tiles of one product when it fills the
+    card's last wave.  The plan sees no routing: whether a block's rows are
+    live is decided on the card."""
+    if m <= STREAM_MAX_M:
+        mt = stack_tier(m)
+        span = STREAM_SPAN[w_size]
+        per_sm = (STACK_Q8_BLOCKS_PER_SM if w_size == 1 and mt <= 2
+                  else STACK_BLOCKS_PER_SM[mt])
+        splits, per = _wave_split(
+            math.ceil(n / STACK_ROWS[mt]) * experts, math.ceil(k / span),
+            SM_COUNT * per_sm, 1,
+            STACK_STREAM_SMEM // ((4 + mt * x_size) * span), k)
+        return splits, per * span
+    tm = stack_tile_m(m)
+    splits, per = _wave_split(
+        math.ceil(m / tm) * math.ceil(n / (16384 // tm)) * experts,
+        math.ceil(k / TILE_K), SM_COUNT * STACK_TILE_BLOCKS_PER_SM[tm], 4,
+        TILE_MAX_K // TILE_K, TILE_MAX_SPLITS)
     return splits, per * TILE_K
 
 
@@ -315,7 +357,8 @@ def bitlinear_axes_stacked_p(x: torch.Tensor, packed: torch.Tensor,
     v_col (E, K) fp16|fp32 · w_base (E, N, K) fp32|bf16|int8 (int8 with
     w_scale (E, N) fp16) -> y (E, M, N) fp32: expert e's rows against
     expert e's Ŵ, one launch for the stack.  Every operand on one CUDA
-    device."""
+    device.  An expert whose rows of x are all ±0 gets exact zeros (for
+    finite Ŵ) without a read of its weights."""
     global stacked_launches
     e, m, k_dim = x.shape
     n = w_base.shape[1]
@@ -337,12 +380,16 @@ def bitlinear_axes_stacked_p(x: torch.Tensor, packed: torch.Tensor,
     y = torch.empty((e, m, n), dtype=torch.float32, device=dev)
     work = (torch.empty((splits, e, m, n), dtype=torch.float32, device=dev)
             if splits > 1 else None)
+    # the tiled kernel's pre-pass flags: one per (expert, M tile, split)
+    live = (torch.empty(e * math.ceil(m / stack_tile_m(m)) * splits,
+                        dtype=torch.int32, device=dev)
+            if m > STREAM_MAX_M else None)
     rc = B.library().repro_bitlinear_axes_stacked(
         x.data_ptr(), B.DTYPE_CODES[x.dtype], packed.data_ptr(),
         v_row.data_ptr(), v_col.data_ptr(), B.DTYPE_CODES[v_row.dtype],
         w_base.data_ptr(), B.DTYPE_CODES[w_base.dtype], _ptr(w_scale),
-        y.data_ptr(), _ptr(work), e, m, n, k_dim, splits, k_per_split,
-        B.stream_handle(dev))
+        y.data_ptr(), _ptr(work), _ptr(live), e, m, n, k_dim, splits,
+        k_per_split, B.stream_handle(dev))
     B.check(rc, "bitlinear_axes_stacked")
     stacked_launches += 1
     return y

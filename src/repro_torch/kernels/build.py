@@ -48,7 +48,7 @@ _SIGNATURES = {
     "repro_bitlinear_axes_banked": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P,
                                     _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_bitlinear_axes_stacked": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P,
-                                     _P, _I, _I, _I, _I, _I, _I, _P],
+                                     _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_bitlinear": [_P, _I, _P, _P, _L, _L, _P, _I, _P, _P, _P, _I, _I,
                         _I, _I, _I, _P],
     "repro_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -179,8 +179,13 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
     ents = {key: oget(ov, key) for key in EXPERT_KEYS}
     has_delta = any(v is not None for v in ents.values())
     if has_delta:
-        # expert-major (E, G·C, ·): one stacked GEMM per projection
-        xe = xd.transpose(0, 1).reshape(e, g * cap, d)
+        # expert-major (E, G·C, ·): one stacked GEMM per projection.  The
+        # capacity fillers (c_val 0) enter as zero rows: their outputs are
+        # discarded below, and an expert that no token routes to then
+        # costs the kernel no weight read.
+        routed = (c_val > 0).transpose(0, 1).reshape(e, g * cap, 1)
+        xe = torch.where(routed, xd.transpose(0, 1).reshape(e, g * cap, d),
+                         torch.zeros((), dtype=xd.dtype, device=xd.device))
         if vidx_gn is None:
             ye = _experts(p, xe, ents)
         else:

@@ -23,8 +23,11 @@ versions do, so ``unpack_apply`` stays bit-identical.  ``bitlinear_p`` (the
 static-mode GEMM) is held to the GEMM bound in its three modes, and
 ``bitlinear_axes_stacked_p`` (one launch over an MoE layer's expert stack)
 to the same bound per expert, Ŵ of the row's own expert; over a stack of
-one expert it plans and sums as ``bitlinear_axes_p`` and must equal it bit
-for bit.
+one expert it is held to that bound against ``bitlinear_axes_p`` (the two
+kernels sum in different orders).  An expert whose rows of x are all ±0
+gets exact zeros without a read of its weights, so the stacked kernel's
+other outputs must equal, bit for bit, a launch in which those rows hold
+random values (same plan: it sees no routing).
 
 ``flash_attention_fwd_p`` sums its products and its softmax in another
 order than its plain version (a dense fp32 softmax): within 2e-4 abs+rel in
@@ -839,7 +842,7 @@ def _stacked_within_tolerance(got, x, packed, v_row, v_col, wq, ws, wf):
 
 
 @pytest.mark.parametrize("e", [4, 64])
-@pytest.mark.parametrize("m", [1, 4, 5, 17, 64])
+@pytest.mark.parametrize("m", [1, 2, 4, 5, 17, 64])
 @pytest.mark.parametrize("k", [1408, 2048])
 @pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32),
                                      (torch.bfloat16, torch.bfloat16),
@@ -862,20 +865,93 @@ def test_bitlinear_axes_stacked_matches_plain(cuda, e, m, k, xdt, wdt):
     assert _stacked_within_tolerance(got, x, packed, v_row, v_col, wq, ws, wf)
 
 
-@pytest.mark.parametrize("m", [1, 4, 17])
+@pytest.mark.parametrize("m", [1, 2, 7, 17, 130])
 @pytest.mark.parametrize("wdt", [torch.float32, torch.int8])
-def test_bitlinear_axes_stacked_one_expert_equals_single_kernel(cuda, m, wdt):
-    """A stack of one expert plans and sums as ``bitlinear_axes_p`` does:
-    bit-equal to it."""
+def test_bitlinear_axes_stacked_skips_experts_without_rows(cuda, m, wdt):
+    """Experts whose rows of x are all zero (one of them -0.0): their
+    outputs are exactly 0, and the others equal, bit for bit, a launch of
+    the same plan in which those rows hold random values; the live ones
+    stay within the GEMM bound of the plain version.  M=130 spans two of
+    the tiled kernel's 128-row tiles, the second of which is dead for
+    expert 1 only."""
+    e, n, k = 6, 260, 1288
+    rng = np.random.default_rng(40 + m)
+    wq, ws, wf, packed, v_row, v_col = _stack_case(rng, e, n, k, wdt, cuda)
+    x = torch.from_numpy(rng.standard_normal((e, m, k)).astype(np.float32)
+                         ).to(cuda).bfloat16()
+    dead = [0, 3, 4]
+    x[dead] = 0.0
+    x[4] = -0.0
+    if m > 128:
+        x[1, 128:] = 0.0
+    got = BL.bitlinear_axes_stacked_p(x, packed, v_row, v_col, wq, ws)
+    filled = x.clone()
+    filled[dead] = torch.from_numpy(rng.standard_normal(
+        (len(dead), m, k)).astype(np.float32)).to(cuda).bfloat16()
+    again = BL.bitlinear_axes_stacked_p(filled, packed, v_row, v_col, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+    assert not torch.signbit(got[dead]).any()
+    live = [1, 2, 5]
+    assert torch.equal(got[live], again[live])
+    assert _stacked_within_tolerance(got, x, packed, v_row, v_col, wq, ws, wf)
+    assert bool((got[live].abs() > 0).any())
+
+
+@pytest.mark.parametrize("m", [1, 2, 7, 17])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.int8])
+def test_bitlinear_axes_stacked_partly_zero_slices_are_computed(cuda, m, wdt):
+    """A block is skipped only when its whole slice of x is zero: an
+    expert with one non-zero element at the end of K, one whose first
+    rows are zero, one zero over the first half of K, and one with a NaN
+    (not zero: its row's outputs are NaN) are all computed."""
+    e, n, k = 4, 96, 2056
+    rng = np.random.default_rng(60 + m)
+    wq, ws, wf, packed, v_row, v_col = _stack_case(rng, e, n, k, wdt, cuda)
+    x = torch.from_numpy(rng.standard_normal((e, m, k)).astype(np.float32)
+                         ).to(cuda).bfloat16()
+    x[0] = 0.0
+    x[0, -1, -1] = 1.0
+    x[1, :-1] = 0.0
+    x[2, :, :k // 2] = 0.0
+    x[3, 0, 5] = float("nan")
+    got = BL.bitlinear_axes_stacked_p(x, packed, v_row, v_col, wq, ws)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[3, 0]).all())
+    assert bool(torch.isfinite(got[:3]).all())
+    assert bool((got[0, -1].abs() > 0).all())
+    x3 = x.clone()
+    x3[3, 0] = 0.0
+    keep = torch.ones_like(got, dtype=torch.bool)
+    keep[3, 0] = False
+    want = R.bitlinear_axes_stacked_ref(x3.float(), packed, v_row, v_col, wq,
+                                        w_scale=ws)
+    signs = D.unpack_signs(packed, k)
+    w_abs = ((v_row.float()[:, :, None] + v_col.float()[:, None, :]) * signs
+             + wf).abs()
+    scale = torch.bmm(x3.float().abs(), w_abs.transpose(1, 2))
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6)[keep].all())
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 17])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.int8])
+def test_bitlinear_axes_stacked_one_expert_matches_single_kernel(cuda, m, wdt):
+    """A stack of one expert against ``bitlinear_axes_p`` on the same
+    operands: within the GEMM bound (the two kernels sum in different
+    orders)."""
     rng = np.random.default_rng(m)
-    wq, ws, _, packed, v_row, v_col = _stack_case(rng, 1, 260, 1288, wdt,
-                                                  cuda)
+    wq, ws, wf, packed, v_row, v_col = _stack_case(rng, 1, 260, 1288, wdt,
+                                                   cuda)
     x = torch.from_numpy(rng.standard_normal((1, m, 1288)).astype(
         np.float32)).to(cuda)
     got = BL.bitlinear_axes_stacked_p(x, packed, v_row, v_col, wq, ws)
     want = BL.bitlinear_axes_p(x[0], packed[0], v_row[0], v_col[0], wq[0],
                                None if ws is None else ws[0])
-    assert torch.equal(got[0], want)
+    w_abs = ((v_row.float()[0][:, None] + v_col.float()[0][None, :])
+             * D.unpack_signs(packed[0], 1288) + wf[0]).abs()
+    scale = x[0].abs() @ w_abs.T
+    torch.cuda.synchronize()
+    assert bool(((got[0] - want).abs() <= 1e-5 * scale + 1e-6).all())
 
 
 def test_bitlinear_axes_stacked_wrapper_and_refusals(cuda):

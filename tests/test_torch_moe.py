@@ -13,7 +13,10 @@ capacity selection then ranks tied tokens; ``moe.top_k`` must order ties
 as ``lax.top_k`` does (lower index first), which ``torch.topk`` does not
 promise.  The stacked plain version is held against JAX's vmapped
 ``ops.bitlinear_axes`` with K = 264 (not a whole number of the streaming
-kernel's 256- or 512-element warp steps) within 1e-5.
+kernel's 256- or 512-element warp steps) within 1e-5.  The delta path
+hands the stacked GEMM its capacity fillers as zero rows (the JAX module
+does not; the rows' outputs are discarded, so ``moe_apply`` is unchanged
+bit for bit when they hold anything else).
 """
 import pytest
 
@@ -217,6 +220,58 @@ def test_combine_matches_a_scatter_add(cap):
     assert torch.equal(got, M._combine(yd, c_idx, top_idx))
 
 
+@pytest.mark.parametrize("base", ["fp", "int8"])
+@pytest.mark.parametrize("case", ["overlay", "banked"])
+def test_capacity_fillers_reach_the_expert_pass_as_zeros(unit, case, base,
+                                                          monkeypatch):
+    """The delta path hands the stacked GEMM zero rows for its capacity
+    fillers (slots whose c_val is 0: no token routed there), in the
+    single-overlay and the banked branch, for every projection; the
+    fillers' outputs are discarded, so filling those rows with random
+    values before the GEMM leaves ``moe_apply`` bit-identical."""
+    tcfg = unit["tcfg"]
+    _, p = unit["bases"][base]
+    x = torch.from_numpy(unit["x"])
+    if case == "overlay":
+        _, ov = _overlays(unit["jdms"][0])
+        vidx = None
+    else:
+        _, ov = _bank(unit, unit["bases"]["fp"][0])
+        vidx = torch.tensor([0, 2, 1])
+    c_vals, seen = [], []
+    top_k, stacked = M.top_k, K.bitlinear_axes_stacked
+
+    def record_top_k(score, k):
+        vals, idx = top_k(score, k)
+        if score.shape[1] == tcfg.num_experts:    # the capacity selection
+            c_vals.append(vals)
+        return vals, idx
+
+    def wrapped(fill):
+        gen = torch.Generator().manual_seed(9)
+
+        def call(xe, *args):
+            g, e, cap = c_vals[-1].shape
+            filler = (c_vals[-1] == 0).transpose(0, 1).reshape(e, g * cap)
+            assert bool(filler.any())
+            seen.append(bool((xe[filler] == 0).all()))
+            if fill:
+                xe = torch.where(filler[..., None], torch.randn(
+                    xe.shape, generator=gen, dtype=xe.dtype), xe)
+            return stacked(xe, *args)
+        return call
+
+    monkeypatch.setattr(M, "top_k", record_top_k)
+    monkeypatch.setattr(K, "bitlinear_axes_stacked", wrapped(False))
+    got, aux = M.moe_apply(p, x, tcfg, ov=ov, vidx=vidx)
+    calls = 3 * (1 if vidx is None else 3)
+    assert seen == [True] * calls
+    monkeypatch.setattr(K, "bitlinear_axes_stacked", wrapped(True))
+    again, aux_again = M.moe_apply(p, x, tcfg, ov=ov, vidx=vidx)
+    assert len(seen) == 2 * calls
+    assert torch.equal(got, again) and torch.equal(aux, aux_again)
+
+
 @pytest.mark.parametrize("quant", [False, True])
 def test_stacked_plain_version_matches_jax_vmapped_kernel(quant):
     e, m, n, k = 3, 5, 16, 264
@@ -284,16 +339,19 @@ def test_expert_stack_compresses_as_jax(unit):
 def test_stacked_plan_covers_k(e, m, nk, w_size):
     """The stacked GEMM's launch plan: the whole K covered once with no
     empty split, each split a whole number of its kernel's K steps; a
-    stack of one plans as ``gemm_plan``; deepseek-moe-16b's 64 experts
-    fill the card with at most three K splits where one product takes up to
-    eleven."""
+    streaming launch runs the least row tier (1, 2, 4, 8, 16) that holds m
+    and its split's x rows and scales fit the block's shared memory;
+    deepseek-moe-16b's 64 experts fill the card with at most three K splits
+    where one product takes up to eleven."""
     from repro_torch.kernels import bitlinear as BL
     n, k = nk
     splits, per = BL.stacked_plan(m, n, k, 2, w_size, e)
     assert splits >= 1 and (splits - 1) * per < k <= splits * per
     step = (BL.STREAM_SPAN[w_size] if m <= BL.STREAM_MAX_M else BL.TILE_K)
     assert per % step == 0
-    if e == 1:
-        assert (splits, per) == BL.gemm_plan(m, n, k, 2, w_size)
+    if m <= BL.STREAM_MAX_M:
+        tier = BL.stack_tier(m)
+        assert tier in (1, 2, 4, 8, 16) and tier >= m and tier // 2 < m
+        assert per * (4 + tier * 2) <= BL.STACK_STREAM_SMEM
     if e == 64 and n > 1000:
         assert splits <= 3
