@@ -69,11 +69,12 @@ Phases (any failure raises and the script exits non-zero):
    same lifecycle through a store on the card and on the CPU, right after
    the reference phase: tokens must be identical.
 
-9. other archs, kernels (after the flash phase): ``bitlinear_axes`` at
-   M=4 and M=64 and the banked GEMM at M=4 ([0,1,2,1]) and M=64 at every
-   distinct projection shape of deepseek-7b, starcoder2-3b, gemma3-12b and
-   deepseek-moe-16b (attention, its dense first layer and its shared
-   experts), fp32 and int8 base, each against its plain version;
+9. other archs, kernels (after the flash phase): ``bitlinear_axes`` and
+   the banked GEMM at M=4 ([0,1,2,1]) and at the prefill's rows (M=64;
+   lanes on [0,1,2,1]) at every distinct projection shape of
+   deepseek-7b, starcoder2-3b, gemma3-12b and deepseek-moe-16b
+   (attention, its dense first layer and its shared experts), fp32 and
+   int8 base, each against its plain version;
 10. stacked: ``bitlinear_axes_stacked_p`` over deepseek-moe-16b's 64
    experts (1408 x 2048 and 2048 x 1408), every expert live, at 1, 4, 7
    and 120 rows an expert (1 and 7 the serving path's decode and prefill
@@ -107,6 +108,23 @@ Phases (any failure raises and the script exits non-zero):
    its live experts and timed beside the plain version and ``torch.bmm``
    over the full built Ŵ stack, its bound counting the live experts'
    weights (the full stack's beside it).
+13. encoder-decoder and VLM: phase 9 covers whisper-base's and
+   internvl2-76b's shapes too, at M=4 and at their prefills' rows (4 x
+   1500 frames = 6000; 4 x (256 image + 32 text) = 1152, internvl2's
+   w_down splitting K = 28672 56 ways in the banked GEMM), and phase 11
+   runs both reduced (card against CPU tokens, identical);
+14. whisper-base at full width and full depth (after gemma3-12b): one
+   base prefill timed with the port's 500-key attention chunks and the
+   JAX module's 4-key ones; group dense, group fused and continuous over
+   a 4-slot bank, over an fp32 and an int8 base, 1500 stub frames a
+   lane; after each fused and continuous run every delta GEMM launch of
+   one prefill (6000 rows at the encoder and the cross-attention's wk/wv)
+   held to the GEMM bound, a repeat bit-identical, logits beside the
+   plain versions, one decode step profiled;
+15. internvl2-76b at full width, 2 layers (last): 256 zero image
+   embeddings + 32-token prompts, fp32 base, group fused then continuous
+   over a 3-slot bank, the same checks at 1152 rows, peak device memory
+   printed beside the reckoning in ``vlm_phase``.
 
 Each phase prints its seconds.  Then it prints the kernel summary as one
 JSON line (the entries of a kernel
@@ -284,9 +302,10 @@ def unpack_rows(name, timer, packed, v_row, v_col, base) -> list:
     return rows
 
 
-def axes_rows(name, n, k, gen, dev, timer, p0, vr0, base) -> list:
+def axes_rows(name, n, k, gen, dev, timer, p0, vr0, base,
+              ms=(LANES, LANES * PROMPT)) -> list:
     """``bitlinear_axes`` on layer 0's overlay entry, row-selected, at M=4
-    (decode) and M=64 (prefill)."""
+    (decode) and M=64 (prefill), or at the rows ``ms``."""
     from repro_torch.core import delta as D
     from repro_torch.kernels import bitlinear as BL
 
@@ -298,7 +317,7 @@ def axes_rows(name, n, k, gen, dev, timer, p0, vr0, base) -> list:
     w_abs = w_hat.abs()
     del signs
     rows = []
-    for m in (LANES, LANES * PROMPT):
+    for m in ms:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         got = BL.bitlinear_axes_p(x, p0, vr, vc, wq, ws)
         want = BL.plain(x.float(), p0, vr, vc, wq, w_scale=ws)
@@ -309,6 +328,7 @@ def axes_rows(name, n, k, gen, dev, timer, p0, vr0, base) -> list:
         rows.append({
             "shape": f"{name} M={m} N={n} K={k}", "m": m,
             "max_abs_err": err,
+            "splits": BL.gemm_plan(m, n, k, 2, wq.element_size())[0],
             "ms": timer.ms(lambda: BL.bitlinear_axes_p(x, p0, vr, vc, wq, ws),
                            reps=20, warmup=3),
             "plain_ms": timer.ms(lambda: BL.plain(x, p0, vr, vc, wq,
@@ -366,7 +386,7 @@ def tier_rows(name, n, k, gen, dev, timer, p0, vr0, base) -> list:
 
 
 def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
-                base, only=None) -> list:
+                base, only=None, prefill=0) -> list:
     """``bitlinear_axes_banked`` at one projection shape, over a bank of 4
     slots built from the stack's first three layers (slot 0 zero = base,
     slot 1 row-scaled, slot 2 col-scaled, slot 3 row-scaled) and layer 0's
@@ -376,7 +396,9 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
     streaming kernel), M=17 (4 tokens a lane and one more row: the tiled
     kernel, microtiles that span slots) and M=64 (16 tokens a lane), and an all-base M=4 batch held against the plain fp32
     x @ W_bᵀ; each timed beside the single-variant kernel on the same x.
-    ``only`` keeps the cases of those labels."""
+    ``only`` keeps the cases of those labels; ``prefill`` adds a
+    continuous prefill of that many rows a lane, lanes on [0,1,2,1]
+    (label "M=<4 x prefill> lanes")."""
     from repro_torch.core import delta as D
     from repro_torch.kernels import bitlinear as BL
 
@@ -406,6 +428,8 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
              ("M=4 all-base", [0] * LANES)]
     if only is not None:
         cases = [c for c in cases if c[0] in only]
+    if prefill:
+        cases.append((f"M={LANES * prefill} lanes", lanes(prefill)))
     for label, vlist in cases:
         m = len(vlist)
         vidx = torch.tensor(vlist, dtype=torch.int32, device=dev)
@@ -433,6 +457,8 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
         rows.append({
             "shape": f"{name} {label} N={n} K={k}", "m": m, "case": label,
             "max_abs_err": err,
+            "splits": BL.gemm_plan(m, n, k, 2, wq.element_size(),
+                                   banked=True)[0],
             "ms": timer.ms(lambda: BL.bitlinear_axes_banked_p(
                 x, vidx, bp, bvr, bvc, wq, ws), reps=20, warmup=3),
             "plain_ms": timer.ms(lambda: BL.plain_banked(
@@ -574,7 +600,9 @@ def print_rows(rows: dict, heading: str = "") -> None:
         for r in krows:
             extra = "".join(f" {key}={r[key]:.4f}" for key in
                             ("uniform_ms", "read_ms", "full_bound_ms")
-                        if key in r)
+                            if key in r)
+            if r.get("splits", 1) > 1:
+                extra += f" k_splits={r['splits']}"
             print(f"  {r['shape']:44s} err={r['max_abs_err']:.3g} "
                   f"kernel_ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                   f"({r['bound_by']}, {r['peak_tflops']:.0f} TF/s) "
@@ -941,18 +969,22 @@ def profile_decode(model, params, overlay, dev, label, step_ms,
     time, the kernels that take the most, and the device's idle share of
     the serve run's mean decode step (``step_ms``, unprofiled).  The cache
     comes from a prefill of ``prompt_len`` tokens (default the serve
-    launcher's) into ``max_len`` slots.  Prompts and the decoded token
+    launcher's) and the engine's frontend stub (whisper's frames, a VLM's
+    image prefix) into ``max_len`` slots (default ``serve.cache_len``).  Prompts and the decoded token
     differ between lanes (seeded), so an MoE layer routes them as serving
     does: its stacked GEMM skips only the experts none of them picks."""
     from repro_torch.launch import serve as SV
+    from repro_torch.serving.engine import frontend_stub
 
     prompt_len = prompt_len or SV.PROMPT_LEN
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     vocab = model.cfg.vocab_size
     batch = {"tokens": torch.randint(1, vocab, (LANES, prompt_len),
-                                     generator=gen, device=dev)}
-    _, cache = model.prefill(params, batch, max_len or SV.MAX_LEN,
+                                     generator=gen, device=dev),
+             **frontend_stub(model.cfg, LANES, dev)}
+    _, cache = model.prefill(params, batch,
+                             max_len or SV.cache_len(model.cfg, prompt_len),
                              overlay=overlay, variant_idx=vidx)
     tok = torch.randint(1, vocab, (LANES,), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -1431,6 +1463,7 @@ def lifecycle_reference_phase(dev) -> None:
 
 NEW_ARCHS = ("deepseek-7b", "starcoder2-3b", "gemma3-12b",
              "deepseek-moe-16b", "moonshot-v1-16b-a3b")
+ENCDEC_VLM = ("whisper-base", "internvl2-76b")
 # reduced reference phase: layers (gemma3: its [local, global] pattern once;
 # MoE: the dense first layer and two expert layers) and a padded prompt of
 # 20 tokens, past gemma3's reduced window of 16, so its ring wraps in
@@ -1452,33 +1485,53 @@ def stacked_ms(cfg) -> tuple:
 
 def arch_shapes(cfg) -> list:
     """The distinct (N, K) of an arch's overlaid 2-D projections:
-    attention and the dense MLP; for an MoE arch the dense MLP of its
-    first layers and its shared experts' MLP (the expert stacks are the
-    stacked GEMM's)."""
+    attention and the dense MLP (whisper's w_in / w_out); for an MoE arch
+    the dense MLP of its first layers and its shared experts' MLP (the
+    expert stacks are the stacked GEMM's)."""
     d = cfg.d_model
     mlps = [("", cfg.d_ff)]
     if cfg.family == "moe":
         mlps = ([("dense ", cfg.d_ff)] if cfg.moe_first_dense else []) + [
             ("shared ", cfg.expert_d_ff * cfg.num_shared_experts)]
+    w_in, w_out = ("w_in", "w_out") if cfg.family == "audio" else (
+        "w_gate", "w_down")
     seen, out = set(), []
     for name, n, k in (("wq", cfg.q_dim, d), ("wk", cfg.kv_dim, d),
                        ("wo", d, cfg.q_dim),
                        *((f"{pre}{w}", nk[0], nk[1]) for pre, ff in mlps
-                         for w, nk in (("w_gate", (ff, d)),
-                                       ("w_down", (d, ff))))):
+                         for w, nk in ((w_in, (ff, d)),
+                                       (w_out, (d, ff))))):
         if (n, k) not in seen:
             seen.add((n, k))
             out.append((name, n, k))
     return out
 
 
+VLM_LAYERS, VLM_PROMPT = 2, 32   # internvl2-76b: depth cut, padded prompt
+
+
+def prefill_rows(cfg) -> int:
+    """A lane's rows in a prefill's delta GEMMs: the padded prompt;
+    whisper's encoder frames (its encoder and cross-attention wk/wv); a
+    VLM's image prefix and prompt."""
+    if cfg.family == "audio":
+        return cfg.encoder_frames
+    if cfg.family == "vlm":
+        return cfg.num_image_tokens + VLM_PROMPT
+    return PROMPT
+
+
 def arch_kernel_phase(dev, timer) -> dict:
-    """``bitlinear_axes`` at M=4 and M=64 and the banked GEMM at M=4
-    ([0,1,2,1]) and M=64 at every distinct projection shape of the new
-    archs (moonshot-v1-16b-a3b has deepseek-moe-16b's widths), over an
-    fp32 and an int8 base, each held against its plain version with the
-    GEMM bound; K of 11008, 3840, 2816 and 1408 are no whole number of
-    the streaming kernel's warp steps.  Returns {kernel body: rows}."""
+    """``bitlinear_axes`` at M=4 and at the prefill's rows (4 lanes x
+    ``prefill_rows``: 64; whisper-base 6000, internvl2-76b 1152) and the
+    banked GEMM at M=4 ([0,1,2,1]) and at those rows (lanes on [0,1,2,1])
+    at every distinct projection shape of the new archs (moonshot-v1-16b-a3b
+    has deepseek-moe-16b's widths), over an fp32 and an int8 base, each
+    held against its plain version with the GEMM bound and timed beside it
+    (single-variant: and ``torch.matmul`` over a built Ŵ); K of 11008,
+    3840, 2816 and 1408 are no whole number of the streaming kernel's warp
+    steps, and internvl2-76b's w_down (K = 28672) splits K 56 ways in the
+    banked GEMM at 1152 rows.  Returns {kernel body: rows}."""
     from repro_torch.configs import get_config
     from repro_torch.core import delta as D
     from repro_torch.core import quantize as Q
@@ -1488,8 +1541,10 @@ def arch_kernel_phase(dev, timer) -> dict:
     rows = {name: [] for name in ("bitlinear_axes", "bitlinear_axes_q8",
                                   "bitlinear_axes_banked",
                                   "bitlinear_axes_banked_q8")}
-    for arch in NEW_ARCHS[:4]:
-        for name, n, k in arch_shapes(get_config(arch)):
+    for arch in NEW_ARCHS[:4] + ENCDEC_VLM:
+        cfg = get_config(arch)
+        per_lane = prefill_rows(cfg)
+        for name, n, k in arch_shapes(cfg):
             label = f"{arch} {name}"
             wb = torch.randn((3, n, k), generator=gen, device=dev) * k ** -0.5
             delta = torch.randn((3, n, k), generator=gen, device=dev) * 0.005
@@ -1501,10 +1556,11 @@ def arch_kernel_phase(dev, timer) -> dict:
             p0 = packed[0].contiguous()
             for suffix, layer0 in (("", wb[0].contiguous()), ("_q8", qw)):
                 rows["bitlinear_axes" + suffix] += axes_rows(
-                    label, n, k, gen, dev, timer, p0, v_row[0], layer0)
+                    label, n, k, gen, dev, timer, p0, v_row[0], layer0,
+                    ms=(LANES, LANES * per_lane))
                 rows["bitlinear_axes_banked" + suffix] += banked_rows(
                     label, n, k, gen, dev, timer, packed, v_row, v_col,
-                    layer0, only=("M=4", "M=64"))
+                    layer0, only=("M=4",), prefill=per_lane)
             del wb, qw, packed, v_row, v_col, p0
             torch.cuda.empty_cache()
     print_rows(rows, " (other archs)")
@@ -1593,9 +1649,12 @@ def stacked_phase(dev, timer) -> dict:
 
 def arch_reference_phase(dev) -> None:
     """Each new arch reduced, fp32 compute: group fused and continuous over
-    an fp32 and an int8 base, card kernels against the CPU plain versions
-    (``reference_runs``); tokens identical.  gemma3's 20-token padded
-    prompt and budgets up to 5 run past its reduced window of 16."""
+    an fp32 and an int8 base (whisper-base: group dense too), card kernels
+    against the CPU plain versions (``reference_runs``); tokens identical.
+    gemma3's 20-token padded prompt and budgets up to 5 run past its
+    reduced window of 16; internvl2-76b's caches hold its 8 image tokens
+    besides; whisper-base's 16 stub frames run through its 2 encoder
+    layers."""
     import dataclasses
 
     from repro_torch.core import calibration as C
@@ -1603,7 +1662,7 @@ def arch_reference_phase(dev) -> None:
     from repro_torch.models import build_model
     from repro_torch.models.param import split
 
-    for arch in NEW_ARCHS:
+    for arch in NEW_ARCHS + ENCDEC_VLM:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(SV.make_config(arch, reduced=True),
                                   num_layers=REF_LAYERS.get(arch, 2),
@@ -1612,10 +1671,11 @@ def arch_reference_phase(dev) -> None:
         base, _ = split(model.init(0, device="cpu"))
         dms = [C.compress(base, SV.fine_tune(base, 100 + i))
                for i in range(2)]
-        reference_runs(dev, model, base, dms,
-                       [("group", "fused", 4),
-                        ("continuous", "fused", [2, 5, 3, 4])],
-                       REF_PROMPT, REF_PROMPT + SV.MAX_LEN)
+        runs = [("group", "fused", 4), ("continuous", "fused", [2, 5, 3, 4])]
+        if cfg.family == "audio":
+            runs.insert(0, ("group", "dense", 4))
+        reference_runs(dev, model, base, dms, runs, REF_PROMPT,
+                       SV.cache_len(cfg, REF_PROMPT, SV.MAX_LEN))
         print(f"reference {arch}: {time.perf_counter() - t0:.1f} s")
 
 
@@ -1835,6 +1895,7 @@ def serve_checks(dep, model, cfg, dev, label, prompt_len, max_len,
     one decode step under the profiler (device-busy time, idle share).
     Returns the checked launches."""
     from repro_torch.kernels import ops as K
+    from repro_torch.serving.engine import frontend_stub
 
     m = dep.metrics
     step_ms = 1e3 * m["decode_seconds"] / max(m["decode_steps"], 1)
@@ -1850,7 +1911,8 @@ def serve_checks(dep, model, cfg, dev, label, prompt_len, max_len,
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     batch = {"tokens": torch.randint(1, cfg.vocab_size, (LANES, prompt_len),
-                                     generator=gen, device=dev)}
+                                     generator=gen, device=dev),
+             **frontend_stub(cfg, LANES, dev)}
     with gemms_checked() as checked:
         got, _ = model.prefill(params, batch, max_len, overlay=overlay,
                                variant_idx=vidx)
@@ -1870,7 +1932,8 @@ def serve_checks(dep, model, cfg, dev, label, prompt_len, max_len,
     errs = {}
     for name, shape, err in checked:
         errs.setdefault(name, []).append(err)
-    print(f"{label}: fused prefill ({LANES} x {prompt_len} tokens): "
+    print(f"{label}: fused prefill ({LANES} x {prompt_len} tokens, rows "
+          f"{sorted({shape[-2] for _, shape, _ in checked})}): "
           + ", ".join(f"{len(e)} {n} launches within the GEMM bound (max "
                       f"|err| {max(e):.3g})" for n, e in errs.items())
           + (", a repeat bit-identical" if repeat else "")
@@ -2030,6 +2093,195 @@ def moe_phase(dev) -> dict:
     return launches, routed
 
 
+def whisper_launches(cfg) -> tuple:
+    """(delta GEMM launches per prefill, per decode step) of whisper with
+    every projection overlaid: the encoder's six projections a layer; the
+    decoder's ten a layer in the forward plus the cross-attention's wk/wv
+    again for the cache; a decode step's eight a layer (the cross K/V come
+    from the cache)."""
+    return (6 * cfg.encoder_layers + 12 * cfg.num_layers,
+            8 * cfg.num_layers)
+
+
+def chunk_prefill(model, params, dev) -> None:
+    """One whisper-base prefill of the base (4 lanes, 16 tokens, 1500 stub
+    frames) timed with the port's 500-key chunks for the non-causal
+    attention (``attention.even_chunk``) and with the JAX module's 4-key
+    ones (``_pick_chunk`` halving 512), median of 3 on the host clock
+    after a warm-up; the logits of the two are printed side by side."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import frontend_stub
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    batch = {"tokens": torch.randint(1, model.cfg.vocab_size,
+                                     (LANES, SV.PROMPT_LEN), generator=gen,
+                                     device=dev),
+             **frontend_stub(model.cfg, LANES, dev)}
+    even = A.even_chunk
+    out = {}
+    try:
+        for name, chunker in (("500-key", even),
+                              ("jax 4-key", lambda t, chunk=512:
+                               A._pick_chunk(t, chunk))):
+            A.even_chunk = chunker
+            secs = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                logits, _ = model.prefill(params, batch, SV.cache_len(
+                    model.cfg))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            out[name] = (float(np.median(secs[1:])), logits)
+    finally:
+        A.even_chunk = even
+    (s_ours, ours), (s_jax, theirs) = out.values()
+    print(f"whisper-base base prefill ({LANES} x {SV.PROMPT_LEN} tokens, "
+          f"{model.cfg.encoder_frames} frames): 500-key chunks "
+          f"{s_ours:.4f} s, the JAX module's 4-key chunks {s_jax:.4f} s; "
+          f"max |logit diff| {(ours.float() - theirs.float()).abs().max().item():.4g} "
+          f"(max |logit| {theirs.float().abs().max().item():.4g})")
+
+
+def whisper_phase(dev) -> dict:
+    """whisper-base at full width and full depth (6 encoder + 6 decoder
+    layers, 1500 zero frames a lane from the engine's stub), 2 variants,
+    4 lanes: first ``chunk_prefill``, then group dense (``unpack_apply``), group fused and continuous
+    over a 4-slot bank, over an fp32 and an int8 base.  Memory: the fp32
+    base is 0.28 GB.  The continuous runs must launch the banked GEMM
+    ``whisper_launches`` times per prefill and per step.  After each fused
+    and continuous run ``serve_checks`` holds every delta GEMM launch of
+    one prefill (6000 rows at the encoder and the cross-attention's wk/wv,
+    the mixed batch [0,1,2,1] on the banked GEMM) to the GEMM bound,
+    repeats the prefill (bit-identical), prints its logits beside the
+    plain versions and profiles one decode step; after a dense run one
+    decode step of v0 is profiled.  Returns {run: launches}."""
+    from repro_torch.launch import serve as SV
+
+    cfg = SV.make_config("whisper-base")
+    per_prefill, per_step = whisper_launches(cfg)
+    launches = {}
+    t0 = time.perf_counter()
+    model, base, dms = SV.build_variants(cfg, 2, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"whisper-base: {cfg.encoder_layers} + {cfg.num_layers} layers, "
+          f"{cfg.encoder_frames} frames, setup {setup_s:.2f} s")
+    chunk_prefill(model, base, dev)
+    for base_dtype in ("fp", "int8"):
+        for run, scheduler, mode in (("dense", "group", "dense"),
+                                     ("fused", "group", "fused"),
+                                     ("continuous", "continuous", "fused")):
+            label = f"whisper-base {run}" + (
+                " int8" if base_dtype == "int8" else "")
+            t0 = time.perf_counter()
+            dep = SV.deploy(model, base, dms, mode=mode, scheduler=scheduler,
+                            batch=LANES, bank_size=4, device=dev,
+                            base_dtype=base_dtype)
+            torch.cuda.synchronize()
+            n_req, budgets = (8, [8]) if scheduler == "group" else (
+                12, CONT_BUDGETS)
+            _, launches[label] = drive(dep, cfg, label, n_req, budgets,
+                                       time.perf_counter() - t0)
+            got = launches[label]
+            m = dep.metrics
+            assert got[RUN_KERNEL[run]] > 0, got
+            if run == "continuous":
+                assert got["bitlinear_axes_banked"] == (
+                    per_prefill * m["prefills"]
+                    + per_step * m["decode_steps"]), (got, m)
+                assert m["admitted"] == m["retired"] == n_req, m
+            if run == "dense":
+                params, overlay = dep.registry.resolve("v0")
+                profile_decode(model, params, overlay, dev, label,
+                               1e3 * m["decode_seconds"] / m["decode_steps"])
+                del params, overlay
+            else:
+                checked = serve_checks(dep, model, cfg, dev, label,
+                                       SV.PROMPT_LEN, SV.cache_len(cfg),
+                                       continuous=run == "continuous",
+                                       repeat=True)
+                assert len(checked) == per_prefill, len(checked)
+                assert LANES * cfg.encoder_frames in {
+                    shape[0] for _, shape, _ in checked}
+            print(f"{label}: peak_mem_GB="
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+            del dep
+            gc.collect()
+            torch.cuda.empty_cache()
+    del model, base, dms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vlm_phase(dev) -> dict:
+    """internvl2-76b at full width (d 8192, d_ff 28672, untied 128256-row
+    tables), 2 layers, fp32 base, 2 variants, 4 lanes of 256 zero image
+    embeddings (the engine's stub) + 32-token padded prompts: group fused,
+    then continuous over a 3-slot bank (base + the two variants), the first
+    deployment freed before the second.  Memory, reckoned before the run:
+    base 15.25 GB (a layer 3.42 GB, each table 4.20 GB); each variant's
+    DeltaModel 8.62 GB (its fine-tuned tables as fp32 extras); group
+    fused: each resident's tables as fp16 extras, 4.20 GB; the bank holds
+    every slot's tables as fp32 extras, 3 x 8.62 GB; transients: a 2.10 GB
+    bf16 table cast per bank slot, the banked w_down's (56, 1152, 8192)
+    fp32 split-K workspace 2.11 GB: about 60 GB at peak, under the card's
+    80.  Each run: every banked launch counted, ``serve_checks`` (1152-row
+    prefills, K = 28672 at w_down), the peak printed.  Returns {run:
+    launches}."""
+    from repro_torch.launch import serve as SV
+
+    cfg = SV.make_config("internvl2-76b", num_layers=VLM_LAYERS)
+    max_len = SV.cache_len(cfg, VLM_PROMPT, max(CONT_BUDGETS))
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, base, dms = SV.build_variants(cfg, 2, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"internvl2-76b: {VLM_LAYERS} layers, {cfg.num_image_tokens} "
+          f"image tokens + {VLM_PROMPT}-token prompts, caches of {max_len}; "
+          f"setup {setup_s:.2f} s peak_mem_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    for scheduler in ("group", "continuous"):
+        run = "fused" if scheduler == "group" else "continuous"
+        label = f"internvl2-76b {run}"
+        t0 = time.perf_counter()
+        dep = SV.deploy(model, base, dms, mode="fused", scheduler=scheduler,
+                        batch=LANES, bank_size=3, device=dev,
+                        prompt_len=VLM_PROMPT, max_len=max_len)
+        torch.cuda.synchronize()
+        n_req, budgets = (8, [8]) if scheduler == "group" else (
+            12, CONT_BUDGETS)
+        _, launches[label] = drive(dep, cfg, label, n_req, budgets,
+                                   time.perf_counter() - t0)
+        got = launches[label]
+        m = dep.metrics
+        assert got[RUN_KERNEL[run]] > 0, got
+        if run == "continuous":
+            assert got["bitlinear_axes_banked"] == 7 * VLM_LAYERS * (
+                m["prefills"] + m["decode_steps"]), (got, m)
+            assert m["admitted"] == m["retired"] == n_req, m
+        checked = serve_checks(dep, model, cfg, dev, label, VLM_PROMPT,
+                               max_len, continuous=run == "continuous",
+                               repeat=True)
+        assert len(checked) == 7 * VLM_LAYERS, len(checked)
+        assert {shape[0] for _, shape, _ in checked} == {
+            LANES * prefill_rows(cfg)}
+        print(f"{label}: peak_mem_GB="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} (since the "
+              "run began: deployment, serving, checks)")
+        del dep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, base, dms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def dense_archs_phase(dev) -> dict:
     """deepseek-7b and starcoder2-3b at full width, 2 layers: 4 requests x
     8 tokens, group scheduler, fused (``bitlinear_axes`` in every
@@ -2075,8 +2327,10 @@ def kernel_entries(rows, launches, dl_launches, fl_launches,
                    arch_rows) -> list:
     """One JSON entry per kernel body: times summed over one unit of its
     path (a unit's first member gives each row's multiplicity in it),
-    launches from the main-path run that drives it; the rows at the other
-    archs' projection shapes ride beside as ``arch_shapes``."""
+    launches from the main-path run that drives it and, as
+    ``path_launches``, from every serving run that launched it (the other
+    archs' full-width runs); the rows at the other archs' projection
+    shapes ride beside as ``arch_shapes``."""
     units = {
         "unpack_apply": (lambda r: True, "dense", "unpack_apply",
                          f"one dense variant load: 7 stacks x (row, col), "
@@ -2126,6 +2380,10 @@ def kernel_entries(rows, launches, dl_launches, fl_launches,
             entry["launches"] = launches[run + (" int8" if q8 else "")][
                 counter]
         assert entry["launches"] > 0, (name, entry["launches"])
+        # every serving run's launches of this body, the new archs' too
+        entry["path_launches"] = {
+            run: got[counter] for run, got in launches.items()
+            if got.get(counter) and run.endswith(" int8") == q8}
         if name in REDESIGNED:
             entry["design"] = REDESIGNED[name]
         entries.append(entry)
@@ -2211,6 +2469,8 @@ def main() -> None:
     for name, extra in routed.items():
         rows[name] += extra
     launches.update(timed("gemma3-12b", gemma3_phase, dev))
+    launches.update(timed("whisper-base", whisper_phase, dev))
+    launches.update(timed("internvl2-76b", vlm_phase, dev))
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     print(json.dumps({"kernels": kernel_entries(rows, launches, dl_launches,

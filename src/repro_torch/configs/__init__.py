@@ -14,6 +14,8 @@ _ARCH_MODULES = {
     "gemma3-12b": "gemma3_12b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "internvl2-76b": "internvl2_76b",
+    "whisper-base": "whisper_base",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

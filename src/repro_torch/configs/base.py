@@ -3,7 +3,8 @@
 The same ``ModelConfig`` fields as the JAX package, so a configuration
 means the same model in both.  ``reduced()`` gives the small CPU test
 variant of a family.  The port serves the dense family (local:global
-layers included) and the MoE family; the other fields are carried so
+layers included), the MoE family, the VLM backbone and the
+encoder-decoder (audio) family; the other fields are carried so
 configurations stay field-for-field equal.
 """
 from __future__ import annotations

@@ -12,7 +12,9 @@ Stages:
   3. end-to-end logit matching (``e2e_calibrate``): train all scale vectors
      jointly so the stacked student reproduces the teacher's logits.
 
-``calibrate_transformer`` runs the four in order, on the base's device.
+``calibrate_transformer`` (decoder families) and ``calibrate_encdec``
+(whisper: encoder stack, then decoder stack) run the four in order, on the
+base's device.
 Gradients come from torch autograd on leaf scale tensors where the JAX
 package uses ``jax.value_and_grad``; the schedule (train/val split, batch
 slicing, step counts) is the JAX package's exactly.
@@ -283,9 +285,43 @@ def e2e_calibrate(forward_fn: Callable, base_params, dm: DeltaModel,
 # ---------------------------------------------------------------------------
 
 def _on(batch: dict, device) -> dict:
-    """A batch's token array as a long tensor on ``device``."""
-    return {"tokens": torch.as_tensor(batch["tokens"],
-                                      device=device).to(torch.int64)}
+    """A batch's token array as a long tensor on ``device``, and its
+    encoder ``frames`` (audio family), if any, as fp32."""
+    out = {"tokens": torch.as_tensor(batch["tokens"],
+                                     device=device).to(torch.int64)}
+    if "frames" in batch:
+        out["frames"] = torch.as_tensor(batch["frames"], device=device,
+                                        dtype=torch.float32)
+    return out
+
+
+def _put(t, li, value):
+    """``t`` with index ``li`` replaced (a new tensor, as ``.at[].set``)."""
+    out = t.clone()
+    out[li] = value
+    return out
+
+
+def _fit_entry(entry: DeltaEntry, w_base_l, x, y, li: int, *, scalar: bool,
+               epochs: int, lr: float, report: dict,
+               name: str) -> DeltaEntry:
+    """Stages 1-2 for matrix ``li`` of a stacked entry from its (X, Y)
+    cache: the entry with that matrix's scales (and axis) refitted; its
+    held-out MSE (row and col, or the scalar's) and axis choice go into
+    ``report`` under ``name``."""
+    if scalar:
+        v, mse = _fit_scale(entry.packed[li], w_base_l, x, y, entry.v_row[li],
+                            "scalar", epochs=epochs, lr=lr)
+        report["val_mse"].setdefault(name, []).append(float(mse))
+        return dataclasses.replace(entry, v_row=_put(entry.v_row, li, v),
+                                   v_col=_put(entry.v_col, li, v))
+    v_r, v_c, use_row, mses = fit_layer(entry, w_base_l, x, y, li,
+                                        epochs=epochs, lr=lr)
+    report["val_mse"].setdefault(name, []).append(mses)
+    report["axis"].setdefault(name, []).append("row" if use_row else "col")
+    return dataclasses.replace(entry, v_row=_put(entry.v_row, li, v_r),
+                               v_col=_put(entry.v_col, li, v_c),
+                               use_row=_put(entry.use_row, li, use_row))
 
 
 def calibrate_transformer(model, base_params, ft_params, batches: list, *,
@@ -320,12 +356,6 @@ def calibrate_transformer(model, base_params, ft_params, batches: list, *,
     base_flat = flatten_params(base_params)
     report = {"val_mse": {}, "axis": {}}
 
-    def put(t, li, value):
-        """``t`` with index ``li`` replaced (a new tensor, as ``.at[].set``)."""
-        out = t.clone()
-        out[li] = value
-        return out
-
     s_io = None
     for li in range(n_layers):
         if sequential or s_io is None:
@@ -341,26 +371,9 @@ def calibrate_transformer(model, base_params, ft_params, batches: list, *,
             _, y_all = t_io[proj]
             x = x_all[li].reshape(-1, x_all.shape[-1])
             y = y_all[li].reshape(-1, y_all.shape[-1])
-            entry = dm.deltas[key]
-            wb = base_flat[key][li]
-            if scalar:
-                v, mse = _fit_scale(entry.packed[li], wb, x, y,
-                                    entry.v_row[li], "scalar",
-                                    epochs=epochs, lr=lr)
-                new_deltas[key] = dataclasses.replace(
-                    entry, v_row=put(entry.v_row, li, v),
-                    v_col=put(entry.v_col, li, v))
-                report["val_mse"].setdefault(proj, []).append(float(mse))
-            else:
-                v_r, v_c, use_row, mses = fit_layer(entry, wb, x, y, li,
-                                                    epochs=epochs, lr=lr)
-                new_deltas[key] = dataclasses.replace(
-                    entry, v_row=put(entry.v_row, li, v_r),
-                    v_col=put(entry.v_col, li, v_c),
-                    use_row=put(entry.use_row, li, use_row))
-                report["val_mse"].setdefault(proj, []).append(mses)
-                report["axis"].setdefault(proj, []).append(
-                    "row" if use_row else "col")
+            new_deltas[key] = _fit_entry(
+                dm.deltas[key], base_flat[key][li], x, y, li, scalar=scalar,
+                epochs=epochs, lr=lr, report=report, name=proj)
         dm = DeltaModel(deltas=new_deltas, extras=dm.extras)
         if progress:
             progress(li, n_layers)
@@ -372,6 +385,71 @@ def calibrate_transformer(model, base_params, ft_params, batches: list, *,
     # Stage 3: end-to-end
     def fwd(p, b):
         return T.forward(p, b, cfg)[0]
+
+    with torch.no_grad():
+        teacher_logits = [fwd(ft_params, b) for b in batches]
+    dm, e2e_losses = e2e_calibrate(fwd, base_params, dm, teacher_logits,
+                                   batches, epochs=e2e_epochs, lr=e2e_lr)
+    report["e2e_losses"] = e2e_losses
+    return dm, report
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper) family
+# ---------------------------------------------------------------------------
+
+def calibrate_encdec(model, base_params, ft_params, batches: list, *,
+                     epochs: int = 5, lr: float = 1e-4,
+                     e2e_epochs: int = 5, e2e_lr: float = 1e-4,
+                     scalar: bool = False):
+    """Alg. 1 for the whisper family, on the base's device: the encoder
+    stack first, then the decoder, each block-sequential (the student's
+    IO cache rebuilt before every layer's fits), then the end-to-end stage
+    on ``whisper.forward``.  ``batches`` are dicts with "tokens" and
+    "frames" (numpy or tensors).  Returns (DeltaModel, report); the
+    report's ``axis`` and ``val_mse`` are keyed "group.proj" (the JAX
+    package leaves ``val_mse`` empty here)."""
+    from repro_torch.models import whisper as W
+    cfg = model.cfg
+    device = tree_leaves(base_params)[0].device
+    batches = [_on(b, device) for b in batches]
+    dm = compress(base_params, ft_params, scalar=scalar)
+    if scalar:
+        epochs = 1
+    cal_batch = {key: torch.cat([b[key] for b in batches], dim=0)
+                 for key in ("tokens", "frames")}
+
+    def fwd_io(p):
+        with torch.no_grad():
+            return W.forward(p, cal_batch, cfg, collect_io=True)[1]
+
+    t_aux = fwd_io(ft_params)
+    base_flat = flatten_params(base_params)
+    report = {"val_mse": {}, "axis": {}}
+    for group, io_key in (("enc_layers", "enc_io"), ("dec_layers", "dec_io")):
+        keys = [k for k in dm.deltas if k.startswith(group + ".")]
+        if not keys:
+            continue
+        n_layers = dm.deltas[keys[0]].packed.shape[0]
+        for li in range(n_layers):
+            s_aux = fwd_io(apply_delta(base_params, dm))
+            new_deltas = dict(dm.deltas)
+            for key in keys:
+                proj = key[len(group) + 1:]
+                x_all = s_aux[io_key][proj][0]
+                y_all = t_aux[io_key][proj][1]
+                x = x_all[li].reshape(-1, x_all.shape[-1])
+                y = y_all[li].reshape(-1, y_all.shape[-1])
+                new_deltas[key] = _fit_entry(
+                    dm.deltas[key], base_flat[key][li], x, y, li,
+                    scalar=scalar, epochs=epochs, lr=lr, report=report,
+                    name=f"{group}.{proj}")
+            dm = DeltaModel(deltas=new_deltas, extras=dm.extras)
+            del s_aux
+    del t_aux
+
+    def fwd(p, b):
+        return W.forward(p, b, cfg)[0]
 
     with torch.no_grad():
         teacher_logits = [fwd(ft_params, b) for b in batches]

@@ -6,7 +6,10 @@ synthetic delta variants, driven through ``serving/api.Deployment``.
 
 ``--arch`` is any registered arch (``repro_torch.configs.ARCHS``):
 qwen3-8b, deepseek-7b, starcoder2-3b, gemma3-12b, deepseek-moe-16b,
-moonshot-v1-16b-a3b.
+moonshot-v1-16b-a3b, internvl2-76b (the VLM backbone: every prompt follows
+``num_image_tokens`` zero image embeddings, and the caches hold them) and
+whisper-base (encoder-decoder: every request's zero encoder frames go
+through the encoder).
 
 Builds a random base model from a seed, makes ``--variants`` synthetic
 fine-tunes (base + 0.005·noise on every matrix), compresses each with
@@ -43,6 +46,14 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PROMPT_LEN = 16
 MAX_LEN = 64
+
+
+def cache_len(cfg, prompt_len: int = PROMPT_LEN,
+              new_tokens: int = MAX_LEN - PROMPT_LEN) -> int:
+    """KV slots a request needs: a VLM's image prefix, the padded prompt
+    and the new tokens (a write past the cache would land on its last
+    slot)."""
+    return cfg.num_image_tokens + prompt_len + new_tokens
 
 
 def make_config(arch: str, reduced: bool = False, num_layers: int = 0):
@@ -82,14 +93,15 @@ def build_variants(cfg, n_variants: int, device, seed: int = 0):
 def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
            device, max_resident: int = 0, bank_size: int = 0,
            base_dtype: str = "fp", root_dir=None,
-           prompt_len: int = PROMPT_LEN, max_len: int = MAX_LEN):
+           prompt_len: int = PROMPT_LEN, max_len: int = 0):
     """A Deployment over ``base`` with ``dms`` published as v0..v{n-1}
     (as store artifacts under ``root_dir`` when given); prompts padded to
-    ``prompt_len``, caches of ``max_len``."""
+    ``prompt_len``, caches of ``max_len`` (default ``cache_len``: room for
+    48 new tokens)."""
     dep = Deployment(model, base, root_dir=root_dir, mode=mode,
                      scheduler=scheduler,
                      batch_size=batch, prompt_len=prompt_len,
-                     max_len=max_len,
+                     max_len=max_len or cache_len(model.cfg, prompt_len),
                      max_resident=max_resident or (8 if mode == "fused"
                                                    else 2),
                      bank_size=bank_size or len(dms) + 2, device=device,
@@ -102,14 +114,14 @@ def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
 def build_deployment(cfg, *, mode: str, n_variants: int, batch: int,
                      device, scheduler: str = "group", seed: int = 0,
                      max_resident: int = 0, base_dtype: str = "fp",
-                     root_dir=None):
+                     root_dir=None, max_len: int = 0):
     """Base model (seeded) + ``n_variants`` published synthetic variants
     v0..v{n-1}, behind a Deployment with a bank of ``n_variants + 2``
     slots."""
     model, base, dms = build_variants(cfg, n_variants, device, seed)
     return deploy(model, base, dms, mode=mode, scheduler=scheduler,
                   batch=batch, device=device, max_resident=max_resident,
-                  base_dtype=base_dtype, root_dir=root_dir)
+                  base_dtype=base_dtype, root_dir=root_dir, max_len=max_len)
 
 
 def submit_requests(dep, cfg, n_requests: int, new_tokens,
@@ -161,7 +173,10 @@ def main(argv=None):
                            batch=args.batch, device=device,
                            scheduler=args.scheduler,
                            base_dtype=args.base_dtype,
-                           root_dir=args.store_dir)
+                           root_dir=args.store_dir,
+                           max_len=cache_len(cfg, PROMPT_LEN,
+                                             max(args.new_tokens,
+                                                 MAX_LEN - PROMPT_LEN)))
     if args.base_dtype == "int8":
         qs = dep.registry.quant_stats
         print(f"int8 base: {qs['targets']} targets, "

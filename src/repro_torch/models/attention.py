@@ -70,6 +70,13 @@ def _pick_chunk(t: int, chunk: int) -> int:
     return chunk
 
 
+def even_chunk(t: int, chunk: int = 512) -> int:
+    """The largest divisor of ``t`` up to ``chunk``: a KV chunk that
+    divides the keys without halving below it (500 for whisper's 1500
+    frames, where :func:`_pick_chunk` halves 512 down to 4)."""
+    return max(c for c in range(1, min(chunk, t) + 1) if t % c == 0)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     kv_offset: int = 0, chunk: int = 512) -> torch.Tensor:

@@ -1,11 +1,15 @@
 """Common building blocks (port of ``repro.models.layers``): the shared
-linear, norms, RoPE, embeddings, gated MLP.
+linear, norms, RoPE, sinusoidal positions, embeddings, the gated MLP and
+whisper's non-gated MLP.
 
 Cast order follows the JAX package in the reduced-precision data path
 (e.g. rmsnorm multiplies in x.dtype after computing fp32 statistics), so
 the two packages round at the same places.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -103,6 +107,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq_len: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings (S, d), fp32, built as
+    the JAX package builds them."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    log_base = torch.tensor(math.log(10000.0), dtype=torch.float32,
+                            device=device)
+    div = torch.exp(-log_base * torch.arange(0, d, 2, dtype=torch.float32,
+                                             device=device) / d)
+    ang = pos * div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+@functools.lru_cache(maxsize=8)
+def sinusoid_table(seq_len: int, d: int, device: torch.device
+                   ) -> torch.Tensor:
+    """:func:`sinusoidal_positions` built once per (length, width,
+    device), read-only: the decode step gathers its positions from it every
+    step (the JAX package's ``jit`` folds the table into a constant)."""
+    return sinusoidal_positions(seq_len, d, device)
+
+
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------
@@ -157,3 +182,24 @@ def mlp_apply(p: dict, x: torch.Tensor, ov=None, vidx=None) -> torch.Tensor:
     h = (F.silu(linear(x, p["w_gate"], _oget(ov, "w_gate"), vidx))
          * linear(x, p["w_up"], _oget(ov, "w_up"), vidx))
     return linear(h, p["w_down"], _oget(ov, "w_down"), vidx)
+
+
+# ---------------------------------------------------------------------------
+# Non-gated MLP (whisper)
+# ---------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp2_init(gen: torch.Generator, d: int, d_ff: int) -> dict:
+    return {
+        "w_in": dense_init(gen, (d_ff, d), ("ffn", "embed")),
+        "w_out": dense_init(gen, (d, d_ff), ("embed", "ffn")),
+    }
+
+
+def mlp2_apply(p: dict, x: torch.Tensor, ov=None, vidx=None) -> torch.Tensor:
+    return linear(gelu(linear(x, p["w_in"], _oget(ov, "w_in"), vidx)),
+                  p["w_out"], _oget(ov, "w_out"), vidx)

@@ -1,8 +1,9 @@
 """Decoder-only transformer LM (port of ``repro.models.transformer``):
 the dense family, local:global layers (gemma3: ring caches of
-``sliding_window`` slots on local layers, per-layer RoPE theta) and the
+``sliding_window`` slots on local layers, per-layer RoPE theta), the
 MoE family (expert blocks of ``models/moe.py`` behind ``moe_first_dense``
-unrolled dense ``pre_layers``).
+unrolled dense ``pre_layers``) and the VLM backbone (precomputed image
+embeddings in front of the text, ``embed_inputs``).
 
 Parameters keep the JAX tree: per-layer leaves are stacked along a leading
 layer dim (``params["layers"]["attn"]["wq"]`` is (L, d_out, d_in); expert
@@ -18,9 +19,9 @@ import torch.nn.functional as F
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models.delta_overlay import oget
-from repro_torch.models.layers import (embed_init, embed_lookup, linear,
-                                       mlp_apply, mlp_init, psel, rmsnorm,
-                                       rmsnorm_init, unembed_logits)
+from repro_torch.models.layers import (dtype_of, embed_init, embed_lookup,
+                                       linear, mlp_apply, mlp_init, psel,
+                                       rmsnorm, rmsnorm_init, unembed_logits)
 from repro_torch.models.param import dense_init, stack_layers
 from repro_torch.tree import tree_map
 
@@ -35,7 +36,7 @@ def layer_pattern(cfg) -> list[dict]:
     return [{"window": cfg.sliding_window, "theta": cfg.rope_theta}]
 
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_family(cfg) -> None:
@@ -151,6 +152,17 @@ def block_apply(p, x, cfg, positions, theta, window, io=None, ov=None,
     return x, (k, v), aux
 
 
+def embed_inputs(params, batch, cfg, ov=None, vidx=None) -> torch.Tensor:
+    """Token embeddings; for the VLM family the batch's ``image_embeds``
+    (B, n_img, d), cast to the compute dtype, go in front of them."""
+    x = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype,
+                     bank=oget(ov, "embed"), vidx=vidx)
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        img = batch["image_embeds"].to(dtype_of(cfg.compute_dtype))
+        x = torch.cat([img, x], dim=1)
+    return x
+
+
 def _unembed(params, x, cfg, ov=None, vidx=None):
     key = "embed" if cfg.tie_embeddings else "unembed"
     return unembed_logits(x, params[key], bank=oget(ov, key), vidx=vidx)
@@ -168,7 +180,8 @@ def _stack_io(ios: list) -> dict:
 
 def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
             variant_idx=None, collect_io: bool = False):
-    """-> (logits (B,S,V), aux).  aux["moe_aux"] is the summed MoE
+    """-> (logits (B,S,V), aux); for the VLM family S counts the image
+    prefix too.  aux["moe_aux"] is the summed MoE
     load-balancing loss (0 for dense archs).  aux["kv"] = (k, v) stacked
     (L,B,S,Hkv,hd) over the stacked layers when collect_kv, aux["pre_kv"]
     the same over the ``pre_layers``.  aux["io"] = {projection: (X
@@ -182,8 +195,7 @@ def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
     variant, slot 0 meaning base."""
     check_family(cfg)
     vidx = variant_idx
-    x = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype,
-                     bank=oget(overlay, "embed"), vidx=vidx)
+    x = embed_inputs(params, batch, cfg, ov=overlay, vidx=vidx)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -279,10 +291,11 @@ def prefill(params, batch, cfg, max_len: int, cache_dtype=torch.bfloat16,
     """Teacher-forced pass over the prompt; returns (last_logits, cache).
     Windowed layers keep the prompt's last ``window`` positions in their
     ring (``attention.prefill_ring``); the others are written
-    contiguously."""
+    contiguously.  The position count is the embedded sequence's, so a
+    VLM's image prefix counts: decoding continues at n_img + S."""
     logits, aux = forward(params, batch, cfg, collect_kv=True,
                           overlay=overlay, variant_idx=variant_idx)
-    b, s = batch["tokens"].shape
+    b, s = logits.shape[:2]
     cache = init_cache(cfg, b, max_len, logits.device, cache_dtype)
     pat = layer_pattern(cfg)
     k_all, v_all = aux["kv"]                  # (L, B, S, Hkv, hd)

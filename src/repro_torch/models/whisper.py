@@ -1,0 +1,312 @@
+"""Whisper-style encoder-decoder (port of ``repro.models.whisper``,
+whisper-base); the conv audio frontend is a stub.
+
+``batch["frames"]`` (B, encoder_frames, d_model) holds precomputed frame
+embeddings standing in for the two conv1d layers.  Encoder: bidirectional
+self-attention blocks.  Decoder: causal self-attention, then
+cross-attention to the encoder output.  Positions: sinusoidal.  GELU
+(tanh, ``jax.nn.gelu``'s default) non-gated MLPs.  The embedding is tied.
+
+Parameters keep the JAX tree: ``embed``, ``enc_layers`` and ``dec_layers``
+(per-layer leaves stacked along a leading layer dim), ``enc_norm``,
+``dec_norm``.  Where the JAX module ``lax.scan``s over the layer dim, the
+port loops over it and takes views.  Every projection runs through
+``layers.linear``, so an overlay entry puts it through the delta kernels.
+
+The non-causal attentions (the encoder's, the decoder's cross-attention)
+take KV chunks of the largest divisor of the frame count up to 512
+(``attention.even_chunk``: 500 for 1500 frames) where the JAX module
+halves 512 down to a divisor (4 for 1500 frames); only the summation
+order differs.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models.delta_overlay import oget
+from repro_torch.models.layers import (dtype_of, embed_init, embed_lookup,
+                                       gelu, linear, mlp2_apply, mlp2_init,
+                                       psel, rmsnorm, rmsnorm_init,
+                                       sinusoid_table, sinusoidal_positions,
+                                       unembed_logits)
+from repro_torch.models.param import stack_layers
+from repro_torch.models.transformer import _layer, _stack_io
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def enc_block_init(gen: torch.Generator, cfg) -> dict:
+    return {"ln1": rmsnorm_init(cfg.d_model, gen.device),
+            "attn": A.attn_init(gen, cfg),
+            "ln2": rmsnorm_init(cfg.d_model, gen.device),
+            "mlp": mlp2_init(gen, cfg.d_model, cfg.d_ff)}
+
+
+def dec_block_init(gen: torch.Generator, cfg) -> dict:
+    return {"ln1": rmsnorm_init(cfg.d_model, gen.device),
+            "self_attn": A.attn_init(gen, cfg),
+            "ln_x": rmsnorm_init(cfg.d_model, gen.device),
+            "cross_attn": A.attn_init(gen, cfg),
+            "ln2": rmsnorm_init(cfg.d_model, gen.device),
+            "mlp": mlp2_init(gen, cfg.d_model, cfg.d_ff)}
+
+
+def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return t.reshape(*t.shape[:2], n, hd)
+
+
+def _qkv(p, xq, xkv, cfg, ov=None, vidx=None):
+    """q (B,S,Hq,hd) from ``xq``, k/v (B,T,Hkv,hd) from ``xkv``, each
+    projection cast to ``xq``'s dtype."""
+    q = linear(xq, p["wq"], oget(ov, "wq"), vidx).to(xq.dtype)
+    k = linear(xkv, p["wk"], oget(ov, "wk"), vidx).to(xq.dtype)
+    v = linear(xkv, p["wv"], oget(ov, "wv"), vidx).to(xq.dtype)
+    return (_heads(q, cfg.num_heads, cfg.head_dim),
+            _heads(k, cfg.num_kv_heads, cfg.head_dim),
+            _heads(v, cfg.num_kv_heads, cfg.head_dim))
+
+
+def _full_attention(q, k, v):
+    """Non-causal attention over every key (encoder, cross-attention)."""
+    return A.flash_attention(q, k, v, causal=False,
+                             chunk=A.even_chunk(k.shape[1]))
+
+
+def _mlp_part(lp, h, cfg, io=None, ov=None, vidx=None):
+    """h + MLP(ln2(h)); ``io`` records w_in's pair from a second product
+    and w_out's, as the JAX module does."""
+    ov_m = oget(ov, "mlp")
+    hm = rmsnorm(h, psel(lp["ln2"], oget(ov, "ln2"), vidx), cfg.norm_eps)
+    mid = gelu(linear(hm, lp["mlp"]["w_in"], oget(ov_m, "w_in"), vidx))
+    out = linear(mid, lp["mlp"]["w_out"], oget(ov_m, "w_out"), vidx)
+    if io is not None:
+        io["mlp.w_in"] = (hm, linear(hm, lp["mlp"]["w_in"],
+                                     oget(ov_m, "w_in"), vidx))
+        io["mlp.w_out"] = (mid, out)
+    return h + out
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+def init(gen: torch.Generator, cfg) -> dict:
+    """Param tree on ``gen``'s device (float32 leaves, as the JAX init)."""
+    return {
+        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model),
+        "enc_layers": stack_layers(lambda g: enc_block_init(g, cfg), gen,
+                                   cfg.encoder_layers),
+        "enc_norm": rmsnorm_init(cfg.d_model, gen.device),
+        "dec_layers": stack_layers(lambda g: dec_block_init(g, cfg), gen,
+                                   cfg.num_layers),
+        "dec_norm": rmsnorm_init(cfg.d_model, gen.device),
+    }
+
+
+def encode(params, frames: torch.Tensor, cfg, collect_io: bool = False,
+           overlay=None, vidx=None):
+    """frames (B, F, d) -> (encoder output (B, F, d), stacked IO pairs or
+    None)."""
+    x = frames.to(dtype_of(cfg.compute_dtype))
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 x.device).to(x.dtype)
+    ov_layers = oget(overlay, "enc_layers")
+    ios = []
+    for i in range(cfg.encoder_layers):
+        lp, ovl = _layer(params["enc_layers"], i), _layer(ov_layers, i)
+        io = {} if collect_io else None
+        ov_a = oget(ovl, "attn")
+        hn = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx),
+                     cfg.norm_eps)
+        q, k, v = _qkv(lp["attn"], hn, hn, cfg, ov=ov_a, vidx=vidx)
+        b, f, _ = hn.shape
+        o = _full_attention(q, k, v).reshape(b, f, cfg.q_dim)
+        wo_out = linear(o, lp["attn"]["wo"], oget(ov_a, "wo"), vidx)
+        if io is not None:
+            io["attn.wq"] = (hn, q.reshape(b, f, -1))
+            io["attn.wk"] = (hn, k.reshape(b, f, -1))
+            io["attn.wv"] = (hn, v.reshape(b, f, -1))
+            io["attn.wo"] = (o, wo_out)
+        x = _mlp_part(lp, x + wo_out, cfg, io=io, ov=ovl, vidx=vidx)
+        ios.append(io)
+    out = rmsnorm(x, psel(params["enc_norm"], oget(overlay, "enc_norm"),
+                          vidx), cfg.norm_eps)
+    return out, (_stack_io(ios) if collect_io else None)
+
+
+def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
+            variant_idx=None, collect_io: bool = False):
+    """Teacher-forced: batch = {"tokens" (B,S), "frames" (B,F,d)} ->
+    (logits (B,S,V), aux).  aux["enc_out"] is the encoder output,
+    aux["kv"] the decoder's self-attention (k, v) stacked (L,B,S,Hkv,hd)
+    when collect_kv, aux["enc_io"] / aux["dec_io"] the per-projection
+    (X, Y) calibration pairs stacked over layers when collect_io (the
+    cross-attention's wk/wv pairs keyed on the encoder output).
+    ``overlay`` / ``variant_idx`` as in ``transformer.forward``."""
+    vidx = variant_idx
+    enc_out, enc_io = encode(params, batch["frames"], cfg,
+                             collect_io=collect_io, overlay=overlay,
+                             vidx=vidx)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype,
+                     bank=oget(overlay, "embed"), vidx=vidx)
+    x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)
+    ov_layers = oget(overlay, "dec_layers")
+    ks, vs, ios = [], [], []
+    for i in range(cfg.num_layers):
+        lp, ovl = _layer(params["dec_layers"], i), _layer(ov_layers, i)
+        io = {} if collect_io else None
+        ov_s = oget(ovl, "self_attn")
+        hs = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx),
+                     cfg.norm_eps)
+        q, k, v = _qkv(lp["self_attn"], hs, hs, cfg, ov=ov_s, vidx=vidx)
+        o = A.flash_attention(q, k, v, causal=True).reshape(b, s, cfg.q_dim)
+        wo_out = linear(o, lp["self_attn"]["wo"], oget(ov_s, "wo"), vidx)
+        if io is not None:
+            io["self_attn.wq"] = (hs, q.reshape(b, s, -1))
+            io["self_attn.wk"] = (hs, k.reshape(b, s, -1))
+            io["self_attn.wv"] = (hs, v.reshape(b, s, -1))
+            io["self_attn.wo"] = (o, wo_out)
+        x = x + wo_out
+        ov_x = oget(ovl, "cross_attn")
+        hx = rmsnorm(x, psel(lp["ln_x"], oget(ovl, "ln_x"), vidx),
+                     cfg.norm_eps)
+        qx, kx, vx = _qkv(lp["cross_attn"], hx, enc_out, cfg, ov=ov_x,
+                          vidx=vidx)
+        ox = _full_attention(qx, kx, vx).reshape(b, s, cfg.q_dim)
+        xo_out = linear(ox, lp["cross_attn"]["wo"], oget(ov_x, "wo"), vidx)
+        if io is not None:
+            f = enc_out.shape[1]
+            io["cross_attn.wq"] = (hx, qx.reshape(b, s, -1))
+            io["cross_attn.wk"] = (enc_out, kx.reshape(b, f, -1))
+            io["cross_attn.wv"] = (enc_out, vx.reshape(b, f, -1))
+            io["cross_attn.wo"] = (ox, xo_out)
+        x = _mlp_part(lp, x + xo_out, cfg, io=io, ov=ovl, vidx=vidx)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+        ios.append(io)
+    x = rmsnorm(x, psel(params["dec_norm"], oget(overlay, "dec_norm"),
+                        vidx), cfg.norm_eps)
+    logits = unembed_logits(x, params["embed"],           # tied embeddings
+                            bank=oget(overlay, "embed"), vidx=vidx)
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32,
+                                  device=x.device),
+           "enc_out": enc_out}
+    if collect_kv:
+        aux["kv"] = (torch.stack(ks), torch.stack(vs))
+    if collect_io:
+        aux["enc_io"] = enc_io
+        aux["dec_io"] = _stack_io(ios)
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, device,
+               dtype=torch.bfloat16) -> dict:
+    """{"pos": (B,) int32, "self": the decoder's stacked (L, B, max_len,
+    Hkv, hd) self-attention cache, "cross_k"/"cross_v": (L, B, F, Hkv,
+    hd) projections of the encoder output}."""
+    one = A.make_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                          device, dtype)
+    cross = (cfg.num_layers, batch, cfg.encoder_frames, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "self": {k: v.expand((cfg.num_layers,) + v.shape).clone()
+                 for k, v in one.items()},
+        "cross_k": torch.zeros(cross, dtype=dtype, device=device),
+        "cross_v": torch.zeros(cross, dtype=dtype, device=device),
+    }
+
+
+def cache_batch_axes(cfg) -> dict:
+    """Batch axis of each ``init_cache`` leaf (``pos`` 0; the rest 1,
+    behind the layer dim): every leaf is row-separable, so the continuous
+    scheduler merges admitted lanes by a row select."""
+    return {"pos": 0, "self": {"k": 1, "v": 1, "slot_pos": 1},
+            "cross_k": 1, "cross_v": 1}
+
+
+def prefill(params, batch, cfg, max_len: int, cache_dtype=torch.bfloat16,
+            overlay=None, variant_idx=None):
+    """Teacher-forced pass over the prompt and the frames; returns
+    (last_logits, cache).  The cross-attention K/V are projected once from
+    the encoder output, through the overlay like every projection."""
+    vidx = variant_idx
+    logits, aux = forward(params, batch, cfg, collect_kv=True,
+                          overlay=overlay, variant_idx=vidx)
+    b, s = batch["tokens"].shape
+    cache = init_cache(cfg, b, max_len, logits.device, cache_dtype)
+    k_all, v_all = aux["kv"]
+    for i in range(cfg.num_layers):
+        A.cache_insert(A.cache_layer_view(cache["self"], i), k_all[i],
+                       v_all[i], 0)
+    enc_out = aux["enc_out"]
+    ov_layers = oget(overlay, "dec_layers")
+    for i in range(cfg.num_layers):
+        lp = _layer(params["dec_layers"], i)["cross_attn"]
+        ov_x = oget(_layer(ov_layers, i), "cross_attn")
+        k = linear(enc_out, lp["wk"], oget(ov_x, "wk"), vidx)
+        v = linear(enc_out, lp["wv"], oget(ov_x, "wv"), vidx)
+        cache["cross_k"][i] = _heads(k, cfg.num_kv_heads,
+                                     cfg.head_dim).to(cache_dtype)
+        cache["cross_v"][i] = _heads(v, cfg.num_kv_heads,
+                                     cfg.head_dim).to(cache_dtype)
+    cache["pos"] = torch.full((b,), s, dtype=torch.int32,
+                              device=logits.device)
+    return logits[:, -1, :], cache
+
+
+def decode_step(params, token, cache, cfg, overlay=None, variant_idx=None):
+    """token (B,) -> (logits (B,V), cache advanced by one, updated in
+    place).  Self-attention reads the decoder cache; cross-attention sees
+    every frame (positions 0..F-1 against pos + F)."""
+    vidx = variant_idx
+    pos = cache["pos"]
+    b = token.shape[0]
+    x = embed_lookup(params["embed"], token[:, None], cfg.compute_dtype,
+                     bank=oget(overlay, "embed"), vidx=vidx)
+    table = sinusoid_table(cfg.max_seq_len, cfg.d_model, x.device)
+    x = x + table[pos.to(torch.int64)][:, None, :].to(x.dtype)
+    frame_pos = torch.arange(cfg.encoder_frames, dtype=torch.int32,
+                             device=x.device)
+    ov_layers = oget(overlay, "dec_layers")
+    for i in range(cfg.num_layers):
+        lp, ovl = _layer(params["dec_layers"], i), _layer(ov_layers, i)
+        ov_s = oget(ovl, "self_attn")
+        ov_x = oget(ovl, "cross_attn")
+        hs = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx),
+                     cfg.norm_eps)
+        q, k, v = _qkv(lp["self_attn"], hs, hs, cfg, ov=ov_s, vidx=vidx)
+        A.cache_insert_stacked(cache["self"], i, k, v, pos)
+        view = A.cache_layer_view(cache["self"], i)
+        o = A.decode_attention(q, view["k"], view["v"], view["slot_pos"],
+                               pos)
+        x = x + linear(o.reshape(b, 1, cfg.q_dim), lp["self_attn"]["wo"],
+                       oget(ov_s, "wo"), vidx)
+        hx = rmsnorm(x, psel(lp["ln_x"], oget(ovl, "ln_x"), vidx),
+                     cfg.norm_eps)
+        qx = _heads(linear(hx, lp["cross_attn"]["wq"], oget(ov_x, "wq"),
+                           vidx), cfg.num_heads, cfg.head_dim)
+        ox = A.decode_attention(qx, cache["cross_k"][i], cache["cross_v"][i],
+                                frame_pos, pos + cfg.encoder_frames)
+        x = x + linear(ox.reshape(b, 1, cfg.q_dim), lp["cross_attn"]["wo"],
+                       oget(ov_x, "wo"), vidx)
+        x = x + mlp2_apply(lp["mlp"],
+                           rmsnorm(x, psel(lp["ln2"], oget(ovl, "ln2"),
+                                           vidx), cfg.norm_eps),
+                           ov=oget(ovl, "mlp"), vidx=vidx)
+    x = rmsnorm(x, psel(params["dec_norm"], oget(overlay, "dec_norm"),
+                        vidx), cfg.norm_eps)
+    logits = unembed_logits(x, params["embed"],
+                            bank=oget(overlay, "embed"), vidx=vidx)
+    cache["pos"] = pos + 1
+    return logits[:, 0, :], cache

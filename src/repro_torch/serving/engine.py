@@ -410,10 +410,27 @@ class ServingEngine:
     def _prompt_batch(self, requests: dict) -> dict:
         """Fixed-shape (batch_size, prompt_len) prefill batch: row i holds
         requests[i]'s prompt tail, right-padded with zeros; unmapped rows
-        stay zero.  The one place prompt padding happens: both schedulers
-        build identical batches."""
+        stay zero; plus the frontend stub's inputs.  The one place prompt
+        padding happens: both schedulers build identical batches."""
         toks = np.zeros((self.batch_size, self.prompt_len), np.int64)
         for i, r in requests.items():
             p = r.tokens[-self.prompt_len:]
             toks[i, :len(p)] = p
-        return {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch.update(frontend_stub(self.model.cfg, self.batch_size,
+                                   self.device))
+        return batch
+
+
+def frontend_stub(cfg, bs: int, device) -> dict:
+    """The stubbed frontends' outputs for a batch of ``bs``, zeros in fp32
+    as the JAX engine makes them: an audio model's encoder ``frames``
+    (bs, encoder_frames, d), a VLM's ``image_embeds`` (bs, n_img, d);
+    nothing for the text-only families."""
+    if cfg.family == "audio":
+        return {"frames": torch.zeros((bs, cfg.encoder_frames, cfg.d_model),
+                                      device=device)}
+    if cfg.family == "vlm":
+        return {"image_embeds": torch.zeros(
+            (bs, cfg.num_image_tokens, cfg.d_model), device=device)}
+    return {}

@@ -1035,3 +1035,69 @@ def test_moe_combine_repeats_bit_for_bit(cuda):
     want = M._combine(yd, c_idx, top_idx).float()
     assert bool(((got.cpu().float() - want).abs()
                  <= 2 ** -7 * want.abs() + 1e-6).all())
+
+
+def _device_bank(gen, nbank, n, k, device):
+    """``_bank_case`` drawn on the card (the large shapes below): slot 0
+    zero, odd slots row-scaled, even slots col-scaled."""
+    wb = torch.randn((n, k), generator=gen, device=device) * k ** -0.5
+    packed = torch.zeros((nbank, n, k // 8), dtype=torch.uint8, device=device)
+    v_row = torch.zeros((nbank, n), device=device)
+    v_col = torch.zeros((nbank, k), device=device)
+    for s in range(1, nbank):
+        delta = torch.randn((n, k), generator=gen, device=device) * 0.005
+        packed[s] = D.pack_signs(D.sign_mask(delta))
+        if s % 2:
+            v_row[s] = D.init_scale(delta, "row")
+        else:
+            v_col[s] = D.init_scale(delta, "col")
+        del delta
+    return wb, packed, v_row.half(), v_col.half()
+
+
+def _lanes(slots, rows, device):
+    """Per-row slots of a continuous prefill: lane i's ``rows`` rows on
+    ``slots[i]``."""
+    return torch.tensor(slots, dtype=torch.int32,
+                        device=device).repeat_interleave(rows)
+
+
+@pytest.mark.parametrize("nk", [(512, 512), (2048, 512), (512, 2048)])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.int8])
+def test_delta_gemms_at_whisper_prefill_rows(cuda, nk, wdt):
+    """whisper-base's encoder projections and the cross-attention's wk/wv
+    take 4 lanes x 1500 frames = 6000 rows: ``bitlinear_axes_p`` and the
+    banked GEMM (lanes on slots [0, 1, 2, 1], so 64-row tiles straddle two
+    slots at lane edges) against their plain versions, the GEMM bound."""
+    n, k = nk
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    wb, packed, v_row, v_col = _device_bank(gen, 3, n, k, cuda)
+    wq, ws, wf = _banked_base(wb, wdt)
+    x = torch.randn((6000, k), generator=gen, device=cuda).to(torch.bfloat16)
+    got = BL.bitlinear_axes_p(x, packed[1], v_row[1], v_col[1], wq, ws)
+    want = R.bitlinear_axes_ref(x.float(), packed[1], v_row[1], v_col[1], wq,
+                                w_scale=ws)
+    w_abs = ((v_row[1].float()[:, None] + v_col[1].float()[None, :])
+             * D.unpack_signs(packed[1], k) + wf).abs()
+    assert bool(((got - want).abs()
+                 <= 1e-5 * (x.float().abs() @ w_abs.T) + 1e-6).all())
+    vidx = _lanes([0, 1, 2, 1], 1500, cuda)
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wq, ws)
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wf)
+
+
+@pytest.mark.parametrize("wdt", [torch.float32, torch.int8])
+def test_banked_gemm_at_internvl2_w_down(cuda, wdt):
+    """internvl2-76b's w_down (8192 x 28672) in a continuous prefill: 4
+    lanes x (256 image + 32 text) = 1152 rows over a 3-slot bank, lanes on
+    [0, 1, 2, 1]; K = 28672 splits into 56 partial sums (a (56, 1152,
+    8192) fp32 workspace): the GEMM bound against the plain version."""
+    n, k = 8192, 28672
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    wb, packed, v_row, v_col = _device_bank(gen, 3, n, k, cuda)
+    wq, ws, wf = _banked_base(wb, wdt)
+    del wb
+    x = torch.randn((1152, k), generator=gen, device=cuda).to(torch.bfloat16)
+    vidx = _lanes([0, 1, 2, 1], 288, cuda)
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wq, ws)
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wf)
