@@ -121,10 +121,20 @@ Phases (any failure raises and the script exits non-zero):
    one prefill (6000 rows at the encoder and the cross-attention's wk/wv)
    held to the GEMM bound, a repeat bit-identical, logits beside the
    plain versions, one decode step profiled;
-15. internvl2-76b at full width, 2 layers (last): 256 zero image
+15. internvl2-76b at full width, 2 layers: 256 zero image
    embeddings + 32-token prompts, fp32 base, group fused then continuous
    over a 3-slot bank, the same checks at 1152 rows, peak device memory
    printed beside the reckoning in ``vlm_phase``.
+16. the recurrent families: phase 9 covers xlstm-350m's and zamba2-7b's
+   shapes too (N = 8, 112 and 128; K = 1344), phase 11 runs both reduced
+   (group dense too), and the script ends with xlstm-350m at full width
+   and depth (24 layers) and zamba2-7b at full width, 13 layers (two
+   applications of the shared block): group dense, group fused and
+   continuous over a 4-slot bank, over an fp32 and an int8 base, the
+   banked GEMM counted (159 and 79 launches a prefill and a step), after
+   each fused and continuous run every delta GEMM launch of one prefill
+   held to the GEMM bound, a repeat bit-identical, logits beside the plain
+   versions, one decode step profiled, peak memory printed.
 
 Each phase prints its seconds.  Then it prints the kernel summary as one
 JSON line (the entries of a kernel
@@ -1464,11 +1474,15 @@ def lifecycle_reference_phase(dev) -> None:
 NEW_ARCHS = ("deepseek-7b", "starcoder2-3b", "gemma3-12b",
              "deepseek-moe-16b", "moonshot-v1-16b-a3b")
 ENCDEC_VLM = ("whisper-base", "internvl2-76b")
+RECURRENT = ("xlstm-350m", "zamba2-7b")
 # reduced reference phase: layers (gemma3: its [local, global] pattern once;
-# MoE: the dense first layer and two expert layers) and a padded prompt of
-# 20 tokens, past gemma3's reduced window of 16, so its ring wraps in
-# prefill and again in decode
-REF_LAYERS = {"deepseek-moe-16b": 3, "moonshot-v1-16b-a3b": 3}
+# MoE: the dense first layer and two expert layers; xlstm: one super-block
+# of 3 mLSTM + 1 sLSTM; zamba: 2 applications of the shared block and a
+# trailing Mamba2 block, the reduced defaults) and a padded prompt of 20
+# tokens, past gemma3's reduced window of 16, so its ring wraps in prefill
+# and again in decode (and one chunk of 20 in mLSTM and SSD)
+REF_LAYERS = {"deepseek-moe-16b": 3, "moonshot-v1-16b-a3b": 3,
+              "xlstm-350m": 4, "zamba2-7b": 7}
 REF_PROMPT = 20
 
 
@@ -1483,11 +1497,34 @@ def stacked_ms(cfg) -> tuple:
                          4, capacity(LANES * 256, cfg)}))
 
 
+def recurrent_shapes(cfg) -> list:
+    """The distinct (N, K) of xlstm's or zamba's overlaid projections:
+    xlstm's w_up (also w_gate, sLSTM's w_zi and w_if), wq (wk, wv),
+    mLSTM's w_if (2 x heads rows), w_down, w_ff1 and w_ff2 (K = 1344);
+    zamba's w_z (w_xc), w_bc, w_dt, w_out (the shared wq, wk, wv too: K =
+    2d), the shared wo and MLP."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        from repro_torch.models.xlstm import slstm_ffn
+        f = slstm_ffn(d)
+        return [("w_up", 2 * d, d), ("wq", 2 * d, 2 * d),
+                ("mlstm w_if", 2 * cfg.num_heads, 2 * d),
+                ("w_down", d, 2 * d), ("w_ff1", 2 * f, d),
+                ("w_ff2", d, f)]
+    return [("w_z", 2 * d, d), ("w_bc", 2 * cfg.ssm_state, d),
+            ("w_dt", cfg.ssm_heads, d), ("w_out", d, 2 * d),
+            ("shared wo", d, cfg.q_dim), ("shared w_gate", cfg.d_ff, d),
+            ("shared w_down", d, cfg.d_ff)]
+
+
 def arch_shapes(cfg) -> list:
     """The distinct (N, K) of an arch's overlaid 2-D projections:
     attention and the dense MLP (whisper's w_in / w_out); for an MoE arch
     the dense MLP of its first layers and its shared experts' MLP (the
-    expert stacks are the stacked GEMM's)."""
+    expert stacks are the stacked GEMM's); the recurrent families'
+    ``recurrent_shapes``."""
+    if cfg.family in ("ssm", "hybrid"):
+        return recurrent_shapes(cfg)
     d = cfg.d_model
     mlps = [("", cfg.d_ff)]
     if cfg.family == "moe":
@@ -1529,9 +1566,11 @@ def arch_kernel_phase(dev, timer) -> dict:
     has deepseek-moe-16b's widths), over an fp32 and an int8 base, each
     held against its plain version with the GEMM bound and timed beside it
     (single-variant: and ``torch.matmul`` over a built Ŵ); K of 11008,
-    3840, 2816 and 1408 are no whole number of the streaming kernel's warp
-    steps, and internvl2-76b's w_down (K = 28672) splits K 56 ways in the
-    banked GEMM at 1152 rows.  Returns {kernel body: rows}."""
+    3840, 2816, 1408 and xlstm's 1344 are no whole number of the streaming
+    kernel's warp steps, xlstm's mLSTM w_if (N = 8) and zamba's w_dt (112)
+    and w_bc (128) are the narrowest N, and internvl2-76b's w_down (K =
+    28672) splits K 56 ways in the banked GEMM at 1152 rows.  Returns
+    {kernel body: rows}."""
     from repro_torch.configs import get_config
     from repro_torch.core import delta as D
     from repro_torch.core import quantize as Q
@@ -1541,7 +1580,7 @@ def arch_kernel_phase(dev, timer) -> dict:
     rows = {name: [] for name in ("bitlinear_axes", "bitlinear_axes_q8",
                                   "bitlinear_axes_banked",
                                   "bitlinear_axes_banked_q8")}
-    for arch in NEW_ARCHS[:4] + ENCDEC_VLM:
+    for arch in NEW_ARCHS[:4] + ENCDEC_VLM + RECURRENT:
         cfg = get_config(arch)
         per_lane = prefill_rows(cfg)
         for name, n, k in arch_shapes(cfg):
@@ -1649,12 +1688,13 @@ def stacked_phase(dev, timer) -> dict:
 
 def arch_reference_phase(dev) -> None:
     """Each new arch reduced, fp32 compute: group fused and continuous over
-    an fp32 and an int8 base (whisper-base: group dense too), card kernels
-    against the CPU plain versions (``reference_runs``); tokens identical.
-    gemma3's 20-token padded prompt and budgets up to 5 run past its
-    reduced window of 16; internvl2-76b's caches hold its 8 image tokens
-    besides; whisper-base's 16 stub frames run through its 2 encoder
-    layers."""
+    an fp32 and an int8 base (whisper-base, xlstm-350m and zamba2-7b:
+    group dense too), card kernels against the CPU plain versions
+    (``reference_runs``); tokens identical.  gemma3's 20-token padded
+    prompt and budgets up to 5 run past its reduced window of 16;
+    internvl2-76b's caches hold its 8 image tokens besides; whisper-base's
+    16 stub frames run through its 2 encoder layers; the recurrent archs
+    carry their states past the prompt (one chunk of 20)."""
     import dataclasses
 
     from repro_torch.core import calibration as C
@@ -1662,7 +1702,7 @@ def arch_reference_phase(dev) -> None:
     from repro_torch.models import build_model
     from repro_torch.models.param import split
 
-    for arch in NEW_ARCHS + ENCDEC_VLM:
+    for arch in NEW_ARCHS + ENCDEC_VLM + RECURRENT:
         t0 = time.perf_counter()
         cfg = dataclasses.replace(SV.make_config(arch, reduced=True),
                                   num_layers=REF_LAYERS.get(arch, 2),
@@ -1672,7 +1712,7 @@ def arch_reference_phase(dev) -> None:
         dms = [C.compress(base, SV.fine_tune(base, 100 + i))
                for i in range(2)]
         runs = [("group", "fused", 4), ("continuous", "fused", [2, 5, 3, 4])]
-        if cfg.family == "audio":
+        if cfg.family in ("audio", "ssm", "hybrid"):
             runs.insert(0, ("group", "dense", 4))
         reference_runs(dev, model, base, dms, runs, REF_PROMPT,
                        SV.cache_len(cfg, REF_PROMPT, SV.MAX_LEN))
@@ -2147,21 +2187,15 @@ def chunk_prefill(model, params, dev) -> None:
 def whisper_phase(dev) -> dict:
     """whisper-base at full width and full depth (6 encoder + 6 decoder
     layers, 1500 zero frames a lane from the engine's stub), 2 variants,
-    4 lanes: first ``chunk_prefill``, then group dense (``unpack_apply``), group fused and continuous
-    over a 4-slot bank, over an fp32 and an int8 base.  Memory: the fp32
-    base is 0.28 GB.  The continuous runs must launch the banked GEMM
-    ``whisper_launches`` times per prefill and per step.  After each fused
-    and continuous run ``serve_checks`` holds every delta GEMM launch of
-    one prefill (6000 rows at the encoder and the cross-attention's wk/wv,
-    the mixed batch [0,1,2,1] on the banked GEMM) to the GEMM bound,
-    repeats the prefill (bit-identical), prints its logits beside the
-    plain versions and profiles one decode step; after a dense run one
-    decode step of v0 is profiled.  Returns {run: launches}."""
+    4 lanes: first ``chunk_prefill``, then ``six_runs`` (the continuous
+    runs count ``whisper_launches`` a prefill and a step; the checked
+    prefill's launches take 6000 rows at the encoder and the
+    cross-attention's wk/wv).  Memory: the fp32 base is 0.28 GB.  Returns
+    {run: launches}."""
     from repro_torch.launch import serve as SV
 
     cfg = SV.make_config("whisper-base")
     per_prefill, per_step = whisper_launches(cfg)
-    launches = {}
     t0 = time.perf_counter()
     model, base, dms = SV.build_variants(cfg, 2, dev)
     torch.cuda.synchronize()
@@ -2169,11 +2203,35 @@ def whisper_phase(dev) -> dict:
     print(f"whisper-base: {cfg.encoder_layers} + {cfg.num_layers} layers, "
           f"{cfg.encoder_frames} frames, setup {setup_s:.2f} s")
     chunk_prefill(model, base, dev)
+    launches = six_runs(dev, cfg, model, base, dms, per_prefill, per_step)
+    del model, base, dms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def six_runs(dev, cfg, model, base, dms, per_prefill, per_step) -> dict:
+    """Group dense, group fused and continuous over a 4-slot bank, over an
+    fp32 and an int8 base, of ``model`` with ``dms`` published: 8 group
+    requests x 8 tokens, 12 continuous ones with ``CONT_BUDGETS``.  The
+    continuous runs must launch the banked GEMM ``per_prefill`` times a
+    prefill and ``per_step`` a decode step.  After each fused and
+    continuous run ``serve_checks`` holds every delta GEMM launch of one
+    prefill (``per_prefill`` of them, at the rows of the prompts and of
+    the frontend: ``prefill_rows``) to the GEMM bound, repeats the prefill
+    (bit-identical), prints its logits beside the plain versions and
+    profiles one decode step; after a dense run one decode step of v0 is
+    profiled.  Each run prints its peak device memory (serving and
+    checks).  Returns {run: launches}."""
+    from repro_torch.launch import serve as SV
+
+    launches = {}
+    rows = {LANES * SV.PROMPT_LEN, LANES * prefill_rows(cfg)}
     for base_dtype in ("fp", "int8"):
         for run, scheduler, mode in (("dense", "group", "dense"),
                                      ("fused", "group", "fused"),
                                      ("continuous", "continuous", "fused")):
-            label = f"whisper-base {run}" + (
+            label = f"{cfg.name} {run}" + (
                 " int8" if base_dtype == "int8" else "")
             t0 = time.perf_counter()
             dep = SV.deploy(model, base, dms, mode=mode, scheduler=scheduler,
@@ -2203,16 +2261,12 @@ def whisper_phase(dev) -> dict:
                                        continuous=run == "continuous",
                                        repeat=True)
                 assert len(checked) == per_prefill, len(checked)
-                assert LANES * cfg.encoder_frames in {
-                    shape[0] for _, shape, _ in checked}
+                assert {shape[0] for _, shape, _ in checked} == rows
             print(f"{label}: peak_mem_GB="
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
             del dep
             gc.collect()
             torch.cuda.empty_cache()
-    del model, base, dms
-    gc.collect()
-    torch.cuda.empty_cache()
     return launches
 
 
@@ -2276,6 +2330,50 @@ def vlm_phase(dev) -> dict:
         del dep
         gc.collect()
         torch.cuda.empty_cache()
+    del model, base, dms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# full-width recurrent runs: xlstm-350m at its full 24 layers (fp32 base
+# 2.1 GB); zamba2-7b at 13 of 81 layers (two applications of the shared
+# block and one trailing Mamba2 block; fp32 base 5.95 GB, 27.2 GB at 81)
+RECURRENT_LAYERS = {"xlstm-350m": 24, "zamba2-7b": 13}
+
+
+def recurrent_launches(cfg) -> tuple:
+    """(delta GEMM launches per prefill, per decode step) of xlstm or
+    zamba with every projection overlaid: mLSTM's seven and sLSTM's four
+    a layer (21 x 7 + 3 x 4 = 159 at full depth); a Mamba2 block's five
+    and the shared block's seven an application (13 x 5 + 2 x 7 = 79 at
+    13 layers: the prefill projects each application's q/k/v once)."""
+    if cfg.family == "ssm":
+        n_s = cfg.num_layers // (cfg.mlstm_ratio + 1)
+        n = 7 * n_s * cfg.mlstm_ratio + 4 * n_s
+    else:
+        n = 5 * cfg.num_layers + 7 * (cfg.num_layers // cfg.attn_every)
+    return n, n
+
+
+def recurrent_phase(dev, arch) -> dict:
+    """xlstm-350m (24 layers) or zamba2-7b (13 layers) at full width, 2
+    variants, 4 lanes: ``six_runs`` (group dense through ``unpack_apply``,
+    zamba's unstacked ``shared.*`` entries too; the continuous runs count
+    ``recurrent_launches`` a prefill and a step).  Returns {run:
+    launches}."""
+    from repro_torch.launch import serve as SV
+
+    cfg = SV.make_config(arch, num_layers=RECURRENT_LAYERS[arch])
+    per_prefill, per_step = recurrent_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, base, dms = SV.build_variants(cfg, 2, dev)
+    torch.cuda.synchronize()
+    print(f"{arch}: {cfg.num_layers} layers, {per_prefill} delta GEMMs a "
+          f"prefill and a step, setup {time.perf_counter() - t0:.2f} s "
+          f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    launches = six_runs(dev, cfg, model, base, dms, per_prefill, per_step)
     del model, base, dms
     gc.collect()
     torch.cuda.empty_cache()
@@ -2471,6 +2569,8 @@ def main() -> None:
     launches.update(timed("gemma3-12b", gemma3_phase, dev))
     launches.update(timed("whisper-base", whisper_phase, dev))
     launches.update(timed("internvl2-76b", vlm_phase, dev))
+    for arch in RECURRENT:
+        launches.update(timed(arch, recurrent_phase, dev, arch))
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     print(json.dumps({"kernels": kernel_entries(rows, launches, dl_launches,

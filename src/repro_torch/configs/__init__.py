@@ -1,6 +1,6 @@
 """Architecture registry (port of ``repro.configs``): ``get_config(arch)``
-returns the published configuration.  Only the architectures the port
-serves are registered."""
+returns the published configuration of every architecture the JAX
+package serves."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +16,8 @@ _ARCH_MODULES = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "internvl2-76b": "internvl2_76b",
     "whisper-base": "whisper_base",
+    "xlstm-350m": "xlstm_350m",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

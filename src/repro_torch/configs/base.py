@@ -3,9 +3,10 @@
 The same ``ModelConfig`` fields as the JAX package, so a configuration
 means the same model in both.  ``reduced()`` gives the small CPU test
 variant of a family.  The port serves the dense family (local:global
-layers included), the MoE family, the VLM backbone and the
-encoder-decoder (audio) family; the other fields are carried so
-configurations stay field-for-field equal.
+layers included), the MoE family, the VLM backbone, the encoder-decoder
+(audio) family and the recurrent families (``ssm``: xLSTM; ``hybrid``:
+Mamba2 with a shared attention block); the distribution fields are
+carried so configurations stay field-for-field equal.
 """
 from __future__ import annotations
 

@@ -7,9 +7,11 @@ synthetic delta variants, driven through ``serving/api.Deployment``.
 ``--arch`` is any registered arch (``repro_torch.configs.ARCHS``):
 qwen3-8b, deepseek-7b, starcoder2-3b, gemma3-12b, deepseek-moe-16b,
 moonshot-v1-16b-a3b, internvl2-76b (the VLM backbone: every prompt follows
-``num_image_tokens`` zero image embeddings, and the caches hold them) and
+``num_image_tokens`` zero image embeddings, and the caches hold them),
 whisper-base (encoder-decoder: every request's zero encoder frames go
-through the encoder).
+through the encoder), xlstm-350m (``--num-layers`` a multiple of 8: 7
+mLSTM + 1 sLSTM) and zamba2-7b (the shared attention block after every
+6th Mamba2 layer).
 
 Builds a random base model from a seed, makes ``--variants`` synthetic
 fine-tunes (base + 0.005·noise on every matrix), compresses each with

@@ -1,6 +1,7 @@
 """Model facade (port of ``repro.models.model_zoo``) for the dense family
 (local:global archs included), the MoE family, the VLM backbone
-(``transformer``) and the encoder-decoder family (``whisper``).
+(``transformer``), the encoder-decoder family (``whisper``) and the
+recurrent families: ``ssm`` (``xlstm``) and ``hybrid`` (``zamba``).
 
     model = build_model(cfg)
     params, axes = split(model.init(seed, device="cuda"))
@@ -15,7 +16,9 @@ optional tree of packed deltas riding alongside ``params``: matmuls with
 an entry run the fused delta GEMM.  ``variant_idx`` (B,) int marks the
 overlay as BANKED (a bank axis on every leaf, slot 0 = base): each batch
 row fuses its own variant's delta, so one call serves a mixed-variant
-batch.
+batch.  The recurrent families' cache is their decode state: xlstm's
+ignores ``max_len`` and the dtype; zamba's holds one KV cache per
+application point of its shared block besides.
 """
 from __future__ import annotations
 
@@ -25,10 +28,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer, whisper
+from repro_torch.models import transformer, whisper, xlstm, zamba
 
 _FAMILY_MODULES = {"dense": transformer, "moe": transformer,
-                   "vlm": transformer, "audio": whisper}
+                   "vlm": transformer, "audio": whisper, "ssm": xlstm,
+                   "hybrid": zamba}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,9 +77,8 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model of ``cfg``'s family; the families not ported yet (``ssm``,
-    ``hybrid``) raise."""
+    """The model of ``cfg``'s family (an unknown family raises)."""
     if cfg.family not in _FAMILY_MODULES:
-        raise ValueError(f"family {cfg.family!r} is not ported yet; "
-                         f"ported: {tuple(_FAMILY_MODULES)}")
+        raise ValueError(f"unknown family {cfg.family!r}; known: "
+                         f"{tuple(_FAMILY_MODULES)}")
     return Model(cfg=cfg)

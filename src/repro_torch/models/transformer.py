@@ -40,10 +40,10 @@ FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_family(cfg) -> None:
-    """Refuse the families this module does not serve yet."""
+    """Refuse the families another module serves (``model_zoo``)."""
     if cfg.family not in FAMILIES:
-        raise ValueError(f"family {cfg.family!r} is not ported yet; "
-                         f"ported: {FAMILIES}")
+        raise ValueError(f"family {cfg.family!r} is not a transformer "
+                         f"family; this module serves {FAMILIES}")
 
 
 def n_pre_layers(cfg) -> int:

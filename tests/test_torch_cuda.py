@@ -1101,3 +1101,60 @@ def test_banked_gemm_at_internvl2_w_down(cuda, wdt):
     vidx = _lanes([0, 1, 2, 1], 288, cuda)
     got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wq, ws)
     assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wf)
+
+
+@pytest.mark.parametrize("nk", [(8, 2048), (112, 3584), (128, 3584),
+                                (1024, 1344)])
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.int8])
+def test_delta_gemms_at_recurrent_shapes(cuda, nk, m, wdt):
+    """The recurrent families' narrowest N and their odd K: xlstm's mLSTM
+    w_if (8 x 2048), zamba's w_dt (112 x 3584) and w_bc (128 x 3584), and
+    xlstm's w_ff2 (1024 x 1344: K no whole number of 256), at a decode
+    step's 4 rows and a 4 x 16 prefill's 64: ``bitlinear_axes_p`` and the
+    banked GEMM (lanes on slots [0, 1, 2, 1]) against their plain
+    versions, the GEMM bound."""
+    n, k = nk
+    gen = torch.Generator(device=cuda).manual_seed(n + k + m)
+    wb, packed, v_row, v_col = _device_bank(gen, 3, n, k, cuda)
+    wq, ws, wf = _banked_base(wb, wdt)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    for s in (1, 2):                        # a row-scaled and a col-scaled
+        got = BL.bitlinear_axes_p(x, packed[s], v_row[s], v_col[s], wq, ws)
+        want = R.bitlinear_axes_ref(x.float(), packed[s], v_row[s],
+                                    v_col[s], wq, w_scale=ws)
+        w_abs = ((v_row[s].float()[:, None] + v_col[s].float()[None, :])
+                 * D.unpack_signs(packed[s], k) + wf).abs()
+        assert bool(((got - want).abs()
+                     <= 1e-5 * (x.float().abs() @ w_abs.T) + 1e-6).all())
+    vidx = _lanes([0, 1, 2, 1], m // 4, cuda)
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wq, ws)
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wf)
+
+
+@pytest.mark.parametrize("use_row", [True, False])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.int8])
+def test_dense_load_of_an_unstacked_entry(cuda, use_row, wdt):
+    """zamba's shared block: a 2-D target whose ``use_row`` has rank 0.
+    The loader's dense reconstruction (``unpack_apply`` in row and col
+    mode, then the select) launches two kernels and equals, bit for bit,
+    the same reconstruction on the CPU through the plain versions."""
+    from repro_torch.core import loader as L
+    from repro_torch.core.calibration import DeltaEntry
+    rng = np.random.default_rng(int(use_row))
+    wb, packed, delta = _delta_case(rng, (), 448, 896, "cpu")
+    entry = DeltaEntry(packed=packed, v_row=D.init_scale(delta, "row"),
+                       v_col=D.init_scale(delta, "col"),
+                       use_row=torch.tensor(use_row))
+    w = Q.quantize_weight(wb) if wdt == torch.int8 else wb
+    want = L._reconstruct_entry(entry, w, use_kernel=True)
+    on_card = DeltaEntry(packed=packed.to(cuda), v_row=entry.v_row.to(cuda),
+                         v_col=entry.v_col.to(cuda),
+                         use_row=entry.use_row.to(cuda))
+    before = UA.launches
+    got = L._reconstruct_entry(on_card, Q.QuantWeight(
+        q=w.q.to(cuda), scale=w.scale.to(cuda)) if wdt == torch.int8
+        else w.to(cuda), use_kernel=True)
+    assert UA.launches == before + 2
+    assert got.shape == (448, 896) and got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want)
