@@ -18,14 +18,19 @@ Phases (any failure raises and the script exits non-zero):
    PyTorch call; ``bitlinear_axes`` also beside ``torch.sum`` over its fp32
    W_b (the read rate the timer sees); the banked kernel at M=4 over two
    and three distinct slots, M=8, 16, 17 and 64 and all-base, each beside
-   the single-variant kernel on the same x; ``bitlinear_p`` in row, col and
+   the single-variant kernel on the same x (M=8, 12 and 20 are the
+   speculative verify's layouts for drafts of 1, 2 and 4: each lane's k+1
+   rows together, printed apart beside the single-variant kernel and the
+   byte bound); ``bitlinear_p`` in row, col and
    scalar mode; the streaming kernel's 8- and 16-row tiers (M=8, 16 at wo
    and w_gate) beside its 4-row tier once per four rows and the tiled
    kernel;
 4. reference: a reduced qwen3-8b served on the card through the kernels
    and on the CPU through the plain versions, same weights and requests,
    with the group scheduler (dense and fused) and the continuous scheduler
-   (heterogeneous budgets), over an fp32 and an int8 base: greedy tokens
+   (heterogeneous budgets) and the speculative scheduler (drafts of up to
+   4; its tokens must also equal the continuous run's), over an fp32 and
+   an int8 base: greedy tokens
    must be identical; the int8 base quantized on the card must equal the
    one quantized on the CPU byte for byte;
 5. DeltaLinear: ``core/bitdelta.DeltaLinear`` in apply mode "onfly" (the
@@ -135,6 +140,28 @@ Phases (any failure raises and the script exits non-zero):
    each fused and continuous run every delta GEMM launch of one prefill
    held to the GEMM bound, a repeat bit-identical, logits beside the plain
    versions, one decode step profiled, peak memory printed.
+17. speculative decoding (``speculative_phase``, right after the serve
+   phase): qwen3-8b at full width, 4 layers, the serve phase's 12
+   continuous requests over a 4-slot bank, first with the continuous
+   scheduler, then with the speculative one (drafts of up to 4 on the
+   base weights, adaptive), over an fp32 and an int8 base, then over an
+   fp32 base with a near-base pair of variants (fine-tunes at 0.0005);
+   xlstm-350m at full depth (phase 16) over its fp32 base the same way
+   (its verify steps the recurrence k+1 times and rewinds by snapshot).
+   Each speculative run must finish every request with its budget, launch
+   the banked GEMM exactly once a projection a prefill and a verify round
+   (28 a prefill and a round for qwen3-8b; 159 x (k+1) a round for
+   xlstm) and no other delta kernel (the drafts launch none); it prints
+   tokens/s beside the continuous run's, the rounds, the acceptance, the
+   ladder's walk, the token agreement with the continuous run (printed,
+   not asserted: the verify sums in another order than a decode step, so
+   a bf16 near-tie may flip) and one profiled round (the draft and the
+   verify each under the profiler: device-busy time, idle share of the
+   unprofiled round), and peak memory.  Phases 4 and 11 run the
+   speculative scheduler reduced for one arch of each family (qwen3-8b,
+   deepseek-moe-16b, internvl2-76b, whisper-base, xlstm-350m, zamba2-7b),
+   and a speculative ``Deployment`` over reduced gemma3-12b must refuse its
+   ring caches.
 
 Each phase prints its seconds.  Then it prints the kernel summary as one
 JSON line (the entries of a kernel
@@ -182,6 +209,10 @@ LANES, PROMPT = 4, 16         # serving batch and padded prompt length
 BANK_VIDX = [0, 1, 2, 1]      # kernel phase: base, two variants, mixed
 TIER_SHAPES = ("wo", "w_gate")  # kernel phase: the M=8, 16 streaming tiers
 CONT_BUDGETS = [4, 6, 8, 10, 12]
+SPEC_K = 4                    # speculative runs: the longest draft
+# the banked GEMM's rows in a verify round of LANES lanes, draft k -> M
+VERIFY_M = {k: LANES * (k + 1) for k in (1, 2, 4)}
+NEAR_SCALE = 0.0005           # near-base fine-tunes: the shipped-delta regime
 
 
 def card_line() -> str:
@@ -406,6 +437,9 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
     streaming kernel), M=17 (4 tokens a lane and one more row: the tiled
     kernel, microtiles that span slots) and M=64 (16 tokens a lane), and an all-base M=4 batch held against the plain fp32
     x @ W_bᵀ; each timed beside the single-variant kernel on the same x.
+    M=8, 12 and 20 are also the speculative verify's layouts (``VERIFY_M``:
+    k+1 = 2, 3, 5 tokens a lane for the draft lengths 1, 2, 4; M=20 the
+    tiled kernel).
     ``only`` keeps the cases of those labels; ``prefill`` adds a
     continuous prefill of that many rows a lane, lanes on [0,1,2,1]
     (label "M=<4 x prefill> lanes")."""
@@ -432,8 +466,8 @@ def banked_rows(name, n, k, gen, dev, timer, packed, v_row, v_col,
         return [s for s in BANK_VIDX for _ in range(tokens)]
 
     cases = [("M=4", BANK_VIDX), ("M=4 three slots", [1, 2, 3, 1]),
-             ("M=8", lanes(2)), ("M=16", lanes(4)),
-             ("M=17", lanes(4) + BANK_VIDX[:1]),
+             ("M=8", lanes(2)), ("M=12", lanes(3)), ("M=16", lanes(4)),
+             ("M=17", lanes(4) + BANK_VIDX[:1]), ("M=20", lanes(5)),
              ("M=64", [s for s in BANK_VIDX for _ in range(PROMPT)]),
              ("M=4 all-base", [0] * LANES)]
     if only is not None:
@@ -595,6 +629,25 @@ def kernel_phase(cfg, dev, timer) -> dict:
         print(f"  {r['shape']:44s} tier_ms={r['tier_ms']:.4f} "
               f"groups_of_4_ms={r['groups_of_4_ms']:.4f} "
               f"tiles_m17_ms={r['tiles_m17_ms']:.4f}")
+    print("  -- bitlinear_axes_banked in the speculative verify's layouts "
+          "(each lane of [0,1,2,1] k+1 times; M = 4(k+1)) vs the "
+          "single-variant kernel on the same x")
+    for name in ("bitlinear_axes_banked", "bitlinear_axes_banked_q8"):
+        for k, m in VERIFY_M.items():
+            verify = [r for r in rows[name] if r["case"] == f"M={m}"]
+            for r in verify:
+                print(f"  {name:25s} {r['shape']:36s} k={k} "
+                      f"kernel_ms={r['ms']:.4f} "
+                      f"single_variant_ms={r['uniform_ms']:.4f} "
+                      f"ratio={r['ms'] / r['uniform_ms']:.2f} "
+                      f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                      f"err={r['max_abs_err']:.3g}")
+            unit = {key: sum(r[key] for r in verify)
+                    for key in ("ms", "uniform_ms", "bound_ms")}
+            print(f"  {name:25s} one layer's 7 projections at M={m} (k={k}):"
+                  f" kernel_ms={unit['ms']:.4f} single_variant_ms="
+                  f"{unit['uniform_ms']:.4f} bound_ms={unit['bound_ms']:.4f}"
+                  f" ({unit['bound_ms'] / unit['ms']:.0%} of the bound)")
     print("kernels: unpack_apply bit-identical to plain at "
           f"{len(rows['unpack_apply']) + len(rows['unpack_apply_q8'])} "
           "shapes (fp32 and int8 base); every GEMM within 1e-5 relative at "
@@ -831,7 +884,8 @@ def prefill_flash_check(model, params, cfg, dev) -> None:
 
 # the kernel each serving run must show in its launch counters
 RUN_KERNEL = {"dense": "unpack_apply", "fused": "bitlinear_axes",
-              "continuous": "bitlinear_axes_banked"}
+              "continuous": "bitlinear_axes_banked",
+              "speculative": "bitlinear_axes_banked"}
 
 
 def reference_phase(dev) -> None:
@@ -867,8 +921,46 @@ def reference_phase(dev) -> None:
           f"{len(weights)} weights (bytes and scale bits)")
     reference_runs(dev, model, base, dms,
                    [("group", "dense", 4), ("group", "fused", 4),
-                    ("continuous", "fused", [2, 5, 3, 4])],
+                    ("continuous", "fused", [2, 5, 3, 4]),
+                    ("speculative", "fused", [2, 5, 3, 4])],
                    SV.PROMPT_LEN, SV.MAX_LEN)
+
+
+def divergence(dep, model, rids, got, want, prompt_len) -> str:
+    """Where two runs' tokens first differ: the request, the position, the
+    two tokens and the top-2 logit margin there, from a teacher-forced
+    forward of the request's padded prompt and the tokens before it
+    through ``dep``'s weights for the request's variant (its bank slot,
+    or its group-mode resident)."""
+    from repro_torch.serving.engine import frontend_stub
+
+    for i, (a, b) in enumerate(zip(got, want)):
+        pos = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                   None)
+        if pos is None:
+            continue
+        r = dep.result(rids[i])
+        prompt = np.zeros(prompt_len, np.int64)
+        tail = r.tokens[-prompt_len:]
+        prompt[:len(tail)] = tail
+        seq = torch.tensor(np.concatenate([prompt, a[:pos]]),
+                           device=dep.device)[None]
+        batch = {"tokens": seq, **frontend_stub(model.cfg, 1, dep.device)}
+        reg = dep.registry
+        if dep.engine.scheduler == "group":
+            params, overlay = reg.resolve(r.variant)
+            vidx = None
+        else:
+            params, overlay = reg.base_params, reg.bank.tree
+            vidx = torch.tensor([reg.bank_resolve(r.variant)],
+                                device=dep.device)
+        logits, _ = model.forward(params, batch, overlay=overlay,
+                                  variant_idx=vidx)
+        top = torch.topk(logits[0, -1].float(), 2).values
+        return (f"request {i} ({r.variant}) position {pos}: {a[pos]} vs "
+                f"{b[pos]}, top-2 logit margin "
+                f"{(top[0] - top[1]).item():.4g}")
+    return "no position differs"
 
 
 def reference_runs(dev, model, base, dms, runs, prompt_len,
@@ -878,12 +970,16 @@ def reference_runs(dev, model, base, dms, runs, prompt_len,
     kernels: 6 requests round-robin over base, v0 and v1, prompts padded to
     ``prompt_len``, caches of ``max_len``; tokens must be identical and the
     card run must launch the run's kernel (and, for an MoE model in fused
-    mode, the stacked expert GEMM)."""
+    mode, the stacked expert GEMM).  A speculative run (drafts of up to
+    ``SPEC_K``) must also give the tokens of the continuous run with the
+    same budgets, which ``runs`` lists before it.  A mismatch reports
+    where it starts and the top-2 logit margin there (``divergence``)."""
     from repro_torch.launch import serve as SV
     from repro_torch.serving import Deployment
 
     cfg = model.cfg
     for base_dtype in ("fp", "int8"):
+        served = {}
         for scheduler, mode, budgets in runs:
             tokens = {}
             for where in ("cpu", dev):
@@ -893,7 +989,7 @@ def reference_runs(dev, model, base, dms, runs, prompt_len,
                                  prompt_len=prompt_len,
                                  max_len=max_len,
                                  bank_size=4, device=where,
-                                 base_dtype=base_dtype)
+                                 base_dtype=base_dtype, draft_k=SPEC_K)
                 for i, dm in enumerate(dms):
                     dep.publish(f"v{i}", dm)
                 rids = SV.submit_requests(dep, cfg, 6, budgets)
@@ -902,14 +998,25 @@ def reference_runs(dev, model, base, dms, runs, prompt_len,
             launched = {k: v for k, v in counters().items() if v}
             run = mode if scheduler == "group" else scheduler
             assert tokens["cpu"] == tokens[str(dev)], (
-                cfg.name, base_dtype, scheduler, mode, tokens)
+                cfg.name, base_dtype, scheduler, mode, divergence(
+                    dep, model, rids, tokens[str(dev)], tokens["cpu"],
+                    prompt_len))
             assert launched.get(RUN_KERNEL[run], 0) > 0, (
                 cfg.name, base_dtype, scheduler, mode, launched)
             if cfg.family == "moe" and mode == "fused":
                 assert launched.get("bitlinear_axes_stacked", 0) > 0, (
                     cfg.name, base_dtype, scheduler, launched)
+            served[scheduler, str(budgets)] = tokens["cpu"]
+            extra = ""
+            if scheduler == "speculative":
+                assert tokens["cpu"] == served["continuous", str(budgets)], (
+                    cfg.name, base_dtype, divergence(
+                        dep, model, rids, tokens[str(dev)],
+                        served["continuous", str(budgets)], prompt_len))
+                extra = (" == continuous tokens (acceptance "
+                         f"{dep.status()['speculative']['acceptance']:.3f})")
             print(f"reference {cfg.name} {base_dtype} {scheduler} {mode}: "
-                  f"card tokens == cpu plain tokens "
+                  f"card tokens == cpu plain tokens{extra} "
                   f"({sum(map(len, tokens['cpu']))} tokens, card launches "
                   f"{launched})")
 
@@ -984,42 +1091,19 @@ def profile_decode(model, params, overlay, dev, label, step_ms,
     differ between lanes (seeded), so an MoE layer routes them as serving
     does: its stacked GEMM skips only the experts none of them picks."""
     from repro_torch.launch import serve as SV
-    from repro_torch.serving.engine import frontend_stub
 
     prompt_len = prompt_len or SV.PROMPT_LEN
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     vocab = model.cfg.vocab_size
-    batch = {"tokens": torch.randint(1, vocab, (LANES, prompt_len),
-                                     generator=gen, device=dev),
-             **frontend_stub(model.cfg, LANES, dev)}
-    _, cache = model.prefill(params, batch,
-                             max_len or SV.cache_len(model.cfg, prompt_len),
-                             overlay=overlay, variant_idx=vidx)
+    cache = profile_cache(model, params, overlay, dev, vidx, gen,
+                          prompt_len, max_len)
     tok = torch.randint(1, vocab, (LANES,), generator=gen, device=dev,
                         dtype=torch.int32)
     model.decode_step(params, tok, cache, overlay=overlay,
                       variant_idx=vidx)   # warm-up
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        t0 = time.perf_counter()
-        model.decode_step(params, tok, cache, overlay=overlay,
-                          variant_idx=vidx)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    # device-side events only: an operator's own row repeats the time of
-    # the kernels it launched
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None)
-              == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    events, busy_ms, wall_ms = profiled(lambda: model.decode_step(
+        params, tok, cache, overlay=overlay, variant_idx=vidx))
     stacked = [e for e in events if "stacked_" in e.key
                or "live_kernel" in e.key]
     if not events:
@@ -1029,12 +1113,53 @@ def profile_decode(model, params, overlay, dev, label, step_ms,
     print(f"profile {label} decode step: device_busy_ms={busy_ms:.3f} "
           f"profiled_wall_ms={wall_ms:.3f} serve_step_ms={step_ms:.3f} "
           f"idle_share={max(0.0, 1 - busy_ms / step_ms):.3f}"
-          + (f" stacked_ms={sum(map(dev_us, stacked)) / 1e3:.3f} "
+          + (f" stacked_ms={sum(map(_dev_us, stacked)) / 1e3:.3f} "
              f"stacked_launches={sum(e.count for e in stacked)}"
              if stacked else ""))
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
-        print(f"    {dev_us(e) / 1e3:9.3f} ms  calls={e.count:4d}  "
+    for e in sorted(events, key=_dev_us, reverse=True)[:8]:
+        print(f"    {_dev_us(e) / 1e3:9.3f} ms  calls={e.count:4d}  "
               f"{e.key[:70]}")
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def profiled(fn) -> tuple:
+    """(device-side profiler events, device-busy ms, wall ms) of ``fn()``
+    under ``torch.profiler``; only device events count (an operator's own
+    row repeats the time of the kernels it launched)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA and _dev_us(e) > 0]
+    return events, sum(map(_dev_us, events)) / 1e3, wall_ms
+
+
+def profile_cache(model, params, overlay, dev, vidx, gen, prompt_len,
+                  max_len):
+    """The cache of a ``LANES`` x ``prompt_len`` prefill of seeded random
+    tokens and the engine's frontend stub, into ``max_len`` slots (default
+    ``serve.cache_len``)."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving.engine import frontend_stub
+
+    batch = {"tokens": torch.randint(1, model.cfg.vocab_size,
+                                     (LANES, prompt_len), generator=gen,
+                                     device=dev),
+             **frontend_stub(model.cfg, LANES, dev)}
+    _, cache = model.prefill(params, batch,
+                             max_len or SV.cache_len(model.cfg, prompt_len),
+                             overlay=overlay, variant_idx=vidx)
+    return cache
 
 
 def drive(dep, cfg, label, n_requests, budgets, setup_s,
@@ -1484,6 +1609,10 @@ RECURRENT = ("xlstm-350m", "zamba2-7b")
 REF_LAYERS = {"deepseek-moe-16b": 3, "moonshot-v1-16b-a3b": 3,
               "xlstm-350m": 4, "zamba2-7b": 7}
 REF_PROMPT = 20
+# one reduced arch per family (qwen3-8b in the reference phase) also runs
+# the speculative scheduler in the reference phases
+SPEC_REF = ("deepseek-moe-16b", "internvl2-76b", "whisper-base",
+            "xlstm-350m", "zamba2-7b")
 
 
 def stacked_ms(cfg) -> tuple:
@@ -1701,6 +1830,7 @@ def arch_reference_phase(dev) -> None:
     from repro_torch.launch import serve as SV
     from repro_torch.models import build_model
     from repro_torch.models.param import split
+    from repro_torch.serving import Deployment
 
     for arch in NEW_ARCHS + ENCDEC_VLM + RECURRENT:
         t0 = time.perf_counter()
@@ -1714,8 +1844,20 @@ def arch_reference_phase(dev) -> None:
         runs = [("group", "fused", 4), ("continuous", "fused", [2, 5, 3, 4])]
         if cfg.family in ("audio", "ssm", "hybrid"):
             runs.insert(0, ("group", "dense", 4))
+        if arch in SPEC_REF:
+            runs.append(("speculative", "fused", [2, 5, 3, 4]))
         reference_runs(dev, model, base, dms, runs, REF_PROMPT,
                        SV.cache_len(cfg, REF_PROMPT, SV.MAX_LEN))
+        if cfg.local_global_pattern:
+            try:
+                Deployment(model, base, speculative=True, device=dev)
+            except ValueError as e:
+                assert "windowless" in str(e), e
+                print(f"reference {arch}: speculative Deployment refused "
+                      f"({e})")
+            else:
+                raise AssertionError(f"{arch}: a speculative Deployment "
+                                     "over ring caches was accepted")
         print(f"reference {arch}: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2340,6 +2482,7 @@ def vlm_phase(dev) -> dict:
 # 2.1 GB); zamba2-7b at 13 of 81 layers (two applications of the shared
 # block and one trailing Mamba2 block; fp32 base 5.95 GB, 27.2 GB at 81)
 RECURRENT_LAYERS = {"xlstm-350m": 24, "zamba2-7b": 13}
+SPEC_RECURRENT = "xlstm-350m"   # also served speculatively: the snapshot path
 
 
 def recurrent_launches(cfg) -> tuple:
@@ -2360,8 +2503,9 @@ def recurrent_phase(dev, arch) -> dict:
     """xlstm-350m (24 layers) or zamba2-7b (13 layers) at full width, 2
     variants, 4 lanes: ``six_runs`` (group dense through ``unpack_apply``,
     zamba's unstacked ``shared.*`` entries too; the continuous runs count
-    ``recurrent_launches`` a prefill and a step).  Returns {run:
-    launches}."""
+    ``recurrent_launches`` a prefill and a step); xlstm-350m then
+    ``spec_runs`` over the fp32 base (its verify steps the recurrence k+1
+    times and rewinds by snapshot).  Returns {run: launches}."""
     from repro_torch.launch import serve as SV
 
     cfg = SV.make_config(arch, num_layers=RECURRENT_LAYERS[arch])
@@ -2374,6 +2518,9 @@ def recurrent_phase(dev, arch) -> dict:
           f"prefill and a step, setup {time.perf_counter() - t0:.2f} s "
           f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     launches = six_runs(dev, cfg, model, base, dms, per_prefill, per_step)
+    if arch == SPEC_RECURRENT:
+        launches.update(spec_runs(dev, cfg, model, base, dms, arch, "fp",
+                                  per_step, snapshot=True))
     del model, base, dms
     gc.collect()
     torch.cuda.empty_cache()
@@ -2401,6 +2548,176 @@ def dense_archs_phase(dev) -> dict:
         del dep, model, base, dms
         gc.collect()
         torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: base-as-draft rounds over the bank
+# ---------------------------------------------------------------------------
+
+DELTA_KERNELS = ("unpack_apply", "bitlinear_axes", "bitlinear_axes_banked",
+                 "bitlinear_axes_stacked", "bitlinear")
+
+
+def profile_round(model, params, bank, vidx, dev, label, k, prompt_len,
+                  max_len) -> None:
+    """One speculative round of draft length ``k`` over ``LANES`` lanes
+    (after a prefill through the bank and a warm-up round): its unprofiled
+    time, then the draft's k base steps and the banked verify (accept and
+    rewind included) each under ``torch.profiler``: device-busy and wall
+    ms, the device's idle share of the round and the verify's largest
+    kernels.  The draft must launch no delta kernel."""
+    from repro_torch.serving import speculative as SP
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    cache = profile_cache(model, params, bank, dev, vidx, gen, prompt_len,
+                          max_len)
+    tok = torch.randint(1, model.cfg.vocab_size, (LANES,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    round_fn = SP.make_round_fn(model, k)
+    _, _, tok, cache = round_fn(params, bank, vidx, tok, cache)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, tok, cache = round_fn(params, bank, vidx, tok, cache)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    out = {}
+    before = counters()
+    d_events, d_busy, d_wall = profiled(lambda: out.update(
+        drafts=SP.draft(model, params, tok, cache, k)))
+    assert counters() == before, (label, before, counters())
+    v_events, v_busy, v_wall = profiled(lambda: out.update(
+        round=SP.verify(model, params, bank, vidx, tok, out["drafts"],
+                        cache)))
+    launched = {n: counters()[n] - before[n] for n in before}
+    print(f"profile {label} round k={k}: round_ms={round_ms:.3f} "
+          f"draft_busy_ms={d_busy:.3f} draft_wall_ms={d_wall:.3f} "
+          f"verify_busy_ms={v_busy:.3f} verify_wall_ms={v_wall:.3f} "
+          f"idle_share={max(0.0, 1 - (d_busy + v_busy) / round_ms):.3f} "
+          f"accepted={out['round'][1].tolist()} draft_delta_launches=0 "
+          f"verify_launches={ {n: c for n, c in launched.items() if c} }")
+    for name, events in (("draft", d_events), ("verify", v_events)):
+        for e in sorted(events, key=_dev_us, reverse=True)[:4]:
+            print(f"    {name:6s} {_dev_us(e) / 1e3:9.3f} ms  "
+                  f"calls={e.count:4d}  {e.key[:64]}")
+
+
+def spec_runs(dev, cfg, model, base, dms, label, base_dtype, per_pass,
+              snapshot) -> dict:
+    """The serve phase's 12 requests (``CONT_BUDGETS``) over base, v0 and
+    v1 with the continuous scheduler, then with the speculative one
+    (drafts of up to ``SPEC_K``, adaptive), both over a 4-slot bank.  The
+    continuous run launches the banked GEMM ``per_pass`` times a prefill
+    and a step; the speculative run ``per_pass`` times a prefill and a
+    round's verify (``snapshot``: the recurrent verify steps k+1 times, so
+    ``per_pass`` x (k+1)) and no other delta kernel: the drafts launch
+    none.  Prints tokens/s of both, rounds, acceptance, the ladder's walk,
+    the token agreement (not asserted at full width: bf16 near-ties may
+    flip between the verify's and the decode step's summation orders) and
+    one profiled round.  Returns {run: launches}."""
+    from repro_torch.launch import serve as SV
+
+    suffix = " int8" if base_dtype == "int8" else ""
+    launches, tokens, rate, step = {}, {}, {}, {}
+    for scheduler in ("continuous", "speculative"):
+        beside = " beside speculative" if scheduler == "continuous" else ""
+        run = f"{label} {scheduler}{beside}{suffix}"
+        t0 = time.perf_counter()
+        dep = SV.deploy(model, base, dms, mode="fused", scheduler=scheduler,
+                        batch=LANES, bank_size=4, device=dev,
+                        base_dtype=base_dtype, draft_k=SPEC_K)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        ks = []
+        if scheduler == "speculative":
+            observe = dep.engine.spec.observe
+
+            def record(k, accepted, lanes, observe=observe):
+                ks.append(k)
+                observe(k, accepted, lanes)
+            dep.engine.spec.observe = record
+        t0 = time.perf_counter()
+        tokens[scheduler], got = drive(dep, cfg, run, 12, CONT_BUDGETS,
+                                       setup_s)
+        m = dep.metrics
+        rate[scheduler] = m["tokens_generated"] / (time.perf_counter() - t0)
+        step[scheduler] = 1e3 * m["decode_seconds"] / m["decode_steps"]
+        launches[run] = got
+        assert m["admitted"] == m["retired"] == 12, m
+        if scheduler == "continuous":
+            assert got["bitlinear_axes_banked"] == per_pass * (
+                m["prefills"] + m["decode_steps"]), (got, m)
+        else:
+            assert m["spec_rounds"] == len(ks) > 0, (m, ks)
+            verify = sum(per_pass * (k + 1 if snapshot else 1) for k in ks)
+            assert got["bitlinear_axes_banked"] == (
+                per_pass * m["prefills"] + verify), (got, m, ks)
+            assert not any(got[n] for n in DELTA_KERNELS
+                           if n != "bitlinear_axes_banked"), got
+            snap = dep.status()["speculative"]
+            same = sum(a == b for ra, rb in zip(tokens["speculative"],
+                                                tokens["continuous"])
+                       for a, b in zip(ra, rb))
+            total = sum(map(len, tokens["continuous"]))
+            print(f"{run}: rounds={m['spec_rounds']} acceptance="
+                  f"{snap['acceptance']:.3f} (ema "
+                  f"{snap['acceptance_ema']:.3f}) current_k="
+                  f"{snap['current_k']} ladder={snap['ladder']} k_per_round="
+                  f"{ks} tokens_per_round="
+                  f"{m['tokens_generated'] / m['spec_rounds']:.2f}; "
+                  f"banked launches {per_pass} x {m['prefills']} prefills + "
+                  f"{verify} in verifies, no other delta kernel; "
+                  f"tokens_per_s {rate['speculative']:.2f} vs continuous "
+                  f"{rate['continuous']:.2f} "
+                  f"(x{rate['speculative'] / rate['continuous']:.2f}); mean "
+                  f"round {step['speculative']:.3f} ms vs continuous step "
+                  f"{step['continuous']:.3f} ms; agreement with continuous "
+                  f"{same}/{total} tokens (printed, not asserted)")
+            slots = [dep.registry.bank_resolve(v) for v in ("v0", "v1")]
+            vidx = torch.tensor([0, slots[0], slots[1], slots[0]],
+                                dtype=torch.int32, device=dev)
+            profile_round(model, dep.registry.base_params,
+                          dep.registry.bank.tree, vidx, dev,
+                          f"{run} mixed (vidx {vidx.tolist()})", SPEC_K,
+                          SV.PROMPT_LEN, SV.cache_len(cfg))
+            print(f"{run}: peak_mem_GB="
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        del dep
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def speculative_phase(dev) -> dict:
+    """qwen3-8b at full width, ``SERVE_LAYERS`` layers, 4 lanes, 2
+    variants: ``spec_runs`` over an fp32 and an int8 base with the serve
+    phase's fine-tunes (base + 0.005·N(0,1)), then over an fp32 base with
+    a near-base pair (``NEAR_SCALE``): 28 banked launches a prefill and a
+    round.  Returns {run: launches}."""
+    from repro_torch.core import calibration as C
+    from repro_torch.launch import serve as SV
+
+    cfg = SV.make_config(ARCH, num_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    model, base, dms = SV.build_variants(cfg, 2, dev)
+    near = [C.compress(base, SV.fine_tune(base, 100 + i, NEAR_SCALE))
+            for i in range(2)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"speculative: {ARCH}, {SERVE_LAYERS} layers, draft k up to "
+          f"{SPEC_K}, setup {time.perf_counter() - t0:.2f} s")
+    launches = {}
+    for label, variants, base_dtype in ((ARCH, dms, "fp"),
+                                        (ARCH, dms, "int8"),
+                                        (f"{ARCH} near-base", near, "fp")):
+        launches.update(spec_runs(dev, cfg, model, base, variants, label,
+                                  base_dtype, 7 * SERVE_LAYERS,
+                                  snapshot=False))
+    del model, base, dms, near
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2560,6 +2877,7 @@ def main() -> None:
     timed("arch reference", arch_reference_phase, dev)
     dl_launches = timed("deltalinear", deltalinear_phase, cfg, dev)
     launches = timed("serve", serve_phase, dev)
+    launches.update(timed("speculative", speculative_phase, dev))
     launches["lifecycle"] = timed("lifecycle", lifecycle_phase, dev)
     launches.update(timed("dense archs", dense_archs_phase, dev))
     moe_launches, routed = timed("deepseek-moe-16b", moe_phase, dev)

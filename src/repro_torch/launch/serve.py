@@ -22,7 +22,9 @@ variant (the ``unpack_apply`` kernel), ``--mode fused`` keeps it packed
 (the ``bitlinear_axes`` kernel in every overlaid projection).
 ``--scheduler continuous`` serves mixed-variant batches from an overlay
 bank of ``variants + 2`` slots (the ``bitlinear_axes_banked`` kernel) and
-needs ``--mode fused``.  ``--base-dtype int8`` holds the base's target
+needs ``--mode fused``.  ``--speculative`` decodes those lanes by
+base-as-draft rounds (drafts on the base weights, one banked verify of
+``--draft-k`` + 1 tokens a lane; same tokens) and prints the acceptance.  ``--base-dtype int8`` holds the base's target
 matrices as int8 plus fp16 per-channel scales (the kernels dequantize in
 their tile pass) and prints the quantized bytes.  ``--store-dir DIR``
 publishes the variants as artifacts in a ``core/store.VariantStore`` under
@@ -95,13 +97,14 @@ def build_variants(cfg, n_variants: int, device, seed: int = 0):
 def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
            device, max_resident: int = 0, bank_size: int = 0,
            base_dtype: str = "fp", root_dir=None,
-           prompt_len: int = PROMPT_LEN, max_len: int = 0):
+           prompt_len: int = PROMPT_LEN, max_len: int = 0,
+           draft_k: int = 4):
     """A Deployment over ``base`` with ``dms`` published as v0..v{n-1}
     (as store artifacts under ``root_dir`` when given); prompts padded to
     ``prompt_len``, caches of ``max_len`` (default ``cache_len``: room for
-    48 new tokens)."""
+    48 new tokens); ``draft_k`` for ``scheduler="speculative"``."""
     dep = Deployment(model, base, root_dir=root_dir, mode=mode,
-                     scheduler=scheduler,
+                     scheduler=scheduler, draft_k=draft_k,
                      batch_size=batch, prompt_len=prompt_len,
                      max_len=max_len or cache_len(model.cfg, prompt_len),
                      max_resident=max_resident or (8 if mode == "fused"
@@ -116,14 +119,15 @@ def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
 def build_deployment(cfg, *, mode: str, n_variants: int, batch: int,
                      device, scheduler: str = "group", seed: int = 0,
                      max_resident: int = 0, base_dtype: str = "fp",
-                     root_dir=None, max_len: int = 0):
+                     root_dir=None, max_len: int = 0, draft_k: int = 4):
     """Base model (seeded) + ``n_variants`` published synthetic variants
     v0..v{n-1}, behind a Deployment with a bank of ``n_variants + 2``
     slots."""
     model, base, dms = build_variants(cfg, n_variants, device, seed)
     return deploy(model, base, dms, mode=mode, scheduler=scheduler,
                   batch=batch, device=device, max_resident=max_resident,
-                  base_dtype=base_dtype, root_dir=root_dir, max_len=max_len)
+                  base_dtype=base_dtype, root_dir=root_dir, max_len=max_len,
+                  draft_k=draft_k)
 
 
 def submit_requests(dep, cfg, n_requests: int, new_tokens,
@@ -163,8 +167,20 @@ def main(argv=None):
     ap.add_argument("--store-dir", default=None,
                     help="persist the variants as store artifacts here and "
                          "serve them from it (default: in memory)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="base-as-draft speculative decoding on the "
+                         "continuous lanes (needs --mode fused): the same "
+                         "tokens, up to draft-k + 1 a lane per round")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="longest speculative draft (the adaptive ladder "
+                         "steps down under low acceptance)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.speculative:
+        if args.mode != "fused":
+            ap.error("--speculative verifies through the packed overlay "
+                     "bank and needs --mode fused")
+        args.scheduler = "speculative"
     if args.scheduler == "continuous" and args.mode != "fused":
         ap.error("--scheduler continuous serves from the overlay bank and "
                  "needs --mode fused")
@@ -178,7 +194,8 @@ def main(argv=None):
                            root_dir=args.store_dir,
                            max_len=cache_len(cfg, PROMPT_LEN,
                                              max(args.new_tokens,
-                                                 MAX_LEN - PROMPT_LEN)))
+                                                 MAX_LEN - PROMPT_LEN)),
+                           draft_k=args.draft_k)
     if args.base_dtype == "int8":
         qs = dep.registry.quant_stats
         print(f"int8 base: {qs['targets']} targets, "
@@ -192,6 +209,8 @@ def main(argv=None):
                                  n, dep.store.latest(n))}
                          for n in dep.store.names()})
     print("metrics:", dep.metrics)
+    if args.speculative:
+        print("speculative:", dep.status()["speculative"])
     print("registry:", dep.stats)
     hbm = dep.status()["hbm"]
     print("hbm:", {k: hbm[k] for k in ("base_dtype", "base_bytes",

@@ -1,5 +1,6 @@
 """Attention (port of ``repro.models.attention``): GQA with a chunked
-online-softmax forward, KV caches and single-token decode.
+online-softmax forward, KV caches, single-token decode and the
+speculative verify's teacher-forced queries over the decode cache.
 
 Plain PyTorch: the JAX model computes attention with jnp einsums, not a
 Pallas kernel.  Numerics follow it: operands stay in their storage dtype
@@ -178,6 +179,41 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, hq, hd).to(q.dtype)
 
 
+def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                     pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """:func:`decode_attention` over S teacher-forced queries per row (the
+    speculative verify): q (B,S,Hq,hd), query s at absolute position
+    pos[b] + s; caches, ``slot_pos`` and ``pos`` as in
+    :func:`decode_attention`, whose arithmetic each query slice repeats
+    (the same casts, fp32 statistics and ``NEG_INF`` masking: a masked
+    slot, stale entries past a rewound ``pos`` included, adds an exact 0)."""
+    b, s, hq, hd = q.shape
+    _, t, hkv, _ = k_cache.shape
+    g = hq // hkv
+    qf = ((q.to(torch.float32) * hd ** -0.5).to(k_cache.dtype)
+          .reshape(b, s, hkv, g, hd).to(torch.float32))
+    logits = torch.einsum("bskgh,btkh->bskgt", qf,
+                          k_cache.to(torch.float32))
+    sp = torch.broadcast_to(slot_pos.to(torch.int32), (b, t))[:, None, :]
+    pos_b = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
+                                               device=q.device), (b,))
+    qpos = (pos_b[:, None] + torch.arange(s, dtype=torch.int32,
+                                          device=q.device))[:, :, None]
+    valid = (sp >= 0) & (sp <= qpos)                        # (B, S, T)
+    if window > 0:
+        valid &= sp > qpos - window
+    logits = torch.where(valid[:, :, None, None, :], logits,
+                         torch.tensor(NEG_INF, device=q.device))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p_norm = (p / torch.clamp(l, min=1e-30)).to(v_cache.dtype)
+    out = torch.einsum("bskgt,btkh->bskgh", p_norm.to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(b, s, hq, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
@@ -257,4 +293,30 @@ def cache_insert_stacked(caches: dict, layer_idx: int, k_new: torch.Tensor,
     (layer_idx, b, pos_b), in place (``ring`` as in :func:`cache_insert`)."""
     cache_insert(cache_layer_view(caches, layer_idx), k_new, v_new, pos,
                  ring=ring)
+    return caches
+
+
+def cache_insert_multi(cache: dict, k_new: torch.Tensor,
+                       v_new: torch.Tensor, pos) -> dict:
+    """Teacher-forced insert of (B, n, Hkv, hd) at per-row positions
+    pos[b]..pos[b]+n-1, in place (the speculative verify; non-ring caches
+    only, so a slot's index is its position and a rewind is a ``pos``
+    retreat).  Slots are clipped to the cache and ``slot_pos`` records the
+    unclipped positions, as JAX's one scatter does; the port writes token
+    by token, so where clipping sends several tokens to the last slot the
+    last token's entry holds it on every device (a single scatter's order
+    among duplicate indices is unspecified on CUDA)."""
+    pos_b = _row_pos(pos, k_new.shape[0], k_new.device)
+    for j in range(k_new.shape[1]):
+        cache_insert(cache, k_new[:, j:j + 1], v_new[:, j:j + 1], pos_b + j)
+    return cache
+
+
+def cache_insert_stacked_multi(caches: dict, layer_idx: int,
+                               k_new: torch.Tensor, v_new: torch.Tensor,
+                               pos) -> dict:
+    """:func:`cache_insert_multi` into layer ``layer_idx`` of a STACKED
+    (L, B, T, H, hd) cache, in place."""
+    cache_insert_multi(cache_layer_view(caches, layer_idx), k_new, v_new,
+                       pos)
     return caches

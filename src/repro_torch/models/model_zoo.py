@@ -19,6 +19,15 @@ row fuses its own variant's delta, so one call serves a mixed-variant
 batch.  The recurrent families' cache is their decode state: xlstm's
 ignores ``max_len`` and the dtype; zamba's holds one KV cache per
 application point of its shared block besides.
+
+The speculative verify::
+
+    logits, rewind_state = model.verify_step(params, tokens, cache)
+    cache = model.verify_rewind(rewind_state, keep)
+
+teacher-forces ``tokens`` (B, T) over the live decode cache and returns
+(B, T, V) logits; ``verify_rewind`` leaves the cache each row would hold
+after consuming only its first keep[b] tokens.
 """
 from __future__ import annotations
 
@@ -67,6 +76,39 @@ class Model:
                                      overlay=overlay,
                                      variant_idx=variant_idx)
 
+    def verify_step(self, params, tokens, cache, overlay=None,
+                    variant_idx=None):
+        """-> (logits (B, T, V), rewind state).  The attention families run
+        one teacher-forced pass (their module's ``verify_step``: the
+        cache's K/V written in place, ``pos`` advanced by T); the recurrent
+        ones (``ssm``, ``hybrid``) step ``decode_step`` T times, since
+        their sequence paths do not round like the stepwise recurrence,
+        and keep the state after every step for the rewind."""
+        if hasattr(self._mod, "verify_step"):
+            logits, new_cache = self._mod.verify_step(
+                params, tokens, cache, self.cfg, overlay=overlay,
+                variant_idx=variant_idx)
+            return logits, ("pos", new_cache, tokens.shape[1])
+        logits, snaps, state = [], [], cache
+        for j in range(tokens.shape[1]):
+            lg, state = self._mod.decode_step(
+                params, tokens[:, j], state, self.cfg, overlay=overlay,
+                variant_idx=variant_idx)
+            logits.append(lg)
+            snaps.append(state)
+        return torch.stack(logits, dim=1), ("snap", snaps, None)
+
+    def verify_rewind(self, rewind_state, keep: torch.Tensor):
+        """keep (B,) int in [1, T]: the tokens each row consumed.  A native
+        rewind retreats ``pos``; a snapshot rewind takes, for each row, the
+        state after its keep[b]-th step along each leaf's batch axis
+        (``cache_batch_axes``)."""
+        mode, payload, span = rewind_state
+        if mode == "pos":
+            return self._mod.rewind_cache(payload, keep, span)
+        return _select_snapshot(payload, keep.to(torch.int64) - 1,
+                                self.cache_batch_axes())
+
     def cache_batch_axes(self) -> dict:
         return self._mod.cache_batch_axes(self.cfg)
 
@@ -74,6 +116,29 @@ class Model:
                    dtype=torch.bfloat16):
         return self._mod.init_cache(self.cfg, batch, max_len,
                                     resolve_device(device), dtype)
+
+
+def _select_snapshot(snaps: list, sel: torch.Tensor, axes):
+    """Per row b, snapshot sel[b] of ``snaps`` (states, one per step),
+    leaf by leaf along the batch axis ``axes`` gives.  A leaf that every
+    snapshot holds as one tensor (zamba's KV caches, written in place by
+    each step) is returned as it is: it holds every step's writes, and
+    those past a row's kept position carry slot positions past its ``pos``,
+    so every later read masks them and the next write at a position
+    replaces its entry, as after a native rewind."""
+    if isinstance(axes, dict):
+        return {k: _select_snapshot([s[k] for s in snaps], sel, a)
+                for k, a in axes.items()}
+    first = snaps[0]
+    if all(s is first for s in snaps[1:]):
+        return first
+    shape = [1] * first.dim()
+    shape[axes] = first.shape[axes]
+    sel = sel.reshape(shape)
+    out = first
+    for j in range(1, len(snaps)):
+        out = torch.where(sel >= j, snaps[j], out)
+    return out
 
 
 def build_model(cfg: ModelConfig) -> Model:

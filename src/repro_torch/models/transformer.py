@@ -10,6 +10,10 @@ layer dim (``params["layers"]["attn"]["wq"]`` is (L, d_out, d_in); expert
 stacks (L, E, d_out, d_in)), and an overlay tree shadows them with the
 same leading dims.  Where the JAX module ``lax.scan``s over that dim, the
 port loops over the layer index and takes views of the stacked tensors.
+
+``verify_step`` (the speculative verify) runs T teacher-forced tokens a
+row over the live decode cache, and ``rewind_cache`` drops the rejected
+suffix by retreating ``pos``.
 """
 from __future__ import annotations
 
@@ -364,3 +368,82 @@ def decode_step(params, token, cache, cfg, overlay=None, variant_idx=None):
     logits = _unembed(params, x, cfg, ov=overlay, vidx=vidx)
     cache["pos"] = pos + 1
     return logits[:, 0, :], cache
+
+
+# ---------------------------------------------------------------------------
+# speculative verify: T teacher-forced tokens over the live decode cache
+# ---------------------------------------------------------------------------
+
+def _verify_block_stacked(p, x, cfg, caches, idx, pat_entry, pos, ov=None,
+                          vidx=None):
+    """:func:`_decode_block_stacked` over T tokens a row: their K/V land at
+    pos..pos+T-1 (``attention.cache_insert_stacked_multi``) and each query
+    reads the cache through ``attention.verify_attention``.  Serves the
+    stacked layers and, over ``cache["pre"]``, the MoE archs' dense
+    ``pre_layers`` (the JAX module's ``_verify_block``)."""
+    ov_a = oget(ov, "attn")
+    t = x.shape[1]
+    h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1"), vidx), cfg.norm_eps)
+    positions = (pos.to(torch.int32)[:, None]
+                 + torch.arange(t, dtype=torch.int32, device=x.device))
+    q, k, v = A.qkv_project(p["attn"], h, cfg, positions,
+                            pat_entry["theta"], ov=ov_a, vidx=vidx)
+    A.cache_insert_stacked_multi(caches, idx, k, v, pos)
+    view = A.cache_layer_view(caches, idx)
+    o = A.verify_attention(q, view["k"], view["v"], view["slot_pos"], pos,
+                           window=0)
+    o = o.reshape(*x.shape[:-1], cfg.q_dim)
+    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx)
+    return _ffn_part(p, x, cfg, ov=ov, vidx=vidx)[0]
+
+
+def verify_step(params, tokens, cache, cfg, overlay=None, variant_idx=None):
+    """tokens (B, T) teacher-forced -> (logits (B, T, V), cache advanced by
+    T, updated in place): the verify of speculative decoding.  Each query
+    slice repeats ``decode_step``'s arithmetic, so logits[:, t] follows the
+    T sequential decode steps that consume tokens[:, :t+1] (within fp32
+    summation order); a rejected suffix is dropped by ``rewind_cache``.
+    An MoE layer routes all B·T tokens at once, so its capacity is that
+    count's, as in the JAX module.
+
+    Windowed (ring) layers are refused: a ring write wraps modulo the
+    window, so a rejected token's insert would clobber in-window history
+    that a ``pos`` retreat cannot restore."""
+    check_family(cfg)
+    if any(e["window"] > 0 for e in layer_pattern(cfg)):
+        raise ValueError(
+            "verify_step requires windowless KV caches (ring buffers "
+            "cannot rewind rejected speculative writes)")
+    vidx = variant_idx
+    pos = cache["pos"]
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype,
+                     bank=oget(overlay, "embed"), vidx=vidx)
+    ov_pre = oget(overlay, "pre_layers")
+    for i in range(n_pre_layers(cfg)):
+        x = _verify_block_stacked(
+            _layer(params["pre_layers"], i), x, cfg, cache["pre"], i,
+            _pre_entry(cfg, decode=True), pos, ov=_layer(ov_pre, i),
+            vidx=vidx)
+    pat = layer_pattern(cfg)
+    ov_layers = oget(overlay, "layers")
+    for i in range(cfg.num_layers - n_pre_layers(cfg)):
+        j = i % len(pat)
+        x = _verify_block_stacked(
+            _layer(params["layers"], i), x, cfg, cache["slots"][j],
+            i // len(pat), pat[j], pos, ov=_layer(ov_layers, i), vidx=vidx)
+    x = rmsnorm(x, psel(params["final_norm"], oget(overlay, "final_norm"),
+                        vidx), cfg.norm_eps)
+    logits = _unembed(params, x, cfg, ov=overlay, vidx=vidx)
+    cache["pos"] = pos + tokens.shape[1]
+    return logits, cache
+
+
+def rewind_cache(cache, keep, span: int) -> dict:
+    """Drop the last span - keep[b] verify positions of each row: ``pos``
+    retreats and nothing else moves.  Slots are indexed by absolute
+    position, so the rejected entries (slot_pos > the new pos) are masked
+    out of every later read and overwritten by the next write at their
+    position before they could count.  Returns a new dict over the same
+    tensors."""
+    pos = cache["pos"]
+    return dict(cache, pos=pos - (span - keep.to(pos.dtype)))

@@ -18,6 +18,9 @@ take KV chunks of the largest divisor of the frame count up to 512
 (``attention.even_chunk``: 500 for 1500 frames) where the JAX module
 halves 512 down to a divisor (4 for 1500 frames); only the summation
 order differs.
+
+``verify_step`` serves the speculative verify; its rewind is
+``transformer.rewind_cache`` (the self cache masks slots past ``pos``).
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from repro_torch.models.layers import (dtype_of, embed_init, embed_lookup,
                                        unembed_logits)
 from repro_torch.models.param import stack_layers
 from repro_torch.models.transformer import _layer, _stack_io
+# the self cache rewinds as the transformer's (``Model.verify_rewind``)
+from repro_torch.models.transformer import rewind_cache  # noqa: F401
 
 
 # ---------------------------------------------------------------------------
@@ -310,3 +315,56 @@ def decode_step(params, token, cache, cfg, overlay=None, variant_idx=None):
                             bank=oget(overlay, "embed"), vidx=vidx)
     cache["pos"] = pos + 1
     return logits[:, 0, :], cache
+
+
+def verify_step(params, tokens, cache, cfg, overlay=None, variant_idx=None):
+    """tokens (B, T) teacher-forced over the live decode cache -> (logits
+    (B, T, V), cache advanced by T, the self cache updated in place): the
+    speculative verify.  ``decode_step`` with T tokens a row: the
+    self-attention reads through ``attention.verify_attention``, and the
+    cross-attention sees every frame for every query (positions 0..F-1
+    against pos + F + t), as decode does.  A rejected suffix is dropped by
+    ``rewind_cache`` (the self cache has no window)."""
+    vidx = variant_idx
+    pos = cache["pos"]
+    b, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype,
+                     bank=oget(overlay, "embed"), vidx=vidx)
+    table = sinusoid_table(cfg.max_seq_len, cfg.d_model, x.device)
+    posn = pos.to(torch.int64)[:, None] + torch.arange(s, device=x.device)
+    x = x + table[posn].to(x.dtype)
+    frame_pos = torch.arange(cfg.encoder_frames, dtype=torch.int32,
+                             device=x.device)
+    ov_layers = oget(overlay, "dec_layers")
+    for i in range(cfg.num_layers):
+        lp, ovl = _layer(params["dec_layers"], i), _layer(ov_layers, i)
+        ov_s = oget(ovl, "self_attn")
+        ov_x = oget(ovl, "cross_attn")
+        hs = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx),
+                     cfg.norm_eps)
+        q, k, v = _qkv(lp["self_attn"], hs, hs, cfg, ov=ov_s, vidx=vidx)
+        A.cache_insert_stacked_multi(cache["self"], i, k, v, pos)
+        view = A.cache_layer_view(cache["self"], i)
+        o = A.verify_attention(q, view["k"], view["v"], view["slot_pos"],
+                               pos)
+        x = x + linear(o.reshape(b, s, cfg.q_dim), lp["self_attn"]["wo"],
+                       oget(ov_s, "wo"), vidx)
+        hx = rmsnorm(x, psel(lp["ln_x"], oget(ovl, "ln_x"), vidx),
+                     cfg.norm_eps)
+        qx = _heads(linear(hx, lp["cross_attn"]["wq"], oget(ov_x, "wq"),
+                           vidx), cfg.num_heads, cfg.head_dim)
+        ox = A.verify_attention(qx, cache["cross_k"][i], cache["cross_v"][i],
+                                frame_pos, pos + cfg.encoder_frames)
+        x = x + linear(ox.reshape(b, s, cfg.q_dim), lp["cross_attn"]["wo"],
+                       oget(ov_x, "wo"), vidx)
+        x = x + mlp2_apply(lp["mlp"],
+                           rmsnorm(x, psel(lp["ln2"], oget(ovl, "ln2"),
+                                           vidx), cfg.norm_eps),
+                           ov=oget(ovl, "mlp"), vidx=vidx)
+    x = rmsnorm(x, psel(params["dec_norm"], oget(overlay, "dec_norm"),
+                        vidx), cfg.norm_eps)
+    logits = unembed_logits(x, params["embed"],
+                            bank=oget(overlay, "embed"), vidx=vidx)
+    cache["pos"] = pos + s
+    return logits, cache
+

@@ -20,10 +20,12 @@ a store, versions live in memory, as the JAX ``Deployment`` keeps them.
 The deployment runs on ``device`` (default ``cuda``); the base params are
 moved there.  ``scheduler="continuous"`` (the default) serves mixed-variant
 batches from the overlay bank and needs ``mode="fused"``;
-``scheduler="group"`` serves one variant per batch, dense or fused.
-``base_dtype="int8"`` keeps the base's target matrices as int8 plus fp16
-per-channel scales (``core/quantize``).  Mesh sharding, async admission,
-speculative decoding and the compile cache are not ported.
+``speculative=True`` (or ``scheduler="speculative"``) decodes those lanes
+by base-as-draft rounds of up to ``draft_k`` drafts, with the same tokens
+(``serving/speculative.py``); ``scheduler="group"`` serves one variant per
+batch, dense or fused.  ``base_dtype="int8"`` keeps the base's target
+matrices as int8 plus fp16 per-channel scales (``core/quantize``).  Mesh
+sharding, async admission, warmup and the compile cache are not ported.
 """
 from __future__ import annotations
 
@@ -47,12 +49,19 @@ class Deployment:
                  scheduler: str = "continuous", batch_size: int = 4,
                  prompt_len: int = 32, max_len: int = 128,
                  bank_size: int = 8, max_resident: int = 8,
-                 eager: bool = False, device=None, base_dtype: str = "fp"):
+                 eager: bool = False, device=None, base_dtype: str = "fp",
+                 speculative: bool = False, draft_k: int = 4):
         if store is not None and root_dir is not None:
             raise ValueError("pass either store or root_dir, not both")
         if base_dtype not in ("fp", "int8"):
             raise ValueError(f"unknown base dtype {base_dtype!r}")
-        if scheduler == "continuous" and mode != "fused":
+        if speculative:
+            if scheduler not in ("continuous", "speculative"):
+                raise ValueError(
+                    "speculative=True layers on the continuous slot "
+                    "scheduler; drop scheduler='group'")
+            scheduler = "speculative"
+        if scheduler in ("continuous", "speculative") and mode != "fused":
             # the continuous scheduler admits through the overlay bank,
             # which is fused-only: accepting mode="dense" here would
             # silently serve fused residents
@@ -86,7 +95,7 @@ class Deployment:
         self.engine = ServingEngine(model, self.registry,
                                     batch_size=batch_size,
                                     prompt_len=prompt_len, max_len=max_len,
-                                    scheduler=scheduler)
+                                    scheduler=scheduler, draft_k=draft_k)
 
     def _hydrate(self, name: str) -> bool:
         """Register every persisted version of ``name`` from the store
@@ -115,7 +124,8 @@ class Deployment:
         """Publish ``dm`` as the next full version of ``name`` (a full
         artifact when a store backs this deployment) and point serving at
         it; ``wait=True`` makes it resident now.  Returns the version."""
-        if mode == "dense" and self.engine.scheduler == "continuous":
+        if mode == "dense" and self.engine.scheduler in ("continuous",
+                                                         "speculative"):
             raise ValueError(
                 "per-variant mode='dense' cannot serve under the "
                 "continuous scheduler (overlay-bank admission is "
@@ -166,7 +176,7 @@ class Deployment:
         resident under the group scheduler."""
         if not wait:
             return
-        if self.engine.scheduler == "continuous":
+        if self.engine.scheduler in ("continuous", "speculative"):
             self.registry.bank_resolve(name)
         else:
             self.registry.resolve(name)
@@ -202,20 +212,24 @@ class Deployment:
         return self.engine.result(rid)
 
     def status(self, rid: Optional[int] = None) -> dict:
-        """With ``rid``: one request's lifecycle view (never raises);
-        without: the engine snapshot."""
+        """With ``rid``: one request's lifecycle view (never raises; a
+        speculative lane adds its ``acceptance``, the share of the drafts
+        offered to it that it accepted); without: the engine snapshot."""
         if rid is None:
             return self.engine.status()
         r = self.engine.request(rid)
         if r is None:
             return {"status": "unknown", "rid": rid}
-        return {"status": r.status, "rid": rid, "variant": r.variant,
-                "version": r.served_version,
-                "tokens_generated": len(r.out_tokens),
-                "first_token_at": r.first_token_at,
-                "ttft_seconds": (None if r.first_token_at is None
-                                 else r.first_token_at - r.submitted_at),
-                "error": r.error}
+        out = {"status": r.status, "rid": rid, "variant": r.variant,
+               "version": r.served_version,
+               "tokens_generated": len(r.out_tokens),
+               "first_token_at": r.first_token_at,
+               "ttft_seconds": (None if r.first_token_at is None
+                                else r.first_token_at - r.submitted_at),
+               "error": r.error}
+        if r.drafted:
+            out["acceptance"] = r.accepted / r.drafted
+        return out
 
     @property
     def metrics(self) -> dict:

@@ -1,5 +1,5 @@
 """Serving engine (port of ``repro.serving.engine`` without mesh, pods,
-async admission and speculative decoding).  Two schedulers:
+async admission and warmup).  Three schedulers:
 
 * ``continuous`` (mixed-variant slot scheduler) — the engine keeps ONE
   persistent decode batch of ``batch_size`` lanes.  Each lane carries its
@@ -10,6 +10,14 @@ async admission and speculative decoding).  Two schedulers:
   and free their lane, and one decode serves the whole mixed batch through
   the banked fused delta GEMM.  Every variant is served fused, from the
   registry's overlay bank.
+* ``speculative`` — the continuous slot scheduler with each decode step
+  replaced by a base-as-draft round (``serving/speculative.py``): k
+  drafts on the base weights, one banked verify of k+1 tokens a lane, up
+  to k+1 tokens a lane per round.  The tokens are the continuous
+  scheduler's for any k; ``draft_k`` sets the longest draft and
+  ``spec_adaptive`` lets an acceptance tracker walk k along the ladder
+  (the powers of two up to ``draft_k``, and ``draft_k``).  Sliding-window (ring) caches are refused: a
+  rejected draft's write would clobber in-window history.
 * ``group`` — pending requests are grouped BY VARIANT (the FIFO head
   decides), and each group runs one prefill over a fixed (batch_size,
   prompt_len) batch plus decode steps up to the largest token budget in
@@ -47,6 +55,8 @@ class Request:
     served_version: Optional[int] = None   # version resolved at admission
     first_token_at: Optional[float] = None  # perf_counter at first token
     submitted_at: float = 0.0     # perf_counter at submit()
+    drafted: int = 0              # speculative scheduler: drafts offered
+    accepted: int = 0             # to this request / accepted by it
 
 
 @dataclasses.dataclass
@@ -62,15 +72,27 @@ class _Slot:
 class ServingEngine:
     """Fixed-shape batched serving: ``batch_size`` lanes, prompts padded to
     ``prompt_len``, KV capacity ``max_len``.  ``scheduler`` is
-    "continuous" (mixed-variant lanes over the overlay bank) or "group"
-    (grouped by variant — required for dense residency)."""
+    "continuous" (mixed-variant lanes over the overlay bank),
+    "speculative" (the same lanes, decoded by base-as-draft rounds of up
+    to ``draft_k`` drafts) or "group" (grouped by variant — required for
+    dense residency)."""
 
     def __init__(self, model, registry: VariantRegistry, *,
                  batch_size: int = 4, prompt_len: int = 32,
                  max_len: int = 128, max_retries: int = 1,
-                 scheduler: str = "group"):
-        if scheduler not in ("group", "continuous"):
+                 scheduler: str = "group", draft_k: int = 4,
+                 spec_adaptive: bool = True):
+        if scheduler not in ("group", "continuous", "speculative"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
+        if scheduler == "speculative":
+            from repro_torch.models.transformer import FAMILIES, layer_pattern
+            if model.cfg.family in FAMILIES and any(
+                    e["window"] > 0 for e in layer_pattern(model.cfg)):
+                raise ValueError(
+                    "scheduler='speculative' requires windowless KV "
+                    "caches: sliding-window layers ring-buffer their "
+                    "writes, so rewinding rejected draft tokens would "
+                    "clobber in-window history")
         self.scheduler = scheduler
         self.model = model
         self.registry = registry
@@ -90,10 +112,22 @@ class ServingEngine:
         # per-lane bank slot; idle lanes sit on slot 0 (the base)
         self._variant_idx = np.zeros(batch_size, np.int32)
         self._variant_idx_dev = None     # device copy, rebuilt on change
+        # speculative rounds: one round function per draft length of the
+        # adaptive ladder
+        self.spec = None
+        self._rounds = {}
+        if scheduler == "speculative":
+            from repro_torch.serving import speculative as SPEC
+            self.spec = SPEC.AcceptanceTracker(draft_k,
+                                               adaptive=spec_adaptive)
+            self._rounds = {k: SPEC.make_round_fn(model, k)
+                            for k in self.spec.ladder}
         self.metrics = {"batches": 0, "tokens_generated": 0, "prefills": 0,
                         "failed": 0, "admitted": 0, "retired": 0,
                         "decode_steps": 0,
                         "prefill_seconds": 0.0, "decode_seconds": 0.0,
+                        "spec_rounds": 0, "spec_drafted": 0,
+                        "spec_accepted": 0,
                         "ttft_count": 0, "ttft_seconds_sum": 0.0,
                         "ttft_seconds_max": 0.0}
 
@@ -143,7 +177,7 @@ class ServingEngine:
         n = self.metrics["ttft_count"]
         reg = self.registry
         bank = reg.bank
-        return {"scheduler": self.scheduler, "pending": self.pending(),
+        snap = {"scheduler": self.scheduler, "pending": self.pending(),
                 "active": self.active(),
                 "ttft": {"count": n,
                          "mean_seconds": (self.metrics["ttft_seconds_sum"]
@@ -157,6 +191,9 @@ class ServingEngine:
                         "base_per_device": reg.base_per_device_nbytes(),
                         "bank_bytes": bank.nbytes() if bank is not None
                         else 0}}
+        if self.spec is not None:
+            snap["speculative"] = self.spec.snapshot()
+        return snap
 
     def pending(self) -> int:
         return len(self._queue)
@@ -166,7 +203,10 @@ class ServingEngine:
 
     def run_until_drained(self, max_rounds: int = 1000) -> dict:
         if self.scheduler == "continuous":
-            self._serve_continuous(max_rounds)
+            self._serve_lanes(max_rounds, self._decode_step)
+            return self.metrics
+        if self.scheduler == "speculative":
+            self._serve_lanes(max_rounds, self._spec_round)
             return self.metrics
         rounds = 0
         while self._queue and rounds < max_rounds:
@@ -353,7 +393,12 @@ class ServingEngine:
         self._variant_idx_dev = None
         self.metrics["retired"] += 1
 
-    def _serve_continuous(self, max_rounds: int) -> None:
+    def _serve_lanes(self, max_rounds: int, advance) -> None:
+        """The slot scheduler's loop: free lanes admit queued requests
+        (prefill-on-admit), every active lane appends its PENDING token
+        (a prefill argmax, a decode step's or a round's; one host sync),
+        exhausted lanes retire at once, then ``advance()`` moves the batch
+        on: one decode step (continuous) or one speculative round."""
         # max_rounds bounds STALLED rounds (no admission, no token, no
         # failure), not decode steps: productive rounds are bounded by the
         # submitted token budgets
@@ -372,10 +417,7 @@ class ServingEngine:
                     else stalls + 1
                 continue
             stalls = 0
-            # ONE host sync per step: every active lane has exactly one
-            # pending token in next_tok
             host_tok = self._next_tok.cpu().numpy()
-            retired = []
             for i, s in enumerate(self._slots):
                 if s is None:
                     continue
@@ -383,29 +425,69 @@ class ServingEngine:
                 self._note_first_token(s.request)
                 s.remaining -= 1
                 self.metrics["tokens_generated"] += 1
+                # retire at once: the lane is free for the next admission
+                # wave instead of padding to the batch's largest budget
                 if s.remaining <= 0:
-                    retired.append(i)
-            # retire exhausted lanes at once: they are free for the next
-            # admission wave instead of padding to the batch's largest budget
-            for i in retired:
-                self._retire(i)
+                    self._retire(i)
             if not (self.active() or self._queue):
-                break           # drained: skip the decode nobody consumes
+                break           # drained: skip the step nobody consumes
             if not self.active():
                 continue        # lanes empty but queue pending: admit next
             if self._variant_idx_dev is None:
                 self._variant_idx_dev = torch.from_numpy(
                     self._variant_idx.copy()).to(self.device)
-            t0 = time.perf_counter()
-            logits, self._cache = self.model.decode_step(
-                self.registry.base_params, self._next_tok, self._cache,
-                overlay=self._bank_tree(),
-                variant_idx=self._variant_idx_dev)
-            self._next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            synchronize(self.device)
-            self.metrics["decode_seconds"] += time.perf_counter() - t0
-            self.metrics["decode_steps"] += 1
+            advance()
         self.metrics["batches"] += 1
+
+    def _decode_step(self) -> None:
+        """One banked decode step of the whole batch: each lane's next
+        pending token."""
+        t0 = time.perf_counter()
+        logits, self._cache = self.model.decode_step(
+            self.registry.base_params, self._next_tok, self._cache,
+            overlay=self._bank_tree(), variant_idx=self._variant_idx_dev)
+        self._next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        synchronize(self.device)
+        self.metrics["decode_seconds"] += time.perf_counter() - t0
+        self.metrics["decode_steps"] += 1
+
+    def _spec_round(self) -> None:
+        """One speculative round of the current draft length k: drafts on
+        the base weights, one banked verify through each lane's slot.  Each
+        lane appends its n_acc accepted drafts (within its budget; a lane
+        that spends it retires, and its pending correction, past
+        max_new_tokens, is dropped); the next pending token is the
+        variant's correction."""
+        params, bank = self.registry.spec_resolve()
+        k = self.spec.current_k
+        t0 = time.perf_counter()
+        ver, n_acc, self._next_tok, self._cache = self._rounds[k](
+            params, bank, self._variant_idx_dev, self._next_tok,
+            self._cache)
+        host_ver = ver.cpu().numpy()           # the round's host sync
+        host_n = n_acc.cpu().numpy()
+        self.metrics["decode_seconds"] += time.perf_counter() - t0
+        self.metrics["decode_steps"] += 1
+        self.metrics["spec_rounds"] += 1
+        acc_total = lanes = 0
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            lanes += 1
+            n = int(host_n[i])
+            acc_total += n
+            r = s.request
+            r.drafted += k
+            r.accepted += n
+            take = min(n, s.remaining)
+            r.out_tokens.extend(int(t) for t in host_ver[i, :take])
+            self.metrics["tokens_generated"] += take
+            s.remaining -= take
+            if s.remaining <= 0:
+                self._retire(i)
+        self.metrics["spec_drafted"] += k * lanes
+        self.metrics["spec_accepted"] += acc_total
+        self.spec.observe(k, acc_total, lanes)
 
     def _prompt_batch(self, requests: dict) -> dict:
         """Fixed-shape (batch_size, prompt_len) prefill batch: row i holds

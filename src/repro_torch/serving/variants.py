@@ -493,6 +493,16 @@ class VariantRegistry:
         self.bank.pin(vkey)
         return slot, vkey
 
+    def spec_resolve(self) -> tuple:
+        """The speculative scheduler's weights: (draft params, verify
+        bank).  Drafts serve the base through the shared base params with
+        overlay None (no delta kernel in a draft step); the verify serves
+        every lane's variant through the same bank and per-row slots the
+        continuous scheduler decodes with, so admission, pinning, hot-swap
+        and rollback behave alike under both.  The bank is None until the
+        first variant admission."""
+        return self.base_params, (self.bank.tree if self.bank else None)
+
     def _bank_key(self, nameish: str) -> str:
         """Caller-facing name -> bank/resident key: version keys and
         unversioned names pass through; plain names of versioned variants

@@ -338,8 +338,11 @@ def test_deployment_scheduler_guards(setup):
     s = setup
     with pytest.raises(ValueError):
         Deployment(s["model"], s["params"], mode="dense", device="cpu", **KW)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):          # the bank is fused-only
         Deployment(s["model"], s["params"], scheduler="speculative",
+                   mode="dense", device="cpu", **KW)
+    with pytest.raises(ValueError):
+        Deployment(s["model"], s["params"], scheduler="lockstep",
                    device="cpu", **KW)
     dep = Deployment(s["model"], s["params"], device="cpu", **KW)
     with pytest.raises(ValueError):

@@ -1158,3 +1158,72 @@ def test_dense_load_of_an_unstacked_entry(cuda, use_row, wdt):
     assert UA.launches == before + 2
     assert got.shape == (448, 896) and got.dtype == want.dtype
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("k_draft", [1, 2, 4])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.int8])
+def test_banked_gemm_in_the_speculative_verify_layout(cuda, k_draft, wdt):
+    """A verify round of draft length k over 4 lanes on slots [0, 1, 2, 1]
+    (``ops.flatten_vidx`` of a (4, k+1) token batch: each lane's k+1 rows
+    together), M = 8, 12 and 20 (20 takes the tiled kernel), at
+    qwen3-8b's wq shape (4096 x 4096): the GEMM bound against the plain
+    version."""
+    n, k = 4096, 4096
+    gen = torch.Generator(device=cuda).manual_seed(k_draft)
+    wb, packed, v_row, v_col = _device_bank(gen, 3, n, k, cuda)
+    wq, ws, wf = _banked_base(wb, wdt)
+    lanes = torch.tensor([0, 1, 2, 1], dtype=torch.int32, device=cuda)
+    vidx = K.flatten_vidx(lanes, (4, k_draft + 1))
+    assert torch.equal(vidx, _lanes([0, 1, 2, 1], k_draft + 1, cuda))
+    x = torch.randn((4 * (k_draft + 1), k), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    got = BL.bitlinear_axes_banked_p(x, vidx, packed, v_row, v_col, wq, ws)
+    assert _banked_within_tolerance(got, x, vidx, packed, v_row, v_col, wf)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-moe-16b",
+                                  "xlstm-350m"])
+def test_verify_step_through_the_kernels_matches_plain(cuda, arch):
+    """A reduced verify (fp32 compute) of 5 tokens a lane over a 4-slot
+    bank, lanes on [0, v0, v1, v0]: from one cache, the logits through the
+    kernels within 1e-3 of the plain versions' with the same greedy
+    tokens; the banked kernel launched (20 rows a projection; the
+    recurrent verify steps 5 times)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.core import calibration as C
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.models.param import split
+    from repro_torch.serving.variants import OverlayBank
+
+    cfg = dataclasses.replace(SV.make_config(arch, reduced=True),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    base, _ = split(model.init(0, device=cuda))
+    bank = OverlayBank(base, 4)
+    slots = [bank.admit(f"v{i}", C.compress(
+        base, SV.fine_tune(base, 100 + i, 0.05)))[0] for i in range(2)]
+    vidx = torch.tensor([0, slots[0], slots[1], slots[0]],
+                        dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    prompt = torch.randint(1, cfg.vocab_size, (4, 8), generator=gen,
+                           device=cuda)
+    seq = torch.randint(1, cfg.vocab_size, (4, 5), generator=gen,
+                        device=cuda)
+    with K.plain_versions():
+        _, cache = model.prefill(base, {"tokens": prompt}, 32,
+                                 cache_dtype=torch.float32,
+                                 overlay=bank.tree, variant_idx=vidx)
+    before = BL.banked_launches
+    got, _ = model.verify_step(base, seq, copy.deepcopy(cache),
+                               overlay=bank.tree, variant_idx=vidx)
+    torch.cuda.synchronize()
+    assert BL.banked_launches > before
+    with K.plain_versions():
+        want, _ = model.verify_step(base, seq, copy.deepcopy(cache),
+                                    overlay=bank.tree, variant_idx=vidx)
+    assert got.shape == (4, 5, cfg.padded_vocab)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    assert torch.equal(torch.argmax(got, -1), torch.argmax(want, -1))
