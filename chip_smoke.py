@@ -163,6 +163,29 @@ Phases (any failure raises and the script exits non-zero):
    and a speculative ``Deployment`` over reduced gemma3-12b must refuse its
    ring caches.
 
+18. compile-once serving (``core/compile_cache``, ``serving/engine``):
+   every continuous and speculative run above replays CUDA graphs.
+   ``drive`` warms each such deployment up first (every decode step and
+   round captured, with and without the bank; prefills run once eagerly)
+   and then asserts that the run captures nothing more and replays one
+   graph a step or round, so the launch counts stay those of eager
+   serving; the reference phases hold graphed card tokens against the
+   CPU's eager ones.  The qwen3-8b runs of phase 17 (continuous and
+   speculative, fp32, int8, near-base), xlstm-350m's, and the fp32
+   continuous runs of whisper-base, zamba2-7b, deepseek-moe-16b and
+   gemma3-12b are served again with ``graphs=False`` on the same
+   requests (``eager_twin``): tokens must be identical; it prints both
+   runs' mean step, tokens/s, allocated and reserved peak memory and
+   idle share, the warmup and capture seconds and the step counters, a
+   graphed k=4 round's replay time beside its eager time, speculative
+   against continuous tokens/s under graphs and eagerly, and the
+   recurrent state's copy-back time.  The script ends with a warm
+   restart (``restart_phase``): the serving launcher with ``--warmup
+   --compile-cache`` on this script's build directory, as a fresh
+   process, must build no kernel, capture nothing after its warmup and
+   emit the tokens of the same run in this process; its
+   restart-to-first-token is printed beside the cold build.
+
 Each phase prints its seconds.  Then it prints the kernel summary as one
 JSON line (the entries of a kernel
 whose first CUDA design was replaced carry ``design``: the design now run),
@@ -1081,7 +1104,7 @@ def deltalinear_phase(cfg, dev) -> dict:
 
 
 def profile_decode(model, params, overlay, dev, label, step_ms,
-                   vidx=None, prompt_len=None, max_len=None) -> None:
+                   vidx=None, prompt_len=None, max_len=None):
     """One decode step of batch 4 under ``torch.profiler``: summed device
     time, the kernels that take the most, and the device's idle share of
     the serve run's mean decode step (``step_ms``, unprofiled).  The cache
@@ -1089,7 +1112,8 @@ def profile_decode(model, params, overlay, dev, label, step_ms,
     launcher's) and the engine's frontend stub (whisper's frames, a VLM's
     image prefix) into ``max_len`` slots (default ``serve.cache_len``).  Prompts and the decoded token
     differ between lanes (seeded), so an MoE layer routes them as serving
-    does: its stacked GEMM skips only the experts none of them picks."""
+    does: its stacked GEMM skips only the experts none of them picks.
+    Returns the device-busy ms (None where the profiler saw nothing)."""
     from repro_torch.launch import serve as SV
 
     prompt_len = prompt_len or SV.PROMPT_LEN
@@ -1109,7 +1133,7 @@ def profile_decode(model, params, overlay, dev, label, step_ms,
     if not events:
         print(f"profile {label} decode step: wall_ms={wall_ms:.3f} "
               "device time not measured (the profiler saw no device work)")
-        return
+        return None
     print(f"profile {label} decode step: device_busy_ms={busy_ms:.3f} "
           f"profiled_wall_ms={wall_ms:.3f} serve_step_ms={step_ms:.3f} "
           f"idle_share={max(0.0, 1 - busy_ms / step_ms):.3f}"
@@ -1119,6 +1143,7 @@ def profile_decode(model, params, overlay, dev, label, step_ms,
     for e in sorted(events, key=_dev_us, reverse=True)[:8]:
         print(f"    {_dev_us(e) / 1e3:9.3f} ms  calls={e.count:4d}  "
               f"{e.key[:70]}")
+    return busy_ms
 
 
 def _dev_us(e) -> float:
@@ -1163,14 +1188,29 @@ def profile_cache(model, params, overlay, dev, vidx, gen, prompt_len,
 
 
 def drive(dep, cfg, label, n_requests, budgets, setup_s,
-          prompt_range=None) -> tuple:
+          prompt_range=None, stats=None) -> tuple:
     """Serve ``n_requests`` round-robin over the deployment's variants with
     the launch counters zeroed right before; every request must finish
     with exactly its budget.  Prompts are the serve launcher's 8 random
-    tokens, or ``long_requests`` of a (lo, hi) ``prompt_range``.  Returns
+    tokens, or ``long_requests`` of a (lo, hi) ``prompt_range``.  A slot
+    scheduler serving through CUDA graphs is warmed up first (every step
+    captured before the counters are zeroed): the run must capture
+    nothing more and replay one graph a decode step or round.  ``stats``
+    (a dict) receives the run's wall seconds, tokens/s, mean step ms,
+    peak memory, warmup and capture seconds and step counters.  Returns
     (tokens per request, launches)."""
     from repro_torch.launch import serve as SV
 
+    graphs = dep.engine.graphs
+    if graphs:
+        outcomes = dep.warmup()
+        captured = sum(v == "captured" for v in outcomes.values())
+        st = dep.status()["steps"]
+        print(f"warmup {label}: {dep.metrics['warmup_seconds']:.3f} s, "
+              f"{captured} graphs captured in {st['compile_seconds']:.3f} "
+              f"s ({sorted(k for k, v in outcomes.items() if v == 'captured')}"
+              f"), the rest {sorted(set(outcomes.values()) - {'captured'})}")
+    steps0 = dict(dep.status()["steps"])
     torch.cuda.reset_peak_memory_stats()
     zero_counters()
     t0 = time.perf_counter()
@@ -1183,6 +1223,8 @@ def drive(dep, cfg, label, n_requests, budgets, setup_s,
     wall = time.perf_counter() - t0
     launches = counters()
     peak = torch.cuda.max_memory_allocated()
+    # the graphs' private pool is reserved, not allocated, between replays
+    reserved = torch.cuda.max_memory_reserved()
     reqs = [dep.result(r) for r in rids]
     want = [budgets[i % len(budgets)] for i in range(n_requests)]
     assert all(r.status == "done" and len(r.out_tokens) == w
@@ -1191,15 +1233,87 @@ def drive(dep, cfg, label, n_requests, budgets, setup_s,
     assert all(0 <= t < cfg.padded_vocab for r in reqs
                for t in r.out_tokens)
     m = dep.metrics
+    steps = dep.status()["steps"]
+    if graphs:
+        assert steps["compiles"] == steps0["compiles"], (label, steps0, steps)
+        assert steps["cache_hits"] - steps0["cache_hits"] == \
+            m["decode_steps"], (label, steps0, steps, m["decode_steps"])
+    elif dep.engine.scheduler != "group":
+        assert steps["compiles"] == steps["cache_hits"] == 0, (label, steps)
     print(f"serve {label}: setup_s={setup_s:.3f} wall_s={wall:.3f} "
           f"tokens={m['tokens_generated']} "
           f"tokens_per_s={m['tokens_generated'] / wall:.2f} "
           f"prefill_s={m['prefill_seconds']:.4f} "
           f"decode_s={m['decode_seconds']:.4f} "
           f"decode_steps={m['decode_steps']} prefills={m['prefills']} "
-          f"peak_mem_GB={peak / 1e9:.2f} launches={launches} "
-          f"registry={dep.stats}")
+          f"peak_mem_GB={peak / 1e9:.2f} (reserved "
+          f"{reserved / 1e9:.2f}) launches={launches} "
+          f"graphs={graphs} steps={steps} registry={dep.stats}")
+    if stats is not None:
+        stats.update(wall_s=wall, tokens_per_s=m["tokens_generated"] / wall,
+                     step_ms=1e3 * m["decode_seconds"] / max(
+                         m["decode_steps"], 1),
+                     peak_gb=peak / 1e9, reserved_gb=reserved / 1e9,
+                     warmup_s=m["warmup_seconds"],
+                     capture_s=steps["compile_seconds"], steps=steps)
     return [r.out_tokens for r in reqs], launches
+
+
+def copy_back_ms(dep, timer) -> tuple:
+    """(bytes, device ms) of the copy-back a graphed step ends with: every
+    leaf of the live cache that the model's step rebinds written from a
+    fresh tensor (timed on clones of the whole cache, L2 flushed; leaves
+    the step writes in place are skipped by the engine, so this is an
+    upper bound)."""
+    from repro_torch.serving import engine as E
+    from repro_torch.tree import tree_leaves, tree_map
+
+    live = dep.engine._cache
+    new = tree_map(torch.clone, live)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(live))
+    ms = timer.ms(lambda: E._copy_back(live, new), reps=10, warmup=2)
+    del new
+    return nbytes, ms
+
+
+def eager_twin(deploy, cfg, label, n_requests, budgets, tokens, graphed,
+               prompt_range=None) -> dict:
+    """The graphed run ``label`` served again with ``graphs=False``
+    (``deploy(graphs)`` builds its Deployment), the same requests: the
+    tokens must equal the graphed run's bit for bit.  Prints the two runs
+    side by side: mean step (or round), tokens/s, peak memory, the
+    device's idle share of a step where the graphed run's ``busy_ms`` was
+    profiled, and the graphed run's warmup, capture seconds and step
+    counters.  Returns the eager run's ``drive`` stats."""
+    t0 = time.perf_counter()
+    dep = deploy(graphs=False)
+    torch.cuda.synchronize()
+    eager = {}
+    got, _ = drive(dep, cfg, f"{label} eager", n_requests, budgets,
+                   time.perf_counter() - t0, prompt_range, stats=eager)
+    del dep
+    gc.collect()
+    torch.cuda.empty_cache()
+    differ = [(i, j) for i, (a, b) in enumerate(zip(got, tokens))
+              for j, (x, y) in enumerate(zip(a, b)) if x != y]
+    assert got == tokens and not differ, (label, differ[:8])
+    busy = graphed.get("busy_ms")
+    idle = "" if busy is None else (
+        f"; device busy {busy:.3f} ms a step, idle share eager "
+        f"{max(0.0, 1 - busy / eager['step_ms']):.3f} -> graphed "
+        f"{max(0.0, 1 - busy / graphed['step_ms']):.3f}")
+    print(f"graphs {label}: mean step eager {eager['step_ms']:.3f} ms -> "
+          f"graphed {graphed['step_ms']:.3f} ms "
+          f"(x{eager['step_ms'] / graphed['step_ms']:.2f}); tokens_per_s "
+          f"eager {eager['tokens_per_s']:.2f} -> graphed "
+          f"{graphed['tokens_per_s']:.2f}; peak_mem_GB allocated eager "
+          f"{eager['peak_gb']:.2f} -> graphed {graphed['peak_gb']:.2f}, "
+          f"reserved {eager['reserved_gb']:.2f} -> "
+          f"{graphed['reserved_gb']:.2f}{idle}; warmup "
+          f"{graphed['warmup_s']:.3f} s, capture "
+          f"{graphed['capture_s']:.3f} s, steps {graphed['steps']}; tokens "
+          f"identical ({sum(map(len, tokens))} tokens)")
+    return eager
 
 
 def serve_phase(dev) -> dict:
@@ -1460,8 +1574,10 @@ def lifecycle_phase(dev) -> dict:
           f"{axes}; e2e losses {report['e2e_losses']}")
 
     requests = lifecycle_requests(cfg, 8, [4, 6, 8])
+    # warmed: every step captured before the counted serve
     kw = dict(mode="fused", scheduler="continuous", batch_size=LANES,
-              prompt_len=PROMPT, max_len=SV.MAX_LEN, bank_size=4, device=dev)
+              prompt_len=PROMPT, max_len=SV.MAX_LEN, bank_size=4, device=dev,
+              warmup=True)
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as root:
@@ -2067,15 +2183,17 @@ EXPERT_PROJ = ("w_gate", "w_up", "w_down")   # an expert pass's launch order
 
 
 def serve_checks(dep, model, cfg, dev, label, prompt_len, max_len,
-                 continuous: bool, repeat: bool = False) -> list:
+                 continuous: bool, repeat: bool = False,
+                 stats=None) -> list:
     """After a full-width run: the fused prefill through the kernels (one
     batch, on the card; continuous: the bank over a mixed vidx), each of
     its delta GEMM launches held to the GEMM bound against its plain
     version on the same operands (``gemms_checked``), its logits beside
     the same prefill through the plain versions; with ``repeat`` the
     prefill is run again and must give the same logits bit for bit.  Then
-    one decode step under the profiler (device-busy time, idle share).
-    Returns the checked launches."""
+    one decode step under the profiler (device-busy time, idle share;
+    ``stats["busy_ms"]`` receives the busy time).  Returns the checked
+    launches."""
     from repro_torch.kernels import ops as K
     from repro_torch.serving.engine import frontend_stub
 
@@ -2123,8 +2241,10 @@ def serve_checks(dep, model, cfg, dev, label, prompt_len, max_len,
           f"{(got.float() - want.float()).abs().max().item():.4g} (max "
           f"|logit| = {want.float().abs().max().item():.4g})")
     del got, want
-    profile_decode(model, params, overlay, dev, label, step_ms, vidx=vidx,
-                   prompt_len=prompt_len, max_len=max_len)
+    busy = profile_decode(model, params, overlay, dev, label, step_ms,
+                          vidx=vidx, prompt_len=prompt_len, max_len=max_len)
+    if stats is not None:
+        stats["busy_ms"] = busy
     del params, overlay
     return checked
 
@@ -2175,25 +2295,33 @@ def gemma3_phase(dev) -> dict:
           f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
     for base_dtype in ("fp", "int8"):
         label = f"gemma3-12b continuous {base_dtype}"
+
+        def deploy(graphs=True, base_dtype=base_dtype):
+            return SV.deploy(model, base, dms, mode="fused",
+                             scheduler="continuous", batch=LANES,
+                             bank_size=4, device=dev, base_dtype=base_dtype,
+                             prompt_len=prompt_len, max_len=max_len,
+                             graphs=graphs)
         t0 = time.perf_counter()
-        dep = SV.deploy(model, base, dms, mode="fused",
-                        scheduler="continuous", batch=LANES, bank_size=4,
-                        device=dev, base_dtype=base_dtype,
-                        prompt_len=prompt_len, max_len=max_len)
+        dep = deploy()
         torch.cuda.synchronize()
-        _, launches[label] = drive(
+        graphed = {}
+        tokens, launches[label] = drive(
             dep, cfg, label, 6, GEMMA_BUDGETS, time.perf_counter() - t0,
-            prompt_range=GEMMA_PROMPTS)
+            prompt_range=GEMMA_PROMPTS, stats=graphed)
         m = dep.metrics
         assert launches[label]["bitlinear_axes_banked"] == \
             7 * GEMMA_LAYERS * (m["prefills"] + m["decode_steps"]), \
             launches[label]
         assert m["admitted"] == m["retired"] == 6, m
         serve_checks(dep, model, cfg, dev, label, prompt_len, max_len,
-                     continuous=True)
+                     continuous=True, stats=graphed)
         del dep
         gc.collect()
         torch.cuda.empty_cache()
+        if base_dtype == "fp":
+            eager_twin(deploy, cfg, label, 6, GEMMA_BUDGETS, tokens,
+                       graphed, prompt_range=GEMMA_PROMPTS)
     del model, base, dms
     gc.collect()
     torch.cuda.empty_cache()
@@ -2233,14 +2361,21 @@ def moe_phase(dev) -> dict:
             run = "fused" if scheduler == "group" else "continuous"
             label = f"deepseek-moe-16b {run}" + (
                 " int8" if base_dtype == "int8" else "")
+
+            def deploy(graphs=True, scheduler=scheduler,
+                       base_dtype=base_dtype):
+                return SV.deploy(model, base, dms, mode="fused",
+                                 scheduler=scheduler, batch=LANES,
+                                 bank_size=4, device=dev,
+                                 base_dtype=base_dtype, graphs=graphs)
             t0 = time.perf_counter()
-            dep = SV.deploy(model, base, dms, mode="fused",
-                            scheduler=scheduler, batch=LANES, bank_size=4,
-                            device=dev, base_dtype=base_dtype)
+            dep = deploy()
             torch.cuda.synchronize()
             budgets = [8] if scheduler == "group" else CONT_BUDGETS
-            _, launches[label] = drive(dep, cfg, label, 8, budgets,
-                                       time.perf_counter() - t0 + setup_s)
+            graphed = {}
+            tokens, launches[label] = drive(
+                dep, cfg, label, 8, budgets,
+                time.perf_counter() - t0 + setup_s, stats=graphed)
             got = launches[label]
             m = dep.metrics
             calls = m["prefills"] + m["decode_steps"]
@@ -2257,7 +2392,8 @@ def moe_phase(dev) -> dict:
             assert got[RUN_KERNEL[run]] > 0, got
             checked = serve_checks(
                 dep, model, cfg, dev, label, SV.PROMPT_LEN, SV.MAX_LEN,
-                continuous=scheduler == "continuous", repeat=True)
+                continuous=scheduler == "continuous", repeat=True,
+                stats=graphed)
             ms = {shape[1] for name, shape, _ in checked
                   if name == "bitlinear_axes_stacked"}
             assert ms and ms <= set(stacked_ms(cfg)), (ms, stacked_ms(cfg))
@@ -2267,6 +2403,8 @@ def moe_phase(dev) -> dict:
             del dep
             gc.collect()
             torch.cuda.empty_cache()
+            if scheduler == "continuous" and base_dtype == "fp":
+                eager_twin(deploy, cfg, label, 8, budgets, tokens, graphed)
     del model, base, dms
     gc.collect()
     torch.cuda.empty_cache()
@@ -2364,7 +2502,8 @@ def six_runs(dev, cfg, model, base, dms, per_prefill, per_step) -> dict:
     (bit-identical), prints its logits beside the plain versions and
     profiles one decode step; after a dense run one decode step of v0 is
     profiled.  Each run prints its peak device memory (serving and
-    checks).  Returns {run: launches}."""
+    checks).  The fp32 continuous run (CUDA graphs) is served again
+    eagerly (``eager_twin``).  Returns {run: launches}."""
     from repro_torch.launch import serve as SV
 
     launches = {}
@@ -2375,15 +2514,22 @@ def six_runs(dev, cfg, model, base, dms, per_prefill, per_step) -> dict:
                                      ("continuous", "continuous", "fused")):
             label = f"{cfg.name} {run}" + (
                 " int8" if base_dtype == "int8" else "")
+
+            def deploy(graphs=True, mode=mode, scheduler=scheduler,
+                       base_dtype=base_dtype):
+                return SV.deploy(model, base, dms, mode=mode,
+                                 scheduler=scheduler, batch=LANES,
+                                 bank_size=4, device=dev,
+                                 base_dtype=base_dtype, graphs=graphs)
             t0 = time.perf_counter()
-            dep = SV.deploy(model, base, dms, mode=mode, scheduler=scheduler,
-                            batch=LANES, bank_size=4, device=dev,
-                            base_dtype=base_dtype)
+            dep = deploy()
             torch.cuda.synchronize()
             n_req, budgets = (8, [8]) if scheduler == "group" else (
                 12, CONT_BUDGETS)
-            _, launches[label] = drive(dep, cfg, label, n_req, budgets,
-                                       time.perf_counter() - t0)
+            graphed = {}
+            tokens, launches[label] = drive(dep, cfg, label, n_req, budgets,
+                                            time.perf_counter() - t0,
+                                            stats=graphed)
             got = launches[label]
             m = dep.metrics
             assert got[RUN_KERNEL[run]] > 0, got
@@ -2401,14 +2547,22 @@ def six_runs(dev, cfg, model, base, dms, per_prefill, per_step) -> dict:
                 checked = serve_checks(dep, model, cfg, dev, label,
                                        SV.PROMPT_LEN, SV.cache_len(cfg),
                                        continuous=run == "continuous",
-                                       repeat=True)
+                                       repeat=True, stats=graphed)
                 assert len(checked) == per_prefill, len(checked)
                 assert {shape[0] for _, shape, _ in checked} == rows
             print(f"{label}: peak_mem_GB="
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+            if run == "continuous" and base_dtype == "fp":
+                nbytes, ms = copy_back_ms(dep, Timer(dev))
+                print(f"{label}: copy-back of the live state (upper bound: "
+                      f"every leaf) {nbytes / 1e9:.3f} GB in {ms:.3f} ms, "
+                      f"{ms / graphed['step_ms']:.3f} of the graphed step")
             del dep
             gc.collect()
             torch.cuda.empty_cache()
+            if run == "continuous" and base_dtype == "fp":
+                eager_twin(deploy, cfg, label, n_req, budgets, tokens,
+                           graphed)
     return launches
 
 
@@ -2560,13 +2714,17 @@ DELTA_KERNELS = ("unpack_apply", "bitlinear_axes", "bitlinear_axes_banked",
 
 
 def profile_round(model, params, bank, vidx, dev, label, k, prompt_len,
-                  max_len) -> None:
+                  max_len, dep=None):
     """One speculative round of draft length ``k`` over ``LANES`` lanes
     (after a prefill through the bank and a warm-up round): its unprofiled
     time, then the draft's k base steps and the banked verify (accept and
     rewind included) each under ``torch.profiler``: device-busy and wall
     ms, the device's idle share of the round and the verify's largest
-    kernels.  The draft must launch no delta kernel."""
+    kernels.  The draft must launch no delta kernel.  With ``dep`` (a
+    drained deployment serving through CUDA graphs) its captured round of
+    draft length ``k`` is replayed too, timed on the host clock over its
+    idle lanes: the idle share of a graphed round.  Returns the round's
+    device-busy ms."""
     from repro_torch.serving import speculative as SP
 
     gen = torch.Generator(device=dev)
@@ -2601,6 +2759,25 @@ def profile_round(model, params, bank, vidx, dev, label, k, prompt_len,
         for e in sorted(events, key=_dev_us, reverse=True)[:4]:
             print(f"    {name:6s} {_dev_us(e) / 1e3:9.3f} ms  "
                   f"calls={e.count:4d}  {e.key[:64]}")
+    if dep is not None and dep.engine.graphs:
+        assert dep.engine.active() == 0
+        step = dep.engine._graphs[("spec", f"spec_k{k}")]
+        before = counters()
+        step.replay()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step.replay()
+            torch.cuda.synchronize()
+        graph_ms = (time.perf_counter() - t0) * 1e3 / 5
+        replayed = counters()["bitlinear_axes_banked"] - \
+            before["bitlinear_axes_banked"]
+        print(f"profile {label} round k={k} graphed: replay_ms="
+              f"{graph_ms:.3f} (eager round_ms={round_ms:.3f}) "
+              f"device_busy_ms={d_busy + v_busy:.3f} idle_share="
+              f"{max(0.0, 1 - (d_busy + v_busy) / graph_ms):.3f} "
+              f"banked launches a replay {replayed // 6}")
+    return d_busy + v_busy
 
 
 def spec_runs(dev, cfg, model, base, dms, label, base_dtype, per_pass,
@@ -2615,18 +2792,24 @@ def spec_runs(dev, cfg, model, base, dms, label, base_dtype, per_pass,
     none.  Prints tokens/s of both, rounds, acceptance, the ladder's walk,
     the token agreement (not asserted at full width: bf16 near-ties may
     flip between the verify's and the decode step's summation orders) and
-    one profiled round.  Returns {run: launches}."""
+    one profiled step and round.  Both runs go through CUDA graphs and are
+    served again eagerly (``eager_twin``: the same tokens, bit for bit).
+    Returns {run: launches}."""
     from repro_torch.launch import serve as SV
 
     suffix = " int8" if base_dtype == "int8" else ""
-    launches, tokens, rate, step = {}, {}, {}, {}
+    launches, tokens, rate, step, eager_rate = {}, {}, {}, {}, {}
     for scheduler in ("continuous", "speculative"):
         beside = " beside speculative" if scheduler == "continuous" else ""
         run = f"{label} {scheduler}{beside}{suffix}"
+
+        def deploy(graphs=True, scheduler=scheduler):
+            return SV.deploy(model, base, dms, mode="fused",
+                             scheduler=scheduler, batch=LANES, bank_size=4,
+                             device=dev, base_dtype=base_dtype,
+                             draft_k=SPEC_K, graphs=graphs)
         t0 = time.perf_counter()
-        dep = SV.deploy(model, base, dms, mode="fused", scheduler=scheduler,
-                        batch=LANES, bank_size=4, device=dev,
-                        base_dtype=base_dtype, draft_k=SPEC_K)
+        dep = deploy()
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         ks = []
@@ -2637,17 +2820,24 @@ def spec_runs(dev, cfg, model, base, dms, label, base_dtype, per_pass,
                 ks.append(k)
                 observe(k, accepted, lanes)
             dep.engine.spec.observe = record
-        t0 = time.perf_counter()
+        graphed = {}
         tokens[scheduler], got = drive(dep, cfg, run, 12, CONT_BUDGETS,
-                                       setup_s)
+                                       setup_s, stats=graphed)
         m = dep.metrics
-        rate[scheduler] = m["tokens_generated"] / (time.perf_counter() - t0)
-        step[scheduler] = 1e3 * m["decode_seconds"] / m["decode_steps"]
+        rate[scheduler] = graphed["tokens_per_s"]
+        step[scheduler] = graphed["step_ms"]
         launches[run] = got
         assert m["admitted"] == m["retired"] == 12, m
+        slots = [dep.registry.bank_resolve(v) for v in ("v0", "v1")]
+        vidx = torch.tensor([0, slots[0], slots[1], slots[0]],
+                            dtype=torch.int32, device=dev)
+        mixed = f"{run} mixed (vidx {vidx.tolist()})"
         if scheduler == "continuous":
             assert got["bitlinear_axes_banked"] == per_pass * (
                 m["prefills"] + m["decode_steps"]), (got, m)
+            graphed["busy_ms"] = profile_decode(
+                model, dep.registry.base_params, dep.registry.bank.tree,
+                dev, mixed, step[scheduler], vidx=vidx)
         else:
             assert m["spec_rounds"] == len(ks) > 0, (m, ks)
             verify = sum(per_pass * (k + 1 if snapshot else 1) for k in ks)
@@ -2674,18 +2864,24 @@ def spec_runs(dev, cfg, model, base, dms, label, base_dtype, per_pass,
                   f"round {step['speculative']:.3f} ms vs continuous step "
                   f"{step['continuous']:.3f} ms; agreement with continuous "
                   f"{same}/{total} tokens (printed, not asserted)")
-            slots = [dep.registry.bank_resolve(v) for v in ("v0", "v1")]
-            vidx = torch.tensor([0, slots[0], slots[1], slots[0]],
-                                dtype=torch.int32, device=dev)
+            # the round's own busy time and graphed replay: a mean round
+            # mixes the ladder's k, so the twin prints no idle share
             profile_round(model, dep.registry.base_params,
-                          dep.registry.bank.tree, vidx, dev,
-                          f"{run} mixed (vidx {vidx.tolist()})", SPEC_K,
-                          SV.PROMPT_LEN, SV.cache_len(cfg))
+                          dep.registry.bank.tree, vidx, dev, mixed, SPEC_K,
+                          SV.PROMPT_LEN, SV.cache_len(cfg), dep=dep)
             print(f"{run}: peak_mem_GB="
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
         del dep
         gc.collect()
         torch.cuda.empty_cache()
+        eager_rate[scheduler] = eager_twin(
+            deploy, cfg, run, 12, CONT_BUDGETS, tokens[scheduler],
+            graphed)["tokens_per_s"]
+    print(f"{label}{suffix} speculative vs continuous tokens/s: graphed "
+          f"{rate['speculative']:.2f} / {rate['continuous']:.2f} "
+          f"(x{rate['speculative'] / rate['continuous']:.2f}); eager "
+          f"{eager_rate['speculative']:.2f} / {eager_rate['continuous']:.2f} "
+          f"(x{eager_rate['speculative'] / eager_rate['continuous']:.2f})")
     return launches
 
 
@@ -2719,6 +2915,72 @@ def speculative_phase(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# warm restart: a fresh serving process over the script's build
+# ---------------------------------------------------------------------------
+
+RESTART_ARGS = ["--arch", ARCH, "--reduced", "--mode", "fused",
+                "--speculative", "--draft-k", str(SPEC_K), "--requests", "8",
+                "--new-tokens", "8", "--warmup"]
+
+
+def launcher_lines(text: str) -> dict:
+    """The launcher's result lines ("tokens: ...") by name."""
+    keys = ("warmup", "compiles", "compile-cache", "startup", "tokens")
+    return {k: v for k, _, v in (line.partition(": ")
+                                 for line in text.splitlines()) if k in keys}
+
+
+def restart_phase(dev, build_s: float) -> None:
+    """Warm restart (DESIGN.md §14): ``repro_torch.launch.serve`` with
+    ``RESTART_ARGS`` (reduced qwen3-8b, speculative, ``--warmup``) run in
+    this process, then as a fresh process with ``--compile-cache`` on the
+    directory this script built the kernels into.  The fresh process must
+    load the library without building it, capture its graphs in
+    ``warmup()`` and none after, and emit this process's tokens.  Prints
+    its restart-to-first-token (from the spawn to its first token) beside
+    this script's cold build."""
+    import ast
+    import io
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve as SV
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        SV.main(RESTART_ARGS)
+    here = launcher_lines(buf.getvalue())
+    cache_dir = str(build._loaded_through[0].path)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *RESTART_ARGS,
+         "--compile-cache", cache_dir], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=900)
+    wall = time.time() - t0
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    there = launcher_lines(proc.stdout)
+    cache = ast.literal_eval(there["compile-cache"])
+    steps = ast.literal_eval(there["compiles"])
+    outcomes = json.loads(there["warmup"])
+    startup = json.loads(there["startup"])
+    captured = sum(v == "captured" for v in outcomes.values())
+    assert cache["builds"] == 0 and cache["hits"] == 1, cache
+    assert steps["compiles"] == captured > 0, (steps, outcomes)
+    assert steps["cache_hits"] > 0, steps
+    assert json.loads(there["tokens"]) == json.loads(here["tokens"]), (
+        there["tokens"], here["tokens"])
+    print(f"restart: a fresh `python -m repro_torch.launch.serve "
+          f"{' '.join(RESTART_ARGS)} --compile-cache {cache_dir}`: "
+          f"compile cache {cache}; {captured} graphs captured in warmup "
+          f"({startup['warmup_seconds']:.3f} s), none after (steps "
+          f"{steps}); tokens == this process's "
+          f"({sum(map(len, json.loads(here['tokens'])))} tokens); "
+          f"restart-to-first-token {startup['first_token_unix'] - t0:.2f} s "
+          f"(process wall {wall:.2f} s) against this script's cold kernel "
+          f"build {build_s:.1f} s")
 
 
 # kernel bodies whose first CUDA design was replaced: the design now run
@@ -2850,7 +3112,9 @@ def main() -> None:
 
     t0 = time.perf_counter()
     build.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s\n{build.ptxas_report()}")
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s, compile cache {build.cache_stats()}\n"
+          f"{build.ptxas_report()}")
     print("redesigned kernels (registers, spills, shared memory):")
     print("\n".join(resources(build.ptxas_report())))
 
@@ -2889,6 +3153,7 @@ def main() -> None:
     launches.update(timed("internvl2-76b", vlm_phase, dev))
     for arch in RECURRENT:
         launches.update(timed(arch, recurrent_phase, dev, arch))
+    timed("restart", restart_phase, dev, build_s)
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     print(json.dumps({"kernels": kernel_entries(rows, launches, dl_launches,

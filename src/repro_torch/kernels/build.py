@@ -3,9 +3,12 @@
 Each ``.cu`` source compiles with ``nvcc`` for Hopper (``sm_90a``) into an
 object — all sources at once, one process each — and the objects link into
 one shared library with a plain C interface, loaded with ``ctypes``.  The
-build happens at first use, into ``build/repro_torch/`` at the root of the
-checkout, under a name that hashes the sources and flags, so an edited
-source rebuilds and an unchanged one loads the existing library.
+build happens at first use, through the process's compile cache
+(``core/compile_cache.CompileCache``; by default ``build/repro_torch/`` at
+the root of the checkout, ``REPRO_COMPILE_CACHE_DIR`` names another), under
+a key over the sources, the flags and the environment: an edited source or
+another toolchain rebuilds, an unchanged one loads the stored library, and
+a stored library that cannot load is moved aside and rebuilt.
 
 Nothing here runs at import time: a host without ``nvcc`` or a card can
 import every module of the package.
@@ -19,12 +22,12 @@ import os
 import pathlib
 import shutil
 import subprocess
-import tempfile
 
 import torch
 
+from repro_torch.core import compile_cache as CC
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("unpack_apply.cu", "bitlinear_axes.cu",
            "bitlinear_axes_banked.cu", "bitlinear_axes_stacked.cu",
            "bitlinear.cu", "flash_attn.cu")
@@ -69,57 +72,55 @@ def nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    """sha256 over every file under ``csrc/``, with its name."""
+    h = hashlib.sha256()
     for name in sorted(p.name for p in CSRC.iterdir()):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def _compile() -> tuple[pathlib.Path, str]:
-    """Compile every source (in parallel) and link; returns (library path,
-    the compiler's per-kernel resource report)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"librepro_torch_{_digest()}.so"
-    report_path = lib_path.with_suffix(".ptxas.txt")
-    if lib_path.exists() and report_path.exists():
-        return lib_path, report_path.read_text()
+def _compile(out_dir: pathlib.Path) -> tuple[pathlib.Path, str]:
+    """Compile every source (in parallel) and link, under ``out_dir``;
+    returns (library path, the compiler's per-kernel resource report)."""
     exe = nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        procs = []
-        for src in SOURCES:
-            obj = pathlib.Path(tmp) / (src + ".o")
-            cmd = [exe, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
-                   "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        report = []
-        failed = []
-        for src, _, p in procs:
-            out, _ = p.communicate()
-            report.append(f"== {src}\n{out}")
-            if p.returncode != 0:
-                failed.append(src)
-        if failed:
-            raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n"
-                               + "\n".join(report))
-        tmp_lib = pathlib.Path(tmp) / lib_path.name
-        link = subprocess.run(
-            [exe, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
-             *(str(obj) for _, obj, _ in procs), "-ldl"],
-            capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError("nvcc link failed\n" + link.stdout + link.stderr)
-        report_path.write_text("\n".join(report))
-        os.replace(tmp_lib, lib_path)
-    return lib_path, report_path.read_text()
+    procs = []
+    for src in SOURCES:
+        obj = out_dir / (src + ".o")
+        cmd = [exe, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    report = []
+    failed = []
+    for src, _, p in procs:
+        out, _ = p.communicate()
+        report.append(f"== {src}\n{out}")
+        if p.returncode != 0:
+            failed.append(src)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n"
+                           + "\n".join(report))
+    lib_path = out_dir / "librepro_torch.so"
+    link = subprocess.run(
+        [exe, *ARCH_FLAGS, "-shared", "-o", str(lib_path),
+         *(str(obj) for _, obj, _ in procs), "-ldl"],
+        capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed\n" + link.stdout + link.stderr)
+    return lib_path, "\n".join(report)
+
+
+_loaded_through: list = []   # the cache the library was loaded through
 
 
 @functools.cache
 def _loaded() -> tuple[ctypes.CDLL, str]:
-    path, report = _compile()
-    lib = ctypes.CDLL(str(path))
+    cache = CC.get_default()
+    lib, report = cache.load(("kernel-library", tuple(NVCC_FLAGS),
+                              tuple(SOURCES), _digest()), _compile)
+    _loaded_through.append(cache)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -127,6 +128,13 @@ def _loaded() -> tuple[ctypes.CDLL, str]:
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib, report
+
+
+def cache_stats() -> dict:
+    """The compile cache's counters: of the cache the library was loaded
+    through, or of the process default before its first use."""
+    cache = _loaded_through[0] if _loaded_through else CC.get_default()
+    return dict(cache.stats)
 
 
 def library() -> ctypes.CDLL:

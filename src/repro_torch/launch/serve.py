@@ -24,7 +24,12 @@ variant (the ``unpack_apply`` kernel), ``--mode fused`` keeps it packed
 bank of ``variants + 2`` slots (the ``bitlinear_axes_banked`` kernel) and
 needs ``--mode fused``.  ``--speculative`` decodes those lanes by
 base-as-draft rounds (drafts on the base weights, one banked verify of
-``--draft-k`` + 1 tokens a lane; same tokens) and prints the acceptance.  ``--base-dtype int8`` holds the base's target
+``--draft-k`` + 1 tokens a lane; same tokens) and prints the acceptance.
+``--warmup`` readies every step before the requests (the slot scheduler's
+steps captured as CUDA graphs on a card) and ``--compile-cache DIR`` loads
+the kernel library from DIR, building it there only on a miss; the run
+prints the capture and build counters, its seconds from start to the first
+token and every request's tokens.  ``--base-dtype int8`` holds the base's target
 matrices as int8 plus fp16 per-channel scales (the kernels dequantize in
 their tile pass) and prints the quantized bytes.  ``--store-dir DIR``
 publishes the variants as artifacts in a ``core/store.VariantStore`` under
@@ -36,12 +41,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import calibration as C
+from repro_torch.core import compile_cache as CC
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.param import split
@@ -98,11 +106,12 @@ def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
            device, max_resident: int = 0, bank_size: int = 0,
            base_dtype: str = "fp", root_dir=None,
            prompt_len: int = PROMPT_LEN, max_len: int = 0,
-           draft_k: int = 4):
+           draft_k: int = 4, graphs: bool = True):
     """A Deployment over ``base`` with ``dms`` published as v0..v{n-1}
     (as store artifacts under ``root_dir`` when given); prompts padded to
     ``prompt_len``, caches of ``max_len`` (default ``cache_len``: room for
-    48 new tokens); ``draft_k`` for ``scheduler="speculative"``."""
+    48 new tokens); ``draft_k`` for ``scheduler="speculative"``;
+    ``graphs=False`` runs the slot scheduler's steps eagerly."""
     dep = Deployment(model, base, root_dir=root_dir, mode=mode,
                      scheduler=scheduler, draft_k=draft_k,
                      batch_size=batch, prompt_len=prompt_len,
@@ -110,7 +119,7 @@ def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
                      max_resident=max_resident or (8 if mode == "fused"
                                                    else 2),
                      bank_size=bank_size or len(dms) + 2, device=device,
-                     base_dtype=base_dtype)
+                     base_dtype=base_dtype, graphs=graphs)
     for i, dm in enumerate(dms):
         dep.publish(f"v{i}", dm)
     return dep
@@ -174,8 +183,17 @@ def main(argv=None):
     ap.add_argument("--draft-k", type=int, default=4,
                     help="longest speculative draft (the adaptive ladder "
                          "steps down under low acceptance)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="ready every step before the requests: the slot "
+                         "scheduler's decode steps and rounds captured as "
+                         "CUDA graphs on a card")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="directory of built kernel libraries: loaded from "
+                         "there, built there on a miss (also "
+                         "REPRO_COMPILE_CACHE_DIR)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if args.speculative:
         if args.mode != "fused":
             ap.error("--speculative verifies through the packed overlay "
@@ -186,6 +204,8 @@ def main(argv=None):
                  "needs --mode fused")
 
     device = resolve_device(args.device)
+    if args.compile_cache:
+        CC.set_default(CC.CompileCache(args.compile_cache))
     cfg = make_config(args.arch, args.reduced, args.num_layers)
     dep = build_deployment(cfg, mode=args.mode, n_variants=args.variants,
                            batch=args.batch, device=device,
@@ -201,8 +221,11 @@ def main(argv=None):
         print(f"int8 base: {qs['targets']} targets, "
               f"{qs['fp_bytes']} -> {qs['int8_bytes']} bytes "
               f"(ratio {qs['ratio']:.3f})")
-    submit_requests(dep, cfg, args.requests, args.new_tokens)
+    if args.warmup:
+        print("warmup:", json.dumps(dep.warmup()))
+    rids = submit_requests(dep, cfg, args.requests, args.new_tokens)
     dep.drain()
+    reqs = [dep.result(r) for r in rids]
     if dep.store is not None:
         print("store:", {n: {"versions": dep.store.versions(n),
                              "artifact_bytes": dep.store.artifact_bytes(
@@ -212,7 +235,16 @@ def main(argv=None):
     if args.speculative:
         print("speculative:", dep.status()["speculative"])
     print("registry:", dep.stats)
-    hbm = dep.status()["hbm"]
+    st = dep.status()
+    print("compiles:", st["steps"])
+    print("compile-cache:", st["compile_cache"])
+    first = min(r.first_token_at for r in reqs)
+    print("startup:", json.dumps({
+        "warmup_seconds": dep.metrics["warmup_seconds"],
+        "first_token_seconds": first - t_start,
+        "first_token_unix": time.time() - (time.perf_counter() - first)}))
+    print("tokens:", json.dumps([r.out_tokens for r in reqs]))
+    hbm = st["hbm"]
     print("hbm:", {k: hbm[k] for k in ("base_dtype", "base_bytes",
                                        "bank_bytes")})
     dep.close()

@@ -107,7 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if window > 0:
             mask &= (q_pos[:, None] - k_pos[None, :]) < window
         logits = torch.where(mask[None, :, None, None, :], logits,
-                             torch.tensor(NEG_INF, device=dev))
+                             torch.full((), NEG_INF, device=dev))
         new_m = torch.maximum(m, logits.amax(dim=-1))
         alpha = torch.exp(m - new_m)
         p_exp = torch.exp(logits - new_m[..., None])
@@ -141,7 +141,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window > 0:
         mask &= (q_pos[:, None] - k_pos[None, :]) < window
     logits = torch.where(mask[None, :, None, None, :], logits,
-                         torch.tensor(NEG_INF, device=dev))
+                         torch.full((), NEG_INF, device=dev))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bskgt,btkh->bskgh", w, v.to(torch.float32))
     return out.reshape(b, s, hq, hd).to(q.dtype)
@@ -169,7 +169,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if window > 0:
         valid &= sp > pos_b - window
     logits = torch.where(valid[:, None, None, :], logits,
-                         torch.tensor(NEG_INF, device=q.device))
+                         torch.full((), NEG_INF, device=q.device))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -204,7 +204,7 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if window > 0:
         valid &= sp > qpos - window
     logits = torch.where(valid[:, :, None, None, :], logits,
-                         torch.tensor(NEG_INF, device=q.device))
+                         torch.full((), NEG_INF, device=q.device))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)

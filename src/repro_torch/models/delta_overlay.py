@@ -142,14 +142,16 @@ def bank_index(path: str, slot: int) -> tuple:
     return (slice(None),) * bank_axis(path) + (slot,)
 
 
-def bank_zeros(path: str, entry: OverlayEntry, size: int) -> OverlayEntry:
+def bank_zeros(path: str, entry: OverlayEntry, size: int,
+               device=None) -> OverlayEntry:
     """All-slots-zero banked entry shaped after one variant's entry (slot 0
-    = base stays all-zero forever: zero vectors mean Ŵ = W_b exactly)."""
+    = base stays all-zero forever: zero vectors mean Ŵ = W_b exactly), on
+    ``device`` (default: the entry's)."""
     ax = bank_axis(path)
 
     def z(t):
         return torch.zeros(_with_bank_dim(t, ax, size), dtype=t.dtype,
-                           device=t.device)
+                           device=t.device if device is None else device)
     return OverlayEntry(packed=z(entry.packed), v_row=z(entry.v_row),
                         v_col=z(entry.v_col))
 

@@ -97,8 +97,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
     """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
     hd = x.shape[-1]
     exps = -torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exps)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), exps)
     ang = positions[..., None].to(torch.float32) * freqs   # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]                      # broadcast heads
     sin = torch.sin(ang)[..., None, :]
@@ -111,8 +111,8 @@ def sinusoidal_positions(seq_len: int, d: int, device=None) -> torch.Tensor:
     """Whisper-style absolute sinusoidal embeddings (S, d), fp32, built as
     the JAX package builds them."""
     pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
-    log_base = torch.tensor(math.log(10000.0), dtype=torch.float32,
-                            device=device)
+    log_base = torch.full((), math.log(10000.0), dtype=torch.float32,
+                          device=device)
     div = torch.exp(-log_base * torch.arange(0, d, 2, dtype=torch.float32,
                                              device=device) / d)
     ang = pos * div

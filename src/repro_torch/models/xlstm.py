@@ -53,7 +53,7 @@ def _stack(trees: list):
 def _weak(x: torch.Tensor, s: float) -> torch.Tensor:
     """x * s with the Python float rounded to x's dtype first, as JAX
     multiplies an array by a weakly typed scalar."""
-    return x * torch.tensor(s, dtype=x.dtype, device=x.device)
+    return x * torch.full((), s, dtype=x.dtype, device=x.device)
 
 
 # ---------------------------------------------------------------------------

@@ -24,13 +24,22 @@ batches from the overlay bank and needs ``mode="fused"``;
 by base-as-draft rounds of up to ``draft_k`` drafts, with the same tokens
 (``serving/speculative.py``); ``scheduler="group"`` serves one variant per
 batch, dense or fused.  ``base_dtype="int8"`` keeps the base's target
-matrices as int8 plus fp16 per-channel scales (``core/quantize``).  Mesh
-sharding, async admission, warmup and the compile cache are not ported.
+matrices as int8 plus fp16 per-channel scales (``core/quantize``).
+
+Compile-once serving: ``warmup=True`` (or ``warmup()``) readies every step
+before traffic, capturing the slot scheduler's decode steps and rounds as
+CUDA graphs on a card (``serving/engine``); ``graphs=False`` runs them
+eagerly.  ``compile_cache_dir`` installs a ``core/compile_cache``
+directory of built kernel libraries as the process default (the library
+loads once a process, at its first use), so a restart over the same
+directory builds nothing.  Mesh sharding and async admission are not
+ported.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.core import compile_cache as CC
 from repro_torch.core import store as S
 from repro_torch.core.calibration import DeltaModel
 from repro_torch.device import resolve_device
@@ -50,7 +59,9 @@ class Deployment:
                  prompt_len: int = 32, max_len: int = 128,
                  bank_size: int = 8, max_resident: int = 8,
                  eager: bool = False, device=None, base_dtype: str = "fp",
-                 speculative: bool = False, draft_k: int = 4):
+                 speculative: bool = False, draft_k: int = 4,
+                 warmup: bool = False, compile_cache_dir=None,
+                 graphs: bool = True):
         if store is not None and root_dir is not None:
             raise ValueError("pass either store or root_dir, not both")
         if base_dtype not in ("fp", "int8"):
@@ -70,6 +81,11 @@ class Deployment:
                 "batches serve from the packed overlay bank); use "
                 "scheduler='group' for dense residency")
         self.device = resolve_device(device)
+        # the kernel library's build cache: process-wide, like the library
+        self.compile_cache = None
+        if compile_cache_dir is not None:
+            self.compile_cache = CC.CompileCache(compile_cache_dir)
+            CC.set_default(self.compile_cache)
         base_params = tree_map(lambda t: t.to(self.device), base_params)
         self.model = model
         # the registry fingerprints the fp base, then quantizes it
@@ -95,7 +111,12 @@ class Deployment:
         self.engine = ServingEngine(model, self.registry,
                                     batch_size=batch_size,
                                     prompt_len=prompt_len, max_len=max_len,
-                                    scheduler=scheduler, draft_k=draft_k)
+                                    scheduler=scheduler, draft_k=draft_k,
+                                    graphs=graphs)
+        if warmup:
+            # every step ready before traffic: captured on a card, and the
+            # kernel library built or loaded through the compile cache
+            self.engine.warmup()
 
     def _hydrate(self, name: str) -> bool:
         """Register every persisted version of ``name`` from the store
@@ -180,6 +201,12 @@ class Deployment:
             self.registry.bank_resolve(name)
         else:
             self.registry.resolve(name)
+
+    def warmup(self) -> dict:
+        """Ready every step for this deployment's shapes now (as
+        ``warmup=True`` does); returns each entry's outcome ("captured" |
+        "hit" | "eager")."""
+        return self.engine.warmup()
 
     def current(self, name: str) -> Optional[int]:
         return self.registry.current_version(name)

@@ -1,5 +1,5 @@
-"""Serving engine (port of ``repro.serving.engine`` without mesh, pods,
-async admission and warmup).  Three schedulers:
+"""Serving engine (port of ``repro.serving.engine`` without mesh, pods
+and async admission).  Three schedulers:
 
 * ``continuous`` (mixed-variant slot scheduler) — the engine keeps ONE
   persistent decode batch of ``batch_size`` lanes.  Each lane carries its
@@ -25,7 +25,23 @@ async admission and warmup).  Three schedulers:
   a materialised copy with overlay None; fused residents pass the shared
   base params plus a packed overlay fused into every GEMM.
 
-PyTorch runs eagerly, so there is no step compilation or warmup.
+Compile-once serving (DESIGN.md §14).  The JAX engine runs each step as
+one AOT-compiled executable; here, on a card, each fixed-shape step of the
+slot scheduler (the decode step, and the speculative round of each draft
+length on the ladder) runs as a CUDA graph
+(``core/compile_cache.CapturedStep``): captured at its first use or by
+``warmup()``, then replayed with one launch a step.  Each step kind comes
+in two flavours, with the overlay bank and without it (before the first
+variant admission), as the JAX engine's "banked"/"banked-empty" and
+"spec"/"spec-empty" executables.  A graph replays fixed addresses, so the
+live decode state never moves: one cache from ``Model.init_cache`` into
+which every admission wave's rows are merged, the pending tokens and the
+lanes' device bank slots are written in place, and whatever a step
+rebinds (a cache's ``pos``, a recurrent state) is copied back into them
+inside the graph.  A step whose base, bank or state addresses changed is
+captured again.  The group scheduler's decode and every prefill run
+eagerly; ``warmup()`` runs each once.  With ``graphs=False``, and on the
+CPU, every step runs eagerly through the same code, with the same tokens.
 """
 from __future__ import annotations
 
@@ -37,7 +53,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import compile_cache as CC
 from repro_torch.device import synchronize
+from repro_torch.kernels import build
 from repro_torch.serving.variants import VariantRegistry
 from repro_torch.tree import tree_leaves
 
@@ -75,13 +93,14 @@ class ServingEngine:
     "continuous" (mixed-variant lanes over the overlay bank),
     "speculative" (the same lanes, decoded by base-as-draft rounds of up
     to ``draft_k`` drafts) or "group" (grouped by variant — required for
-    dense residency)."""
+    dense residency).  ``graphs`` (on a card) replays the slot
+    schedulers' steps as CUDA graphs; False runs them eagerly."""
 
     def __init__(self, model, registry: VariantRegistry, *,
                  batch_size: int = 4, prompt_len: int = 32,
                  max_len: int = 128, max_retries: int = 1,
                  scheduler: str = "group", draft_k: int = 4,
-                 spec_adaptive: bool = True):
+                 spec_adaptive: bool = True, graphs: bool = True):
         if scheduler not in ("group", "continuous", "speculative"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if scheduler == "speculative":
@@ -105,31 +124,65 @@ class ServingEngine:
         self._done: dict[int, Request] = {}
         self._next_rid = 0
         # continuous-scheduler state (persists across run_until_drained
-        # calls: the decode batch is a long-lived object)
+        # calls: the decode batch is a long-lived object).  Every live
+        # tensor is allocated here, once, and written in place after: the
+        # cache the prefills' rows merge into, the pending tokens and the
+        # lanes' bank slots (idle lanes sit on slot 0, the base)
         self._slots: list[Optional[_Slot]] = [None] * batch_size
-        self._cache = None
-        self._next_tok = None
-        # per-lane bank slot; idle lanes sit on slot 0 (the base)
         self._variant_idx = np.zeros(batch_size, np.int32)
-        self._variant_idx_dev = None     # device copy, rebuilt on change
+        self._cache = self._next_tok = self._variant_idx_dev = None
         # speculative rounds: one round function per draft length of the
-        # adaptive ladder
+        # adaptive ladder, each writing its tokens and accept counts into
+        # its own buffers
         self.spec = None
         self._rounds = {}
+        self._spec_out = {}
+        if scheduler in ("continuous", "speculative"):
+            self._cache = model.init_cache(batch_size, max_len,
+                                           device=self.device)
+            self._next_tok = torch.zeros(batch_size, dtype=torch.int32,
+                                         device=self.device)
+            self._variant_idx_dev = torch.zeros(
+                batch_size, dtype=torch.int32, device=self.device)
         if scheduler == "speculative":
             from repro_torch.serving import speculative as SPEC
             self.spec = SPEC.AcceptanceTracker(draft_k,
                                                adaptive=spec_adaptive)
             self._rounds = {k: SPEC.make_round_fn(model, k)
                             for k in self.spec.ladder}
+            self._spec_out = {k: (
+                torch.zeros((batch_size, k + 1), dtype=torch.int32,
+                            device=self.device),
+                torch.zeros(batch_size, dtype=torch.int32,
+                            device=self.device)) for k in self.spec.ladder}
+        self._vidx_dirty = False
+        # captured steps (CUDA graphs): {(flavour, kind): CapturedStep},
+        # all in one memory pool
+        self.graphs = (graphs and self.device.type == "cuda"
+                       and scheduler != "group")
+        self._graphs: dict = {}
+        self._pool = None
+        self.warmed = False
         self.metrics = {"batches": 0, "tokens_generated": 0, "prefills": 0,
                         "failed": 0, "admitted": 0, "retired": 0,
                         "decode_steps": 0,
                         "prefill_seconds": 0.0, "decode_seconds": 0.0,
+                        "step_compiles": 0, "step_cache_hits": 0,
+                        "step_compile_seconds": 0.0,
+                        "warmup_seconds": 0.0,
                         "spec_rounds": 0, "spec_drafted": 0,
                         "spec_accepted": 0,
                         "ttft_count": 0, "ttft_seconds_sum": 0.0,
                         "ttft_seconds_max": 0.0}
+        # warmup registry (extensible: register_warmup), the JAX engine's
+        # entries; the banked ones only where the scheduler serves from the
+        # bank (warming them means allocating it)
+        self._warmup_reg = {"plain": self._warm_plain,
+                            "fused": self._warm_fused}
+        if scheduler in ("continuous", "speculative"):
+            self._warmup_reg["banked"] = self._warm_banked
+        if self.spec is not None:
+            self._warmup_reg["speculative"] = self._warm_speculative
 
     # -- API -----------------------------------------------------------------
     def submit(self, tokens, variant: str = "__base__",
@@ -179,6 +232,16 @@ class ServingEngine:
         bank = reg.bank
         snap = {"scheduler": self.scheduler, "pending": self.pending(),
                 "active": self.active(),
+                "warmed": self.warmed,
+                # captured steps: graphs held, captures, replays and
+                # capture seconds (the JAX engine's executable counters)
+                "steps": {"executables": len(self._graphs),
+                          "compiles": self.metrics["step_compiles"],
+                          "cache_hits": self.metrics["step_cache_hits"],
+                          "compile_seconds":
+                              self.metrics["step_compile_seconds"]},
+                # the kernel library's build cache
+                "compile_cache": build.cache_stats(),
                 "ttft": {"count": n,
                          "mean_seconds": (self.metrics["ttft_seconds_sum"]
                                           / n if n else 0.0),
@@ -342,7 +405,7 @@ class ServingEngine:
             self._slots[i] = _Slot(request=r, variant_slot=vslot,
                                    remaining=r.max_new_tokens, vkey=vkey)
             self._variant_idx[i] = vslot
-            self._variant_idx_dev = None
+            self._vidx_dirty = True
             r.status = "running"
             newly.append(i)
             self.metrics["admitted"] += 1
@@ -356,7 +419,8 @@ class ServingEngine:
         """Prefill-on-admit: one fixed-shape (batch_size, prompt_len)
         prefill per admission wave, rows not admitted on the base slot;
         only the newly admitted rows of its cache and first tokens are
-        merged into the persistent batch."""
+        merged into the persistent batch, in place (the first wave's
+        too)."""
         pvidx = np.zeros(self.batch_size, np.int32)
         for i in newly:
             pvidx[i] = self._slots[i].variant_slot
@@ -371,15 +435,9 @@ class ServingEngine:
         synchronize(self.device)
         self.metrics["prefill_seconds"] += time.perf_counter() - t0
         self.metrics["prefills"] += 1
-        if self._next_tok is None:
-            self._next_tok = first_tok
-            self._cache = fresh
-            return
-        mask = np.zeros(self.batch_size, bool)
-        mask[newly] = True
-        self._next_tok = torch.where(torch.from_numpy(mask).to(self.device),
-                                     first_tok, self._next_tok)
-        self._cache = self._merge_admitted(self._cache, fresh, newly)
+        idx = torch.tensor(newly, dtype=torch.int64, device=self.device)
+        self._next_tok.index_copy_(0, idx, first_tok.index_select(0, idx))
+        self._merge_admitted(self._cache, fresh, newly)
 
     def _retire(self, i: int) -> None:
         """Release lane ``i``: mark its request done, unpin the bank slot
@@ -390,7 +448,7 @@ class ServingEngine:
         self.registry.bank_unpin(s.vkey)
         self._slots[i] = None
         self._variant_idx[i] = 0
-        self._variant_idx_dev = None
+        self._vidx_dirty = True
         self.metrics["retired"] += 1
 
     def _serve_lanes(self, max_rounds: int, advance) -> None:
@@ -433,9 +491,10 @@ class ServingEngine:
                 break           # drained: skip the step nobody consumes
             if not self.active():
                 continue        # lanes empty but queue pending: admit next
-            if self._variant_idx_dev is None:
-                self._variant_idx_dev = torch.from_numpy(
-                    self._variant_idx.copy()).to(self.device)
+            if self._vidx_dirty:
+                self._variant_idx_dev.copy_(
+                    torch.from_numpy(self._variant_idx))
+                self._vidx_dirty = False
             advance()
         self.metrics["batches"] += 1
 
@@ -443,10 +502,10 @@ class ServingEngine:
         """One banked decode step of the whole batch: each lane's next
         pending token."""
         t0 = time.perf_counter()
-        logits, self._cache = self.model.decode_step(
-            self.registry.base_params, self._next_tok, self._cache,
-            overlay=self._bank_tree(), variant_idx=self._variant_idx_dev)
-        self._next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        bank = self._bank_tree()
+        flavour = "banked" if bank is not None else "banked-empty"
+        self._run_step((flavour, "decode_banked"),
+                       self._decode_compute(bank), bank)
         synchronize(self.device)
         self.metrics["decode_seconds"] += time.perf_counter() - t0
         self.metrics["decode_steps"] += 1
@@ -458,12 +517,13 @@ class ServingEngine:
         that spends it retires, and its pending correction, past
         max_new_tokens, is dropped); the next pending token is the
         variant's correction."""
-        params, bank = self.registry.spec_resolve()
+        _, bank = self.registry.spec_resolve()
         k = self.spec.current_k
         t0 = time.perf_counter()
-        ver, n_acc, self._next_tok, self._cache = self._rounds[k](
-            params, bank, self._variant_idx_dev, self._next_tok,
-            self._cache)
+        flavour = "spec" if bank is not None else "spec-empty"
+        self._run_step((flavour, f"spec_k{k}"), self._round_compute(k, bank),
+                       bank)
+        ver, n_acc = self._spec_out[k]
         host_ver = ver.cpu().numpy()           # the round's host sync
         host_n = n_acc.cpu().numpy()
         self.metrics["decode_seconds"] += time.perf_counter() - t0
@@ -489,6 +549,223 @@ class ServingEngine:
         self.metrics["spec_accepted"] += acc_total
         self.spec.observe(k, acc_total, lanes)
 
+    # -- fixed-shape steps: eager or captured --------------------------------
+    def _decode_compute(self, bank):
+        """The continuous decode step as ``_run_step`` takes it: the
+        banked decode of the pending tokens -> ([(live tensor, new value)],
+        the new cache)."""
+        def compute():
+            logits, cache = self.model.decode_step(
+                self.registry.base_params, self._next_tok,
+                _containers(self._cache), overlay=bank,
+                variant_idx=self._variant_idx_dev)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            return [(self._next_tok, tok)], cache
+        return compute
+
+    def _round_compute(self, k: int, bank):
+        """The speculative round of draft length ``k`` as ``_run_step``
+        takes it; its tokens and accept counts land in ``_spec_out[k]``."""
+        def compute():
+            ver, n_acc, next_tok, cache = self._rounds[k](
+                self.registry.base_params, bank, self._variant_idx_dev,
+                self._next_tok, _containers(self._cache))
+            ver_out, n_out = self._spec_out[k]
+            return [(ver_out, ver), (n_out, n_acc),
+                    (self._next_tok, next_tok)], cache
+        return compute
+
+    def _body(self, compute):
+        """``compute()`` and its writes: each result into its live tensor,
+        and every cache leaf the step rebound back into the live cache."""
+        def body():
+            outs, cache = compute()
+            for live, new in outs:
+                live.copy_(new)
+            _copy_back(self._cache, cache)
+        return body
+
+    def _pointers(self, bank) -> tuple:
+        """The addresses a captured step reads and writes: the base, the
+        bank, the live cache and the live tensors."""
+        return tuple(t.data_ptr() for t in tree_leaves(
+            (self.registry.base_params, bank, self._cache, self._next_tok,
+             self._variant_idx_dev, self._spec_out)))
+
+    def _run_step(self, key: tuple, compute, bank) -> None:
+        """One fixed-shape step of the slot scheduler: eagerly, or on a
+        card as a replay of the graph held for ``key`` (flavour, kind),
+        captured first when there is none or when the addresses it was
+        captured on moved."""
+        if not self.graphs:
+            with torch.no_grad():
+                self._body(compute)()
+            return
+        ptrs = self._pointers(bank)
+        step = self._graphs.get(key)
+        if step is None or step.pointers != ptrs:
+            step = self._capture(key, compute, ptrs)
+        step.replay()
+        self.metrics["step_cache_hits"] += 1
+
+    def _capture(self, key: tuple, compute, ptrs: tuple) -> CC.CapturedStep:
+        """Capture the step of ``key`` (replacing a stale graph) into the
+        engine's graph pool; a capture that fails raises."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        self._graphs.pop(key, None)
+        step = CC.CapturedStep(compute, self._body(compute), pool=self._pool,
+                               pointers=ptrs)
+        self._graphs[key] = step
+        self.metrics["step_compiles"] += 1
+        self.metrics["step_compile_seconds"] += step.seconds
+        return step
+
+    # -- warmup ------------------------------------------------------------------
+    def register_warmup(self, name: str, builder) -> None:
+        """Register (or replace) a warmup entry: ``builder(ctx)`` is called
+        from ``warmup()`` with the shared context (``_warmup_ctx``) and
+        warms its steps through ``ctx["eager"]`` and ``ctx["step"]``.  New
+        step kinds join ``warmup()`` this way, as the speculative ladder
+        does."""
+        self._warmup_reg[name] = builder
+
+    def warmup(self, pairs=None) -> dict:
+        """Make every step ready BEFORE traffic (DESIGN.md §14): the
+        entries of the warmup registry named in ``pairs`` (None: all) — by
+        default the plain and fused pairs (base and single-variant
+        prefill and decode), under the slot schedulers the banked pair
+        (prefill and decode without and with the overlay bank, which is
+        reserved here, and the admission merge), and under
+        ``scheduler="speculative"`` one round per draft length of the
+        ladder, without and with the bank.  The slot scheduler's decode
+        steps and rounds are captured as CUDA graphs on a card; prefills,
+        the merge and the group scheduler's steps run once eagerly.  The
+        kernel library is built or loaded through the compile cache on
+        the way.  Returns {entry/kind: "captured" | "hit" (a graph already
+        held for these addresses) | "eager"}; the keys are the JAX
+        engine's."""
+        pairs = tuple(self._warmup_reg) if pairs is None else tuple(pairs)
+        unknown = [p for p in pairs if p not in self._warmup_reg]
+        if unknown:
+            raise ValueError(
+                f"unknown warmup pairs {unknown!r}; registered: "
+                f"{sorted(self._warmup_reg)} (add new step kinds with "
+                "register_warmup)")
+        t0 = time.perf_counter()
+        ctx = self._warmup_ctx()
+        for name in pairs:
+            self._warmup_reg[name](ctx)
+        synchronize(self.device)
+        self.metrics["warmup_seconds"] += time.perf_counter() - t0
+        self.warmed = True
+        return ctx["outcomes"]
+
+    def _warmup_ctx(self) -> dict:
+        """What the warmup builders share: the base, the target paths
+        (``calibration.is_target``, the recipe ``compress`` follows), a
+        fixed-shape prompt batch and slot vector, and two runners that
+        record each outcome: ``eager(tag, kind, fn)`` runs ``fn`` once and
+        returns its result; ``step(tag, kind, compute, bank)`` readies a
+        slot-scheduler step without touching the live state (captured on
+        a card, computed and dropped eagerly otherwise)."""
+        from repro_torch.core.calibration import flatten_params, is_target
+
+        base = self.registry.base_params
+        outcomes: dict = {}
+
+        def eager(tag, kind, fn):
+            with torch.no_grad():
+                out = fn()
+            outcomes[f"{tag}/{kind}"] = "eager"
+            return out
+
+        def step(tag, kind, compute, bank):
+            key = (tag, kind)
+            if not self.graphs:
+                eager(tag, kind, compute)
+                return
+            ptrs = self._pointers(bank)
+            held = self._graphs.get(key)
+            if held is not None and held.pointers == ptrs:
+                outcomes[f"{tag}/{kind}"] = "hit"
+                return
+            self._capture(key, compute, ptrs)
+            outcomes[f"{tag}/{kind}"] = "captured"
+
+        return {"base": base, "outcomes": outcomes, "eager": eager,
+                "step": step,
+                "delta_paths": sorted(
+                    p for p, leaf in flatten_params(base).items()
+                    if is_target(p, leaf)),
+                "batch": self._prompt_batch({}),
+                "vidx": torch.zeros(self.batch_size, dtype=torch.int32,
+                                    device=self.device)}
+
+    def _warm_plain(self, ctx) -> None:
+        eager, base, batch = ctx["eager"], ctx["base"], ctx["batch"]
+        last, cache = eager("plain", "prefill", lambda: self.model.prefill(
+            base, batch, self.max_len))
+        tok = torch.argmax(last, dim=-1).to(torch.int32)
+        eager("plain", "decode",
+              lambda: self.model.decode_step(base, tok, cache))
+
+    def _warm_fused(self, ctx) -> None:
+        """The single-variant pair over a zero overlay on every target
+        (the shapes a fused resident has)."""
+        from repro_torch.core.calibration import flatten_params
+        from repro_torch.models import delta_overlay as DO
+
+        if not ctx["delta_paths"]:
+            return
+        base_flat = flatten_params(ctx["base"])
+        overlay: dict = {}
+        for path in ctx["delta_paths"]:
+            w = base_flat[path]
+            lead, (n, k) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
+            DO.insert_entry(overlay, path, DO.OverlayEntry(
+                packed=torch.zeros(lead + (n, k // 8), dtype=torch.uint8,
+                                   device=self.device),
+                v_row=torch.zeros(lead + (n,), dtype=torch.float16,
+                                  device=self.device),
+                v_col=torch.zeros(lead + (k,), dtype=torch.float16,
+                                  device=self.device)))
+        eager, base = ctx["eager"], ctx["base"]
+        last, cache = eager("fused", "prefill", lambda: self.model.prefill(
+            base, ctx["batch"], self.max_len, overlay=overlay))
+        tok = torch.argmax(last, dim=-1).to(torch.int32)
+        eager("fused", "decode", lambda: self.model.decode_step(
+            base, tok, cache, overlay=overlay))
+
+    def _warm_banked(self, ctx) -> None:
+        """The slot scheduler's pair without a bank (before the first
+        admit) and with it (reserved now: the tensors later admits write
+        into), and the admission merge (of no row: the live state stays
+        as it is)."""
+        if not ctx["delta_paths"]:
+            return
+        eager, base = ctx["eager"], ctx["base"]
+        bank = self.registry.reserve_bank()
+        for tag, b in (("banked-empty", None), ("banked", bank)):
+            _, fresh = eager(tag, "prefill_banked",
+                             lambda b=b: self.model.prefill(
+                                 base, ctx["batch"], self.max_len, overlay=b,
+                                 variant_idx=ctx["vidx"]))
+            ctx["step"](tag, "decode_banked", self._decode_compute(b), b)
+        eager("banked", "merge",
+              lambda: self._merge_admitted(self._cache, fresh, []))
+
+    def _warm_speculative(self, ctx) -> None:
+        """One round per rung of the ladder (each k is its own graph),
+        without the bank and with it."""
+        bank = self.registry.reserve_bank() if ctx["delta_paths"] else None
+        for k in self.spec.ladder:
+            ctx["step"]("spec-empty", f"spec_k{k}",
+                        self._round_compute(k, None), None)
+            if bank is not None:
+                ctx["step"]("spec", f"spec_k{k}",
+                            self._round_compute(k, bank), bank)
+
     def _prompt_batch(self, requests: dict) -> dict:
         """Fixed-shape (batch_size, prompt_len) prefill batch: row i holds
         requests[i]'s prompt tail, right-padded with zeros; unmapped rows
@@ -502,6 +779,36 @@ class ServingEngine:
         batch.update(frontend_stub(self.model.cfg, self.batch_size,
                                    self.device))
         return batch
+
+
+def _containers(tree):
+    """``tree``'s dicts and lists copied, its tensors shared: a step may
+    rebind entries of the copy (``cache["pos"] = pos + 1``) and leave the
+    live structure pointing at the live tensors."""
+    if isinstance(tree, dict):
+        return {k: _containers(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_containers(v) for v in tree)
+    return tree
+
+
+def _copy_back(live, new) -> None:
+    """Write every leaf of ``new`` into the same-placed leaf of ``live``,
+    skipping those that are the live tensor already (written in place by
+    the step)."""
+    if isinstance(live, dict):
+        for key, leaf in live.items():
+            _copy_back(leaf, new[key])
+    elif isinstance(live, (list, tuple)):
+        for leaf, n in zip(live, new, strict=True):
+            _copy_back(leaf, n)
+    elif new.shape != live.shape or new.dtype != live.dtype:
+        raise ValueError(f"a step returned a {new.dtype} {tuple(new.shape)} "
+                         f"leaf for a live {live.dtype} "
+                         f"{tuple(live.shape)} one")
+    elif not (new.data_ptr() == live.data_ptr()
+              and new.stride() == live.stride()):
+        live.copy_(new)
 
 
 def frontend_stub(cfg, bs: int, device) -> dict:

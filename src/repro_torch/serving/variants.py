@@ -33,7 +33,9 @@ The base is held in full precision or, with ``base_dtype="int8"``, as
 int8 plus one fp16 scale per output channel on every target matrix
 (``core/quantize``): the fused and banked kernels and the dense load
 dequantize it in their tile pass.  Artifacts are fingerprinted against the
-fp base, before quantization.  The compile cache is not ported yet.
+fp base, before quantization.  ``reserve_bank`` allocates the bank before
+its first admit, so the engine's warmup can capture the banked steps
+against it (``core/compile_cache.CapturedStep``).
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ import torch
 from repro_torch.core import loader as L
 from repro_torch.core import quantize as Q
 from repro_torch.core import store as S
-from repro_torch.core.calibration import DeltaModel, flatten_params
+from repro_torch.core.calibration import (DeltaModel, flatten_params,
+                                          is_target)
 from repro_torch.device import synchronize
 from repro_torch.models import delta_overlay as DO
 from repro_torch.tree import tree_leaves
@@ -64,10 +67,14 @@ class OverlayBank:
     * pinned variants (in-flight requests) are never evicted — ``evict``
       raises and LRU pressure skips them.
 
-    The bank is allocated at full size on the first admit, so resident-byte
-    accounting is per bank, not per variant.  Admission writes one slot of
-    every leaf in place (the JAX bank runs a donated jitted scatter for the
-    same effect)."""
+    The bank is allocated at full size on the first admit, or before it by
+    ``reserve()`` from the base's calibration targets (the recipe
+    ``calibration.compress`` follows), so resident-byte accounting is per
+    bank, not per variant.  Admission writes one slot of every leaf in
+    place (the JAX bank runs a donated jitted scatter for the same effect),
+    so the bank's tensors never move: a captured step keeps reading them.
+    ``tree`` stays None until the first admit, as the JAX bank does: until
+    then the continuous scheduler serves without a bank."""
 
     def __init__(self, base_params, size: int):
         if size < 2:
@@ -75,7 +82,8 @@ class OverlayBank:
         self.size = size
         self._base_flat = flatten_params(base_params)
         self._flat: Optional[dict] = None   # path -> banked leaf
-        self.tree: Optional[dict] = None    # nested view of _flat
+        self._tree: Optional[dict] = None   # nested view of _flat
+        self.tree: Optional[dict] = None    # _tree, once a variant landed
         self._slots: dict = {}              # vkey -> slot
         self._pins: dict = {}               # vkey -> in-flight count
         self._lru: "collections.OrderedDict[str, None]" = \
@@ -89,35 +97,55 @@ class OverlayBank:
 
     # -- structure ---------------------------------------------------------
     def _ensure_tree(self, dm: DeltaModel) -> None:
-        if self._flat is not None:
-            if set(dm.deltas) != self._template_deltas or \
-                    set(dm.extras) != self._template_extras:
-                raise ValueError(
-                    "variant structure differs from the bank template "
-                    "(all banked variants must share one calibration "
-                    "recipe)")
-            return
+        if self._flat is None:
+            self._allocate({p: DO.from_delta_entry(e)
+                            for p, e in dm.deltas.items()}, set(dm.extras))
+        if set(dm.deltas) != self._template_deltas or \
+                set(dm.extras) != self._template_extras:
+            raise ValueError(
+                "variant structure differs from the bank template "
+                "(all banked variants must share one calibration "
+                "recipe)")
+        self.tree = self._tree
+
+    def reserve(self) -> dict:
+        """Allocate the bank before the first admit, shaped as
+        ``calibration.compress`` shapes a variant of the base: an entry
+        for every target matrix, an extra for every other leaf.  Returns
+        the banked tree (all slots serve the base until admits)."""
+        if self._flat is None:
+            entries = {}
+            for path, w in self._base_flat.items():
+                if is_target(path, w):
+                    lead, (n, k) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
+                    entries[path] = DO.OverlayEntry(
+                        packed=torch.empty(lead + (n, k // 8),
+                                           dtype=torch.uint8, device="meta"),
+                        v_row=torch.empty(lead + (n,), dtype=torch.float16,
+                                          device="meta"),
+                        v_col=torch.empty(lead + (k,), dtype=torch.float16,
+                                          device="meta"))
+            self._allocate(entries, set(self._base_flat) - set(entries))
+        return self._tree
+
+    def _allocate(self, entries: dict, extras: set) -> None:
+        """The bank's tensors: zero entries shaped like ``entries`` (one
+        variant's, any device) and every slot of each extra holding the
+        base value."""
         flat = {}
-        for path, e in dm.deltas.items():
-            dev = self._base_flat[path].device
-            ent = DO.from_delta_entry(e)
-            ent = DO.OverlayEntry(packed=ent.packed.to(dev),
-                                  v_row=ent.v_row.to(dev),
-                                  v_col=ent.v_col.to(dev))
-            flat[path] = DO.bank_zeros(path, ent, self.size)
-        for path in dm.extras:
+        for path, ent in entries.items():
+            flat[path] = DO.bank_zeros(path, ent, self.size,
+                                       device=self._base_flat[path].device)
+        for path in extras:
             flat[path] = DO.bank_extra_base(path, self._base_flat[path],
                                             self.size)
         self._flat = flat
-        self._template_deltas = set(dm.deltas)
-        self._template_extras = set(dm.extras)
-        self._rebuild()
-
-    def _rebuild(self) -> None:
+        self._template_deltas = set(entries)
+        self._template_extras = set(extras)
         tree: dict = {}
-        for path, leaf in self._flat.items():
+        for path, leaf in flat.items():
             DO.insert_entry(tree, path, leaf)
-        self.tree = tree
+        self._tree = tree
 
     def _write(self, dm: DeltaModel, slot: int) -> None:
         """Write one variant into ``slot`` of every leaf, in place:
@@ -443,6 +471,17 @@ class VariantRegistry:
         if self.bank is None:
             self.bank = OverlayBank(self.base_params, self.bank_size)
         return self.bank
+
+    def reserve_bank(self) -> dict:
+        """Allocate the overlay bank now, before its first admit
+        (``OverlayBank.reserve``), and return its tree: warmup captures the
+        banked steps against the tensors later admits write into.  The
+        bank's bytes count as resident from here."""
+        bank = self._ensure_bank()
+        before = bank.nbytes()
+        tree = bank.reserve()
+        self.stats["resident_bytes"] += bank.nbytes() - before
+        return tree
 
     def _bank_admit(self, vkey: str, dm: DeltaModel) -> int:
         """Write ``dm`` into the bank under ``vkey`` and book the swap

@@ -1227,3 +1227,128 @@ def test_verify_step_through_the_kernels_matches_plain(cuda, arch):
     assert got.shape == (4, 5, cfg.padded_vocab)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
     assert torch.equal(torch.argmax(got, -1), torch.argmax(want, -1))
+
+
+# ---------------------------------------------------------------------------
+# compile-once serving: CUDA-graph replay of the slot scheduler's steps
+# ---------------------------------------------------------------------------
+
+def _counts():
+    return {"banked": BL.banked_launches, "stacked": BL.stacked_launches,
+            "axes": BL.launches, "static": BL.static_launches,
+            "unpack": UA.launches, "flash": FA.launches}
+
+
+def _graph_deployment(arch, device, graphs, **kw):
+    """A reduced ``arch`` (its reduced depth) over ``device`` with two
+    published variants (fine-tunes at 0.05) and the requests of
+    ``_graph_requests``."""
+    from repro_torch.launch import serve as SV
+
+    cfg = SV.make_config(arch, reduced=True)
+    model, base, dms = SV.build_variants(cfg, 2, device)
+    return SV.deploy(model, base, dms, mode="fused", batch=4, bank_size=4,
+                     device=device, graphs=graphs, draft_k=4, **kw), cfg
+
+
+def _graph_serve(dep, cfg):
+    from repro_torch.launch import serve as SV
+    rids = SV.submit_requests(dep, cfg, 10, [3, 7, 5, 9])
+    dep.drain()
+    torch.cuda.synchronize()
+    return [dep.result(r).out_tokens for r in rids]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-moe-16b",
+                                  "whisper-base", "xlstm-350m", "zamba2-7b"])
+@pytest.mark.parametrize("scheduler", ["continuous", "speculative"])
+@pytest.mark.parametrize("base_dtype", ["fp", "int8"])
+def test_graph_tokens_equal_eager_tokens(cuda, arch, scheduler, base_dtype):
+    """The same requests served with every decode step (or round) replayed
+    from a CUDA graph and served eagerly: tokens equal bit for bit, the
+    same kernel launches counted (a replay adds what its capture
+    recorded), one replay a step and no capture after ``warmup()``."""
+    runs = {}
+    for graphs in (True, False):
+        dep, cfg = _graph_deployment(arch, cuda, graphs, scheduler=scheduler,
+                                     base_dtype=base_dtype)
+        if graphs:
+            outcomes = dep.warmup()
+            assert "captured" in outcomes.values()
+        steps0 = dict(dep.status()["steps"])
+        before = _counts()
+        tokens = _graph_serve(dep, cfg)
+        after = _counts()
+        steps = dep.status()["steps"]
+        m = dep.metrics
+        runs[graphs] = (tokens, {k: after[k] - before[k] for k in after})
+        assert dep.engine.graphs == graphs
+        assert steps["compiles"] == steps0["compiles"]
+        assert steps["cache_hits"] - steps0["cache_hits"] == (
+            m["decode_steps"] if graphs else 0)
+        del dep
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1] == runs[False][1]
+    assert runs[True][1]["banked"] > 0
+
+
+def test_replay_after_the_banks_reservation_hits(cuda):
+    """``warmup()`` captures the banked step against the reserved bank;
+    the first admit writes into it, so serving replays that graph without
+    a capture, and a second warmup finds every graph held."""
+    dep, cfg = _graph_deployment("qwen3-8b", cuda, True,
+                                 scheduler="continuous")
+    outcomes = dep.warmup()
+    assert outcomes["banked/decode_banked"] == "captured"
+    assert outcomes["banked-empty/decode_banked"] == "captured"
+    bank = dep.registry.bank
+    assert bank.tree is None
+    compiles = dep.status()["steps"]["compiles"]
+    _graph_serve(dep, cfg)
+    assert bank.tree is bank._tree and bank.stats["admits"] > 0
+    assert dep.status()["steps"]["compiles"] == compiles
+    again = dep.warmup()
+    assert "captured" not in again.values()
+    assert again["banked/decode_banked"] == "hit"
+
+
+def test_a_capture_that_syncs_raises(cuda, monkeypatch):
+    """A decode step that waits for the device cannot be captured:
+    ``warmup()`` raises and no eager step stands in for the graph."""
+    from repro_torch.models import transformer
+
+    decode = transformer.decode_step
+
+    def syncing(params, token, cache, cfg, **kw):
+        token.sum().item()
+        return decode(params, token, cache, cfg, **kw)
+
+    dep, _ = _graph_deployment("qwen3-8b", cuda, True,
+                               scheduler="continuous")
+    monkeypatch.setattr(transformer, "decode_step", syncing)
+    with pytest.raises(RuntimeError):
+        dep.warmup()
+    assert ("banked-empty", "decode_banked") not in dep.engine._graphs
+    assert dep.status()["steps"]["compiles"] == 0
+    torch.cuda.synchronize()
+
+
+def test_moved_addresses_are_captured_again(cuda):
+    """A graph replays the addresses it was captured on: when the base's
+    tensors move (a copy of the same values), the next step captures
+    again instead of replaying stale addresses, with the same tokens."""
+    from repro_torch.tree import tree_map
+
+    runs = []
+    for move in (False, True):
+        dep, cfg = _graph_deployment("qwen3-8b", cuda, True,
+                                     scheduler="continuous")
+        dep.warmup()
+        compiles = dep.status()["steps"]["compiles"]
+        if move:
+            dep.registry.base_params = tree_map(torch.clone,
+                                                dep.registry.base_params)
+        runs.append(_graph_serve(dep, cfg))
+        recaptured = dep.status()["steps"]["compiles"] - compiles
+        assert (recaptured > 0) == move, recaptured
+    assert runs[0] == runs[1]
