@@ -185,6 +185,27 @@ Phases (any failure raises and the script exits non-zero):
    process, must build no kernel, capture nothing after its warmup and
    emit the tokens of the same run in this process; its
    restart-to-first-token is printed beside the cold build.
+19. async admission (``serving/admission``; ``admission_phase``, right
+   after the lifecycle phase): qwen3-8b at full width, 4 layers, a store
+   under ``build/``, the graphed continuous scheduler warmed up, 4 lanes,
+   a 4-slot bank.  The same traffic twice, synchronously (the variant
+   loads inline on the serving thread) and with ``async_admission=True``:
+   a warm variant admitted first, then two base lanes of
+   ``ADMIT_BASE_BUDGET`` tokens decode while a variant is published (a
+   full artifact) and requested, then updated by an attention-only patch
+   and requested again, served in slices (``drain(max_steps=)``) with the
+   control-plane calls between them.  Hard checks: identical tokens in
+   the twins, every budget exact, at least one step with an admission in
+   flight, no capture after warmup, one replay a step, every async bank
+   admission committed by the pipeline, 28 banked launches a prefill and
+   a step.  Printed: the steady base-lane step, each admission step and
+   the longest step against it, the decode calls, publish- and
+   update-to-first-token, the staging seconds, the staging pool's
+   counters and peak pinned bytes, peak device memory, the card.  Right
+   after the lifecycle reference, ``admission_reference_phase`` runs the
+   same traffic reduced (fp32 compute) with async admission on the card
+   and synchronously on the CPU, continuous and speculative: tokens and
+   versions identical.
 
 Each phase prints its seconds.  Then it prints the kernel summary as one
 JSON line (the entries of a kernel
@@ -1708,6 +1729,317 @@ def lifecycle_reference_phase(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# async admission (serving/admission): ingest, staging and a between-step
+# commit while lanes decode through graph replays
+# ---------------------------------------------------------------------------
+
+ADMIT_BASE_BUDGET = 200   # each base request; two base lanes kept busy
+ADMIT_BUDGET = 16         # each variant request
+ADMIT_STEADY = 20         # steps served before the publish
+
+
+def admission_traffic(dep, cfg, name, dm, update) -> dict:
+    """The admission phase's traffic on one deployment, served one step at
+    a time (``drain(max_steps=1)``) with the control-plane calls between
+    steps.  A warm variant (``update``, registered in memory) is admitted
+    first: a base row decodes through the banked kernel once the bank
+    holds a variant and through the plain matmuls before, so both twins
+    must switch before the measured traffic.  Then two base lanes decode ``ADMIT_BASE_BUDGET``-token
+    requests, each followed by the next (queued a step before it
+    finishes), until the end of the traffic; after ``ADMIT_STEADY`` steps ``dm`` is published as
+    ``name`` (a full artifact) and requested, and once that request is
+    done ``update`` is published (an attention-only patch) and requested
+    again.  Every step records its gap (from its call to its end, so an
+    inline load at the top of the loop counts), whether an admission was
+    in flight, whether its loop ran a prefill and whether it committed a
+    staged version.  Returns the tokens, the step record and the
+    timings."""
+    rng = np.random.default_rng(23)
+    dep.registry.set_version("warm", 1, update)
+    rid = dep.submit(rng.integers(1, cfg.vocab_size, size=8), variant="warm",
+                     max_new_tokens=2)
+    dep.drain()
+    assert dep.result(rid).status == "done", dep.result(rid).error
+    eng, adm = dep.engine, dep.admission
+    steps0, m0 = dict(dep.status()["steps"]), dict(dep.metrics)
+    adm0 = dict(adm.stats) if adm else {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    eng.record_step_times, eng.step_times = True, []
+    steps = []          # (gap s, decode call s, busy, prefill, commit)
+    base, variant = [], []          # rids
+    out = {"first": {}, "publish_s": {}, "admit_step": {}}
+    plan = [("publish", dm), ("update", update)]
+
+    def base_prompt(i):
+        return np.random.default_rng(1000 + i).integers(1, cfg.vocab_size,
+                                                         size=8)
+    while True:
+        if plan and (not variant and len(steps) >= ADMIT_STEADY or
+                     variant and dep.status(variant[-1])["status"] ==
+                     "done"):
+            kind, payload = plan.pop(0)
+            t0 = time.perf_counter()
+            v = (dep.publish(name, payload) if kind == "publish"
+                 else dep.update(name, payload))
+            t1 = time.perf_counter()
+            variant.append(dep.submit(rng.integers(1, cfg.vocab_size,
+                                                   size=8),
+                                      variant=name,
+                                      max_new_tokens=ADMIT_BUDGET))
+            out["publish_s"][kind], out[kind] = t1 - t0, (v, t1)
+        if not plan and dep.status(variant[-1])["status"] == "done":
+            break
+        # two base lanes at every step: a request that retires in this
+        # step has its successor queued already, so the step's loop admits
+        # it (a loop with no live lane would wait on the pipeline instead
+        # of stepping, and no base lane would decode through the ingest)
+        while sum(dep.status(r)["status"] != "done" and ADMIT_BASE_BUDGET
+                  - dep.status(r)["tokens_generated"] > 1
+                  for r in base) < 2:
+            base.append(dep.submit(base_prompt(len(base)),
+                                   max_new_tokens=ADMIT_BASE_BUDGET))
+        p0, c0 = dep.metrics["prefills"], dep.metrics["async_admits"]
+        before = [dep.status(r)["status"] for r in variant]
+        t0 = time.perf_counter()
+        dep.drain(max_steps=1)
+        t_end, dt, busy = eng.step_times[-1]
+        steps.append((t_end - t0, dt, busy, dep.metrics["prefills"] > p0,
+                      dep.metrics["async_admits"] > c0))
+        for r, was, kind in zip(variant, before, ("publish", "update")):
+            if was in ("queued", "admitting") and \
+                    dep.status(r)["status"] != was:
+                out["admit_step"][kind] = len(steps) - 1
+    dep.drain()
+    torch.cuda.synchronize()
+    eng.record_step_times = False
+    for r in base:
+        req = dep.result(r)
+        assert req.status == "done" and \
+            len(req.out_tokens) == ADMIT_BASE_BUDGET, (req.status,
+                                                       len(req.out_tokens))
+    for (kind, _), r in zip((("publish", 0), ("update", 0)), variant):
+        req = dep.result(r)
+        v, t1 = out[kind]
+        assert req.status == "done" and len(req.out_tokens) == ADMIT_BUDGET
+        assert dep.status(r)["version"] == v == (1 if kind == "publish"
+                                                 else 2), (kind, v)
+        assert all(0 <= t < cfg.padded_vocab for t in req.out_tokens)
+        out["first"][kind] = req.first_token_at - t1
+    st, m = dep.status()["steps"], dep.metrics
+    out.update(
+        base_tokens=[dep.result(r).out_tokens for r in base],
+        tokens=[dep.result(r).out_tokens for r in variant],
+        steps=steps, launches=counters(),
+        captures=st["compiles"] - steps0["compiles"],
+        replays=st["cache_hits"] - steps0["cache_hits"],
+        decode_steps=m["decode_steps"] - m0["decode_steps"],
+        prefills=m["prefills"] - m0["prefills"],
+        async_admits=m["async_admits"] - m0["async_admits"],
+        commits=(adm.stats["commits"] - adm0["commits"] if adm else 0),
+        stage_s=(adm.stats["stage_seconds"] - adm0["stage_seconds"]
+                 if adm else 0.0),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def admission_phase(dev) -> dict:
+    """Async admission at full width (qwen3-8b, 4 layers, 4 lanes, a
+    4-slot bank, graphed continuous scheduler warmed up, a store under
+    ``build/``): the same traffic (``admission_traffic``) served by a
+    synchronous twin (the variant loads inline, on the serving thread) and
+    an async one (``async_admission=True``).  Prints, per twin, the steady
+    base-lane step (the median over steps with no prefill, no commit and
+    no admission in flight), each admission step (the request's prefill,
+    and the inline load or the commit) and the longest step against it,
+    the decode calls, publish-to-first-token and update-to-first-token,
+    peak device memory and, for the async twin, the steps with an ingest
+    in flight, the staging seconds, the staging pool's counters and peak
+    pinned bytes.  Then the hard checks: every request finished with its
+    budget, the twins' tokens identical (the base requests both served
+    and the variant requests), at least one async step with an admission
+    in flight, no capture after warmup and one replay a step, every async
+    bank admission committed by the pipeline, 28 banked launches a prefill
+    and a step.  Returns each twin's launches."""
+    import tempfile
+
+    from repro_torch.core import calibration as C
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving import Deployment
+
+    cfg = SV.make_config(ARCH, num_layers=SERVE_LAYERS)
+    model, base, _ = SV.build_variants(cfg, 0, dev)
+    ft = SV.fine_tune(base, 110)
+    dm = C.compress(base, ft)
+    update = attention_refresh(base, ft, seed=210)
+    del ft
+    gc.collect()
+    torch.cuda.empty_cache()
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        for mode in ("sync", "async"):
+            t0 = time.perf_counter()
+            dep = Deployment(
+                model, base, root_dir=root, mode="fused",
+                scheduler="continuous", batch_size=LANES, prompt_len=PROMPT,
+                max_len=PROMPT + ADMIT_BASE_BUDGET + 8, bank_size=4,
+                device=dev, warmup=True, async_admission=mode == "async")
+            setup = time.perf_counter() - t0
+            run = admission_traffic(dep, cfg, f"task-{mode}", dm, update)
+            run["setup_s"] = setup
+            if dep.admission is not None:
+                run["pool"] = dict(dep.admission.pool.stats)
+                run["bank_admits"] = dep.registry.bank.stats["admits"]
+                run["all_commits"] = dep.admission.stats["commits"]
+                run["all_async_admits"] = dep.metrics["async_admits"]
+            dep.close()
+            del dep
+            gc.collect()
+            torch.cuda.empty_cache()
+            runs[mode] = run
+    card = card_line()
+    for mode, run in runs.items():
+        gap, call, busy, prefill, commit = (np.array(c) for c in
+                                            zip(*run["steps"]))
+        quiet = ~busy & ~prefill & ~commit
+        steady = float(np.median(gap[quiet]))
+        worst = int(np.argmax(gap))
+        admits = ", ".join(
+            f"{kind} {gap[i] * 1e3:.3f} ms (x{gap[i] / steady:.2f})"
+            for kind, i in run["admit_step"].items())
+        extra = ""
+        if mode == "async":
+            pool = run["pool"]
+            ingest = gap[busy & ~prefill & ~commit]
+            extra = (f"; {int(busy.sum())} of {len(gap)} steps with an "
+                     f"admission in flight; of those with no prefill and "
+                     f"no commit ({len(ingest)}) the longest "
+                     f"{ingest.max() * 1e3:.3f} ms "
+                     f"(x{ingest.max() / steady:.2f}), median "
+                     f"{np.median(ingest) * 1e3:.3f} ms; stage_seconds "
+                     f"{run['stage_s']:.3f} for 2 versions; staging pool "
+                     f"{pool}, peak pinned {pool['peak_bytes']} B")
+        print(f"admission {mode}: {len(gap)} steps, {len(run['base_tokens'])}"
+              f" base requests; steady base-lane step (median, "
+              f"{int(quiet.sum())} steps) {steady * 1e3:.3f} ms; the "
+              f"admission steps (the request's prefill included): {admits};"
+              f" longest step {gap[worst] * 1e3:.3f} ms (step {worst}, "
+              f"x{gap[worst] / steady:.2f}; the JAX benchmark's stall gate "
+              f"is < 2x); decode call median {np.median(call) * 1e3:.3f} "
+              f"ms, longest {call.max() * 1e3:.3f}; publish-to-first-token "
+              f"{run['first']['publish']:.3f} s (publish call "
+              f"{run['publish_s']['publish']:.3f} s), update-to-first-token "
+              f"{run['first']['update']:.3f} s (update call "
+              f"{run['publish_s']['update']:.3f} s); setup "
+              f"{run['setup_s']:.3f} s; captures after warmup "
+              f"{run['captures']}, replays {run['replays']} = steps "
+              f"{run['decode_steps']}; async_admits {run['async_admits']}; "
+              f"peak device memory {run['peak_gb']:.2f} GB; launches "
+              f"{run['launches']}{extra}; card {card}")
+    sync, asy = runs["sync"], runs["async"]
+    n = min(len(sync["base_tokens"]), len(asy["base_tokens"]))
+    for what, a, b in (("base", sync["base_tokens"][:n],
+                        asy["base_tokens"][:n]),
+                       ("variant", sync["tokens"], asy["tokens"])):
+        differ = [(i, j) for i, (x, y) in enumerate(zip(a, b))
+                  for j, (p, q) in enumerate(zip(x, y)) if p != q]
+        assert a == b and not differ, (what, differ[:8])
+    for mode, run in runs.items():
+        assert run["captures"] == 0, (mode, run["captures"])
+        assert run["replays"] == run["decode_steps"], (mode, run)
+        assert run["launches"]["bitlinear_axes_banked"] == 7 * SERVE_LAYERS * (
+            run["prefills"] + run["decode_steps"]), (mode, run["launches"])
+    assert any(busy for _, _, busy, _, _ in asy["steps"]), \
+        "no step overlapped an admission"
+    assert asy["async_admits"] == asy["commits"] == 2, asy["commits"]
+    assert asy["all_async_admits"] == asy["all_commits"] == \
+        asy["bank_admits"], (asy["all_commits"], asy["bank_admits"])
+    assert sync["async_admits"] == 0
+    print(f"admission: async tokens == sync tokens ({n} base requests of "
+          f"{ADMIT_BASE_BUDGET} tokens, 2 variant requests of "
+          f"{ADMIT_BUDGET}); no capture after warmup; "
+          f"{asy['commits']} commits through the pipeline")
+    del model, base, dm, update
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"admission {mode}": run["launches"] for mode, run in runs.items()}
+
+
+def admission_reference_phase(dev) -> None:
+    """Reduced qwen3-8b (2 layers, fp32 compute) through a store: the
+    admission traffic (a warm variant, base lanes, a published variant
+    requested while they decode, then a patch) served with async admission
+    on the card and synchronously on the CPU, with the continuous and the
+    speculative scheduler; tokens and versions must be identical and the
+    card run must commit both versions through the pipeline."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core import calibration as C
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.models.param import split
+    from repro_torch.serving import Deployment
+
+    cfg = dataclasses.replace(SV.make_config(ARCH, reduced=True),
+                              num_layers=2, compute_dtype="float32")
+    model = build_model(cfg)
+    base, _ = split(model.init(0, device="cpu"))
+    ft = SV.fine_tune(base, 110, scale=0.05)
+    dm = C.compress(base, ft)
+    update = attention_refresh(base, ft, seed=210, scale=0.02)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    for scheduler in ("continuous", "speculative"):
+        served = {}
+        for where in ("cpu", dev):
+            with tempfile.TemporaryDirectory(dir=build) as root:
+                zero_counters()
+                dep = Deployment(model, base, root_dir=root,
+                                 scheduler=scheduler, batch_size=4,
+                                 prompt_len=SV.PROMPT_LEN,
+                                 max_len=SV.PROMPT_LEN + 64, bank_size=4,
+                                 device=where, draft_k=SPEC_K,
+                                 async_admission=where != "cpu")
+                rng = np.random.default_rng(5)
+                dep.publish("warm", dm, wait=True)
+                rids = [dep.submit(rng.integers(1, cfg.vocab_size, size=8),
+                                   max_new_tokens=40) for _ in range(2)]
+                dep.drain(max_steps=2)
+                for kind, payload in (("publish", dm), ("update", update)):
+                    if kind == "publish":
+                        dep.publish("task", payload)
+                    else:
+                        dep.update("task", payload)
+                    rids.append(dep.submit(
+                        rng.integers(1, cfg.vocab_size, size=8),
+                        variant="task", max_new_tokens=6))
+                    # decoding before the next pointer move, in both runs
+                    while dep.status(rids[-1])["status"] in ("queued",
+                                                             "admitting"):
+                        dep.drain(max_steps=1)
+                    dep.drain(max_steps=3)
+                dep.drain()
+                served[str(where)] = [(dep.result(r).out_tokens,
+                                       dep.status(r)["version"])
+                                      for r in rids]
+                if where != "cpu":
+                    launched = counters()["bitlinear_axes_banked"]
+                    commits = dep.admission.stats["commits"]
+                dep.close()
+        assert served["cpu"] == served[str(dev)], (scheduler, served)
+        assert [v for _, v in served["cpu"]] == [None, None, 1, 2]
+        assert launched > 0 and commits == 3, (launched, commits)
+        print(f"reference admission {scheduler}: async on the card == sync "
+              f"on the cpu, tokens and versions "
+              f"({sum(len(t) for t, _ in served['cpu'])} tokens, 3 commits, "
+              f"{launched} banked launches)")
+
+
+# ---------------------------------------------------------------------------
 # the other decoder archs: deepseek-7b, starcoder2-3b, gemma3-12b (ring
 # caches), deepseek-moe-16b and moonshot-v1-16b-a3b (MoE)
 # ---------------------------------------------------------------------------
@@ -3138,11 +3470,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     timed("reference", reference_phase, dev)
     timed("lifecycle reference", lifecycle_reference_phase, dev)
+    timed("admission reference", admission_reference_phase, dev)
     timed("arch reference", arch_reference_phase, dev)
     dl_launches = timed("deltalinear", deltalinear_phase, cfg, dev)
     launches = timed("serve", serve_phase, dev)
     launches.update(timed("speculative", speculative_phase, dev))
     launches["lifecycle"] = timed("lifecycle", lifecycle_phase, dev)
+    launches.update(timed("admission", admission_phase, dev))
     launches.update(timed("dense archs", dense_archs_phase, dev))
     moe_launches, routed = timed("deepseek-moe-16b", moe_phase, dev)
     launches.update(moe_launches)

@@ -252,7 +252,13 @@ class CapturedStep:
     counts its launches while it is captured, though nothing runs then:
     the capture takes the counts back and each replay adds them again.  A
     step that cannot be captured (one that waits for the device, say)
-    raises; there is no eager fallback."""
+    raises; there is no eager fallback.
+
+    The capture runs in ``thread_local`` mode: only this thread's calls
+    are checked against it.  An admission worker (``serving/admission``)
+    may stage a variant meanwhile, and its ``cudaMalloc``, pinned
+    ``cudaHostAlloc``, event waits and copies on its own stream would
+    invalidate a capture in the default ``global`` mode."""
 
     def __init__(self, warm: Callable, body: Callable, *, pool,
                  pointers: tuple):
@@ -265,7 +271,8 @@ class CapturedStep:
         torch.cuda.current_stream().wait_stream(side)
         before = _read_counters()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(self.graph, pool=pool):
+        with torch.no_grad(), torch.cuda.graph(
+                self.graph, pool=pool, capture_error_mode="thread_local"):
             body()
         self.launches = [a - b for a, b in zip(_read_counters(), before)]
         _add_counters([-d for d in self.launches])

@@ -14,16 +14,21 @@ QuantWeight leaves) and return byte accounting next to their result.
 ``apply_update`` materialises the next version of a variant from its parent
 and a decoded update patch (``core/store``), bit-exactly in the wire domain;
 ``load_full_checkpoint`` reads the fp16 checkpoint the paper compares load
-time against.  Mesh placements and async staging
-(``stage_overlay_transfer``) are not ported.
+time against.  ``stage_overlay_transfer`` is the staging half of async
+admission (``serving/admission``): host-to-device copies of a variant on
+a side stream, through pinned buffers, fenced by one event per module.
+Mesh placements (``param_shardings``) are not ported.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.core import store as S
 from repro_torch.core.calibration import (DeltaModel, flatten_params,
                                           unflatten_like)
 from repro_torch.core.quantize import dequantize, is_quant
@@ -120,6 +125,103 @@ def device_put_overlay(base_params, dm: DeltaModel, *,
     stats = {"seconds": time.perf_counter() - t0,
              "transferred_bytes": int(transferred)}
     return params_view, overlay_tree, stats
+
+
+# ---------------------------------------------------------------------------
+# staged transfers (async admission)
+# ---------------------------------------------------------------------------
+
+STAGE_CHUNK_BYTES = 16 << 20    # pinned buffer size of a staged copy
+
+
+@dataclasses.dataclass
+class Transfer:
+    """One module's staged copy: its path, its tensors on the device and
+    the event recorded on the staging stream after its last copy (None on
+    the CPU, where the copies are done when they return)."""
+    path: str
+    tensors: list
+    event: object = None
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+
+def _stage(t: torch.Tensor, device, pool, chunk_bytes: int) -> torch.Tensor:
+    """Host tensor ``t`` copied to ``device`` through ``pool`` buffers of
+    ``chunk_bytes``, each copy ``non_blocking`` on the current stream (a
+    tensor already on a card is used as it is).  Each buffer goes back to
+    the pool with the event of the copy that reads it."""
+    if t.device.type != "cpu":
+        return t
+    src = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    dst = torch.empty(t.shape, dtype=t.dtype, device=device)
+    out = dst.reshape(-1).view(torch.uint8)
+    for a in range(0, src.numel(), chunk_bytes):
+        n = min(chunk_bytes, src.numel() - a)
+        buf = pool.take((chunk_bytes,), torch.uint8)
+        buf[:n].copy_(src[a:a + n])
+        out[a:a + n].copy_(buf[:n], non_blocking=True)
+        pool.give(buf, event=_record(device), live=(dst,))
+    return dst
+
+
+def _record(device):
+    """An event recorded on ``device``'s current stream (None on the
+    CPU)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record()
+    return event
+
+
+def stage_overlay_transfer(dm: DeltaModel, *, device, stream=None,
+                           pool=None,
+                           chunk_bytes: int = STAGE_CHUNK_BYTES
+                           ) -> tuple[DeltaModel, list]:
+    """Begin the host-to-device copies of a variant without a fence: every
+    leaf (per module packed, v_row, v_col, use_row, then each extra) is
+    copied through a ``pool`` buffer (``core/store.StagingPool``, pinned on
+    a card, made here when None) with ``non_blocking=True`` on ``stream``
+    (default: the current stream), and one event per module is recorded
+    after its last copy.  The copies overlap whatever the serving stream
+    runs meanwhile; the caller's thread waits only when the pool's buffers
+    are all in flight.
+
+    Returns ``(dm_on_device, futures)``: ``futures`` lists one
+    :class:`Transfer` per module in JAX's order (deltas, then extras).  A
+    consumer on another stream must wait on a module's event before it
+    reads that module (``OverlayBank.admit_async`` does) and mark the
+    tensors used on its stream (``record_stream``) before it drops them;
+    ``wait_transfers`` waits on the host."""
+    device = torch.device(device)
+    if pool is None:
+        pool = S.StagingPool(pin_memory=device.type == "cuda")
+    on_stream = (torch.cuda.stream(stream)
+                 if device.type == "cuda" and stream is not None
+                 else contextlib.nullcontext())
+    deltas, extras, futures = {}, {}, []
+    with on_stream:
+        for path, e in dm.deltas.items():
+            leaves = [_stage(t, device, pool, chunk_bytes)
+                      for t in (e.packed, e.v_row, e.v_col, e.use_row)]
+            deltas[path] = type(e)(packed=leaves[0], v_row=leaves[1],
+                                   v_col=leaves[2], use_row=leaves[3],
+                                   scalar=e.scalar)
+            futures.append(Transfer(path, leaves, _record(device)))
+        for path, v in dm.extras.items():
+            arr = _stage(v, device, pool, chunk_bytes)
+            extras[path] = arr
+            futures.append(Transfer(path, [arr], _record(device)))
+    return DeltaModel(deltas=deltas, extras=extras), futures
+
+
+def wait_transfers(futures: list) -> None:
+    """Fence a ``stage_overlay_transfer`` future list (all modules)."""
+    for f in futures:
+        f.wait()
 
 
 def fused_resident_bytes(base_params, params_view, overlay) -> int:

@@ -21,8 +21,12 @@ serving pointer.  Manifests and indexes are finalized with a tmp file and
 
 Payloads are read and written as numpy arrays; a loaded artifact holds
 CPU tensors, and the loader (``core/loader``) moves each module to the
-device.  The asynchronous admission side of the JAX store (``StagingPool``,
-the ``pacer`` hook) is not ported.
+device.  The read side streams each module in bounded chunks
+(``iter_artifact_modules``), checks its sha on the host and calls an
+optional ``pacer`` between modules, so an ingest thread
+(``serving/admission``) yields the host to the serving thread as it goes;
+:class:`StagingPool` holds the reusable (on a card, page-locked) host
+buffers such an ingest stages through.
 """
 from __future__ import annotations
 
@@ -31,8 +35,9 @@ import hashlib
 import json
 import os
 import pathlib
+import threading
 import zipfile
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import numpy.lib.format as _npformat
@@ -44,7 +49,12 @@ from repro_torch.core.calibration import (DeltaEntry, DeltaModel,
 
 
 def _sha(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]
+    """The JAX store's digest (sha256 of the C-order bytes), hashed from
+    the array's own buffer: no copy, and hashlib lets other threads run
+    meanwhile (an ingest thread must not hold the interpreter for the
+    length of a copy of a 1 GB embedding table)."""
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return hashlib.sha256(flat).hexdigest()[:16]
 
 
 def _np(t) -> np.ndarray:
@@ -111,16 +121,108 @@ def _check_sizes(path: pathlib.Path, manifest: dict, what: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# streamed per-module read
+# streamed per-module read (the async admission pipeline's read side)
 # ---------------------------------------------------------------------------
 
-CHUNK_BYTES = 4 << 20   # bounded read granularity per payload chunk
+DEFAULT_CHUNK_BYTES = 4 << 20   # bounded read granularity per payload chunk
 
 
-def _stream_npz_member(zf: zipfile.ZipFile, member: str) -> np.ndarray:
+def _shares_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors' storages overlap (a zero-copy alias)."""
+    if a.device != b.device:
+        return False
+    sa, sb = a.untyped_storage(), b.untyped_storage()
+    a0, b0 = sa.data_ptr(), sb.data_ptr()
+    return a0 < b0 + sb.nbytes() and b0 < a0 + sa.nbytes()
+
+
+class StagingPool:
+    """Reusable host staging buffers for streamed ingest and staged
+    host-to-device transfers.
+
+    ``take(shape, dtype)`` returns a host tensor of that shape and dtype
+    (a torch or a numpy dtype), reusing a released buffer of the same byte
+    size when one is free; ``give`` releases a buffer back.  The pool
+    keeps at most ``max_buffers`` per size class, so an ingest's peak host
+    memory is O(largest buffer x in-flight window), not O(artifact).  With
+    ``pin_memory`` (on a card) the buffers are page-locked, which is what
+    makes a ``non_blocking`` copy from them asynchronous.
+
+    Two rules keep a recycled buffer from rewriting data still in use:
+
+    * a buffer given back with the ``event`` of a copy that reads it is
+      handed out again only once that event has completed: ``take`` skips
+      it while the copy runs and, when its class is full, waits for the
+      oldest one;
+    * a buffer that shares memory with a ``live`` tensor is dropped, never
+      recycled: on the CPU ``tensor.to("cpu")`` returns the tensor itself,
+      so a "transferred" buffer there IS the staged data (the hazard the
+      JAX store probes for with ``_device_put_copies``).
+
+    ``stats``: takes, reuses, waits (a take that waited for a copy), drops,
+    and the bytes of the buffers the pool owns now and at most."""
+
+    def __init__(self, max_buffers: int = 2, *, pin_memory: bool = False):
+        self.max_buffers = max_buffers
+        self.pin_memory = pin_memory
+        self._free: dict[int, list] = {}      # nbytes -> [(raw, event)]
+        self._lock = threading.Lock()
+        self.stats = {"takes": 0, "reuses": 0, "waits": 0, "drops": 0,
+                      "bytes": 0, "peak_bytes": 0}
+
+    def take(self, shape, dtype) -> torch.Tensor:
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        shape = tuple(int(d) for d in shape)
+        count = int(np.prod(shape))
+        nbytes = count * torch.empty(0, dtype=dtype).element_size()
+        with self._lock:
+            self.stats["takes"] += 1
+            bucket = self._free.get(nbytes, [])
+            i = next((j for j, (_, ev) in enumerate(bucket)
+                      if ev is None or ev.query()), None)
+            if i is None and len(bucket) >= self.max_buffers:
+                i = 0                           # the oldest copy ends first
+                self.stats["waits"] += 1
+            raw, event = bucket.pop(i) if i is not None else (None, None)
+            if raw is not None:
+                self.stats["reuses"] += 1
+        if raw is None:
+            raw = torch.empty(nbytes, dtype=torch.uint8,
+                              pin_memory=self.pin_memory)
+            with self._lock:
+                self.stats["bytes"] += nbytes
+                self.stats["peak_bytes"] = max(self.stats["peak_bytes"],
+                                               self.stats["bytes"])
+        elif event is not None:
+            event.synchronize()
+        return raw.view(dtype).reshape(shape)
+
+    def give(self, buf, *, event=None, live=()) -> None:
+        """Release ``buf`` (a tensor or numpy array the pool handed out)
+        once ``event`` (a copy reading it; None: no copy pending) has
+        completed; dropped when it shares memory with a tensor of ``live``
+        or when its class is full."""
+        if isinstance(buf, np.ndarray):
+            buf = torch.from_numpy(buf)
+        raw = buf.reshape(-1).view(torch.uint8)
+        nbytes = raw.numel()
+        with self._lock:
+            bucket = self._free.setdefault(nbytes, [])
+            if any(_shares_memory(raw, t) for t in live) or \
+                    len(bucket) >= self.max_buffers:
+                self.stats["drops"] += 1
+                self.stats["bytes"] -= nbytes
+                return
+            bucket.append((raw, event))
+
+
+def _stream_npz_member(zf: zipfile.ZipFile, member: str, *,
+                       chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                       pool: Optional[StagingPool] = None) -> np.ndarray:
     """Read one .npy member of an (uncompressed) npz in bounded chunks into
-    a host array, checking truncation per chunk: a short stream raises
-    IOError at the first missing byte."""
+    a host array (a ``pool`` buffer when given), checking truncation per
+    chunk: a short stream raises IOError at the first missing byte."""
     with zf.open(member) as f:
         version = _npformat.read_magic(f)
         if version == (1, 0):
@@ -130,12 +232,13 @@ def _stream_npz_member(zf: zipfile.ZipFile, member: str) -> np.ndarray:
         else:                       # exotic npy version: no streaming path
             return _npformat.read_array(f)
         count = int(np.prod(shape))
-        out = np.empty(count, dtype).reshape(shape)
+        out = (pool.take(shape, dtype).numpy() if pool is not None
+               else np.empty(count, dtype).reshape(shape))
         buf = out.reshape(-1).view(np.uint8)
         nbytes = count * dtype.itemsize
         got = 0
         while got < nbytes:
-            want = min(CHUNK_BYTES, nbytes - got)
+            want = min(int(chunk_bytes), nbytes - got)
             n = f.readinto(memoryview(buf)[got:got + want])
             if not n:
                 raise IOError(
@@ -147,11 +250,19 @@ def _stream_npz_member(zf: zipfile.ZipFile, member: str) -> np.ndarray:
     return out
 
 
-def iter_artifact_modules(in_dir) -> Iterator[tuple]:
+def iter_artifact_modules(in_dir, *, verify: bool = True,
+                          chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                          pool: Optional[StagingPool] = None,
+                          pacer: Optional[Callable[[], None]] = None
+                          ) -> Iterator[tuple]:
     """Stream a FULL artifact module by module: yields
     ``("delta", path, info, {packed, v_row, v_col, use_row})`` then
     ``("extra", path, info, array)``, all host numpy arrays read in bounded
-    chunks, each module's sha checked before it is handed on."""
+    chunks (into ``pool`` buffers when given: the consumer gives each back
+    once it has copied it), each module's sha checked (``verify``) before
+    it is handed on.  ``pacer`` (if given) is called after each module: a
+    background ingest passes a short sleep, so it yields the host between
+    modules instead of holding it for the whole read."""
     path = pathlib.Path(in_dir)
     manifest = read_manifest(path)
     if manifest.get("kind", "full") != "full":
@@ -159,21 +270,29 @@ def iter_artifact_modules(in_dir) -> Iterator[tuple]:
             f"{path} holds an incremental update patch (parent version "
             f"{manifest.get('lineage', {}).get('parent_version')}); "
             "materialise it via VariantStore.load")
-    _check_sizes(path, manifest, "artifact")
+    if verify:
+        _check_sizes(path, manifest, "artifact")
     with zipfile.ZipFile(path / "deltas.npz") as zf:
         for p, info in manifest["deltas"].items():
             key = p.replace(".", "__")
-            fields = {f: _stream_npz_member(zf, f"{key}__{f}.npy")
+            fields = {f: _stream_npz_member(zf, f"{key}__{f}.npy",
+                                            chunk_bytes=chunk_bytes,
+                                            pool=pool)
                       for f in ("packed", "v_row", "v_col", "use_row")}
-            if _sha(fields["packed"]) != info["sha"]:
+            if verify and _sha(fields["packed"]) != info["sha"]:
                 raise IOError(f"corrupt mask for {p}")
             yield "delta", p, info, fields
+            if pacer is not None:
+                pacer()
     with zipfile.ZipFile(path / "extras.npz") as zf:
         for p, info in manifest["extras"].items():
-            arr = _stream_npz_member(zf, p.replace(".", "__") + ".npy")
-            if _sha(arr) != info["sha"]:
+            arr = _stream_npz_member(zf, p.replace(".", "__") + ".npy",
+                                     chunk_bytes=chunk_bytes, pool=pool)
+            if verify and _sha(arr) != info["sha"]:
                 raise IOError(f"corrupt extra for {p}")
             yield "extra", p, info, arr
+            if pacer is not None:
+                pacer()
 
 
 def save_artifact(dm: DeltaModel, out_dir, *, base_fp: Optional[str] = None,
@@ -214,11 +333,15 @@ def save_artifact(dm: DeltaModel, out_dir, *, base_fp: Optional[str] = None,
     return manifest
 
 
-def load_artifact(in_dir, *,
-                  expect_base_fp: Optional[str] = None) -> DeltaModel:
+def load_artifact(in_dir, *, expect_base_fp: Optional[str] = None,
+                  verify: bool = True,
+                  chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                  pacer: Optional[Callable[[], None]] = None) -> DeltaModel:
     """Load a FULL artifact (manifest v1, v2 or v3) as CPU tensors: packed
-    uint8, fp32 vectors, bool selectors, fp16 extras.  Patch artifacts need
-    their parent and load through ``VariantStore.load``."""
+    uint8, fp32 vectors, bool selectors, fp16 extras, streamed per module
+    (``iter_artifact_modules``: ``verify``, ``chunk_bytes`` and ``pacer``
+    pass through).  Patch artifacts need their parent and load through
+    ``VariantStore.load``."""
     path = pathlib.Path(in_dir)
     manifest = read_manifest(path)
     if manifest.get("kind", "full") == "full" and expect_base_fp and \
@@ -228,7 +351,8 @@ def load_artifact(in_dir, *,
             f"artifact built for base {manifest['base_fingerprint']}, "
             f"got {expect_base_fp}")
     deltas, extras = {}, {}
-    for kind, p, info, payload in iter_artifact_modules(path):
+    for kind, p, info, payload in iter_artifact_modules(
+            path, verify=verify, chunk_bytes=chunk_bytes, pacer=pacer):
         if kind == "delta":
             deltas[p] = DeltaEntry(
                 packed=torch.from_numpy(payload["packed"]),
@@ -256,6 +380,7 @@ def _wire_entry(e: DeltaEntry) -> dict:
 
 def save_update_patch(parent_dm: DeltaModel, new_dm: DeltaModel, out_dir, *,
                       base_fp: Optional[str] = None,
+                      meta: Optional[dict] = None,
                       lineage: Optional[dict] = None) -> dict:
     """Incremental publish: ``new_dm`` as a patch against ``parent_dm`` (the
     materialised parent version).  Per changed module: the RLE-encoded XOR
@@ -272,7 +397,7 @@ def save_update_patch(parent_dm: DeltaModel, new_dm: DeltaModel, out_dir, *,
     out.mkdir(parents=True, exist_ok=True)
     manifest = {"version": STORE_VERSION, "kind": "patch",
                 "base_fingerprint": base_fp, "lineage": lineage or {},
-                "meta": {}, "deltas": {}, "extras": {}}
+                "meta": meta or {}, "deltas": {}, "extras": {}}
     pz = {}
 
     def encode(key: str, field: str, old: np.ndarray, new: np.ndarray
@@ -317,14 +442,16 @@ def save_update_patch(parent_dm: DeltaModel, new_dm: DeltaModel, out_dir, *,
     return manifest
 
 
-def load_update_patch(in_dir) -> tuple[dict, dict, dict]:
+def load_update_patch(in_dir, *, verify: bool = True
+                      ) -> tuple[dict, dict, dict]:
     """Read a patch artifact -> (manifest, delta_patches, extras_patches),
     the dense XOR buffers ``loader.apply_update`` consumes."""
     path = pathlib.Path(in_dir)
     manifest = read_manifest(path)
     if manifest.get("kind") != "patch":
         raise ValueError(f"{path} is not an update patch")
-    _check_sizes(path, manifest, "patch")
+    if verify:
+        _check_sizes(path, manifest, "patch")
     pz = np.load(path / "patch.npz")
 
     def decode(key: str, field: str, nbytes: int) -> np.ndarray:
@@ -368,9 +495,11 @@ class VariantStore:
     Version ids are monotonic per variant (rollback moves the pointer; a
     later publish still gets max+1).  Version directories are immutable
     once the index commits, so materialised versions are cached (LRU of
-    ``cache_versions``) and rollback is a constant-time pointer move.  One
-    process uses a store at a time: the JAX store's lock for its admission
-    thread is not needed here."""
+    ``cache_versions``) and rollback is a constant-time pointer move.
+    Publish, rollback and load hold one reentrant lock (``publish_update``
+    loads its parent under it): the control thread publishes while the
+    admission pipeline's ingest thread loads, and both share the
+    materialisation cache and the index files."""
 
     INDEX = "versions.json"
 
@@ -382,6 +511,7 @@ class VariantStore:
         self.cache_versions = max(1, cache_versions)
         self._cache: "collections.OrderedDict[tuple, DeltaModel]" = \
             collections.OrderedDict()
+        self._lock = threading.RLock()
 
     # -- index -------------------------------------------------------------
     def _vdir(self, name: str, version: int) -> pathlib.Path:
@@ -458,33 +588,43 @@ class VariantStore:
         self._write_index(name, idx)
         return v
 
-    def publish(self, name: str, dm: DeltaModel) -> int:
-        """Full publish: next monotonic version, latest pointer advances.
-        Order: payload npz -> atomic manifest -> atomic index; an
-        unfinished version never becomes visible."""
+    def publish(self, name: str, dm: DeltaModel, *,
+                meta: Optional[dict] = None) -> int:
+        """Full publish: next monotonic version, latest pointer advances;
+        ``meta`` lands in the manifest.  Order: payload npz -> atomic
+        manifest -> atomic index; an unfinished version never becomes
+        visible."""
         self._check_name(name)
-        idx, v = self._next_version(name)
-        manifest = save_artifact(
-            dm, self._vdir(name, v), base_fp=self.base_fp,
-            lineage={"variant": name, "version": v, "parent_version": None})
-        return self._commit(name, idx, v, "full", None, manifest)
+        with self._lock:
+            idx, v = self._next_version(name)
+            manifest = save_artifact(
+                dm, self._vdir(name, v), base_fp=self.base_fp, meta=meta,
+                lineage={"variant": name, "version": v,
+                         "parent_version": None})
+            return self._commit(name, idx, v, "full", None, manifest)
 
-    def publish_update(self, name: str, dm: DeltaModel) -> int:
+    def publish_update(self, name: str, dm: DeltaModel, *,
+                       meta: Optional[dict] = None) -> int:
         """Incremental publish: ``dm`` becomes the next version as a patch
         against the current latest (which must exist)."""
         self._check_name(name)
-        parent_v = self.latest(name)
-        parent = self.load(name, parent_v)
-        idx, v = self._next_version(name)
-        manifest = save_update_patch(
-            parent, dm, self._vdir(name, v), base_fp=self.base_fp,
-            lineage={"variant": name, "version": v,
-                     "parent_version": parent_v})
-        return self._commit(name, idx, v, "patch", parent_v, manifest)
+        with self._lock:
+            parent_v = self.latest(name)
+            parent = self.load(name, parent_v)
+            idx, v = self._next_version(name)
+            manifest = save_update_patch(
+                parent, dm, self._vdir(name, v), base_fp=self.base_fp,
+                meta=meta, lineage={"variant": name, "version": v,
+                                    "parent_version": parent_v})
+            return self._commit(name, idx, v, "patch", parent_v, manifest)
 
     def rollback(self, name: str, to_version: Optional[int] = None) -> int:
         """Move the ``latest`` pointer back — constant time, no artifact
         IO.  Default target: the highest version id below the pointer."""
+        with self._lock:
+            return self._rollback_locked(name, to_version)
+
+    def _rollback_locked(self, name: str, to_version: Optional[int]) -> int:
         idx = self._read_index(name)
         cur = int(idx["latest"])
         if to_version is None:
@@ -500,10 +640,21 @@ class VariantStore:
         return int(to_version)
 
     # -- materialisation ---------------------------------------------------
-    def load(self, name: str, version: Optional[int] = None) -> DeltaModel:
+    def load(self, name: str, version: Optional[int] = None, *,
+             verify: bool = True,
+             pacer: Optional[Callable[[], None]] = None) -> DeltaModel:
         """Materialise a version: the nearest full ancestor (or the deepest
         cached one), then patches forward (``loader.apply_update``).
-        Results are cached per (name, version)."""
+        Results are cached per (name, version).  ``pacer`` runs between the
+        modules of a full artifact's streamed read and after each chain
+        step; the lock is held across its sleeps, so a pacing ingest
+        delays a concurrent publish and never interleaves with it."""
+        with self._lock:
+            return self._load_locked(name, version, verify=verify,
+                                     pacer=pacer)
+
+    def _load_locked(self, name: str, version: Optional[int], *,
+                     verify: bool, pacer) -> DeltaModel:
         from repro_torch.core import loader as L
         v = self.latest(name) if version is None else int(version)
         if (name, v) in self._cache:
@@ -522,9 +673,11 @@ class VariantStore:
             vdir = self._vdir(name, step)
             info = self.version_info(name, step)
             if info["kind"] == "full":
-                dm = load_artifact(vdir, expect_base_fp=self.base_fp)
+                dm = load_artifact(vdir, expect_base_fp=self.base_fp,
+                                   verify=verify, pacer=pacer)
             else:
-                manifest, dpatch, epatch = load_update_patch(vdir)
+                manifest, dpatch, epatch = load_update_patch(vdir,
+                                                             verify=verify)
                 if self.base_fp and manifest.get("base_fingerprint") and \
                         manifest["base_fingerprint"] != self.base_fp:
                     raise ValueError(
@@ -532,8 +685,11 @@ class VariantStore:
                         f"{manifest['base_fingerprint']}, got {self.base_fp}")
                 dm = L.apply_update(self._cache[(name, int(info["parent"]))],
                                     dpatch, epatch)
-                self._verify_patched(manifest, dm, vdir)
+                if verify:
+                    self._verify_patched(manifest, dm, vdir)
             self._cache[(name, step)] = dm
+            if pacer is not None:
+                pacer()
         dm = self._cache[(name, v)]
         self._cache.move_to_end((name, v))
         # trim after the chain walk: a parent never vanishes before its

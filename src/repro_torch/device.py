@@ -20,3 +20,10 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued device work (timing around eager CUDA calls)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def synchronize_stream(device: torch.device) -> None:
+    """Wait for the current stream's queued work only: a side stream's
+    copies (async admission's staging) go on meanwhile."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()

@@ -33,9 +33,13 @@ token and every request's tokens.  ``--base-dtype int8`` holds the base's target
 matrices as int8 plus fp16 per-channel scales (the kernels dequantize in
 their tile pass) and prints the quantized bytes.  ``--store-dir DIR``
 publishes the variants as artifacts in a ``core/store.VariantStore`` under
-DIR and serves them from it (default: in memory).  ``--num-layers`` cuts
-depth only; ``--reduced`` selects the small test widths.  Runs on
-``--device`` (default cuda).
+DIR and serves them from it (default: in memory).  ``--async-admission``
+(the slot schedulers) loads and stages each variant on a background
+worker, paced by ``--admission-pacing`` seconds between modules, and
+commits it between decode steps; the run prints the pipeline's counters.
+``--max-retries`` bounds the retries of a request whose variant fails to
+load.  ``--num-layers`` cuts depth only; ``--reduced`` selects the small
+test widths.  Runs on ``--device`` (default cuda).
 """
 from __future__ import annotations
 
@@ -106,12 +110,14 @@ def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
            device, max_resident: int = 0, bank_size: int = 0,
            base_dtype: str = "fp", root_dir=None,
            prompt_len: int = PROMPT_LEN, max_len: int = 0,
-           draft_k: int = 4, graphs: bool = True):
+           draft_k: int = 4, graphs: bool = True, **kw):
     """A Deployment over ``base`` with ``dms`` published as v0..v{n-1}
     (as store artifacts under ``root_dir`` when given); prompts padded to
     ``prompt_len``, caches of ``max_len`` (default ``cache_len``: room for
     48 new tokens); ``draft_k`` for ``scheduler="speculative"``;
-    ``graphs=False`` runs the slot scheduler's steps eagerly."""
+    ``graphs=False`` runs the slot scheduler's steps eagerly; ``kw`` goes
+    to ``Deployment`` (``async_admission``, ``max_retries``,
+    ``admission_pacing_s``)."""
     dep = Deployment(model, base, root_dir=root_dir, mode=mode,
                      scheduler=scheduler, draft_k=draft_k,
                      batch_size=batch, prompt_len=prompt_len,
@@ -119,7 +125,7 @@ def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
                      max_resident=max_resident or (8 if mode == "fused"
                                                    else 2),
                      bank_size=bank_size or len(dms) + 2, device=device,
-                     base_dtype=base_dtype, graphs=graphs)
+                     base_dtype=base_dtype, graphs=graphs, **kw)
     for i, dm in enumerate(dms):
         dep.publish(f"v{i}", dm)
     return dep
@@ -128,15 +134,16 @@ def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
 def build_deployment(cfg, *, mode: str, n_variants: int, batch: int,
                      device, scheduler: str = "group", seed: int = 0,
                      max_resident: int = 0, base_dtype: str = "fp",
-                     root_dir=None, max_len: int = 0, draft_k: int = 4):
+                     root_dir=None, max_len: int = 0, draft_k: int = 4,
+                     **kw):
     """Base model (seeded) + ``n_variants`` published synthetic variants
     v0..v{n-1}, behind a Deployment with a bank of ``n_variants + 2``
-    slots."""
+    slots (``kw``: see ``deploy``)."""
     model, base, dms = build_variants(cfg, n_variants, device, seed)
     return deploy(model, base, dms, mode=mode, scheduler=scheduler,
                   batch=batch, device=device, max_resident=max_resident,
                   base_dtype=base_dtype, root_dir=root_dir, max_len=max_len,
-                  draft_k=draft_k)
+                  draft_k=draft_k, **kw)
 
 
 def submit_requests(dep, cfg, n_requests: int, new_tokens,
@@ -191,6 +198,18 @@ def main(argv=None):
                     help="directory of built kernel libraries: loaded from "
                          "there, built there on a miss (also "
                          "REPRO_COMPILE_CACHE_DIR)")
+    ap.add_argument("--async-admission", action="store_true",
+                    help="load and stage each variant on a background "
+                         "worker and commit it between decode steps "
+                         "(publish returns without blocking; needs "
+                         "--scheduler continuous or --speculative)")
+    ap.add_argument("--admission-pacing", type=float, default=0.002,
+                    metavar="SECONDS",
+                    help="async admission: the worker's sleep between "
+                         "artifact modules (0 disables)")
+    ap.add_argument("--max-retries", type=int, default=1,
+                    help="retries of a request whose variant fails to "
+                         "load before it fails")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -202,6 +221,10 @@ def main(argv=None):
     if args.scheduler == "continuous" and args.mode != "fused":
         ap.error("--scheduler continuous serves from the overlay bank and "
                  "needs --mode fused")
+    if args.async_admission and args.scheduler == "group":
+        ap.error("--async-admission commits staged variants into the "
+                 "overlay bank between decode steps and needs --scheduler "
+                 "continuous (or --speculative)")
 
     device = resolve_device(args.device)
     if args.compile_cache:
@@ -215,7 +238,10 @@ def main(argv=None):
                            max_len=cache_len(cfg, PROMPT_LEN,
                                              max(args.new_tokens,
                                                  MAX_LEN - PROMPT_LEN)),
-                           draft_k=args.draft_k)
+                           draft_k=args.draft_k,
+                           async_admission=args.async_admission,
+                           admission_pacing_s=args.admission_pacing,
+                           max_retries=args.max_retries)
     if args.base_dtype == "int8":
         qs = dep.registry.quant_stats
         print(f"int8 base: {qs['targets']} targets, "
@@ -235,6 +261,9 @@ def main(argv=None):
     if args.speculative:
         print("speculative:", dep.status()["speculative"])
     print("registry:", dep.stats)
+    if dep.admission is not None:
+        print("admission:", dep.admission.stats)
+        print("staging-pool:", dep.admission.pool.stats)
     st = dep.status()
     print("compiles:", st["steps"])
     print("compile-cache:", st["compile_cache"])

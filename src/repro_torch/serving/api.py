@@ -32,8 +32,19 @@ CUDA graphs on a card (``serving/engine``); ``graphs=False`` runs them
 eagerly.  ``compile_cache_dir`` installs a ``core/compile_cache``
 directory of built kernel libraries as the process default (the library
 loads once a process, at its first use), so a restart over the same
-directory builds nothing.  Mesh sharding and async admission are not
-ported.
+directory builds nothing.
+
+Async admission (``async_admission=True``, the slot schedulers only;
+``serving/admission``): ``publish``, ``update`` and ``rollback`` return
+without loading anything and start ingest of the new current version on a
+worker thread (the store read, patch chain and sha checks, then the copies
+to the card on the worker's own stream, paced by ``admission_pacing_s``
+between modules); the lanes keep decoding, and the version commits into
+its bank slot between steps.  ``wait=True`` blocks until it is resident; a
+request behind ingest reports ``admitting``; ``rollback`` of a variant
+with a version mid-ingest raises.  ``max_retries`` bounds the retries of a
+request whose variant fails to load, inline or on the pipeline.  ``close()``
+stops the worker.  Mesh sharding and pod-local banks are not ported.
 """
 from __future__ import annotations
 
@@ -61,7 +72,9 @@ class Deployment:
                  eager: bool = False, device=None, base_dtype: str = "fp",
                  speculative: bool = False, draft_k: int = 4,
                  warmup: bool = False, compile_cache_dir=None,
-                 graphs: bool = True):
+                 graphs: bool = True, max_retries: int = 1,
+                 async_admission: bool = False,
+                 admission_pacing_s: float = 0.002):
         if store is not None and root_dir is not None:
             raise ValueError("pass either store or root_dir, not both")
         if base_dtype not in ("fp", "int8"):
@@ -108,11 +121,23 @@ class Deployment:
                     self._hydrate(name)
             else:
                 self.registry.hydrator = self._hydrate
+        self.admission = None
+        if async_admission:
+            if scheduler not in ("continuous", "speculative"):
+                raise ValueError(
+                    "async_admission requires the continuous slot "
+                    "scheduler (staged overlays commit into the overlay "
+                    "bank between decode steps)")
+            from repro_torch.serving.admission import AdmissionPipeline
+            self.admission = AdmissionPipeline(
+                self.registry, pacing_s=admission_pacing_s)
+            self.registry.admission = self.admission
         self.engine = ServingEngine(model, self.registry,
                                     batch_size=batch_size,
                                     prompt_len=prompt_len, max_len=max_len,
+                                    max_retries=max_retries,
                                     scheduler=scheduler, draft_k=draft_k,
-                                    graphs=graphs)
+                                    graphs=graphs, admission=self.admission)
         if warmup:
             # every step ready before traffic: captured on a card, and the
             # kernel library built or loaded through the compile cache
@@ -135,16 +160,25 @@ class Deployment:
 
     def _store_ref(self, name: str, version: int):
         """Lazy materialisation: the registry loads (and the store caches)
-        the version only when a request needs it."""
+        the version only when a request needs it.  The reference
+        advertises ``accepts_pacer``, so the admission worker's pacing
+        reaches the streamed read."""
         store = self.store
-        return lambda: store.load(name, version)
+
+        def ref(pacer=None):
+            return store.load(name, version, pacer=pacer)
+        ref.accepts_pacer = True
+        return ref
 
     # -- control plane -----------------------------------------------------
     def publish(self, name: str, dm: DeltaModel, *,
-                mode: Optional[str] = None, wait: bool = False) -> int:
+                mode: Optional[str] = None, meta: Optional[dict] = None,
+                wait: bool = False) -> int:
         """Publish ``dm`` as the next full version of ``name`` (a full
-        artifact when a store backs this deployment) and point serving at
-        it; ``wait=True`` makes it resident now.  Returns the version."""
+        artifact, ``meta`` in its manifest, when a store backs this
+        deployment) and point serving at it; ``wait=True`` makes it
+        resident now.  Under async admission the call does not block:
+        ingest starts on the pipeline.  Returns the version."""
         if mode == "dense" and self.engine.scheduler in ("continuous",
                                                          "speculative"):
             raise ValueError(
@@ -152,7 +186,7 @@ class Deployment:
                 "continuous scheduler (overlay-bank admission is "
                 "fused-only)")
         if self.store is not None:
-            v = self.store.publish(name, dm)
+            v = self.store.publish(name, dm, meta=meta)
             artifact = self._store_ref(name, v)
         else:
             v = self.registry.next_version(name)
@@ -161,12 +195,14 @@ class Deployment:
         self._after_swap(name, wait)
         return v
 
-    def update(self, name: str, dm: DeltaModel, *, wait: bool = False) -> int:
+    def update(self, name: str, dm: DeltaModel, *,
+               meta: Optional[dict] = None, wait: bool = False) -> int:
         """Next version of an existing variant + atomic pointer move; with
         a store it ships as an XOR/RLE patch against the current version.
-        In-flight requests finish on the version they pinned."""
+        In-flight requests finish on the version they pinned; under async
+        admission the patch chain runs on the pipeline."""
         if self.store is not None:
-            v = self.store.publish_update(name, dm)
+            v = self.store.publish_update(name, dm, meta=meta)
             artifact = self._store_ref(name, v)
         else:
             if not self.registry.has_variant(name):
@@ -180,7 +216,13 @@ class Deployment:
     def rollback(self, name: str, to_version: Optional[int] = None, *,
                  wait: bool = False) -> int:
         """Pointer move back to ``to_version`` (default: previous); with a
-        store, the store's pointer moves and no artifact is touched."""
+        store, the store's pointer moves and no artifact is touched.
+        Raises while a version of ``name`` is mid-ingest on the admission
+        pipeline (the rollback would race its commit)."""
+        if self.admission is not None and self.admission.staging(name):
+            raise RuntimeError(
+                f"variant {name!r} has a version mid-admission; wait for "
+                "it to land before rolling back")
         if self.store is not None:
             v = self.store.rollback(name, to_version)
             # the registry may not know this version yet (a fresh
@@ -192,9 +234,16 @@ class Deployment:
         return v
 
     def _after_swap(self, name: str, wait: bool) -> None:
-        """``wait=True`` makes the new current version resident now: a
-        bank slot under the continuous scheduler, a dense or fused
-        resident under the group scheduler."""
+        """After a pointer move: an async deployment starts ingest of the
+        new current version now (``wait=True``: and blocks until it is
+        resident); otherwise ``wait=True`` makes it resident inline: a
+        bank slot under the slot schedulers, a dense or fused resident
+        under the group scheduler."""
+        if self.admission is not None:
+            self.admission.prefetch(name)
+            if wait:
+                self.admission.wait(name)
+            return
         if not wait:
             return
         if self.engine.scheduler in ("continuous", "speculative"):
@@ -223,8 +272,16 @@ class Deployment:
             names.update(self.store.names())
         return ["__base__"] + sorted(names - {"__base__"})
 
+    def admitting(self) -> list:
+        """Version keys mid-ingest on the admission pipeline (empty for a
+        synchronous deployment)."""
+        return [] if self.admission is None else self.admission.admitting()
+
     def close(self) -> None:
-        """Nothing runs in the background of a synchronous deployment."""
+        """Stop the admission worker (idempotent; nothing runs in the
+        background of a synchronous deployment)."""
+        if self.admission is not None:
+            self.admission.close()
 
     # -- data plane --------------------------------------------------------
     def submit(self, tokens, variant: str = "__base__",
@@ -232,8 +289,12 @@ class Deployment:
         return self.engine.submit(tokens, variant=variant,
                                   max_new_tokens=max_new_tokens)
 
-    def drain(self, max_rounds: int = 1000) -> dict:
-        return self.engine.run_until_drained(max_rounds)
+    def drain(self, max_rounds: int = 1000,
+              max_steps: Optional[int] = None) -> dict:
+        """Serve until the queue and every lane are empty (``max_steps``:
+        return after that many decode steps, lanes live); returns the
+        engine metrics."""
+        return self.engine.run_until_drained(max_rounds, max_steps)
 
     def result(self, rid: int) -> Request:
         return self.engine.result(rid)

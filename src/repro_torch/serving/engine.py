@@ -1,5 +1,5 @@
-"""Serving engine (port of ``repro.serving.engine`` without mesh, pods
-and async admission).  Three schedulers:
+"""Serving engine (port of ``repro.serving.engine`` without mesh and
+pods).  Three schedulers:
 
 * ``continuous`` (mixed-variant slot scheduler) — the engine keeps ONE
   persistent decode batch of ``batch_size`` lanes.  Each lane carries its
@@ -42,6 +42,18 @@ inside the graph.  A step whose base, bank or state addresses changed is
 captured again.  The group scheduler's decode and every prefill run
 eagerly; ``warmup()`` runs each once.  With ``graphs=False``, and on the
 CPU, every step runs eagerly through the same code, with the same tokens.
+
+Async admission (DESIGN.md §13; ``serving/admission``, the slot schedulers
+only): with an ``admission`` pipeline the lane loop never loads a variant.
+A request whose version is still ingesting reports ``admitting`` and keeps
+its place at the front of the queue; between steps the loop commits at
+most one staged variant into its bank slot (``drain(max_admits=1)``),
+written in place on the serving stream, so the next replay reads it; with
+every queued request behind ingest and no lane live it sleeps on the
+pipeline's progress.  ``record_step_times`` appends ``(t_end, seconds,
+admission_busy)`` per step or round to ``step_times``.  The engine waits
+for the serving stream only (never the whole device), so the staging
+stream's copies overlap the steps.
 """
 from __future__ import annotations
 
@@ -54,7 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import compile_cache as CC
-from repro_torch.device import synchronize
+from repro_torch.device import synchronize, synchronize_stream
 from repro_torch.kernels import build
 from repro_torch.serving.variants import VariantRegistry
 from repro_torch.tree import tree_leaves
@@ -67,7 +79,8 @@ class Request:
     variant: str = "__base__"
     max_new_tokens: int = 16
     out_tokens: list = dataclasses.field(default_factory=list)
-    status: str = "queued"        # queued | running | done | failed
+    status: str = "queued"        # queued | admitting | running | done |
+                                  # failed
     retries: int = 0
     error: Optional[str] = None
     served_version: Optional[int] = None   # version resolved at admission
@@ -94,15 +107,23 @@ class ServingEngine:
     "speculative" (the same lanes, decoded by base-as-draft rounds of up
     to ``draft_k`` drafts) or "group" (grouped by variant — required for
     dense residency).  ``graphs`` (on a card) replays the slot
-    schedulers' steps as CUDA graphs; False runs them eagerly."""
+    schedulers' steps as CUDA graphs; False runs them eagerly.
+    ``admission`` (an ``AdmissionPipeline``, slot schedulers only) admits
+    variants off the serving thread."""
 
     def __init__(self, model, registry: VariantRegistry, *,
                  batch_size: int = 4, prompt_len: int = 32,
                  max_len: int = 128, max_retries: int = 1,
                  scheduler: str = "group", draft_k: int = 4,
-                 spec_adaptive: bool = True, graphs: bool = True):
+                 spec_adaptive: bool = True, graphs: bool = True,
+                 admission=None):
         if scheduler not in ("group", "continuous", "speculative"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
+        if admission is not None and scheduler == "group":
+            raise ValueError(
+                "async admission requires scheduler='continuous' (staged "
+                "overlays commit into the overlay bank between decode "
+                "steps; the group scheduler admits dense residents inline)")
         if scheduler == "speculative":
             from repro_torch.models.transformer import FAMILIES, layer_pattern
             if model.cfg.family in FAMILIES and any(
@@ -119,7 +140,8 @@ class ServingEngine:
         self.prompt_len = prompt_len
         self.max_len = max_len
         self.max_retries = max_retries
-        self.device = tree_leaves(registry.base_params)[0].device
+        self.admission = admission
+        self.device = registry.device
         self._queue: collections.deque[Request] = collections.deque()
         self._done: dict[int, Request] = {}
         self._next_rid = 0
@@ -167,6 +189,7 @@ class ServingEngine:
                         "failed": 0, "admitted": 0, "retired": 0,
                         "decode_steps": 0,
                         "prefill_seconds": 0.0, "decode_seconds": 0.0,
+                        "async_admits": 0,
                         "step_compiles": 0, "step_cache_hits": 0,
                         "step_compile_seconds": 0.0,
                         "warmup_seconds": 0.0,
@@ -183,6 +206,9 @@ class ServingEngine:
             self._warmup_reg["banked"] = self._warm_banked
         if self.spec is not None:
             self._warmup_reg["speculative"] = self._warm_speculative
+        # (t_end, seconds, admission_busy) per step or round, when on
+        self.record_step_times = False
+        self.step_times: list = []
 
     # -- API -----------------------------------------------------------------
     def submit(self, tokens, variant: str = "__base__",
@@ -264,13 +290,21 @@ class ServingEngine:
     def active(self) -> int:
         return sum(1 for s in self._slots if s is not None)
 
-    def run_until_drained(self, max_rounds: int = 1000) -> dict:
+    def run_until_drained(self, max_rounds: int = 1000,
+                          max_steps: Optional[int] = None) -> dict:
+        """Serve until the queue and every lane are empty.  ``max_steps``
+        (slot schedulers) returns after that many decode steps or rounds
+        with the lanes live: a caller interleaves control-plane calls
+        (publish, update) between slices of serving."""
         if self.scheduler == "continuous":
-            self._serve_lanes(max_rounds, self._decode_step)
+            self._serve_lanes(max_rounds, self._decode_step, max_steps)
             return self.metrics
         if self.scheduler == "speculative":
-            self._serve_lanes(max_rounds, self._spec_round)
+            self._serve_lanes(max_rounds, self._spec_round, max_steps)
             return self.metrics
+        if max_steps is not None:
+            raise ValueError("max_steps needs a slot scheduler "
+                             "(continuous or speculative)")
         rounds = 0
         while self._queue and rounds < max_rounds:
             self._serve_one_group()
@@ -374,13 +408,28 @@ class ServingEngine:
     def _admit_free_slots(self) -> list:
         """Pop queued requests into free lanes: resolve each request's
         variant to a bank slot (admitting it on a miss) and pin it for the
-        request's lifetime.  Unknown variants re-queue up to max_retries
-        then fail; a fully pinned bank re-queues the head and waits for
-        retirements."""
+        request's lifetime.  Unknown variants and failed loads re-queue up
+        to max_retries then fail; a fully pinned bank re-queues the head
+        and waits for retirements.  Under async admission a variant is
+        never loaded here: the pipeline is polled (prefetching what it has
+        not seen), a request whose version is still ingesting is skipped
+        as ``admitting``, and skipped requests go back to the front in
+        their order, so admission stays FIFO once staging lands."""
         newly: list = []
+        skipped: list = []
         free = [i for i in range(self.batch_size) if self._slots[i] is None]
         while free and self._queue:
             r = self._queue.popleft()
+            if self.admission is not None and r.variant != "__base__":
+                try:
+                    state = self.admission.poll(r.variant)
+                except Exception as e:   # ingest failed: the same retry
+                    self._fail_or_requeue(r, e)   # budget as a sync load
+                    continue
+                if state != "admitted":
+                    r.status = "admitting"
+                    skipped.append(r)
+                    continue
             try:
                 # admission-time resolution: the request serves the
                 # version the pointer names NOW, and the pin holds that
@@ -392,13 +441,7 @@ class ServingEngine:
                 self._queue.appendleft(r)
                 break
             except Exception as e:
-                r.retries += 1
-                if r.retries > self.max_retries:
-                    r.status, r.error = "failed", str(e)
-                    self._done[r.rid] = r
-                    self.metrics["failed"] += 1
-                else:
-                    self._queue.append(r)
+                self._fail_or_requeue(r, e)
                 continue
             i = free.pop(0)
             r.served_version = self.registry.current_version(r.variant)
@@ -409,7 +452,20 @@ class ServingEngine:
             r.status = "running"
             newly.append(i)
             self.metrics["admitted"] += 1
+        self._queue.extendleft(reversed(skipped))
         return newly
+
+    def _fail_or_requeue(self, r: Request, e: Exception) -> None:
+        """A failed admission: re-queue ``r`` at the back within its
+        ``max_retries`` budget, else fail it."""
+        r.retries += 1
+        if r.retries > self.max_retries:
+            r.status, r.error = "failed", str(e)
+            self._done[r.rid] = r
+            self.metrics["failed"] += 1
+        else:
+            r.status = "queued"
+            self._queue.append(r)
 
     def _bank_tree(self):
         bank = self.registry.bank
@@ -432,7 +488,7 @@ class ServingEngine:
             overlay=self._bank_tree(),
             variant_idx=torch.from_numpy(pvidx).to(self.device))
         first_tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
-        synchronize(self.device)
+        synchronize_stream(self.device)
         self.metrics["prefill_seconds"] += time.perf_counter() - t0
         self.metrics["prefills"] += 1
         idx = torch.tensor(newly, dtype=torch.int64, device=self.device)
@@ -451,17 +507,28 @@ class ServingEngine:
         self._vidx_dirty = True
         self.metrics["retired"] += 1
 
-    def _serve_lanes(self, max_rounds: int, advance) -> None:
-        """The slot scheduler's loop: free lanes admit queued requests
-        (prefill-on-admit), every active lane appends its PENDING token
-        (a prefill argmax, a decode step's or a round's; one host sync),
+    def _serve_lanes(self, max_rounds: int, advance,
+                     max_steps: Optional[int] = None) -> None:
+        """The slot scheduler's loop: commit at most one staged variant
+        (async admission), free lanes admit queued requests
+        (prefill-on-admit), every active lane appends its PENDING token (a
+        prefill argmax, a decode step's or a round's; one host sync),
         exhausted lanes retire at once, then ``advance()`` moves the batch
-        on: one decode step (continuous) or one speculative round."""
+        on: one decode step (continuous) or one speculative round.  With
+        ``max_steps`` the loop returns after that many, lanes live."""
         # max_rounds bounds STALLED rounds (no admission, no token, no
         # failure), not decode steps: productive rounds are bounded by the
         # submitted token budgets
-        stalls = 0
+        stalls = steps = 0
         while (self._queue or self.active()) and stalls < max_rounds:
+            if max_steps is not None and steps >= max_steps:
+                break
+            drained = 0
+            if self.admission is not None:
+                # the bounded on-thread cost of async admission: one
+                # commit's slot writes, queued on the serving stream
+                drained = self.admission.drain(max_admits=1)
+                self.metrics["async_admits"] += drained
             failed0 = self.metrics["failed"]
             newly = self._admit_free_slots()
             if newly:
@@ -470,9 +537,18 @@ class ServingEngine:
                 if not self._queue:
                     break
                 # admissions failed this round: retry (a stall unless
-                # requests were failed — retries terminate)
-                stalls = 0 if self.metrics["failed"] > failed0 \
-                    else stalls + 1
+                # requests were failed or a commit landed — retries
+                # terminate)
+                if self.metrics["failed"] > failed0 or drained:
+                    stalls = 0
+                elif self.admission is not None \
+                        and self.admission.in_flight():
+                    # every queued request is behind ingest and no lane
+                    # decodes: sleep on the pipeline's progress
+                    self.admission.wait_progress(0.05)
+                    stalls = 0
+                else:
+                    stalls += 1
                 continue
             stalls = 0
             host_tok = self._next_tok.cpu().numpy()
@@ -495,7 +571,14 @@ class ServingEngine:
                 self._variant_idx_dev.copy_(
                     torch.from_numpy(self._variant_idx))
                 self._vidx_dirty = False
+            busy = drained > 0 or (self.admission is not None
+                                   and self.admission.in_flight() > 0)
+            t0 = time.perf_counter()
             advance()
+            steps += 1
+            if self.record_step_times:
+                t1 = time.perf_counter()
+                self.step_times.append((t1, t1 - t0, busy))
         self.metrics["batches"] += 1
 
     def _decode_step(self) -> None:
@@ -506,7 +589,7 @@ class ServingEngine:
         flavour = "banked" if bank is not None else "banked-empty"
         self._run_step((flavour, "decode_banked"),
                        self._decode_compute(bank), bank)
-        synchronize(self.device)
+        synchronize_stream(self.device)
         self.metrics["decode_seconds"] += time.perf_counter() - t0
         self.metrics["decode_steps"] += 1
 

@@ -1,6 +1,6 @@
 """Multi-tenant variant registry (port of ``repro.serving.variants``
-without mesh, pod-local banks and async admission): many fine-tunes over
-one resident base.
+without mesh and pod-local banks): many fine-tunes over one resident
+base.
 
 A registered artifact is a ``DeltaModel``, a zero-argument callable that
 returns one (lazy store materialisation, ``serving/api.Deployment``) or an
@@ -36,11 +36,20 @@ dequantize it in their tile pass.  Artifacts are fingerprinted against the
 fp base, before quantization.  ``reserve_bank`` allocates the bank before
 its first admit, so the engine's warmup can capture the banked steps
 against it (``core/compile_cache.CapturedStep``).
+
+Async admission (``serving/admission``, attached as ``admission``): an
+ingest thread loads a version (``_load(pacer=)``) and stages it on the
+device; the serving thread commits it between steps
+(``_bank_admit(block=False, transfers=)``: ``OverlayBank.admit_async``
+waits on the staging events on the serving stream, then writes the slot in
+place).  While a version is staging its key is marked on the bank, and
+``evict`` refuses it.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import Optional
 
@@ -51,7 +60,6 @@ from repro_torch.core import quantize as Q
 from repro_torch.core import store as S
 from repro_torch.core.calibration import (DeltaModel, flatten_params,
                                           is_target)
-from repro_torch.device import synchronize
 from repro_torch.models import delta_overlay as DO
 from repro_torch.tree import tree_leaves
 
@@ -89,6 +97,7 @@ class OverlayBank:
         self._lru: "collections.OrderedDict[str, None]" = \
             collections.OrderedDict()
         self._free = list(range(size - 1, 0, -1))   # pop() -> lowest slot
+        self._staging: set = set()          # vkeys mid-admission
         self.stats = {"admits": 0, "evictions": 0}
 
     def base_slot(self) -> int:
@@ -147,10 +156,19 @@ class OverlayBank:
             DO.insert_entry(tree, path, leaf)
         self._tree = tree
 
-    def _write(self, dm: DeltaModel, slot: int) -> None:
+    def _write(self, dm: DeltaModel, slot: int, transfers=()) -> None:
         """Write one variant into ``slot`` of every leaf, in place:
         canonicalise each DeltaEntry (fp16 axis vectors, zeroed unselected
-        axis) and fp16-round each extras leaf into the base dtype."""
+        axis) and fp16-round each extras leaf into the base dtype.  Staged
+        ``transfers`` (``loader.Transfer``) order the writes on the current
+        stream: they wait on every module's staging event, and the staged
+        tensors are marked used on this stream, so the caching allocator
+        does not hand their memory to the staging stream before the writes
+        have read them."""
+        staged = [f for f in transfers if f.event is not None]
+        stream = torch.cuda.current_stream() if staged else None
+        for f in staged:
+            stream.wait_event(f.event)
         for path, e in dm.deltas.items():
             ent = DO.from_delta_entry(e)
             bank = self._flat[path]
@@ -164,6 +182,9 @@ class OverlayBank:
             bank = self._flat[path]
             idx = DO.bank_index(path, slot)
             bank[idx] = v.to(torch.float16).to(bank.device, bank.dtype)
+        for f in staged:
+            for t in f.tensors:
+                t.record_stream(stream)
 
     # -- lifecycle ---------------------------------------------------------
     def holds(self, name: str) -> bool:
@@ -184,9 +205,11 @@ class OverlayBank:
         return bool(self._free) or any(
             self._pins.get(c, 0) == 0 for c in self._lru)
 
-    def admit(self, name: str, dm: Optional[DeltaModel]) -> tuple[int, int]:
+    def admit(self, name: str, dm: Optional[DeltaModel],
+              transfers=()) -> tuple[int, int]:
         """Place ``dm`` into a slot (reusing evicted slots, evicting the
-        LRU unpinned resident when full).  A resident ``name`` is an LRU
+        LRU unpinned resident when full); ``transfers`` are the staged
+        copies of ``dm`` (``_write``).  A resident ``name`` is an LRU
         touch.  Returns (slot, payload_bytes)."""
         if name == "__base__":
             return self.base_slot(), 0
@@ -209,11 +232,39 @@ class OverlayBank:
         payload = sum(e.packed.numel() + 2 * e.v_row.numel()
                       + 2 * e.v_col.numel() for e in dm.deltas.values())
         payload += sum(2 * v.numel() for v in dm.extras.values())
-        self._write(dm, slot)
+        self._write(dm, slot, transfers)
         self._slots[name] = slot
         self._lru[name] = None
         self.stats["admits"] += 1
         return slot, payload
+
+    def admit_async(self, name: str, dm: DeltaModel,
+                    transfers=()) -> tuple:
+        """``admit`` without a host fence: returns ``(slot, payload_bytes,
+        fence)``, where ``fence()`` blocks until the slot writes have
+        landed.  The writes run on the current (serving) stream after the
+        staging events, so the next step on that stream reads the new
+        slot in place with no host wait; the fence is for callers that
+        need a wall-clock boundary."""
+        slot, payload = self.admit(name, dm, transfers)
+        if tree_leaves(self._flat)[0].is_cuda:
+            done = torch.cuda.Event()
+            done.record()
+            fence = done.synchronize
+        else:
+            def fence():
+                return None
+        return slot, payload, fence
+
+    # -- staging marks (async admission) -------------------------------------
+    def mark_staging(self, name: str) -> None:
+        self._staging.add(name)
+
+    def unmark_staging(self, name: str) -> None:
+        self._staging.discard(name)
+
+    def staging(self, name: str) -> bool:
+        return name in self._staging
 
     def pin(self, name: str) -> None:
         if name != "__base__":
@@ -228,7 +279,13 @@ class OverlayBank:
 
     def evict(self, name: str) -> None:
         """Free ``name``'s slot for reuse; refuses while the variant is
-        pinned (mid-flight requests reference its slot index)."""
+        pinned (mid-flight requests reference its slot index) or still
+        staging on the admission pipeline (its commit would race the
+        eviction)."""
+        if self.staging(name):
+            raise RuntimeError(
+                f"variant {name!r} is staging on the admission pipeline; "
+                "wait for the admission to land before evicting")
         if name in self._slots and self.pinned(name):
             raise RuntimeError(
                 f"variant {name!r} is pinned by in-flight requests; "
@@ -293,7 +350,10 @@ class VariantRegistry:
         self.mode = mode
         self.bank_size = bank_size
         self.bank: Optional[OverlayBank] = None   # created on first use
+        self._bank_lock = threading.Lock()
         self._bank_evictions_seen = 0
+        # serving/admission.AdmissionPipeline of an async deployment
+        self.admission = None
         # lazy-hydration hook (serving/api.Deployment): called with a
         # variant name when _parse misses; True -> retry the parse
         self.hydrator = None
@@ -309,6 +369,11 @@ class VariantRegistry:
     @property
     def base_fp(self) -> str:
         return self._base_fp
+
+    @property
+    def device(self) -> torch.device:
+        """The device the base (and every resident) lives on."""
+        return tree_leaves(self.base_params)[0].device
 
     # -- base residency accounting -----------------------------------------
     def base_nbytes(self) -> int:
@@ -450,15 +515,23 @@ class VariantRegistry:
             self.stats["evictions"] += 1
         return resident.params, resident.overlay
 
-    def _load(self, name: str, version) -> DeltaModel:
-        """The registered artifact of (name, version) as a DeltaModel."""
+    def _load(self, name: str, version, pacer=None) -> DeltaModel:
+        """The registered artifact of (name, version) as a DeltaModel.
+        ``pacer`` (the admission worker's) reaches the streamed read of an
+        artifact directory and of a callable that advertises
+        ``accepts_pacer`` (``Deployment._store_ref``); other callables keep
+        their zero-argument contract."""
         art = self._versions[name][version]
         if isinstance(art, DeltaModel):
             return art
         try:
             if callable(art):
+                if pacer is not None and getattr(art, "accepts_pacer",
+                                                 False):
+                    return art(pacer=pacer)
                 return art()
-            return S.load_artifact(str(art), expect_base_fp=self._base_fp)
+            return S.load_artifact(str(art), expect_base_fp=self._base_fp,
+                                   pacer=pacer)
         except Exception:
             # a corrupt or missing artifact must not take the node down:
             # count it and let the engine re-queue or fail the request
@@ -467,10 +540,13 @@ class VariantRegistry:
 
     # -- banked resolution (mixed-variant batches) -------------------------
     def _ensure_bank(self) -> OverlayBank:
-        """The overlay bank, created on first use."""
-        if self.bank is None:
-            self.bank = OverlayBank(self.base_params, self.bank_size)
-        return self.bank
+        """The overlay bank, created on first use, once: the serving thread
+        and the admission pipeline (marking a ticket) may both come
+        first."""
+        with self._bank_lock:
+            if self.bank is None:
+                self.bank = OverlayBank(self.base_params, self.bank_size)
+            return self.bank
 
     def reserve_bank(self) -> dict:
         """Allocate the overlay bank now, before its first admit
@@ -483,17 +559,21 @@ class VariantRegistry:
         self.stats["resident_bytes"] += bank.nbytes() - before
         return tree
 
-    def _bank_admit(self, vkey: str, dm: DeltaModel) -> int:
+    def _bank_admit(self, vkey: str, dm: DeltaModel, *, block: bool = True,
+                    transfers=()) -> int:
         """Write ``dm`` into the bank under ``vkey`` and book the swap
-        stats; ``resident_bytes`` tracks the bank allocation (charged when
-        the bank is allocated, not per admitted variant)."""
+        stats (the one path of the synchronous admit and the admission
+        pipeline's commit); ``resident_bytes`` tracks the bank allocation
+        (charged when the bank is allocated, not per admitted variant).
+        ``block=False`` skips the host fence: the writes are queued on the
+        serving stream, after ``transfers``' staging events, ahead of the
+        next step."""
         bank = self._ensure_bank()
         before = bank.nbytes()
         t0 = time.perf_counter()
-        slot, payload = bank.admit(vkey, dm)
-        leaves = tree_leaves(bank.tree)
-        if leaves:
-            synchronize(leaves[0].device)
+        slot, payload, fence = bank.admit_async(vkey, dm, transfers)
+        if block:
+            fence()
         self.stats["swaps"] += 1
         self.stats["swap_seconds"] += time.perf_counter() - t0
         self.stats["transferred_bytes"] += payload
@@ -567,9 +647,14 @@ class VariantRegistry:
 
     def evict(self, nameish: str) -> None:
         """Evict a variant's device residency by name (current version),
-        explicit ``name@vN``, or raw version key.  A banked variant pinned
-        by in-flight requests is refused before anything is dropped."""
+        explicit ``name@vN``, or raw version key.  A banked variant still
+        staging on the admission pipeline, or pinned by in-flight requests,
+        is refused before anything is dropped."""
         key = self._bank_key(nameish)
+        if self.bank is not None and self.bank.staging(key):
+            raise RuntimeError(
+                f"variant {key!r} is staging on the admission pipeline; "
+                "wait for the admission to land before evicting")
         if self.bank is not None and self.bank.pinned(key):
             raise RuntimeError(
                 f"variant {key!r} is pinned by in-flight requests; "

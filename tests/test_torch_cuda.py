@@ -1352,3 +1352,230 @@ def test_moved_addresses_are_captured_again(cuda):
         recaptured = dep.status()["steps"]["compiles"] - compiles
         assert (recaptured > 0) == move, recaptured
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# async admission: staged transfers on a side stream, the commit's wait on
+# their events, pinned buffers, capture while a ticket stages
+# ---------------------------------------------------------------------------
+
+def _host_delta_model(seed: int, rows: int = 64, extra_rows: int = 1000):
+    """A small DeltaModel of host tensors: one stacked entry and one fp16
+    extra."""
+    from repro_torch.core.calibration import DeltaEntry, DeltaModel
+    g = torch.Generator().manual_seed(seed)
+    entry = DeltaEntry(
+        packed=torch.randint(0, 256, (2, rows, 32), dtype=torch.uint8,
+                             generator=g),
+        v_row=torch.randn(2, rows, generator=g),
+        v_col=torch.randn(2, 256, generator=g),
+        use_row=torch.tensor([True, False]))
+    return DeltaModel(deltas={"layers.attn.wq": entry},
+                      extras={"embed": torch.randn(extra_rows, 64,
+                                                   generator=g).half()})
+
+
+def test_staged_transfers_equal_their_host_source(cuda):
+    """Each module's copies, in pinned chunks on a side stream, hold the
+    host source's bytes once its event has completed."""
+    from repro_torch.core import loader as L
+    from repro_torch.core import store as S
+
+    dm = _host_delta_model(0)
+    pool = S.StagingPool(pin_memory=True)
+    staged, futures = L.stage_overlay_transfer(
+        dm, device=cuda, stream=torch.cuda.Stream(), pool=pool,
+        chunk_bytes=4096)
+    L.wait_transfers(futures)
+    assert [f.path for f in futures] == ["layers.attn.wq", "embed"]
+    assert all(f.event is not None and f.event.query() for f in futures)
+    e, got = dm.deltas["layers.attn.wq"], staged.deltas["layers.attn.wq"]
+    for f in ("packed", "v_row", "v_col", "use_row"):
+        assert getattr(got, f).is_cuda
+        assert torch.equal(getattr(got, f).cpu(), getattr(e, f))
+    assert torch.equal(staged.extras["embed"].cpu(), dm.extras["embed"])
+    # 128 KB of extras in 4 KB chunks through at most two pinned buffers
+    assert pool.stats["peak_bytes"] <= 2 * 4096
+    assert pool.stats["reuses"] == pool.stats["takes"] - \
+        pool.stats["peak_bytes"] // 4096
+
+
+def test_a_commit_waits_for_its_staging_copies(cuda):
+    """A module staged behind a long side-stream kernel and committed at
+    once: the bank's writes wait on the staging event, so the slot holds
+    the bytes a synchronous admit writes.  Every allocation the commit
+    and the staging make is cached and every kernel the commit launches
+    loaded beforehand: a ``cudaMalloc``, a pinned allocation or a lazy
+    module load between the copy and the commit would order the two
+    streams by itself and hide a missing wait."""
+    from repro_torch.core import loader as L
+    from repro_torch.core import store as S
+    from repro_torch.core.calibration import DeltaModel
+    from repro_torch.serving.variants import OverlayBank
+
+    base = {"big": torch.zeros(4096, 8192, device=cuda)}
+    g = torch.Generator().manual_seed(1)
+    dm = DeltaModel(deltas={}, extras={
+        "big": torch.randn(4096, 8192, generator=g).half()})
+    sync = OverlayBank(base, 2)
+    slot_payload = sync.admit("v", dm)          # its temporaries now cached
+    # the commit's fp16 -> fp32 cast, launched once at the same shape
+    torch.zeros(4096, 8192, dtype=torch.float16, device=cuda).float()
+    bank = OverlayBank(base, 2)
+    bank.reserve()
+    pool = S.StagingPool(pin_memory=True)
+    pool.give(pool.take((128 << 20,), torch.uint8))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.zeros(4096, 8192, dtype=torch.float16, device=cuda)
+        torch.cuda._sleep(int(1e9))         # the copy queues behind this
+    staged, futures = L.stage_overlay_transfer(
+        dm, device=cuda, stream=side, pool=pool, chunk_bytes=128 << 20)
+    assert not futures[0].event.query()
+    slot, payload, fence = bank.admit_async("v", staged, futures)
+    fence()
+    assert (slot, payload) == slot_payload
+    torch.cuda.synchronize()
+    assert torch.equal(bank._flat["big"][slot], sync._flat["big"][slot])
+    assert torch.equal(bank._flat["big"][slot].cpu(),
+                       dm.extras["big"].float())
+
+
+def test_a_pinned_buffer_waits_for_its_copy(cuda):
+    """A buffer given back with the event of a copy still running is not
+    handed out before that event completes: with room in its class the
+    pool hands out another buffer, with its class full it waits."""
+    from repro_torch.core import store as S
+
+    n = 64 << 20
+    dst = torch.empty(n, dtype=torch.uint8, device=cuda)
+    for max_buffers in (2, 1):
+        pool = S.StagingPool(max_buffers=max_buffers, pin_memory=True)
+        buf = pool.take((n,), torch.uint8)
+        assert buf.is_pinned()
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(int(1e9))
+            dst.copy_(buf, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+        pool.give(buf, event=copied, live=(dst,))
+        assert not copied.query()
+        again = pool.take((n,), torch.uint8)
+        if max_buffers == 2:
+            assert again.data_ptr() != buf.data_ptr()
+            assert pool.stats["waits"] == 0
+        else:
+            assert copied.query() and again.data_ptr() == buf.data_ptr()
+            assert pool.stats["waits"] == 1
+        torch.cuda.synchronize()
+
+
+def _admission_deployment(device, root, async_admission):
+    """Reduced qwen3-8b over a store under ``root`` (two published
+    variants, graphs on) and the fine-tune its update publishes."""
+    from repro_torch.core import calibration as C
+    from repro_torch.launch import serve as SV
+
+    cfg = SV.make_config("qwen3-8b", reduced=True)
+    model, base, dms = SV.build_variants(cfg, 2, device)
+    dep = SV.deploy(model, base, dms, mode="fused", scheduler="continuous",
+                    batch=4, bank_size=4, device=device, root_dir=root,
+                    async_admission=async_admission)
+    return dep, cfg, C.compress(base, SV.fine_tune(base, 300))
+
+
+def test_async_run_after_warmup_captures_nothing(cuda, tmp_path):
+    """Warm traffic (the bank in place), ``warmup()``, then a run during
+    which an update is published, ingested and committed between steps:
+    the async run captures nothing, replays one graph a step and emits
+    the synchronous run's tokens bit for bit."""
+    from repro_torch.launch import serve as SV
+
+    runs = {}
+    for mode in ("sync", "async"):
+        dep, cfg, update = _admission_deployment(cuda, tmp_path / mode,
+                                                 mode == "async")
+        for v in ("v0", "v1"):
+            dep.submit(np.arange(1, 9), variant=v, max_new_tokens=1)
+        dep.drain()
+        dep.warmup()
+        steps0, m0 = dict(dep.status()["steps"]), dict(dep.metrics)
+        before = _counts()
+        rids = SV.submit_requests(dep, cfg, 2, 12)
+        dep.drain(max_steps=2)
+        dep.update("v0", update)
+        rids += [dep.submit(np.arange(3, 11), variant=v, max_new_tokens=6)
+                 for v in ("v0", "v1")]
+        dep.drain()
+        torch.cuda.synchronize()
+        steps, m = dep.status()["steps"], dep.metrics
+        assert steps["compiles"] == steps0["compiles"], (steps0, steps)
+        assert steps["cache_hits"] - steps0["cache_hits"] == \
+            m["decode_steps"] - m0["decode_steps"]
+        assert m["async_admits"] - m0["async_admits"] == (
+            1 if mode == "async" else 0)
+        assert dep.status(rids[2])["version"] == 2
+        # the async run serves more steps (its variant requests wait for
+        # their commit), each with the banked launches of an eager one
+        launched = {k: v - before[k] for k, v in _counts().items()}
+        assert launched["banked"] == 28 * (
+            m["prefills"] - m0["prefills"] + m["decode_steps"]
+            - m0["decode_steps"]) > 0, launched
+        runs[mode] = [dep.result(r).out_tokens for r in rids]
+        dep.close()
+    assert runs["async"] == runs["sync"]
+
+
+def test_a_capture_while_a_ticket_stages_is_clean(cuda, tmp_path,
+                                                  monkeypatch):
+    """The engine captures its graphs again and again while the admission
+    worker stages (pinned and device allocations, copies and event waits
+    on its stream): every capture succeeds, and the run after it emits
+    the tokens of a deployment that never staged during a capture."""
+    import threading
+
+    from repro_torch.core import loader as L
+    from repro_torch.core import store as S
+    from repro_torch.launch import serve as SV
+
+    real = L.stage_overlay_transfer
+    staging, stop = threading.Event(), threading.Event()
+
+    def storm(dm, **kw):
+        i = 0
+        while not stop.is_set():
+            staging.set()
+            junk = torch.empty(((i % 8) + 1) << 20, dtype=torch.uint8,
+                               pin_memory=True)
+            _, fut = real(type(dm)(deltas={}, extras={"junk": junk}),
+                          device=kw["device"], stream=kw["stream"],
+                          pool=S.StagingPool(pin_memory=True),
+                          chunk_bytes=256 << 10)
+            L.wait_transfers(fut)
+            i += 1
+        return real(dm, **kw)
+
+    tokens = {}
+    for mode in ("plain", "storm"):
+        dep, cfg, _ = _admission_deployment(cuda, tmp_path / mode, True)
+        if mode == "storm":
+            stop.clear()
+            monkeypatch.setattr(L, "stage_overlay_transfer", storm)
+        dep.publish("v2", dep.store.load("v0", 1))
+        if mode == "storm":
+            assert staging.wait(60)
+        for _ in range(3):
+            dep.engine._graphs.clear()
+            outcomes = dep.warmup()
+            assert "captured" in outcomes.values()
+        stop.set()
+        dep.admission.wait(timeout=120)
+        monkeypatch.setattr(L, "stage_overlay_transfer", real)
+        compiles = dep.status()["steps"]["compiles"]
+        rids = SV.submit_requests(dep, cfg, 8, [3, 6])
+        dep.drain()
+        assert dep.status()["steps"]["compiles"] == compiles
+        tokens[mode] = [dep.result(r).out_tokens for r in rids]
+        dep.close()
+    assert tokens["storm"] == tokens["plain"]
