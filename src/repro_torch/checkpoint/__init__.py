@@ -1,0 +1,2 @@
+"""Checkpointing of the port."""
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401

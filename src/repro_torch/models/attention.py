@@ -78,36 +78,44 @@ def even_chunk(t: int, chunk: int = 512) -> int:
     return max(c for c in range(1, min(chunk, t) + 1) if t % c == 0)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, q_offset: int = 0,
-                    kv_offset: int = 0, chunk: int = 512) -> torch.Tensor:
-    """Online-softmax attention over KV chunks (what the JAX ``_flash_fwd``
-    computes).  q (B,S,Hq,hd); k, v (B,T,Hkv,hd); GQA by head grouping;
-    window > 0 keeps the last ``window`` keys.  Returns (B,S,Hq,hd) in
-    q.dtype."""
+def _scaled_q(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(q·hd^-½) rounded to k's dtype, grouped (B,S,Hkv,G,hd), as fp32."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    return ((q.to(torch.float32) * hd ** -0.5).to(k.dtype)
+            .reshape(b, s, hkv, hq // hkv, hd).to(torch.float32))
+
+
+def _chunk_logits(qf, k_blk, idx, chunk, q_pos, kv_offset, causal, window):
+    """Masked fp32 logits (B,S,Hkv,G,chunk) of KV chunk ``idx``."""
+    dev = qf.device
+    logits = torch.einsum("bskgh,bckh->bskgc", qf, k_blk.to(torch.float32))
+    k_pos = kv_offset + idx * chunk + torch.arange(chunk, device=dev)
+    mask = torch.ones((qf.shape[1], chunk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    return torch.where(mask[None, :, None, None, :], logits,
+                       torch.full((), NEG_INF, device=dev))
+
+
+def _flash_fwd(q, k, v, causal, window, q_offset, kv_offset, chunk):
+    """The chunk loop: -> (normalised fp32 output (B,S,Hkv,G,hd), the
+    running max m and denominator l (B,S,Hkv,G))."""
     b, s, hq, hd = q.shape
     _, t, hkv, _ = k.shape
     g = hq // hkv
-    chunk = _pick_chunk(t, chunk)
     dev = q.device
-    qf = ((q.to(torch.float32) * hd ** -0.5).to(k.dtype)
-          .reshape(b, s, hkv, g, hd).to(torch.float32))
+    qf = _scaled_q(q, k)
     q_pos = q_offset + torch.arange(s, device=dev)
     m = torch.full((b, s, hkv, g), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, s, hkv, g), dtype=torch.float32, device=dev)
     o = torch.zeros((b, s, hkv, g, hd), dtype=torch.float32, device=dev)
     for idx in range(t // chunk):
-        k_blk = k[:, idx * chunk:(idx + 1) * chunk].to(torch.float32)
         v_blk = v[:, idx * chunk:(idx + 1) * chunk]
-        logits = torch.einsum("bskgh,bckh->bskgc", qf, k_blk)
-        k_pos = kv_offset + idx * chunk + torch.arange(chunk, device=dev)
-        mask = torch.ones((s, chunk), dtype=torch.bool, device=dev)
-        if causal:
-            mask &= q_pos[:, None] >= k_pos[None, :]
-        if window > 0:
-            mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        logits = torch.where(mask[None, :, None, None, :], logits,
-                             torch.full((), NEG_INF, device=dev))
+        logits = _chunk_logits(qf, k[:, idx * chunk:(idx + 1) * chunk], idx,
+                               chunk, q_pos, kv_offset, causal, window)
         new_m = torch.maximum(m, logits.amax(dim=-1))
         alpha = torch.exp(m - new_m)
         p_exp = torch.exp(logits - new_m[..., None])
@@ -117,8 +125,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            v_blk.to(torch.float32))
         o = o * alpha[..., None] + upd
         m = new_m
-    out = o / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, s, hq, hd).to(q.dtype)
+    return o / torch.clamp(l, min=1e-30)[..., None], m, l
+
+
+def _flash_bwd(q, k, v, out, m, l, dout, causal, window, q_offset,
+               kv_offset, chunk):
+    """FlashAttention-2-style backward (the JAX package's ``_flash_bwd``):
+    p is recomputed per KV chunk from the saved (m, l), so no (S × T)
+    tensor is ever held.  Operands are rounded where the JAX package
+    rounds them (q·scale, p, dO and dS to k's dtype) and every product
+    accumulates in fp32; delta = Σ dO ⊙ O uses the fp32 output."""
+    b, s, hq, hd = q.shape
+    _, t, hkv, _ = k.shape
+    g = hq // hkv
+    lp = k.dtype
+    qf = _scaled_q(q, k)
+    q_pos = q_offset + torch.arange(s, device=q.device)
+    do = dout.to(torch.float32).reshape(b, s, hkv, g, hd)
+    do_lp = do.to(lp).to(torch.float32)
+    l_safe = torch.clamp(l, min=1e-30)
+    delta = (do * out).sum(dim=-1)                          # (b,s,hkv,g)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((b, t, hkv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for idx in range(t // chunk):
+        sl = slice(idx * chunk, (idx + 1) * chunk)
+        k_blk = k[:, sl].to(torch.float32)
+        logits = _chunk_logits(qf, k[:, sl], idx, chunk, q_pos, kv_offset,
+                               causal, window)
+        p = torch.exp(logits - m[..., None]) / l_safe[..., None]
+        p_lp = p.to(lp).to(torch.float32)
+        dv[:, sl] = torch.einsum("bskgc,bskgh->bckh", p_lp, do_lp)
+        dp = torch.einsum("bskgh,bckh->bskgc", do_lp,
+                          v[:, sl].to(torch.float32))
+        ds_lp = (p * (dp - delta[..., None])).to(lp).to(torch.float32)
+        dq += torch.einsum("bskgc,bckh->bskgh", ds_lp, k_blk)
+        dk[:, sl] = torch.einsum("bskgc,bskgh->bckh", ds_lp, qf)
+    dq = (dq * hd ** -0.5).reshape(b, s, hq, hd).to(q.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with the JAX package's ``custom_vjp``: the
+    forward saves (q, k, v, fp32 output, m, l), never a chunk's logits."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_offset, chunk):
+        out, m, l = _flash_fwd(q, k, v, causal, window, q_offset, kv_offset,
+                               chunk)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.args = (causal, window, q_offset, kv_offset, chunk)
+        return out.reshape(q.shape).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, m, l, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    kv_offset: int = 0, chunk: int = 512) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (what the JAX ``_flash_fwd``
+    computes).  q (B,S,Hq,hd); k, v (B,T,Hkv,hd); GQA by head grouping;
+    window > 0 keeps the last ``window`` keys.  Returns (B,S,Hq,hd) in
+    q.dtype.  The backward recomputes each chunk's probabilities
+    (:class:`_FlashAttention`)."""
+    chunk = _pick_chunk(k.shape[1], chunk)
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                 kv_offset, chunk)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

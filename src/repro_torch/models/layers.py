@@ -13,6 +13,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core.quantize import is_quant
 from repro_torch.models.param import Param, dense_init, ones_init
@@ -74,19 +75,60 @@ def _oget(ov, key):
     return oget(ov, key)
 
 
+def maybe_remat(fn, cfg, collect_io: bool = False):
+    """``fn`` rematerialised in the backward (the JAX package's
+    ``jax.checkpoint(body, nothing_saveable)`` around each scanned layer
+    body) when ``cfg.remat`` is set, grad is enabled and no calibration IO
+    is collected; else ``fn`` itself, so inference runs unchanged.  ``fn``
+    must be free of side effects: the backward runs it again."""
+    if not (cfg.remat and torch.is_grad_enabled() and not collect_io):
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
 # ---------------------------------------------------------------------------
-# RMSNorm (fp32 statistics, x.dtype data path) — forward only
+# RMSNorm (fp32 statistics, x.dtype data path) — both ways
 # ---------------------------------------------------------------------------
 
 def rmsnorm_init(d: int, device) -> Param:
     return ones_init((d,), (None,), device)
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The JAX package's ``custom_vjp`` (``_rms_bwd``): every (..., D)
+    tensor of the backward stays in x.dtype, only the rowwise statistics
+    are fp32 (autograd through the fp32 variance branch would hand an fp32
+    cotangent to the residual stream)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        xf = x.to(torch.float32)
+        inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, scale, inv)      # inv: fp32 1/rms (..., 1)
+        return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, inv = ctx.saved_tensors
+        sc = scale.to(x.dtype)
+        # t = Σ_D dy·scale·x (fp32 rowwise scalar)
+        t = ((dy * sc).to(torch.float32) * x.to(torch.float32)).sum(
+            dim=-1, keepdim=True)
+        coef = (inv ** 3 * (t / x.shape[-1])).to(x.dtype)
+        dx = dy * sc * inv.to(x.dtype) - x * coef
+        # scale broadcasts as a suffix of x.shape (per-head (H, hd) norms
+        # too): reduce the leading broadcast dims
+        lead = tuple(range(x.dim() - scale.dim()))
+        dscale = ((dy * x).to(torch.float32) * inv).sum(dim=lead)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return x * inv.to(x.dtype) * scale.to(x.dtype)
+    """RMSNorm with fp32 statistics and an x.dtype data path; its backward
+    is the hand-written one of :class:`_RMSNorm`."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models.delta_overlay import oget
 from repro_torch.models.layers import (dtype_of, embed_init, embed_lookup,
-                                       linear, mlp_apply, mlp_init, psel,
-                                       rmsnorm, rmsnorm_init, unembed_logits)
+                                       linear, maybe_remat, mlp_apply,
+                                       mlp_init, psel, rmsnorm, rmsnorm_init,
+                                       unembed_logits)
 from repro_torch.models.param import dense_init, stack_layers
 from repro_torch.tree import tree_map
 
@@ -205,16 +206,15 @@ def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {}
 
-    def run(stack, ov_stack, n_layers, entry_of):
+    def run(stack, ov_stack, n_layers, entry_of, block=block_apply):
         nonlocal x, aux_total
         ks, vs, ios = [], [], []
         for i in range(n_layers):
             entry = entry_of(i)
             io = {} if collect_io else None
-            x, (k, v), a = block_apply(_layer(stack, i), x, cfg, positions,
-                                       entry["theta"], entry["window"],
-                                       io=io, ov=_layer(ov_stack, i),
-                                       vidx=vidx)
+            x, (k, v), a = block(_layer(stack, i), x, cfg, positions,
+                                 entry["theta"], entry["window"], io=io,
+                                 ov=_layer(ov_stack, i), vidx=vidx)
             aux_total = aux_total + a
             if collect_kv:
                 ks.append(k)
@@ -233,8 +233,11 @@ def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
         if collect_io:
             aux["pre_io"] = pre_io
     pat = layer_pattern(cfg)
+    # the stacked layers rematerialise under training (the JAX scan's
+    # jax.checkpoint); the unrolled pre_layers do not, as in the JAX module
     kv, io = run(params["layers"], oget(overlay, "layers"),
-                 cfg.num_layers - n_pre, lambda i: pat[i % len(pat)])
+                 cfg.num_layers - n_pre, lambda i: pat[i % len(pat)],
+                 maybe_remat(block_apply, cfg, collect_io))
     x = rmsnorm(x, psel(params["final_norm"], oget(overlay, "final_norm"),
                         vidx), cfg.norm_eps)
     logits = _unembed(params, x, cfg, ov=overlay, vidx=vidx)

@@ -29,10 +29,10 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models.delta_overlay import oget
 from repro_torch.models.layers import (dtype_of, embed_init, embed_lookup,
-                                       gelu, linear, mlp2_apply, mlp2_init,
-                                       psel, rmsnorm, rmsnorm_init,
-                                       sinusoid_table, sinusoidal_positions,
-                                       unembed_logits)
+                                       gelu, linear, maybe_remat,
+                                       mlp2_apply, mlp2_init, psel, rmsnorm,
+                                       rmsnorm_init, sinusoid_table,
+                                       sinusoidal_positions, unembed_logits)
 from repro_torch.models.param import stack_layers
 from repro_torch.models.transformer import _layer, _stack_io
 # the self cache rewinds as the transformer's (``Model.verify_rewind``)
@@ -111,6 +111,22 @@ def init(gen: torch.Generator, cfg) -> dict:
     }
 
 
+def _enc_block(lp, x, cfg, io=None, ovl=None, vidx=None):
+    """One encoder layer: bidirectional self-attention, then the MLP."""
+    ov_a = oget(ovl, "attn")
+    hn = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx), cfg.norm_eps)
+    q, k, v = _qkv(lp["attn"], hn, hn, cfg, ov=ov_a, vidx=vidx)
+    b, f, _ = hn.shape
+    o = _full_attention(q, k, v).reshape(b, f, cfg.q_dim)
+    wo_out = linear(o, lp["attn"]["wo"], oget(ov_a, "wo"), vidx)
+    if io is not None:
+        io["attn.wq"] = (hn, q.reshape(b, f, -1))
+        io["attn.wk"] = (hn, k.reshape(b, f, -1))
+        io["attn.wv"] = (hn, v.reshape(b, f, -1))
+        io["attn.wo"] = (o, wo_out)
+    return _mlp_part(lp, x + wo_out, cfg, io=io, ov=ovl, vidx=vidx)
+
+
 def encode(params, frames: torch.Tensor, cfg, collect_io: bool = False,
            overlay=None, vidx=None):
     """frames (B, F, d) -> (encoder output (B, F, d), stacked IO pairs or
@@ -119,27 +135,45 @@ def encode(params, frames: torch.Tensor, cfg, collect_io: bool = False,
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(x.dtype)
     ov_layers = oget(overlay, "enc_layers")
+    block = maybe_remat(_enc_block, cfg, collect_io)
     ios = []
     for i in range(cfg.encoder_layers):
-        lp, ovl = _layer(params["enc_layers"], i), _layer(ov_layers, i)
         io = {} if collect_io else None
-        ov_a = oget(ovl, "attn")
-        hn = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx),
-                     cfg.norm_eps)
-        q, k, v = _qkv(lp["attn"], hn, hn, cfg, ov=ov_a, vidx=vidx)
-        b, f, _ = hn.shape
-        o = _full_attention(q, k, v).reshape(b, f, cfg.q_dim)
-        wo_out = linear(o, lp["attn"]["wo"], oget(ov_a, "wo"), vidx)
-        if io is not None:
-            io["attn.wq"] = (hn, q.reshape(b, f, -1))
-            io["attn.wk"] = (hn, k.reshape(b, f, -1))
-            io["attn.wv"] = (hn, v.reshape(b, f, -1))
-            io["attn.wo"] = (o, wo_out)
-        x = _mlp_part(lp, x + wo_out, cfg, io=io, ov=ovl, vidx=vidx)
+        x = block(_layer(params["enc_layers"], i), x, cfg, io=io,
+                  ovl=_layer(ov_layers, i), vidx=vidx)
         ios.append(io)
     out = rmsnorm(x, psel(params["enc_norm"], oget(overlay, "enc_norm"),
                           vidx), cfg.norm_eps)
     return out, (_stack_io(ios) if collect_io else None)
+
+
+def _dec_block(lp, x, enc_out, cfg, io=None, ovl=None, vidx=None):
+    """One decoder layer: causal self-attention, cross-attention to the
+    encoder output, the MLP.  Returns (x, self-attention k, v)."""
+    b, s, _ = x.shape
+    ov_s = oget(ovl, "self_attn")
+    hs = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx), cfg.norm_eps)
+    q, k, v = _qkv(lp["self_attn"], hs, hs, cfg, ov=ov_s, vidx=vidx)
+    o = A.flash_attention(q, k, v, causal=True).reshape(b, s, cfg.q_dim)
+    wo_out = linear(o, lp["self_attn"]["wo"], oget(ov_s, "wo"), vidx)
+    if io is not None:
+        io["self_attn.wq"] = (hs, q.reshape(b, s, -1))
+        io["self_attn.wk"] = (hs, k.reshape(b, s, -1))
+        io["self_attn.wv"] = (hs, v.reshape(b, s, -1))
+        io["self_attn.wo"] = (o, wo_out)
+    x = x + wo_out
+    ov_x = oget(ovl, "cross_attn")
+    hx = rmsnorm(x, psel(lp["ln_x"], oget(ovl, "ln_x"), vidx), cfg.norm_eps)
+    qx, kx, vx = _qkv(lp["cross_attn"], hx, enc_out, cfg, ov=ov_x, vidx=vidx)
+    ox = _full_attention(qx, kx, vx).reshape(b, s, cfg.q_dim)
+    xo_out = linear(ox, lp["cross_attn"]["wo"], oget(ov_x, "wo"), vidx)
+    if io is not None:
+        f = enc_out.shape[1]
+        io["cross_attn.wq"] = (hx, qx.reshape(b, s, -1))
+        io["cross_attn.wk"] = (enc_out, kx.reshape(b, f, -1))
+        io["cross_attn.wv"] = (enc_out, vx.reshape(b, f, -1))
+        io["cross_attn.wo"] = (ox, xo_out)
+    return _mlp_part(lp, x + xo_out, cfg, io=io, ov=ovl, vidx=vidx), k, v
 
 
 def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
@@ -150,47 +184,25 @@ def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
     when collect_kv, aux["enc_io"] / aux["dec_io"] the per-projection
     (X, Y) calibration pairs stacked over layers when collect_io (the
     cross-attention's wk/wv pairs keyed on the encoder output).
-    ``overlay`` / ``variant_idx`` as in ``transformer.forward``."""
+    ``overlay`` / ``variant_idx`` as in ``transformer.forward``.  Both
+    stacks rematerialise their layers under training when ``cfg.remat``
+    (``layers.maybe_remat``)."""
     vidx = variant_idx
     enc_out, enc_io = encode(params, batch["frames"], cfg,
                              collect_io=collect_io, overlay=overlay,
                              vidx=vidx)
     tokens = batch["tokens"]
-    b, s = tokens.shape
+    s = tokens.shape[1]
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype,
                      bank=oget(overlay, "embed"), vidx=vidx)
     x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)
     ov_layers = oget(overlay, "dec_layers")
+    block = maybe_remat(_dec_block, cfg, collect_io)
     ks, vs, ios = [], [], []
     for i in range(cfg.num_layers):
-        lp, ovl = _layer(params["dec_layers"], i), _layer(ov_layers, i)
         io = {} if collect_io else None
-        ov_s = oget(ovl, "self_attn")
-        hs = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx),
-                     cfg.norm_eps)
-        q, k, v = _qkv(lp["self_attn"], hs, hs, cfg, ov=ov_s, vidx=vidx)
-        o = A.flash_attention(q, k, v, causal=True).reshape(b, s, cfg.q_dim)
-        wo_out = linear(o, lp["self_attn"]["wo"], oget(ov_s, "wo"), vidx)
-        if io is not None:
-            io["self_attn.wq"] = (hs, q.reshape(b, s, -1))
-            io["self_attn.wk"] = (hs, k.reshape(b, s, -1))
-            io["self_attn.wv"] = (hs, v.reshape(b, s, -1))
-            io["self_attn.wo"] = (o, wo_out)
-        x = x + wo_out
-        ov_x = oget(ovl, "cross_attn")
-        hx = rmsnorm(x, psel(lp["ln_x"], oget(ovl, "ln_x"), vidx),
-                     cfg.norm_eps)
-        qx, kx, vx = _qkv(lp["cross_attn"], hx, enc_out, cfg, ov=ov_x,
-                          vidx=vidx)
-        ox = _full_attention(qx, kx, vx).reshape(b, s, cfg.q_dim)
-        xo_out = linear(ox, lp["cross_attn"]["wo"], oget(ov_x, "wo"), vidx)
-        if io is not None:
-            f = enc_out.shape[1]
-            io["cross_attn.wq"] = (hx, qx.reshape(b, s, -1))
-            io["cross_attn.wk"] = (enc_out, kx.reshape(b, f, -1))
-            io["cross_attn.wv"] = (enc_out, vx.reshape(b, f, -1))
-            io["cross_attn.wo"] = (ox, xo_out)
-        x = _mlp_part(lp, x + xo_out, cfg, io=io, ov=ovl, vidx=vidx)
+        x, k, v = block(_layer(params["dec_layers"], i), x, enc_out, cfg,
+                        io=io, ovl=_layer(ov_layers, i), vidx=vidx)
         if collect_kv:
             ks.append(k)
             vs.append(v)

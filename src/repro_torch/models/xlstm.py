@@ -32,8 +32,8 @@ import torch.nn.functional as F
 from repro_torch.models import ssm
 from repro_torch.models.delta_overlay import oget
 from repro_torch.models.layers import (embed_init, embed_lookup, linear,
-                                       psel, rmsnorm, rmsnorm_init,
-                                       unembed_logits)
+                                       maybe_remat, psel, rmsnorm,
+                                       rmsnorm_init, unembed_logits)
 from repro_torch.models.param import (dense_init, ones_init, stack_layers,
                                       zeros_init)
 from repro_torch.models.transformer import _layer
@@ -352,23 +352,33 @@ def cache_batch_axes(cfg) -> dict:
 
 def _run(params, x, cfg, state, step: bool, overlay=None, vidx=None):
     """Super-blocks for the sequence and decode paths: layer ``i·n_m + j``
-    of the mLSTM stack, then sLSTM layer ``i``.  Returns (x, new state)."""
+    of the mLSTM stack, then sLSTM layer ``i``.  Returns (x, new state).
+    On the sequence path each super-block rematerialises under training
+    when ``cfg.remat`` (``layers.maybe_remat``), as the JAX scan body."""
     n_super, n_m = _super_shape(cfg)
     m_apply = mlstm_block_step if step else mlstm_block_apply
     s_apply = slstm_block_step if step else slstm_block_apply
     m_ov, s_ov = oget(overlay, "mlstm"), oget(overlay, "slstm")
-    m_new, s_new = [], []
-    for i in range(n_super):
+
+    def body(i, x):
+        m_st = []
         for j in range(n_m):
             li = i * n_m + j
             x, st = m_apply(_layer(params["mlstm"], li), x, cfg,
                             _layer(state["mlstm"], li),
                             ov=_layer(m_ov, li), vidx=vidx)
-            m_new.append(st)
-        x, st = s_apply(_layer(params["slstm"], i), x, cfg,
-                        _layer(state["slstm"], i), ov=_layer(s_ov, i),
-                        vidx=vidx)
-        s_new.append(st)
+            m_st.append(st)
+        x, s_st = s_apply(_layer(params["slstm"], i), x, cfg,
+                          _layer(state["slstm"], i), ov=_layer(s_ov, i),
+                          vidx=vidx)
+        return x, m_st, s_st
+
+    block = body if step else maybe_remat(body, cfg)
+    m_new, s_new = [], []
+    for i in range(n_super):
+        x, m_st, s_st = block(i, x)
+        m_new += m_st
+        s_new.append(s_st)
     return x, {"pos": state["pos"] + x.shape[1], "mlstm": _stack(m_new),
                "slstm": _stack(s_new)}
 

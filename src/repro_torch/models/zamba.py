@@ -33,8 +33,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import ssm
 from repro_torch.models.delta_overlay import oget
 from repro_torch.models.layers import (apply_rope, embed_init, embed_lookup,
-                                       linear, mlp_apply, mlp_init, psel,
-                                       rmsnorm, rmsnorm_init, unembed_logits)
+                                       linear, maybe_remat, mlp_apply,
+                                       mlp_init, psel, rmsnorm, rmsnorm_init,
+                                       unembed_logits)
 from repro_torch.models.param import (dense_init, ones_init, stack_layers,
                                       zeros_init)
 from repro_torch.models.transformer import _layer
@@ -278,35 +279,45 @@ def _run(params, x, cfg, state, overlay, vidx, *, positions=None,
     ``n_super`` times, then the trailing Mamba2 blocks.  With ``pos``
     (decode) each block steps and each application point's cache in
     ``state["attn_kv"]`` takes the token; else (sequence) ``positions``
-    feed the shared block's RoPE.  Returns (x, per-layer Mamba states
-    stacked, [(k, v)] of the application points; empty when stepping)."""
+    feed the shared block's RoPE, and each super-block rematerialises
+    under training when ``cfg.remat`` (``layers.maybe_remat``; the
+    trailing blocks do not, as in the JAX module).  Returns (x, per-layer
+    Mamba states stacked, [(k, v)] of the application points; empty when
+    stepping)."""
     n_super, per, n_rem = _layout(cfg)
     step = pos is not None
     m_apply = mamba_block_step if step else mamba_block_apply
     m_ov, sh_ov = oget(overlay, "mamba"), oget(overlay, "shared")
     shared = params["shared"]
     x0 = x
-    new, kvs = [], []
 
     def mamba(li, x):
-        x, st = m_apply(_layer(params["mamba"], li), x, cfg,
-                        _layer(state["mamba"], li), ov=_layer(m_ov, li),
-                        vidx=vidx)
-        new.append(st)
-        return x
+        return m_apply(_layer(params["mamba"], li), x, cfg,
+                       _layer(state["mamba"], li), ov=_layer(m_ov, li),
+                       vidx=vidx)
 
-    for i in range(n_super):
+    def body(i, x):
+        sts = []
         for j in range(per):
-            x = mamba(i * per + j, x)
+            x, st = mamba(i * per + j, x)
+            sts.append(st)
         if step:
-            x = shared_block_step(shared, x, x0, cfg, state["attn_kv"], i,
-                                  pos, ov=sh_ov, vidx=vidx)
-        else:
-            x, kv = shared_block_apply(shared, x, x0, cfg, positions,
-                                       ov=sh_ov, vidx=vidx)
+            return shared_block_step(shared, x, x0, cfg, state["attn_kv"], i,
+                                     pos, ov=sh_ov, vidx=vidx), sts, None
+        x, kv = shared_block_apply(shared, x, x0, cfg, positions, ov=sh_ov,
+                                   vidx=vidx)
+        return x, sts, kv
+
+    block = body if step else maybe_remat(body, cfg)
+    new, kvs = [], []
+    for i in range(n_super):
+        x, sts, kv = block(i, x)
+        new += sts
+        if not step:
             kvs.append(kv)
     for j in range(n_rem):
-        x = mamba(n_super * per + j, x)
+        x, st = mamba(n_super * per + j, x)
+        new.append(st)
     return x, _stack(new), kvs
 
 

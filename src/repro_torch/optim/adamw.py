@@ -47,7 +47,6 @@ def adamw_update(params, grads, state: AdamWState, *, lr,
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(grad_clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
-        grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
 
         count = state.count + 1
         # bias corrections in fp32, as the JAX package computes them
@@ -56,6 +55,9 @@ def adamw_update(params, grads, state: AdamWState, *, lr,
         c2 = 1 - torch.tensor(b2) ** n
 
         def upd(p, g, m, v):
+            # the clipped gradient one leaf at a time: a clipped copy of
+            # every gradient at once would add a params-sized buffer
+            g = g.to(torch.float32) * scale
             m_new = b1 * m + (1 - b1) * g
             v_new = b2 * v + (1 - b2) * torch.square(g)
             # device-tensor divisors: CUDA divides by a host scalar as a

@@ -1579,3 +1579,115 @@ def test_a_capture_while_a_ticket_stages_is_clean(cuda, tmp_path,
         tokens[mode] = [dep.result(r).out_tokens for r in rids]
         dep.close()
     assert tokens["storm"] == tokens["plain"]
+
+
+# ---------------------------------------------------------------------------
+# the training side on the card against the same code on the CPU: the
+# RMSNorm and flash backward passes (max |diff| within 1e-5 of the
+# tensor's largest entry in fp32, one bf16 step, 2^-7, of it in bf16: sums
+# in another order, and in bf16 a rounding of an intermediate such as p or
+# dS may flip by one step, which moves its products at the scale of the
+# tensor, not of the element), a reduced train step (losses within 1e-5 rel,
+# params within 1e-3 abs after 3 Adam steps at lr 5e-3), and a checkpoint
+# written from the card restoring bit for bit on the CPU
+# ---------------------------------------------------------------------------
+
+def _grads_close(got, want, dtype):
+    got, want = got.detach().cpu().float(), want.detach().float()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+def _backward(fn, inputs, dout, device):
+    leaves = [t.detach().to(device).requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    out.backward(dout.to(device))
+    return out, [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,scale_shape", [((2, 64, 4096), (4096,)),
+                                               ((2, 64, 32, 128), (128,)),
+                                               ((2, 8, 4, 16), (4, 16))])
+def test_rmsnorm_backward_card_matches_cpu(cuda, dtype, shape, scale_shape):
+    from repro_torch.models import layers as LY
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(shape, generator=gen).to(dtype)
+    scale = 1 + 0.1 * torch.randn(scale_shape, generator=gen)
+    dy = torch.randn(shape, generator=gen).to(dtype)
+
+    def fn(a, s):
+        return LY.rmsnorm(a, s, 1e-6)
+    want_y, want = _backward(fn, (x, scale), dy, "cpu")
+    got_y, got = _backward(fn, (x, scale), dy, cuda)
+    _grads_close(got_y, want_y, dtype)
+    _grads_close(got[0], want[0], dtype)
+    _grads_close(got[1], want[1], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [dict(causal=True), dict(causal=False),
+                                  dict(causal=True, window=100, chunk=64),
+                                  dict(causal=True, kv_offset=64, chunk=64),
+                                  dict(causal=True, q_offset=128, chunk=128)])
+def test_flash_backward_card_matches_cpu(cuda, dtype, case):
+    from repro_torch.models import attention as AT
+    gen = torch.Generator().manual_seed(1)
+    b, s, t, hq, hkv, hd = 1, 128, 256 if "q_offset" in case else 128, \
+        32, 8, 128
+    q = torch.randn((b, s, hq, hd), generator=gen).to(dtype)
+    k = torch.randn((b, t, hkv, hd), generator=gen).to(dtype)
+    v = torch.randn((b, t, hkv, hd), generator=gen).to(dtype)
+    do = torch.randn((b, s, hq, hd), generator=gen).to(dtype)
+
+    def fn(*a):
+        return AT.flash_attention(*a, **case)
+    want_o, want = _backward(fn, (q, k, v), do, "cpu")
+    got_o, got = _backward(fn, (q, k, v), do, cuda)
+    _grads_close(got_o, want_o, dtype)
+    for g, w in zip(got, want):
+        _grads_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-moe-16b"])
+def test_train_steps_card_match_cpu(cuda, arch, tmp_path):
+    import dataclasses
+
+    import repro_torch.configs as TC
+    from repro_torch.checkpoint.manager import CheckpointManager, _flat
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train import step as TS
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(TC.get_config(arch).reduced(), num_layers=2,
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    init = TS.init_train_state(model, 0, "cpu")
+    src = SyntheticLM(cfg.vocab_size, seed=0)
+    batches = [src.lm_batch(i, 2, 32) for i in range(3)]
+    out = {}
+    for where in ("cpu", cuda):
+        state = dataclasses.replace(init, params=tree_map(
+            lambda t: t.to(where), init.params), opt=TS.adamw_init(
+                tree_map(lambda t: t.to(where), init.params)))
+        step = TS.make_train_step(model, peak_lr=5e-3, warmup=2,
+                                  total_steps=10)
+        losses = []
+        for batch in batches:
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+        out[str(where)] = (losses, state)
+    (cpu_l, cpu_s), (card_l, card_s) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(card_l, cpu_l, rtol=1e-5)
+    for k, a in _flat(card_s.params).items():
+        torch.testing.assert_close(a.cpu(), _flat(cpu_s.params)[k], rtol=0,
+                                   atol=1e-3)
+    CheckpointManager(tmp_path).save(3, card_s)
+    step, restored = CheckpointManager(tmp_path).restore_latest(cpu_s)
+    assert step == 3
+    for k, a in _flat(card_s).items():
+        b = _flat(restored)[k]
+        if isinstance(a, torch.Tensor):
+            assert b.device.type == "cpu" and torch.equal(a.cpu(), b), k
+        else:
+            assert a == b, k
