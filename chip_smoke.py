@@ -1018,8 +1018,8 @@ def divergence(dep, model, rids, got, want, prompt_len) -> str:
         prompt = np.zeros(prompt_len, np.int64)
         tail = r.tokens[-prompt_len:]
         prompt[:len(tail)] = tail
-        seq = torch.tensor(np.concatenate([prompt, a[:pos]]),
-                           device=dep.device)[None]
+        seq = torch.tensor(np.concatenate([prompt, np.asarray(
+            a[:pos], np.int64)]), device=dep.device)[None]
         batch = {"tokens": seq, **frontend_stub(model.cfg, 1, dep.device)}
         reg = dep.registry
         if dep.engine.scheduler == "group":
@@ -3839,6 +3839,529 @@ def restart_phase(dev, build_s: float) -> None:
           f"build {build_s:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# mesh-sharded serving: ranks over torch.distributed (launch/mesh.spawn)
+# ---------------------------------------------------------------------------
+
+MESH_REF_SHAPES = ((1, 2), (2, 1), (2, 2))
+MESH_REF_ARCHS = ("deepseek-7b", "deepseek-moe-16b")
+MESH_KDS = ("shard_map", "gspmd")
+MESH_RUNS = {"continuous": dict(scheduler="continuous", mode="fused"),
+             "group fused": dict(scheduler="group", mode="fused"),
+             "group dense": dict(scheduler="group", mode="dense")}
+MESH_REF_BUDGETS = [2, 5, 3, 4]
+MESH_FULL_SHAPE = (1, 2)
+# (arch, layers, compute dtype or None for the config's own)
+MESH_FULL = (("qwen3-8b", SERVE_LAYERS, None), ("deepseek-moe-16b", 4, None))
+# deepseek-moe-16b at fp32 compute, run by ``--mesh-only`` only: with the
+# rounding to bf16 gone, the mesh and one card differ only in the order
+# of fp32 sums (a witness of the bf16 runs' agreement)
+MESH_FP32_TWIN = (("deepseek-moe-16b", 4, "float32"),)
+MESH_FULL_RUNS = {"continuous": (12, CONT_BUDGETS),
+                  "group fused": (8, [8])}
+MESH_TIMEOUT_S = 600
+MESH_KERNELS = ("unpack_apply", "bitlinear_axes", "bitlinear_axes_banked",
+                "bitlinear_axes_stacked")
+
+
+def mesh_full_config(arch, layers, dtype):
+    """(label, cfg) of one ``MESH_FULL`` entry; the label names a compute
+    dtype other than the config's own."""
+    import dataclasses
+
+    from repro_torch.launch import serve as SV
+    cfg = SV.make_config(arch, num_layers=layers)
+    if dtype is None:
+        return arch, cfg
+    return f"{arch} {dtype}", dataclasses.replace(cfg, compute_dtype=dtype)
+
+
+def mesh_ref_setup(arch):
+    """(cfg, model, base, [2 DeltaModels], axes) of a reduced arch at fp32
+    compute, made on the CPU from seeds: every rank and the script make
+    the same."""
+    import dataclasses
+
+    from repro_torch.launch import serve as SV
+    cfg = dataclasses.replace(SV.make_config(arch, reduced=True),
+                              num_layers=REF_LAYERS.get(arch, 2),
+                              compute_dtype="float32")
+    model, base, dms, axes = SV.build_variants(cfg, 2, "cpu",
+                                               with_axes=True)
+    return cfg, model, base, dms, axes
+
+
+def mesh_deploy(model, base, dms, axes, mesh, device, run, **kw):
+    """A Deployment of ``run`` (``MESH_RUNS``) over ``base`` with ``dms``
+    published, on ``mesh`` (eager steps: a gloo collective cannot be
+    captured) or, with ``mesh`` None, on ``device`` alone."""
+    from repro_torch.launch import serve as SV
+    if mesh is not None:
+        kw.update(mesh=mesh, param_axes=axes, graphs=False)
+    return SV.deploy(model, base, dms, batch=LANES, device=device,
+                     bank_size=4, **MESH_RUNS[run], **kw)
+
+
+def mesh_store_run(model, base, dms, axes, mesh, device, root) -> dict:
+    """One publish, update (a patch), serve, rollback, serve through a
+    store under ``root`` (on a mesh rank 0 writes, every rank reads)."""
+    from repro_torch.launch import serve as SV
+    dep = mesh_deploy(model, base, [], axes, mesh, device, "continuous",
+                      root_dir=root)
+    out = {"versions": [dep.publish("v0", dms[0]),
+                        dep.update("v0", dms[1])]}
+
+    def serve():
+        rids = SV.submit_requests(dep, model.cfg, 4, [3])
+        dep.drain()
+        return [dep.result(r).out_tokens for r in rids]
+    out["after update"] = serve()
+    out["rollback"] = dep.rollback("v0")
+    out["after rollback"] = serve()
+    return out
+
+
+def mesh_ref_rank(mesh, store_root) -> dict:
+    """One rank of a reduced mesh on the card: both archs, every run, both
+    kernel dispatch modes (and on (1, 2) the store lifecycle); tokens and
+    the run's launches on this rank."""
+    from repro_torch.launch import serve as SV
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"coords": mesh.coords, "device": str(mesh.device),
+           "backend": mesh.backend, "runs": {}}
+    for arch in MESH_REF_ARCHS:
+        cfg, model, base, dms, axes = mesh_ref_setup(arch)
+        for kd in MESH_KDS:
+            for run in MESH_RUNS:
+                zero_counters()
+                dep = mesh_deploy(model, base, dms, axes, mesh, mesh.device,
+                                  run, kernel_dispatch=kd)
+                rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
+                dep.drain()
+                out["runs"][arch, kd, run] = {
+                    "tokens": [dep.result(r).out_tokens for r in rids],
+                    "launches": counters()}
+        if store_root and arch == MESH_REF_ARCHS[0]:
+            out["store"] = mesh_store_run(model, base, dms, axes, mesh,
+                                          mesh.device, store_root)
+    return out
+
+
+def allreduce_check(mesh, dep, base, dm, path: str) -> dict:
+    """The all-reduced projection of a weight whose in dim is sharded
+    (layer 0 of ``path``), per rank on the rank's blocks, against the
+    single-card kernel on the whole operands on this rank's card: within
+    the GEMM bound summed over the ranks' K-tiles plus the single-card
+    kernel's own, 2e-5·Σ|x||Ŵ| + (M+1)·1e-6."""
+    from repro_torch.core import delta as D
+    from repro_torch.core.calibration import flatten_params
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import delta_overlay as DO
+    from repro_torch.models.delta_overlay import flatten_axes
+
+    dev = mesh.device
+    w = flatten_params(base)[path][0].to(dev)
+    e = DO.from_delta_entry(dm.deltas[path])
+    ent = [t[0].to(dev) for t in (e.packed, e.v_row, e.v_col)]
+    spec = flatten_axes(dep.registry.param_shardings)[path][1:]
+    waxes = flatten_axes(dep.registry.param_axes)[path][1:]
+    assert spec[1] is not None, (path, spec)
+    sp = DO.entry_shardings_from_weight(spec, 2)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((LANES, w.shape[1]), generator=gen, device=dev)
+    with dep.engine._ctx():
+        got = K.bitlinear_axes(
+            S.block(x, (None, spec[1]), mesh),
+            *(S.block(t, s, mesh) for t, s in zip(ent, (sp.packed, sp.v_row,
+                                                         sp.v_col))),
+            S.block(w, spec, mesh), waxes=waxes)
+    want = K.bitlinear_axes(x, *ent, w)
+    w_hat = (ent[1].float()[:, None] + ent[2].float()[None, :]) \
+        * D.unpack_signs(ent[0], w.shape[1]) + w
+    scale = x.abs() @ w_hat.abs().T
+    tol = 2e-5 * scale + (mesh.axis_size("model") + 1) * 1e-6
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), (path, err.max().item())
+    return {"path": path, "max_abs_err": err.max().item(),
+            "max_err_over_tol": (err / tol).max().item()}
+
+
+@contextlib.contextmanager
+def routing_recorded():
+    """Every top-k selection of the MoE layers while the block runs, in
+    order: the router's top-k of each layer, then its capacity selection
+    (``moe.top_k``, called twice a layer); each as (scores on the host,
+    k).  Every rank holds the whole scores."""
+    from repro_torch.models import moe
+    calls, inner = [], moe.top_k
+
+    def record(score, k):
+        calls.append((score.detach().float().cpu(), k))
+        return inner(score, k)
+    moe.top_k = record
+    try:
+        yield calls
+    finally:
+        moe.top_k = inner
+
+
+def routing_parting(mine, other) -> str:
+    """Where two runs' MoE selections (``routing_recorded``) first differ:
+    the selection, how far the two runs' scores there lie apart, and the
+    least gap, on each side, between the last score chosen and the first
+    one left out in the rows whose choice differs.  A gap under the
+    scores' distance is a near-tie that the distance decides."""
+    from repro_torch.models import moe
+    if len(mine) != len(other):
+        return f"{len(mine)} vs {len(other)} selections"
+    for i, ((a, k), (b, _)) in enumerate(zip(mine, other)):
+        if a.shape != b.shape:
+            return (f"selection {i}: shapes {tuple(a.shape)} vs "
+                    f"{tuple(b.shape)}")
+        ia = moe.top_k(a, k)[1].sort(-1).values
+        ib = moe.top_k(b, k)[1].sort(-1).values
+        rows = (ia != ib).any(-1)
+        if not bool(rows.any()):
+            continue
+        dist = (a - b).abs().max().item()
+
+        def gap(t):
+            v = t.sort(-1, descending=True).values[rows]
+            return (v[:, k - 1] - v[:, k]).min().item()
+        kind = "router top-k" if i % 2 == 0 else "capacity"
+        return (f"selection {i} of {len(mine)} ({kind}, k={k}): "
+                f"{int(rows.sum())} row(s) differ; scores apart by "
+                f"{dist:.3g}; gap at the cut {gap(a):.3g} (mesh), "
+                f"{gap(b):.3g} (one card)")
+    return f"all {len(mine)} selections the same"
+
+
+def mesh_full_rank(mesh, entries) -> dict:
+    """One rank of the full-width (1, 2) mesh over ``entries``
+    (``MESH_FULL``'s, maybe the fp32 twin's), 3 variants, continuous over
+    a 4-slot bank and group fused; per run its tokens, launches, tokens/s,
+    mean step and peak memory; every delta GEMM launch of one prefill and
+    one decode step held to its plain version on the same local operands
+    (``gemms_checked``); the all-reduced wo and w_down against the
+    single-card kernel; for MoE, rank 0's routing choices in a rerun of
+    the same requests (``routing_recorded``)."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    out = {"coords": mesh.coords, "device": str(dev),
+           "backend": mesh.backend, "runs": {}, "checks": {}, "routing": {}}
+    for entry in entries:
+        arch, cfg = mesh_full_config(*entry)
+        # the ranks build the whole base and variants in turns (their
+        # fine-tunes are whole copies of the base), and each keeps them
+        # on the host: only its blocks stay on the card
+        for turn in range(mesh.size):
+            if turn == mesh.rank:
+                model, base, dms, axes = SV.build_variants(
+                    cfg, 3, dev, with_axes=True)
+                base = tree_map(lambda t: t.cpu(), base)
+                dms = [tree_map(lambda t: t.cpu(), dm) for dm in dms]
+                gc.collect()
+                torch.cuda.empty_cache()
+            mesh.barrier()
+        for run, (n_req, budgets) in MESH_FULL_RUNS.items():
+            torch.cuda.reset_peak_memory_stats(dev)
+            dep = mesh_deploy(model, base, dms, axes, mesh, dev, run)
+            mesh_warm(dep, cfg)
+            zero_counters()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            rids = SV.submit_requests(dep, cfg, n_req, budgets)
+            dep.drain()
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            m = dep.metrics
+            out["runs"][arch, run] = {
+                "tokens": [dep.result(r).out_tokens for r in rids],
+                "launches": counters(),
+                "tokens_per_s": m["tokens_generated"] / secs,
+                "mean_step_ms": 1e3 * m["decode_seconds"]
+                / max(1, m["decode_steps"]),
+                "prefill_s": m["prefill_seconds"],
+                "decode_s": m["decode_seconds"], "seconds": secs,
+                "prefills": m["prefills"], "decode_steps": m["decode_steps"],
+                "peak_GB": torch.cuda.max_memory_allocated(dev) / 1e9}
+            with gemms_checked() as log:
+                rids = SV.submit_requests(dep, cfg, LANES, [2])
+                dep.drain()
+            out["checks"][arch, run] = {
+                "launches": len(log),
+                "kernels": sorted({name for name, _, _ in log}),
+                "max_abs_err": max(err for _, _, err in log)}
+            if arch.startswith("deepseek-moe-16b"):
+                # the same requests again, every routing choice recorded
+                with routing_recorded() as calls:
+                    rids = SV.submit_requests(dep, cfg, n_req, budgets)
+                    dep.drain()
+                out["routing"][arch, run] = {
+                    "tokens": [dep.result(r).out_tokens for r in rids],
+                    "calls": calls if mesh.rank == 0 else None}
+            if run == "continuous" and arch == "qwen3-8b":
+                out["checks"][arch, "all-reduce"] = [
+                    allreduce_check(mesh, dep, base, dms[0], p)
+                    for p in ("layers.attn.wo", "layers.mlp.w_down")]
+            del dep
+            gc.collect()
+            torch.cuda.empty_cache()
+        del model, base, dms
+        gc.collect()
+    return out
+
+
+def mesh_warm(dep, cfg) -> None:
+    """Every published variant resident (a bank slot, or a fused resident
+    under the group scheduler) and one short wave served, so a timed run
+    pays neither a variant's load nor a process's first launches."""
+    from repro_torch.launch import serve as SV
+    with dep.engine._ctx():
+        for name in dep.variants()[1:]:
+            if dep.engine.scheduler == "continuous":
+                dep.registry.bank_resolve(name)
+            else:
+                dep.registry.resolve(name)
+    SV.submit_requests(dep, cfg, LANES, [1])
+    dep.drain()
+    dep.engine.metrics.update({k: 0 if isinstance(v, int) else 0.0
+                               for k, v in dep.engine.metrics.items()})
+
+
+def mesh_refuse(mesh):
+    """A rank that raises on purpose: the world is not a (2, 2) mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    make_host_mesh(2, 2)
+
+
+def mesh_single_card(dev, entries, mesh_tokens: dict,
+                     mesh_routing: dict) -> dict:
+    """The full-width runs of ``mesh_full_rank`` on one card, eagerly:
+    the tokens the mesh's (``mesh_tokens``, by (arch, run)) are compared
+    with, and for each request whose tokens part from the mesh's, the
+    top-2 logit margin on one card where they part (``divergence``: a
+    batch-of-one forward, whose MoE capacity groups are not the served
+    batch's); for each run in ``mesh_routing``, the first routing choice
+    where one card's rerun parts from the mesh's (``routing_parting``)."""
+    from repro_torch.launch import serve as SV
+    out = {}
+    for entry in entries:
+        arch, cfg = mesh_full_config(*entry)
+        model, base, dms = SV.build_variants(cfg, 3, dev)
+        for run, (n_req, budgets) in MESH_FULL_RUNS.items():
+            dep = mesh_deploy(model, base, dms, None, None, dev, run,
+                              graphs=False)
+            mesh_warm(dep, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = SV.submit_requests(dep, cfg, n_req, budgets)
+            dep.drain()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            m = dep.metrics
+            tokens = [dep.result(r).out_tokens for r in rids]
+            theirs = mesh_tokens[arch, run]
+            out[arch, run] = {
+                "tokens": tokens,
+                "tokens_per_s": m["tokens_generated"] / secs,
+                "mean_step_ms": 1e3 * m["decode_seconds"]
+                / max(1, m["decode_steps"]),
+                "margins": [divergence(dep, model, [rid], [mine], [other],
+                                       SV.PROMPT_LEN).rpartition(" ")[2]
+                            for rid, mine, other in zip(rids, tokens,
+                                                        theirs)
+                            if mine != other]}
+            if (arch, run) in mesh_routing:
+                with routing_recorded() as calls:
+                    rids = SV.submit_requests(dep, cfg, n_req, budgets)
+                    dep.drain()
+                theirs = mesh_routing[arch, run]
+                out[arch, run]["routing"] = (
+                    f"rerun tokens as the timed run's: mesh "
+                    f"{theirs['tokens'] == mesh_tokens[arch, run]}, one card "
+                    f"{[dep.result(r).out_tokens for r in rids] == tokens}; "
+                    + routing_parting(theirs["calls"], calls))
+            del dep
+        del model, base, dms
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(dev, fp32_twin: bool = False) -> dict:
+    """Mesh-sharded serving (explicit SPMD, ``distributed/sharding``):
+    ranks started by ``launch.mesh.spawn``, each rank its own card over
+    NCCL when there are cards enough, else card 0 shared over gloo (the
+    kernels run on the card either way).  The kernel library was built
+    before any rank starts; rank 0 loads it first.
+
+    1. reduced deepseek-7b and deepseek-moe-16b (fp32 compute) on (1, 2),
+       (2, 1) and (2, 2) at once: continuous banked, group fused and group
+       dense, 2 variants, both kernel dispatch modes; every rank's tokens
+       must equal the single-process CPU plain path's; on (1, 2) one
+       publish, update and rollback through a store (rank 0 writes) with
+       the CPU's tokens and versions;
+    2. full width on (1, 2): qwen3-8b (4 layers) and deepseek-moe-16b (4
+       layers, 64 experts, top-6; with ``fp32_twin`` also at fp32
+       compute), 3 variants, continuous over a 4-slot bank and group
+       fused; every per-rank delta GEMM launch of one prefill and one
+       decode step within the GEMM bound of its plain version on the same
+       local operands; the all-reduced wo and w_down against the
+       single-card kernel; token agreement with the same runs on one card
+       (printed: bf16 near-ties move with the all-reduce's order) and, for
+       MoE, the first routing choice where the two part
+       (``routing_parting``), launches per rank, peak memory per rank,
+       tokens/s and the mean step;
+    3. a rank that raises (a world that is not the mesh's size) must end
+       its group with an error within the deadline.
+
+    Returns {run label: [launches of each rank]}."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import serve as SV
+
+    n_cards = torch.cuda.device_count()
+    backends = {shape: LM.backend_for("cuda", shape[0] * shape[1])
+                for shape in MESH_REF_SHAPES}
+    print(f"mesh: {n_cards} card(s); backends {backends}")
+    launches = {}
+    # 1. reduced, card against the CPU
+    store_root = tempfile.mkdtemp(prefix="mesh_store_", dir=os.path.join(
+        ROOT, "build"))
+    t_ref = time.perf_counter()
+    groups = {shape: LM.start(mesh_ref_rank, shape, device="cuda",
+                              timeout_s=MESH_TIMEOUT_S,
+                              args=(store_root if shape == (1, 2)
+                                    else None,))
+              for shape in MESH_REF_SHAPES}
+    t0 = time.perf_counter()
+    want = {}
+    for arch in MESH_REF_ARCHS:
+        cfg, model, base, dms, axes = mesh_ref_setup(arch)
+        for run in MESH_RUNS:
+            dep = mesh_deploy(model, base, dms, axes, None, "cpu", run)
+            rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
+            dep.drain()
+            want[arch, run] = [dep.result(r).out_tokens for r in rids]
+        if arch == MESH_REF_ARCHS[0]:
+            with tempfile.TemporaryDirectory() as tmp:
+                want_store = mesh_store_run(model, base, dms, axes, None,
+                                            "cpu", tmp)
+    print(f"mesh reference: CPU plain runs {time.perf_counter() - t0:.1f} s")
+    for shape, group in groups.items():
+        ranks = group.join()
+        for r, got in enumerate(ranks):
+            for (arch, kd, run), res in got["runs"].items():
+                assert res["tokens"] == want[arch, run], (
+                    shape, r, arch, kd, run, res["tokens"], want[arch, run])
+                kernel = RUN_KERNEL[run.split()[-1]]
+                assert res["launches"][kernel] > 0, (shape, arch, run, res)
+                if arch == "deepseek-moe-16b" and run != "group dense":
+                    assert res["launches"]["bitlinear_axes_stacked"] > 0
+            if "store" in got:
+                assert got["store"] == want_store, (got["store"], want_store)
+        for (arch, kd, run) in ranks[0]["runs"]:
+            launches[f"mesh {arch} reduced {run} {kd} {shape}"] = [
+                g["runs"][arch, kd, run]["launches"] for g in ranks]
+        print(f"mesh {shape} reduced ({ranks[0]['backend']}, "
+              f"{sorted({g['device'] for g in ranks})}): every rank's "
+              f"tokens == CPU plain tokens for {len(ranks[0]['runs'])} runs "
+              f"(both kernel dispatch modes)"
+              + ("; store publish/update/rollback == CPU "
+                 f"{want_store['versions']}, rollback to "
+                 f"{want_store['rollback']}" if shape == (1, 2) else ""))
+    shutil.rmtree(store_root, ignore_errors=True)
+    print(f"mesh reduced: {time.perf_counter() - t_ref:.1f} s, the three "
+          "meshes at once")
+    # 2. full width: the mesh, then the same runs on one card
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh full width: this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB before the ranks "
+          "start")
+    t0 = time.perf_counter()
+    entries = MESH_FULL + (MESH_FP32_TWIN if fp32_twin else ())
+    ranks = LM.spawn(mesh_full_rank, MESH_FULL_SHAPE, device="cuda",
+                     timeout_s=MESH_TIMEOUT_S, args=(entries,))
+    print(f"mesh full width {MESH_FULL_SHAPE} ({ranks[0]['backend']}, "
+          f"{sorted({g['device'] for g in ranks})}): "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    single = mesh_single_card(dev, entries,
+                              {key: run["tokens"] for key, run
+                               in ranks[0]["runs"].items()},
+                              ranks[0]["routing"])
+    print(f"mesh full width: single-card runs {time.perf_counter() - t0:.1f}"
+          " s")
+    for key, _ in ranks[0]["runs"].items():
+        arch, run = key
+        toks = [g["runs"][key]["tokens"] for g in ranks]
+        assert all(t == toks[0] for t in toks), (key, "ranks disagree")
+        ref = single[key]["tokens"]
+        agree = sum(a == b for x, y in zip(toks[0], ref)
+                    for a, b in zip(x, y))
+        total = sum(len(y) for y in ref)
+        same = sum(x == y for x, y in zip(toks[0], ref))
+        assert [len(t) for t in toks[0]] == [len(t) for t in ref], key
+        per_rank = [g["runs"][key]["launches"] for g in ranks]
+        for kernel in (("bitlinear_axes_banked",) if run == "continuous"
+                       else ("bitlinear_axes",)):
+            assert all(p[kernel] > 0 for p in per_rank), (key, per_rank)
+        if arch.startswith("deepseek-moe-16b"):
+            assert all(p["bitlinear_axes_stacked"] > 0 for p in per_rank)
+        launches[f"mesh {arch} {run} {MESH_FULL_SHAPE}"] = per_rank
+        chk = [g["checks"][key] for g in ranks]
+        r0 = ranks[0]["runs"][key]
+        print(f"mesh {arch} {run}: tokens agree with one card "
+              f"{agree}/{total} ({same}/{len(ref)} requests whole; one "
+              f"card's top-2 logit margin where each other one parts: "
+              f"{single[key]['margins']}); one "
+              f"card eager: tokens/s {single[key]['tokens_per_s']:.1f}, "
+              f"mean step {single[key]['mean_step_ms']:.2f} ms; mesh rank "
+              f"0: {r0['seconds']:.2f} s, prefill {r0['prefill_s']:.2f} s, "
+              f"decode {r0['decode_s']:.2f} s, {r0['prefills']} prefills, "
+              f"{r0['decode_steps']} steps; launches per rank "
+              f"{[{k: v for k, v in p.items() if v} for p in per_rank]}; "
+              f"tokens/s {[round(g['runs'][key]['tokens_per_s'], 1) for g in ranks]}; "
+              f"mean step ms {[round(g['runs'][key]['mean_step_ms'], 2) for g in ranks]}; "
+              f"peak GB per rank {[round(g['runs'][key]['peak_GB'], 2) for g in ranks]}; "
+              f"checked prefill+step: {[c['launches'] for c in chk]} "
+              f"launches ({chk[0]['kernels']}) within the GEMM bound, max "
+              f"|err| {max(c['max_abs_err'] for c in chk):.3e}")
+        if "routing" in single[key]:
+            print(f"mesh {arch} {run}: MoE routing, mesh vs one card: "
+                  f"{single[key]['routing']}")
+    for g in ranks:
+        for c in g["checks"]["qwen3-8b", "all-reduce"]:
+            print(f"mesh all-reduce rank {g['coords']}: {c['path']} vs the "
+                  f"single-card kernel max |err| {c['max_abs_err']:.3e} "
+                  f"({c['max_err_over_tol']:.3f} of the summed bound)")
+    if len({g["device"] for g in ranks}) == 1:
+        print("mesh: the ranks share one card: these times say nothing of "
+              "tensor-parallel speed-up")
+    # 3. a rank that raises ends its group
+    t0 = time.perf_counter()
+    try:
+        LM.spawn(mesh_refuse, (1, 2), device="cuda", timeout_s=120)
+    except LM.RankFailure as e:
+        assert "needs 4 ranks" in str(e), e
+        secs = time.perf_counter() - t0
+        assert secs < 120, secs
+        print(f"mesh failure: a rank that raised ended its group in "
+              f"{secs:.1f} s (deadline 120 s): "
+              f"{str(e).strip().splitlines()[-1]}")
+    else:
+        raise AssertionError("a mismatched world size was accepted")
+    return launches
+
+
+
 # kernel bodies whose first CUDA design was replaced: the design now run
 GEMM_DESIGN = "streaming (M <= 16) + cp.async tiles (M > 16)"
 BANKED_DESIGN = ("streaming, one Ŵ per distinct slot in registers (M <= 16)"
@@ -3857,13 +4380,15 @@ REDESIGNED = {"bitlinear_axes": GEMM_DESIGN, "bitlinear_axes_q8": GEMM_DESIGN,
 
 
 def kernel_entries(rows, launches, dl_launches, fl_launches,
-                   arch_rows) -> list:
+                   arch_rows, mesh_launches) -> list:
     """One JSON entry per kernel body: times summed over one unit of its
     path (a unit's first member gives each row's multiplicity in it),
     launches from the main-path run that drives it and, as
     ``path_launches``, from every serving run that launched it (the other
-    archs' full-width runs); the rows at the other archs' projection
-    shapes ride beside as ``arch_shapes``."""
+    archs' full-width runs); as ``mesh_launches`` each mesh run's launches
+    on every rank (fp32 base: the kernel bodies without ``_q8``); the rows
+    at the other archs' projection shapes ride beside as
+    ``arch_shapes``."""
     units = {
         "unpack_apply": (lambda r: True, "dense", "unpack_apply",
                          f"one dense variant load: 7 stacks x (row, col), "
@@ -3917,6 +4442,12 @@ def kernel_entries(rows, launches, dl_launches, fl_launches,
         entry["path_launches"] = {
             run: got[counter] for run, got in launches.items()
             if got.get(counter) and run.endswith(" int8") == q8}
+        if not q8 and counter in MESH_KERNELS:
+            entry["mesh_launches"] = {
+                run: [r[counter] for r in ranks]
+                for run, ranks in mesh_launches.items()
+                if any(r[counter] for r in ranks)}
+            assert entry["mesh_launches"], (name, "no mesh launch")
         if name in REDESIGNED:
             entry["design"] = REDESIGNED[name]
         entries.append(entry)
@@ -3983,6 +4514,11 @@ def main() -> None:
         print(f"phase {name}: {seconds[name]:.1f} s")
         return out
 
+    if sys.argv[1:] == ["--mesh-only"]:
+        # the mesh phase alone (development runs; prints no result line)
+        mesh_launches = timed("mesh", mesh_phase, dev, True)
+        print("mesh launches: " + json.dumps(mesh_launches))
+        return
     cfg = get_config(ARCH)
     timer = Timer(dev)
     rows = timed("kernels", kernel_phase, cfg, dev, timer)
@@ -4003,6 +4539,7 @@ def main() -> None:
     launches["lifecycle"] = timed("lifecycle", lifecycle_phase, dev)
     launches.update(timed("admission", admission_phase, dev))
     launches.update(timed("train", train_phase, dev))
+    mesh_launches = timed("mesh", mesh_phase, dev)
     launches.update(timed("dense archs", dense_archs_phase, dev))
     moe_launches, routed = timed("deepseek-moe-16b", moe_phase, dev)
     launches.update(moe_launches)
@@ -4017,7 +4554,8 @@ def main() -> None:
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     print(json.dumps({"kernels": kernel_entries(rows, launches, dl_launches,
-                                                fl_launches, arch_rows)}))
+                                                fl_launches, arch_rows,
+                                                mesh_launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

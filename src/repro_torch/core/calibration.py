@@ -125,6 +125,9 @@ class DeltaEntry:
 class DeltaModel:
     deltas: dict                 # path -> DeltaEntry
     extras: dict                 # path -> fine-tuned value (uncompressed)
+    # the mesh whose rank's blocks the leaves are (``loader.place_delta_
+    # model``); None for a whole (global) variant
+    placed: object = None
 
     def scale_params(self) -> dict:
         """The trainable tree (v_row/v_col per target)."""

@@ -17,7 +17,14 @@ and a decoded update patch (``core/store``), bit-exactly in the wire domain;
 time against.  ``stage_overlay_transfer`` is the staging half of async
 admission (``serving/admission``): host-to-device copies of a variant on
 a side stream, through pinned buffers, fenced by one event per module.
-Mesh placements (``param_shardings``) are not ported.
+
+On a mesh (``distributed/sharding.py``) ``param_shardings`` is the base's
+spec tree and ``mesh`` the rank's place on it: ``place_delta_model`` cuts
+a whole variant to the rank's blocks of every leaf (each packed plane to
+its weight's block, its K-tile's bytes contiguous), ``device_put_overlay``
+and ``apply_artifact`` serve those blocks against the rank's base blocks
+(the dense rebuild runs ``unpack_apply`` per tile), and ``apply_update``
+applies each XOR patch to the rank's block of its module.
 """
 from __future__ import annotations
 
@@ -33,10 +40,55 @@ from repro_torch.core.calibration import (DeltaModel, flatten_params,
                                           unflatten_like)
 from repro_torch.core.quantize import dequantize, is_quant
 from repro_torch.device import synchronize
+from repro_torch.distributed import sharding as SH
+from repro_torch.models.delta_overlay import flatten_axes
 from repro_torch.tree import tree_leaves
 
 
-def _reconstruct_entry(entry, w_base, use_kernel: bool):
+# ---------------------------------------------------------------------------
+# mesh placement of a variant
+# ---------------------------------------------------------------------------
+
+def _place_entry(e, wspec: tuple, w_ndim: int, mesh):
+    """One DeltaEntry cut to the rank's block of its weight."""
+    from repro_torch.models.delta_overlay import entry_shardings_from_weight
+    sp = entry_shardings_from_weight(wspec, w_ndim)
+    k_part = sp.packed[-1]
+    if k_part is not None and e.packed.shape[-1] % mesh.names_size(k_part):
+        raise ValueError(
+            f"a K-tile of {e.packed.shape[-1] * 8 // mesh.names_size(k_part)}"
+            " columns is not a multiple of 8: its packed bytes cannot be cut "
+            "per rank")
+    lead = sp.packed[:-2]
+    return type(e)(
+        packed=SH.block(e.packed, sp.packed, mesh),
+        v_row=SH.block(e.v_row, lead if e.scalar else sp.v_row, mesh),
+        v_col=SH.block(e.v_col, lead if e.scalar else sp.v_col, mesh),
+        use_row=SH.block(e.use_row, lead, mesh), scalar=e.scalar)
+
+
+def place_delta_model(dm: DeltaModel, param_shardings, mesh) -> DeltaModel:
+    """The rank's blocks of a whole variant (a placed one passes through):
+    every delta entry cut like the weight it shadows, every extra like the
+    base leaf it replaces.  ``param_shardings`` is the base's spec tree."""
+    if dm.placed is not None:
+        if dm.placed != mesh:
+            raise ValueError(f"variant placed on {dm.placed}, not {mesh}")
+        return dm
+    specs = flatten_axes(param_shardings)
+    deltas = {p: _place_entry(e, specs[p], e.packed.dim(), mesh)
+              for p, e in dm.deltas.items()}
+    extras = {p: SH.block(v, specs[p], mesh) for p, v in dm.extras.items()}
+    return DeltaModel(deltas=deltas, extras=extras, placed=mesh)
+
+
+def _placed(dm: DeltaModel, param_shardings, mesh) -> DeltaModel:
+    if param_shardings is None:
+        return dm
+    return place_delta_model(dm, param_shardings, mesh or SH.active_mesh())
+
+
+def _reconstruct_entry(entry, w_base, use_kernel: bool, waxes=None):
     """Dense Ŵ from one (possibly stacked) entry.  The kernel path mirrors
     the JAX loader: one ``unpack_apply`` in row mode and one in col mode
     over the whole stack, then a per-matrix select by ``use_row``.
@@ -50,9 +102,11 @@ def _reconstruct_entry(entry, w_base, use_kernel: bool):
         from repro_torch.kernels import ops as K
         odt = w_base.scale.dtype if quant else w_base.dtype
         w_r = K.unpack_apply(entry.packed, entry.v_row.to(torch.float32),
-                             w_base, mode="row", out_dtype=torch.float32)
+                             w_base, mode="row", out_dtype=torch.float32,
+                             waxes=waxes)
         w_c = K.unpack_apply(entry.packed, entry.v_col.to(torch.float32),
-                             w_base, mode="col", out_dtype=torch.float32)
+                             w_base, mode="col", out_dtype=torch.float32,
+                             waxes=waxes)
         return torch.where(entry.use_row[..., None, None], w_r,
                            w_c).to(odt)
     if quant:
@@ -60,10 +114,16 @@ def _reconstruct_entry(entry, w_base, use_kernel: bool):
     return entry.reconstruct(w_base)
 
 
-def apply_artifact(base_params, dm: DeltaModel, *, use_kernel: bool = True):
-    """Materialise fine-tuned params on the base's device.
-    Returns (params, stats)."""
+def apply_artifact(base_params, dm: DeltaModel, *, use_kernel: bool = True,
+                   param_shardings=None, param_axes=None, mesh=None):
+    """Materialise fine-tuned params on the base's device.  On a mesh
+    (``param_shardings``, the base's spec tree; ``base_params`` the rank's
+    blocks) the variant is cut to the rank's blocks first and each
+    ``unpack_apply`` rebuilds the rank's tile (``param_axes`` names each
+    weight's logical axes for the dispatch).  Returns (params, stats)."""
     t0 = time.perf_counter()
+    dm = _placed(dm, param_shardings, mesh)
+    axes = flatten_axes(param_axes)
     transferred = 0
     out = {}
     device = None
@@ -76,7 +136,8 @@ def apply_artifact(base_params, dm: DeltaModel, *, use_kernel: bool = True):
                         use_row=e.use_row.to(device), scalar=e.scalar)
             transferred += e.packed.numel() + 2 * (e.v_row.numel()
                                                    + e.v_col.numel())
-            out[path] = _reconstruct_entry(e, wb, use_kernel)
+            out[path] = _reconstruct_entry(e, wb, use_kernel,
+                                           waxes=axes.get(path))
         elif path in dm.extras:
             v = dm.extras[path].to(device=device, dtype=wb.dtype)
             transferred += 2 * v.numel()
@@ -92,14 +153,18 @@ def apply_artifact(base_params, dm: DeltaModel, *, use_kernel: bool = True):
 
 
 def device_put_overlay(base_params, dm: DeltaModel, *,
-                       vec_dtype=torch.float16, extras_dtype=torch.float16):
+                       vec_dtype=torch.float16, extras_dtype=torch.float16,
+                       param_shardings=None, mesh=None):
     """On-the-fly serving entry point: the variant as a packed overlay tree
     on the base's device — no dense reconstruction.  Extras (norms,
     embeddings) are swapped into a params VIEW that shares every unchanged
-    base tensor.  Returns (params_view, overlay, stats)."""
+    base tensor.  On a mesh (``param_shardings``, the base's spec tree)
+    every leaf is the rank's block: the mask, both vectors and the extras.
+    Returns (params_view, overlay, stats)."""
     from repro_torch.models.delta_overlay import from_delta_entry, insert_entry
 
     t0 = time.perf_counter()
+    dm = _placed(dm, param_shardings, mesh)
     transferred = 0
     overlay_tree: dict = {}
     out = {}
@@ -261,37 +326,63 @@ def _patch_extra(arr: torch.Tensor, xr: torch.Tensor) -> torch.Tensor:
     return _xor16(arr, xr).to(torch.float16)
 
 
-def _wire(buf: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def _wire(buf: np.ndarray, like: torch.Tensor, spec=None,
+          mesh=None) -> torch.Tensor:
     """Decoded XOR buffer -> tensor on ``like``'s device, in ``like``'s
-    shape; 16-bit patterns travel as int16 (the same bits)."""
+    shape; 16-bit patterns travel as int16 (the same bits).  With a
+    ``spec`` the buffer is a whole module's and ``like`` the rank's block
+    of it: the buffer is cut to that block first."""
     buf = np.ascontiguousarray(buf)
     if buf.dtype == np.uint16:
         buf = buf.view(np.int16)
-    return torch.from_numpy(buf.copy()).reshape(like.shape).to(like.device)
+    t = torch.from_numpy(buf.copy())
+    if spec is not None:
+        t = SH.block(t.reshape(SH.global_shape(like.shape, spec, mesh)),
+                     spec, mesh)
+    return t.reshape(like.shape).to(like.device)
 
 
 def apply_update(dm: DeltaModel, delta_patches: dict,
-                 extras_patches: dict) -> DeltaModel:
+                 extras_patches: dict, *, param_shardings=None,
+                 mesh=None) -> DeltaModel:
     """The next version of a variant from its parent plus a decoded update
     patch.  ``delta_patches``: path -> dict(packed, v_row, v_col, use_row)
     dense XOR buffers (uint8 for the packed planes, uint16 for the fp16
     vectors' bit patterns, bool for the selector); ``extras_patches``: path
     -> uint16 XOR buffer.  Untouched modules are shared with the parent (no
-    copy).  The patched leaves land on the parent leaves' devices."""
+    copy).  The patched leaves land on the parent leaves' devices.  With
+    ``param_shardings`` (the base's spec tree) ``dm`` holds the rank's
+    blocks (``place_delta_model``) and each XOR buffer — a whole module's —
+    is cut to the rank's block before it applies."""
+    from repro_torch.models.delta_overlay import entry_shardings_from_weight
+    specs = flatten_axes(param_shardings)
+    mesh = (mesh or SH.active_mesh()) if param_shardings is not None \
+        else None
+    if mesh is not None and dm.placed is None:
+        raise ValueError("apply_update with param_shardings patches a "
+                         "placed parent (loader.place_delta_model)")
     deltas = dict(dm.deltas)
     extras = dict(dm.extras)
     for path, p in delta_patches.items():
         e = deltas[path]
+        sp = (entry_shardings_from_weight(specs[path], e.packed.dim())
+              if mesh is not None else None)
+        lead = sp.packed[:-2] if sp is not None else None
+        vr, vc = ((lead, lead) if e.scalar else (sp.v_row, sp.v_col)) \
+            if sp is not None else (None, None)
         packed, v_row, v_col, use_row = _patch_entry(
             e.packed, e.v_row, e.v_col, e.use_row,
-            _wire(p["packed"], e.packed), _wire(p["v_row"], e.v_row),
-            _wire(p["v_col"], e.v_col), _wire(p["use_row"], e.use_row))
+            _wire(p["packed"], e.packed, sp and sp.packed, mesh),
+            _wire(p["v_row"], e.v_row, vr, mesh),
+            _wire(p["v_col"], e.v_col, vc, mesh),
+            _wire(p["use_row"], e.use_row, lead, mesh))
         deltas[path] = type(e)(packed=packed, v_row=v_row, v_col=v_col,
                                use_row=use_row, scalar=e.scalar)
     for path, xr in extras_patches.items():
         like = extras[path]
-        extras[path] = _patch_extra(like, _wire(xr, like))
-    return DeltaModel(deltas=deltas, extras=extras)
+        extras[path] = _patch_extra(like, _wire(
+            xr, like, specs[path] if mesh is not None else None, mesh))
+    return DeltaModel(deltas=deltas, extras=extras, placed=dm.placed)
 
 
 def load_full_checkpoint(npz_path, template_params):

@@ -35,6 +35,7 @@ import hashlib
 import json
 import os
 import pathlib
+import pickle
 import threading
 import zipfile
 from typing import Callable, Iterator, Optional
@@ -499,12 +500,23 @@ class VariantStore:
     Publish, rollback and load hold one reentrant lock (``publish_update``
     loads its parent under it): the control thread publishes while the
     admission pipeline's ingest thread loads, and both share the
-    materialisation cache and the index files."""
+    materialisation cache and the index files.
+
+    On a mesh (``param_shardings``, the base's spec tree, and ``mesh``)
+    every rank runs the same calls over one shared directory: ``publish``,
+    ``publish_update`` and ``rollback`` write from rank 0 only, which then
+    sends every rank its outcome (``Mesh.share``): the other ranks read the
+    committed version from the index, or raise rank 0's error, so a
+    refused write raises on every rank and the ranks stay in step.  ``load``
+    returns the rank's blocks (``loader.place_delta_model``): the chain
+    walk itself runs on the host's whole copy of each version, so every
+    patched module is still checked against the sha its publisher
+    recorded, and only the rank's blocks go on to the card."""
 
     INDEX = "versions.json"
 
     def __init__(self, root, *, base_fp: Optional[str] = None,
-                 cache_versions: int = 4):
+                 cache_versions: int = 4, param_shardings=None, mesh=None):
         self.root = pathlib.Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
         self.base_fp = base_fp
@@ -512,6 +524,32 @@ class VariantStore:
         self._cache: "collections.OrderedDict[tuple, DeltaModel]" = \
             collections.OrderedDict()
         self._lock = threading.RLock()
+        self.param_shardings = param_shardings
+        self.mesh = mesh
+
+    def _write(self, name: str, fn: Callable[[], int]) -> int:
+        """Run the write ``fn`` (it returns the version it committed) under
+        the lock.  On a mesh only rank 0 runs it; every rank then gets
+        rank 0's outcome: the version, read back from the index, or rank
+        0's exception, raised on every rank."""
+        if self.mesh is None:
+            with self._lock:
+                return fn()
+        err = None
+        if self.mesh.rank == 0:
+            try:
+                with self._lock:
+                    fn()
+            except Exception as e:      # sent to every rank, then raised
+                err = e
+        sent = None if err is None else _portable_error(err)
+        got = self.mesh.share(sent)
+        if err is not None:
+            raise err
+        if got is not None:
+            cls, args = got
+            raise cls(*args)
+        return self.latest(name)
 
     # -- index -------------------------------------------------------------
     def _vdir(self, name: str, version: int) -> pathlib.Path:
@@ -595,34 +633,38 @@ class VariantStore:
         manifest -> atomic index; an unfinished version never becomes
         visible."""
         self._check_name(name)
-        with self._lock:
+
+        def write() -> int:
             idx, v = self._next_version(name)
             manifest = save_artifact(
                 dm, self._vdir(name, v), base_fp=self.base_fp, meta=meta,
                 lineage={"variant": name, "version": v,
                          "parent_version": None})
             return self._commit(name, idx, v, "full", None, manifest)
+        return self._write(name, write)
 
     def publish_update(self, name: str, dm: DeltaModel, *,
                        meta: Optional[dict] = None) -> int:
         """Incremental publish: ``dm`` becomes the next version as a patch
         against the current latest (which must exist)."""
         self._check_name(name)
-        with self._lock:
+
+        def write() -> int:
             parent_v = self.latest(name)
-            parent = self.load(name, parent_v)
+            parent = self._whole(name, parent_v)
             idx, v = self._next_version(name)
             manifest = save_update_patch(
                 parent, dm, self._vdir(name, v), base_fp=self.base_fp,
                 meta=meta, lineage={"variant": name, "version": v,
                                     "parent_version": parent_v})
             return self._commit(name, idx, v, "patch", parent_v, manifest)
+        return self._write(name, write)
 
     def rollback(self, name: str, to_version: Optional[int] = None) -> int:
         """Move the ``latest`` pointer back — constant time, no artifact
         IO.  Default target: the highest version id below the pointer."""
-        with self._lock:
-            return self._rollback_locked(name, to_version)
+        return self._write(name,
+                           lambda: self._rollback_locked(name, to_version))
 
     def _rollback_locked(self, name: str, to_version: Optional[int]) -> int:
         idx = self._read_index(name)
@@ -648,7 +690,16 @@ class VariantStore:
         Results are cached per (name, version).  ``pacer`` runs between the
         modules of a full artifact's streamed read and after each chain
         step; the lock is held across its sleeps, so a pacing ingest
-        delays a concurrent publish and never interleaves with it."""
+        delays a concurrent publish and never interleaves with it.  On a
+        mesh the result is the rank's blocks."""
+        dm = self._whole(name, version, verify=verify, pacer=pacer)
+        if self.param_shardings is None:
+            return dm
+        from repro_torch.core import loader as L
+        return L.place_delta_model(dm, self.param_shardings, self.mesh)
+
+    def _whole(self, name: str, version: Optional[int], *,
+               verify: bool = True, pacer=None) -> DeltaModel:
         with self._lock:
             return self._load_locked(name, version, verify=verify,
                                      pacer=pacer)
@@ -712,6 +763,17 @@ class VariantStore:
 
     def artifact_bytes(self, name: str, version: int) -> int:
         return int(self.version_info(name, version)["artifact_bytes"])
+
+
+def _portable_error(err: Exception) -> tuple:
+    """(class, args) that rebuild ``err`` on another rank; an error that
+    does not pickle or rebuild travels as a RuntimeError naming it."""
+    try:
+        pickle.dumps((type(err), err.args))
+        type(err)(*err.args)
+        return type(err), err.args
+    except Exception:
+        return RuntimeError, (f"{type(err).__name__}: {err}",)
 
 
 def save_checkpoint_fp16(params, out_path) -> int:

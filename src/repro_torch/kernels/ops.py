@@ -81,14 +81,22 @@ def _v2d(v: torch.Tensor, mode: str, lead: tuple, d_out: int,
     return v.reshape(shape)
 
 
-def unpack_apply(packed: torch.Tensor, v: torch.Tensor, w_base,
-                 mode: str = "row", out_dtype=None) -> torch.Tensor:
-    """Ŵ = v ⊙ unpack(B) + W_b (the loader's dense reconstruction).
+def _routed(name: str, waxes, *args):
+    """Under an active mesh context, the per-rank (or gathered) entry
+    point of ``kernels/dispatch``; None when there is no mesh, no
+    ``waxes`` or a plan that shards nothing (the local operands are then
+    the global ones, and the wrapper's own path serves them)."""
+    if waxes is None:
+        return None
+    from repro_torch.kernels import dispatch as D
+    st = D.layout()
+    if st is None:
+        return None
+    return getattr(D, name)(st, *args, waxes)
 
-    ``w_base`` may carry leading stacked dims (layers); ``packed`` and ``v``
-    carry the same ones.  One kernel launch covers the whole stack.
-    ``w_base`` may be a QuantWeight (int8 base): the kernel dequantizes in
-    the same pass and the default output dtype is the scale's (fp16)."""
+
+def _unpack_apply_local(packed: torch.Tensor, v: torch.Tensor, w_base,
+                        mode: str, out_dtype) -> torch.Tensor:
     wq, ws = _unwrap_quant(w_base)
     out_dtype = out_dtype or (ws.dtype if ws is not None else wq.dtype)
     *lead, d_out, d_in = wq.shape
@@ -97,6 +105,23 @@ def unpack_apply(packed: torch.Tensor, v: torch.Tensor, w_base,
         return _ua.unpack_apply_p(packed, v2d, wq, out_dtype, w_scale=ws)
     return _ref.unpack_apply_ref(packed, v, wq, mode, dtype=out_dtype,
                                  w_scale=ws)
+
+
+def unpack_apply(packed: torch.Tensor, v: torch.Tensor, w_base,
+                 mode: str = "row", out_dtype=None,
+                 waxes=None) -> torch.Tensor:
+    """Ŵ = v ⊙ unpack(B) + W_b (the loader's dense reconstruction).
+
+    ``w_base`` may carry leading stacked dims (layers); ``packed`` and ``v``
+    carry the same ones.  One kernel launch covers the whole stack.
+    ``w_base`` may be a QuantWeight (int8 base): the kernel dequantizes in
+    the same pass and the default output dtype is the scale's (fp16).
+    ``waxes`` (the weight's logical axes) routes a rank's tile through
+    ``kernels/dispatch`` under a mesh."""
+    y = _routed("unpack_apply", waxes, packed, v, w_base, mode, out_dtype)
+    if y is not None:
+        return y
+    return _unpack_apply_local(packed, v, w_base, mode, out_dtype)
 
 
 def bitlinear(x: torch.Tensor, packed: torch.Tensor, v: torch.Tensor,
@@ -118,43 +143,65 @@ def bitlinear(x: torch.Tensor, packed: torch.Tensor, v: torch.Tensor,
     return y.reshape(*lead, n)
 
 
+def _bitlinear_axes_f32(x2: torch.Tensor, packed: torch.Tensor,
+                        v_row: torch.Tensor, v_col: torch.Tensor,
+                        w_base) -> torch.Tensor:
+    """The fused product of 2-D rows x2 (M, K) in fp32, before any cast:
+    the kernel's own output, or the plain version over the fp32 rows
+    (its first step upcasts them, so the arithmetic is the same)."""
+    wq, ws = _unwrap_quant(w_base)
+    if _use_kernel(x2, packed, v_row, v_col, wq, ws):
+        return _bl.bitlinear_axes_p(x2.contiguous(), packed, v_row, v_col,
+                                    wq, w_scale=ws)
+    return _ref.bitlinear_axes_ref(x2.to(torch.float32), packed, v_row,
+                                   v_col, wq, w_scale=ws)
+
+
 def bitlinear_axes(x: torch.Tensor, packed: torch.Tensor,
                    v_row: torch.Tensor, v_col: torch.Tensor,
-                   w_base) -> torch.Tensor:
+                   w_base, waxes=None) -> torch.Tensor:
     """Fused y = x @ ((v_row ⊕ v_col) ⊙ unpack(B) + W_b)ᵀ.
 
     v[n,k] = v_row[n] + v_col[k]; the overlay zeroes the unselected axis, so
     one kernel covers row-, col- and scalar-scaled deltas.  x may carry
     leading batch dims (flattened into M); ``w_base`` may be a QuantWeight;
-    fp32 accumulation, result in x.dtype."""
-    wq, ws = _unwrap_quant(w_base)
+    fp32 accumulation, result in x.dtype.  ``waxes`` (the weight's
+    logical axes) routes through ``kernels/dispatch`` under a mesh."""
+    y = _routed("bitlinear_axes", waxes, x, packed, v_row, v_col, w_base)
+    if y is not None:
+        return y
+    wq, _ = _unwrap_quant(w_base)
     *lead, k_dim = x.shape
-    n = wq.shape[0]
-    x2 = x.reshape(-1, k_dim)
+    y = _bitlinear_axes_f32(x.reshape(-1, k_dim), packed, v_row, v_col,
+                            w_base)
+    return y.to(x.dtype).reshape(*lead, wq.shape[0])
+
+
+def _bitlinear_axes_stacked_f32(x: torch.Tensor, packed: torch.Tensor,
+                                v_row: torch.Tensor, v_col: torch.Tensor,
+                                w_base) -> torch.Tensor:
+    wq, ws = _unwrap_quant(w_base)
     if _use_kernel(x, packed, v_row, v_col, wq, ws):
-        y = _bl.bitlinear_axes_p(x2.contiguous(), packed, v_row, v_col, wq,
-                                 w_scale=ws).to(x.dtype)
-    else:
-        y = _ref.bitlinear_axes_ref(x2, packed, v_row, v_col, wq,
-                                    w_scale=ws)
-    return y.reshape(*lead, n)
+        return _bl.bitlinear_axes_stacked_p(
+            x.contiguous(), packed, v_row, v_col, wq, w_scale=ws)
+    return _ref.bitlinear_axes_stacked_ref(x.to(torch.float32), packed,
+                                           v_row, v_col, wq, w_scale=ws)
 
 
 def bitlinear_axes_stacked(x: torch.Tensor, packed: torch.Tensor,
                            v_row: torch.Tensor, v_col: torch.Tensor,
-                           w_base) -> torch.Tensor:
+                           w_base, waxes=None) -> torch.Tensor:
     """``bitlinear_axes`` over a leading expert axis, in one launch:
     x (E, M, K) · packed (E, N, K/8) · v_row (E, N) · v_col (E, K) ·
     w_base (E, N, K) or a QuantWeight with scale (E, N) -> (E, M, N) in
     x.dtype, expert e's rows against expert e's Ŵ (the JAX package vmaps
-    its kernel over the experts)."""
-    wq, ws = _unwrap_quant(w_base)
-    if _use_kernel(x, packed, v_row, v_col, wq, ws):
-        return _bl.bitlinear_axes_stacked_p(
-            x.contiguous(), packed, v_row, v_col, wq,
-            w_scale=ws).to(x.dtype)
-    return _ref.bitlinear_axes_stacked_ref(x, packed, v_row, v_col, wq,
-                                           w_scale=ws)
+    its kernel over the experts).  ``waxes`` as in ``bitlinear_axes``."""
+    y = _routed("bitlinear_axes_stacked", waxes, x, packed, v_row, v_col,
+                w_base)
+    if y is not None:
+        return y
+    return _bitlinear_axes_stacked_f32(x, packed, v_row, v_col,
+                                       w_base).to(x.dtype)
 
 
 def flatten_vidx(variant_idx: torch.Tensor, lead: tuple) -> torch.Tensor:
@@ -170,9 +217,23 @@ def flatten_vidx(variant_idx: torch.Tensor, lead: tuple) -> torch.Tensor:
         tuple(lead)).to(torch.int32).reshape(m)
 
 
+def _bitlinear_axes_banked_f32(x2: torch.Tensor, vidx: torch.Tensor,
+                               packed: torch.Tensor, v_row: torch.Tensor,
+                               v_col: torch.Tensor, w_base) -> torch.Tensor:
+    wq, ws = _unwrap_quant(w_base)
+    if _use_kernel(x2, vidx, packed, v_row, v_col, wq, ws):
+        return _bl.bitlinear_axes_banked_p(x2.contiguous(),
+                                           vidx.contiguous(), packed, v_row,
+                                           v_col, wq, w_scale=ws)
+    return _ref.bitlinear_axes_banked_ref(x2.to(torch.float32), vidx,
+                                          packed, v_row, v_col, wq,
+                                          w_scale=ws)
+
+
 def bitlinear_axes_banked(x: torch.Tensor, variant_idx: torch.Tensor,
                           packed: torch.Tensor, v_row: torch.Tensor,
-                          v_col: torch.Tensor, w_base) -> torch.Tensor:
+                          v_col: torch.Tensor, w_base,
+                          waxes=None) -> torch.Tensor:
     """Mixed-variant fused y: row m of x computes against bank slot
     ``variant_idx[m]`` of a stacked overlay (slot 0 = base, zero delta).
 
@@ -180,20 +241,18 @@ def bitlinear_axes_banked(x: torch.Tensor, variant_idx: torch.Tensor,
     overlay leaves along a leading bank axis; ``variant_idx`` is integer
     with shape x.shape[:-1] or (x.shape[0],).  x may carry leading batch
     dims; ``w_base`` may be a QuantWeight (one dequant serves every slot);
-    fp32 accumulation, result in x.dtype."""
-    wq, ws = _unwrap_quant(w_base)
+    fp32 accumulation, result in x.dtype.  ``waxes`` as in
+    ``bitlinear_axes``."""
+    y = _routed("bitlinear_axes_banked", waxes, x, variant_idx, packed,
+                v_row, v_col, w_base)
+    if y is not None:
+        return y
+    wq, _ = _unwrap_quant(w_base)
     *lead, k_dim = x.shape
-    n = wq.shape[0]
-    x2 = x.reshape(-1, k_dim)
     vidx = flatten_vidx(variant_idx, tuple(lead))
-    if _use_kernel(x, variant_idx, packed, v_row, v_col, wq, ws):
-        y = _bl.bitlinear_axes_banked_p(x2.contiguous(), vidx.contiguous(),
-                                        packed, v_row, v_col, wq,
-                                        w_scale=ws).to(x.dtype)
-    else:
-        y = _ref.bitlinear_axes_banked_ref(x2, vidx, packed, v_row, v_col,
-                                           wq, w_scale=ws)
-    return y.reshape(*lead, n)
+    y = _bitlinear_axes_banked_f32(x.reshape(-1, k_dim), vidx, packed,
+                                   v_row, v_col, w_base)
+    return y.to(x.dtype).reshape(*lead, wq.shape[0])
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,0 +1,233 @@
+"""Rank meshes over ``torch.distributed`` (port of ``repro.launch.mesh``).
+
+``make_host_mesh(data, model)`` builds the :class:`~repro_torch.
+distributed.sharding.Mesh` of an initialised process group (one process
+per rank, ranks row-major over (data, model)).  ``backend_for`` is the one
+backend rule of the port:
+
+* NCCL when every rank has a card of its own;
+* gloo otherwise — the CPU, and ranks that share one card.  Under gloo the
+  collective helpers copy CUDA tensors through the host, one copy each way
+  (``sharding.psum`` / ``all_gather``); the kernels still run on the card.
+
+``spawn(fn, mesh_shape)`` starts one process per rank, initialises the
+group (``file://`` rendezvous in a fresh temporary directory, so runs side
+by side never share a port), calls ``fn(mesh, *args)`` on every rank and
+returns the ranks' results in rank order.  It joins with a deadline: a
+rank that raises, or a group that outlives ``timeout_s``, ends every rank
+and raises with the failing rank's traceback — a failure never hangs.
+``make_production_mesh`` (256 or 512 chips) is the dry-run's, a later
+slice.
+"""
+from __future__ import annotations
+
+import datetime
+import math
+import multiprocessing as mp
+import os
+import pickle
+import shutil
+import tempfile
+import time
+import traceback
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import Mesh, build_groups
+
+# a group's deadline (spawn) and its process group's collective timeout
+# (torchrun) when the caller names none: a full-width serve's build, load
+# and run fit well inside it
+DEFAULT_TIMEOUT_S = 1200.0
+
+
+def backend_for(device: str, world: int) -> str:
+    """NCCL when every rank has a card of its own, else gloo."""
+    if torch.device(device).type == "cuda" \
+            and torch.distributed.is_nccl_available() \
+            and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(device: str, backend: str, rank: int) -> torch.device:
+    """The card (or CPU) rank ``rank`` runs on: its own card under NCCL,
+    card 0 (shared) under gloo."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    return torch.device("cuda", rank if backend == "nccl" else 0)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0, *,
+                   device=None) -> Mesh:
+    """The (data, model) — or with ``pod`` > 0 (pod, data, model) — mesh
+    of the initialised default process group, with one group per axis set
+    (``sharding.build_groups``).  Raises when the world is not the mesh's
+    size.  ``device`` defaults to the rank's card under the group's backend
+    (``rank_device``), whatever the backend: the CPU only when asked for,
+    as ``device.resolve_device`` has it."""
+    dist = torch.distributed
+    if not dist.is_initialized():
+        raise RuntimeError("make_host_mesh needs an initialised process "
+                           "group (launch.mesh.spawn or torchrun)")
+    if pod:
+        raise NotImplementedError(
+            "the 3-axis (pod, data, model) mesh arrives with the pod-bank "
+            "slice of the port")
+    shape = (data, model)
+    names = ("data", "model")
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise RuntimeError(f"mesh {shape} needs {math.prod(shape)} ranks, "
+                           f"the process group has {world}")
+    rank = dist.get_rank()
+    backend = dist.get_backend()
+    if device is None:
+        device = rank_device(str(resolve_device()), backend, rank)
+    coords = (rank // model, rank % model)
+    groups = build_groups(names, shape, backend)
+    host = dist.new_group(list(range(world)), backend="gloo") \
+        if backend != "gloo" else dist.group.WORLD
+    return Mesh(names, shape, coords, backend=backend,
+                device=torch.device(device), groups=groups, host_group=host)
+
+
+def load_kernels(mesh: Mesh) -> None:
+    """Load the kernel library on every rank of a mesh on cards: rank 0
+    first (a build, on a miss, writes the compile cache, which has no file
+    lock), the others after a barrier, when it only reads.  Nothing on the
+    CPU."""
+    if mesh.device.type != "cuda":
+        return
+    from repro_torch.kernels import build
+    if mesh.rank == 0:
+        build.library()
+    mesh.barrier()
+    if mesh.rank != 0:
+        build.library()
+
+
+# ---------------------------------------------------------------------------
+# spawn: one process per rank, a deadline, no hang on failure
+# ---------------------------------------------------------------------------
+
+def _rank_main(fn, rank: int, world: int, mesh_shape: tuple, device: str,
+               backend: str, workdir: str, timeout_s: float, args: tuple,
+               threads: int) -> None:
+    out = os.path.join(workdir, f"rank{rank}")
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        dev = rank_device(device, backend, rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.distributed.init_process_group(
+            backend, init_method=f"file://{workdir}/rendezvous",
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        mesh = make_host_mesh(*mesh_shape, device=dev)
+        load_kernels(mesh)
+        result = fn(mesh, *args)
+        with open(out + ".tmp", "wb") as f:
+            pickle.dump(result, f)
+        os.replace(out + ".tmp", out + ".ok")
+        # no rank tears its groups down while a peer is still in a
+        # collective
+        mesh.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+class RankFailure(RuntimeError):
+    """A rank raised, or the group outlived its deadline."""
+
+
+class Group:
+    """A running group of ranks (``start``); ``join()`` returns their
+    results or raises :class:`RankFailure`."""
+
+    def __init__(self, procs, workdir, timeout_s):
+        self.procs = procs
+        self.workdir = workdir
+        self.deadline = time.monotonic() + timeout_s
+        self.timeout_s = timeout_s
+
+    def _kill(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+        for p in self.procs:
+            p.join(5)
+
+    def _error(self, rank: int) -> str:
+        path = os.path.join(self.workdir, f"rank{rank}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                return f.read()
+        return f"(rank {rank} exited with code {self.procs[rank].exitcode})"
+
+    def join(self) -> list:
+        try:
+            while True:
+                codes = [p.exitcode for p in self.procs]
+                failed = [r for r, c in enumerate(codes)
+                          if c is not None and c != 0]
+                if failed:
+                    self._kill()
+                    r = failed[0]
+                    raise RankFailure(f"rank {r} of {len(self.procs)} "
+                                      f"failed (exit codes {codes}):\n"
+                                      f"{self._error(r)}")
+                if all(c == 0 for c in codes):
+                    break
+                if time.monotonic() > self.deadline:
+                    self._kill()
+                    raise RankFailure(
+                        f"group of {len(self.procs)} ranks outlived its "
+                        f"{self.timeout_s} s deadline; ranks still running: "
+                        f"{[r for r, c in enumerate(codes) if c is None]}")
+                time.sleep(0.02)
+            out = []
+            for r in range(len(self.procs)):
+                with open(os.path.join(self.workdir, f"rank{r}.ok"),
+                          "rb") as f:
+                    out.append(pickle.load(f))
+            return out
+        finally:
+            self._kill()
+            shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+def start(fn, mesh_shape: tuple, *, device: str = "cuda",
+          timeout_s: float = DEFAULT_TIMEOUT_S, args: tuple = (),
+          threads: int = 0) -> Group:
+    """Start one process per rank of ``mesh_shape`` (data, model) running
+    ``fn(mesh, *args)`` (``fn`` and ``args`` must pickle: a module-level
+    function).  ``threads`` > 0 sets each rank's intra-op threads."""
+    world = math.prod(mesh_shape)
+    backend = backend_for(device, world)
+    workdir = tempfile.mkdtemp(prefix="repro_mesh_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, tuple(mesh_shape), device,
+                               backend, workdir, timeout_s, tuple(args),
+                               threads),
+                         daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return Group(procs, workdir, timeout_s)
+
+
+def spawn(fn, mesh_shape: tuple, *, device: str = "cuda",
+          timeout_s: float = DEFAULT_TIMEOUT_S, args: tuple = (),
+          threads: int = 0) -> list:
+    """``start`` then ``join``: the ranks' results in rank order."""
+    return start(fn, mesh_shape, device=device, timeout_s=timeout_s,
+                 args=args, threads=threads).join()
+

@@ -40,12 +40,25 @@ commits it between decode steps; the run prints the pipeline's counters.
 ``--max-retries`` bounds the retries of a request whose variant fails to
 load.  ``--num-layers`` cuts depth only; ``--reduced`` selects the small
 test widths.  Runs on ``--device`` (default cuda).
+
+``--mesh DATA,MODEL`` serves over a (data, model) mesh of ranks, one
+process each (``launch/mesh``; explicit SPMD, ``distributed/sharding``):
+under ``torchrun`` (``WORLD_SIZE`` set) this process is one rank, else the
+launcher starts the ranks itself (``launch.mesh.spawn``: NCCL when every
+rank has a card of its own, else gloo over shared card 0) and checks that
+every rank served the same tokens.  ``--kernel-dispatch`` picks per-rank
+kernels (``shard_map``, the default) or the gathered global kernels
+(``gspmd``).  Mesh serving runs its steps eagerly; the 3-value mesh and
+``--pod-banks`` arrive with the pod-bank slice and raise.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
+import os
+import sys
 import time
 
 import numpy as np
@@ -96,14 +109,16 @@ def fine_tune(base, seed: int, scale: float = 0.005):
     return tree_map(noisy, base)
 
 
-def build_variants(cfg, n_variants: int, device, seed: int = 0):
+def build_variants(cfg, n_variants: int, device, seed: int = 0,
+                   with_axes: bool = False):
     """(model, base params (seeded), [DeltaModel of each synthetic
-    fine-tune]); each fine-tune is freed once compressed."""
+    fine-tune]) — and the params' logical axes with ``with_axes``; each
+    fine-tune is freed once compressed."""
     model = build_model(cfg)
-    base, _ = split(model.init(seed, device=device))
+    base, axes = split(model.init(seed, device=device))
     dms = [C.compress(base, fine_tune(base, 100 + i))
            for i in range(n_variants)]
-    return model, base, dms
+    return (model, base, dms, axes) if with_axes else (model, base, dms)
 
 
 def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
@@ -135,11 +150,15 @@ def build_deployment(cfg, *, mode: str, n_variants: int, batch: int,
                      device, scheduler: str = "group", seed: int = 0,
                      max_resident: int = 0, base_dtype: str = "fp",
                      root_dir=None, max_len: int = 0, draft_k: int = 4,
-                     **kw):
+                     mesh=None, **kw):
     """Base model (seeded) + ``n_variants`` published synthetic variants
     v0..v{n-1}, behind a Deployment with a bank of ``n_variants + 2``
-    slots (``kw``: see ``deploy``)."""
-    model, base, dms = build_variants(cfg, n_variants, device, seed)
+    slots (``kw``: see ``deploy``); on ``mesh`` each rank keeps its blocks
+    (``param_axes`` from the init)."""
+    model, base, dms, axes = build_variants(cfg, n_variants, device, seed,
+                                            with_axes=True)
+    if mesh is not None:
+        kw.update(mesh=mesh, param_axes=axes)
     return deploy(model, base, dms, mode=mode, scheduler=scheduler,
                   batch=batch, device=device, max_resident=max_resident,
                   base_dtype=base_dtype, root_dir=root_dir, max_len=max_len,
@@ -161,7 +180,7 @@ def submit_requests(dep, cfg, n_requests: int, new_tokens,
             for i in range(n_requests)]
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -210,9 +229,80 @@ def main(argv=None):
     ap.add_argument("--max-retries", type=int, default=1,
                     help="retries of a request whose variant fails to "
                          "load before it fails")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="serve on a (data, model) mesh of ranks, one "
+                         "process each (default: one device)")
+    ap.add_argument("--pod-banks", action="store_true",
+                    help="pod-local overlay banks (a later slice: raises)")
+    ap.add_argument("--kernel-dispatch", choices=("shard_map", "gspmd"),
+                    default="shard_map",
+                    help="mesh delta GEMMs: per-rank kernels (default) or "
+                         "the gathered global kernels")
     ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def _mesh_shape(ap, args):
+    """(data, model) of ``--mesh``, or None."""
+    if args.pod_banks:
+        raise NotImplementedError("--pod-banks arrives with the pod-bank "
+                                  "slice of the port")
+    if not args.mesh:
+        return None
+    try:
+        parts = [int(p) for p in args.mesh.split(",")]
+    except ValueError:
+        ap.error("--mesh expects DATA,MODEL, e.g. --mesh 1,2")
+    if len(parts) == 3:
+        raise NotImplementedError("a (pod, data, model) mesh arrives with "
+                                  "the pod-bank slice of the port")
+    if len(parts) != 2:
+        ap.error("--mesh expects DATA,MODEL, e.g. --mesh 1,2")
+    return tuple(parts)
+
+
+def _mesh_rank(mesh, argv) -> list:
+    """One rank of a self-started mesh: serve, return the tokens."""
+    return _serve(_parser().parse_args(argv), mesh, time.perf_counter())
+
+
+def main(argv=None):
+    ap = _parser()
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    shape = _mesh_shape(ap, args)
+    if shape is None:
+        _serve(args, None, t_start)
+        return
+    from repro_torch.launch import mesh as LM
+    if "WORLD_SIZE" in os.environ:
+        # under torchrun: this process is one rank
+        world = int(os.environ["WORLD_SIZE"])
+        backend = LM.backend_for(args.device, world)
+        rank = int(os.environ["RANK"])
+        dev = LM.rank_device(args.device, backend, rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.distributed.init_process_group(
+            backend,
+            timeout=datetime.timedelta(seconds=LM.DEFAULT_TIMEOUT_S))
+        mesh = LM.make_host_mesh(*shape, device=dev)
+        LM.load_kernels(mesh)
+        _serve(args, mesh, t_start)
+        torch.distributed.destroy_process_group()
+        return
+    tokens = LM.spawn(_mesh_rank, shape, device=args.device,
+                      args=(list(sys.argv[1:] if argv is None else argv),))
+    if any(t != tokens[0] for t in tokens):
+        raise RuntimeError("the mesh's ranks served different tokens")
+    print(f"mesh: {len(tokens)} ranks served the same tokens")
+
+
+def _serve(args, mesh, t_start: float) -> list:
+    """Build, publish and serve (on this rank of ``mesh``, if any); the
+    report prints once (rank 0).  Returns every request's tokens."""
+    ap = _parser()
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     if args.speculative:
         if args.mode != "fused":
             ap.error("--speculative verifies through the packed overlay "
@@ -226,10 +316,15 @@ def main(argv=None):
                  "overlay bank between decode steps and needs --scheduler "
                  "continuous (or --speculative)")
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    if mesh is not None:
+        say(f"mesh: {dict(zip(mesh.axis_names, mesh.shape))} backend "
+            f"{mesh.backend} kernel-dispatch {args.kernel_dispatch}")
     if args.compile_cache:
         CC.set_default(CC.CompileCache(args.compile_cache))
     cfg = make_config(args.arch, args.reduced, args.num_layers)
+    mesh_kw = {} if mesh is None else dict(
+        mesh=mesh, kernel_dispatch=args.kernel_dispatch, graphs=False)
     dep = build_deployment(cfg, mode=args.mode, n_variants=args.variants,
                            batch=args.batch, device=device,
                            scheduler=args.scheduler,
@@ -241,42 +336,43 @@ def main(argv=None):
                            draft_k=args.draft_k,
                            async_admission=args.async_admission,
                            admission_pacing_s=args.admission_pacing,
-                           max_retries=args.max_retries)
+                           max_retries=args.max_retries, **mesh_kw)
     if args.base_dtype == "int8":
         qs = dep.registry.quant_stats
-        print(f"int8 base: {qs['targets']} targets, "
+        say(f"int8 base: {qs['targets']} targets, "
               f"{qs['fp_bytes']} -> {qs['int8_bytes']} bytes "
               f"(ratio {qs['ratio']:.3f})")
     if args.warmup:
-        print("warmup:", json.dumps(dep.warmup()))
+        say("warmup:", json.dumps(dep.warmup()))
     rids = submit_requests(dep, cfg, args.requests, args.new_tokens)
     dep.drain()
     reqs = [dep.result(r) for r in rids]
     if dep.store is not None:
-        print("store:", {n: {"versions": dep.store.versions(n),
+        say("store:", {n: {"versions": dep.store.versions(n),
                              "artifact_bytes": dep.store.artifact_bytes(
                                  n, dep.store.latest(n))}
                          for n in dep.store.names()})
-    print("metrics:", dep.metrics)
+    say("metrics:", dep.metrics)
     if args.speculative:
-        print("speculative:", dep.status()["speculative"])
-    print("registry:", dep.stats)
+        say("speculative:", dep.status()["speculative"])
+    say("registry:", dep.stats)
     if dep.admission is not None:
-        print("admission:", dep.admission.stats)
-        print("staging-pool:", dep.admission.pool.stats)
+        say("admission:", dep.admission.stats)
+        say("staging-pool:", dep.admission.pool.stats)
     st = dep.status()
-    print("compiles:", st["steps"])
-    print("compile-cache:", st["compile_cache"])
+    say("compiles:", st["steps"])
+    say("compile-cache:", st["compile_cache"])
     first = min(r.first_token_at for r in reqs)
-    print("startup:", json.dumps({
+    say("startup:", json.dumps({
         "warmup_seconds": dep.metrics["warmup_seconds"],
         "first_token_seconds": first - t_start,
         "first_token_unix": time.time() - (time.perf_counter() - first)}))
-    print("tokens:", json.dumps([r.out_tokens for r in reqs]))
+    say("tokens:", json.dumps([r.out_tokens for r in reqs]))
     hbm = st["hbm"]
-    print("hbm:", {k: hbm[k] for k in ("base_dtype", "base_bytes",
+    say("hbm:", {k: hbm[k] for k in ("base_dtype", "base_bytes",
                                        "bank_bytes")})
     dep.close()
+    return [r.out_tokens for r in reqs]
 
 
 if __name__ == "__main__":

@@ -11,8 +11,17 @@ v's dtype).
 
 Caches are updated in place (the JAX functions return new caches; here
 the returned dict is the same storage, which saves a cache-sized copy per
-step).  Mesh sharding constraints of the JAX module are dropped: one card
-has no mesh.
+step).
+
+On a mesh (``distributed/sharding.py``) the head layout follows the JAX
+module's strategies by divisibility against the "model" axis
+(:func:`head_split`): head-TP when both head counts divide it (each rank
+holds whole q and KV heads, and its KV cache its own KV heads), or GQA
+with q heads sharded and K/V all-gathered once a layer when only the q
+heads divide (the cache then holds every KV head, and rank r's local q
+head j reads KV head (r·hq/M + j) // group: :func:`local_kv`).  The
+sequence-TP branch (q heads that do not divide) is a later slice and
+raises.
 """
 from __future__ import annotations
 
@@ -38,17 +47,81 @@ def attn_init(gen: torch.Generator, cfg) -> dict:
     return p
 
 
+def head_split(cfg) -> str:
+    """The attention layout on the active mesh: "none" (no model axis),
+    "heads" (head-TP) or "gqa" (q heads sharded, K/V whole)."""
+    from repro_torch.distributed.sharding import ctx_axis_size
+    ms = ctx_axis_size("model") or 1
+    if ms == 1:
+        return "none"
+    if cfg.num_heads % ms == 0 and cfg.num_kv_heads % ms == 0:
+        return "heads"
+    if cfg.num_heads % ms == 0:
+        return "gqa"
+    raise NotImplementedError(
+        f"{cfg.num_heads} q heads do not divide a model axis of {ms}: "
+        "sequence-TP attention arrives with the slice that serves the "
+        "other families under a mesh")
+
+
+def local_kv_heads(cfg) -> int:
+    """KV heads a rank's cache holds: its own under head-TP, all of them
+    otherwise."""
+    from repro_torch.distributed.sharding import ctx_axis_size
+    if head_split(cfg) == "heads":
+        return cfg.num_kv_heads // ctx_axis_size("model")
+    return cfg.num_kv_heads
+
+
+def local_kv(t: torch.Tensor, cfg) -> torch.Tensor:
+    """K or V (B, T, Hkv, hd) as the rank's local q heads read it: under
+    the "gqa" layout each local q head j of rank r gets its own copy of KV
+    head (r·hq/M + j) // group (B, T, hq/M, hd), so the attention runs one
+    q head per KV head; ``t`` itself otherwise."""
+    if head_split(cfg) != "gqa":
+        return t
+    from repro_torch.distributed.sharding import active_mesh
+    mesh = active_mesh()
+    hq_l = cfg.num_heads // mesh.axis_size("model")
+    group = cfg.num_heads // cfg.num_kv_heads
+    idx = (mesh.coord("model") * hq_l
+           + torch.arange(hq_l, device=t.device)) // group
+    return t.index_select(2, idx)
+
+
+def _whole_heads(t: torch.Tensor, w) -> torch.Tensor:
+    """A K/V projection output made whole over the model axis when its
+    weight's out dim was sharded (cut across head boundaries when the KV
+    heads do not divide)."""
+    from repro_torch.distributed import sharding as S
+    lay = S.active_layout()
+    if lay is None:
+        return t
+    wq = w.q if hasattr(w, "q") else w
+    _, (o_part, _) = lay.lookup(("kv_heads", "embed"), tuple(wq.shape[-2:]))
+    if o_part is None:
+        return t
+    return S.all_gather(t, o_part, t.dim() - 1)
+
+
 def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                 theta, ov=None, vidx=None):
     """x (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), qk-normed, RoPE'd.
-    ``vidx`` (B,) selects each row's bank slot of a banked overlay."""
+    ``vidx`` (B,) selects each row's bank slot of a banked overlay.  On a
+    mesh Hq and Hkv are the rank's (:func:`head_split`)."""
     b, s, _ = x.shape
-    q = linear(x, p["wq"], _oget(ov, "wq"), vidx)
-    k = linear(x, p["wk"], _oget(ov, "wk"), vidx)
-    v = linear(x, p["wv"], _oget(ov, "wv"), vidx)
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    split = head_split(cfg)
+    q = linear(x, p["wq"], _oget(ov, "wq"), vidx, waxes=("q_heads", "embed"))
+    k = linear(x, p["wk"], _oget(ov, "wk"), vidx,
+               waxes=("kv_heads", "embed"))
+    v = linear(x, p["wv"], _oget(ov, "wv"), vidx,
+               waxes=("kv_heads", "embed"))
+    if split == "gqa":
+        k = _whole_heads(k, p["wk"])
+        v = _whole_heads(v, p["wv"])
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, psel(p["q_norm"], _oget(ov, "q_norm"), vidx, lead=2),
                     cfg.norm_eps)

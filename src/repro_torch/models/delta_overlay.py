@@ -1,6 +1,5 @@
 """Delta overlay: packed per-module deltas that ride alongside the base
-params (port of ``repro.models.delta_overlay`` without the mesh sharding
-part).
+params (port of ``repro.models.delta_overlay``).
 
 A variant kept "fused" lives on the device as a tree of
 :class:`OverlayEntry` — packed sign mask + per-axis fp16 vectors — that
@@ -180,3 +179,121 @@ def bank_set_extra_base(path: str, bank: torch.Tensor, slot: int,
     place."""
     bank[bank_index(path, slot)] = base_leaf.to(bank.dtype)
     return bank
+
+
+# ---------------------------------------------------------------------------
+# logical axes and placements of overlay leaves (mesh serving)
+#
+# The packed sign plane keeps the weight's logical axes on its unpacked
+# dims with the packed byte dim replicated (the JAX derivation, which the
+# resolution tests hold leaf for leaf), v_row / v_col follow the single
+# weight axis they scale, extras keep the weight's own axes, and the bank
+# axis resolves through the "bank" rule (replicated).  Where the port
+# PLACES a packed plane (``entry_shardings_from_weight``) it departs from
+# that on purpose: a rank stores its K-tile's bytes, contiguously, since a
+# column slice of a torch tensor is a strided view the kernels refuse.
+# ---------------------------------------------------------------------------
+
+def _insert_bank(axes: tuple, path: str) -> tuple:
+    ax = bank_axis(path)
+    return axes[:ax] + ("bank",) + axes[ax:]
+
+
+def entry_axes(weight_axes: tuple, *, path: str = "",
+               bank: bool = False) -> OverlayEntry:
+    """Logical axes for one overlay entry, derived from the shadowed
+    weight's ``(*lead, out_ax, in_ax)`` axes."""
+    *lead, out_ax, in_ax = weight_axes
+    packed = tuple(lead) + (out_ax, None)   # packed byte dim: replicated
+    v_row = tuple(lead) + (out_ax,)
+    v_col = tuple(lead) + (in_ax,)
+    if bank:
+        packed, v_row, v_col = (_insert_bank(t, path)
+                                for t in (packed, v_row, v_col))
+    return OverlayEntry(packed=packed, v_row=v_row, v_col=v_col)
+
+
+def extra_axes(weight_axes: tuple, *, path: str = "",
+               bank: bool = False) -> tuple:
+    """Extras leaves are fine-tuned copies of base leaves: same axes, plus
+    the replicated bank axis when banked."""
+    return _insert_bank(tuple(weight_axes), path) if bank \
+        else tuple(weight_axes)
+
+
+def _is_axes(x) -> bool:
+    """A leaf of an axes tree: logical names, or a resolved spec whose
+    entries may be tuples of mesh axes."""
+    return isinstance(x, tuple) and all(
+        isinstance(e, (str, type(None), tuple)) for e in x)
+
+
+def flatten_axes(param_axes) -> dict:
+    """{dot-path -> tuple} view of a ``param.split`` axes tree or of its
+    resolved spec tree; {} for None."""
+    out: dict = {}
+    if param_axes is None:
+        return out
+
+    def walk(node, prefix):
+        if _is_axes(node):
+            out[prefix] = node
+            return
+        for k, v in node.items():
+            walk(v, f"{prefix}.{k}" if prefix else k)
+    walk(param_axes, "")
+    return out
+
+
+def overlay_pspecs(param_axes, delta_paths, extra_paths=(), *,
+                   bank: bool = False) -> dict:
+    """Logical-axes tree mirroring an overlay (or banked overlay) tree;
+    extras ride in the tree only when banked."""
+    flat = flatten_axes(param_axes)
+    tree: dict = {}
+    for path in delta_paths:
+        insert_entry(tree, path, entry_axes(flat[path], path=path, bank=bank))
+    for path in extra_paths:
+        insert_entry(tree, path, extra_axes(flat[path], path=path, bank=bank))
+    return tree
+
+
+def overlay_struct(flat_shapes: dict, delta_paths, extra_paths=(), *,
+                   bank_size=None) -> dict:
+    """Shape-only twin of an overlay tree (``meta`` tensors), from the
+    BASE weights' shapes; with ``bank_size`` the leaves grow the bank axis
+    and the extras join."""
+    def sds(shape, dtype):
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+    tree: dict = {}
+    for path in delta_paths:
+        shape = tuple(flat_shapes[path])
+        lead, (d_out, d_in) = shape[:-2], shape[-2:]
+        parts = [lead + (d_out, d_in // 8), lead + (d_out,), lead + (d_in,)]
+        if bank_size is not None:
+            ax = bank_axis(path)
+            parts = [t[:ax] + (bank_size,) + t[ax:] for t in parts]
+        insert_entry(tree, path, OverlayEntry(
+            packed=sds(parts[0], torch.uint8),
+            v_row=sds(parts[1], torch.float16),
+            v_col=sds(parts[2], torch.float16)))
+    if bank_size is not None:
+        for path in extra_paths:
+            shape = tuple(flat_shapes[path])
+            ax = bank_axis(path)
+            insert_entry(tree, path, sds(shape[:ax] + (bank_size,)
+                                         + shape[ax:], torch.float32))
+    return tree
+
+
+def entry_shardings_from_weight(weight_spec: tuple,
+                                w_ndim: int) -> OverlayEntry:
+    """Overlay-leaf specs by SPEC SURGERY on the shadowed weight's
+    resolved spec: packed keeps the weight's spec — its byte dim carries
+    the in dim's axes, so a rank holds its K-tile's bytes (the port's
+    layout; the JAX package keeps the byte dim replicated); v_row keeps
+    (lead..., d_out)'s entries, v_col (lead..., d_in)'s."""
+    spec = (tuple(weight_spec) + (None,) * w_ndim)[:w_ndim]
+    return OverlayEntry(packed=spec, v_row=spec[:-1],
+                        v_col=spec[:-2] + spec[-1:])

@@ -31,8 +31,8 @@ def dtype_of(name: str) -> torch.dtype:
 # entry swaps the dense GEMM for the fused on-the-fly delta GEMM
 # ---------------------------------------------------------------------------
 
-def linear(x: torch.Tensor, w: torch.Tensor, ov=None,
-           vidx=None) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor, ov=None, vidx=None,
+           waxes=None) -> torch.Tensor:
     """y = x @ Ŵᵀ where Ŵ = w without an overlay entry, else the variant
     weight v ⊙ unpack(B) + w applied on the fly (never densified).
 
@@ -44,15 +44,58 @@ def linear(x: torch.Tensor, w: torch.Tensor, ov=None,
     per output channel).  Without an overlay the product factors exactly,
     x @ Ŵᵀ = (x @ qᵀ) ⊙ scale, as the JAX package computes it outside any
     kernel; overlay paths hand the QuantWeight to the kernels, which
-    dequantize in the tile pass."""
+    dequantize in the tile pass.
+
+    ``waxes`` — the weight's logical axes as declared at init — places
+    the product on a mesh (``distributed/sharding.py``): the delta GEMMs
+    route per rank through ``kernels/dispatch``, and the plain product of
+    a weight whose in dim is sharded is summed over those axes in fp32,
+    since each rank holds a partial contraction."""
     if ov is None:
+        i_part = _contracted_axes(w, waxes)
+        if i_part is not None:
+            # a partial contraction over the rank's K-tile: kept in fp32
+            # until the ranks' sum, as one card's product accumulates in
+            # fp32 and rounds once (an int8 base never gets here: a mesh
+            # refuses it)
+            from repro_torch.distributed import sharding as S
+            y = x.to(torch.float32) @ w.T.to(x.dtype).to(torch.float32)
+            return S.psum(y, i_part).to(x.dtype)
         if is_quant(w):
             return (x @ w.q.T.to(x.dtype)) * w.scale.to(x.dtype)
         return x @ w.T.to(x.dtype)
     from repro_torch.kernels import ops as K
     if vidx is None:
-        return K.bitlinear_axes(x, ov.packed, ov.v_row, ov.v_col, w)
-    return K.bitlinear_axes_banked(x, vidx, ov.packed, ov.v_row, ov.v_col, w)
+        return K.bitlinear_axes(x, ov.packed, ov.v_row, ov.v_col, w,
+                                waxes=waxes)
+    return K.bitlinear_axes_banked(x, vidx, ov.packed, ov.v_row, ov.v_col, w,
+                                   waxes=waxes)
+
+
+def _contracted_axes(w, waxes):
+    """The mesh axes that shard the weight's in dim under the active mesh
+    (each rank then holds a partial contraction), or None."""
+    from repro_torch.distributed import sharding as S
+    lay = S.active_layout()
+    if waxes is None or lay is None:
+        return None
+    wq = w.q if is_quant(w) else w
+    _, (_, i_part) = lay.lookup(tuple(waxes[-2:]), tuple(wq.shape[-2:]))
+    return i_part
+
+
+def vocab_shard(table: torch.Tensor):
+    """(first global row, mesh axes) of the rank's block of a vocab-sharded
+    (vocab, d) table under the active mesh; (0, None) when the table is
+    whole."""
+    from repro_torch.distributed import sharding as S
+    lay = S.active_layout()
+    if lay is None:
+        return 0, None
+    _, (v_part, _) = lay.lookup(("vocab", "embed"), tuple(table.shape[-2:]))
+    if v_part is None:
+        return 0, None
+    return S.active_mesh().index(v_part) * table.shape[-2], v_part
 
 
 def psel(w: torch.Tensor, bank=None, vidx=None, *,
@@ -181,12 +224,28 @@ def embed_init(gen: torch.Generator, vocab: int, d: int) -> Param:
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype: str,
                  bank=None, vidx=None) -> torch.Tensor:
     """Token embedding; with a banked extras table (V, vocab, d) and per-row
-    variant indices, each batch row looks up its own variant's table."""
+    variant indices, each batch row looks up its own variant's table.
+
+    On a mesh whose "model" axis shards the vocab, each rank looks up the
+    ids in its own range, writes zeros for the others and the ranks sum:
+    exact, since one rank contributes each row."""
+    src = table if bank is None or vidx is None else bank
+    lo, part = vocab_shard(src)
+    ids = tokens
+    if part is not None:
+        n = src.shape[-2]
+        mine = (tokens >= lo) & (tokens < lo + n)
+        ids = torch.where(mine, tokens - lo, torch.zeros_like(tokens))
     if bank is None or vidx is None:
-        return table[tokens].to(dtype_of(dtype))
-    idx = vidx.to(torch.int64).reshape(vidx.shape[0],
-                                       *([1] * (tokens.dim() - 1)))
-    return bank[idx, tokens].to(dtype_of(dtype))
+        x = table[ids]
+    else:
+        idx = vidx.to(torch.int64).reshape(vidx.shape[0],
+                                           *([1] * (tokens.dim() - 1)))
+        x = bank[idx, ids]
+    if part is not None:
+        from repro_torch.distributed import sharding as S
+        x = S.psum(torch.where(mine[..., None], x, torch.zeros_like(x)), part)
+    return x.to(dtype_of(dtype))
 
 
 def unembed_logits(x: torch.Tensor, table: torch.Tensor, bank=None,
@@ -198,13 +257,25 @@ def unembed_logits(x: torch.Tensor, table: torch.Tensor, bank=None,
     read at most V times per step — never gathered per ROW, which would
     cost B copies of (vocab, d) and make the traffic depend on the batch
     mix — and each row's logits come from the same product the per-variant
-    path runs, so greedy tokens match it exactly."""
+    path runs, so greedy tokens match it exactly.
+
+    On a mesh that shards the vocab each rank computes its block of the
+    logits and the blocks are all-gathered over the vocab's axes, so the
+    row is whole on every rank and greedy argmax ties break to the lowest
+    global index, as on one device."""
     if bank is None or vidx is None:
-        return x @ table.T.to(x.dtype)
-    logits = x @ bank[0].T.to(x.dtype)                     # slot 0 = base
-    sel = vidx.reshape(-1, *([1] * (x.dim() - 1)))
-    for v in range(1, bank.shape[0]):
-        logits = torch.where(sel == v, x @ bank[v].T.to(x.dtype), logits)
+        logits = x @ table.T.to(x.dtype)
+        src = table
+    else:
+        logits = x @ bank[0].T.to(x.dtype)                 # slot 0 = base
+        sel = vidx.reshape(-1, *([1] * (x.dim() - 1)))
+        for v in range(1, bank.shape[0]):
+            logits = torch.where(sel == v, x @ bank[v].T.to(x.dtype), logits)
+        src = bank
+    _, part = vocab_shard(src)
+    if part is not None:
+        from repro_torch.distributed import sharding as S
+        logits = S.all_gather(logits, part, logits.dim() - 1)
     return logits
 
 
@@ -220,10 +291,17 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int) -> dict:
     }
 
 
-def mlp_apply(p: dict, x: torch.Tensor, ov=None, vidx=None) -> torch.Tensor:
-    h = (F.silu(linear(x, p["w_gate"], _oget(ov, "w_gate"), vidx))
-         * linear(x, p["w_up"], _oget(ov, "w_up"), vidx))
-    return linear(h, p["w_down"], _oget(ov, "w_down"), vidx)
+def mlp_apply(p: dict, x: torch.Tensor, ov=None, vidx=None,
+              ffn_ax: str = "ffn") -> torch.Tensor:
+    """``ffn_ax`` names the hidden dim's logical axis — "ffn" for the gated
+    MLP, "ffn_small" for MoE shared experts (replicated) — so a mesh sees
+    the axes the weights were placed with."""
+    h = (F.silu(linear(x, p["w_gate"], _oget(ov, "w_gate"), vidx,
+                       waxes=(ffn_ax, "embed")))
+         * linear(x, p["w_up"], _oget(ov, "w_up"), vidx,
+                  waxes=(ffn_ax, "embed")))
+    return linear(h, p["w_down"], _oget(ov, "w_down"), vidx,
+                  waxes=("embed", ffn_ax))
 
 
 # ---------------------------------------------------------------------------
@@ -243,5 +321,7 @@ def mlp2_init(gen: torch.Generator, d: int, d_ff: int) -> dict:
 
 
 def mlp2_apply(p: dict, x: torch.Tensor, ov=None, vidx=None) -> torch.Tensor:
-    return linear(gelu(linear(x, p["w_in"], _oget(ov, "w_in"), vidx)),
-                  p["w_out"], _oget(ov, "w_out"), vidx)
+    return linear(gelu(linear(x, p["w_in"], _oget(ov, "w_in"), vidx,
+                              waxes=("ffn", "embed"))),
+                  p["w_out"], _oget(ov, "w_out"), vidx,
+                  waxes=("embed", "ffn"))

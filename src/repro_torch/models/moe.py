@@ -15,9 +15,17 @@ of the expert-stacked fused delta GEMM
 (``kernels/ops.bitlinear_axes_stacked``), where the JAX module vmaps its
 kernel over the expert axis.  A BANKED overlay (``vidx`` per batch row)
 routes every token by its own variant's router and runs the expert pass
-once per bank slot with the other rows zeroed, as the JAX module does.  Mesh sharding constraints and the
-shard-local ``local_top_k`` wrapper are dropped: one card has no mesh, and
-outside a mesh the JAX ``local_top_k`` is ``lax.top_k``.
+once per bank slot with the other rows zeroed, as the JAX module does.
+
+On a mesh (``distributed/sharding.py``) the experts shard over "model":
+the router's block of scores is all-gathered so routing is whole and the
+same on every rank, each rank runs the stacked GEMMs of its own experts
+(``kernels/dispatch``), sums the routed contributions of those experts and
+the ranks all-reduce that sum.  The shared experts are replicated and
+added after the all-reduce, so they count once.  Capacity groups span the
+whole batch, as in the JAX program: when the engine splits its lanes over
+"data" and a group would cross the split, the layer all-gathers its rows
+first and keeps its own rows of the result.
 
 Ties: ``lax.top_k`` returns the lower index first among equal values
 (unrouted tokens all score 0 in the capacity selection); ``top_k`` here
@@ -70,9 +78,9 @@ def _group_tokens(x: torch.Tensor, target_group: int = 4096
 def top_k(score: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the ``k`` largest entries of the last dim,
     descending, the lower index first among equal values (``lax.top_k``'s
-    order)."""
-    vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    order; ``sharding.local_top_k``: scores are whole on every rank)."""
+    from repro_torch.distributed.sharding import local_top_k
+    return local_top_k(score, k)
 
 
 def capacity(n: int, cfg) -> int:
@@ -82,16 +90,19 @@ def capacity(n: int, cfg) -> int:
                           * cfg.capacity_factor)), n)
 
 
-def _combine(yd: torch.Tensor, c_idx: torch.Tensor, top_idx: torch.Tensor
-             ) -> torch.Tensor:
+def _combine(yd: torch.Tensor, c_idx: torch.Tensor, top_idx: torch.Tensor,
+             e_lo: int = 0) -> torch.Tensor:
     """Weighted expert outputs yd (G, E, C, D) back to token order
     (G, N, D): each token gathers the slots it holds in its top-k experts'
-    lists and sums them in one reduction, accumulating in at least fp32.
+    lists and sums them in one reduction, accumulating in at least fp32
+    (the result is left in that dtype).
     The JAX module scatter-adds; on CUDA a scatter-add sums with atomics in
     no fixed order, so a repeat run could differ in the last bit.  A token
     an expert dropped reads a zero slot; a list's zero-score filler tokens
     do not have that expert in their top-k, so their slots are never
-    read."""
+    read.  With ``e_lo`` the E experts of ``yd`` are global experts
+    e_lo..e_lo+E-1 (a rank's local experts) and a token's other experts
+    read the zero slot."""
     g, e, cap, d = yd.shape
     n = top_idx.shape[1]
     # slot_of[g, e, t] = token t's slot in expert e's list, else cap
@@ -99,14 +110,44 @@ def _combine(yd: torch.Tensor, c_idx: torch.Tensor, top_idx: torch.Tensor
                          device=yd.device)
     slot_of.scatter_(2, c_idx, torch.arange(cap, device=yd.device).expand(
         g, e, cap))
-    pos = slot_of.transpose(1, 2).gather(2, top_idx)            # (G,N,k)
+    local = top_idx - e_lo
+    mine = (local >= 0) & (local < e)
+    local = local.clamp(0, e - 1)
+    pos = slot_of.transpose(1, 2).gather(2, local)              # (G,N,k)
+    pos = torch.where(mine, pos, torch.full_like(pos, cap))
     yd_pad = torch.cat([yd, yd.new_zeros((g, e, 1, d))], dim=2)
     g_idx = torch.arange(g, device=yd.device)[:, None, None]
     acc = torch.promote_types(yd.dtype, torch.float32)
-    return yd_pad[g_idx, top_idx, pos].sum(dim=2, dtype=acc).to(yd.dtype)
+    return yd_pad[g_idx, local, pos].sum(dim=2, dtype=acc)
 
 
-def _expert_mm(xe: torch.Tensor, w, ent) -> torch.Tensor:
+def _local_experts(w, cfg) -> tuple:
+    """(first global expert, mesh axes) of the rank's expert block on the
+    active mesh; (0, None) when every rank holds every expert."""
+    from repro_torch.distributed import sharding as S
+    lay = S.active_layout()
+    if lay is None:
+        return 0, None
+    wq = w.q if is_quant(w) else w
+    _, (ep, _, _) = lay.lookup(("experts", "ffn", "embed"),
+                               tuple(wq.shape[-3:]))
+    if ep is None:
+        return 0, None
+    return S.active_mesh().index(ep) * wq.shape[-3], ep
+
+
+def _whole_groups(t_local: int, ways: int) -> bool:
+    """Whether the capacity groups of ``ways`` × ``t_local`` tokens (the
+    JAX program groups the whole batch) each lie inside one rank's rows."""
+    t = t_local * ways
+    n = min(4096, t)
+    while t % n:
+        n -= 1
+    return t_local % n == 0
+
+
+def _expert_mm(xe: torch.Tensor, w, ent,
+               waxes=("experts", "ffn", "embed")) -> torch.Tensor:
     """Per-expert matmul xe (E, M, D) · w (E, F, D) -> (E, M, F).  With a
     delta-overlay entry stacked over the experts the whole stack is one
     launch of the fused delta GEMM against the base weights; an int8 base
@@ -115,25 +156,51 @@ def _expert_mm(xe: torch.Tensor, w, ent) -> torch.Tensor:
         if is_quant(w):
             return (torch.einsum("emd,efd->emf", xe, w.q.to(xe.dtype))
                     * w.scale.to(xe.dtype)[:, None, :])
-        return torch.einsum("emd,efd->emf", xe, w.to(xe.dtype))
+        return _plain_stack("emd,efd->emf", xe, w, xe.dtype, waxes)
     from repro_torch.kernels import ops as K
-    return K.bitlinear_axes_stacked(xe, ent.packed, ent.v_row, ent.v_col, w)
+    return K.bitlinear_axes_stacked(xe, ent.packed, ent.v_row, ent.v_col, w,
+                                    waxes)
 
 
 def _experts(p: dict, xe: torch.Tensor, ents: dict) -> torch.Tensor:
     """Gated SwiGLU over the expert stacks: xe (E, M, D) -> (E, M, D)."""
     h = (F.silu(_expert_mm(xe, p["w_gate"], ents["w_gate"]))
          * _expert_mm(xe, p["w_up"], ents["w_up"]))
-    return _expert_mm(h, p["w_down"], ents["w_down"])
+    return _expert_mm(h, p["w_down"], ents["w_down"],
+                      waxes=("experts", "embed", "ffn"))
 
 
-def _emm(eq: str, xop: torch.Tensor, w, dtype) -> torch.Tensor:
+def _stack_contracted(w, waxes):
+    """The mesh axes that shard an expert stack's contracted dim (experts
+    that do not divide the model axis leave it to the ffn dim), or
+    None."""
+    from repro_torch.distributed import sharding as S
+    lay = S.active_layout()
+    if lay is None:
+        return None
+    return lay.lookup(tuple(waxes), tuple(w.shape[-3:]))[1][2]
+
+
+def _plain_stack(eq: str, xop: torch.Tensor, w, dtype, waxes):
+    """A plain product over an fp expert stack; a partial contraction (see
+    ``_stack_contracted``) stays fp32 until the ranks' sum."""
+    dp = _stack_contracted(w, waxes)
+    if dp is None:
+        return torch.einsum(eq, xop, w.to(dtype))
+    from repro_torch.distributed import sharding as S
+    y = torch.einsum(eq, xop.to(torch.float32),
+                     w.to(dtype).to(torch.float32))
+    return S.psum(y, dp).to(dtype)
+
+
+def _emm(eq: str, xop: torch.Tensor, w, dtype,
+         waxes=("experts", "ffn", "embed")) -> torch.Tensor:
     """Grouped product over a possibly int8 expert stack: its scale (E, F)
     broadcasts onto the (G, E, C, F) output, an exact factoring."""
     if is_quant(w):
         return (torch.einsum(eq, xop, w.q.to(dtype))
                 * w.scale.to(dtype)[None, :, None, :])
-    return torch.einsum(eq, xop, w.to(dtype))
+    return _plain_stack(eq, xop, w, dtype, waxes)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
@@ -145,6 +212,26 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
     over the bank slots, and the expert pass runs once per slot with the
     rows of other slots zeroed.  Capacity dispatch couples rows: a token's
     survival depends on the other tokens of its group."""
+    from repro_torch.distributed import sharding as S
+    rows = S.active_batch_axes()
+    if rows:
+        mesh = S.active_mesh()
+        ways = mesh.names_size(rows)
+        if not _whole_groups(x.shape[0] * x.shape[1], ways):
+            # a capacity group crosses the lanes' split: route the whole
+            # batch on every rank and keep this rank's rows
+            xw = S.all_gather(x, rows, 0)
+            vw = None if vidx is None else S.all_gather(vidx, rows, 0)
+            with S.rows_whole():
+                y, aux = _moe(p, xw, cfg, ov, vw)
+            b = x.shape[0]
+            i = mesh.index(rows)
+            return y[i * b:(i + 1) * b].contiguous(), aux
+    return _moe(p, x, cfg, ov, vidx)
+
+
+def _moe(p: dict, x: torch.Tensor, cfg, ov, vidx):
+    from repro_torch.distributed import sharding as S
     b, s, _ = x.shape
     e, k = cfg.num_experts, cfg.top_k
     xg, orig = _group_tokens(x)
@@ -153,6 +240,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
     # per-token variant indices in group layout (tokens are row-major)
     vidx_gn = (None if vidx is None
                else vidx[:, None].expand(b, s).reshape(g, n))
+    # this rank's experts (all of them off a mesh)
+    e_lo, e_part = _local_experts(p["w_gate"], cfg)
+    e_l = p["w_gate"].shape[-3] if not is_quant(p["w_gate"]) \
+        else p["w_gate"].q.shape[-3]
 
     rb = oget(ov, "router")
     if rb is None or vidx_gn is None:
@@ -165,6 +256,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
             logits = torch.where((vidx_gn == vi)[..., None],
                                  xg @ rb[vi].T.to(x.dtype), logits)
         logits = logits.to(torch.float32)                       # (G,N,E)
+    if e_part is not None:
+        # the router shards its experts like the stacks: whole scores on
+        # every rank, so routing is the same everywhere
+        logits = S.all_gather(logits, e_part, logits.dim() - 1)
     probs = torch.softmax(logits, dim=-1)
     top_val, top_idx = top_k(probs, k)
     top_val = top_val / torch.clamp(top_val.sum(-1, keepdim=True), min=1e-9)
@@ -173,6 +268,9 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
     sel = F.one_hot(top_idx, e).to(torch.float32) * top_val[..., None]
     score = sel.sum(dim=2).transpose(1, 2)                      # (G,E,N)
     c_val, c_idx = top_k(score, cap)                            # (G,E,C)
+    # the rank's experts' lists
+    c_val = c_val[:, e_lo:e_lo + e_l]
+    c_idx = c_idx[:, e_lo:e_lo + e_l]
     g_idx = torch.arange(g, device=x.device)[:, None, None]
     xd = xg[g_idx, c_idx]                                       # (G,E,C,D)
 
@@ -183,16 +281,19 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
         # capacity fillers (c_val 0) enter as zero rows: their outputs are
         # discarded below, and an expert that no token routes to then
         # costs the kernel no weight read.
-        routed = (c_val > 0).transpose(0, 1).reshape(e, g * cap, 1)
-        xe = torch.where(routed, xd.transpose(0, 1).reshape(e, g * cap, d),
+        routed = (c_val > 0).transpose(0, 1).reshape(e_l, g * cap, 1)
+        xe = torch.where(routed,
+                         xd.transpose(0, 1).reshape(e_l, g * cap, d),
                          torch.zeros((), dtype=xd.dtype, device=xd.device))
         if vidx_gn is None:
             ye = _experts(p, xe, ents)
         else:
-            vidx_e = vidx_gn[g_idx, c_idx].transpose(0, 1).reshape(e, g * cap)
+            vidx_e = vidx_gn[g_idx, c_idx].transpose(0, 1).reshape(
+                e_l, g * cap)
             nbank = next(v.packed.shape[0] for v in ents.values()
                          if v is not None)
-            ye = torch.zeros((e, g * cap, d), dtype=x.dtype, device=x.device)
+            ye = torch.zeros((e_l, g * cap, d), dtype=x.dtype,
+                             device=x.device)
             for vi in range(nbank):
                 mask = (vidx_e == vi)[..., None]
                 xv = torch.where(mask, xe, torch.zeros((), dtype=xe.dtype,
@@ -200,21 +301,27 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
                 yv = _experts(p, xv, {key: entry_slot(v, vi)
                                       for key, v in ents.items()})
                 ye = torch.where(mask, yv, ye)
-        yd = ye.reshape(e, g, cap, d).transpose(0, 1)
+        yd = ye.reshape(e_l, g, cap, d).transpose(0, 1)
     else:
         h = (F.silu(_emm("gecd,efd->gecf", xd, p["w_gate"], x.dtype))
              * _emm("gecd,efd->gecf", xd, p["w_up"], x.dtype))
-        yd = _emm("gecf,edf->gecd", h, p["w_down"], x.dtype)
+        yd = _emm("gecf,edf->gecd", h, p["w_down"], x.dtype,
+                  waxes=("experts", "embed", "ffn"))
     yd = yd * c_val[..., None].to(x.dtype)           # combine weight
     # capacity slots that hold zero-score (unrouted) tokens add nothing
     yd = torch.where((c_val > 0)[..., None], yd,
                      torch.zeros((), dtype=yd.dtype, device=yd.device))
 
-    y = _combine(yd, c_idx, top_idx)
+    y = _combine(yd, c_idx, top_idx, e_lo)
+    if e_part is not None:
+        # each rank summed its own experts' contributions
+        y = S.psum(y, e_part)
+    y = y.to(yd.dtype)
 
     if "shared" in p:
+        # replicated on every rank: added once, after the all-reduce
         y = y + mlp_apply(p["shared"], xg, ov=oget(ov, "shared"),
-                          vidx=vidx_gn)
+                          vidx=vidx_gn, ffn_ax="ffn_small")
 
     # Switch-style load-balancing loss: E · Σ_e f_e · P_e
     frac_tokens = F.one_hot(top_idx, e).to(torch.float32).sum(2).mean(

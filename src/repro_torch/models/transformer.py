@@ -124,8 +124,8 @@ def _ffn_part(p, x, cfg, io=None, ov=None, vidx=None):
     if io is not None:
         # as the JAX module: gate/up outputs from a second product with the
         # layer's own weights, outside mlp_apply; w_down's input rebuilt
-        gate = linear(h, p["mlp"]["w_gate"])
-        up = linear(h, p["mlp"]["w_up"])
+        gate = linear(h, p["mlp"]["w_gate"], waxes=("ffn", "embed"))
+        up = linear(h, p["mlp"]["w_up"], waxes=("ffn", "embed"))
         io["mlp.w_gate"] = (h, gate)
         io["mlp.w_up"] = (h, up)
         io["mlp.w_down"] = (F.silu(gate) * up, y)
@@ -144,9 +144,11 @@ def block_apply(p, x, cfg, positions, theta, window, io=None, ov=None,
     h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1"), vidx), cfg.norm_eps)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions, theta, ov=ov_a,
                             vidx=vidx)
-    o = A.flash_attention(q, k, v, causal=True, window=window)
-    o = o.reshape(*x.shape[:-1], cfg.q_dim)
-    wo_out = linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx)
+    o = A.flash_attention(q, A.local_kv(k, cfg), A.local_kv(v, cfg),
+                          causal=True, window=window)
+    o = o.reshape(*x.shape[:-1], -1)
+    wo_out = linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx,
+                    waxes=("embed", "q_heads"))
     if io is not None:
         b, s, _ = x.shape
         io["attn.wq"] = (h, q.reshape(b, s, -1))
@@ -251,7 +253,7 @@ def forward(params, batch, cfg, collect_kv: bool = False, overlay=None,
 
 def _stacked_cache(cfg, n_stack: int, batch: int, size: int, device,
                    dtype) -> dict:
-    one = A.make_kv_cache(batch, size, cfg.num_kv_heads, cfg.head_dim,
+    one = A.make_kv_cache(batch, size, A.local_kv_heads(cfg), cfg.head_dim,
                           device, dtype)
     return {k: v.expand((n_stack,) + v.shape).clone() for k, v in one.items()}
 
@@ -336,10 +338,12 @@ def _decode_block_stacked(p, x, cfg, caches, idx, pat_entry, pos, ov=None,
                             pat_entry["theta"], ov=ov_a, vidx=vidx)
     A.cache_insert_stacked(caches, idx, k, v, pos, ring=window > 0)
     view = A.cache_layer_view(caches, idx)
-    o = A.decode_attention(q, view["k"], view["v"], view["slot_pos"], pos,
+    o = A.decode_attention(q, A.local_kv(view["k"], cfg),
+                           A.local_kv(view["v"], cfg), view["slot_pos"], pos,
                            window=window)
-    o = o.reshape(*x.shape[:-1], cfg.q_dim)
-    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx)
+    o = o.reshape(*x.shape[:-1], -1)
+    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx,
+                   waxes=("embed", "q_heads"))
     return _ffn_part(p, x, cfg, ov=ov, vidx=vidx)[0]
 
 
@@ -393,10 +397,12 @@ def _verify_block_stacked(p, x, cfg, caches, idx, pat_entry, pos, ov=None,
                             pat_entry["theta"], ov=ov_a, vidx=vidx)
     A.cache_insert_stacked_multi(caches, idx, k, v, pos)
     view = A.cache_layer_view(caches, idx)
-    o = A.verify_attention(q, view["k"], view["v"], view["slot_pos"], pos,
+    o = A.verify_attention(q, A.local_kv(view["k"], cfg),
+                           A.local_kv(view["v"], cfg), view["slot_pos"], pos,
                            window=0)
-    o = o.reshape(*x.shape[:-1], cfg.q_dim)
-    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx)
+    o = o.reshape(*x.shape[:-1], -1)
+    x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx,
+                   waxes=("embed", "q_heads"))
     return _ffn_part(p, x, cfg, ov=ov, vidx=vidx)[0]
 
 

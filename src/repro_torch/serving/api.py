@@ -44,7 +44,17 @@ its bank slot between steps.  ``wait=True`` blocks until it is resident; a
 request behind ingest reports ``admitting``; ``rollback`` of a variant
 with a version mid-ingest raises.  ``max_retries`` bounds the retries of a
 request whose variant fails to load, inline or on the pipeline.  ``close()``
-stops the worker.  Mesh sharding and pod-local banks are not ported.
+stops the worker.
+
+Mesh-sharded deployments (DESIGN.md §11): run one Deployment per rank —
+``launch/mesh.spawn`` or ``torchrun`` — each with the same arguments, its
+rank's ``mesh`` (``launch.mesh.make_host_mesh``) and ``param_axes`` (the
+logical-axes tree from ``models.param.split``).  The whole base is placed
+once (each rank keeps its blocks, ``distributed/sharding.place``) and
+every variant inherits the placement; the delta kernels run per rank
+(``kernel_dispatch="shard_map"``, or ``"gspmd"``: gathered global kernels,
+the A/B reference).  Every rank returns the same tokens.  Pod-local banks
+are a later slice.
 """
 from __future__ import annotations
 
@@ -54,6 +64,7 @@ from repro_torch.core import compile_cache as CC
 from repro_torch.core import store as S
 from repro_torch.core.calibration import DeltaModel
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.variants import VariantRegistry
 from repro_torch.tree import tree_map
@@ -74,7 +85,9 @@ class Deployment:
                  warmup: bool = False, compile_cache_dir=None,
                  graphs: bool = True, max_retries: int = 1,
                  async_admission: bool = False,
-                 admission_pacing_s: float = 0.002):
+                 admission_pacing_s: float = 0.002, mesh=None,
+                 param_axes=None, param_shardings=None,
+                 kernel_dispatch: str = "shard_map"):
         if store is not None and root_dir is not None:
             raise ValueError("pass either store or root_dir, not both")
         if base_dtype not in ("fp", "int8"):
@@ -99,17 +112,46 @@ class Deployment:
         if compile_cache_dir is not None:
             self.compile_cache = CC.CompileCache(compile_cache_dir)
             CC.set_default(self.compile_cache)
-        base_params = tree_map(lambda t: t.to(self.device), base_params)
+        base_fp = None
+        if mesh is not None:
+            if param_axes is None:
+                raise ValueError(
+                    "a sharded deployment needs param_axes (the logical "
+                    "axes tree from models.param.split) with the mesh")
+            if async_admission:
+                raise NotImplementedError(
+                    "async admission under a mesh arrives with the slice "
+                    "that brings speculative decoding, async admission and "
+                    "graphs to mesh serving")
+            if param_shardings is None:
+                param_shardings = SH.tree_pspecs(
+                    base_params, param_axes, SH.rules_for("decode"), mesh)
+            # artifacts are fingerprinted against the whole base; then the
+            # base is placed once: each rank keeps its blocks
+            base_fp = S.base_fingerprint(base_params)
+            base_params = SH.place(base_params, param_shardings, mesh,
+                                   device=self.device)
+        else:
+            base_params = tree_map(lambda t: t.to(self.device), base_params)
         self.model = model
+        self.mesh = mesh
         # the registry fingerprints the fp base, then quantizes it
         self.registry = VariantRegistry(base_params,
                                         max_resident=max_resident, mode=mode,
                                         bank_size=bank_size,
-                                        base_dtype=base_dtype)
+                                        base_dtype=base_dtype, mesh=mesh,
+                                        param_shardings=param_shardings,
+                                        param_axes=param_axes,
+                                        base_fp=base_fp)
         if store is None and root_dir is not None:
             store = S.VariantStore(root_dir, base_fp=self.registry.base_fp)
         if store is not None and store.base_fp is None:
             store.base_fp = self.registry.base_fp
+        if store is not None and mesh is not None \
+                and store.param_shardings is None:
+            # the store's loads then return each rank's blocks, and only
+            # rank 0 writes the directory
+            store.param_shardings, store.mesh = param_shardings, mesh
         self.store = store
         # restart hydration is lazy by default: a store-backed node
         # registers a name's lineage on its first reference (admission, an
@@ -137,7 +179,9 @@ class Deployment:
                                     prompt_len=prompt_len, max_len=max_len,
                                     max_retries=max_retries,
                                     scheduler=scheduler, draft_k=draft_k,
-                                    graphs=graphs, admission=self.admission)
+                                    graphs=graphs, admission=self.admission,
+                                    mesh=mesh,
+                                    kernel_dispatch=kernel_dispatch)
         if warmup:
             # every step ready before traffic: captured on a card, and the
             # kernel library built or loaded through the compile cache
@@ -246,10 +290,11 @@ class Deployment:
             return
         if not wait:
             return
-        if self.engine.scheduler in ("continuous", "speculative"):
-            self.registry.bank_resolve(name)
-        else:
-            self.registry.resolve(name)
+        with self.engine._ctx():
+            if self.engine.scheduler in ("continuous", "speculative"):
+                self.registry.bank_resolve(name)
+            else:
+                self.registry.resolve(name)
 
     def warmup(self) -> dict:
         """Ready every step for this deployment's shapes now (as

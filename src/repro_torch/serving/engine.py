@@ -1,5 +1,5 @@
-"""Serving engine (port of ``repro.serving.engine`` without mesh and
-pods).  Three schedulers:
+"""Serving engine (port of ``repro.serving.engine`` without pods).  Three
+schedulers:
 
 * ``continuous`` (mixed-variant slot scheduler) — the engine keeps ONE
   persistent decode batch of ``batch_size`` lanes.  Each lane carries its
@@ -54,10 +54,25 @@ pipeline's progress.  ``record_step_times`` appends ``(t_end, seconds,
 admission_busy)`` per step or round to ``step_times``.  The engine waits
 for the serving stream only (never the whole device), so the staging
 stream's copies overlap the steps.
+
+Mesh-sharded serving (DESIGN.md §11-12; ``mesh``, explicit SPMD as
+``distributed/sharding.py`` sets out): every rank runs this engine over
+the same requests.  Each model call runs inside the mesh context, so the
+delta GEMMs launch per rank on the rank's tiles (``kernels/dispatch``;
+``kernel_dispatch="gspmd"`` runs the gathered global kernels instead, the
+A/B reference).  The lanes split over "data" in blocks (``act_batch``):
+a rank prefills and decodes its own lanes' rows against a KV cache of its
+lanes and KV heads, and after each step the ranks all-gather the lanes'
+next tokens over "data", so every rank's scheduler sees every lane and
+makes the same decisions.  A mesh refuses, naming the slice that brings
+each: CUDA graphs (a gloo collective cannot be captured), the speculative
+scheduler, async admission, ``warmup()`` (and its compile cache), an int8
+base and the families other than dense and MoE.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -67,6 +82,7 @@ import torch
 
 from repro_torch.core import compile_cache as CC
 from repro_torch.device import synchronize, synchronize_stream
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import build
 from repro_torch.serving.variants import VariantRegistry
 from repro_torch.tree import tree_leaves
@@ -109,16 +125,24 @@ class ServingEngine:
     dense residency).  ``graphs`` (on a card) replays the slot
     schedulers' steps as CUDA graphs; False runs them eagerly.
     ``admission`` (an ``AdmissionPipeline``, slot schedulers only) admits
-    variants off the serving thread."""
+    variants off the serving thread.  ``mesh`` (with a registry placed on
+    it) serves over the ranks of a mesh; ``kernel_dispatch`` is
+    "shard_map" (per-rank kernels) or "gspmd" (gathered global kernels)."""
 
     def __init__(self, model, registry: VariantRegistry, *,
                  batch_size: int = 4, prompt_len: int = 32,
                  max_len: int = 128, max_retries: int = 1,
                  scheduler: str = "group", draft_k: int = 4,
                  spec_adaptive: bool = True, graphs: bool = True,
-                 admission=None):
+                 admission=None, mesh=None,
+                 kernel_dispatch: str = "shard_map"):
         if scheduler not in ("group", "continuous", "speculative"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
+        if kernel_dispatch not in ("shard_map", "gspmd"):
+            raise ValueError(f"unknown kernel_dispatch {kernel_dispatch!r}")
+        if mesh is not None:
+            _refuse_on_mesh(model, registry, scheduler=scheduler,
+                            graphs=graphs, admission=admission)
         if admission is not None and scheduler == "group":
             raise ValueError(
                 "async admission requires scheduler='continuous' (staged "
@@ -142,6 +166,9 @@ class ServingEngine:
         self.max_retries = max_retries
         self.admission = admission
         self.device = registry.device
+        self.mesh = mesh
+        self.kernel_dispatch = kernel_dispatch
+        self._mesh_setup(batch_size)
         self._queue: collections.deque[Request] = collections.deque()
         self._done: dict[int, Request] = {}
         self._next_rid = 0
@@ -160,8 +187,9 @@ class ServingEngine:
         self._rounds = {}
         self._spec_out = {}
         if scheduler in ("continuous", "speculative"):
-            self._cache = model.init_cache(batch_size, max_len,
-                                           device=self.device)
+            with self._ctx():
+                self._cache = model.init_cache(self._nloc, max_len,
+                                               device=self.device)
             self._next_tok = torch.zeros(batch_size, dtype=torch.int32,
                                          device=self.device)
             self._variant_idx_dev = torch.zeros(
@@ -282,6 +310,17 @@ class ServingEngine:
                         else 0}}
         if self.spec is not None:
             snap["speculative"] = self.spec.snapshot()
+        if self.mesh is not None:
+            from repro_torch.kernels import dispatch as D
+            snap["mesh"] = {"shape": dict(zip(self.mesh.axis_names,
+                                              self.mesh.shape)),
+                            "coords": self.mesh.coords,
+                            "backend": self.mesh.backend,
+                            "kernel_dispatch": self.kernel_dispatch,
+                            "lanes": (self._lo, self._lo + self._nloc),
+                            "dispatch": D.memo_info(),
+                            "bank_per_device": bank.per_device_nbytes()
+                            if bank is not None else {}}
         return snap
 
     def pending(self) -> int:
@@ -334,7 +373,8 @@ class ServingEngine:
             return
         variant = group[0].variant
         try:
-            params, overlay = self.registry.resolve(variant)
+            with self._ctx():
+                params, overlay = self.registry.resolve(variant)
             version = self.registry.current_version(variant)
         except Exception as e:  # unknown variant, failed load: retry/fail
             for r in group:
@@ -350,12 +390,15 @@ class ServingEngine:
             r.served_version = version
             r.status = "running"
 
-        batch = self._prompt_batch(dict(enumerate(group)))
+        batch = self._local_rows(self._prompt_batch(dict(enumerate(group))))
         t0 = time.perf_counter()
-        last_logits, cache = self.model.prefill(params, batch, self.max_len,
-                                                overlay=overlay)
+        with self._ctx():
+            last_logits, cache = self.model.prefill(params, batch,
+                                                    self.max_len,
+                                                    overlay=overlay)
         # greedy over the padded vocab, as the JAX engine does
-        next_tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
+        next_tok = self._all_lanes(
+            torch.argmax(last_logits, dim=-1).to(torch.int32))
         synchronize(self.device)
         self.metrics["prefill_seconds"] += time.perf_counter() - t0
         self.metrics["prefills"] += 1
@@ -373,9 +416,12 @@ class ServingEngine:
             self.metrics["tokens_generated"] += n_active
             if step + 1 >= n_steps:
                 break   # every request has its budget: skip the last decode
-            logits, cache = self.model.decode_step(params, next_tok, cache,
-                                                   overlay=overlay)
-            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            with self._ctx():
+                logits, cache = self.model.decode_step(
+                    params, self._local_rows(next_tok), cache,
+                    overlay=overlay)
+            next_tok = self._all_lanes(
+                torch.argmax(logits, dim=-1).to(torch.int32))
             self.metrics["decode_steps"] += 1
         synchronize(self.device)
         self.metrics["decode_seconds"] += time.perf_counter() - t0
@@ -483,17 +529,23 @@ class ServingEngine:
         batch = self._prompt_batch(
             {i: self._slots[i].request for i in newly})
         t0 = time.perf_counter()
-        last_logits, fresh = self.model.prefill(
-            self.registry.base_params, batch, self.max_len,
-            overlay=self._bank_tree(),
-            variant_idx=torch.from_numpy(pvidx).to(self.device))
-        first_tok = torch.argmax(last_logits, dim=-1).to(torch.int32)
+        with self._ctx():
+            last_logits, fresh = self.model.prefill(
+                self.registry.base_params, self._local_rows(batch),
+                self.max_len, overlay=self._bank_tree(),
+                variant_idx=self._local_rows(
+                    torch.from_numpy(pvidx).to(self.device)))
+        first_tok = self._all_lanes(
+            torch.argmax(last_logits, dim=-1).to(torch.int32))
         synchronize_stream(self.device)
         self.metrics["prefill_seconds"] += time.perf_counter() - t0
         self.metrics["prefills"] += 1
         idx = torch.tensor(newly, dtype=torch.int64, device=self.device)
         self._next_tok.index_copy_(0, idx, first_tok.index_select(0, idx))
-        self._merge_admitted(self._cache, fresh, newly)
+        # this rank's cache holds its own lanes' rows
+        self._merge_admitted(self._cache, fresh,
+                             [i - self._lo for i in newly
+                              if self._lo <= i < self._lo + self._nloc])
 
     def _retire(self, i: int) -> None:
         """Release lane ``i``: mark its request done, unpin the bank slot
@@ -638,11 +690,14 @@ class ServingEngine:
         banked decode of the pending tokens -> ([(live tensor, new value)],
         the new cache)."""
         def compute():
-            logits, cache = self.model.decode_step(
-                self.registry.base_params, self._next_tok,
-                _containers(self._cache), overlay=bank,
-                variant_idx=self._variant_idx_dev)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            with self._ctx():
+                logits, cache = self.model.decode_step(
+                    self.registry.base_params,
+                    self._local_rows(self._next_tok),
+                    _containers(self._cache), overlay=bank,
+                    variant_idx=self._local_rows(self._variant_idx_dev))
+            tok = self._all_lanes(
+                torch.argmax(logits, dim=-1).to(torch.int32))
             return [(self._next_tok, tok)], cache
         return compute
 
@@ -728,6 +783,11 @@ class ServingEngine:
         the way.  Returns {entry/kind: "captured" | "hit" (a graph already
         held for these addresses) | "eager"}; the keys are the JAX
         engine's."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "warmup() under a mesh (captured steps, the compile cache) "
+                "arrives with the slice that brings CUDA graphs to mesh "
+                "serving")
         pairs = tuple(self._warmup_reg) if pairs is None else tuple(pairs)
         unknown = [p for p in pairs if p not in self._warmup_reg]
         if unknown:
@@ -849,6 +909,57 @@ class ServingEngine:
                 ctx["step"]("spec", f"spec_k{k}",
                             self._round_compute(k, bank), bank)
 
+    # -- mesh: the context, the lanes' split ---------------------------------
+    def _mesh_setup(self, batch_size: int) -> None:
+        """The rule set, the layout of the registry's placed base and this
+        rank's block of lanes (all of them off a mesh)."""
+        self._nloc, self._lo, self._lane_axes = batch_size, 0, ()
+        self._rules = self._layout = None
+        if self.mesh is None:
+            return
+        from repro_torch.core.calibration import flatten_params
+        from repro_torch.models.delta_overlay import flatten_axes
+        reg, mesh = self.registry, self.mesh
+        self._rules = SH.rules_for("decode")
+        self._layout = SH.Layout.from_placed(
+            flatten_params(reg.base_params),
+            flatten_axes(reg.param_shardings), flatten_axes(reg.param_axes),
+            mesh, self._rules)
+        part = SH.resolve_spec((batch_size,), ("act_batch",), self._rules,
+                               mesh)[0]
+        self._lane_axes = SH._names(part)
+        self._nloc = batch_size // mesh.names_size(self._lane_axes)
+        self._lo = mesh.index(self._lane_axes) * self._nloc
+
+    def _ctx(self):
+        """The mesh context every model call and resolution runs in (and
+        ``no_dispatch`` for ``kernel_dispatch="gspmd"``); nothing off a
+        mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(SH.shard_ctx(self.mesh, self._rules,
+                                         self._layout, self._lane_axes))
+        if self.kernel_dispatch == "gspmd":
+            from repro_torch.kernels import dispatch as D
+            stack.enter_context(D.no_dispatch())
+        return stack
+
+    def _local_rows(self, x):
+        """This rank's lanes of a (batch_size, ...) tensor or batch dict."""
+        if not self._lane_axes:
+            return x
+        if isinstance(x, dict):
+            return {k: self._local_rows(v) for k, v in x.items()}
+        return x[self._lo:self._lo + self._nloc]
+
+    def _all_lanes(self, tok: torch.Tensor) -> torch.Tensor:
+        """Every lane's tokens from the ranks' blocks (all-gathered over the
+        lanes' axes)."""
+        if not self._lane_axes:
+            return tok
+        return SH.all_gather(tok, self._lane_axes, 0, self.mesh)
+
     def _prompt_batch(self, requests: dict) -> dict:
         """Fixed-shape (batch_size, prompt_len) prefill batch: row i holds
         requests[i]'s prompt tail, right-padded with zeros; unmapped rows
@@ -862,6 +973,35 @@ class ServingEngine:
         batch.update(frontend_stub(self.model.cfg, self.batch_size,
                                    self.device))
         return batch
+
+
+def _refuse_on_mesh(model, registry, *, scheduler: str, graphs: bool,
+                    admission) -> None:
+    """What mesh serving does not serve yet raises, naming its slice;
+    nothing is switched off silently."""
+    if registry.mesh is None:
+        raise ValueError("a mesh engine needs a registry placed on the mesh "
+                         "(VariantRegistry(mesh=, param_shardings=, "
+                         "param_axes=))")
+    if model.cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"family {model.cfg.family!r} under a mesh arrives with the "
+            "slice that serves the other families (sequence-TP attention)")
+    if scheduler == "speculative":
+        raise NotImplementedError(
+            "scheduler='speculative' under a mesh arrives with the slice "
+            "that brings speculative decoding, async admission and graphs "
+            "to mesh serving")
+    if admission is not None:
+        raise NotImplementedError(
+            "async admission under a mesh arrives with the slice that "
+            "brings speculative decoding, async admission and graphs to "
+            "mesh serving")
+    if graphs and registry.device.type == "cuda" and scheduler != "group":
+        raise NotImplementedError(
+            "graphs=True under a mesh: a gloo collective cannot be "
+            "captured in a CUDA graph; pass graphs=False (graphs come with "
+            "the slice that brings them to mesh serving)")
 
 
 def _containers(tree):

@@ -1,6 +1,5 @@
 """Multi-tenant variant registry (port of ``repro.serving.variants``
-without mesh and pod-local banks): many fine-tunes over one resident
-base.
+without pod-local banks): many fine-tunes over one resident base.
 
 A registered artifact is a ``DeltaModel``, a zero-argument callable that
 returns one (lazy store materialisation, ``serving/api.Deployment``) or an
@@ -84,10 +83,11 @@ class OverlayBank:
     ``tree`` stays None until the first admit, as the JAX bank does: until
     then the continuous scheduler serves without a bank."""
 
-    def __init__(self, base_params, size: int):
+    def __init__(self, base_params, size: int, mesh=None):
         if size < 2:
             raise ValueError("bank needs >= 2 slots (base + 1 variant)")
         self.size = size
+        self.mesh = mesh
         self._base_flat = flatten_params(base_params)
         self._flat: Optional[dict] = None   # path -> banked leaf
         self._tree: Optional[dict] = None   # nested view of _flat
@@ -313,6 +313,24 @@ class OverlayBank:
             return 0
         return DO.overlay_nbytes(self._flat)
 
+    def per_device_nbytes(self) -> dict:
+        """Resident bank bytes per device: {device: bytes} on one card,
+        {rank: bytes} on a mesh (``_per_rank``)."""
+        return _per_rank(self.nbytes(), self.mesh, tree_leaves(self._flat))
+
+
+def _per_rank(nbytes: int, mesh, leaves) -> dict:
+    """{rank: bytes} over a mesh whose ranks each hold ``nbytes`` — every
+    rank's block of a leaf has the same shape, since ``resolve_spec`` shards
+    a dim only over axes that divide it — or {device: bytes} off a mesh."""
+    if mesh is None:
+        out: dict = {}
+        for t in leaves:
+            key = str(t.device)
+            out[key] = out.get(key, 0) + t.numel() * t.element_size()
+        return out
+    return {r: nbytes for r in range(mesh.size)}
+
 
 @dataclasses.dataclass
 class _Resident:
@@ -330,15 +348,27 @@ class VariantRegistry:
 
     def __init__(self, base_params, *, max_resident: int = 2,
                  mode: str = "dense", bank_size: int = 8,
-                 base_dtype: str = "fp"):
+                 base_dtype: str = "fp", mesh=None, param_shardings=None,
+                 param_axes=None, base_fp: Optional[str] = None):
         if mode not in ("dense", "fused"):
             raise ValueError(f"unknown residency mode {mode!r}")
         if base_dtype not in ("fp", "int8"):
             raise ValueError(f"unknown base dtype {base_dtype!r}")
+        if mesh is not None:
+            if param_shardings is None or param_axes is None:
+                raise ValueError("a registry on a mesh needs the base's "
+                                 "param_shardings and param_axes")
+            if base_dtype == "int8":
+                raise NotImplementedError(
+                    "an int8 base under a mesh (quant_sharding) arrives "
+                    "with the int8 mesh slice of the port")
+        self.mesh = mesh
+        self.param_shardings = param_shardings
+        self.param_axes = param_axes
         # fingerprint and dense-copy accounting come from the FP base:
         # artifacts are calibrated against (and verified by) the full-
         # precision weights, and a dense resident reconstructs to fp
-        self._base_fp = S.base_fingerprint(base_params)
+        self._base_fp = base_fp or S.base_fingerprint(base_params)
         self._dense_nbytes = sum(t.numel() * t.element_size()
                                  for t in tree_leaves(base_params))
         self.base_dtype = base_dtype
@@ -383,13 +413,10 @@ class VariantRegistry:
                    for t in tree_leaves(self.base_params))
 
     def base_per_device_nbytes(self) -> dict:
-        """{device -> resident base-weight bytes}; the port's base lives on
-        one device, so one key."""
-        out: dict = {}
-        for t in tree_leaves(self.base_params):
-            key = str(t.device)
-            out[key] = out.get(key, 0) + t.numel() * t.element_size()
-        return out
+        """{device -> resident base-weight bytes} on one card; {rank ->
+        bytes of its blocks} on a mesh."""
+        return _per_rank(self.base_nbytes(), self.mesh,
+                         tree_leaves(self.base_params))
 
     # -- names and versions ------------------------------------------------
     def _parse(self, nameish: str) -> tuple:
@@ -501,7 +528,8 @@ class VariantRegistry:
             params, overlay, st = L.device_put_overlay(self.base_params, dm)
             nbytes = L.fused_resident_bytes(self.base_params, params, overlay)
         else:
-            params, st = L.apply_artifact(self.base_params, dm)
+            params, st = L.apply_artifact(self.base_params, dm,
+                                          param_axes=self.param_axes)
             overlay, nbytes = None, self._dense_nbytes
         self.stats["swaps"] += 1
         self.stats["swap_seconds"] += st["seconds"]
@@ -523,20 +551,27 @@ class VariantRegistry:
         their zero-argument contract."""
         art = self._versions[name][version]
         if isinstance(art, DeltaModel):
-            return art
+            return self._local(art)
         try:
             if callable(art):
                 if pacer is not None and getattr(art, "accepts_pacer",
                                                  False):
-                    return art(pacer=pacer)
-                return art()
-            return S.load_artifact(str(art), expect_base_fp=self._base_fp,
-                                   pacer=pacer)
+                    return self._local(art(pacer=pacer))
+                return self._local(art())
+            return self._local(S.load_artifact(
+                str(art), expect_base_fp=self._base_fp, pacer=pacer))
         except Exception:
             # a corrupt or missing artifact must not take the node down:
             # count it and let the engine re-queue or fail the request
             self.stats["load_failures"] += 1
             raise
+
+    def _local(self, dm: DeltaModel) -> DeltaModel:
+        """``dm`` as this rank holds it: its blocks on a mesh (a placed
+        variant, such as a mesh store returns, passes through)."""
+        if self.mesh is None:
+            return dm
+        return L.place_delta_model(dm, self.param_shardings, self.mesh)
 
     # -- banked resolution (mixed-variant batches) -------------------------
     def _ensure_bank(self) -> OverlayBank:
@@ -545,7 +580,8 @@ class VariantRegistry:
         first."""
         with self._bank_lock:
             if self.bank is None:
-                self.bank = OverlayBank(self.base_params, self.bank_size)
+                self.bank = OverlayBank(self.base_params, self.bank_size,
+                                        mesh=self.mesh)
             return self.bank
 
     def reserve_bank(self) -> dict:

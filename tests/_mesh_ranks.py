@@ -1,0 +1,397 @@
+"""Rank-side half of the mesh tests (``tests/test_torch_mesh.py``,
+``tests/test_torch_cuda.py``): what one rank of a spawned group runs.
+
+The parent test process runs the JAX package and writes the weights, the
+delta models and the requests to a pickle (numpy, the bridge's exchange
+format); each rank reads it, serves or checks on its own blocks and
+returns plain data (token lists, numpy arrays, floats) that the parent
+asserts on.  Nothing here imports JAX, so a rank never loads it.
+"""
+import contextlib
+import dataclasses
+import pickle
+import tempfile
+
+import torch
+
+import repro_torch.configs as TC
+from repro_torch import bridge
+from repro_torch.core import calibration as C
+from repro_torch.core import delta as CD
+from repro_torch.core import loader as L
+from repro_torch.core import store as ST
+from repro_torch.distributed import sharding as S
+from repro_torch.kernels import dispatch as D
+from repro_torch.kernels import ops as K
+from repro_torch.models import build_model
+from repro_torch.models import delta_overlay as DO
+from repro_torch.models.param import split
+from repro_torch.serving import Deployment
+from repro_torch.serving.variants import VariantRegistry
+
+BATCH, PROMPT, MAX_LEN = 4, 12, 24
+BUDGETS = [2, 5, 3, 4, 1, 3]
+NAMES = ["__base__", "v0", "v1"]
+SCHEDULERS = {"continuous": dict(scheduler="continuous", bank_size=4),
+              "group-fused": dict(scheduler="group", mode="fused"),
+              "group-dense": dict(scheduler="group", mode="dense")}
+LAYERS = {"deepseek-moe-16b": 3}
+
+
+def port_config(arch: str, compute_dtype: str = "float32"):
+    return dataclasses.replace(TC.get_config(arch).reduced(),
+                               num_layers=LAYERS.get(arch, 2),
+                               compute_dtype=compute_dtype, remat=False)
+
+
+def load(path: str) -> dict:
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def setup(arch: str, d: dict, device="cpu"):
+    """(model, base params, axes, [DeltaModel]) of one arch's data."""
+    model = build_model(port_config(arch))
+    _, axes = split(model.init(0, device="cpu"))
+    params = bridge.params_from_numpy(d["flat"], device)
+    dms = [bridge.delta_model_from_numpy(x, device) for x in d["dms"]]
+    return model, params, axes, dms
+
+
+def serve(dep, d: dict) -> list:
+    """Publish v0, v1; serve the data's requests; every request's
+    tokens."""
+    for i, dm in enumerate(d["dm_objs"]):
+        dep.publish(f"v{i}", dm)
+    rids = [dep.submit(p, variant=NAMES[i % len(NAMES)],
+                       max_new_tokens=BUDGETS[i % len(BUDGETS)])
+            for i, p in enumerate(d["prompts"])]
+    dep.drain()
+    return [dep.result(r).out_tokens for r in rids]
+
+
+def deployment(model, params, axes, mesh, device="cpu", **kw):
+    if mesh is not None:
+        kw.update(mesh=mesh, param_axes=axes, graphs=False)
+    return Deployment(model, params, device=device, batch_size=BATCH,
+                      prompt_len=PROMPT, max_len=MAX_LEN, **kw)
+
+
+def _ctx(mesh, params, axes, batch_axes=()):
+    """The mesh context over params placed on ``mesh`` (as the engine
+    builds it)."""
+    rules = S.rules_for("decode")
+    specs = S.tree_pspecs(params, axes, rules, mesh)
+    local = S.place(params, specs, mesh)
+    lay = S.Layout.from_params(
+        {p: tuple(t.shape) for p, t in C.flatten_params(params).items()},
+        DO.flatten_axes(axes), mesh, rules)
+    return local, specs, lambda: S.shard_ctx(mesh, rules, lay, batch_axes)
+
+
+# ---------------------------------------------------------------------------
+# per-rank kernels against the unsharded op
+# ---------------------------------------------------------------------------
+
+def _bound(x: torch.Tensor, w_hat: torch.Tensor) -> torch.Tensor:
+    """How far a rank's result may lie from the reference (the single-card
+    op on the whole operands: the kernel on a card, the plain version on
+    the CPU): each is within the GEMM bound 1e-5·Σ|x||Ŵ| + 1e-6 of the
+    exact product — the rank's summed over the ranks' K-tiles — so twice
+    that bound."""
+    return 2 * (1e-5 * (x.abs().to(torch.float64)
+                        @ w_hat.abs().to(torch.float64).T) + 1e-6)
+
+
+def _entry(dm, path, layer):
+    e = DO.from_delta_entry(dm.deltas[path])
+    return DO.OverlayEntry(packed=e.packed[layer], v_row=e.v_row[layer],
+                           v_col=e.v_col[layer])
+
+
+def dispatch_checks(mesh, d7: dict, dmoe: dict, device="cpu") -> dict:
+    """{check name: max |err| / bound} of every per-rank entry point (and
+    its gathered ``no_dispatch`` twin) on the operands a rank holds,
+    against the rank's block of the same op on the whole operands on the
+    same device (``_bound``); ``unpack_apply`` as the largest |err| (a
+    per-tile rebuild: exact)."""
+    out = {}
+    gen = torch.Generator().manual_seed(5)
+    model, params, axes, dms = setup("deepseek-7b", d7)
+    local, specs, ctx = _ctx(mesh, params, axes)
+    flat, fspecs = C.flatten_params(params), DO.flatten_axes(specs)
+    faxes = DO.flatten_axes(axes)
+    dev = torch.device(device)
+
+    def to(t):
+        return t.to(dev)
+
+    for path in ("layers.attn.wq", "layers.attn.wo", "layers.mlp.w_down"):
+        w = flat[path][0]
+        n, k = w.shape
+        wspec = fspecs[path][1:]
+        ent = [_entry(dm, path, 0) for dm in dms]
+        x = torch.randn((6, k), generator=gen)
+        sp = DO.entry_shardings_from_weight(wspec, 2)
+        x_l = S.block(x, (None, wspec[1]), mesh)
+        w_l = S.block(w, wspec, mesh)
+        # single-variant fused GEMM
+        e = ent[0]
+        want = K.bitlinear_axes(to(x), to(e.packed), to(e.v_row),
+                                to(e.v_col), to(w)).cpu()
+        w_hats = [w] + [(en.v_row.float()[:, None]
+                         + en.v_col.float()[None, :])
+                        * CD.unpack_signs(en.packed, k, torch.float32) + w
+                        for en in ent]
+        bound = S.block(_bound(x, w_hats[1]), (None, wspec[0]), mesh)
+        want_l = S.block(want, (None, wspec[0]), mesh)
+        args = [to(S.block(e.packed, sp.packed, mesh)),
+                to(S.block(e.v_row, sp.v_row, mesh)),
+                to(S.block(e.v_col, sp.v_col, mesh)), to(w_l)]
+        for mode in ("per_rank", "gathered"):
+            with ctx(), _mode(mode):
+                got = K.bitlinear_axes(to(x_l), *args,
+                                       waxes=faxes[path][1:])
+            out[f"axes {path} {mode}"] = float(
+                ((got.cpu() - want_l).abs() / bound).max())
+        # banked: slot 0 base (zeros), slots 1, 2 the variants
+        bank = [torch.stack([torch.zeros_like(getattr(ent[0], f))]
+                            + [getattr(en, f) for en in ent])
+                for f in ("packed", "v_row", "v_col")]
+        vidx = torch.tensor([0, 1, 2, 1, 2, 0], dtype=torch.int32)
+        want = K.bitlinear_axes_banked(to(x), to(vidx), *map(to, bank),
+                                       to(w)).cpu()
+        want_l = S.block(want, (None, wspec[0]), mesh)
+        bound = S.block(torch.stack([_bound(x[m:m + 1], w_hats[int(v)])[0]
+                                     for m, v in enumerate(vidx)]),
+                        (None, wspec[0]), mesh)
+        bank_l = [S.block(b, (None,) + s, mesh)
+                  for b, s in zip(bank, (sp.packed, sp.v_row, sp.v_col))]
+        for mode in ("per_rank", "gathered"):
+            with ctx(), _mode(mode):
+                got = K.bitlinear_axes_banked(
+                    to(x_l), to(vidx), *map(to, bank_l), to(w_l),
+                    waxes=faxes[path][1:])
+            out[f"banked {path} {mode}"] = float(
+                ((got.cpu() - want_l).abs() / bound).max())
+        # unpack_apply over the layer stack, row and col modes
+        full = dms[0].deltas[path]
+        lead = (None,) + wspec
+        for mode, v in (("row", full.v_row), ("col", full.v_col)):
+            want = K.unpack_apply(to(full.packed), to(v.float()),
+                                  to(flat[path]), mode=mode,
+                                  out_dtype=torch.float32).cpu()
+            psp = DO.entry_shardings_from_weight(fspecs[path], 3)
+            vspec = psp.v_row if mode == "row" else psp.v_col
+            for dmode in ("per_rank", "gathered"):
+                with ctx(), _mode(dmode):
+                    got = K.unpack_apply(
+                        to(S.block(full.packed, psp.packed, mesh)),
+                        to(S.block(v.float(), vspec, mesh)),
+                        to(S.block(flat[path], lead, mesh)), mode=mode,
+                        out_dtype=torch.float32, waxes=faxes[path])
+                out[f"unpack {path} {mode} {dmode}"] = float(
+                    (got.cpu() - S.block(want, lead, mesh)).abs().max())
+    # expert stacks of the MoE arch
+    model, params, axes, dms = setup("deepseek-moe-16b", dmoe)
+    local, specs, ctx = _ctx(mesh, params, axes)
+    flat, fspecs = C.flatten_params(params), DO.flatten_axes(specs)
+    faxes = DO.flatten_axes(axes)
+    for path in ("layers.moe.w_gate", "layers.moe.w_down"):
+        w = flat[path][0]
+        e_n, n, k = w.shape
+        wspec = fspecs[path][1:]
+        ent = _entry(dms[0], path, 0)
+        xe = torch.randn((e_n, 5, k), generator=gen)
+        want = K.bitlinear_axes_stacked(to(xe), to(ent.packed),
+                                        to(ent.v_row), to(ent.v_col),
+                                        to(w)).cpu()
+        sp = DO.entry_shardings_from_weight(wspec, 3)
+        bound = torch.stack([
+            _bound(xe[i], (ent.v_row[i].float()[:, None]
+                           + ent.v_col[i].float()[None, :]).abs()
+                   + w[i].abs()) for i in range(e_n)])
+        want_l = S.block(want, (wspec[0], None, wspec[1]), mesh)
+        bound_l = S.block(bound, (wspec[0], None, wspec[1]), mesh)
+        xe_l = S.block(xe, (wspec[0], None, wspec[2]), mesh)
+        for mode in ("per_rank", "gathered"):
+            with ctx(), _mode(mode):
+                got = K.bitlinear_axes_stacked(
+                    to(xe_l), to(S.block(ent.packed, sp.packed, mesh)),
+                    to(S.block(ent.v_row, sp.v_row, mesh)),
+                    to(S.block(ent.v_col, sp.v_col, mesh)),
+                    to(S.block(w, wspec, mesh)), waxes=faxes[path][1:])
+            out[f"stacked {path} {mode}"] = float(
+                ((got.cpu() - want_l).abs() / bound_l).max())
+    return out
+
+
+def _mode(mode: str):
+    """``no_dispatch()`` for the gathered twin, nothing per rank."""
+    return D.no_dispatch() if mode == "gathered" else contextlib.nullcontext()
+
+
+# ---------------------------------------------------------------------------
+# logits, tokens, bank and patches on a mesh
+# ---------------------------------------------------------------------------
+
+def mesh_logits(mesh, arch: str, d: dict) -> dict:
+    """Base and fused-overlay forward logits (B, S, V) on the mesh, the
+    rows split over "data" and gathered back."""
+    model, params, axes, dms = setup(arch, d)
+    rules = S.rules_for("decode")
+    part = S.resolve_spec((BATCH,), ("act_batch",), rules, mesh)[0]
+    rows = S._names(part)
+    local, specs, ctx = _ctx(mesh, params, axes, rows)
+    tokens = torch.from_numpy(d["tokens"])
+    nloc = BATCH // mesh.names_size(rows)
+    lo = mesh.index(rows) * nloc
+    batch = {"tokens": tokens[lo:lo + nloc]}
+    out = {}
+    with torch.no_grad(), ctx():
+        lg, _ = model.forward(local, batch)
+        out["base"] = S.all_gather(lg, rows, 0, mesh).numpy()
+        pv, ov, _ = L.device_put_overlay(local, dms[0],
+                                         param_shardings=specs, mesh=mesh)
+        lg, _ = model.forward(pv, batch, overlay=ov)
+        out["fused"] = S.all_gather(lg, rows, 0, mesh).numpy()
+    return out
+
+
+def mesh_tokens(mesh, arch: str, d: dict, kds=("shard_map", "gspmd"),
+                scheds=tuple(SCHEDULERS), device="cpu") -> dict:
+    """{(kernel_dispatch, scheduler): tokens} of sharded Deployments."""
+    model, params, axes, dms = setup(arch, d)
+    d = dict(d, dm_objs=dms)
+    out = {}
+    for kd in kds:
+        for name in scheds:
+            dep = deployment(model, params, axes, mesh, device=device,
+                             kernel_dispatch=kd, **SCHEDULERS[name])
+            out[(kd, name)] = serve(dep, d)
+    return out
+
+
+def bank_checks(mesh, d: dict) -> dict:
+    """Bank admit / evict / re-admit on the rank's blocks against the
+    same sequence on the whole base; apply_update on local blocks against
+    the block of the whole patch; per-rank bank bytes."""
+    model, params, axes, dms = setup("deepseek-7b", d)
+    local, specs, _ = _ctx(mesh, params, axes)
+    whole = VariantRegistry(params, mode="fused", bank_size=3)
+    mine = VariantRegistry(local, mode="fused", bank_size=3, mesh=mesh,
+                           param_shardings=specs, param_axes=axes,
+                           base_fp=whole.base_fp)
+    out = {}
+    for reg in (whole, mine):
+        reg.set_version("v0", None, dms[0])
+        reg.set_version("v1", None, dms[1])
+        reg.bank_resolve("v0")
+        reg.bank_resolve("v1")
+        reg.evict("v0")
+        reg.bank_resolve("v0")            # re-admit into the freed slot
+    fspecs = DO.flatten_axes(specs)
+    same = True
+    for path, leaf in whole.bank._flat.items():
+        ax = DO.bank_axis(path)
+        spec = fspecs[path]
+        if isinstance(leaf, DO.OverlayEntry):
+            sp = DO.entry_shardings_from_weight(spec, leaf.packed.dim() - 1)
+            pairs = [(getattr(leaf, f), getattr(mine.bank._flat[path], f),
+                      getattr(sp, f)) for f in ("packed", "v_row", "v_col")]
+        else:
+            pairs = [(leaf, mine.bank._flat[path], spec)]
+        for g, l, s in pairs:
+            s = tuple(s)[:ax] + (None,) + tuple(s)[ax:]
+            same &= torch.equal(S.block(g, s, mesh), l)
+    out["bank_blocks_equal"] = bool(same)
+    out["slots"] = (whole.bank.slot_of("v0"), mine.bank.slot_of("v0"))
+    out["per_device"] = mine.bank.per_device_nbytes()
+    out["bank_nbytes"] = mine.bank.nbytes()
+    out["whole_nbytes"] = whole.bank.nbytes()
+    # apply_update on the rank's blocks
+    with tempfile.TemporaryDirectory() as tmp:
+        ST.save_update_patch(dms[0], dms[1], tmp)
+        _, dp, ep = ST.load_update_patch(tmp)
+    new_whole = L.apply_update(dms[0], dp, ep)
+    new_local = L.apply_update(L.place_delta_model(dms[0], specs, mesh),
+                               dp, ep, param_shardings=specs, mesh=mesh)
+    placed = L.place_delta_model(new_whole, specs, mesh)
+    eq = all(torch.equal(getattr(placed.deltas[p], f),
+                         getattr(new_local.deltas[p], f))
+             for p in placed.deltas
+             for f in ("packed", "v_row", "v_col", "use_row"))
+    eq &= all(torch.equal(placed.extras[p], new_local.extras[p])
+              for p in placed.extras)
+    out["update_blocks_equal"] = bool(eq)
+    out["patched_modules"] = len(dp) + len(ep)
+    return out
+
+
+def store_tokens(mesh, d: dict, root: str) -> dict:
+    """publish, update, serve, rollback, serve through a store in a
+    directory every rank shares (rank 0 writes)."""
+    model, params, axes, dms = setup("deepseek-7b", d)
+    dep = deployment(model, params, axes, mesh, root_dir=root,
+                     **SCHEDULERS["continuous"])
+    out = {"versions": [dep.publish("v0", dms[0]),
+                        dep.update("v0", dms[1])]}
+    names = ["__base__", "v0"]
+
+    def run():
+        rids = [dep.submit(p, variant=names[i % 2], max_new_tokens=3)
+                for i, p in enumerate(d["prompts"][:4])]
+        dep.drain()
+        return [dep.result(r).out_tokens for r in rids]
+    out["after_update"] = run()
+    out["rollback"] = dep.rollback("v0")
+    out["after_rollback"] = run()
+    out["refused"] = store_refusals(dep)
+    out["after_refusals"] = run()
+    return out
+
+
+def store_refusals(dep) -> list:
+    """Writes the store refuses (rank 0 finds the fault) raise on every
+    rank, with rank 0's error; the serving after them shows the ranks
+    still in step."""
+    got = []
+    for write in (lambda: dep.rollback("v0", 99),
+                  lambda: dep.update("nope", None),
+                  lambda: dep.rollback("nope")):
+        try:
+            write()
+            got.append(None)
+        except (KeyError, ValueError) as e:
+            got.append((type(e).__name__, str(e)))
+    return got
+
+
+def run(mesh, path: str, plan: dict) -> dict:
+    """Everything one spawn of a mesh shape checks (one spawn per shape
+    serves a whole test module)."""
+    torch.set_num_threads(1)
+    data = load(path)
+    device = str(mesh.device)
+    out = {"coords": mesh.coords, "backend": mesh.backend,
+           "device": device}
+    if plan.get("dispatch"):
+        out["dispatch"] = dispatch_checks(mesh, data["deepseek-7b"],
+                                          data["deepseek-moe-16b"],
+                                          device=device)
+    for arch in plan.get("logits", ()):
+        out[("logits", arch)] = mesh_logits(mesh, arch, data[arch])
+    for arch, scheds in plan.get("tokens", {}).items():
+        out[("tokens", arch)] = mesh_tokens(mesh, arch, data[arch],
+                                            scheds=scheds, device=device)
+    if plan.get("bank"):
+        out["bank"] = bank_checks(mesh, data["deepseek-7b"])
+    if plan.get("store"):
+        out["store"] = store_tokens(mesh, data["deepseek-7b"], plan["store"])
+    return out
+
+
+def refuse_world(mesh):
+    """A rank that raises on purpose: the world is not a (2, 2) mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    make_host_mesh(2, 2)

@@ -1691,3 +1691,96 @@ def test_train_steps_card_match_cpu(cuda, arch, tmp_path):
             assert b.device.type == "cpu" and torch.equal(a.cpu(), b), k
         else:
             assert a == b, k
+
+
+# ---------------------------------------------------------------------------
+# mesh-sharded serving on the card (ranks spawned by launch.mesh: NCCL when
+# every rank has a card of its own, else gloo over card 0)
+# ---------------------------------------------------------------------------
+
+def _mesh_data(path) -> str:
+    """Reduced deepseek-7b and deepseek-moe-16b weights, two synthetic
+    variants each and the requests, in the rank-side exchange file
+    (``tests/_mesh_ranks.py``); made by the port alone."""
+    import pickle
+
+    import _mesh_ranks as MR
+    from repro_torch import bridge
+    from repro_torch.core import calibration as C
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.models.param import split
+    data = {}
+    for arch in ("deepseek-7b", "deepseek-moe-16b"):
+        cfg = MR.port_config(arch)
+        base, _ = split(build_model(cfg).init(0, device="cpu"))
+        dms = [C.compress(base, SV.fine_tune(base, 41 + i, scale=0.05))
+               for i in range(2)]
+        rng = np.random.default_rng(3)
+        data[arch] = {
+            "flat": bridge.params_to_numpy(base),
+            "dms": [bridge.delta_model_to_numpy(d) for d in dms],
+            "prompts": [rng.integers(1, cfg.vocab_size, size=n)
+                        for n in (12, 7, 10, 12, 5, 9)],
+            "tokens": rng.integers(1, cfg.vocab_size, size=(MR.BATCH, 10))}
+    out = str(path / "mesh.pkl")
+    with open(out, "wb") as f:
+        pickle.dump(data, f)
+    return out
+
+
+def test_mesh_dispatch_per_rank_matches_single_card_kernel(cuda, tmp_path):
+    """Each rank's kernels (row- and column-sharded wq / wo / w_down, the
+    banked GEMM over three slots, the expert stacks over its local experts,
+    ``unpack_apply`` per tile; per rank and gathered) on a (1, 2) mesh
+    against the single-card kernel on the whole operands."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as LM
+    import _mesh_ranks as MR
+    build.library()          # built before any rank starts
+    path = _mesh_data(tmp_path)
+    got = LM.spawn(MR.run, (1, 2), device="cuda", timeout_s=600,
+                   args=(path, {"dispatch": True}))
+    for g in got:
+        assert g["device"].startswith("cuda")
+        for name, ratio in g["dispatch"].items():
+            if name.startswith("unpack"):
+                assert ratio == 0.0, name
+            else:
+                assert ratio <= 1.0, (name, ratio)
+
+
+def test_mesh_deployment_on_card_matches_cpu(cuda, tmp_path):
+    """A (1, 2) Deployment on the card serves the single-process CPU plain
+    path's tokens on every rank: continuous banked, group fused and group
+    dense, per-rank and gathered kernels."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as LM
+    import _mesh_ranks as MR
+    build.library()
+    path = _mesh_data(tmp_path)
+    data = MR.load(path)
+    archs = ("deepseek-7b", "deepseek-moe-16b")
+    plan = {"tokens": {a: tuple(MR.SCHEDULERS) for a in archs}}
+    got = LM.spawn(MR.run, (1, 2), device="cuda", timeout_s=900,
+                   args=(path, plan))
+    for arch in archs:
+        want = MR.mesh_tokens(None, arch, data[arch], kds=("shard_map",))
+        for g in got:
+            for (kd, sched), toks in g[("tokens", arch)].items():
+                assert toks == want[("shard_map", sched)], (arch, kd, sched)
+
+
+def test_mesh_refuses_graphs_on_the_card(cuda):
+    """A gloo collective cannot be captured in a CUDA graph: a mesh
+    Deployment on the card with graphs=True raises, naming the slice."""
+    import _mesh_ranks as MR
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import build_model
+    from repro_torch.models.param import split
+    from repro_torch.serving import Deployment
+    model = build_model(MR.port_config("deepseek-7b"))
+    params, axes = split(model.init(0, device="cpu"))
+    with pytest.raises(NotImplementedError, match="graphs.*slice"):
+        Deployment(model, params, device=cuda, param_axes=axes,
+                   mesh=S.Mesh(("data", "model"), (1, 2), device=cuda))

@@ -1,0 +1,354 @@
+"""Mesh-sharded serving of the port on spawned gloo ranks, on the CPU.
+
+Each mesh shape is ONE spawned group (``launch.mesh.start``) that runs
+every rank-side check of the module (``tests/_mesh_ranks.run``) while the
+parent runs the JAX package; the tests then assert on what the ranks sent
+back.  The groups start when the module's data fixture is built and are
+joined on first use, each with its own deadline, so a hung group fails
+its own tests and never the suite's time limit.
+
+Contracts (the JAX package's own mesh tests, ``tests/test_sharded_serving
+.py:1-13`` and ``tests/test_shard_map_dispatch.py:303-310``): sharding is
+a layout change only — a sharded Deployment serves the greedy tokens of
+JAX's single-device Deployment on every rank, for both kernel dispatch
+modes — and each rank launches its kernels on its own tiles, within the
+GEMM bound of the unsharded op.
+"""
+import pickle
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _port_helpers import (configs, delta_model_numpy, fine_tune_flat,
+                           jax_base, jax_tree)
+from repro.core import calibration as JC
+from repro.core import loader as JL
+from repro.serving import Deployment as JaxDeployment
+
+import _mesh_ranks as R
+from repro_torch import bridge
+from repro_torch.core import loader as L
+from repro_torch.launch import mesh as LM
+from repro_torch.models import build_model
+
+jax.config.update("jax_platforms", "cpu")
+
+ARCHS = ("deepseek-7b", "deepseek-moe-16b")
+KDS = ("shard_map", "gspmd")
+TIMEOUT_S = 300
+MESHES = {
+    (1, 2): {"dispatch": True, "logits": ARCHS, "bank": True,
+             "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS}},
+    (2, 1): {"logits": ARCHS,
+             "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS}},
+    (2, 2): {"dispatch": True, "logits": ARCHS, "bank": True,
+             "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS}},
+    # reduced qwen3-8b keeps 4 q heads and 2 KV heads: under model=4 the
+    # GQA branch (q heads sharded, K/V gathered) with a KV head cut over
+    # two ranks
+    (1, 4): {"dispatch": True, "logits": ("qwen3-8b",),
+             "tokens": {"qwen3-8b": ("continuous", "group-fused")}},
+}
+TOKEN_CASES = [(m, a, s, kd) for m, plan in MESHES.items()
+               for a, scheds in plan["tokens"].items() for s in scheds
+               for kd in KDS]
+LOGIT_CASES = [(m, a) for m, plan in MESHES.items() for a in plan["logits"]]
+
+
+def _arch_data(arch: str) -> dict:
+    jcfg, _ = configs(num_layers=R.LAYERS.get(arch, 2), arch=arch)
+    jmodel, jparams, flat = jax_base(jcfg)
+    jdms = [JC.compress(jparams, jax_tree(jparams, fine_tune_flat(
+        flat, seed, scale=0.05))) for seed in (41, 42)]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, jcfg.vocab_size, size=n)
+               for n in (12, 7, 10, 12, 5, 9)]
+    tokens = rng.integers(1, jcfg.vocab_size, size=(R.BATCH, 10))
+    return {"jmodel": jmodel, "jparams": jparams, "jdms": jdms,
+            "ship": {"flat": flat, "dms": [delta_model_numpy(d)
+                                           for d in jdms],
+                     "prompts": prompts, "tokens": tokens}}
+
+
+class _Spawns:
+    """Every mesh shape's group, started at once, joined on first use."""
+
+    def __init__(self, path: str, store_root: str):
+        self.groups, self.done = {}, {}
+        for shape, plan in MESHES.items():
+            plan = dict(plan)
+            if shape == (1, 2):
+                plan["store"] = store_root
+            self.groups[shape] = LM.start(
+                R.run, shape, device="cpu", timeout_s=TIMEOUT_S,
+                args=(path, plan), threads=1)
+
+    def get(self, shape) -> list:
+        if shape not in self.done:
+            try:
+                self.done[shape] = self.groups[shape].join()
+            except LM.RankFailure as e:
+                self.done[shape] = e
+        got = self.done[shape]
+        if isinstance(got, Exception):
+            raise got
+        return got
+
+    def close(self) -> None:
+        for shape in self.groups:
+            if shape not in self.done:
+                try:
+                    self.get(shape)
+                except LM.RankFailure:
+                    pass
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("mesh")
+    data = {a: _arch_data(a) for a in ARCHS + ("qwen3-8b",)}
+    path = str(tmp / "data.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({a: d["ship"] for a, d in data.items()}, f)
+    spawns = _Spawns(path, str(tmp / "store"))
+    yield {"data": data, "spawns": spawns, "tmp": tmp}
+    spawns.close()
+
+
+_JAX_TOKENS: dict = {}
+
+
+def _jax_tokens(world, arch: str, sched: str) -> list:
+    """JAX's single-device Deployment over the same weights and
+    requests."""
+    key = (arch, sched)
+    if key not in _JAX_TOKENS:
+        d = world["data"][arch]
+        dep = JaxDeployment(d["jmodel"], d["jparams"], batch_size=R.BATCH,
+                            prompt_len=R.PROMPT, max_len=R.MAX_LEN,
+                            **R.SCHEDULERS[sched])
+        for i, dm in enumerate(d["jdms"]):
+            dep.publish(f"v{i}", dm)
+        rids = [dep.submit(p, variant=R.NAMES[i % len(R.NAMES)],
+                           max_new_tokens=R.BUDGETS[i % len(R.BUDGETS)])
+                for i, p in enumerate(d["ship"]["prompts"])]
+        dep.drain()
+        _JAX_TOKENS[key] = [dep.result(r).out_tokens for r in rids]
+        dep.close()
+    return _JAX_TOKENS[key]
+
+
+@pytest.mark.parametrize("shape,arch,sched,kd", TOKEN_CASES,
+                         ids=["x".join(map(str, m)) + f"-{a}-{s}-{kd}"
+                              for m, a, s, kd in TOKEN_CASES])
+def test_mesh_deployment_tokens_match_jax_single_device(world, shape, arch,
+                                                        sched, kd):
+    want = _jax_tokens(world, arch, sched)
+    assert [len(t) for t in want] == R.BUDGETS
+    for r, got in enumerate(world["spawns"].get(shape)):
+        assert got[("tokens", arch)][(kd, sched)] == want, (r, got["coords"])
+
+
+_PORT_LOGITS: dict = {}
+
+
+def _port_and_jax_logits(world, arch: str) -> dict:
+    """Unsharded port and JAX logits, base and fused overlay."""
+    if arch not in _PORT_LOGITS:
+        d = world["data"][arch]
+        model = build_model(R.port_config(arch))
+        params = bridge.params_from_numpy(d["ship"]["flat"], "cpu")
+        dm = bridge.delta_model_from_numpy(d["ship"]["dms"][0], "cpu")
+        tokens = d["ship"]["tokens"]
+        with torch.no_grad():
+            base, _ = model.forward(params, {"tokens": torch.from_numpy(
+                tokens)})
+            pv, ov, _ = L.device_put_overlay(params, dm)
+            fused, _ = model.forward(pv, {"tokens": torch.from_numpy(
+                tokens)}, overlay=ov)
+        jb = {"tokens": jnp.asarray(tokens)}
+        jbase, _ = d["jmodel"].forward(d["jparams"], jb)
+        jpv, jov, _ = JL.device_put_overlay(d["jparams"], d["jdms"][0])
+        jfused, _ = d["jmodel"].forward(jpv, jb, overlay=jov)
+        _PORT_LOGITS[arch] = {"port": {"base": base.numpy(),
+                                       "fused": fused.numpy()},
+                              "jax": {"base": np.asarray(jbase),
+                                      "fused": np.asarray(jfused)}}
+    return _PORT_LOGITS[arch]
+
+
+@pytest.mark.parametrize("shape,arch", LOGIT_CASES,
+                         ids=["x".join(map(str, m)) + f"-{a}"
+                              for m, a in LOGIT_CASES])
+def test_mesh_logits_match_unsharded_port_and_jax(world, shape, arch):
+    ref = _port_and_jax_logits(world, arch)
+    for got in world["spawns"].get(shape):
+        for kind in ("base", "fused"):
+            lg = got[("logits", arch)][kind]
+            np.testing.assert_allclose(lg, ref["port"][kind], rtol=0,
+                                       atol=1e-5)
+            np.testing.assert_allclose(lg, ref["jax"][kind], rtol=0,
+                                       atol=1e-4)
+
+
+DISPATCH_MESHES = [m for m, p in MESHES.items() if p.get("dispatch")]
+
+
+@pytest.mark.parametrize("shape", DISPATCH_MESHES,
+                         ids=["x".join(map(str, m)) for m in DISPATCH_MESHES])
+def test_per_rank_dispatch_within_gemm_bound(world, shape):
+    """Per-rank kernels (and their gathered twins) on row-sharded (wq),
+    column-sharded (wo, w_down: the fp32 psum) weights, banked over three
+    slots, expert-stacked over the local experts, and the per-tile
+    ``unpack_apply`` (bit-exact: no contraction)."""
+    for got in world["spawns"].get(shape):
+        checks = got["dispatch"]
+        kinds = {name.split()[0] for name in checks}
+        assert kinds == {"axes", "banked", "unpack", "stacked"}
+        for name, ratio in checks.items():
+            if name.startswith("unpack"):
+                assert ratio == 0.0, name
+            else:
+                assert ratio <= 1.0, (name, ratio)
+
+
+BANK_MESHES = [m for m, p in MESHES.items() if p.get("bank")]
+
+
+@pytest.mark.parametrize("shape", BANK_MESHES,
+                         ids=["x".join(map(str, m)) for m in BANK_MESHES])
+def test_bank_admit_evict_readmit_on_local_blocks(world, shape):
+    for got in world["spawns"].get(shape):
+        b = got["bank"]
+        assert b["bank_blocks_equal"]
+        assert b["slots"][0] == b["slots"][1]
+
+
+@pytest.mark.parametrize("shape", BANK_MESHES,
+                         ids=["x".join(map(str, m)) for m in BANK_MESHES])
+def test_apply_update_patches_local_blocks(world, shape):
+    for got in world["spawns"].get(shape):
+        assert got["bank"]["update_blocks_equal"]
+        assert got["bank"]["patched_modules"] > 0
+
+
+@pytest.mark.parametrize("shape", BANK_MESHES,
+                         ids=["x".join(map(str, m)) for m in BANK_MESHES])
+def test_per_device_nbytes_per_rank(world, shape):
+    """Each rank reports every rank's bank bytes, keyed by rank: its own
+    blocks' bytes (blocks are even), which tile the whole bank over the
+    model axis and repeat it over data."""
+    ranks = world["spawns"].get(shape)
+    n = shape[0] * shape[1]
+    for got in ranks:
+        b = got["bank"]
+        assert b["per_device"] == {r: b["bank_nbytes"] for r in range(n)}
+        assert b["bank_nbytes"] < b["whole_nbytes"]
+        assert b["bank_nbytes"] * shape[1] >= b["whole_nbytes"]
+
+
+_SINGLE_STORE: dict = {}
+
+
+def _single_store(world) -> dict:
+    """The store lifecycle in one process, without a mesh."""
+    if not _SINGLE_STORE:
+        _SINGLE_STORE.update(R.store_tokens(
+            None, world["data"]["deepseek-7b"]["ship"],
+            str(world["tmp"] / "single")))
+    return _SINGLE_STORE
+
+
+def test_store_lifecycle_on_mesh_writes_once(world):
+    """publish, update (a patch), serve, rollback, serve through one store
+    directory under (1, 2): rank 0 writes, both ranks read, and the
+    tokens and versions are the single-process port's."""
+    got = world["spawns"].get((1, 2))
+    want = _single_store(world)
+    for g in got:
+        assert g["store"] == want
+    assert want["versions"] == [1, 2] and want["rollback"] == 1
+    store = world["tmp"] / "store" / "v0"
+    assert sorted(p.name for p in store.iterdir()) == [
+        "v0001", "v0002", "versions.json"]
+
+
+def test_store_refusals_raise_on_every_rank(world):
+    """A write the store refuses — a rollback to a version that does not
+    exist, an update or a rollback of an unknown variant — raises rank
+    0's error on every rank of (1, 2), as in one process, and the ranks
+    then serve on in step."""
+    got = world["spawns"].get((1, 2))
+    want = _single_store(world)
+    assert [r and r[0] for r in want["refused"]] == [
+        "KeyError", "KeyError", "KeyError"]
+    for g in got:
+        assert g["store"]["refused"] == want["refused"]
+        assert g["store"]["after_refusals"] == want["after_rollback"]
+
+
+def test_rank_failure_ends_group_within_timeout():
+    """A rank that raises (here: a world that is not the mesh's size)
+    ends its group with an error well inside the deadline."""
+    t0 = time.perf_counter()
+    with pytest.raises(LM.RankFailure, match="needs 4 ranks"):
+        LM.spawn(R.refuse_world, (1, 2), device="cpu", timeout_s=60,
+                 threads=1)
+    assert time.perf_counter() - t0 < 60
+
+
+def test_every_rank_named_its_backend(world):
+    for shape in MESHES:
+        got = world["spawns"].get(shape)
+        assert sorted(g["coords"] for g in got) == sorted(
+            (d, m) for d in range(shape[0]) for m in range(shape[1]))
+        assert {g["backend"] for g in got} == {"gloo"}
+
+
+_REFUSALS = {
+    "speculative": (dict(speculative=True), "speculative"),
+    "async_admission": (dict(async_admission=True), "async admission"),
+    "int8": (dict(base_dtype="int8"), "int8"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSALS) + ["warmup", "family",
+                                                       "no_axes"])
+def test_mesh_refusals_name_their_slice(world, case):
+    """What mesh serving does not serve yet raises, naming the slice that
+    brings it; nothing is switched off silently.  (A mesh object without
+    processes: every refusal comes before the first collective.)"""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models.param import split
+    mesh = S.Mesh(("data", "model"), (1, 2))
+    arch = "deepseek-7b"
+    d = world["data"][arch]["ship"]
+    model = build_model(R.port_config(arch))
+    params = bridge.params_from_numpy(d["flat"], "cpu")
+    _, axes = split(model.init(0, device="cpu"))
+    kw = dict(device="cpu", mesh=mesh, param_axes=axes, batch_size=4)
+    if case == "no_axes":
+        with pytest.raises(ValueError, match="param_axes"):
+            R.Deployment(model, params, device="cpu", mesh=mesh)
+        return
+    if case == "warmup":
+        dep = R.Deployment(model, params, **kw)
+        with pytest.raises(NotImplementedError, match="slice"):
+            dep.warmup()
+        return
+    if case == "family":
+        wcfg = R.port_config("whisper-base")
+        wmodel = build_model(wcfg)
+        wparams, waxes = split(wmodel.init(0, device="cpu"))
+        with pytest.raises(NotImplementedError,
+                           match="family 'audio'.*slice"):
+            R.Deployment(wmodel, wparams, device="cpu", mesh=mesh,
+                         param_axes=waxes)
+        return
+    extra, word = _REFUSALS[case]
+    with pytest.raises(NotImplementedError, match=f"{word}.*slice"):
+        R.Deployment(model, params, **kw, **extra)

@@ -1,0 +1,304 @@
+"""The port's sharding resolution held against the JAX package's, with no
+processes: the rule sets, ``resolve_spec`` (a property over shapes and
+axes), ``tree_pspecs`` of the param, overlay and bank axes of every arch
+of the mesh slice at full width, ``plan_matmul`` for every projection,
+and the drift guard of the ``waxes`` literals the port's models pass.
+
+Meshes are fake (the idiom of ``tests/test_sharded_serving.py:42-46``):
+resolution reads only the axis names and sizes.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from _hypothesis_compat import given, settings, st
+from _port_helpers import configs
+from repro.configs import get_config
+from repro.core import calibration as JC
+from repro.distributed import sharding as JS
+from repro.kernels import dispatch as JD
+from repro.models import build_model as jax_build_model
+from repro.models import delta_overlay as JDO
+from repro.models.param import split as jax_split
+
+import repro_torch.configs as TC
+from repro_torch.core import calibration as C
+from repro_torch.core import loader as L
+from repro_torch.distributed import sharding as S
+from repro_torch.kernels import dispatch as D
+from repro_torch.kernels import ops as K
+from repro_torch.models import build_model
+from repro_torch.models import delta_overlay as DO
+from repro_torch.models import layers as LY
+from repro_torch.models.param import split
+from repro_torch.serving.variants import OverlayBank
+
+ARCHS = ("qwen3-8b", "deepseek-7b", "deepseek-moe-16b")
+MESHES = {"2x2": ((2, 2), ("data", "model")),
+          "1x4": ((1, 4), ("data", "model")),
+          "16x16": ((16, 16), ("data", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _fake_mesh(shape, names):
+    class M:
+        axis_names = names
+        devices = np.empty(shape, object)
+    return M()
+
+
+def _port_mesh(shape, names):
+    return S.Mesh(tuple(names), tuple(shape))
+
+
+def _spec(p) -> tuple:
+    """A JAX PartitionSpec as the port's tuple."""
+    return tuple(p)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("long_context", [False, True])
+@pytest.mark.parametrize("pod_banks", [False, True])
+def test_rules_for_equal_jax(kind, long_context, pod_banks):
+    want = JS.rules_for(kind, long_context=long_context, pod_banks=pod_banks)
+    got = S.rules_for(kind, long_context=long_context, pod_banks=pod_banks)
+    assert got == want
+
+
+_AXES = ["embed", "ffn", "ffn_small", "q_heads", "kv_heads", "vocab",
+         "experts", "bank", "layers", "act_batch", "act_seq", "act_heads",
+         "act_kv", "act_groups", None]
+
+
+@settings(max_examples=60, deadline=None)
+@given(d0=st.integers(1, 96).map(lambda i: i * 4),
+       d1=st.integers(1, 96).map(lambda i: i * 8),
+       d2=st.integers(1, 24),
+       ax0=st.sampled_from(_AXES), ax1=st.sampled_from(_AXES),
+       ax2=st.sampled_from(_AXES),
+       mesh=st.sampled_from(sorted(MESHES)),
+       kind=st.sampled_from(["train", "decode"]),
+       long_context=st.booleans())
+def test_resolve_spec_equal_jax(d0, d1, d2, ax0, ax1, ax2, mesh, kind,
+                                long_context):
+    shape, names = MESHES[mesh]
+    rules = JS.rules_for(kind, long_context=long_context)
+    want = JS.resolve_spec((d0, d1, d2), (ax0, ax1, ax2), rules,
+                           _fake_mesh(shape, names))
+    got = S.resolve_spec((d0, d1, d2), (ax0, ax1, ax2),
+                         S.rules_for(kind, long_context=long_context),
+                         _port_mesh(shape, names))
+    assert got == _spec(want)
+    # and the fake mesh resolves in the port as the port's own mesh does
+    assert S.resolve_spec((d0, d1, d2), (ax0, ax1, ax2),
+                          S.rules_for(kind, long_context=long_context),
+                          _fake_mesh(shape, names)) == got
+
+
+_FULL: dict = {}
+
+
+def _full(arch: str):
+    """JAX full-width shapes and axes (eval_shape: nothing allocated) and
+    the port's axes of the same config (at reduced widths: the axes tree
+    does not depend on widths)."""
+    if arch not in _FULL:
+        jcfg = dataclasses.replace(get_config(arch), num_layers=4)
+        jshapes, jaxes = jax_split(jax.eval_shape(
+            jax_build_model(jcfg).init, jax.random.PRNGKey(0)))
+        tcfg = dataclasses.replace(TC.get_config(arch).reduced(),
+                                   num_layers=4)
+        _, taxes = split(build_model(tcfg).init(0, device="cpu"))
+        _FULL[arch] = (jshapes, jaxes, taxes)
+    return _FULL[arch]
+
+
+def _leaves(tree, prefix="") -> dict:
+    """{path: spec tuple} of a spec tree (dicts and OverlayEntry nodes of
+    either package)."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}.{k}" if prefix else k))
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            out.update(_leaves(getattr(tree, f.name), f"{prefix}:{f.name}"))
+    else:
+        out[prefix] = tuple(tree)
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_tree_pspecs_equal_jax(arch, mesh):
+    """Param, overlay and bank axes resolve leaf for leaf as in JAX."""
+    jshapes, jaxes, taxes = _full(arch)
+    shape, names = MESHES[mesh]
+    jm, tm = _fake_mesh(shape, names), _port_mesh(shape, names)
+    jr, tr = JS.rules_for("decode"), S.rules_for("decode")
+    # the port declares the JAX package's logical axes
+    assert DO.flatten_axes(taxes) == JDO.flatten_axes(jaxes)
+    want = _leaves(JS.tree_pspecs(jshapes, jaxes, jr, jm))
+    got = _leaves(S.tree_pspecs(jshapes, taxes, tr, tm))
+    assert got == want and len(got) > 10
+    flat = JC.flatten_params(jshapes)
+    deltas = sorted(p for p, a in flat.items() if JC.is_target(p, a))
+    extras = sorted(set(flat) - set(deltas))
+    for bank in (None, 4):
+        ja = JDO.overlay_pspecs(jaxes, deltas, extras if bank else (),
+                                bank=bank is not None)
+        js = JDO.overlay_struct(flat, deltas, extras, bank_size=bank)
+        ta = DO.overlay_pspecs(taxes, deltas, extras if bank else (),
+                               bank=bank is not None)
+        ts = DO.overlay_struct({p: a.shape for p, a in flat.items()},
+                               deltas, extras, bank_size=bank)
+        want = _leaves(JS.tree_pspecs(js, ja, jr, jm))
+        got = _leaves(S.tree_pspecs(ts, ta, tr, tm))
+        assert got == want and len(got) >= 3 * len(deltas)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_plan_matmul_equal_jax(arch, mesh):
+    """Every projection's plan (rows: none, decode lanes, a prefill)."""
+    jshapes, jaxes, _ = _full(arch)
+    shape, names = MESHES[mesh]
+    jm, tm = _fake_mesh(shape, names), _port_mesh(shape, names)
+    flat = JC.flatten_params(jshapes)
+    fax = JDO.flatten_axes(jaxes)
+    n_plans = 0
+    for path, leaf in flat.items():
+        if not JC.is_target(path, leaf):
+            continue
+        n, k = leaf.shape[-2:]
+        for m in (None, 64, 4096):
+            want = JD.plan_matmul(jm, JS.rules_for("decode"), fax[path], m,
+                                  n, k)
+            got = D.plan_matmul(tm, S.rules_for("decode"), fax[path], m, n,
+                                k)
+            if want is None:
+                assert got is None, (path, m)
+                continue
+            n_plans += 1
+            assert (got.m_part, got.o_part, got.i_part) == (
+                want.m_part, want.o_part, want.i_part), (path, m)
+            assert got.psum_axes == want.psum_axes
+    assert n_plans > 0
+
+
+def test_plan_refuses_unaligned_local_k():
+    """A local K tile that is not a multiple of 8 stays off the per-rank
+    path, as in the JAX module (``dispatch.py:146-150``)."""
+    mesh = _port_mesh((1, 4), ("data", "model"))
+    jmesh = _fake_mesh((1, 4), ("data", "model"))
+    rules = S.rules_for("decode")
+    for k, aligned in ((48, False), (64, True)):    # local K 12, 16
+        got = D.plan_matmul(mesh, rules, ("embed", "ffn"), 8, 64, k)
+        want = JD.plan_matmul(jmesh, JS.rules_for("decode"),
+                              ("embed", "ffn"), 8, 64, k)
+        assert (got is not None) == aligned == (want is not None)
+
+
+def test_entry_shardings_keep_k_tile_bytes():
+    """The port's deliberate layout difference: a packed plane whose
+    weight shards its in dim keeps its K-tile's bytes per rank."""
+    mesh = _fake_mesh((1, 2), ("data", "model"))
+    spec = S.resolve_spec((4096, 12288), ("embed", "ffn"),
+                          S.rules_for("decode"), mesh)
+    assert spec == (None, "model")
+    ent = DO.entry_shardings_from_weight(spec, 2)
+    assert ent.packed == (None, "model")
+    assert ent.v_row == (None,) and ent.v_col == ("model",)
+    jent = DO.entry_axes(("embed", "ffn"))
+    assert jent.packed == ("embed", None)        # logical: JAX's axes
+
+
+# ---------------------------------------------------------------------------
+# the waxes drift guard (JAX: tests/test_shard_map_dispatch.py:241-300)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_waxes_literals_match_param_declarations(arch, monkeypatch):
+    """Every axes tuple a model call site passes (into the delta kernels
+    and the plain products) agrees with the ``Param.axes`` declared at
+    init for a weight of that shape; at least one kernel site fires."""
+    _, tcfg = configs(num_layers=3 if arch == "deepseek-moe-16b" else 2,
+                      arch=arch)
+    model = build_model(tcfg)
+    base, axes = split(model.init(0, device="cpu"))
+    pert, _ = split(model.init(1, device="cpu"))
+    ft = {k: v for k, v in C.flatten_params(base).items()}
+    fp = C.flatten_params(pert)
+    dm = C.compress(base, C.unflatten_like(
+        base, {k: v + 0.05 * fp[k] for k, v in ft.items()}))
+    flat_axes = DO.flatten_axes(axes)
+    declared: dict = {}
+    for p, w in ft.items():
+        for n in (2, 3):
+            if w.dim() >= n:
+                declared.setdefault(tuple(w.shape[-n:]), set()).add(
+                    tuple(flat_axes[p][-n:]))
+    recorded = []
+    orig = K._routed
+
+    def probe(name, waxes, *args):
+        w = args[-1]
+        recorded.append((name, tuple(w.shape[-len(waxes):]), waxes))
+        return orig(name, waxes, *args)
+
+    orig_ps = LY._contracted_axes
+
+    def probe_ps(w, waxes):
+        recorded.append(("plain", tuple(w.shape[-2:]), waxes))
+        return orig_ps(w, waxes)
+
+    monkeypatch.setattr(K, "_routed", probe)
+    monkeypatch.setattr(LY, "_contracted_axes", probe_ps)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(7).integers(
+        1, tcfg.vocab_size, size=(4, 8)))}
+    with torch.no_grad():
+        pv, ov, _ = L.device_put_overlay(base, dm)
+        lg, cache = model.prefill(pv, batch, 16, overlay=ov)
+        model.decode_step(pv, lg.argmax(-1).to(torch.int32), cache,
+                          overlay=ov)
+        bank = OverlayBank(base, 3)
+        s1, _ = bank.admit("v1", dm)
+        model.prefill(base, batch, 16, overlay=bank.tree,
+                      variant_idx=torch.tensor([0, s1, s1, 0]))
+        model.prefill(base, batch, 16)
+    kinds = {name for name, _, w in recorded if w is not None}
+    assert {"bitlinear_axes", "bitlinear_axes_banked", "plain"} <= kinds
+    if tcfg.family == "moe":
+        assert "bitlinear_axes_stacked" in kinds
+    for name, shape, waxes in recorded:
+        assert waxes is not None, (name, shape)
+        assert shape in declared, (name, shape, waxes)
+        assert tuple(waxes) in declared[shape], (name, shape, waxes,
+                                                 declared[shape])
+
+
+def test_context_helpers_match_jax_without_and_with_a_mesh():
+    """``logical_constraint`` returns its input (explicit SPMD: a reshard
+    is a collective at its call site), ``local_top_k`` is ``lax.top_k``
+    (ties: lower index first), and the context accessors read the active
+    mesh and rules as JAX's do."""
+    score = np.array([[0.5, 0.1, 0.5, 0.9], [0.0, 0.0, 0.0, 0.0]],
+                     np.float32)
+    jv, ji = JS.local_top_k(jax.numpy.asarray(score), 3, (None, None))
+    tv, ti = S.local_top_k(torch.from_numpy(score), 3)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    x = torch.ones(2, 3)
+    assert S.logical_constraint(x, "act_batch", None) is x
+    assert S.active_mesh() is None and S.ctx_axis_size("model") is None
+    assert not S.ctx_forward_only()
+    mesh = _port_mesh((2, 4), ("data", "model"))
+    with S.shard_ctx(mesh, S.rules_for("decode")):
+        assert S.active_mesh() is mesh and S.ctx_axis_size("model") == 4
+        assert S.ctx_axis_size("pod") is None and S.ctx_forward_only()
+        assert S.active_rules() == JS.rules_for("decode")
+        assert S.logical_constraint(x, "act_batch", None) is x
+    assert S.active_mesh() is None
