@@ -92,7 +92,7 @@ Phases (any failure raises and the script exits non-zero):
    padded prompt of 20 and its budgets run past its reduced window of 16;
 12. other archs, full width (after the lifecycle phase): deepseek-7b and
    starcoder2-3b, 2 layers, 4 requests x 8 tokens, group fused;
-   deepseek-moe-16b, 4 layers (64 experts, top-6, capacity 1.25), group
+   deepseek-moe-16b, 2 layers (64 experts, top-6, capacity 1.25), group
    fused and continuous over an fp32 and an int8 base (the stacked kernel
    counted per call); gemma3-12b, 6 layers (one 5:1 period), continuous
    over an fp32 and an int8 base with prompts of 1100-1300 tokens, so
@@ -132,11 +132,11 @@ Phases (any failure raises and the script exits non-zero):
    printed beside the reckoning in ``vlm_phase``.
 16. the recurrent families: phase 9 covers xlstm-350m's and zamba2-7b's
    shapes too (N = 8, 112 and 128; K = 1344), phase 11 runs both reduced
-   (group dense too), and the script ends with xlstm-350m at full width
-   and depth (24 layers) and zamba2-7b at full width, 13 layers (two
-   applications of the shared block): group dense, group fused and
+   (group dense too), and the script ends with xlstm-350m at full width,
+   8 layers (7 mLSTM, 1 sLSTM), and zamba2-7b at full width, 7 layers
+   (one application of the shared block): group dense, group fused and
    continuous over a 4-slot bank, over an fp32 and an int8 base, the
-   banked GEMM counted (159 and 79 launches a prefill and a step), after
+   banked GEMM counted (53 and 42 launches a prefill and a step), after
    each fused and continuous run every delta GEMM launch of one prefill
    held to the GEMM bound, a repeat bit-identical, logits beside the plain
    versions, one decode step profiled, peak memory printed.
@@ -146,11 +146,11 @@ Phases (any failure raises and the script exits non-zero):
    scheduler, then with the speculative one (drafts of up to 4 on the
    base weights, adaptive), over an fp32 and an int8 base, then over an
    fp32 base with a near-base pair of variants (fine-tunes at 0.0005);
-   xlstm-350m at full depth (phase 16) over its fp32 base the same way
+   xlstm-350m (phase 16's 8 layers) over its fp32 base the same way
    (its verify steps the recurrence k+1 times and rewinds by snapshot).
    Each speculative run must finish every request with its budget, launch
    the banked GEMM exactly once a projection a prefill and a verify round
-   (28 a prefill and a round for qwen3-8b; 159 x (k+1) a round for
+   (28 a prefill and a round for qwen3-8b; 53 x (k+1) a round for
    xlstm) and no other delta kernel (the drafts launch none); it prints
    tokens/s beside the continuous run's, the rounds, the acceptance, the
    ladder's walk, the token agreement with the continuous run (printed,
@@ -234,8 +234,15 @@ Phases (any failure raises and the script exits non-zero):
    backward and AdamW halves, peak device memory, checkpoint bytes, save
    and restore seconds and the disk free before the first save; writes
    one full-width checkpoint (the machine takes 45 GiB of disk writes a
-   call: the compressed and the resumed runs' end-of-run saves serialise
-   and hash into a sink that keeps nothing) and removes it and the store.
+   call: the compressed and the resumed runs' end-of-run saves are
+   recorded, not written) and removes it and the store.
+22. mesh-sharded serving (``mesh_phase``, after the train phase): ranks
+   of a (data, model) mesh over ``torch.distributed``, over an fp32 and
+   an int8 base (see its docstring).
+23. the launcher's frequent update on one card (``launcher_phase``, the
+   last phase): ``python -m repro_torch.launch.serve`` at full width, 2
+   layers, with ``--updates 2 --max-resident 2``: the version lines,
+   every request's budget and the TTFT line.
 
 Each phase prints its seconds.  Then it prints the kernel summary as one
 JSON line (the entries of a kernel
@@ -1382,8 +1389,10 @@ def serve_phase(dev) -> dict:
 
     # -- group scheduler, dense residency ---------------------------------
     t0 = time.perf_counter()
-    dep = SV.build_deployment(cfg, mode="dense", scheduler="group",
-                              n_variants=2, batch=LANES, device=dev)
+    model, base, dms = SV.build_variants(cfg, 2, dev)
+    dep = SV.deploy(model, base, dms, mode="dense", scheduler="group",
+                    batch=LANES, device=dev)
+    del model, base, dms
     torch.cuda.synchronize()
     tokens["dense"], launches["dense"] = drive(
         dep, cfg, "dense", 8, [8], time.perf_counter() - t0)
@@ -2263,30 +2272,16 @@ def _timed_io(mgr, log: list):
     return mgr
 
 
-class _Discard(io.RawIOBase):
-    """A binary sink that keeps nothing."""
-
-    def writable(self) -> bool:
-        return True
-
-    def write(self, b) -> int:
-        return len(b)
-
-
-def _dry_saves(mgr, log: list):
-    """``mgr``'s saves serialise and hash the state as a save does
-    (``checkpoint/manager.write_arrays``: the copy to the host, the sha,
-    the archive) into a sink that keeps nothing, logged into ``log`` as
-    ("dry save", step, seconds, None).  The card's machine takes 45 GiB of
-    disk writes a call, so the train phase writes one full-width
-    checkpoint (19.6 GB) and runs the Trainer's other saves this way."""
-    from repro_torch.checkpoint.manager import write_arrays
-
-    def dry_save(step, state, *a, **kw):
-        t0 = time.perf_counter()
-        write_arrays(_Discard(), state)
-        log.append(("dry save", step, time.perf_counter() - t0, None))
-    mgr.save = dry_save
+def _recorded_saves(mgr, log: list):
+    """``mgr``'s saves are logged into ``log`` as ("recorded save", step,
+    0.0, None) and write nothing.  The card's machine takes 45 GiB of disk
+    writes a call, and serialising and hashing a full-width state takes
+    about 45 s on its host, so the train phase writes one full-width
+    checkpoint (19.6 GB: the save path and its time) and records the
+    Trainer's other saves."""
+    def recorded_save(step, state, *a, **kw):
+        log.append(("recorded save", step, 0.0, None))
+    mgr.save = recorded_save
     return mgr
 
 
@@ -2309,8 +2304,8 @@ def train_phase(dev) -> dict:
     disk, restored must equal the saved state bit for bit) and resumed to
     ``TRAIN_STEPS`` (the losses compared with the uninterrupted loop's:
     bit-exact, else within 1e-4 rel); the compressed and the resumed
-    runs' end-of-run saves are ``_dry_saves`` (the card's machine takes
-    45 GiB of disk writes a call);
+    runs' end-of-run saves are ``_recorded_saves`` (the card's machine
+    takes 45 GiB of disk writes a call);
     ``FT_STEPS`` of fine-tuning on SyntheticLM(seed=7); calibration of the
     trained pair per-axis and scalar (BitDelta), each at its best lr of
     ``TRAIN_CAL_LRS`` on a tuning batch, printed; the variant
@@ -2397,7 +2392,7 @@ def train_phase(dev) -> dict:
         comp = Trainer(model, os.path.join(root, "compress"),
                        dataclasses.replace(lcfg, grad_compress=True,
                                            ckpt_every=100), device=dev)
-        _dry_saves(comp.ckpt, ios)
+        _recorded_saves(comp.ckpt, ios)
         res_c = comp.run()
         assert res_c["losses"][-1] < res_c["losses"][0], res_c["losses"]
         del comp, res_c["state"]
@@ -2425,7 +2420,7 @@ def train_phase(dev) -> dict:
             assert _states_equal(out, saved.pop("state")), "restore != saved"
             return out
         second.ckpt.restore = checked_restore
-        _dry_saves(_timed_io(second.ckpt, ios), ios)
+        _recorded_saves(_timed_io(second.ckpt, ios), ios)
         res2 = second.run()
         assert not saved, "the resumed run restored nothing"
         assert res2["completed"] == TRAIN_STEPS and not res2["interrupted"]
@@ -2465,13 +2460,12 @@ def train_phase(dev) -> dict:
               f"during training {counts}")
 
     by_verb = {v: [r for r in ios if r[0] == v]
-               for v in ("save", "dry save", "restore")}
+               for v in ("save", "recorded save", "restore")}
     (_, _, save_s, nbytes), = by_verb["save"]
     print(f"train: checkpoint {nbytes} B written once, in {save_s:.2f} s "
-          f"({nbytes / save_s / 1e9:.2f} GB/s); the same serialised and "
-          f"hashed without the disk (the compressed and the resumed runs' "
-          f"end-of-run saves) in "
-          f"{[round(r[2], 2) for r in by_verb['dry save']]} s; restores "
+          f"({nbytes / save_s / 1e9:.2f} GB/s); the compressed and the "
+          f"resumed runs' end-of-run saves recorded at steps "
+          f"{[r[1] for r in by_verb['recorded save']]}; restores "
           f"{[round(r[2], 2) for r in by_verb['restore']]} s (the "
           f"resumed trainer's, sha-checked); checkpoint removed")
 
@@ -2840,7 +2834,8 @@ def gemms_checked():
     1e-5 · Σ|x||Ŵ| + 1e-6 (Ŵ of the row's own bank slot or expert):
     whatever routing a run took, each kernel is checked at the shapes the
     path gave it.  The checks launch no kernel.  Yields a list of
-    (kernel, x shape, max |err|), one per launch."""
+    (kernel, x shape, max |err|), one per launch; a launch over an int8
+    base names its body with ``_q8``."""
     from repro_torch.core import delta as D
     from repro_torch.kernels import bitlinear as BL
 
@@ -2854,7 +2849,8 @@ def gemms_checked():
         return ((v_row.float()[..., :, None] + v_col.float()[..., None, :])
                 * D.unpack_signs(packed, wq.shape[-1]) + wf).abs()
 
-    def held(name, x, got, want, scale):
+    def held(name, x, got, want, scale, w_scale):
+        name += "_q8" if w_scale is not None else ""
         diff = (got - want).abs()
         err = diff.max().item()
         assert bool((diff <= 1e-5 * scale + 1e-6).all()), (
@@ -2868,7 +2864,7 @@ def gemms_checked():
         want = BL.plain(x.float(), packed, v_row, v_col, wq, w_scale=w_scale)
         scale = x.float().abs() @ w_abs(packed, v_row, v_col, wq,
                                         w_scale).T
-        return held("bitlinear_axes", x, got, want, scale)
+        return held("bitlinear_axes", x, got, want, scale, w_scale)
 
     def banked(x, vidx, packed, v_row, v_col, wq, w_scale=None):
         got = kernels["bitlinear_axes_banked_p"](x, vidx, packed, v_row,
@@ -2879,7 +2875,7 @@ def gemms_checked():
         for v in vidx.unique().tolist():
             scale = torch.where(vidx[:, None] == v, x.float().abs() @ w_abs(
                 packed[v], v_row[v], v_col[v], wq, w_scale).T, scale)
-        return held("bitlinear_axes_banked", x, got, want, scale)
+        return held("bitlinear_axes_banked", x, got, want, scale, w_scale)
 
     def stacked(x, packed, v_row, v_col, wq, w_scale=None):
         got = kernels["bitlinear_axes_stacked_p"](x, packed, v_row, v_col,
@@ -2888,7 +2884,7 @@ def gemms_checked():
                                 w_scale=w_scale)
         scale = torch.bmm(x.float().abs(), w_abs(
             packed, v_row, v_col, wq, w_scale).transpose(1, 2))
-        return held("bitlinear_axes_stacked", x, got, want, scale)
+        return held("bitlinear_axes_stacked", x, got, want, scale, w_scale)
 
     BL.bitlinear_axes_p, BL.bitlinear_axes_banked_p = axes, banked
     BL.bitlinear_axes_stacked_p = stacked
@@ -3184,14 +3180,18 @@ def gemma3_phase(dev) -> dict:
     return launches
 
 
-MOE_LAYERS = 4   # deepseek-moe-16b: the dense first layer + 3 expert layers
+# deepseek-moe-16b: the dense first layer and one expert layer (cut from
+# 4 to keep the script inside its time limit once the mesh phase served
+# an int8 base)
+MOE_LAYERS = 2
 
 
 def moe_phase(dev) -> dict:
     """deepseek-moe-16b, full width (64 experts, top-6, capacity 1.25, two
-    shared experts), 4 layers, 2 variants: group fused and continuous (a
-    bank of 4 slots), over an fp32 and an int8 base.  Memory, reckoned
-    before the run (fp32): base 8.8 GB (the three expert layers 6.6 GB);
+    shared experts), ``MOE_LAYERS`` layers, 2 variants: group fused and
+    continuous (a bank of 4 slots), over an fp32 and an int8 base.
+    Memory, reckoned before the run (fp32) at 4 layers: base 8.8 GB (the
+    three expert layers 6.6 GB);
     the bank's extras (both tables and the routers) 4 x 1.7 GB; under 30
     GB at peak.  The stacked expert GEMM must launch in every run: at
     decode with 4 lanes each expert gets capacity 1 (M=1), at a 4 x 16
@@ -3251,7 +3251,7 @@ def moe_phase(dev) -> dict:
                 continuous=scheduler == "continuous", repeat=True,
                 stats=graphed)
             ms = {shape[1] for name, shape, _ in checked
-                  if name == "bitlinear_axes_stacked"}
+                  if name.removesuffix("_q8") == "bitlinear_axes_stacked"}
             assert ms and ms <= set(stacked_ms(cfg)), (ms, stacked_ms(cfg))
             routed["bitlinear_axes_stacked" + (
                 "_q8" if base_dtype == "int8" else "")] += routed_phase(
@@ -3488,19 +3488,23 @@ def vlm_phase(dev) -> dict:
     return launches
 
 
-# full-width recurrent runs: xlstm-350m at its full 24 layers (fp32 base
-# 2.1 GB); zamba2-7b at 13 of 81 layers (two applications of the shared
-# block and one trailing Mamba2 block; fp32 base 5.95 GB, 27.2 GB at 81)
-RECURRENT_LAYERS = {"xlstm-350m": 24, "zamba2-7b": 13}
+# full-width recurrent runs: xlstm-350m at 8 of 24 layers (one period: 7
+# mLSTM and 1 sLSTM; cut from 24 to keep the script inside its time limit
+# once the mesh phase served an int8 base; fp32 base 2.1 GB at 24);
+# zamba2-7b at 7 of 81 layers (one application of the shared block and
+# one trailing Mamba2 block; cut from 13 for the same reason; fp32 base
+# 5.95 GB at 13, 27.2 GB at 81)
+RECURRENT_LAYERS = {"xlstm-350m": 8, "zamba2-7b": 7}
 SPEC_RECURRENT = "xlstm-350m"   # also served speculatively: the snapshot path
 
 
 def recurrent_launches(cfg) -> tuple:
     """(delta GEMM launches per prefill, per decode step) of xlstm or
     zamba with every projection overlaid: mLSTM's seven and sLSTM's four
-    a layer (21 x 7 + 3 x 4 = 159 at full depth); a Mamba2 block's five
-    and the shared block's seven an application (13 x 5 + 2 x 7 = 79 at
-    13 layers: the prefill projects each application's q/k/v once)."""
+    a layer (21 x 7 + 3 x 4 = 159 at full depth, 7 x 7 + 4 = 53 at 8
+    layers); a Mamba2 block's five and the shared block's seven an
+    application (13 x 5 + 2 x 7 = 79 at 13 layers, 7 x 5 + 7 = 42 at 7:
+    the prefill projects each application's q/k/v once)."""
     if cfg.family == "ssm":
         n_s = cfg.num_layers // (cfg.mlstm_ratio + 1)
         n = 7 * n_s * cfg.mlstm_ratio + 4 * n_s
@@ -3510,7 +3514,7 @@ def recurrent_launches(cfg) -> tuple:
 
 
 def recurrent_phase(dev, arch) -> dict:
-    """xlstm-350m (24 layers) or zamba2-7b (13 layers) at full width, 2
+    """xlstm-350m (8 layers) or zamba2-7b (7 layers) at full width, 2
     variants, 4 lanes: ``six_runs`` (group dense through ``unpack_apply``,
     zamba's unstacked ``shared.*`` entries too; the continuous runs count
     ``recurrent_launches`` a prefill and a step); xlstm-350m then
@@ -3840,6 +3844,51 @@ def restart_phase(dev, build_s: float) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the launcher's frequent update: update + hot-swap cycles, then rollback
+# ---------------------------------------------------------------------------
+
+LAUNCH_ARGS = ["--arch", ARCH, "--num-layers", "2", "--mode", "fused",
+               "--scheduler", "continuous", "--updates", "2",
+               "--max-resident", "2"]
+LAUNCH_REQUESTS = 12 + 2 * LANES + 1   # the requests, two waves, one more
+LAUNCH_BUDGET = 8                      # the launcher's --new-tokens default
+
+
+def launcher_phase(dev) -> None:
+    """``python -m repro_torch.launch.serve`` with ``LAUNCH_ARGS`` as a
+    fresh process on the card (qwen3-8b at full width, 2 layers, 3
+    variants, 12 requests over the continuous scheduler, then two update
+    cycles on v0 and a rollback; the kernel library loaded from this
+    script's build): the version lines must read 2, 3, then rollback to
+    2, every request must finish with its budget, and the TTFT line is
+    printed."""
+    import re
+
+    from repro_torch.kernels import build
+    cache_dir = str(build._loaded_through[0].path)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCH_ARGS,
+         "--compile-cache", cache_dir], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=600)
+    wall = time.time() - t0
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    lines = version_lines(proc.stdout)
+    assert lines == ["update 0: v0 -> version 2", "update 1: v0 -> version 3",
+                     "rollback: v0 -> version 2"], lines
+    tokens = json.loads(launcher_lines(proc.stdout)["tokens"])
+    assert [len(t) for t in tokens] == [LAUNCH_BUDGET] * LAUNCH_REQUESTS, (
+        [len(t) for t in tokens])
+    ttft = re.search(r"^ttft: .*$", proc.stdout, re.M)
+    assert ttft, proc.stdout[-2000:]
+    print(f"launcher: `python -m repro_torch.launch.serve "
+          f"{' '.join(LAUNCH_ARGS)}`: {lines}; {len(tokens)} requests, "
+          f"every one {LAUNCH_BUDGET} tokens; {ttft.group(0)}; process "
+          f"wall {wall:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # mesh-sharded serving: ranks over torch.distributed (launch/mesh.spawn)
 # ---------------------------------------------------------------------------
 
@@ -3851,8 +3900,10 @@ MESH_RUNS = {"continuous": dict(scheduler="continuous", mode="fused"),
              "group dense": dict(scheduler="group", mode="dense")}
 MESH_REF_BUDGETS = [2, 5, 3, 4]
 MESH_FULL_SHAPE = (1, 2)
-# (arch, layers, compute dtype or None for the config's own)
-MESH_FULL = (("qwen3-8b", SERVE_LAYERS, None), ("deepseek-moe-16b", 4, None))
+# (arch, layers, compute dtype or None for the config's own); depth cut
+# from 4 to keep the script inside its time limit once the int8 runs
+# joined (deepseek-moe-16b: the dense first layer and one expert layer)
+MESH_FULL = (("qwen3-8b", 2, None), ("deepseek-moe-16b", 2, None))
 # deepseek-moe-16b at fp32 compute, run by ``--mesh-only`` only: with the
 # rounding to bf16 gone, the mesh and one card differ only in the order
 # of fp32 sums (a witness of the bf16 runs' agreement)
@@ -3862,6 +3913,15 @@ MESH_FULL_RUNS = {"continuous": (12, CONT_BUDGETS),
 MESH_TIMEOUT_S = 600
 MESH_KERNELS = ("unpack_apply", "bitlinear_axes", "bitlinear_axes_banked",
                 "bitlinear_axes_stacked")
+# over an int8 base: the reduced meshes, and the full-width (1, 2) runs
+MESH_INT8_SHAPES = ((1, 2), (2, 2))
+MESH_INT8_FULL = {"qwen3-8b": ("continuous", "group fused"),
+                  "deepseek-moe-16b": ("continuous",)}
+# the launcher inside the reduced (1, 2) group: an int8 base, one update
+MESH_LAUNCH_ARGV = ["--arch", "deepseek-7b", "--reduced", "--variants", "2",
+                    "--requests", "4", "--new-tokens", "3", "--batch",
+                    str(LANES), "--mode", "fused", "--scheduler",
+                    "continuous", "--base-dtype", "int8", "--updates", "1"]
 
 
 def mesh_full_config(arch, layers, dtype):
@@ -3921,30 +3981,81 @@ def mesh_store_run(model, base, dms, axes, mesh, device, root) -> dict:
     return out
 
 
-def mesh_ref_rank(mesh, store_root) -> dict:
+def mesh_ref_rank(mesh, store_root, int8: bool) -> dict:
     """One rank of a reduced mesh on the card: both archs, every run, both
-    kernel dispatch modes (and on (1, 2) the store lifecycle); tokens and
-    the run's launches on this rank."""
+    kernel dispatch modes, over an fp32 base and (``int8``) an int8 one
+    (and on (1, 2) the store lifecycle and the launcher's update run,
+    ``mesh_launcher_run``); tokens and the run's launches on this rank."""
     from repro_torch.launch import serve as SV
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"coords": mesh.coords, "device": str(mesh.device),
            "backend": mesh.backend, "runs": {}}
+    dtypes = ("fp", "int8") if int8 else ("fp",)
     for arch in MESH_REF_ARCHS:
         cfg, model, base, dms, axes = mesh_ref_setup(arch)
-        for kd in MESH_KDS:
-            for run in MESH_RUNS:
-                zero_counters()
-                dep = mesh_deploy(model, base, dms, axes, mesh, mesh.device,
-                                  run, kernel_dispatch=kd)
-                rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
-                dep.drain()
-                out["runs"][arch, kd, run] = {
-                    "tokens": [dep.result(r).out_tokens for r in rids],
-                    "launches": counters()}
+        for bd in dtypes:
+            for kd in MESH_KDS:
+                for run in MESH_RUNS:
+                    zero_counters()
+                    dep = mesh_deploy(model, base, dms, axes, mesh,
+                                      mesh.device, run, kernel_dispatch=kd,
+                                      base_dtype=bd)
+                    rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
+                    dep.drain()
+                    out["runs"][arch, kd, mesh_run(run, bd)] = {
+                        "tokens": [dep.result(r).out_tokens for r in rids],
+                        "launches": counters()}
         if store_root and arch == MESH_REF_ARCHS[0]:
             out["store"] = mesh_store_run(model, base, dms, axes, mesh,
                                           mesh.device, store_root)
+    if store_root:
+        out["launcher"] = mesh_launcher_run(mesh)
     return out
+
+
+def mesh_run(run: str, base_dtype: str) -> str:
+    """A run's label: its scheduler, then " int8" over an int8 base."""
+    return run + (" int8" if base_dtype == "int8" else "")
+
+
+def version_lines(text: str) -> list:
+    """The launcher's ``update …`` and ``rollback: …`` lines."""
+    return [ln for ln in text.splitlines()
+            if ln.startswith(("update ", "rollback:"))]
+
+
+def mesh_launcher_run(mesh) -> dict:
+    """``launch.serve`` on this rank with ``MESH_LAUNCH_ARGV`` (an int8
+    base, continuous, one update), then the same calls made directly on a
+    Deployment of the same mesh: build the variants on the rank's card from
+    the launcher's seeds, serve the requests, update v0 with its fine-tune
+    moved on, serve a wave of v0 requests, roll back, serve one more.
+    Returns the launcher's version lines (rank 0 prints them) and tokens,
+    and the direct run's versions and tokens."""
+    from repro_torch.core import calibration as C
+    from repro_torch.launch import serve as SV
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tokens = SV._mesh_rank(mesh, MESH_LAUNCH_ARGV)
+    cfg = SV.make_config("deepseek-7b", reduced=True)
+    model, base, dms, axes = SV.build_variants(cfg, 2, mesh.device,
+                                               with_axes=True)
+    dep = SV.deploy(model, base, dms, mode="fused", scheduler="continuous",
+                    batch=LANES, device=mesh.device, base_dtype="int8",
+                    mesh=mesh, param_axes=axes, graphs=False)
+    rng = np.random.default_rng(0)
+    rids = SV.submit_requests(dep, cfg, 4, 3, rng=rng)
+    dep.drain()
+    tune = SV.continue_tune(SV.fine_tune(base, 100), base)
+    versions = [dep.update("v0", C.compress(base, tune))]
+    rids += SV.submit_requests(dep, cfg, LANES, 3, names=["v0"], rng=rng)
+    dep.drain()
+    versions.append(dep.rollback("v0"))
+    rids += SV.submit_requests(dep, cfg, 1, 3, names=["v0"], rng=rng)
+    dep.drain()
+    return {"lines": version_lines(buf.getvalue()), "tokens": tokens,
+            "direct_versions": versions,
+            "direct_tokens": [dep.result(r).out_tokens for r in rids]}
 
 
 def allreduce_check(mesh, dep, base, dm, path: str) -> dict:
@@ -3952,8 +4063,11 @@ def allreduce_check(mesh, dep, base, dm, path: str) -> dict:
     (layer 0 of ``path``), per rank on the rank's blocks, against the
     single-card kernel on the whole operands on this rank's card: within
     the GEMM bound summed over the ranks' K-tiles plus the single-card
-    kernel's own, 2e-5·Σ|x||Ŵ| + (M+1)·1e-6."""
+    kernel's own, 2e-5·Σ|x||Ŵ| + (M+1)·1e-6.  Over an int8 base the
+    rank's blocks are the ones it serves (its registry's), the whole
+    weight is quantized on the card, and both run the q8 body."""
     from repro_torch.core import delta as D
+    from repro_torch.core import quantize as Q
     from repro_torch.core.calibration import flatten_params
     from repro_torch.distributed import sharding as S
     from repro_torch.kernels import ops as K
@@ -3968,6 +4082,11 @@ def allreduce_check(mesh, dep, base, dm, path: str) -> dict:
     waxes = flatten_axes(dep.registry.param_axes)[path][1:]
     assert spec[1] is not None, (path, spec)
     sp = DO.entry_shardings_from_weight(spec, 2)
+    w_local = S.block(w, spec, mesh)
+    if dep.registry.base_dtype == "int8":
+        served = flatten_params(dep.registry.base_params)[path]
+        w_local = Q.QuantWeight(q=served.q[0], scale=served.scale[0])
+        w = Q.quantize_weight(w)
     gen = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn((LANES, w.shape[1]), generator=gen, device=dev)
     with dep.engine._ctx():
@@ -3975,10 +4094,10 @@ def allreduce_check(mesh, dep, base, dm, path: str) -> dict:
             S.block(x, (None, spec[1]), mesh),
             *(S.block(t, s, mesh) for t, s in zip(ent, (sp.packed, sp.v_row,
                                                          sp.v_col))),
-            S.block(w, spec, mesh), waxes=waxes)
+            w_local, waxes=waxes)
     want = K.bitlinear_axes(x, *ent, w)
     w_hat = (ent[1].float()[:, None] + ent[2].float()[None, :]) \
-        * D.unpack_signs(ent[0], w.shape[1]) + w
+        * D.unpack_signs(ent[0], w.shape[1]) + _base(w)[2]
     scale = x.abs() @ w_hat.abs().T
     tol = 2e-5 * scale + (mesh.axis_size("model") + 1) * 1e-6
     err = (got - want).abs()
@@ -4037,15 +4156,46 @@ def routing_parting(mine, other) -> str:
     return f"all {len(mine)} selections the same"
 
 
+def int8_blocks_check(mesh, dep, base) -> dict:
+    """Every int8 block this rank serves against the single-card
+    quantization's block: each target leaf of the whole base quantized on
+    the card (``quantize_weight``, one leaf at a time), cut by the
+    registry's spec (the scale's without its in dim), bit for bit.
+    Returns the leaves checked and those whose in dim is sharded."""
+    from repro_torch.core import quantize as Q
+    from repro_torch.core.calibration import flatten_params
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models.delta_overlay import flatten_axes
+    served = flatten_params(dep.registry.base_params)
+    specs = flatten_axes(dep.registry.param_shardings)
+    whole = flatten_params(base)
+    n = in_sharded = 0
+    for path, mine in served.items():
+        if not Q.is_quant(mine):
+            continue
+        qw = Q.quantize_weight(whole[path].to(mesh.device))
+        spec = specs[path]
+        assert torch.equal(S.block(qw.q, spec, mesh), mine.q), path
+        assert torch.equal(S.block(qw.scale, spec[:-1], mesh).view(
+            torch.int16), mine.scale.view(torch.int16)), path
+        n += 1
+        in_sharded += spec[-1] is not None
+        del qw
+    return {"leaves": n, "in_dim_sharded": in_sharded}
+
+
 def mesh_full_rank(mesh, entries) -> dict:
     """One rank of the full-width (1, 2) mesh over ``entries``
     (``MESH_FULL``'s, maybe the fp32 twin's), 3 variants, continuous over
-    a 4-slot bank and group fused; per run its tokens, launches, tokens/s,
-    mean step and peak memory; every delta GEMM launch of one prefill and
-    one decode step held to its plain version on the same local operands
-    (``gemms_checked``); the all-reduced wo and w_down against the
-    single-card kernel; for MoE, rank 0's routing choices in a rerun of
-    the same requests (``routing_recorded``)."""
+    a 4-slot bank and group fused, then the runs of ``MESH_INT8_FULL``
+    over an int8 base; per run its tokens, launches, tokens/s, mean step,
+    peak memory and base bytes on the rank; every delta GEMM launch of one
+    prefill and one decode step held to its plain version on the same
+    local operands (``gemms_checked``); the all-reduced wo and w_down
+    against the single-card kernel, over both bases; every int8 block
+    against the single-card quantization (``int8_blocks_check``); for
+    MoE, rank 0's routing choices in a rerun of the same requests
+    (``routing_recorded``)."""
     from repro_torch.launch import serve as SV
     from repro_torch.tree import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4066,9 +4216,17 @@ def mesh_full_rank(mesh, entries) -> dict:
                 gc.collect()
                 torch.cuda.empty_cache()
             mesh.barrier()
-        for run, (n_req, budgets) in MESH_FULL_RUNS.items():
+        runs = [(run, "fp") for run in MESH_FULL_RUNS] + [
+            (run, "int8") for run in MESH_INT8_FULL.get(arch, ())]
+        for run, bd in runs:
+            n_req, budgets = MESH_FULL_RUNS[run]
+            label = mesh_run(run, bd)
             torch.cuda.reset_peak_memory_stats(dev)
-            dep = mesh_deploy(model, base, dms, axes, mesh, dev, run)
+            dep = mesh_deploy(model, base, dms, axes, mesh, dev, run,
+                              base_dtype=bd)
+            if bd == "int8" and run == MESH_INT8_FULL[arch][0]:
+                out["checks"][arch, "int8 blocks"] = int8_blocks_check(
+                    mesh, dep, base)
             mesh_warm(dep, cfg)
             zero_counters()
             torch.cuda.synchronize(dev)
@@ -4078,7 +4236,7 @@ def mesh_full_rank(mesh, entries) -> dict:
             torch.cuda.synchronize(dev)
             secs = time.perf_counter() - t0
             m = dep.metrics
-            out["runs"][arch, run] = {
+            out["runs"][arch, label] = {
                 "tokens": [dep.result(r).out_tokens for r in rids],
                 "launches": counters(),
                 "tokens_per_s": m["tokens_generated"] / secs,
@@ -4087,24 +4245,26 @@ def mesh_full_rank(mesh, entries) -> dict:
                 "prefill_s": m["prefill_seconds"],
                 "decode_s": m["decode_seconds"], "seconds": secs,
                 "prefills": m["prefills"], "decode_steps": m["decode_steps"],
-                "peak_GB": torch.cuda.max_memory_allocated(dev) / 1e9}
+                "peak_GB": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "base_GB": dep.registry.base_nbytes() / 1e9}
             with gemms_checked() as log:
                 rids = SV.submit_requests(dep, cfg, LANES, [2])
                 dep.drain()
-            out["checks"][arch, run] = {
+            out["checks"][arch, label] = {
                 "launches": len(log),
                 "kernels": sorted({name for name, _, _ in log}),
+                "q8": sum(name.endswith("_q8") for name, _, _ in log),
                 "max_abs_err": max(err for _, _, err in log)}
             if arch.startswith("deepseek-moe-16b"):
                 # the same requests again, every routing choice recorded
                 with routing_recorded() as calls:
                     rids = SV.submit_requests(dep, cfg, n_req, budgets)
                     dep.drain()
-                out["routing"][arch, run] = {
+                out["routing"][arch, label] = {
                     "tokens": [dep.result(r).out_tokens for r in rids],
                     "calls": calls if mesh.rank == 0 else None}
             if run == "continuous" and arch == "qwen3-8b":
-                out["checks"][arch, "all-reduce"] = [
+                out["checks"][arch, mesh_run("all-reduce", bd)] = [
                     allreduce_check(mesh, dep, base, dms[0], p)
                     for p in ("layers.attn.wo", "layers.mlp.w_down")]
             del dep
@@ -4152,9 +4312,13 @@ def mesh_single_card(dev, entries, mesh_tokens: dict,
     for entry in entries:
         arch, cfg = mesh_full_config(*entry)
         model, base, dms = SV.build_variants(cfg, 3, dev)
-        for run, (n_req, budgets) in MESH_FULL_RUNS.items():
+        runs = [(run, "fp") for run in MESH_FULL_RUNS] + [
+            (run, "int8") for run in MESH_INT8_FULL.get(arch, ())]
+        for run, bd in runs:
+            n_req, budgets = MESH_FULL_RUNS[run]
+            label = mesh_run(run, bd)
             dep = mesh_deploy(model, base, dms, None, None, dev, run,
-                              graphs=False)
+                              graphs=False, base_dtype=bd)
             mesh_warm(dep, cfg)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4164,8 +4328,8 @@ def mesh_single_card(dev, entries, mesh_tokens: dict,
             secs = time.perf_counter() - t0
             m = dep.metrics
             tokens = [dep.result(r).out_tokens for r in rids]
-            theirs = mesh_tokens[arch, run]
-            out[arch, run] = {
+            theirs = mesh_tokens[arch, label]
+            out[arch, label] = {
                 "tokens": tokens,
                 "tokens_per_s": m["tokens_generated"] / secs,
                 "mean_step_ms": 1e3 * m["decode_seconds"]
@@ -4175,17 +4339,21 @@ def mesh_single_card(dev, entries, mesh_tokens: dict,
                             for rid, mine, other in zip(rids, tokens,
                                                         theirs)
                             if mine != other]}
-            if (arch, run) in mesh_routing:
+            if (arch, label) in mesh_routing:
                 with routing_recorded() as calls:
                     rids = SV.submit_requests(dep, cfg, n_req, budgets)
                     dep.drain()
-                theirs = mesh_routing[arch, run]
-                out[arch, run]["routing"] = (
+                theirs = mesh_routing[arch, label]
+                out[arch, label]["routing"] = (
                     f"rerun tokens as the timed run's: mesh "
-                    f"{theirs['tokens'] == mesh_tokens[arch, run]}, one card "
+                    f"{theirs['tokens'] == mesh_tokens[arch, label]}, "
+                    "one card "
                     f"{[dep.result(r).out_tokens for r in rids] == tokens}; "
                     + routing_parting(theirs["calls"], calls))
+            # a deployment's bank and residents go before the next one's
             del dep
+            gc.collect()
+            torch.cuda.empty_cache()
         del model, base, dms
         gc.collect()
         torch.cuda.empty_cache()
@@ -4201,21 +4369,30 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
 
     1. reduced deepseek-7b and deepseek-moe-16b (fp32 compute) on (1, 2),
        (2, 1) and (2, 2) at once: continuous banked, group fused and group
-       dense, 2 variants, both kernel dispatch modes; every rank's tokens
-       must equal the single-process CPU plain path's; on (1, 2) one
-       publish, update and rollback through a store (rank 0 writes) with
-       the CPU's tokens and versions;
-    2. full width on (1, 2): qwen3-8b (4 layers) and deepseek-moe-16b (4
-       layers, 64 experts, top-6; with ``fp32_twin`` also at fp32
-       compute), 3 variants, continuous over a 4-slot bank and group
-       fused; every per-rank delta GEMM launch of one prefill and one
-       decode step within the GEMM bound of its plain version on the same
-       local operands; the all-reduced wo and w_down against the
-       single-card kernel; token agreement with the same runs on one card
-       (printed: bf16 near-ties move with the all-reduce's order) and, for
-       MoE, the first routing choice where the two part
-       (``routing_parting``), launches per rank, peak memory per rank,
-       tokens/s and the mean step;
+       dense, 2 variants, both kernel dispatch modes, over an fp32 base
+       and, on ``MESH_INT8_SHAPES``, over an int8 base (each rank
+       quantizes its blocks; the q8 kernel bodies run per rank); every
+       rank's tokens must equal the single-process CPU plain path's over
+       the same base; on (1, 2) one publish, update and rollback through
+       a store (rank 0 writes) with the CPU's tokens and versions, and
+       ``launch.serve`` over an int8 base with ``--updates 1`` whose
+       version lines and tokens must equal the same calls made directly
+       on a Deployment of the same mesh (``mesh_launcher_run``);
+    2. full width on (1, 2): qwen3-8b (2 layers) and deepseek-moe-16b (2
+       layers, 64 experts, top-6; with ``fp32_twin`` also
+       deepseek-moe-16b at 4 layers and fp32 compute), 3 variants,
+       continuous over a 4-slot bank and group fused, then
+       ``MESH_INT8_FULL``'s runs over an int8 base; every rank's int8
+       blocks bit-identical to the single-card quantization's
+       (``int8_blocks_check``); every per-rank delta GEMM launch (q8
+       bodies included) of one prefill and one decode step within the
+       GEMM bound of its plain version on the same local operands; the
+       all-reduced wo and w_down against the single-card kernel over both
+       bases; token agreement with the same runs on one card over the
+       same base (printed: bf16 near-ties move with the all-reduce's
+       order) and, for MoE, the first routing choice where the two part
+       (``routing_parting``), launches per rank, peak memory and base
+       bytes per rank, tokens/s and the mean step;
     3. a rank that raises (a world that is not the mesh's size) must end
        its group with an error within the deadline.
 
@@ -4238,17 +4415,20 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
     groups = {shape: LM.start(mesh_ref_rank, shape, device="cuda",
                               timeout_s=MESH_TIMEOUT_S,
                               args=(store_root if shape == (1, 2)
-                                    else None,))
+                                    else None, shape in MESH_INT8_SHAPES))
               for shape in MESH_REF_SHAPES}
     t0 = time.perf_counter()
     want = {}
     for arch in MESH_REF_ARCHS:
         cfg, model, base, dms, axes = mesh_ref_setup(arch)
         for run in MESH_RUNS:
-            dep = mesh_deploy(model, base, dms, axes, None, "cpu", run)
-            rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
-            dep.drain()
-            want[arch, run] = [dep.result(r).out_tokens for r in rids]
+            for bd in ("fp", "int8"):
+                dep = mesh_deploy(model, base, dms, axes, None, "cpu", run,
+                                  base_dtype=bd)
+                rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
+                dep.drain()
+                want[arch, mesh_run(run, bd)] = [dep.result(r).out_tokens
+                                                 for r in rids]
         if arch == MESH_REF_ARCHS[0]:
             with tempfile.TemporaryDirectory() as tmp:
                 want_store = mesh_store_run(model, base, dms, axes, None,
@@ -4260,22 +4440,37 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
             for (arch, kd, run), res in got["runs"].items():
                 assert res["tokens"] == want[arch, run], (
                     shape, r, arch, kd, run, res["tokens"], want[arch, run])
-                kernel = RUN_KERNEL[run.split()[-1]]
+                kernel = RUN_KERNEL[run.removesuffix(" int8").split()[-1]]
                 assert res["launches"][kernel] > 0, (shape, arch, run, res)
-                if arch == "deepseek-moe-16b" and run != "group dense":
+                if arch == "deepseek-moe-16b" \
+                        and not run.startswith("group dense"):
                     assert res["launches"]["bitlinear_axes_stacked"] > 0
             if "store" in got:
                 assert got["store"] == want_store, (got["store"], want_store)
+            if "launcher" in got:
+                lr = got["launcher"]
+                assert lr["tokens"] == lr["direct_tokens"], lr
+                assert lr["direct_versions"] == [2, 1], lr
+                assert lr["lines"] == ([] if r else [
+                    "update 0: v0 -> version 2",
+                    "rollback: v0 -> version 1"]), lr["lines"]
+                assert [len(t) for t in lr["tokens"]] == [3] * (
+                    4 + LANES + 1), lr["tokens"]
         for (arch, kd, run) in ranks[0]["runs"]:
             launches[f"mesh {arch} reduced {run} {kd} {shape}"] = [
                 g["runs"][arch, kd, run]["launches"] for g in ranks]
+        n_int8 = sum("int8" in run for _, _, run in ranks[0]["runs"])
         print(f"mesh {shape} reduced ({ranks[0]['backend']}, "
               f"{sorted({g['device'] for g in ranks})}): every rank's "
               f"tokens == CPU plain tokens for {len(ranks[0]['runs'])} runs "
-              f"(both kernel dispatch modes)"
+              f"({n_int8} over an int8 base; both kernel dispatch modes)"
               + ("; store publish/update/rollback == CPU "
                  f"{want_store['versions']}, rollback to "
-                 f"{want_store['rollback']}" if shape == (1, 2) else ""))
+                 f"{want_store['rollback']}; launch.serve --base-dtype int8"
+                 " --updates 1 on the mesh: "
+                 f"{ranks[0]['launcher']['lines']}, tokens == the direct "
+                 "update + rollback run's on every rank"
+                 if shape == (1, 2) else ""))
     shutil.rmtree(store_root, ignore_errors=True)
     print(f"mesh reduced: {time.perf_counter() - t_ref:.1f} s, the three "
           "meshes at once")
@@ -4310,13 +4505,17 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
         same = sum(x == y for x, y in zip(toks[0], ref))
         assert [len(t) for t in toks[0]] == [len(t) for t in ref], key
         per_rank = [g["runs"][key]["launches"] for g in ranks]
-        for kernel in (("bitlinear_axes_banked",) if run == "continuous"
+        for kernel in (("bitlinear_axes_banked",)
+                       if run.startswith("continuous")
                        else ("bitlinear_axes",)):
             assert all(p[kernel] > 0 for p in per_rank), (key, per_rank)
         if arch.startswith("deepseek-moe-16b"):
             assert all(p["bitlinear_axes_stacked"] > 0 for p in per_rank)
         launches[f"mesh {arch} {run} {MESH_FULL_SHAPE}"] = per_rank
         chk = [g["checks"][key] for g in ranks]
+        # every checked launch of an int8 run ran a q8 body, and only then
+        assert all(c["q8"] == (c["launches"] if "int8" in run else 0)
+                   for c in chk), (key, chk)
         r0 = ranks[0]["runs"][key]
         print(f"mesh {arch} {run}: tokens agree with one card "
               f"{agree}/{total} ({same}/{len(ref)} requests whole; one "
@@ -4331,6 +4530,7 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
               f"tokens/s {[round(g['runs'][key]['tokens_per_s'], 1) for g in ranks]}; "
               f"mean step ms {[round(g['runs'][key]['mean_step_ms'], 2) for g in ranks]}; "
               f"peak GB per rank {[round(g['runs'][key]['peak_GB'], 2) for g in ranks]}; "
+              f"base GB per rank {[round(g['runs'][key]['base_GB'], 3) for g in ranks]}; "
               f"checked prefill+step: {[c['launches'] for c in chk]} "
               f"launches ({chk[0]['kernels']}) within the GEMM bound, max "
               f"|err| {max(c['max_abs_err'] for c in chk):.3e}")
@@ -4338,10 +4538,18 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
             print(f"mesh {arch} {run}: MoE routing, mesh vs one card: "
                   f"{single[key]['routing']}")
     for g in ranks:
-        for c in g["checks"]["qwen3-8b", "all-reduce"]:
-            print(f"mesh all-reduce rank {g['coords']}: {c['path']} vs the "
-                  f"single-card kernel max |err| {c['max_abs_err']:.3e} "
-                  f"({c['max_err_over_tol']:.3f} of the summed bound)")
+        for label in ("all-reduce", "all-reduce int8"):
+            for c in g["checks"]["qwen3-8b", label]:
+                print(f"mesh {label} rank {g['coords']}: {c['path']} vs the "
+                      f"single-card kernel max |err| {c['max_abs_err']:.3e}"
+                      f" ({c['max_err_over_tol']:.3f} of the summed bound)")
+        for arch in MESH_INT8_FULL:
+            c = g["checks"][arch, "int8 blocks"]
+            assert c["leaves"] > 0 and c["in_dim_sharded"] > 0, c
+            print(f"mesh int8 blocks rank {g['coords']} {arch}: "
+                  f"{c['leaves']} quantized leaves ({c['in_dim_sharded']} "
+                  "with the in dim sharded: the row absmax all-reduced) "
+                  "bit-identical to the single-card quantization's blocks")
     if len({g["device"] for g in ranks}) == 1:
         print("mesh: the ranks share one card: these times say nothing of "
               "tensor-parallel speed-up")
@@ -4386,7 +4594,7 @@ def kernel_entries(rows, launches, dl_launches, fl_launches,
     launches from the main-path run that drives it and, as
     ``path_launches``, from every serving run that launched it (the other
     archs' full-width runs); as ``mesh_launches`` each mesh run's launches
-    on every rank (fp32 base: the kernel bodies without ``_q8``); the rows
+    on every rank (the ``_q8`` bodies: the runs over an int8 base); the rows
     at the other archs' projection shapes ride beside as
     ``arch_shapes``."""
     units = {
@@ -4442,11 +4650,11 @@ def kernel_entries(rows, launches, dl_launches, fl_launches,
         entry["path_launches"] = {
             run: got[counter] for run, got in launches.items()
             if got.get(counter) and run.endswith(" int8") == q8}
-        if not q8 and counter in MESH_KERNELS:
+        if counter in MESH_KERNELS:
             entry["mesh_launches"] = {
                 run: [r[counter] for r in ranks]
                 for run, ranks in mesh_launches.items()
-                if any(r[counter] for r in ranks)}
+                if ("int8" in run) == q8 and any(r[counter] for r in ranks)}
             assert entry["mesh_launches"], (name, "no mesh launch")
         if name in REDESIGNED:
             entry["design"] = REDESIGNED[name]
@@ -4551,6 +4759,7 @@ def main() -> None:
     for arch in RECURRENT:
         launches.update(timed(arch, recurrent_phase, dev, arch))
     timed("restart", restart_phase, dev, build_s)
+    timed("launcher", launcher_phase, dev)
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in seconds.items()}))
     print(json.dumps({"kernels": kernel_entries(rows, launches, dl_launches,

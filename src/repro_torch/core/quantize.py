@@ -1,6 +1,5 @@
 """Symmetric per-output-channel int8 quantization of the shadowed base
-weights (port of ``repro.core.quantize`` without its mesh and abstract
-helpers).
+weights (port of ``repro.core.quantize``).
 
 Every target matrix the 1-bit delta machinery shadows can be held resident
 as int8 plus one fp16 scale per output channel instead of full precision.
@@ -26,10 +25,20 @@ take a weight.  ``calibration.flatten_params`` keeps it as one leaf; the
 port's ``tree.tree_map`` and ``tree_leaves`` recurse into it (a dataclass),
 so ``.to(device)`` and per-layer slicing carry ``q`` and ``scale``
 together and the leaves are both tensors, as ``jax.tree.leaves`` sees them.
+
+On a mesh (``distributed/sharding.py``) a QuantWeight of specs is the
+placement of a quantized leaf (:func:`quant_sharding`): ``q`` keeps the
+weight's spec, ``scale`` the spec of the dims it copies.  The scale is a
+property of the WHOLE row, so a rank whose block holds a K-tile of a row
+(the in dim sharded: the row-parallel ``wo`` and ``w_down``) takes the row
+absmax over every rank of that dim (a MAX all-reduce) before it
+quantizes: each rank's ``q`` and ``scale`` blocks are then bit-identical to
+its blocks of the single-device quantization.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -77,15 +86,23 @@ def is_quant(x) -> bool:
     return getattr(x, "__quant_leaf__", False)
 
 
-def quantize_weight(w: torch.Tensor) -> QuantWeight:
+def quantize_weight(w: torch.Tensor, in_part=None, mesh=None) -> QuantWeight:
     """Symmetric per-output-channel int8 quantization of one weight
-    (stack); scales calibrate from the weight itself (abs-max)."""
+    (stack); scales calibrate from the weight itself (abs-max).  With
+    ``mesh``, ``w`` is this rank's block of a weight whose in dim is
+    sharded over the mesh axes ``in_part`` (None: not sharded): the row
+    absmax is the MAX over those ranks' K-tiles, so the scale is the whole
+    row's and the block is the single-device quantization's block."""
     w32 = w.to(torch.float32)
+    amax = w32.abs().amax(dim=-1)
+    if mesh is not None:
+        from repro_torch.distributed import sharding as SH
+        amax = SH.psum(amax, in_part, mesh, op=SH.ReduceOp.MAX)
     # divide by a tensor on w's device: PyTorch's CUDA division by a host
     # scalar multiplies by its reciprocal, which can round differently
     # from the true division the CPU (and jnp) performs
     qmax = torch.full((), 127.0, device=w32.device)
-    s = torch.clamp_min(w32.abs().amax(dim=-1) / qmax, _SCALE_FLOOR)
+    s = torch.clamp_min(amax / qmax, _SCALE_FLOOR)
     q = torch.clamp(torch.round(w32 / s[..., None]), -127, 127)
     return QuantWeight(q=q.to(torch.int8), scale=s.to(torch.float16))
 
@@ -97,31 +114,84 @@ def dequantize(qw: QuantWeight, dtype=torch.float32) -> torch.Tensor:
             * qw.scale.to(torch.float32)[..., None]).to(dtype)
 
 
-def quantize_base(params, param_shardings=None):
+def quant_sharding(weight_spec, w_ndim: int):
+    """QuantWeight-of-specs for one quantized leaf, by spec surgery on the
+    fp weight's resolved spec (a tuple, ``sharding.resolve_spec``'s): the
+    int8 payload keeps the weight's spec, the scale vector the entries of
+    the dims it copies ((lead..., d_out)), the surgery
+    ``delta_overlay.entry_shardings_from_weight`` applies to v_row.  A
+    spec that is not a tuple (None: a single-device placement; a leaf
+    already upgraded) comes back unchanged."""
+    if not isinstance(weight_spec, tuple):
+        return weight_spec
+    spec = (weight_spec + (None,) * w_ndim)[:w_ndim]
+    return QuantWeight(q=spec, scale=spec[:-1])
+
+
+def quantize_base(params, param_shardings=None, mesh=None):
     """Quantize every shadowed target weight of a base params tree.
 
-    Returns ``(qparams, None, stats)``: the tree with target leaves replaced
-    by :class:`QuantWeight` (non-targets — embeddings, norms — are the same
-    tensors), no shardings (the port has no mesh yet; ``param_shardings``
-    must be None), and byte accounting over the targets: ``targets``,
-    ``fp_bytes``, ``int8_bytes``, ``ratio``."""
+    Returns ``(qparams, qshardings, stats)``: the tree with target leaves
+    replaced by :class:`QuantWeight` (non-targets — embeddings, norms — are
+    the same tensors), the spec tree ``param_shardings`` with its target
+    leaves upgraded by :func:`quant_sharding` (None in, None out), and byte
+    accounting over the targets: ``targets``, ``fp_bytes``, ``int8_bytes``,
+    ``ratio``.
+
+    With ``mesh`` the params are this rank's blocks under
+    ``param_shardings`` (``sharding.place``): a weight whose in dim is
+    sharded takes its row absmax over the ranks of that dim (one MAX
+    all-reduce each, in the same order on every rank), so every block is
+    the single-device quantization's block; the stats count the global
+    leaves, as the JAX function's do."""
     from repro_torch.core.calibration import (flatten_params, is_target,
                                               unflatten_like)
-    if param_shardings is not None:
-        raise ValueError("sharded bases are not ported yet")
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.delta_overlay import flatten_axes
+    if mesh is not None and param_shardings is None:
+        raise ValueError("quantizing placed blocks needs their "
+                         "param_shardings")
     flat = flatten_params(params)
     targets = {p for p, leaf in flat.items() if is_target(p, leaf)}
+    specs = flatten_axes(param_shardings)
     fp_bytes = q_bytes = 0
     out = {}
     for path, leaf in flat.items():
-        if path in targets:
-            qw = quantize_weight(leaf)
-            fp_bytes += leaf.numel() * leaf.element_size()
-            q_bytes += qw.nbytes()
-            out[path] = qw
-        else:
+        if path not in targets:
             out[path] = leaf
+            continue
+        shape = tuple(leaf.shape)
+        in_part = None
+        if mesh is not None:
+            spec = (specs[path] + (None,) * leaf.dim())[:leaf.dim()]
+            shape = SH.global_shape(shape, spec, mesh)
+            in_part = spec[-1]
+        qw = quantize_weight(leaf, in_part, mesh)
+        n = math.prod(shape)
+        fp_bytes += n * leaf.element_size()
+        q_bytes += n + 2 * (n // shape[-1])
+        out[path] = qw
+    qsh = None
+    if param_shardings is not None:
+        qsh = SH._map_axes(lambda sp, leaf: quant_sharding(sp, leaf.dim())
+                           if is_quant(leaf) else sp, param_shardings,
+                           unflatten_like(params, out))
     stats = {"targets": len(targets), "fp_bytes": int(fp_bytes),
              "int8_bytes": int(q_bytes),
              "ratio": q_bytes / max(fp_bytes, 1)}
-    return unflatten_like(params, out), None, stats
+    return unflatten_like(params, out), qsh, stats
+
+
+def quantize_struct(flat_shapes: dict, paths) -> dict:
+    """Shape-only twin of :func:`quantize_base` over a flat {path ->
+    tensor | shape-carrying leaf} view: target leaves become QuantWeights
+    of ``meta`` tensors (int8 ``q``, fp16 ``scale`` of the weight's shape
+    without its in dim), for the dry-run."""
+    out = dict(flat_shapes)
+    for p in paths:
+        shape = tuple(flat_shapes[p].shape)
+        out[p] = QuantWeight(
+            q=torch.empty(shape, dtype=torch.int8, device="meta"),
+            scale=torch.empty(shape[:-1], dtype=torch.float16,
+                              device="meta"))
+    return out

@@ -41,6 +41,7 @@ import threading
 from typing import Optional, Sequence, Union
 
 import torch
+from torch.distributed import ReduceOp
 
 Candidate = Union[str, tuple]
 
@@ -547,18 +548,20 @@ def _host_hop(mesh: Mesh, x: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and x.is_cuda
 
 
-def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
-         ) -> torch.Tensor:
+def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None,
+         op=None) -> torch.Tensor:
     """Sum of ``x`` over the ranks of the mesh axes ``axes`` (a name or a
-    tuple), returned as a new tensor in ``x``'s dtype and device.  A group
-    of one returns ``x``."""
+    tuple), returned as a new tensor in ``x``'s dtype and device; ``op``
+    (a :class:`ReduceOp`) takes another reduction, such as the elementwise
+    MAX, exact in any order.  A group of one returns ``x``."""
     mesh = mesh or active_mesh()
     group = mesh.group(axes) if mesh is not None else None
     if group is None:
         return x
     buf = x.detach().to("cpu", copy=True) if _host_hop(mesh, x) \
         else x.detach().clone().contiguous()
-    torch.distributed.all_reduce(buf, group=group)
+    torch.distributed.all_reduce(buf, op=ReduceOp.SUM if op is None else op,
+                                 group=group)
     return buf.to(x.device)
 
 

@@ -23,6 +23,14 @@ JAX package stores the byte dim replicated and slices it inside
 ``shard_map``: a column slice of a torch tensor would be a strided view,
 which the kernel wrappers refuse.
 
+An int8 base reaches each entry point as the rank's QuantWeight block:
+its int8 payload tile and the scale tile of its rows, sharded like the out
+dim (``quantize.quant_sharding``), so every rank launches the q8 body of
+the kernel on its own tiles, as JAX's ``in_specs`` hand the scale
+``P(o_part)``.  ``S.block`` makes each tile contiguous; a tile that the
+kernel wrappers still refuse (off its alignment, or without its scale)
+raises there, and nothing is copied around it.
+
 ``no_dispatch()`` is the port's ``kernel_dispatch="gspmd"``: every operand
 the plan shards is all-gathered, the global kernel runs on every rank and
 the rank keeps its block of the output — the A/B reference the per-rank
@@ -290,19 +298,24 @@ def unpack_apply(st, packed: torch.Tensor, v: torch.Tensor, w_base,
 
 def _gather_weight(w_base, op, ip, mesh):
     """The global base weight (2-D or stacked: the last two dims are
-    (out, in)) from the ranks' blocks."""
-    from repro_torch.core.quantize import is_quant
-    if is_quant(w_base):
-        raise NotImplementedError(
-            "an int8 base under a mesh arrives with the int8 mesh slice")
+    (out, in)) from the ranks' blocks; an int8 base as a QuantWeight whose
+    payload is gathered over (out, in) and its scale over out alone (each
+    rank of the in dim holds the whole rows' scales)."""
+    from repro_torch.core.quantize import QuantWeight, is_quant
     nd = w_base.dim()
+    if is_quant(w_base):
+        return QuantWeight(q=_gather_weight(w_base.q, op, ip, mesh),
+                           scale=_gather(w_base.scale, op, nd - 2, mesh))
     return _gather(_gather(w_base, op, nd - 2, mesh), ip, nd - 1, mesh)
 
 
 def _gather_stack(w_base, ep, fp, dp, mesh):
-    from repro_torch.core.quantize import is_quant
+    """The global expert stack (E, N, K) from the ranks' blocks; an int8
+    one's scale (E, N) gathered over its (experts, out) parts only."""
+    from repro_torch.core.quantize import QuantWeight, is_quant
     if is_quant(w_base):
-        raise NotImplementedError(
-            "an int8 base under a mesh arrives with the int8 mesh slice")
+        return QuantWeight(
+            q=_gather_stack(w_base.q, ep, fp, dp, mesh),
+            scale=_gather(_gather(w_base.scale, ep, 0, mesh), fp, 1, mesh))
     return _gather(_gather(_gather(w_base, ep, 0, mesh), fp, 1, mesh),
                    dp, 2, mesh)

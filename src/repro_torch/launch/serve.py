@@ -38,8 +38,17 @@ DIR and serves them from it (default: in memory).  ``--async-admission``
 worker, paced by ``--admission-pacing`` seconds between modules, and
 commits it between decode steps; the run prints the pipeline's counters.
 ``--max-retries`` bounds the retries of a request whose variant fails to
-load.  ``--num-layers`` cuts depth only; ``--reduced`` selects the small
-test widths.  Runs on ``--device`` (default cuda).
+load.  ``--max-resident N`` bounds the registry's residents (0: 2 for
+``--mode dense``, 8 for fused).  ``--updates N`` runs the paper's frequent
+update after the requests, as the JAX launcher does: N times, v0's
+fine-tune moves on by ``ft + 0.2·(ft − base)`` and ships as
+``Deployment.update`` (an XOR/RLE patch with a store), the pointer swaps
+(printed as ``update {u}: v0 -> version {v}``) and ``--batch`` v0 requests
+are served; then ``rollback("v0")`` (``rollback: v0 -> version {v}``) and
+one more v0 request.  The run ends with the TTFT line, ``ttft: p50=…
+p99=… (n=…)``, from ``status()["ttft"]``.  ``--num-layers`` cuts depth
+only; ``--reduced`` selects the small test widths.  Runs on ``--device``
+(default cuda).
 
 ``--mesh DATA,MODEL`` serves over a (data, model) mesh of ranks, one
 process each (``launch/mesh``; explicit SPMD, ``distributed/sharding``):
@@ -48,8 +57,12 @@ launcher starts the ranks itself (``launch.mesh.spawn``: NCCL when every
 rank has a card of its own, else gloo over shared card 0) and checks that
 every rank served the same tokens.  ``--kernel-dispatch`` picks per-rank
 kernels (``shard_map``, the default) or the gathered global kernels
-(``gspmd``).  Mesh serving runs its steps eagerly; the 3-value mesh and
-``--pod-banks`` arrive with the pod-bank slice and raise.
+(``gspmd``).  ``--base-dtype int8`` and ``--updates`` serve under a mesh as
+on one device (each rank quantizes its blocks to the single-device bytes;
+with ``--store-dir`` rank 0 writes and a refused write raises on every
+rank), and the run prints each rank's base and bank bytes.  Mesh serving
+runs its steps eagerly; the 3-value mesh and ``--pod-banks`` arrive with
+the pod-bank slice and raise.
 """
 from __future__ import annotations
 
@@ -109,6 +122,16 @@ def fine_tune(base, seed: int, scale: float = 0.005):
     return tree_map(noisy, base)
 
 
+def continue_tune(tune, base):
+    """The next fine-tune of a variant's lineage (``--updates``): every
+    matrix of ``tune`` moved on by 0.2 times its delta from ``base``."""
+    step = 0.2
+    ft, b = C.flatten_params(tune), C.flatten_params(base)
+    return C.unflatten_like(tune, {
+        p: t + step * (t - b[p]) if t.dim() >= 2 else t
+        for p, t in ft.items()})
+
+
 def build_variants(cfg, n_variants: int, device, seed: int = 0,
                    with_axes: bool = False):
     """(model, base params (seeded), [DeltaModel of each synthetic
@@ -146,33 +169,16 @@ def deploy(model, base, dms, *, mode: str, scheduler: str, batch: int,
     return dep
 
 
-def build_deployment(cfg, *, mode: str, n_variants: int, batch: int,
-                     device, scheduler: str = "group", seed: int = 0,
-                     max_resident: int = 0, base_dtype: str = "fp",
-                     root_dir=None, max_len: int = 0, draft_k: int = 4,
-                     mesh=None, **kw):
-    """Base model (seeded) + ``n_variants`` published synthetic variants
-    v0..v{n-1}, behind a Deployment with a bank of ``n_variants + 2``
-    slots (``kw``: see ``deploy``); on ``mesh`` each rank keeps its blocks
-    (``param_axes`` from the init)."""
-    model, base, dms, axes = build_variants(cfg, n_variants, device, seed,
-                                            with_axes=True)
-    if mesh is not None:
-        kw.update(mesh=mesh, param_axes=axes)
-    return deploy(model, base, dms, mode=mode, scheduler=scheduler,
-                  batch=batch, device=device, max_resident=max_resident,
-                  base_dtype=base_dtype, root_dir=root_dir, max_len=max_len,
-                  draft_k=draft_k, **kw)
-
-
-def submit_requests(dep, cfg, n_requests: int, new_tokens,
-                    seed: int = 0) -> list:
-    """Queue ``n_requests`` random 8-token prompts round-robin over the
-    deployment's variants (base first); ``new_tokens`` is one budget or a
-    sequence of budgets cycled over the requests.  Returns the request
-    ids."""
-    rng = np.random.default_rng(seed)
-    names = dep.variants()
+def submit_requests(dep, cfg, n_requests: int, new_tokens, names=None,
+                    rng=None) -> list:
+    """Queue ``n_requests`` random 8-token prompts round-robin over
+    ``names`` (default: the deployment's variants, base first);
+    ``new_tokens`` is one budget or a sequence of budgets cycled over the
+    requests; the prompts come from ``rng`` (default: a new generator
+    seeded with 0), so a caller that passes one continues its stream.
+    Returns the request ids."""
+    rng = np.random.default_rng(0) if rng is None else rng
+    names = dep.variants() if names is None else names
     budgets = [new_tokens] if isinstance(new_tokens, int) else new_tokens
     return [dep.submit(rng.integers(1, cfg.vocab_size, size=8),
                        variant=names[i % len(names)],
@@ -226,6 +232,11 @@ def _parser() -> argparse.ArgumentParser:
                     metavar="SECONDS",
                     help="async admission: the worker's sleep between "
                          "artifact modules (0 disables)")
+    ap.add_argument("--max-resident", type=int, default=0,
+                    help="registry residents (0: 2 for dense, 8 for fused)")
+    ap.add_argument("--updates", type=int, default=0,
+                    help="update + hot-swap cycles on variant v0 after the "
+                         "requests, then a rollback")
     ap.add_argument("--max-retries", type=int, default=1,
                     help="retries of a request whose variant fails to "
                          "load before it fails")
@@ -325,18 +336,25 @@ def _serve(args, mesh, t_start: float) -> list:
     cfg = make_config(args.arch, args.reduced, args.num_layers)
     mesh_kw = {} if mesh is None else dict(
         mesh=mesh, kernel_dispatch=args.kernel_dispatch, graphs=False)
-    dep = build_deployment(cfg, mode=args.mode, n_variants=args.variants,
-                           batch=args.batch, device=device,
-                           scheduler=args.scheduler,
-                           base_dtype=args.base_dtype,
-                           root_dir=args.store_dir,
-                           max_len=cache_len(cfg, PROMPT_LEN,
-                                             max(args.new_tokens,
-                                                 MAX_LEN - PROMPT_LEN)),
-                           draft_k=args.draft_k,
-                           async_admission=args.async_admission,
-                           admission_pacing_s=args.admission_pacing,
-                           max_retries=args.max_retries, **mesh_kw)
+    if args.updates and args.variants < 1:
+        ap.error("--updates moves variant v0 on: needs --variants >= 1")
+    model, base, dms, axes = build_variants(cfg, args.variants, device,
+                                            with_axes=True)
+    if mesh is not None:
+        mesh_kw["param_axes"] = axes
+    dep = deploy(model, base, dms, mode=args.mode, scheduler=args.scheduler,
+                 batch=args.batch, device=device,
+                 max_resident=args.max_resident,
+                 base_dtype=args.base_dtype, root_dir=args.store_dir,
+                 max_len=cache_len(cfg, PROMPT_LEN,
+                                   max(args.new_tokens,
+                                       MAX_LEN - PROMPT_LEN)),
+                 draft_k=args.draft_k, async_admission=args.async_admission,
+                 admission_pacing_s=args.admission_pacing,
+                 max_retries=args.max_retries, **mesh_kw)
+    del dms
+    if not args.updates:
+        del base
     if args.base_dtype == "int8":
         qs = dep.registry.quant_stats
         say(f"int8 base: {qs['targets']} targets, "
@@ -344,8 +362,12 @@ def _serve(args, mesh, t_start: float) -> list:
               f"(ratio {qs['ratio']:.3f})")
     if args.warmup:
         say("warmup:", json.dumps(dep.warmup()))
-    rids = submit_requests(dep, cfg, args.requests, args.new_tokens)
+    rng = np.random.default_rng(0)
+    rids = submit_requests(dep, cfg, args.requests, args.new_tokens,
+                           rng=rng)
     dep.drain()
+    if args.updates:
+        rids += _update_cycles(dep, cfg, base, args, rng, say)
     reqs = [dep.result(r) for r in rids]
     if dep.store is not None:
         say("store:", {n: {"versions": dep.store.versions(n),
@@ -371,8 +393,37 @@ def _serve(args, mesh, t_start: float) -> list:
     hbm = st["hbm"]
     say("hbm:", {k: hbm[k] for k in ("base_dtype", "base_bytes",
                                        "bank_bytes")})
+    if mesh is not None:
+        say("base per-device bytes:", hbm["base_per_device"])
+        if dep.registry.bank is not None:
+            say("bank per-device bytes:", st["mesh"]["bank_per_device"])
+    tt = st["ttft"]
+    say(f"ttft: p50={tt['p50_seconds']:.4f}s p99={tt['p99_seconds']:.4f}s "
+        f"(n={tt['count']})")
     dep.close()
     return [r.out_tokens for r in reqs]
+
+
+def _update_cycles(dep, cfg, base, args, rng, say) -> list:
+    """``--updates``: v0's fine-tune (made again from its seed, as
+    ``build_variants`` made it) moved on and shipped ``args.updates``
+    times, each followed by a wave of ``args.batch`` v0 requests; then a
+    rollback and one more v0 request.  Returns the request ids."""
+    rids = []
+    tune = fine_tune(base, 100)
+    for u in range(args.updates):
+        tune = continue_tune(tune, base)
+        v = dep.update("v0", C.compress(base, tune))
+        say(f"update {u}: v0 -> version {v}")
+        rids += submit_requests(dep, cfg, args.batch, args.new_tokens,
+                                names=["v0"], rng=rng)
+        dep.drain()
+    v = dep.rollback("v0")
+    say(f"rollback: v0 -> version {v}")
+    rids += submit_requests(dep, cfg, 1, args.new_tokens, names=["v0"],
+                            rng=rng)
+    dep.drain()
+    return rids
 
 
 if __name__ == "__main__":

@@ -230,12 +230,16 @@ def _is_axes(x) -> bool:
 
 def flatten_axes(param_axes) -> dict:
     """{dot-path -> tuple} view of a ``param.split`` axes tree or of its
-    resolved spec tree; {} for None."""
+    resolved spec tree; {} for None.  A quantized leaf's QuantWeight of
+    specs (``quantize.quant_sharding``) stands for its weight: its
+    payload's spec."""
     out: dict = {}
     if param_axes is None:
         return out
 
     def walk(node, prefix):
+        if getattr(node, "__quant_leaf__", False):
+            node = node.q
         if _is_axes(node):
             out[prefix] = node
             return

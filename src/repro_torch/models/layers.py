@@ -50,17 +50,21 @@ def linear(x: torch.Tensor, w: torch.Tensor, ov=None, vidx=None,
     the product on a mesh (``distributed/sharding.py``): the delta GEMMs
     route per rank through ``kernels/dispatch``, and the plain product of
     a weight whose in dim is sharded is summed over those axes in fp32,
-    since each rank holds a partial contraction."""
+    since each rank holds a partial contraction (an int8 base's scale
+    applies after the sum)."""
     if ov is None:
         i_part = _contracted_axes(w, waxes)
         if i_part is not None:
             # a partial contraction over the rank's K-tile: kept in fp32
             # until the ranks' sum, as one card's product accumulates in
-            # fp32 and rounds once (an int8 base never gets here: a mesh
-            # refuses it)
+            # fp32 and rounds once; an int8 base's per-row scale (whole on
+            # every rank of the in dim) multiplies the sum, the factoring
+            # of one card's product
             from repro_torch.distributed import sharding as S
-            y = x.to(torch.float32) @ w.T.to(x.dtype).to(torch.float32)
-            return S.psum(y, i_part).to(x.dtype)
+            wq = w.q if is_quant(w) else w
+            y = x.to(torch.float32) @ wq.T.to(x.dtype).to(torch.float32)
+            y = S.psum(y, i_part).to(x.dtype)
+            return y * w.scale.to(x.dtype) if is_quant(w) else y
         if is_quant(w):
             return (x @ w.q.T.to(x.dtype)) * w.scale.to(x.dtype)
         return x @ w.T.to(x.dtype)

@@ -151,10 +151,11 @@ def _expert_mm(xe: torch.Tensor, w, ent,
     """Per-expert matmul xe (E, M, D) · w (E, F, D) -> (E, M, F).  With a
     delta-overlay entry stacked over the experts the whole stack is one
     launch of the fused delta GEMM against the base weights; an int8 base
-    without an entry factors its per-channel scale out of the product."""
+    without an entry factors its per-channel scale out of the product (out
+    of the ranks' sum, when the contracted dim is sharded)."""
     if ent is None:
         if is_quant(w):
-            return (torch.einsum("emd,efd->emf", xe, w.q.to(xe.dtype))
+            return (_plain_stack("emd,efd->emf", xe, w.q, xe.dtype, waxes)
                     * w.scale.to(xe.dtype)[:, None, :])
         return _plain_stack("emd,efd->emf", xe, w, xe.dtype, waxes)
     from repro_torch.kernels import ops as K
@@ -182,7 +183,8 @@ def _stack_contracted(w, waxes):
 
 
 def _plain_stack(eq: str, xop: torch.Tensor, w, dtype, waxes):
-    """A plain product over an fp expert stack; a partial contraction (see
+    """A plain product over an fp expert stack (or an int8 one's payload,
+    whose caller applies the scale after it); a partial contraction (see
     ``_stack_contracted``) stays fp32 until the ranks' sum."""
     dp = _stack_contracted(w, waxes)
     if dp is None:
@@ -198,7 +200,7 @@ def _emm(eq: str, xop: torch.Tensor, w, dtype,
     """Grouped product over a possibly int8 expert stack: its scale (E, F)
     broadcasts onto the (G, E, C, F) output, an exact factoring."""
     if is_quant(w):
-        return (torch.einsum(eq, xop, w.q.to(dtype))
+        return (_plain_stack(eq, xop, w.q, dtype, waxes)
                 * w.scale.to(dtype)[None, :, None, :])
     return _plain_stack(eq, xop, w, dtype, waxes)
 

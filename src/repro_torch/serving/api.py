@@ -53,7 +53,9 @@ logical-axes tree from ``models.param.split``).  The whole base is placed
 once (each rank keeps its blocks, ``distributed/sharding.place``) and
 every variant inherits the placement; the delta kernels run per rank
 (``kernel_dispatch="shard_map"``, or ``"gspmd"``: gathered global kernels,
-the A/B reference).  Every rank returns the same tokens.  Pod-local banks
+the A/B reference).  With ``base_dtype="int8"`` each rank quantizes its
+blocks to the single-device bytes and the kernels run their int8 bodies
+on the rank's tiles.  Every rank returns the same tokens.  Pod-local banks
 are a later slice.
 """
 from __future__ import annotations
@@ -135,7 +137,8 @@ class Deployment:
             base_params = tree_map(lambda t: t.to(self.device), base_params)
         self.model = model
         self.mesh = mesh
-        # the registry fingerprints the fp base, then quantizes it
+        # the registry fingerprints the fp base, then quantizes it (on a
+        # mesh: each rank its placed blocks, to the single-device bytes)
         self.registry = VariantRegistry(base_params,
                                         max_resident=max_resident, mode=mode,
                                         bank_size=bank_size,
@@ -150,8 +153,10 @@ class Deployment:
         if store is not None and mesh is not None \
                 and store.param_shardings is None:
             # the store's loads then return each rank's blocks, and only
-            # rank 0 writes the directory
-            store.param_shardings, store.mesh = param_shardings, mesh
+            # rank 0 writes the directory (the registry's specs: an int8
+            # base's QuantWeight placements)
+            store.param_shardings = self.registry.param_shardings
+            store.mesh = mesh
         self.store = store
         # restart hydration is lazy by default: a store-backed node
         # registers a name's lineage on its first reference (admission, an
@@ -363,6 +368,14 @@ class Deployment:
         if r.drafted:
             out["acceptance"] = r.accepted / r.drafted
         return out
+
+    def pending(self) -> int:
+        """Requests queued and not yet in a lane."""
+        return self.engine.pending()
+
+    def active(self) -> int:
+        """Lanes serving a request now."""
+        return self.engine.active()
 
     @property
     def metrics(self) -> dict:

@@ -64,10 +64,16 @@ A/B reference).  The lanes split over "data" in blocks (``act_batch``):
 a rank prefills and decodes its own lanes' rows against a KV cache of its
 lanes and KV heads, and after each step the ranks all-gather the lanes'
 next tokens over "data", so every rank's scheduler sees every lane and
-makes the same decisions.  A mesh refuses, naming the slice that brings
-each: CUDA graphs (a gloo collective cannot be captured), the speculative
-scheduler, async admission, ``warmup()`` (and its compile cache), an int8
-base and the families other than dense and MoE.
+makes the same decisions.  An int8 base serves under a mesh as on one
+card.  A mesh refuses, naming the slice that brings each: CUDA graphs (a
+gloo collective cannot be captured), the speculative scheduler, async
+admission, ``warmup()`` (and its compile cache) and the families other
+than dense and MoE.
+
+``status()["ttft"]`` reports the count, mean and max of the time from
+submit to first token over every request, and its p50 and p99 over a
+bounded reservoir of the last ``TTFT_SAMPLES`` (the first fill it, each
+later one overwrites the oldest, in arrival order: no sampling).
 """
 from __future__ import annotations
 
@@ -86,6 +92,8 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import build
 from repro_torch.serving.variants import VariantRegistry
 from repro_torch.tree import tree_leaves
+
+TTFT_SAMPLES = 1024     # the TTFT reservoir behind status()'s percentiles
 
 
 @dataclasses.dataclass
@@ -234,6 +242,9 @@ class ServingEngine:
             self._warmup_reg["banked"] = self._warm_banked
         if self.spec is not None:
             self._warmup_reg["speculative"] = self._warm_speculative
+        # the latest _ttft_cap first-token latencies (seconds)
+        self._ttft_cap = TTFT_SAMPLES
+        self._ttft_samples: list = []
         # (t_end, seconds, admission_busy) per step or round, when on
         self.record_step_times = False
         self.step_times: list = []
@@ -254,10 +265,15 @@ class ServingEngine:
             return
         r.first_token_at = time.perf_counter()
         ttft = r.first_token_at - r.submitted_at
-        self.metrics["ttft_count"] += 1
+        n = self.metrics["ttft_count"]
+        self.metrics["ttft_count"] = n + 1
         self.metrics["ttft_seconds_sum"] += ttft
         self.metrics["ttft_seconds_max"] = max(
             self.metrics["ttft_seconds_max"], ttft)
+        if len(self._ttft_samples) < self._ttft_cap:
+            self._ttft_samples.append(ttft)
+        else:
+            self._ttft_samples[n % self._ttft_cap] = ttft
 
     def result(self, rid: int) -> Request:
         return self._done[rid]
@@ -299,7 +315,9 @@ class ServingEngine:
                 "ttft": {"count": n,
                          "mean_seconds": (self.metrics["ttft_seconds_sum"]
                                           / n if n else 0.0),
-                         "max_seconds": self.metrics["ttft_seconds_max"]},
+                         "max_seconds": self.metrics["ttft_seconds_max"],
+                         "p50_seconds": self._ttft_percentile(50),
+                         "p99_seconds": self._ttft_percentile(99)},
                 "metrics": dict(self.metrics),
                 # resident device memory: the base weights (int8 cuts the
                 # targets to about a quarter of fp32) next to the bank
@@ -322,6 +340,10 @@ class ServingEngine:
                             "bank_per_device": bank.per_device_nbytes()
                             if bank is not None else {}}
         return snap
+
+    def _ttft_percentile(self, q: float) -> float:
+        return (float(np.percentile(self._ttft_samples, q))
+                if self._ttft_samples else 0.0)
 
     def pending(self) -> int:
         return len(self._queue)

@@ -32,9 +32,12 @@ The base is held in full precision or, with ``base_dtype="int8"``, as
 int8 plus one fp16 scale per output channel on every target matrix
 (``core/quantize``): the fused and banked kernels and the dense load
 dequantize it in their tile pass.  Artifacts are fingerprinted against the
-fp base, before quantization.  ``reserve_bank`` allocates the bank before
-its first admit, so the engine's warmup can capture the banked steps
-against it (``core/compile_cache.CapturedStep``).
+fp base, before quantization.  On a mesh each rank quantizes its own blocks
+to the single-device bytes (``quantize.quantize_base(mesh=)``) and the
+registry's ``param_shardings`` carry the QuantWeight placements.
+``reserve_bank`` allocates the bank before its first admit, so the
+engine's warmup can capture the banked steps against it
+(``core/compile_cache.CapturedStep``).
 
 Async admission (``serving/admission``, attached as ``admission``): an
 ingest thread loads a version (``_load(pacer=)``) and stages it on the
@@ -358,12 +361,7 @@ class VariantRegistry:
             if param_shardings is None or param_axes is None:
                 raise ValueError("a registry on a mesh needs the base's "
                                  "param_shardings and param_axes")
-            if base_dtype == "int8":
-                raise NotImplementedError(
-                    "an int8 base under a mesh (quant_sharding) arrives "
-                    "with the int8 mesh slice of the port")
         self.mesh = mesh
-        self.param_shardings = param_shardings
         self.param_axes = param_axes
         # fingerprint and dense-copy accounting come from the FP base:
         # artifacts are calibrated against (and verified by) the full-
@@ -374,7 +372,12 @@ class VariantRegistry:
         self.base_dtype = base_dtype
         self.quant_stats = None
         if base_dtype == "int8":
-            base_params, _, self.quant_stats = Q.quantize_base(base_params)
+            # on a mesh each rank quantizes its placed blocks, the row
+            # absmax all-reduced over a sharded in dim, and the spec tree
+            # takes the QuantWeight placements (quant_sharding)
+            base_params, param_shardings, self.quant_stats = \
+                Q.quantize_base(base_params, param_shardings, mesh)
+        self.param_shardings = param_shardings
         self.base_params = base_params
         self.max_resident = max_resident
         self.mode = mode
@@ -446,6 +449,13 @@ class VariantRegistry:
     @staticmethod
     def _vkey(name: str, version) -> str:
         return name if version is None else f"{name}@v{version}"
+
+    def register(self, name: str, artifact, mode: Optional[str] = None
+                 ) -> None:
+        """Unversioned registration (``set_version(name, None, ...)``):
+        ``artifact`` as ``set_version`` takes it; ``mode`` overrides the
+        registry's residency mode for this variant."""
+        self.set_version(name, None, artifact, mode=mode)
 
     def set_version(self, name: str, version, artifact=None,
                     mode: Optional[str] = None):
@@ -542,6 +552,26 @@ class VariantRegistry:
             self.stats["resident_bytes"] -= evicted.nbytes
             self.stats["evictions"] += 1
         return resident.params, resident.overlay
+
+    def params_for(self, name: str):
+        """Materialised params of a dense-mode variant (or the base).  A
+        fused-mode variant raises before anything loads or the LRU and
+        swap counters move: use ``resolve``."""
+        if name != "__base__" and self.variant_mode(name) == "fused":
+            raise ValueError(
+                f"variant {name!r} is fused-mode (packed overlay); "
+                "use resolve() to get (params, overlay)")
+        return self.resolve(name)[0]
+
+    def resident(self) -> list:
+        """Version keys of the dense and fused residents, LRU first (the
+        bank's residents: ``bank.resident()``)."""
+        return list(self._resident)
+
+    def resident_nbytes(self, nameish: str) -> int:
+        """Device bytes a resident adds on top of the base (by name,
+        ``name@vN`` or version key); KeyError when it is not resident."""
+        return self._resident[self._bank_key(nameish)].nbytes
 
     def _load(self, name: str, version, pacer=None) -> DeltaModel:
         """The registered artifact of (name, version) as a DeltaModel.

@@ -36,6 +36,23 @@ SCHEDULERS = {"continuous": dict(scheduler="continuous", bank_size=4),
               "group-fused": dict(scheduler="group", mode="fused"),
               "group-dense": dict(scheduler="group", mode="dense")}
 LAYERS = {"deepseek-moe-16b": 3}
+# the int8-base runs of the mesh groups: (arch, scheduler) pairs
+INT8_RUNS = {"deepseek-7b": ("continuous", "group-fused", "group-dense"),
+             "deepseek-moe-16b": ("continuous", "group-fused")}
+# the weights whose int8 blocks a rank sends back: a column-parallel, a
+# row-parallel (the in dim sharded: the row absmax all-reduced) and an
+# expert stack
+INT8_BLOCK_PATHS = {"deepseek-7b": ("layers.attn.wq", "layers.attn.wo",
+                                    "layers.mlp.w_down"),
+                    "deepseek-moe-16b": ("layers.moe.w_gate",
+                                         "layers.moe.w_down",
+                                         "pre_layers.attn.wo")}
+# the launcher under a mesh over an int8 base, with one update cycle
+LAUNCH_ARGV = ["--arch", "deepseek-7b", "--reduced", "--num-layers", "2",
+               "--variants", "2", "--requests", "3", "--new-tokens", "3",
+               "--batch", "2", "--mode", "fused", "--scheduler",
+               "continuous", "--base-dtype", "int8", "--updates", "1",
+               "--device", "cpu"]
 
 
 def port_config(arch: str, compute_dtype: str = "float32"):
@@ -58,12 +75,23 @@ def setup(arch: str, d: dict, device="cpu"):
     return model, params, axes, dms
 
 
-def serve(dep, d: dict) -> list:
-    """Publish v0, v1; serve the data's requests; every request's
-    tokens."""
+def names_for(sched: str, base_dtype: str = "fp") -> list:
+    """The variants the requests cycle over.  Over an int8 base the group
+    dense runs serve the variants alone: one JAX group-dense engine cannot
+    serve a base request (QuantWeight params) beside a dense variant (fp16
+    params), since it keys its compiled steps on the overlay's structure
+    alone."""
+    if base_dtype == "int8" and sched == "group-dense":
+        return NAMES[1:]
+    return NAMES
+
+
+def serve(dep, d: dict, names=NAMES) -> list:
+    """Publish v0, v1; serve the data's requests round-robin over
+    ``names``; every request's tokens."""
     for i, dm in enumerate(d["dm_objs"]):
         dep.publish(f"v{i}", dm)
-    rids = [dep.submit(p, variant=NAMES[i % len(NAMES)],
+    rids = [dep.submit(p, variant=names[i % len(names)],
                        max_new_tokens=BUDGETS[i % len(BUDGETS)])
             for i, p in enumerate(d["prompts"])]
     dep.drain()
@@ -259,7 +287,8 @@ def mesh_logits(mesh, arch: str, d: dict) -> dict:
 
 
 def mesh_tokens(mesh, arch: str, d: dict, kds=("shard_map", "gspmd"),
-                scheds=tuple(SCHEDULERS), device="cpu") -> dict:
+                scheds=tuple(SCHEDULERS), device="cpu",
+                base_dtype: str = "fp") -> dict:
     """{(kernel_dispatch, scheduler): tokens} of sharded Deployments."""
     model, params, axes, dms = setup(arch, d)
     d = dict(d, dm_objs=dms)
@@ -267,9 +296,26 @@ def mesh_tokens(mesh, arch: str, d: dict, kds=("shard_map", "gspmd"),
     for kd in kds:
         for name in scheds:
             dep = deployment(model, params, axes, mesh, device=device,
-                             kernel_dispatch=kd, **SCHEDULERS[name])
-            out[(kd, name)] = serve(dep, d)
+                             kernel_dispatch=kd, base_dtype=base_dtype,
+                             **SCHEDULERS[name])
+            out[(kd, name)] = serve(dep, d, names_for(name, base_dtype))
     return out
+
+
+def int8_blocks(mesh, arch: str, d: dict) -> dict:
+    """The registry's int8 base on this rank's blocks: its quant_stats,
+    and for each of ``INT8_BLOCK_PATHS`` the payload's spec with the q and
+    scale blocks (numpy)."""
+    model, params, axes, _ = setup(arch, d)
+    dep = deployment(model, params, axes, mesh, base_dtype="int8",
+                     **SCHEDULERS["continuous"])
+    reg = dep.registry
+    flat = C.flatten_params(reg.base_params)
+    specs = DO.flatten_axes(reg.param_shardings)
+    return {"stats": reg.quant_stats,
+            "blocks": {p: (specs[p], flat[p].q.cpu().numpy(),
+                           flat[p].scale.cpu().numpy())
+                       for p in INT8_BLOCK_PATHS[arch]}}
 
 
 def bank_checks(mesh, d: dict) -> dict:
@@ -384,6 +430,14 @@ def run(mesh, path: str, plan: dict) -> dict:
     for arch, scheds in plan.get("tokens", {}).items():
         out[("tokens", arch)] = mesh_tokens(mesh, arch, data[arch],
                                             scheds=scheds, device=device)
+    for arch, scheds in plan.get("int8", {}).items():
+        out[("int8 tokens", arch)] = mesh_tokens(
+            mesh, arch, data[arch], scheds=scheds, device=device,
+            base_dtype="int8")
+        out[("int8 blocks", arch)] = int8_blocks(mesh, arch, data[arch])
+    if plan.get("launcher"):
+        from repro_torch.launch import serve as SV
+        out["launcher"] = SV._mesh_rank(mesh, LAUNCH_ARGV)
     if plan.get("bank"):
         out["bank"] = bank_checks(mesh, data["deepseek-7b"])
     if plan.get("store"):

@@ -1784,3 +1784,136 @@ def test_mesh_refuses_graphs_on_the_card(cuda):
     with pytest.raises(NotImplementedError, match="graphs.*slice"):
         Deployment(model, params, device=cuda, param_axes=axes,
                    mesh=S.Mesh(("data", "model"), (1, 2), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# an int8 base under a mesh: the q8 bodies on a rank's blocks
+# ---------------------------------------------------------------------------
+
+def _rank_block(t, spec, coord):
+    """Rank ``coord``'s block of ``t`` on a (1, 2) mesh (contiguous)."""
+    from repro_torch.distributed import sharding as S
+    mesh = S.Mesh(("data", "model"), (1, 2), coords=(0, coord))
+    return S.block(t, spec, mesh)
+
+
+@pytest.mark.parametrize("tile", ["k", "n"])
+@pytest.mark.parametrize("coord", [0, 1])
+@pytest.mark.parametrize("body", ["unpack_apply", "bitlinear_axes",
+                                  "bitlinear_axes_banked",
+                                  "bitlinear_axes_stacked"])
+def test_q8_bodies_on_a_rank_block_match_plain(cuda, body, tile, coord):
+    """Each q8 body on one rank's block of a globally quantized weight: a
+    K-tile (the in dim sharded: the whole rows' scales beside the rank's
+    columns) or an N-tile (its rows' payload and scales), cut as
+    ``sharding.block`` places them, against the plain version on the same
+    local operands; ``unpack_apply`` bit for bit, the GEMMs within the
+    GEMM bound."""
+    from repro_torch.models import delta_overlay as DO
+    rng = np.random.default_rng(40 + coord)
+    e, n, k, m = 4, 256, 1024, 4
+    lead = (e,) if body == "bitlinear_axes_stacked" else ()
+    wb, packed, delta = _delta_case(rng, lead, n, k, cuda)
+    qw = Q.quantize_weight(wb)                       # the global bytes
+    spec = (None,) * len(lead) + ((None, "model") if tile == "k"
+                                  else ("model", None))
+    sp = DO.entry_shardings_from_weight(spec, len(spec))
+    q_l, s_l = (_rank_block(qw.q, spec, coord),
+                _rank_block(qw.scale, spec[:-1], coord))
+    assert s_l.is_contiguous() and q_l.data_ptr() % 8 == 0
+    p_l = _rank_block(packed, sp.packed, coord)
+    vr = _rank_block(D.init_scale(delta, "row").half(), sp.v_row, coord)
+    vc = _rank_block(D.init_scale(delta, "col").half(), sp.v_col, coord)
+    kl = q_l.shape[-1]
+    x = torch.from_numpy(rng.standard_normal(lead + (m, kl)).astype(
+        np.float32)).to(cuda)
+    w_l = Q.QuantWeight(q=q_l, scale=s_l)
+    if body == "unpack_apply":
+        for mode, v in (("row", vr.float()), ("col", vc.float())):
+            got = K.unpack_apply(p_l, v, w_l, mode=mode,
+                                 out_dtype=torch.float32)
+            want = R.unpack_apply_ref(p_l, v, q_l, mode,
+                                      dtype=torch.float32, w_scale=s_l)
+            assert torch.equal(got, want), mode
+        return
+    w_hat = ((vr.float()[..., :, None] + vc.float()[..., None, :])
+             * D.unpack_signs(p_l, kl) + Q.dequantize(w_l))
+    if body == "bitlinear_axes":
+        got = BL.bitlinear_axes_p(x, p_l, vr, vc, q_l, w_scale=s_l)
+        want = R.bitlinear_axes_ref(x, p_l, vr, vc, q_l, w_scale=s_l)
+        scale = x.abs() @ w_hat.abs().T
+    elif body == "bitlinear_axes_banked":
+        bank = [torch.stack([torch.zeros_like(t), t, t])
+                for t in (p_l, vr, vc)]
+        bank[1][2].zero_()                      # slot 2: col-scaled only
+        vidx = torch.tensor([0, 1, 2, 1], dtype=torch.int32, device=cuda)
+        got = BL.bitlinear_axes_banked_p(x, vidx, *bank, q_l, w_scale=s_l)
+        assert _banked_within_tolerance(got, x, vidx, *bank,
+                                        Q.dequantize(w_l))
+        return
+    else:
+        got = BL.bitlinear_axes_stacked_p(x, p_l, vr, vc, q_l, w_scale=s_l)
+        want = R.bitlinear_axes_stacked_ref(x, p_l, vr, vc, q_l,
+                                            w_scale=s_l)
+        scale = torch.bmm(x.abs(), w_hat.abs().transpose(1, 2))
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def test_q8_rank_block_that_is_a_view_raises(cuda):
+    """A rank's K-tile taken as a view (strided, not cut by
+    ``sharding.block``) or without its scale raises in the wrapper; it is
+    never copied into shape."""
+    rng = np.random.default_rng(44)
+    wb, packed, delta = _delta_case(rng, (), 64, 256, cuda)
+    qw = Q.quantize_weight(wb)
+    view = qw.q[:, 128:]
+    assert not view.is_contiguous()
+    x = torch.ones((4, 128), device=cuda)
+    vr = torch.zeros(64, dtype=torch.float16, device=cuda)
+    vc = torch.zeros(128, dtype=torch.float16, device=cuda)
+    p_l = packed[:, 16:].contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        BL.bitlinear_axes_p(x, p_l, vr, vc, view, w_scale=qw.scale)
+    with pytest.raises(ValueError):
+        BL.bitlinear_axes_p(x, p_l, vr, vc, view.contiguous())
+
+
+def test_mesh_int8_on_card_quantizes_globally_and_matches_cpu(cuda,
+                                                              tmp_path):
+    """An int8 base on a (1, 2) mesh on the card: each rank quantizes its
+    blocks there (the row absmax all-reduced over a sharded in dim), and
+    every block is the CPU's single-device ``quantize_base`` block, bit for
+    bit; every rank serves the CPU plain path's int8 tokens."""
+    from repro_torch import bridge
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as LM
+    import _mesh_ranks as MR
+    build.library()
+    path = _mesh_data(tmp_path)
+    data = MR.load(path)
+    runs = {"deepseek-7b": ("continuous", "group-dense"),
+            "deepseek-moe-16b": ("group-fused",)}
+    got = LM.spawn(MR.run, (1, 2), device="cuda", timeout_s=900,
+                   args=(path, {"int8": runs}))
+    for arch, scheds in runs.items():
+        params = bridge.params_from_numpy(data[arch]["flat"], "cpu")
+        whole, _, stats = Q.quantize_base(params)
+        from repro_torch.core.calibration import flatten_params
+        flat = flatten_params(whole)
+        want = MR.mesh_tokens(None, arch, data[arch], kds=("shard_map",),
+                              scheds=scheds, base_dtype="int8")
+        for g in got:
+            mine = g[("int8 blocks", arch)]
+            assert mine["stats"] == stats
+            mesh = S.Mesh(("data", "model"), (1, 2), coords=g["coords"])
+            for p, (spec, q, scale) in mine["blocks"].items():
+                assert np.array_equal(q, S.block(flat[p].q, spec,
+                                                 mesh).numpy()), p
+                assert np.array_equal(
+                    scale.view(np.uint16),
+                    S.block(flat[p].scale, spec[:-1], mesh).numpy().view(
+                        np.uint16)), p
+            for (kd, sched), toks in g[("int8 tokens", arch)].items():
+                assert toks == want[("shard_map", sched)], (arch, kd, sched)

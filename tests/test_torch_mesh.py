@@ -11,8 +11,10 @@ Contracts (the JAX package's own mesh tests, ``tests/test_sharded_serving
 .py:1-13`` and ``tests/test_shard_map_dispatch.py:303-310``): sharding is
 a layout change only — a sharded Deployment serves the greedy tokens of
 JAX's single-device Deployment on every rank, for both kernel dispatch
-modes — and each rank launches its kernels on its own tiles, within the
-GEMM bound of the unsharded op.
+modes, over an fp32 and an int8 base — and each rank launches its kernels
+on its own tiles, within the GEMM bound of the unsharded op.  Over an int8
+base every rank's q and scale blocks are the blocks of JAX's single-device
+``quantize_base``, bit for bit, row-parallel weights included.
 """
 import pickle
 import time
@@ -27,12 +29,15 @@ from _port_helpers import (configs, delta_model_numpy, fine_tune_flat,
                            jax_base, jax_tree)
 from repro.core import calibration as JC
 from repro.core import loader as JL
+from repro.core import quantize as JQ
 from repro.serving import Deployment as JaxDeployment
 
 import _mesh_ranks as R
 from repro_torch import bridge
 from repro_torch.core import loader as L
+from repro_torch.distributed import sharding as S
 from repro_torch.launch import mesh as LM
+from repro_torch.launch import serve as SV
 from repro_torch.models import build_model
 
 jax.config.update("jax_platforms", "cpu")
@@ -42,11 +47,13 @@ KDS = ("shard_map", "gspmd")
 TIMEOUT_S = 300
 MESHES = {
     (1, 2): {"dispatch": True, "logits": ARCHS, "bank": True,
-             "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS}},
+             "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS},
+             "int8": R.INT8_RUNS, "launcher": True},
     (2, 1): {"logits": ARCHS,
              "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS}},
     (2, 2): {"dispatch": True, "logits": ARCHS, "bank": True,
-             "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS}},
+             "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS},
+             "int8": R.INT8_RUNS},
     # reduced qwen3-8b keeps 4 q heads and 2 KV heads: under model=4 the
     # GQA branch (q heads sharded, K/V gathered) with a KV head cut over
     # two ranks
@@ -57,6 +64,10 @@ TOKEN_CASES = [(m, a, s, kd) for m, plan in MESHES.items()
                for a, scheds in plan["tokens"].items() for s in scheds
                for kd in KDS]
 LOGIT_CASES = [(m, a) for m, plan in MESHES.items() for a in plan["logits"]]
+INT8_CASES = [(m, a, s, kd) for m, plan in MESHES.items()
+              for a, scheds in plan.get("int8", {}).items() for s in scheds
+              for kd in KDS]
+INT8_MESHES = [m for m, p in MESHES.items() if p.get("int8")]
 
 
 def _arch_data(arch: str) -> dict:
@@ -122,18 +133,20 @@ def world(tmp_path_factory):
 _JAX_TOKENS: dict = {}
 
 
-def _jax_tokens(world, arch: str, sched: str) -> list:
+def _jax_tokens(world, arch: str, sched: str, base_dtype: str = "fp"
+                ) -> list:
     """JAX's single-device Deployment over the same weights and
     requests."""
-    key = (arch, sched)
+    key = (arch, sched, base_dtype)
     if key not in _JAX_TOKENS:
         d = world["data"][arch]
         dep = JaxDeployment(d["jmodel"], d["jparams"], batch_size=R.BATCH,
                             prompt_len=R.PROMPT, max_len=R.MAX_LEN,
-                            **R.SCHEDULERS[sched])
+                            base_dtype=base_dtype, **R.SCHEDULERS[sched])
         for i, dm in enumerate(d["jdms"]):
             dep.publish(f"v{i}", dm)
-        rids = [dep.submit(p, variant=R.NAMES[i % len(R.NAMES)],
+        names = R.names_for(sched, base_dtype)
+        rids = [dep.submit(p, variant=names[i % len(names)],
                            max_new_tokens=R.BUDGETS[i % len(R.BUDGETS)])
                 for i, p in enumerate(d["ship"]["prompts"])]
         dep.drain()
@@ -151,6 +164,63 @@ def test_mesh_deployment_tokens_match_jax_single_device(world, shape, arch,
     assert [len(t) for t in want] == R.BUDGETS
     for r, got in enumerate(world["spawns"].get(shape)):
         assert got[("tokens", arch)][(kd, sched)] == want, (r, got["coords"])
+
+
+@pytest.mark.parametrize("shape,arch,sched,kd", INT8_CASES,
+                         ids=["x".join(map(str, m)) + f"-{a}-{s}-{kd}"
+                              for m, a, s, kd in INT8_CASES])
+def test_mesh_int8_tokens_match_jax_single_device(world, shape, arch, sched,
+                                                  kd):
+    """An int8 base under a mesh: each rank quantizes its blocks and its
+    kernels run their int8 bodies on its tiles (or, gathered, on the whole
+    payload and scale), and every rank serves JAX's single-device int8
+    tokens."""
+    want = _jax_tokens(world, arch, sched, "int8")
+    assert [len(t) for t in want] == R.BUDGETS
+    for got in world["spawns"].get(shape):
+        assert got[("int8 tokens", arch)][(kd, sched)] == want, (
+            got["coords"])
+
+
+@pytest.mark.parametrize("shape", INT8_MESHES,
+                         ids=["x".join(map(str, m)) for m in INT8_MESHES])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mesh_int8_blocks_equal_jax_quantize_base(world, shape, arch):
+    """Every rank's q and scale blocks of a column-parallel weight, a
+    row-parallel one (its row absmax all-reduced over the model axis) and
+    an expert stack are the blocks of JAX's single-device
+    ``quantize_base``, bit for bit; the scale's placement is the
+    payload's without its in dim; ``quant_stats`` counts the global
+    leaves, as JAX's do."""
+    jq, _, jstats = JQ.quantize_base(world["data"][arch]["jparams"])
+    jflat = JC.flatten_params(jq)
+    in_sharded = 0
+    for got in world["spawns"].get(shape):
+        mine = got[("int8 blocks", arch)]
+        assert mine["stats"] == jstats
+        mesh = S.Mesh(("data", "model"), shape, coords=got["coords"])
+        for path, (spec, q, scale) in mine["blocks"].items():
+            want_q = np.asarray(jflat[path].q)
+            want_s = np.asarray(jflat[path].scale)
+            np.testing.assert_array_equal(
+                q, want_q[S.block_slices(want_q.shape, spec, mesh)])
+            np.testing.assert_array_equal(
+                scale.view(np.uint16), want_s.view(np.uint16)[
+                    S.block_slices(want_s.shape, spec[:-1], mesh)])
+            in_sharded += spec[-1] is not None
+    assert in_sharded > 0
+
+
+def test_launcher_updates_int8_on_mesh_equal_one_process(world):
+    """``launch.serve`` over an int8 base with ``--updates 1`` on (1, 2)
+    (inside the group): every rank serves the single-process run's
+    tokens, update and rollback waves included."""
+    import time
+    want = SV._serve(SV._parser().parse_args(R.LAUNCH_ARGV), None,
+                     time.perf_counter())
+    assert len(want) == 3 + 2 + 1
+    for got in world["spawns"].get((1, 2)):
+        assert got["launcher"] == want
 
 
 _PORT_LOGITS: dict = {}
@@ -312,7 +382,6 @@ def test_every_rank_named_its_backend(world):
 _REFUSALS = {
     "speculative": (dict(speculative=True), "speculative"),
     "async_admission": (dict(async_admission=True), "async admission"),
-    "int8": (dict(base_dtype="int8"), "int8"),
 }
 
 

@@ -22,6 +22,7 @@ from repro.core import calibration as JC  # noqa: E402
 from repro.core import loader as JL  # noqa: E402
 from repro.core import quantize as JQ  # noqa: E402
 from repro.kernels import ops as JK  # noqa: E402
+from repro.models import build_model as build_jax_model  # noqa: E402
 from repro.models import layers as JLY  # noqa: E402
 from repro.serving import Deployment as JaxDeployment  # noqa: E402
 from repro.serving.variants import OverlayBank as JaxOverlayBank  # noqa: E402
@@ -115,6 +116,66 @@ def test_quantize_base_matches_jax():
     qw = crossed["layers"]["mlp"]["w_up"]
     assert Q.is_quant(qw)
     assert torch.equal(qw.q, tq["layers"]["mlp"]["w_up"].q)
+
+
+def test_quantize_base_upgrades_shardings_as_jax():
+    """With a spec tree (resolved for a (1, 2) mesh) ``quantize_base``
+    returns it upgraded as JAX's returns its NamedSharding tree: each
+    target a QuantWeight of the payload's and the scale's specs, every
+    other leaf as it was; the bytes and stats are those without it."""
+    from repro.distributed import sharding as JS
+    from repro.models.param import split as jax_split
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models.param import split
+    jcfg, tcfg = configs(num_layers=2)
+    _, jparams, flat = jax_base(jcfg)
+    _, jaxes = jax_split(jax.eval_shape(
+        build_jax_model(jcfg).init, jax.random.PRNGKey(0)))
+    _, taxes = split(build_model(tcfg).init(0, device="cpu"))
+    params = bridge.params_from_numpy(flat, "cpu")
+    mesh = S.Mesh(("data", "model"), (1, 2))
+    specs = S.tree_pspecs(params, taxes, S.rules_for("decode"), mesh)
+    # a one-device mesh of the same axis names holds the (1, 2) specs
+    one = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                            ("data", "model"))
+
+    class _Fake:
+        axis_names = ("data", "model")
+        devices = np.empty((1, 2), object)
+    jsh = jax.tree.map(lambda p: jax.sharding.NamedSharding(one, p),
+                       JS.tree_pspecs(jparams, jaxes, JS.rules_for("decode"),
+                                      _Fake()),
+                       is_leaf=lambda x: isinstance(
+                           x, jax.sharding.PartitionSpec))
+    jq, jqsh, jstats = JQ.quantize_base(jparams, jsh)
+    tq, tqsh, tstats = Q.quantize_base(params, specs)
+    assert tstats == jstats
+    got = _spec_leaves(tqsh)
+    n = 0
+    for path, jl in JC.flatten_params(jqsh).items():
+        if isinstance(jl, JQ.QuantWeight):
+            n += 1
+            assert got[path] == Q.QuantWeight(q=tuple(jl.q.spec),
+                                              scale=tuple(jl.scale.spec))
+        else:
+            assert got[path] == tuple(jl.spec), path
+    assert n == tstats["targets"] == 7
+    plain, no_specs, _ = Q.quantize_base(params)
+    assert no_specs is None
+    tflat = C.flatten_params(tq)
+    for path, w in C.flatten_params(plain).items():
+        if Q.is_quant(w):
+            assert torch.equal(w.q, tflat[path].q)
+            assert torch.equal(w.scale, tflat[path].scale)
+
+
+def _spec_leaves(spec_tree, prefix="") -> dict:
+    """{path: spec or QuantWeight of specs} of a spec tree."""
+    out = {}
+    for k, v in spec_tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        out.update(_spec_leaves(v, path) if isinstance(v, dict) else {path: v})
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from _hypothesis_compat import given, settings, st
 from _port_helpers import configs
 from repro.configs import get_config
 from repro.core import calibration as JC
+from repro.core import quantize as JQ
 from repro.distributed import sharding as JS
 from repro.kernels import dispatch as JD
 from repro.models import build_model as jax_build_model
@@ -26,6 +27,7 @@ from repro.models.param import split as jax_split
 
 import repro_torch.configs as TC
 from repro_torch.core import calibration as C
+from repro_torch.core import quantize as Q
 from repro_torch.core import loader as L
 from repro_torch.distributed import sharding as S
 from repro_torch.kernels import dispatch as D
@@ -158,6 +160,70 @@ def test_tree_pspecs_equal_jax(arch, mesh):
         want = _leaves(JS.tree_pspecs(js, ja, jr, jm))
         got = _leaves(S.tree_pspecs(ts, ta, tr, tm))
         assert got == want and len(got) >= 3 * len(deltas)
+
+
+def _meta(tree):
+    """The port's twin of a JAX shape tree: ``meta`` tensors, nothing
+    allocated."""
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    return torch.empty(tuple(tree.shape), dtype=torch.float32,
+                       device="meta")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_quant_sharding_equal_jax(arch, mesh):
+    """An int8 base's placements: ``quantize_base``'s upgraded spec tree
+    (full width, ``meta`` tensors) holds, at every target, the JAX
+    ``quant_sharding`` of the weight's resolved sharding — the payload's
+    spec and the scale's — and every other leaf's spec unchanged."""
+    jshapes, jaxes, taxes = _full(arch)
+    shape, names = MESHES[mesh]
+    jm, tm = _fake_mesh(shape, names), _port_mesh(shape, names)
+    # quant_sharding is spec surgery: a one-device mesh of the same axis
+    # names holds any of the specs
+    one = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(
+        (1,) * len(names)), names)
+    jspecs = JC.flatten_params(JS.tree_pspecs(jshapes, jaxes,
+                                              JS.rules_for("decode"), jm))
+    params = _meta(jshapes)
+    specs = S.tree_pspecs(params, taxes, S.rules_for("decode"), tm)
+    qparams, qsh, _ = Q.quantize_base(params, specs)
+    got = _leaves(qsh)
+    flat = C.flatten_params(qparams)
+    n_targets = 0
+    for path, jspec in jspecs.items():
+        if not Q.is_quant(flat[path]):
+            assert got[path] == _spec(jspec), path
+            continue
+        n_targets += 1
+        want = JQ.quant_sharding(jax.sharding.NamedSharding(one, jspec),
+                                 len(flat[path].shape))
+        assert got[f"{path}:q"] == _spec(want.q.spec), path
+        assert got[f"{path}:scale"] == _spec(want.scale.spec), path
+        assert Q.quant_sharding(_spec(jspec), len(flat[path].shape)) == \
+            Q.QuantWeight(q=got[f"{path}:q"], scale=got[f"{path}:scale"])
+    assert n_targets >= 7
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_quantize_struct_equal_jax(arch):
+    """The shape-only int8 base (the dry-run's): int8 payloads and fp16
+    scales of the same shapes as JAX's ``quantize_struct``."""
+    jshapes, _, _ = _full(arch)
+    jflat = JC.flatten_params(jshapes)
+    paths = sorted(p for p, a in jflat.items() if JC.is_target(p, a))
+    want = JQ.quantize_struct(jflat, paths)
+    got = Q.quantize_struct(C.flatten_params(_meta(jshapes)), paths)
+    assert sorted(got) == sorted(want)
+    for path in paths:
+        assert got[path].q.device.type == "meta"
+        for f, dt, ndt in (("q", torch.int8, np.int8),
+                           ("scale", torch.float16, np.float16)):
+            g, w = getattr(got[path], f), getattr(want[path], f)
+            assert tuple(g.shape) == tuple(w.shape)
+            assert g.dtype == dt and np.dtype(w.dtype) == ndt
 
 
 @pytest.mark.parametrize("arch", ARCHS)
