@@ -238,7 +238,11 @@ Phases (any failure raises and the script exits non-zero):
    recorded, not written) and removes it and the store.
 22. mesh-sharded serving (``mesh_phase``, after the train phase): ranks
    of a (data, model) mesh over ``torch.distributed``, over an fp32 and
-   an int8 base (see its docstring).
+   an int8 base (see its docstring); then pod-local overlay banks on a
+   (pod, data, model) mesh (``pods_phase``, right after: reduced (2, 1,
+   2) against the CPU and the global bank, full width (2, 1, 1) with every
+   per-rank banked launch checked, and the launcher with ``--pod-banks``;
+   see its docstring).
 23. the launcher's frequent update on one card (``launcher_phase``, the
    last phase): ``python -m repro_torch.launch.serve`` at full width, 2
    layers, with ``--updates 2 --max-resident 2``: the version lines,
@@ -2867,6 +2871,9 @@ def gemms_checked():
         return held("bitlinear_axes", x, got, want, scale, w_scale)
 
     def banked(x, vidx, packed, v_row, v_col, wq, w_scale=None):
+        # an id outside the bank would trap the kernel: hold it first
+        assert 0 <= int(vidx.min()) and int(vidx.max()) < packed.shape[0], (
+            vidx.tolist(), packed.shape[0])
         got = kernels["bitlinear_axes_banked_p"](x, vidx, packed, v_row,
                                                  v_col, wq, w_scale=w_scale)
         want = BL.plain_banked(x.float(), vidx, packed, v_row, v_col, wq,
@@ -3951,15 +3958,16 @@ def mesh_ref_setup(arch):
     return cfg, model, base, dms, axes
 
 
-def mesh_deploy(model, base, dms, axes, mesh, device, run, **kw):
+def mesh_deploy(model, base, dms, axes, mesh, device, run, bank=4, **kw):
     """A Deployment of ``run`` (``MESH_RUNS``) over ``base`` with ``dms``
-    published, on ``mesh`` (eager steps: a gloo collective cannot be
-    captured) or, with ``mesh`` None, on ``device`` alone."""
+    published, ``bank`` slots (a pod), on ``mesh`` (eager steps: a gloo
+    collective cannot be captured) or, with ``mesh`` None, on ``device``
+    alone."""
     from repro_torch.launch import serve as SV
     if mesh is not None:
         kw.update(mesh=mesh, param_axes=axes, graphs=False)
     return SV.deploy(model, base, dms, batch=LANES, device=device,
-                     bank_size=4, **MESH_RUNS[run], **kw)
+                     bank_size=bank, **MESH_RUNS[run], **kw)
 
 
 def mesh_store_run(model, base, dms, axes, mesh, device, root) -> dict:
@@ -4569,6 +4577,355 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# pod-local overlay banks on a (pod, data, model) mesh
+# ---------------------------------------------------------------------------
+
+# the JAX pod-bank tests' traffic: skewed to v0, so v0 re-routes warm
+POD_TRAFFIC = ["v0", "v0", "v1", "v0", "v1", "v0", "v1", "v0"]
+POD_REF_SHAPE = (2, 1, 2)
+POD_REF_BUDGET = 4
+POD_REF_RUNS = ("global", "pods shard_map", "pods gspmd",
+                "pods shard_map async", "pods gspmd async")
+POD_FULL_SHAPE = (2, 1, 1)
+POD_FULL_LAYERS = 2
+POD_FULL_BANK = 3             # slots a pod: the base and both variants
+POD_FULL_BUDGET = 8
+# (label, Deployment keywords, base dtype, warm both variants into both
+# pods first); "global" is one bank replicated over the pods
+POD_FULL_RUNS = (
+    ("pods", dict(pod_banks=True), "fp", False),
+    ("global", {}, "fp", False),
+    ("pods int8", dict(pod_banks=True), "int8", False),
+    ("pods warm", dict(pod_banks=True), "fp", True),
+    ("pods warm async", dict(pod_banks=True, async_admission=True,
+                             admission_pacing_s=0.0), "fp", True))
+POD_LAUNCH_ARGS = ["--arch", "deepseek-7b", "--reduced", "--variants", "2",
+                   "--requests", "6", "--new-tokens", "3", "--batch",
+                   str(LANES), "--mode", "fused", "--scheduler",
+                   "continuous", "--mesh", "2,1,1", "--pod-banks"]
+
+
+def pod_kw(label: str) -> dict:
+    """Deployment keywords of a reduced pod run's label."""
+    if label == "global":
+        return {}
+    return dict(pod_banks=True, kernel_dispatch=label.split()[1],
+                async_admission=label.endswith("async"),
+                admission_pacing_s=0.0)
+
+
+def pod_traffic(dep, cfg, budget: int) -> list:
+    """``POD_TRAFFIC`` with the launcher's seeded prompts, drained; the
+    request ids."""
+    rng = np.random.default_rng(0)
+    rids = [dep.submit(rng.integers(1, cfg.vocab_size, size=8), variant=v,
+                       max_new_tokens=budget) for v in POD_TRAFFIC]
+    dep.drain()
+    return rids
+
+
+def pod_stats(dep, rids, budget: int) -> dict:
+    """Tokens (every request with its budget), the router's counters,
+    bank bytes and residents per pod and the admission bytes."""
+    tokens = [dep.result(r).out_tokens for r in rids]
+    assert [len(t) for t in tokens] == [budget] * len(rids), tokens
+    st = dep.status()
+    bank = dep.registry.bank
+    return {"tokens": tokens, "affinity": st["affinity"],
+            "bank_per_pod": st["hbm"]["bank_per_pod"],
+            "resident_per_pod": st["hbm"]["bank_resident_per_pod"],
+            "admit_bytes": (bank.stats["admit_bytes_in_pod"],
+                            bank.stats["admit_bytes_cross_pod"])}
+
+
+def pods_ref_rank(mesh) -> dict:
+    """One rank of the reduced (2, 1, 2) mesh on the card: deepseek-7b at
+    fp32 compute over an fp32 and an int8 base, the global bank and the
+    pod-local one under both kernel dispatch modes, sync and async; tokens,
+    launches, router and bank counters of each run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model, base, dms, axes = mesh_ref_setup("deepseek-7b")
+    out = {"coords": mesh.coords, "device": str(mesh.device),
+           "backend": mesh.backend, "runs": {}}
+    for bd in ("fp", "int8"):
+        for label in POD_REF_RUNS:
+            zero_counters()
+            dep = mesh_deploy(model, base, dms, axes, mesh, mesh.device,
+                              "continuous", base_dtype=bd, **pod_kw(label))
+            rids = pod_traffic(dep, cfg, POD_REF_BUDGET)
+            out["runs"][mesh_run(label, bd)] = dict(
+                pod_stats(dep, rids, POD_REF_BUDGET), launches=counters(),
+                async_admits=dep.metrics["async_admits"])
+            dep.close()
+    return out
+
+
+def pod_warm(dep) -> None:
+    """Both variants resident in both pods before the traffic (through
+    the admission pipeline on an async deployment, in the same order), so
+    a sync and an async run route and batch alike."""
+    names = dep.variants()[1:]
+    for name in names:
+        for pod in range(dep.registry.pods):
+            if dep.admission is not None:
+                dep.admission.prefetch(name, pod)
+            else:
+                with dep.engine._ctx():
+                    dep.registry.bank_resolve(name, pod)
+    if dep.admission is not None:
+        dep.admission.wait(timeout=300.0)
+
+
+def pods_full_rank(mesh) -> dict:
+    """One rank of the full-width (2, 1, 1) mesh: qwen3-8b at 2 layers, 2
+    variants, the continuous scheduler over ``POD_FULL_BANK`` slots a pod,
+    the skewed traffic, each run of ``POD_FULL_RUNS`` timed; one more wave
+    of the traffic through ``gemms_checked`` after each cold pod-local
+    run (every per-rank banked launch, on pod-local slot ids, against its
+    plain version on the same local operands)."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    cfg = SV.make_config(ARCH, num_layers=POD_FULL_LAYERS)
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            model, base, dms, axes = SV.build_variants(cfg, 2, dev,
+                                                       with_axes=True)
+            base = tree_map(lambda t: t.cpu(), base)
+            dms = [tree_map(lambda t: t.cpu(), dm) for dm in dms]
+            gc.collect()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    out = {"coords": mesh.coords, "device": str(dev),
+           "backend": mesh.backend, "runs": {}}
+    for label, kw, bd, warm in POD_FULL_RUNS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        dep = mesh_deploy(model, base, dms, axes, mesh, dev, "continuous",
+                          bank=POD_FULL_BANK, base_dtype=bd, **kw)
+        if warm:
+            pod_warm(dep)
+        zero_counters()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        rids = pod_traffic(dep, cfg, POD_FULL_BUDGET)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        m = dep.metrics
+        res = dict(pod_stats(dep, rids, POD_FULL_BUDGET),
+                   launches=counters(), seconds=secs,
+                   mean_step_ms=1e3 * m["decode_seconds"]
+                   / max(1, m["decode_steps"]),
+                   decode_steps=m["decode_steps"],
+                   commits=(dep.admission.stats["commits"]
+                            if dep.admission is not None else None),
+                   peak_GB=torch.cuda.max_memory_allocated(dev) / 1e9,
+                   bank_GB=dep.registry.bank.nbytes() / 1e9)
+        if not warm and kw.get("pod_banks"):
+            with gemms_checked() as log:
+                pod_traffic(dep, cfg, 2)
+            res["checked"] = {
+                "launches": len(log),
+                "kernels": sorted({name for name, _, _ in log}),
+                "max_abs_err": max(err for _, _, err in log)}
+        out["runs"][label] = res
+        dep.close()
+        del dep
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def pods_single_card(dev) -> dict:
+    """The cold traffic of ``pods_full_rank`` on one card (the global bank
+    of the same size, eager): its tokens and mean step."""
+    from repro_torch.launch import serve as SV
+    cfg = SV.make_config(ARCH, num_layers=POD_FULL_LAYERS)
+    model, base, dms = SV.build_variants(cfg, 2, dev)
+    dep = mesh_deploy(model, base, dms, None, None, dev, "continuous",
+                      bank=POD_FULL_BANK, graphs=False)
+    torch.cuda.synchronize(dev)
+    rids = pod_traffic(dep, cfg, POD_FULL_BUDGET)
+    torch.cuda.synchronize(dev)
+    m = dep.metrics
+    out = {"tokens": [dep.result(r).out_tokens for r in rids],
+           "mean_step_ms": 1e3 * m["decode_seconds"]
+           / max(1, m["decode_steps"])}
+    del dep, model, base, dms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pods_phase(dev) -> dict:
+    """Pod-local overlay banks (``OverlayBank(pods=)``, the engine's
+    affinity router, the lanes' slot ids translated to their pod's bank
+    once a step) on a (pod, data, model) mesh whose ranks share card 0
+    over gloo:
+
+    1. reduced deepseek-7b (fp32 compute) on (2, 1, 2), over an fp32 and
+       an int8 base: the global bank, then pod-local banks under both
+       kernel dispatch modes, sync and async; every rank's tokens must
+       equal the single-process CPU plain path's and the global bank's;
+       the router must count hits and misses on the sync pod runs, and a
+       pod-local bank must cross no pod boundary on admission where the
+       global one does;
+    2. full width on (2, 1, 1): qwen3-8b at 2 layers, 2 variants, the
+       skewed traffic cold (pods, global, pods over an int8 base) and warm
+       (pods sync and async: tokens must be equal); every per-rank banked
+       launch of a checked wave, fp32 and q8 bodies, within the GEMM
+       bound of its plain version; launches a rank, bank bytes per pod
+       against the global bank's, admission bytes, hits and misses, and
+       the mean step a rank beside one card's;
+    3. ``python -m repro_torch.launch.serve --mesh 2,1,1 --pod-banks``
+       (reduced deepseek-7b) as a fresh process, run beside 1.
+
+    Returns {run label: [launches of each rank]}."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import serve as SV
+
+    launches = {}
+    cache_dir = str(build._loaded_through[0].path)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_COMPILE_CACHE_DIR=cache_dir)
+    t_launch = time.perf_counter()
+    # its own process group: a failure here ends the launcher and its ranks
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *POD_LAUNCH_ARGS],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT, start_new_session=True)
+    try:
+        # 1. reduced, card against the CPU
+        t0 = time.perf_counter()
+        group = LM.start(pods_ref_rank, POD_REF_SHAPE, device="cuda",
+                         timeout_s=MESH_TIMEOUT_S)
+        cfg, model, base, dms, axes = mesh_ref_setup("deepseek-7b")
+        want = {}
+        for bd in ("fp", "int8"):
+            dep = mesh_deploy(model, base, dms, axes, None, "cpu",
+                              "continuous", base_dtype=bd)
+            rids = pod_traffic(dep, cfg, POD_REF_BUDGET)
+            want[bd] = [dep.result(r).out_tokens for r in rids]
+        ranks = group.join()
+        for r, got in enumerate(ranks):
+            for label, res in got["runs"].items():
+                bd = "int8" if label.endswith("int8") else "fp"
+                assert res["tokens"] == want[bd], (r, label, res["tokens"],
+                                                   want[bd])
+                assert res["launches"]["bitlinear_axes_banked"] > 0, (
+                    r, label, res["launches"])
+                af = res["affinity"]
+                if label.startswith("pods"):
+                    assert af["pods"] == 2 and af["misses"] > 0, (label, af)
+                    assert sorted(res["bank_per_pod"]) == [0, 1], res
+                    assert res["admit_bytes"][1] == 0, (label, res)
+                    if "async" in label:
+                        assert res["async_admits"] > 0, (label, res)
+                    else:
+                        assert af["hits"] > 0, (label, af)
+                else:
+                    assert res["admit_bytes"][1] == res["admit_bytes"][0] \
+                        > 0, (label, res)
+        for label in ranks[0]["runs"]:
+            launches[f"pods reduced {label} {POD_REF_SHAPE}"] = [
+                g["runs"][label]["launches"] for g in ranks]
+        r0 = ranks[0]["runs"]
+        print(f"pods {POD_REF_SHAPE} reduced ({ranks[0]['backend']}, "
+              f"{sorted({g['device'] for g in ranks})}): every rank's "
+              f"tokens == CPU plain tokens == the global bank's for "
+              f"{len(r0)} runs (both dispatch modes, sync and async, fp32 "
+              f"and int8 base); affinity (sync, rank 0) "
+              f"{r0['pods shard_map']['affinity']}; admission bytes "
+              f"(in-pod, cross-pod) pods {r0['pods shard_map']['admit_bytes']}"
+              f" global {r0['global']['admit_bytes']}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        # 2. full width on (2, 1, 1), then the same cold traffic on one card
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = LM.spawn(pods_full_rank, POD_FULL_SHAPE, device="cuda",
+                         timeout_s=MESH_TIMEOUT_S)
+        print(f"pods full width {POD_FULL_SHAPE} ({ranks[0]['backend']}, "
+              f"{sorted({g['device'] for g in ranks})}): "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        single = pods_single_card(dev)
+        print(f"pods full width: single-card run "
+              f"{time.perf_counter() - t0:.1f} s")
+        for label, _, bd, _ in POD_FULL_RUNS:
+            per = [g["runs"][label] for g in ranks]
+            toks = [p["tokens"] for p in per]
+            assert all(t == toks[0] for t in toks), (label, "ranks disagree")
+            kernel = "bitlinear_axes_banked"
+            assert all(p["launches"][kernel] > 0 for p in per), (label, per)
+            launches[f"pods {ARCH} {label} {POD_FULL_SHAPE}"] = [
+                p["launches"] for p in per]
+            ref = single["tokens"]
+            agree = sum(a == b for x, y in zip(toks[0], ref)
+                        for a, b in zip(x, y))
+            r0 = per[0]
+            bank_gb = {p: round(b / 1e9, 3)
+                       for p, b in r0["bank_per_pod"].items()}
+            fired = [{k: v for k, v in p["launches"].items() if v}
+                     for p in per]
+            line = (f"pods {ARCH} {label}: tokens agree with one card "
+                    f"{agree}/{sum(len(y) for y in ref)}"
+                    + (" (its fp32 base)" if bd == "int8" else "")
+                    + f"; affinity {r0['affinity']}; bank GB per pod "
+                    f"{bank_gb}; residents per pod "
+                    f"{r0['resident_per_pod']}; admission bytes (in-pod, "
+                    f"cross-pod) {r0['admit_bytes']}; launches per rank "
+                    f"{fired}; mean step ms per rank "
+                    f"{[round(p['mean_step_ms'], 2) for p in per]} (one card "
+                    f"{single['mean_step_ms']:.2f}); {r0['decode_steps']} "
+                    f"steps, {r0['seconds']:.2f} s; peak GB per rank "
+                    f"{[round(p['peak_GB'], 2) for p in per]}")
+            if label.startswith("pods") and "warm" not in label:
+                assert r0["affinity"]["hits"] > 0 \
+                    and r0["affinity"]["misses"] > 0, (label, r0["affinity"])
+                assert all(p["admit_bytes"][1] == 0 for p in per), per
+                chk = [p["checked"] for p in per]
+                q8 = "_q8" if bd == "int8" else ""
+                assert all(f"bitlinear_axes_banked{q8}" in c["kernels"]
+                           for c in chk), chk
+                line += (f"; checked wave: {[c['launches'] for c in chk]} "
+                         f"launches ({chk[0]['kernels']}) within the GEMM "
+                         f"bound on pod-local ids, max |err| "
+                         f"{max(c['max_abs_err'] for c in chk):.3e}")
+            print(line)
+        glob = ranks[0]["runs"]["global"]
+        assert glob["admit_bytes"][1] == glob["admit_bytes"][0] > 0, glob
+        warm = [g["runs"]["pods warm"]["tokens"] for g in ranks]
+        warm_async = [g["runs"]["pods warm async"]["tokens"] for g in ranks]
+        assert warm_async == warm, "async pod run's tokens differ from sync"
+        # both variants committed into both pods through the agreement
+        assert all(g["runs"]["pods warm async"]["commits"] == 4
+                   for g in ranks), [g["runs"]["pods warm async"]
+                                     for g in ranks]
+        print(f"pods full width: the warm async run's tokens == the warm "
+              f"sync run's on every rank; ranks share one card: these times "
+              f"say nothing of pod-parallel speed-up")
+        ended_first = launcher.poll() is not None
+        stdout, stderr = launcher.communicate(timeout=600)
+    finally:
+        if launcher.poll() is None:
+            os.killpg(launcher.pid, 9)
+            launcher.communicate()
+    # 3. the launcher
+    assert launcher.returncode == 0, stdout[-2000:] + stderr[-4000:]
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith(("affinity:", "bank per-pod bytes:",
+                               "admission bytes:", "mesh: 2 ranks"))]
+    assert len(lines) == 4, stdout[-3000:]
+    print(f"pods launcher: `python -m repro_torch.launch.serve "
+          f"{' '.join(POD_LAUNCH_ARGS)}`: {lines}; "
+          + ("ended before the mesh runs, beside them" if ended_first else
+             f"ended {time.perf_counter() - t_launch:.1f} s after its start"))
+    return launches
+
+
 
 # kernel bodies whose first CUDA design was replaced: the design now run
 GEMM_DESIGN = "streaming (M <= 16) + cp.async tiles (M > 16)"
@@ -4727,6 +5084,11 @@ def main() -> None:
         mesh_launches = timed("mesh", mesh_phase, dev, True)
         print("mesh launches: " + json.dumps(mesh_launches))
         return
+    if sys.argv[1:] == ["--pods-only"]:
+        # the pod-bank phase alone (development runs; no result line)
+        pod_launches = timed("pods", pods_phase, dev)
+        print("pods launches: " + json.dumps(pod_launches))
+        return
     cfg = get_config(ARCH)
     timer = Timer(dev)
     rows = timed("kernels", kernel_phase, cfg, dev, timer)
@@ -4748,6 +5110,7 @@ def main() -> None:
     launches.update(timed("admission", admission_phase, dev))
     launches.update(timed("train", train_phase, dev))
     mesh_launches = timed("mesh", mesh_phase, dev)
+    mesh_launches.update(timed("pods", pods_phase, dev))
     launches.update(timed("dense archs", dense_archs_phase, dev))
     moe_launches, routed = timed("deepseek-moe-16b", moe_phase, dev)
     launches.update(moe_launches)

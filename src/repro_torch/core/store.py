@@ -35,7 +35,6 @@ import hashlib
 import json
 import os
 import pathlib
-import pickle
 import threading
 import zipfile
 from typing import Callable, Iterator, Optional
@@ -47,6 +46,7 @@ import torch
 from repro_torch.core import delta as D
 from repro_torch.core.calibration import (DeltaEntry, DeltaModel,
                                           flatten_params)
+from repro_torch.distributed import sharding as SH
 
 
 def _sha(arr: np.ndarray) -> str:
@@ -542,7 +542,7 @@ class VariantStore:
                     fn()
             except Exception as e:      # sent to every rank, then raised
                 err = e
-        sent = None if err is None else _portable_error(err)
+        sent = None if err is None else SH.portable_error(err)
         got = self.mesh.share(sent)
         if err is not None:
             raise err
@@ -763,17 +763,6 @@ class VariantStore:
 
     def artifact_bytes(self, name: str, version: int) -> int:
         return int(self.version_info(name, version)["artifact_bytes"])
-
-
-def _portable_error(err: Exception) -> tuple:
-    """(class, args) that rebuild ``err`` on another rank; an error that
-    does not pickle or rebuild travels as a RuntimeError naming it."""
-    try:
-        pickle.dumps((type(err), err.args))
-        type(err)(*err.args)
-        return type(err), err.args
-    except Exception:
-        return RuntimeError, (f"{type(err).__name__}: {err}",)
 
 
 def save_checkpoint_fp16(params, out_path) -> int:

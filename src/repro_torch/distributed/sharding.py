@@ -37,6 +37,7 @@ import contextlib
 import dataclasses
 import itertools
 import math
+import pickle
 import threading
 from typing import Optional, Sequence, Union
 
@@ -63,7 +64,7 @@ PARAM_RULES = {
     "layers": [],
     # overlay-bank slot axis: replicated — every rank holds all bank slots
     # of its own weight block, so admission writes in place with no
-    # collective.  Pod-local banks shard it over "pod" (a later slice)
+    # collective.  Pod-local banks shard it over "pod" (BANK_RULE_POD)
     "bank": [],
 }
 
@@ -120,14 +121,15 @@ def rules_for(kind: str, long_context: bool = False,
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A (pod,) data, model grid of ranks, row-major: rank r sits at
-    ``numpy.unravel_index(r, shape)``.  ``groups`` maps each non-empty
-    tuple of axis names (in mesh order) to this rank's process group over
-    the ranks that differ from it only along those axes (None for a group
-    of one, or for a mesh without processes, as the resolution tests
-    build); ``host_group`` is a gloo group over every rank, for barriers and
-    ``share``.
-    Hashable by (names, shape, coords)."""
+    """A (data, model) or (pod, data, model) grid of ranks, row-major:
+    rank r sits at ``numpy.unravel_index(r, shape)``.  ``groups`` maps
+    each non-empty tuple of axis names (in mesh order) to this rank's
+    process group over the ranks that differ from it only along those axes
+    (None for a group of one, or for a mesh without processes, as the
+    resolution tests build); ``host_group`` is a gloo group over every
+    rank, for barriers, ``share`` and the agreements (``gather``,
+    ``agree_min``, ``raise_first``).  Hashable by (names, shape,
+    coords)."""
     axis_names: tuple
     shape: tuple
     coords: tuple = ()
@@ -203,6 +205,48 @@ class Mesh:
         torch.distributed.broadcast_object_list(box, src=0,
                                                 group=self.host_group)
         return box[0]
+
+    def gather(self, obj) -> list:
+        """Every rank's ``obj`` (picklable), in rank order, on every rank,
+        over ``host_group``."""
+        if self.host_group is None:
+            return [obj]
+        out = [None] * self.size
+        torch.distributed.all_gather_object(out, obj, group=self.host_group)
+        return out
+
+    def agree_min(self, values: list) -> list:
+        """The element-wise MIN over the ranks of ``values`` (ints, a list
+        of the same length on every rank): one all-reduce over
+        ``host_group``."""
+        if self.host_group is None:
+            return list(values)
+        t = torch.tensor(values, dtype=torch.int64)
+        torch.distributed.all_reduce(t, op=ReduceOp.MIN,
+                                     group=self.host_group)
+        return t.tolist()
+
+    def raise_first(self, err: Optional[BaseException]) -> None:
+        """One outcome on every rank: when any rank passes an error, every
+        rank raises the first failing rank's (rebuilt from its class and
+        args, ``portable_error``); else nothing.  One gather over
+        ``host_group``."""
+        sent = self.gather(None if err is None else portable_error(err))
+        for got in sent:
+            if got is not None:
+                cls, args = got
+                raise cls(*args) from err
+
+
+def portable_error(err: BaseException) -> tuple:
+    """(class, args) that rebuild ``err`` on another rank; an error that
+    does not pickle or rebuild travels as a RuntimeError naming it."""
+    try:
+        pickle.dumps((type(err), err.args))
+        type(err)(*err.args)
+        return type(err), err.args
+    except Exception:
+        return RuntimeError, (f"{type(err).__name__}: {err}",)
 
 
 def build_groups(axis_names: tuple, shape: tuple, backend: str) -> dict:

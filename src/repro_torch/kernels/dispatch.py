@@ -31,12 +31,21 @@ the kernel on its own tiles, as JAX's ``in_specs`` hand the scale
 kernel wrappers still refuse (off its alignment, or without its scale)
 raises there, and nothing is copied around it.
 
+Pod-local banks (DESIGN.md §17): each rank holds its pod's bank slots
+only, and the engine hands every model call pod-local slot ids (global -
+pod * slots, ``ServingEngine._pod_local``), so the per-rank path indexes
+the rank's bank as it stands, where the JAX shard_map path subtracts the
+pod's offset inside the kernel's shard function and clips.
+
 ``no_dispatch()`` is the port's ``kernel_dispatch="gspmd"``: every operand
 the plan shards is all-gathered, the global kernel runs on every rank and
 the rank keeps its block of the output — the A/B reference the per-rank
-path is held to.  There is nothing to trace, so there is no memo of
-compiled callables (the JAX memo exists to avoid retracing);
-:func:`memo_info` counts the entry points' plans and routes instead.
+path is held to.  A pod-local bank is gathered over "pod" too, and the
+rows' ids go back to global ones before they are gathered, so the global
+kernel reads the whole slot space, as the JAX GSPMD path does.  There is
+nothing to trace, so there is no memo of compiled callables (the JAX memo
+exists to avoid retracing); :func:`memo_info` counts the entry points'
+plans and routes instead.
 """
 from __future__ import annotations
 
@@ -161,6 +170,15 @@ def _gather(t: torch.Tensor, part, dim: int, mesh) -> torch.Tensor:
     return S.all_gather(t, part, dim, mesh) if part is not None else t
 
 
+def _bank_part(mesh, rules: dict):
+    """The mesh axes a bank's slot axis is split over (pod-local banks:
+    "pod"), or None for a bank every rank holds whole."""
+    for cand in rules.get("bank", ()):
+        if all(mesh.axis_size(n) for n in _names(cand)):
+            return cand
+    return None
+
+
 # ---------------------------------------------------------------------------
 # entry points (kernels/ops routes here under a mesh; None = plan shards
 # nothing, so the local operands ARE the global ones)
@@ -203,11 +221,12 @@ def bitlinear_axes_banked(st, x: torch.Tensor, variant_idx: torch.Tensor,
                           v_col: torch.Tensor, w_base,
                           waxes) -> Optional[torch.Tensor]:
     """Per-rank mixed-variant fused GEMM: every rank gathers its rows'
-    slots from its own weight tile's bank (the bank axis is replicated,
-    so slot ids need no translation; the pod offset of pod-local banks is
-    a later slice), then the psum of the fp32 output as above."""
+    slots from its own weight tile's bank (``variant_idx`` indexes the bank
+    the rank holds: pod-local ids under pod-local banks), then the psum of
+    the fp32 output as above.  The gathered twin gathers a pod-local bank
+    over its pods and turns the ids back into global ones first."""
     from repro_torch.kernels import ops as O
-    mesh = st[0]
+    mesh, rules = st[0], st[1]
     wq, _ = O._unwrap_quant(w_base)
     *lead, k = x.shape
     x2 = x.reshape(-1, k)
@@ -219,11 +238,17 @@ def bitlinear_axes_banked(st, x: torch.Tensor, variant_idx: torch.Tensor,
     if getattr(_local, "off", 0):
         memo_stats["gathered"] += 1
         mp, op, ip = plan.m_part, plan.o_part, plan.i_part
+        bp = _bank_part(mesh, rules)
+        if bp is not None:
+            # this rank's rows index its pod's slots: back to global ids
+            vidx = vidx + mesh.index(bp) * packed.shape[0]
         y = O._bitlinear_axes_banked_f32(
             _gather(_gather(x2, mp, 0, mesh), ip, 1, mesh),
             _gather(vidx, mp, 0, mesh),
-            _gather(_gather(packed, op, 1, mesh), ip, 2, mesh),
-            _gather(v_row, op, 1, mesh), _gather(v_col, ip, 1, mesh),
+            _gather(_gather(_gather(packed, bp, 0, mesh), op, 1, mesh), ip,
+                    2, mesh),
+            _gather(_gather(v_row, bp, 0, mesh), op, 1, mesh),
+            _gather(_gather(v_col, bp, 0, mesh), ip, 1, mesh),
             _gather_weight(w_base, op, ip, mesh))
         y = S.block(y, (mp, op), mesh)
     else:

@@ -1,18 +1,20 @@
 """Rank meshes over ``torch.distributed`` (port of ``repro.launch.mesh``).
 
-``make_host_mesh(data, model)`` builds the :class:`~repro_torch.
+``make_host_mesh(data, model, pod=0)`` builds the :class:`~repro_torch.
 distributed.sharding.Mesh` of an initialised process group (one process
-per rank, ranks row-major over (data, model)).  ``backend_for`` is the one
-backend rule of the port:
+per rank, ranks row-major over (data, model), or over (pod, data, model)
+with ``pod`` > 0: the mesh pod-local overlay banks serve on).
+``backend_for`` is the one backend rule of the port:
 
 * NCCL when every rank has a card of its own;
 * gloo otherwise — the CPU, and ranks that share one card.  Under gloo the
   collective helpers copy CUDA tensors through the host, one copy each way
   (``sharding.psum`` / ``all_gather``); the kernels still run on the card.
 
-``spawn(fn, mesh_shape)`` starts one process per rank, initialises the
-group (``file://`` rendezvous in a fresh temporary directory, so runs side
-by side never share a port), calls ``fn(mesh, *args)`` on every rank and
+``spawn(fn, mesh_shape)`` (a (data, model) or (pod, data, model) shape)
+starts one process per rank, initialises the group (``file://``
+rendezvous in a fresh temporary directory, so runs side by side never
+share a port), calls ``fn(mesh, *args)`` on every rank and
 returns the ranks' results in rank order.  It joins with a deadline: a
 rank that raises, or a group that outlives ``timeout_s``, ends every rank
 and raises with the failing rank's traceback — a failure never hangs.
@@ -72,12 +74,8 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0, *,
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh needs an initialised process "
                            "group (launch.mesh.spawn or torchrun)")
-    if pod:
-        raise NotImplementedError(
-            "the 3-axis (pod, data, model) mesh arrives with the pod-bank "
-            "slice of the port")
-    shape = (data, model)
-    names = ("data", "model")
+    shape = (pod, data, model) if pod else (data, model)
+    names = ("pod", "data", "model") if pod else ("data", "model")
     world = dist.get_world_size()
     if world != math.prod(shape):
         raise RuntimeError(f"mesh {shape} needs {math.prod(shape)} ranks, "
@@ -86,12 +84,24 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0, *,
     backend = dist.get_backend()
     if device is None:
         device = rank_device(str(resolve_device()), backend, rank)
-    coords = (rank // model, rank % model)
+    coords, r = [], rank
+    for n in reversed(shape):
+        coords.insert(0, r % n)
+        r //= n
     groups = build_groups(names, shape, backend)
     host = dist.new_group(list(range(world)), backend="gloo") \
         if backend != "gloo" else dist.group.WORLD
-    return Mesh(names, shape, coords, backend=backend,
+    return Mesh(names, shape, tuple(coords), backend=backend,
                 device=torch.device(device), groups=groups, host_group=host)
+
+
+def mesh_of_shape(shape: tuple, device=None) -> Mesh:
+    """``make_host_mesh`` of a (data, model) or (pod, data, model)
+    shape."""
+    if len(shape) == 3:
+        return make_host_mesh(shape[1], shape[2], pod=shape[0],
+                              device=device)
+    return make_host_mesh(*shape, device=device)
 
 
 def load_kernels(mesh: Mesh) -> None:
@@ -127,7 +137,7 @@ def _rank_main(fn, rank: int, world: int, mesh_shape: tuple, device: str,
             backend, init_method=f"file://{workdir}/rendezvous",
             rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
-        mesh = make_host_mesh(*mesh_shape, device=dev)
+        mesh = mesh_of_shape(mesh_shape, device=dev)
         load_kernels(mesh)
         result = fn(mesh, *args)
         with open(out + ".tmp", "wb") as f:
@@ -206,9 +216,10 @@ class Group:
 def start(fn, mesh_shape: tuple, *, device: str = "cuda",
           timeout_s: float = DEFAULT_TIMEOUT_S, args: tuple = (),
           threads: int = 0) -> Group:
-    """Start one process per rank of ``mesh_shape`` (data, model) running
-    ``fn(mesh, *args)`` (``fn`` and ``args`` must pickle: a module-level
-    function).  ``threads`` > 0 sets each rank's intra-op threads."""
+    """Start one process per rank of ``mesh_shape`` ((data, model) or
+    (pod, data, model)) running ``fn(mesh, *args)`` (``fn`` and ``args``
+    must pickle: a module-level function).  ``threads`` > 0 sets each
+    rank's intra-op threads."""
     world = math.prod(mesh_shape)
     backend = backend_for(device, world)
     workdir = tempfile.mkdtemp(prefix="repro_mesh_")

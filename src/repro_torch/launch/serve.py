@@ -50,19 +50,24 @@ p99=… (n=…)``, from ``status()["ttft"]``.  ``--num-layers`` cuts depth
 only; ``--reduced`` selects the small test widths.  Runs on ``--device``
 (default cuda).
 
-``--mesh DATA,MODEL`` serves over a (data, model) mesh of ranks, one
-process each (``launch/mesh``; explicit SPMD, ``distributed/sharding``):
-under ``torchrun`` (``WORLD_SIZE`` set) this process is one rank, else the
-launcher starts the ranks itself (``launch.mesh.spawn``: NCCL when every
-rank has a card of its own, else gloo over shared card 0) and checks that
-every rank served the same tokens.  ``--kernel-dispatch`` picks per-rank
+``--mesh DATA,MODEL`` (or ``POD,DATA,MODEL``) serves over a (data, model)
+(or (pod, data, model)) mesh of ranks, one process each (``launch/mesh``;
+explicit SPMD, ``distributed/sharding``): under ``torchrun``
+(``WORLD_SIZE`` set) this process is one rank, else the launcher starts
+the ranks itself (``launch.mesh.spawn``: NCCL when every rank has a card
+of its own, else gloo over shared card 0) and checks that every rank
+served the same tokens.  ``--kernel-dispatch`` picks per-rank
 kernels (``shard_map``, the default) or the gathered global kernels
 (``gspmd``).  ``--base-dtype int8`` and ``--updates`` serve under a mesh as
 on one device (each rank quantizes its blocks to the single-device bytes;
 with ``--store-dir`` rank 0 writes and a refused write raises on every
-rank), and the run prints each rank's base and bank bytes.  Mesh serving
-runs its steps eagerly; the 3-value mesh and ``--pod-banks`` arrive with
-the pod-bank slice and raise.
+rank), and the run prints each rank's base and bank bytes; so does
+``--async-admission`` (the ranks agree on each commit).  Mesh serving runs
+its steps eagerly.  ``--pod-banks`` (a 3-value ``--mesh`` and
+``--scheduler continuous``) keeps one overlay bank per pod of
+``variants + 2`` slots and routes each request to a pod that holds its
+variant; the run adds the router's ``affinity:`` line, the bank bytes and
+residents per pod and the admission bytes in and across pods.
 """
 from __future__ import annotations
 
@@ -240,11 +245,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-retries", type=int, default=1,
                     help="retries of a request whose variant fails to "
                          "load before it fails")
-    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="serve on a (data, model) mesh of ranks, one "
+    ap.add_argument("--mesh", default=None,
+                    metavar="DATA,MODEL | POD,DATA,MODEL",
+                    help="serve on a (data, model) mesh of ranks, or with "
+                         "three values a (pod, data, model) one, one "
                          "process each (default: one device)")
     ap.add_argument("--pod-banks", action="store_true",
-                    help="pod-local overlay banks (a later slice: raises)")
+                    help="pod-local overlay banks and affinity routing: "
+                         "one bank per pod, requests steered to the pod "
+                         "that holds their variant (needs a 3-value --mesh "
+                         "and --scheduler continuous)")
     ap.add_argument("--kernel-dispatch", choices=("shard_map", "gspmd"),
                     default="shard_map",
                     help="mesh delta GEMMs: per-rank kernels (default) or "
@@ -254,22 +264,23 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _mesh_shape(ap, args):
-    """(data, model) of ``--mesh``, or None."""
+    """(data, model) or (pod, data, model) of ``--mesh``, or None."""
+    parts = []
+    if args.mesh:
+        try:
+            parts = [int(p) for p in args.mesh.split(",")]
+        except ValueError:
+            parts = []
+        if len(parts) not in (2, 3):
+            ap.error("--mesh expects DATA,MODEL or POD,DATA,MODEL, e.g. "
+                     "--mesh 1,2 or --mesh 2,1,2")
     if args.pod_banks:
-        raise NotImplementedError("--pod-banks arrives with the pod-bank "
-                                  "slice of the port")
-    if not args.mesh:
-        return None
-    try:
-        parts = [int(p) for p in args.mesh.split(",")]
-    except ValueError:
-        ap.error("--mesh expects DATA,MODEL, e.g. --mesh 1,2")
-    if len(parts) == 3:
-        raise NotImplementedError("a (pod, data, model) mesh arrives with "
-                                  "the pod-bank slice of the port")
-    if len(parts) != 2:
-        ap.error("--mesh expects DATA,MODEL, e.g. --mesh 1,2")
-    return tuple(parts)
+        if len(parts) != 3:
+            ap.error("--pod-banks needs a 3-value --mesh POD,DATA,MODEL")
+        if args.scheduler != "continuous" or args.speculative:
+            ap.error("--pod-banks requires --scheduler continuous (the "
+                     "affinity router lives in the slot scheduler)")
+    return tuple(parts) or None
 
 
 def _mesh_rank(mesh, argv) -> list:
@@ -297,7 +308,7 @@ def main(argv=None):
         torch.distributed.init_process_group(
             backend,
             timeout=datetime.timedelta(seconds=LM.DEFAULT_TIMEOUT_S))
-        mesh = LM.make_host_mesh(*shape, device=dev)
+        mesh = LM.mesh_of_shape(shape, device=dev)
         LM.load_kernels(mesh)
         _serve(args, mesh, t_start)
         torch.distributed.destroy_process_group()
@@ -335,7 +346,8 @@ def _serve(args, mesh, t_start: float) -> list:
         CC.set_default(CC.CompileCache(args.compile_cache))
     cfg = make_config(args.arch, args.reduced, args.num_layers)
     mesh_kw = {} if mesh is None else dict(
-        mesh=mesh, kernel_dispatch=args.kernel_dispatch, graphs=False)
+        mesh=mesh, kernel_dispatch=args.kernel_dispatch, graphs=False,
+        pod_banks=args.pod_banks)
     if args.updates and args.variants < 1:
         ap.error("--updates moves variant v0 on: needs --variants >= 1")
     model, base, dms, axes = build_variants(cfg, args.variants, device,
@@ -397,6 +409,16 @@ def _serve(args, mesh, t_start: float) -> list:
         say("base per-device bytes:", hbm["base_per_device"])
         if dep.registry.bank is not None:
             say("bank per-device bytes:", st["mesh"]["bank_per_device"])
+    if args.pod_banks:
+        af = st["affinity"]
+        say(f"affinity: pods={af['pods']} hits={af['hits']} "
+            f"misses={af['misses']} hit_rate={af['hit_rate']:.3f}")
+        say("bank per-pod bytes:", hbm["bank_per_pod"])
+        say("bank residents per pod:", hbm["bank_resident_per_pod"])
+        bank = dep.registry.bank
+        if bank is not None:
+            say(f"admission bytes: in-pod={bank.stats['admit_bytes_in_pod']}"
+                f" cross-pod={bank.stats['admit_bytes_cross_pod']}")
     tt = st["ttft"]
     say(f"ttft: p50={tt['p50_seconds']:.4f}s p99={tt['p99_seconds']:.4f}s "
         f"(n={tt['count']})")

@@ -188,7 +188,11 @@ def bank_set_extra_base(path: str, bank: torch.Tensor, slot: int,
 # dims with the packed byte dim replicated (the JAX derivation, which the
 # resolution tests hold leaf for leaf), v_row / v_col follow the single
 # weight axis they scale, extras keep the weight's own axes, and the bank
-# axis resolves through the "bank" rule (replicated).  Where the port
+# axis resolves through the "bank" rule: replicated by default (every rank
+# holds every slot of its own weight block, so admission writes in place
+# with no collective), or sharded over "pod" under pod-local bank rules
+# (``rules_for(..., pod_banks=True)``: each pod holds only its own slot
+# range, so an admission writes one pod's ranks).  Where the port
 # PLACES a packed plane (``entry_shardings_from_weight``) it departs from
 # that on purpose: a rank stores its K-tile's bytes, contiguously, since a
 # column slice of a torch tensor is a strided view the kernels refuse.

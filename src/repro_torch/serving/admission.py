@@ -30,8 +30,25 @@ instead of racing the commit.
 Threads: one daemon ingest worker (started on the first prefetch) and the
 serving thread.  The worker touches the store (under its lock), the
 registry's version tables (read only), the pool and its own stream; every
-bank write happens on the serving thread, in ``drain`` or ``wait``.  One
-pod: the JAX pipeline's per-pod tickets are not ported.
+bank write happens on the serving thread, in ``drain`` or ``wait``.
+
+Tickets are keyed per (version key, pod): a pod-local bank admits one
+version into two pods as two ingests, each bound for its pod's slots
+(DESIGN.md §17).  Off pod-local banks every ticket is pod 0's.
+
+On a mesh every rank runs this pipeline over the same calls, but each
+rank's worker finishes at its own time, and a rank that committed a ticket
+a step before another would part from it (slot tables, ``variant_idx``,
+the batches decoded).  So the ranks agree (``_agree``): each ``drain``
+with tickets live makes one MIN all-reduce over the host group of every
+live ticket's progress, in ticket-creation order (the same order on every
+rank: tickets are made and dropped only on the serving thread, by the same
+calls).  A ticket commits on every rank in the same drain or on none;
+a failure on any rank fails it on every rank (its error gathered from the
+rank that failed); ``poll``, ``in_flight``, ``staging`` and ``wait`` answer
+from the agreed progress.  A rank outside a ticket's pod stages nothing
+and counts as staged at once.  With no ticket live there is no collective.
+The JAX pipeline runs under one controller and needs no agreement.
 """
 from __future__ import annotations
 
@@ -51,12 +68,15 @@ from repro_torch.core import store as S
 
 @dataclasses.dataclass
 class AdmissionTicket:
-    """One variant version moving through the ingest pipeline."""
+    """One variant version moving through the ingest pipeline, bound for
+    one pod's slots."""
     nameish: str                      # caller-facing request string
     name: str
     version: object                   # None for unversioned registrations
     vkey: str                         # bank key (name@vN)
+    pod: int = 0                      # the pod whose slots it fills
     state: str = "queued"             # queued|staging|staged|admitted|failed
+    agreed: str = "queued"            # the progress every rank has reached
     error: Optional[str] = None
     dm: object = None                 # the staged DeltaModel (device)
     futures: list = dataclasses.field(default_factory=list)  # Transfers
@@ -65,6 +85,9 @@ class AdmissionTicket:
 
 
 _LIVE = ("queued", "staging", "staged")
+# progress levels for the mesh agreement: the MIN over the ranks is the
+# least advanced rank's state (a failure anywhere wins)
+_LEVELS = ("failed", "queued", "staging", "staged")
 
 
 class AdmissionPipeline:
@@ -91,7 +114,9 @@ class AdmissionPipeline:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.pool = S.StagingPool(pin_memory=self.device.type == "cuda")
         self._cond = threading.Condition()
-        self._tickets: dict[str, AdmissionTicket] = {}
+        self.mesh = registry.mesh
+        # (vkey, pod) -> ticket, in creation order
+        self._tickets: dict[tuple, AdmissionTicket] = {}
         self._work: collections.deque = collections.deque()
         self._worker: Optional[threading.Thread] = None
         self._closed = False
@@ -99,74 +124,87 @@ class AdmissionPipeline:
                       "failures": 0, "stage_seconds": 0.0}
 
     # -- enqueue -----------------------------------------------------------
-    def prefetch(self, nameish: str) -> Optional[str]:
+    def prefetch(self, nameish: str, pod: int = 0) -> Optional[str]:
         """Begin ingest of ``nameish``'s current version (or an explicit
-        ``name@vN``).  Idempotent: a bank-resident version or a live ticket
-        returns at once.  Returns the version key (None for the base,
-        which needs no admission)."""
+        ``name@vN``) toward ``pod``'s slots.  Idempotent: a version
+        resident in that pod or a live ticket returns at once.  Returns the
+        version key (None for the base, which needs no admission)."""
         if nameish == "__base__":
             return None
         name, version = self.registry._parse(nameish)   # KeyError: unknown
         vkey = self.registry._vkey(name, version)
         bank = self.registry.bank
-        if bank is not None and bank.holds(vkey):
+        if bank is not None and bank.holds(vkey, pod):
             return vkey                                  # already admitted
         with self._cond:
             if self._closed:
                 raise RuntimeError("admission pipeline is closed")
-            t = self._tickets.get(vkey)
-            if t is not None and t.state in _LIVE:
+            t = self._tickets.get((vkey, pod))
+            if t is not None and self._view(t) in _LIVE:
                 return vkey
             t = AdmissionTicket(nameish=nameish, name=name, version=version,
-                                vkey=vkey, enqueued_at=time.perf_counter())
-            self._tickets[vkey] = t
+                                vkey=vkey, pod=pod,
+                                enqueued_at=time.perf_counter())
+            self._tickets.pop((vkey, pod), None)
+            self._tickets[(vkey, pod)] = t
             # marked before the worker can see the ticket: evict and
             # rollback refuse from the moment ingest is promised
-            self.registry._ensure_bank().mark_staging(vkey)
-            self._work.append(vkey)
+            bank = self.registry._ensure_bank()
+            bank.mark_staging(vkey, pod)
             self.stats["prefetches"] += 1
-            self._ensure_worker()
+            if bank.writes(pod):
+                self._work.append(t)
+                self._ensure_worker()
+            else:
+                # a rank outside the pod stages nothing
+                t.state = "staged"
             self._cond.notify_all()
         return vkey
 
+    def _view(self, t: AdmissionTicket) -> str:
+        """A ticket's state as the caller may act on it: the agreed one on
+        a mesh, this rank's own off it."""
+        return t.agreed if self.mesh is not None else t.state
+
     # -- progress ----------------------------------------------------------
-    def poll(self, nameish: str) -> str:
-        """``admitted`` once the version is bank-resident, else the live
-        ticket's state (prefetching a variant never seen).  A failed
+    def poll(self, nameish: str, pod: int = 0) -> str:
+        """``admitted`` once the version is resident in ``pod``, else the
+        live ticket's state (prefetching a variant never seen).  A failed
         ticket is consumed here, so a later poll ingests again, and its
         error re-raised for the caller's retry budget."""
         name, version = self.registry._parse(nameish)
         vkey = self.registry._vkey(name, version)
         bank = self.registry.bank
-        if bank is not None and bank.holds(vkey):
+        if bank is not None and bank.holds(vkey, pod):
             return "admitted"
         with self._cond:
-            t = self._tickets.get(vkey)
-            if t is not None and t.state == "failed":
-                del self._tickets[vkey]
+            t = self._tickets.get((vkey, pod))
+            if t is not None and self._view(t) == "failed":
+                del self._tickets[(vkey, pod)]
                 raise RuntimeError(t.error)
         if t is None:
-            self.prefetch(nameish)
+            self.prefetch(nameish, pod)
             return "queued"
-        return t.state
+        return self._view(t)
 
     def staging(self, name: str) -> bool:
         """A version of ``name`` is mid-pipeline (queued, staging or
         staged).  The rollback guard."""
         with self._cond:
-            return any(t.name == name and t.state in _LIVE
+            return any(t.name == name and self._view(t) in _LIVE
                        for t in self._tickets.values())
 
     def admitting(self) -> list:
-        """Version keys mid-pipeline."""
+        """Version keys mid-pipeline (a key bound for several pods appears
+        once)."""
         with self._cond:
-            return sorted(t.vkey for t in self._tickets.values()
-                          if t.state in _LIVE)
+            return sorted({t.vkey for t in self._tickets.values()
+                           if self._view(t) in _LIVE})
 
     def in_flight(self) -> int:
         with self._cond:
             return sum(1 for t in self._tickets.values()
-                       if t.state in _LIVE)
+                       if self._view(t) in _LIVE)
 
     def wait_progress(self, timeout: float) -> None:
         """Block the serving thread until a ticket can commit (or has
@@ -181,41 +219,88 @@ class AdmissionPipeline:
     # -- commit (serving thread) -------------------------------------------
     def drain(self, max_admits: int = 1) -> int:
         """Commit up to ``max_admits`` staged variants into the bank (slot
-        writes queued on the serving stream, no host fence).  The engine
+        writes queued on the serving stream, no host fence), in ticket
+        order; on a mesh after the ranks agree (``_agree``).  The engine
         calls it between steps with ``max_admits=1``.  Returns the number
         of commits."""
+        self._agree()
+        return self._commit_ready(max_admits)
+
+    def _commit_ready(self, max_admits: int) -> int:
         done = 0
         while done < max_admits:
             with self._cond:
                 t = next((t for t in self._tickets.values()
-                          if t.state == "staged"), None)
+                          if self._view(t) == "staged"), None)
             if t is None or not self._commit(t):
                 break
             done += 1
         return done
 
+    def _agree(self, expired: bool = False) -> bool:
+        """On a mesh, with tickets live: one MIN all-reduce over the host
+        group of each ticket's progress (``_LEVELS``; in creation order),
+        plus ``expired`` (a deadline passed on this rank), so every rank
+        takes the same ticket states.  A ticket failed on some rank fails
+        here on every rank, with the error the first failing rank reports
+        (gathered: one more collective, on every rank alike).  Returns
+        whether any rank's deadline passed."""
+        if self.mesh is None:
+            return expired
+        with self._cond:
+            tickets = [t for t in self._tickets.values()
+                       if t.agreed != "failed"]
+            levels = [_LEVELS.index(t.state if t.state in _LEVELS
+                                    else "failed") for t in tickets]
+        if not tickets:
+            return expired
+        got = self.mesh.agree_min(levels + [0 if expired else 1])
+        failed = [t for t, lv in zip(tickets, got) if _LEVELS[lv] == "failed"]
+        errors = None
+        if failed:
+            with self._cond:
+                mine = [t.error if t.state == "failed" else None
+                        for t in failed]
+            errors = self.mesh.gather(mine)
+        with self._cond:
+            for i, (t, lv) in enumerate(zip(tickets, got)):
+                t.agreed = _LEVELS[lv]
+                if t.agreed != "failed":
+                    continue
+                j = failed.index(t)
+                t.error = next(e[j] for e in errors if e[j] is not None)
+                if t.state != "failed":
+                    # failed elsewhere: this rank drops its staged copy
+                    t.state = "failed"
+                    t.dm, t.futures = None, []
+                    self.stats["failures"] += 1
+                self.registry._ensure_bank().unmark_staging(t.vkey, t.pod)
+            self._cond.notify_all()
+        return got[-1] == 0
+
     def _commit(self, t: AdmissionTicket) -> bool:
-        """One staged ticket -> its bank slot.  RuntimeError (the bank is
-        full, every slot pinned) leaves the ticket staged for a later
-        drain; any other failure fails the ticket."""
+        """One staged ticket -> its bank slot.  RuntimeError (the pod's
+        slots are full, every one pinned) leaves the ticket staged for a
+        later drain; any other failure fails the ticket."""
         try:
             self.registry._bank_admit(t.vkey, t.dm, block=False,
-                                      transfers=t.futures)
+                                      transfers=t.futures, pod=t.pod)
         except RuntimeError:
             return False          # capacity pressure: retry later
         except Exception as e:  # noqa: BLE001 — the ticket carries it
             with self._cond:
                 t.state, t.error = "failed", str(e)
+                t.agreed = "failed"
                 t.dm, t.futures = None, []
-                self.registry._ensure_bank().unmark_staging(t.vkey)
+                self.registry._ensure_bank().unmark_staging(t.vkey, t.pod)
                 self.stats["failures"] += 1
                 self._cond.notify_all()
             return False
         with self._cond:
             t.state = "admitted"
             # residency now shows in the bank itself (poll checks it first)
-            del self._tickets[t.vkey]
-            self.registry.bank.unmark_staging(t.vkey)
+            del self._tickets[(t.vkey, t.pod)]
+            self.registry.bank.unmark_staging(t.vkey, t.pod)
             self.stats["commits"] += 1
             self._cond.notify_all()
         return True
@@ -232,23 +317,25 @@ class AdmissionPipeline:
             vkey = self.registry._vkey(name, version)
         deadline = time.monotonic() + timeout
         while True:
-            self.drain(max_admits=1 << 30)
+            # on a mesh the deadline is agreed too: every rank raises alike
+            expired = self._agree(time.monotonic() > deadline)
+            self._commit_ready(1 << 30)
             with self._cond:
                 live = [t for t in self._tickets.values()
                         if vkey is None or t.vkey == vkey]
-                failed = next((t for t in live if t.state == "failed"),
-                              None)
+                failed = next((t for t in live
+                               if self._view(t) == "failed"), None)
                 if failed is not None:
-                    del self._tickets[failed.vkey]
+                    del self._tickets[(failed.vkey, failed.pod)]
                     raise RuntimeError(failed.error)
                 if not live:
                     return                      # committed (or never live)
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
+                if expired:
                     raise TimeoutError(
                         f"admission of {nameish or 'all variants'} did not "
                         f"settle within {timeout:.1f}s")
-                self._cond.wait(min(remaining, 0.05))
+                self._cond.wait(min(max(deadline - time.monotonic(), 0.0),
+                                    0.05))
 
     def close(self) -> None:
         """Stop the ingest worker (idempotent).  Live tickets stay
@@ -289,28 +376,33 @@ class AdmissionPipeline:
                     self._cond.wait(1.0)
                 if self._closed:
                     return
-                t = self._tickets.get(self._work.popleft())
-                if t is None or t.state != "queued":
+                t = self._work.popleft()
+                if t.state != "queued":
                     continue
                 t.state = "staging"
             try:
                 t0 = time.perf_counter()
                 dm = self.registry._load(t.name, t.version, pacer=self._pace)
+                # a structure the bank refuses fails here, before the
+                # ranks agree, never at a commit on one rank alone
+                self.registry._ensure_bank().check(dm)
                 dm_dev, futures = L.stage_overlay_transfer(
                     dm, device=self.device, stream=stream, pool=self.pool)
                 with self._cond:
-                    t.dm, t.futures = dm_dev, futures
-                    t.state, t.staged_at = "staged", time.perf_counter()
-                    self.stats["staged"] += 1
-                    self.stats["stage_seconds"] += t.staged_at - t0
+                    if t.state == "staging":    # not failed by the agreement
+                        t.dm, t.futures = dm_dev, futures
+                        t.state, t.staged_at = "staged", time.perf_counter()
+                        self.stats["staged"] += 1
+                        self.stats["stage_seconds"] += t.staged_at - t0
                     self._cond.notify_all()
             except Exception as e:  # noqa: BLE001 — the ticket carries it
                 with self._cond:
-                    t.state, t.error = "failed", str(e)
-                    self.stats["failures"] += 1
-                    bank = self.registry.bank
-                    if bank is not None:
-                        bank.unmark_staging(t.vkey)
+                    if t.state == "staging":
+                        t.state, t.error = "failed", str(e)
+                        self.stats["failures"] += 1
+                        if self.mesh is None:
+                            # on a mesh the mark goes when the ranks agree
+                            self.registry.bank.unmark_staging(t.vkey, t.pod)
                     self._cond.notify_all()
 
 

@@ -55,8 +55,12 @@ every variant inherits the placement; the delta kernels run per rank
 (``kernel_dispatch="shard_map"``, or ``"gspmd"``: gathered global kernels,
 the A/B reference).  With ``base_dtype="int8"`` each rank quantizes its
 blocks to the single-device bytes and the kernels run their int8 bodies
-on the rank's tiles.  Every rank returns the same tokens.  Pod-local banks
-are a later slice.
+on the rank's tiles.  Every rank returns the same tokens.  Async admission
+serves on a mesh too: the ranks agree on each commit
+(``serving/admission``).  ``pod_banks=True`` on a (pod, data, model) mesh
+keeps one bank per pod (``bank_size`` slots each) and routes each request
+to a pod that holds its variant (``serving/engine``); it serves the dense
+family with the continuous scheduler, and refuses ``speculative``.
 """
 from __future__ import annotations
 
@@ -89,11 +93,17 @@ class Deployment:
                  async_admission: bool = False,
                  admission_pacing_s: float = 0.002, mesh=None,
                  param_axes=None, param_shardings=None,
-                 kernel_dispatch: str = "shard_map"):
+                 kernel_dispatch: str = "shard_map",
+                 pod_banks: bool = False):
         if store is not None and root_dir is not None:
             raise ValueError("pass either store or root_dir, not both")
         if base_dtype not in ("fp", "int8"):
             raise ValueError(f"unknown base dtype {base_dtype!r}")
+        if pod_banks and (speculative or scheduler == "speculative"):
+            raise ValueError(
+                "pod_banks=True does not compose with the speculative "
+                "scheduler (its verify rounds have no per-pod slot "
+                "translation); use scheduler='continuous'")
         if speculative:
             if scheduler not in ("continuous", "speculative"):
                 raise ValueError(
@@ -120,11 +130,6 @@ class Deployment:
                 raise ValueError(
                     "a sharded deployment needs param_axes (the logical "
                     "axes tree from models.param.split) with the mesh")
-            if async_admission:
-                raise NotImplementedError(
-                    "async admission under a mesh arrives with the slice "
-                    "that brings speculative decoding, async admission and "
-                    "graphs to mesh serving")
             if param_shardings is None:
                 param_shardings = SH.tree_pspecs(
                     base_params, param_axes, SH.rules_for("decode"), mesh)
@@ -145,7 +150,7 @@ class Deployment:
                                         base_dtype=base_dtype, mesh=mesh,
                                         param_shardings=param_shardings,
                                         param_axes=param_axes,
-                                        base_fp=base_fp)
+                                        base_fp=base_fp, pod_banks=pod_banks)
         if store is None and root_dir is not None:
             store = S.VariantStore(root_dir, base_fp=self.registry.base_fp)
         if store is not None and store.base_fp is None:

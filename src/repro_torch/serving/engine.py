@@ -1,5 +1,4 @@
-"""Serving engine (port of ``repro.serving.engine`` without pods).  Three
-schedulers:
+"""Serving engine (port of ``repro.serving.engine``).  Three schedulers:
 
 * ``continuous`` (mixed-variant slot scheduler) — the engine keeps ONE
   persistent decode batch of ``batch_size`` lanes.  Each lane carries its
@@ -65,10 +64,28 @@ a rank prefills and decodes its own lanes' rows against a KV cache of its
 lanes and KV heads, and after each step the ranks all-gather the lanes'
 next tokens over "data", so every rank's scheduler sees every lane and
 makes the same decisions.  An int8 base serves under a mesh as on one
-card.  A mesh refuses, naming the slice that brings each: CUDA graphs (a
-gloo collective cannot be captured), the speculative scheduler, async
-admission, ``warmup()`` (and its compile cache) and the families other
+card, and so does async admission (the ranks agree on each commit:
+``serving/admission``).  A mesh refuses, naming the slice that brings
+each: CUDA graphs (a gloo collective cannot be captured), the speculative
+scheduler, ``warmup()`` (and its compile cache) and the families other
 than dense and MoE.
+
+Pod-local banks (DESIGN.md §17; a registry with ``pod_banks=True`` on a
+(pod, data, model) mesh): the lanes split pod-major over ("pod", "data"),
+so lane i belongs to pod i // (batch_size // pods), and each pod's ranks
+hold only that pod's bank slots.  The affinity router (``_route_pod``)
+sends a request to a pod that already holds its variant and has a free
+lane (a hit), else to the pod with the most free lanes, which admits it
+(a miss); the choice sticks to the request.  The scheduler keeps global
+slot ids; once a step, as the lanes' slots reach the device, each lane's
+id is translated to its pod's bank (global - pod * bank_size,
+``_pod_local``), so the models and kernels index the bank the rank holds.
+A lane whose slot lies outside its pod's range raises there, on the host
+(the banked kernel traps on an id outside its bank).  An idle lane parks
+on its pod's base slot.  ``status()["affinity"]`` counts the router's hits
+and misses; ``status()["hbm"]`` adds the bank bytes and residents per pod.
+MoE models refuse pod-local banks: a capacity group that crosses the
+lanes' split gathers rows whose slots lie in another pod's bank.
 
 ``status()["ttft"]`` reports the count, mean and max of the time from
 submit to first token over every request, and its p50 and p99 over a
@@ -108,6 +125,7 @@ class Request:
     retries: int = 0
     error: Optional[str] = None
     served_version: Optional[int] = None   # version resolved at admission
+    route_pod: Optional[int] = None        # pod-local banks: the routed pod
     first_token_at: Optional[float] = None  # perf_counter at first token
     submitted_at: float = 0.0     # perf_counter at submit()
     drafted: int = 0              # speculative scheduler: drafts offered
@@ -122,6 +140,7 @@ class _Slot:
     remaining: int                # tokens still owed
     vkey: str = "__base__"        # pinned version key, unpinned at retire
                                   # even if the variant was hot-swapped
+    pod: int = 0                  # the pod whose slots the lane decodes
 
 
 class ServingEngine:
@@ -150,7 +169,22 @@ class ServingEngine:
             raise ValueError(f"unknown kernel_dispatch {kernel_dispatch!r}")
         if mesh is not None:
             _refuse_on_mesh(model, registry, scheduler=scheduler,
-                            graphs=graphs, admission=admission)
+                            graphs=graphs)
+        # pod-local banks: lanes split evenly across the pods (pod-major)
+        self._pods = registry.pods
+        if self._pods > 1:
+            if scheduler == "speculative":
+                raise ValueError(
+                    "scheduler='speculative' does not support pod-local "
+                    "banks (pod_banks=True): use scheduler='continuous'")
+            if mesh is None:
+                raise ValueError(
+                    "pod-local banks need the engine's mesh (the lanes' "
+                    "pods come from their split over the mesh)")
+            if batch_size % self._pods:
+                raise ValueError(
+                    f"batch_size={batch_size} must divide evenly across "
+                    f"{self._pods} pods (lanes block-partition pod-major)")
         if admission is not None and scheduler == "group":
             raise ValueError(
                 "async admission requires scheduler='continuous' (staged "
@@ -186,7 +220,13 @@ class ServingEngine:
         # cache the prefills' rows merge into, the pending tokens and the
         # lanes' bank slots (idle lanes sit on slot 0, the base)
         self._slots: list[Optional[_Slot]] = [None] * batch_size
-        self._variant_idx = np.zeros(batch_size, np.int32)
+        # each lane's pod, and the global slot an idle lane parks on: its
+        # pod's base slot
+        self._lane_pods = np.array([self._lane_pod(i)
+                                    for i in range(batch_size)], np.int64)
+        self._base_vidx = (self._lane_pods
+                           * registry.bank_size).astype(np.int32)
+        self._variant_idx = self._base_vidx.copy()
         self._cache = self._next_tok = self._variant_idx_dev = None
         # speculative rounds: one round function per draft length of the
         # adaptive ladder, each writing its tokens and accept counts into
@@ -231,6 +271,7 @@ class ServingEngine:
                         "warmup_seconds": 0.0,
                         "spec_rounds": 0, "spec_drafted": 0,
                         "spec_accepted": 0,
+                        "affinity_hits": 0, "affinity_misses": 0,
                         "ttft_count": 0, "ttft_seconds_sum": 0.0,
                         "ttft_seconds_max": 0.0}
         # warmup registry (extensible: register_warmup), the JAX engine's
@@ -325,7 +366,22 @@ class ServingEngine:
                         "base_bytes": reg.base_nbytes(),
                         "base_per_device": reg.base_per_device_nbytes(),
                         "bank_bytes": bank.nbytes() if bank is not None
-                        else 0}}
+                        else 0,
+                        # per pod: bank bytes and resident version keys
+                        "bank_per_pod": (bank.per_pod_nbytes()
+                                         if bank is not None else {}),
+                        "bank_resident_per_pod": (bank.pod_resident()
+                                                  if bank is not None
+                                                  else {})},
+                # the affinity router: a hit sent a request to a pod that
+                # held its variant already (no admission)
+                "affinity": {
+                    "pods": self._pods,
+                    "hits": self.metrics["affinity_hits"],
+                    "misses": self.metrics["affinity_misses"],
+                    "hit_rate": (self.metrics["affinity_hits"]
+                                 / max(1, self.metrics["affinity_hits"]
+                                       + self.metrics["affinity_misses"]))}}
         if self.spec is not None:
             snap["speculative"] = self.spec.snapshot()
         if self.mesh is not None:
@@ -473,24 +529,63 @@ class ServingEngine:
         merge(old, fresh, self.model.cache_batch_axes())
         return old
 
+    def _lane_pod(self, i: int) -> int:
+        """The pod of lane ``i``: the lanes split pod-major over ("pod",
+        "data"), so each pod holds a contiguous range."""
+        return i // (self.batch_size // self._pods)
+
+    def _route_pod(self, r: Request, free: list) -> int:
+        """The affinity router: a pod with a free lane that already holds
+        the request's variant (a hit, no admission), else the pod with the
+        most free lanes (a miss: it admits the variant).  Base requests
+        count as neither.  The choice sticks to the request: under async
+        admission the tickets are per (version, pod), and routing a
+        request mid-ingest elsewhere would start a second ingest."""
+        if self._pods == 1:
+            return 0
+        if r.route_pod is not None:
+            return r.route_pod
+        free_per_pod = collections.Counter(self._lane_pod(i) for i in free)
+        holding = ([] if r.variant == "__base__"
+                   else self.registry.bank_pods_holding(r.variant))
+        warm = [p for p in sorted(free_per_pod) if p in holding]
+        if warm:
+            pod = warm[0]
+        else:
+            pod = max(sorted(free_per_pod), key=lambda p: free_per_pod[p])
+        if r.variant != "__base__":
+            self.metrics["affinity_hits" if pod in holding
+                         else "affinity_misses"] += 1
+        r.route_pod = pod
+        return pod
+
     def _admit_free_slots(self) -> list:
-        """Pop queued requests into free lanes: resolve each request's
-        variant to a bank slot (admitting it on a miss) and pin it for the
-        request's lifetime.  Unknown variants and failed loads re-queue up
-        to max_retries then fail; a fully pinned bank re-queues the head
-        and waits for retirements.  Under async admission a variant is
-        never loaded here: the pipeline is polled (prefetching what it has
-        not seen), a request whose version is still ingesting is skipped
-        as ``admitting``, and skipped requests go back to the front in
-        their order, so admission stays FIFO once staging lands."""
+        """Pop queued requests into free lanes: route each request to a
+        pod (``_route_pod``; one pod off pod-local banks), resolve its
+        variant to a bank slot of that pod (admitting it on a miss) and pin
+        it for the request's lifetime.  Unknown variants and failed loads
+        re-queue up to max_retries then fail; a fully pinned pod re-queues
+        the head and waits for retirements; a request whose pod has no free
+        lane waits for one.  Under async admission a variant is never
+        loaded here: the pipeline is polled for the routed pod (prefetching
+        what it has not seen), a request whose version is still ingesting
+        is skipped as ``admitting``, and skipped requests go back to the
+        front in their order, so admission stays FIFO once staging
+        lands."""
         newly: list = []
         skipped: list = []
         free = [i for i in range(self.batch_size) if self._slots[i] is None]
         while free and self._queue:
             r = self._queue.popleft()
+            pod = self._route_pod(r, free)
+            if not any(self._lane_pod(i) == pod for i in free):
+                # the routed pod's lanes are all busy: wait for one there
+                # (routing again would split the request's admission)
+                skipped.append(r)
+                continue
             if self.admission is not None and r.variant != "__base__":
                 try:
-                    state = self.admission.poll(r.variant)
+                    state = self.admission.poll(r.variant, pod=pod)
                 except Exception as e:   # ingest failed: the same retry
                     self._fail_or_requeue(r, e)   # budget as a sync load
                     continue
@@ -502,19 +597,21 @@ class ServingEngine:
                 # admission-time resolution: the request serves the
                 # version the pointer names NOW, and the pin holds that
                 # version's slot until it retires
-                vslot, vkey = self.registry.bank_acquire(r.variant)
+                vslot, vkey = self.registry.bank_acquire(r.variant, pod)
             except RuntimeError:
-                # every bank slot pinned by in-flight requests: retry
-                # after retirements free pins
+                # every slot of the pod pinned by in-flight requests:
+                # retry after retirements free pins
                 self._queue.appendleft(r)
                 break
             except Exception as e:
                 self._fail_or_requeue(r, e)
                 continue
-            i = free.pop(0)
+            i = next(j for j in free if self._lane_pod(j) == pod)
+            free.remove(i)
             r.served_version = self.registry.current_version(r.variant)
             self._slots[i] = _Slot(request=r, variant_slot=vslot,
-                                   remaining=r.max_new_tokens, vkey=vkey)
+                                   remaining=r.max_new_tokens, vkey=vkey,
+                                   pod=pod)
             self._variant_idx[i] = vslot
             self._vidx_dirty = True
             r.status = "running"
@@ -522,6 +619,26 @@ class ServingEngine:
             self.metrics["admitted"] += 1
         self._queue.extendleft(reversed(skipped))
         return newly
+
+    def _pod_local(self, vidx: np.ndarray) -> np.ndarray:
+        """The lanes' global slot ids as ids of the bank each lane's ranks
+        hold: on a pod-local bank lane i of pod p carries global - p *
+        bank_size (the ids themselves elsewhere).  A lane whose slot lies
+        outside its pod's range raises here, on the host: the banked
+        kernel traps on an id outside its bank, and that ends the CUDA
+        context."""
+        if self._pods == 1:
+            return vidx
+        size = self.registry.bank_size
+        local = vidx.astype(np.int64) - self._lane_pods * size
+        bad = np.flatnonzero((local < 0) | (local >= size))
+        if bad.size:
+            i = int(bad[0])
+            p = int(self._lane_pods[i])
+            raise ValueError(
+                f"lane {i} (pod {p}) carries bank slot {int(vidx[i])}, "
+                f"outside its pod's slots [{p * size}, {(p + 1) * size})")
+        return local.astype(np.int32)
 
     def _fail_or_requeue(self, r: Request, e: Exception) -> None:
         """A failed admission: re-queue ``r`` at the back within its
@@ -545,7 +662,7 @@ class ServingEngine:
         only the newly admitted rows of its cache and first tokens are
         merged into the persistent batch, in place (the first wave's
         too)."""
-        pvidx = np.zeros(self.batch_size, np.int32)
+        pvidx = self._base_vidx.copy()
         for i in newly:
             pvidx[i] = self._slots[i].variant_slot
         batch = self._prompt_batch(
@@ -556,7 +673,8 @@ class ServingEngine:
                 self.registry.base_params, self._local_rows(batch),
                 self.max_len, overlay=self._bank_tree(),
                 variant_idx=self._local_rows(
-                    torch.from_numpy(pvidx).to(self.device)))
+                    torch.from_numpy(self._pod_local(pvidx)).to(
+                        self.device)))
         first_tok = self._all_lanes(
             torch.argmax(last_logits, dim=-1).to(torch.int32))
         synchronize_stream(self.device)
@@ -575,9 +693,9 @@ class ServingEngine:
         s = self._slots[i]
         s.request.status = "done"
         self._done[s.request.rid] = s.request
-        self.registry.bank_unpin(s.vkey)
+        self.registry.bank_unpin(s.vkey, s.pod)
         self._slots[i] = None
-        self._variant_idx[i] = 0
+        self._variant_idx[i] = self._base_vidx[i]
         self._vidx_dirty = True
         self.metrics["retired"] += 1
 
@@ -643,7 +761,7 @@ class ServingEngine:
                 continue        # lanes empty but queue pending: admit next
             if self._vidx_dirty:
                 self._variant_idx_dev.copy_(
-                    torch.from_numpy(self._variant_idx))
+                    torch.from_numpy(self._pod_local(self._variant_idx)))
                 self._vidx_dirty = False
             busy = drained > 0 or (self.admission is not None
                                    and self.admission.in_flight() > 0)
@@ -942,7 +1060,7 @@ class ServingEngine:
         from repro_torch.core.calibration import flatten_params
         from repro_torch.models.delta_overlay import flatten_axes
         reg, mesh = self.registry, self.mesh
-        self._rules = SH.rules_for("decode")
+        self._rules = SH.rules_for("decode", pod_banks=reg.pods > 1)
         self._layout = SH.Layout.from_placed(
             flatten_params(reg.base_params),
             flatten_axes(reg.param_shardings), flatten_axes(reg.param_axes),
@@ -950,6 +1068,12 @@ class ServingEngine:
         part = SH.resolve_spec((batch_size,), ("act_batch",), self._rules,
                                mesh)[0]
         self._lane_axes = SH._names(part)
+        if reg.pods > 1 and "pod" not in self._lane_axes:
+            raise ValueError(
+                f"batch_size={batch_size} must split over the mesh's pod "
+                f"and data axes ({mesh.names_size(('pod', 'data'))} ranks) "
+                "for pod-local banks: each rank decodes lanes of its own "
+                "pod only")
         self._nloc = batch_size // mesh.names_size(self._lane_axes)
         self._lo = mesh.index(self._lane_axes) * self._nloc
 
@@ -997,8 +1121,8 @@ class ServingEngine:
         return batch
 
 
-def _refuse_on_mesh(model, registry, *, scheduler: str, graphs: bool,
-                    admission) -> None:
+def _refuse_on_mesh(model, registry, *, scheduler: str,
+                    graphs: bool) -> None:
     """What mesh serving does not serve yet raises, naming its slice;
     nothing is switched off silently."""
     if registry.mesh is None:
@@ -1009,16 +1133,16 @@ def _refuse_on_mesh(model, registry, *, scheduler: str, graphs: bool,
         raise NotImplementedError(
             f"family {model.cfg.family!r} under a mesh arrives with the "
             "slice that serves the other families (sequence-TP attention)")
+    if registry.pods > 1 and model.cfg.family == "moe":
+        raise NotImplementedError(
+            "pod_banks=True with an MoE model arrives with the slice that "
+            "brings MoE under pod-local banks (a capacity group crossing "
+            "the lanes' split would route rows whose slots lie in another "
+            "pod's bank)")
     if scheduler == "speculative":
         raise NotImplementedError(
             "scheduler='speculative' under a mesh arrives with the slice "
-            "that brings speculative decoding, async admission and graphs "
-            "to mesh serving")
-    if admission is not None:
-        raise NotImplementedError(
-            "async admission under a mesh arrives with the slice that "
-            "brings speculative decoding, async admission and graphs to "
-            "mesh serving")
+            "that brings speculative decoding and graphs to mesh serving")
     if graphs and registry.device.type == "cuda" and scheduler != "group":
         raise NotImplementedError(
             "graphs=True under a mesh: a gloo collective cannot be "

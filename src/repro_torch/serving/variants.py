@@ -1,5 +1,5 @@
-"""Multi-tenant variant registry (port of ``repro.serving.variants``
-without pod-local banks): many fine-tunes over one resident base.
+"""Multi-tenant variant registry (port of ``repro.serving.variants``):
+many fine-tunes over one resident base.
 
 A registered artifact is a ``DeltaModel``, a zero-argument callable that
 returns one (lazy store materialisation, ``serving/api.Deployment``) or an
@@ -26,7 +26,11 @@ keeps an :class:`OverlayBank`: fused residents stacked along a bank axis,
 slot 0 reserved for the base, with pin/unpin guarding in-flight variants
 and slot reuse on eviction.  ``bank_resolve(name)`` admits a variant and
 returns its slot index — the per-batch-row ``variant_idx`` the banked
-kernel consumes.
+kernel consumes.  With ``pod_banks=True`` on a mesh with a "pod" axis the
+bank is pod-local (``OverlayBank(pods=)``): each pod has its own slot
+table, pins, LRU and free list over its own range of global slot ids, and
+``bank_resolve``/``bank_acquire``/``bank_pin``/``bank_unpin`` take the pod
+the engine's affinity router chose (``bank_pods_holding`` is its signal).
 
 The base is held in full precision or, with ``base_dtype="int8"``, as
 int8 plus one fp16 scale per output channel on every target matrix
@@ -84,41 +88,128 @@ class OverlayBank:
     place (the JAX bank runs a donated jitted scatter for the same effect),
     so the bank's tensors never move: a captured step keeps reading them.
     ``tree`` stays None until the first admit, as the JAX bank does: until
-    then the continuous scheduler serves without a bank."""
+    then the continuous scheduler serves without a bank.
 
-    def __init__(self, base_params, size: int, mesh=None):
+    POD-LOCAL banks (``pods`` > 1, on a mesh whose "pod" axis has that
+    size; DESIGN.md §17): the slot space grows to ``pods * size`` GLOBAL
+    slots, pod p owning [p*size, (p+1)*size) with its base slot p*size.
+    Slot table, pins, LRU and free list are kept per pod, so two pods admit
+    and evict independently, and every slot id this class returns is
+    global.  A rank holds only its own pod's ``size`` slots of every leaf
+    (``pod``): the engine hands its kernels pod-local ids (global - p*size).
+    Every rank keeps every pod's host tables, so the router on every rank
+    makes the same choice; only pod p's ranks write an admission into pod
+    p (``writes``), and their bank is allocated from the base's recipe
+    (``reserve``) on every rank at the first admit into any pod, as the
+    JAX bank allocates its whole slot axis."""
+
+    def __init__(self, base_params, size: int, mesh=None, pods: int = 1):
         if size < 2:
             raise ValueError("bank needs >= 2 slots (base + 1 variant)")
-        self.size = size
+        if pods < 1:
+            raise ValueError("pods must be >= 1")
+        self.size = size                    # slots PER POD (incl. base)
+        self.pods = pods
+        self.total_slots = size * pods
         self.mesh = mesh
+        # the pods the mesh spans (1 without a "pod" axis): the copies of a
+        # bank replicated over them, the cross-pod term of the admission
+        # byte accounting
+        self._mesh_pods = (mesh.axis_size("pod") or 1) if mesh is not None \
+            else 1
+        if pods > 1 and pods != self._mesh_pods:
+            raise ValueError(
+                f"pod-local bank with pods={pods} needs a mesh whose 'pod' "
+                f"axis has that size (the mesh spans {self._mesh_pods})")
+        # the pod whose slot range this rank holds
+        self.pod = mesh.coord("pod") if pods > 1 else 0
         self._base_flat = flatten_params(base_params)
         self._flat: Optional[dict] = None   # path -> banked leaf
         self._tree: Optional[dict] = None   # nested view of _flat
         self.tree: Optional[dict] = None    # _tree, once a variant landed
-        self._slots: dict = {}              # vkey -> slot
-        self._pins: dict = {}               # vkey -> in-flight count
-        self._lru: "collections.OrderedDict[str, None]" = \
-            collections.OrderedDict()
-        self._free = list(range(size - 1, 0, -1))   # pop() -> lowest slot
-        self._staging: set = set()          # vkeys mid-admission
-        self.stats = {"admits": 0, "evictions": 0}
+        self._slot_bytes = 0                # one variant's payload here
+        # per-pod residency state; LOCAL slot ids (0 = the pod's base)
+        self._pod_slots: list = [dict() for _ in range(pods)]
+        self._pins: list = [dict() for _ in range(pods)]
+        self._lru: list = [collections.OrderedDict() for _ in range(pods)]
+        self._free: list = [list(range(size - 1, 0, -1))
+                            for _ in range(pods)]   # pop() -> lowest slot
+        self._staging: set = set()          # (pod, vkey) mid-admission
+        self.stats = {"admits": 0, "evictions": 0,
+                      # one payload lands in the admitting pod; a bank
+                      # replicated over the mesh's pods writes (pods - 1)
+                      # more copies across them, a pod-local bank none
+                      "admit_bytes_in_pod": 0, "admit_bytes_cross_pod": 0}
 
-    def base_slot(self) -> int:
-        """Slot serving base semantics (never admitted or evicted)."""
-        return 0
+    @property
+    def _slots(self) -> dict:
+        """Merged view {vkey -> GLOBAL slot} across pods (the first pod
+        holding it)."""
+        out: dict = {}
+        for p, table in enumerate(self._pod_slots):
+            for name, local in table.items():
+                out.setdefault(name, self._global(p, local))
+        return out
+
+    def _global(self, pod: int, local: int) -> int:
+        return pod * self.size + local
+
+    def base_slot(self, pod: int = 0) -> int:
+        """GLOBAL slot serving base semantics for ``pod`` (never admitted
+        or evicted)."""
+        return pod * self.size
+
+    def writes(self, pod: int) -> bool:
+        """This rank holds ``pod``'s slots (every rank, off pod-local
+        banks): an admission into ``pod`` reads the artifact and writes
+        its slot here."""
+        return self.pods == 1 or pod == self.pod
 
     # -- structure ---------------------------------------------------------
-    def _ensure_tree(self, dm: DeltaModel) -> None:
+    def _ensure_tree(self, dm: Optional[DeltaModel]) -> None:
         if self._flat is None:
-            self._allocate({p: DO.from_delta_entry(e)
-                            for p, e in dm.deltas.items()}, set(dm.extras))
-        if set(dm.deltas) != self._template_deltas or \
-                set(dm.extras) != self._template_extras:
+            if self.pods > 1:
+                self.reserve()
+            else:
+                self._allocate({p: DO.from_delta_entry(e)
+                                for p, e in dm.deltas.items()},
+                               set(dm.extras))
+        if dm is not None:
+            self.check(dm)
+        self.tree = self._tree
+
+    def check(self, dm: DeltaModel) -> None:
+        """Raise unless ``dm`` has the bank's structure: the template's
+        entries and extras (the base's recipe on a pod-local bank, before
+        the bank is allocated)."""
+        if self._flat is None and self.pods > 1:
+            entries, extras = self._recipe()
+            deltas, extra = set(entries), set(extras)
+        elif self._flat is None:
+            return
+        else:
+            deltas, extra = self._template_deltas, self._template_extras
+        if set(dm.deltas) != deltas or set(dm.extras) != extra:
             raise ValueError(
                 "variant structure differs from the bank template "
                 "(all banked variants must share one calibration "
                 "recipe)")
-        self.tree = self._tree
+
+    def _recipe(self) -> tuple:
+        """({target path: meta OverlayEntry}, {other paths}) of the base,
+        shaped as ``calibration.compress`` shapes a variant."""
+        entries = {}
+        for path, w in self._base_flat.items():
+            if is_target(path, w):
+                lead, (n, k) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
+                entries[path] = DO.OverlayEntry(
+                    packed=torch.empty(lead + (n, k // 8),
+                                       dtype=torch.uint8, device="meta"),
+                    v_row=torch.empty(lead + (n,), dtype=torch.float16,
+                                      device="meta"),
+                    v_col=torch.empty(lead + (k,), dtype=torch.float16,
+                                      device="meta"))
+        return entries, set(self._base_flat) - set(entries)
 
     def reserve(self) -> dict:
         """Allocate the bank before the first admit, shaped as
@@ -126,18 +217,7 @@ class OverlayBank:
         for every target matrix, an extra for every other leaf.  Returns
         the banked tree (all slots serve the base until admits)."""
         if self._flat is None:
-            entries = {}
-            for path, w in self._base_flat.items():
-                if is_target(path, w):
-                    lead, (n, k) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
-                    entries[path] = DO.OverlayEntry(
-                        packed=torch.empty(lead + (n, k // 8),
-                                           dtype=torch.uint8, device="meta"),
-                        v_row=torch.empty(lead + (n,), dtype=torch.float16,
-                                          device="meta"),
-                        v_col=torch.empty(lead + (k,), dtype=torch.float16,
-                                          device="meta"))
-            self._allocate(entries, set(self._base_flat) - set(entries))
+            self._allocate(*self._recipe())
         return self._tree
 
     def _allocate(self, entries: dict, extras: set) -> None:
@@ -151,16 +231,25 @@ class OverlayBank:
         for path in extras:
             flat[path] = DO.bank_extra_base(path, self._base_flat[path],
                                             self.size)
-        self._flat = flat
+        # the template before the tensors: the ingest worker checks a
+        # variant against it (``check``) while the serving thread allocates
         self._template_deltas = set(entries)
         self._template_extras = set(extras)
+        self._flat = flat
+        # one variant's payload on this rank (the admission-byte unit)
+        idx = {p: DO.bank_index(p, 0) for p in flat}
+        self._slot_bytes = sum(
+            e.packed[idx[p]].numel() + 2 * e.v_row[idx[p]].numel()
+            + 2 * e.v_col[idx[p]].numel() for p, e in flat.items()
+            if p in entries)
+        self._slot_bytes += sum(2 * flat[p][idx[p]].numel() for p in extras)
         tree: dict = {}
         for path, leaf in flat.items():
             DO.insert_entry(tree, path, leaf)
         self._tree = tree
 
     def _write(self, dm: DeltaModel, slot: int, transfers=()) -> None:
-        """Write one variant into ``slot`` of every leaf, in place:
+        """Write one variant into local ``slot`` of every leaf, in place:
         canonicalise each DeltaEntry (fp16 axis vectors, zeroed unselected
         axis) and fp16-round each extras leaf into the base dtype.  Staged
         ``transfers`` (``loader.Transfer``) order the writes on the current
@@ -184,72 +273,102 @@ class OverlayBank:
         for path, v in dm.extras.items():
             bank = self._flat[path]
             idx = DO.bank_index(path, slot)
-            bank[idx] = v.to(torch.float16).to(bank.device, bank.dtype)
+            # rounded to fp16 on the bank's device (a host copy of a
+            # full-width embedding table would round on the CPU)
+            bank[idx] = v.to(bank.device).to(torch.float16).to(bank.dtype)
         for f in staged:
             for t in f.tensors:
                 t.record_stream(stream)
 
     # -- lifecycle ---------------------------------------------------------
-    def holds(self, name: str) -> bool:
-        return name in self._slots
+    def holds(self, name: str, pod: Optional[int] = None) -> bool:
+        """``name`` resident in ``pod`` (in any pod when None)."""
+        if pod is not None:
+            return name in self._pod_slots[pod]
+        return any(name in t for t in self._pod_slots)
 
-    def slot_of(self, name: str) -> int:
+    def pods_holding(self, name: str) -> list:
+        """Pods where ``name`` is resident: the affinity router's
+        signal."""
+        return [p for p, t in enumerate(self._pod_slots) if name in t]
+
+    def slot_of(self, name: str, pod: int = 0) -> int:
         if name == "__base__":
-            return self.base_slot()
-        return self._slots[name]
+            return self.base_slot(pod)
+        return self._global(pod, self._pod_slots[pod][name])
 
-    def resident(self) -> list:
-        return list(self._lru)
+    def resident(self, pod: Optional[int] = None) -> list:
+        if pod is not None:
+            return list(self._lru[pod])
+        seen: dict = {}
+        for lru in self._lru:
+            for name in lru:
+                seen.setdefault(name, None)
+        return list(seen)
 
-    def has_capacity(self) -> bool:
-        """A new variant can be admitted: a free slot exists or some
-        resident is unpinned (evictable).  Lets callers refuse before
-        paying for the admission."""
-        return bool(self._free) or any(
-            self._pins.get(c, 0) == 0 for c in self._lru)
+    def pod_resident(self) -> dict:
+        """{pod -> [resident version keys], LRU first}."""
+        return {p: list(lru) for p, lru in enumerate(self._lru)}
 
-    def admit(self, name: str, dm: Optional[DeltaModel],
+    def has_capacity(self, pod: int = 0) -> bool:
+        """A new variant can be admitted into ``pod``: a free slot exists
+        or some resident is unpinned (evictable).  Lets callers refuse
+        before paying for the admission."""
+        return bool(self._free[pod]) or any(
+            self._pins[pod].get(c, 0) == 0 for c in self._lru[pod])
+
+    def admit(self, name: str, dm: Optional[DeltaModel], pod: int = 0,
               transfers=()) -> tuple[int, int]:
-        """Place ``dm`` into a slot (reusing evicted slots, evicting the
-        LRU unpinned resident when full); ``transfers`` are the staged
-        copies of ``dm`` (``_write``).  A resident ``name`` is an LRU
-        touch.  Returns (slot, payload_bytes)."""
+        """Place ``dm`` into a slot of ``pod`` (reusing evicted slots,
+        evicting the pod's LRU unpinned resident when full); ``transfers``
+        are the staged copies of ``dm`` (``_write``).  A resident ``name``
+        is an LRU touch.  A rank outside ``pod`` (``writes``) takes
+        ``dm=None`` and books the slot without writing.  Returns (GLOBAL
+        slot, bytes written on this rank)."""
         if name == "__base__":
-            return self.base_slot(), 0
-        if name in self._slots:
-            self._lru.move_to_end(name)
-            return self._slots[name], 0
-        self._ensure_tree(dm)
-        if not self._free:
-            for cand in self._lru:
-                if self._pins.get(cand, 0) == 0:
+            return self.base_slot(pod), 0
+        table = self._pod_slots[pod]
+        if name in table:
+            self._lru[pod].move_to_end(name)
+            return self._global(pod, table[name]), 0
+        self._ensure_tree(dm if self.writes(pod) else None)
+        if not self._free[pod]:
+            for cand in self._lru[pod]:
+                if self._pins[pod].get(cand, 0) == 0:
                     # the slot is reassigned at once and admit overwrites
                     # every leaf of it: skip the clear
-                    self._release(cand, clear=False)
+                    self._release(cand, pod, clear=False)
                     break
             else:
                 raise RuntimeError(
-                    "overlay bank full: every resident is pinned by an "
-                    "in-flight request")
-        slot = self._free.pop()
-        payload = sum(e.packed.numel() + 2 * e.v_row.numel()
-                      + 2 * e.v_col.numel() for e in dm.deltas.values())
-        payload += sum(2 * v.numel() for v in dm.extras.values())
-        self._write(dm, slot, transfers)
-        self._slots[name] = slot
-        self._lru[name] = None
+                    f"overlay bank full (pod {pod}): every resident is "
+                    "pinned by an in-flight request")
+        local = self._free[pod].pop()
+        payload = 0
+        if self.writes(pod):
+            payload = sum(e.packed.numel() + 2 * e.v_row.numel()
+                          + 2 * e.v_col.numel() for e in dm.deltas.values())
+            payload += sum(2 * v.numel() for v in dm.extras.values())
+            self._write(dm, local, transfers)
+        table[name] = local
+        self._lru[pod][name] = None
         self.stats["admits"] += 1
-        return slot, payload
+        # a pod-local bank puts the slot on one pod's ranks; a replicated
+        # one puts a copy on every pod of the mesh
+        copies = 1 if self.pods > 1 else self._mesh_pods
+        self.stats["admit_bytes_in_pod"] += self._slot_bytes
+        self.stats["admit_bytes_cross_pod"] += self._slot_bytes * (copies - 1)
+        return self._global(pod, local), payload
 
-    def admit_async(self, name: str, dm: DeltaModel,
-                    transfers=()) -> tuple:
+    def admit_async(self, name: str, dm: Optional[DeltaModel],
+                    transfers=(), pod: int = 0) -> tuple:
         """``admit`` without a host fence: returns ``(slot, payload_bytes,
         fence)``, where ``fence()`` blocks until the slot writes have
         landed.  The writes run on the current (serving) stream after the
         staging events, so the next step on that stream reads the new
         slot in place with no host wait; the fence is for callers that
         need a wall-clock boundary."""
-        slot, payload = self.admit(name, dm, transfers)
+        slot, payload = self.admit(name, dm, pod, transfers)
         if tree_leaves(self._flat)[0].is_cuda:
             done = torch.cuda.Event()
             done.record()
@@ -260,58 +379,69 @@ class OverlayBank:
         return slot, payload, fence
 
     # -- staging marks (async admission) -------------------------------------
-    def mark_staging(self, name: str) -> None:
-        self._staging.add(name)
+    def mark_staging(self, name: str, pod: int = 0) -> None:
+        self._staging.add((pod, name))
 
-    def unmark_staging(self, name: str) -> None:
-        self._staging.discard(name)
+    def unmark_staging(self, name: str, pod: int = 0) -> None:
+        self._staging.discard((pod, name))
 
-    def staging(self, name: str) -> bool:
-        return name in self._staging
+    def staging(self, name: str, pod: Optional[int] = None) -> bool:
+        if pod is not None:
+            return (pod, name) in self._staging
+        return any(n == name for _, n in self._staging)
 
-    def pin(self, name: str) -> None:
+    def pin(self, name: str, pod: int = 0) -> None:
         if name != "__base__":
-            self._pins[name] = self._pins.get(name, 0) + 1
+            pins = self._pins[pod]
+            pins[name] = pins.get(name, 0) + 1
 
-    def unpin(self, name: str) -> None:
-        if name != "__base__" and name in self._pins:
-            self._pins[name] = max(0, self._pins[name] - 1)
+    def unpin(self, name: str, pod: int = 0) -> None:
+        pins = self._pins[pod]
+        if name != "__base__" and name in pins:
+            pins[name] = max(0, pins[name] - 1)
 
-    def pinned(self, name: str) -> bool:
-        return self._pins.get(name, 0) > 0
+    def pinned(self, name: str, pod: Optional[int] = None) -> bool:
+        if pod is not None:
+            return self._pins[pod].get(name, 0) > 0
+        return any(p.get(name, 0) > 0 for p in self._pins)
 
-    def evict(self, name: str) -> None:
-        """Free ``name``'s slot for reuse; refuses while the variant is
-        pinned (mid-flight requests reference its slot index) or still
-        staging on the admission pipeline (its commit would race the
-        eviction)."""
-        if self.staging(name):
+    def evict(self, name: str, pod: Optional[int] = None) -> None:
+        """Free ``name``'s slot in ``pod`` (in every holding pod when None)
+        for reuse; refuses while the variant is pinned (mid-flight
+        requests reference its slot index) or still staging on the
+        admission pipeline (its commit would race the eviction)."""
+        pods = [pod] if pod is not None else self.pods_holding(name)
+        if self.staging(name, pod):
             raise RuntimeError(
                 f"variant {name!r} is staging on the admission pipeline; "
                 "wait for the admission to land before evicting")
-        if name in self._slots and self.pinned(name):
-            raise RuntimeError(
-                f"variant {name!r} is pinned by in-flight requests; "
-                "retire them before evicting")
-        if name in self._slots:
-            self._release(name, clear=True)
+        for p in pods:
+            if name in self._pod_slots[p] and self.pinned(name, p):
+                raise RuntimeError(
+                    f"variant {name!r} is pinned by in-flight requests "
+                    f"(pod {p}); retire them before evicting")
+        for p in pods:
+            if name in self._pod_slots[p]:
+                self._release(name, p, clear=True)
 
-    def _release(self, name: str, *, clear: bool) -> None:
-        """Drop a resident and recycle its slot; ``clear`` resets the slot
-        to base semantics (skipped when the slot is reassigned at once)."""
-        slot = self._slots.pop(name)
-        self._lru.pop(name, None)
-        self._pins.pop(name, None)
-        if clear:
+    def _release(self, name: str, pod: int, *, clear: bool) -> None:
+        """Drop a resident of ``pod`` and recycle its slot; ``clear``
+        resets the slot to base semantics where this rank holds it
+        (skipped when the slot is reassigned at once)."""
+        local = self._pod_slots[pod].pop(name)
+        self._lru[pod].pop(name, None)
+        self._pins[pod].pop(name, None)
+        if clear and self.writes(pod):
             for path in self._template_deltas:
-                DO.bank_clear_entry(path, self._flat[path], slot)
+                DO.bank_clear_entry(path, self._flat[path], local)
             for path in self._template_extras:
-                DO.bank_set_extra_base(path, self._flat[path], slot,
+                DO.bank_set_extra_base(path, self._flat[path], local,
                                        self._base_flat[path])
-        self._free.append(slot)
+        self._free[pod].append(local)
         self.stats["evictions"] += 1
 
     def nbytes(self) -> int:
+        """This rank's bank bytes (on a pod-local bank: its pod's slots)."""
         if self._flat is None:
             return 0
         return DO.overlay_nbytes(self._flat)
@@ -320,6 +450,22 @@ class OverlayBank:
         """Resident bank bytes per device: {device: bytes} on one card,
         {rank: bytes} on a mesh (``_per_rank``)."""
         return _per_rank(self.nbytes(), self.mesh, tree_leaves(self._flat))
+
+    def per_pod_nbytes(self) -> dict:
+        """{pod -> bank bytes its ranks hold}: ``per_device_nbytes`` summed
+        by the ranks' pod coordinate (pod 0 holds all without a "pod"
+        axis).  A pod-local bank shows each pod holding its own slot
+        range; a replicated one the whole bank in every pod."""
+        if self._flat is None:
+            return {}
+        per = self.per_device_nbytes()
+        if self.mesh is None or self._mesh_pods == 1:
+            return {0: sum(per.values())} if per else {}
+        per_pod = self.mesh.size // self._mesh_pods    # "pod" leads
+        out: dict = {}
+        for r, nbytes in per.items():
+            out[r // per_pod] = out.get(r // per_pod, 0) + nbytes
+        return out
 
 
 def _per_rank(nbytes: int, mesh, leaves) -> dict:
@@ -352,11 +498,26 @@ class VariantRegistry:
     def __init__(self, base_params, *, max_resident: int = 2,
                  mode: str = "dense", bank_size: int = 8,
                  base_dtype: str = "fp", mesh=None, param_shardings=None,
-                 param_axes=None, base_fp: Optional[str] = None):
+                 param_axes=None, base_fp: Optional[str] = None,
+                 pod_banks: bool = False):
         if mode not in ("dense", "fused"):
             raise ValueError(f"unknown residency mode {mode!r}")
         if base_dtype not in ("fp", "int8"):
             raise ValueError(f"unknown base dtype {base_dtype!r}")
+        # pod-local overlay banks: the bank's slot space splits per pod of
+        # the mesh's "pod" axis (OverlayBank(pods=)); off, one bank
+        # replicated over the mesh
+        self.pod_banks = pod_banks
+        self.pods = 1
+        if pod_banks:
+            if mesh is None:
+                raise ValueError(
+                    "pod_banks=True needs a mesh with a 'pod' axis "
+                    "(launch.mesh.make_host_mesh(pod=...))")
+            if mesh.axis_size("pod") is None:
+                raise ValueError(
+                    "pod_banks=True but the mesh has no 'pod' axis")
+            self.pods = mesh.axis_size("pod")
         if mesh is not None:
             if param_shardings is None or param_axes is None:
                 raise ValueError("a registry on a mesh needs the base's "
@@ -611,7 +772,7 @@ class VariantRegistry:
         with self._bank_lock:
             if self.bank is None:
                 self.bank = OverlayBank(self.base_params, self.bank_size,
-                                        mesh=self.mesh)
+                                        mesh=self.mesh, pods=self.pods)
             return self.bank
 
     def reserve_bank(self) -> dict:
@@ -625,19 +786,20 @@ class VariantRegistry:
         self.stats["resident_bytes"] += bank.nbytes() - before
         return tree
 
-    def _bank_admit(self, vkey: str, dm: DeltaModel, *, block: bool = True,
-                    transfers=()) -> int:
-        """Write ``dm`` into the bank under ``vkey`` and book the swap
-        stats (the one path of the synchronous admit and the admission
-        pipeline's commit); ``resident_bytes`` tracks the bank allocation
-        (charged when the bank is allocated, not per admitted variant).
-        ``block=False`` skips the host fence: the writes are queued on the
-        serving stream, after ``transfers``' staging events, ahead of the
-        next step."""
+    def _bank_admit(self, vkey: str, dm: Optional[DeltaModel], *,
+                    block: bool = True, transfers=(), pod: int = 0) -> int:
+        """Write ``dm`` into ``pod``'s slots of the bank under ``vkey`` and
+        book the swap stats (the one path of the synchronous admit and the
+        admission pipeline's commit); ``resident_bytes`` tracks the bank
+        allocation (charged when the bank is allocated, not per admitted
+        variant).  ``block=False`` skips the host fence: the writes are
+        queued on the serving stream, after ``transfers``' staging events,
+        ahead of the next step.  A rank outside ``pod`` passes ``dm=None``
+        and books the slot alone."""
         bank = self._ensure_bank()
         before = bank.nbytes()
         t0 = time.perf_counter()
-        slot, payload, fence = bank.admit_async(vkey, dm, transfers)
+        slot, payload, fence = bank.admit_async(vkey, dm, transfers, pod)
         if block:
             fence()
         self.stats["swaps"] += 1
@@ -649,34 +811,62 @@ class VariantRegistry:
         self._bank_evictions_seen = bank.stats["evictions"]
         return slot
 
-    def bank_resolve(self, nameish: str) -> int:
+    def bank_resolve(self, nameish: str, pod: int = 0) -> int:
         """Admit the current version of ``nameish`` (or an explicit
-        ``name@vN``) into the overlay bank and return its slot index — the
-        per-row ``variant_idx`` value; '__base__' is slot 0."""
+        ``name@vN``) into ``pod``'s slots of the overlay bank and return
+        its GLOBAL slot index — the per-row ``variant_idx`` value;
+        '__base__' is the pod's base slot (slot 0 off pod-local banks)."""
         bank = self._ensure_bank()
         if nameish == "__base__":
-            return bank.base_slot()
+            return bank.base_slot(pod)
         name, version = self._parse(nameish)
         vkey = self._vkey(name, version)
-        if bank.holds(vkey):
+        if bank.holds(vkey, pod):
             self.stats["hits"] += 1
-            return bank.admit(vkey, None)[0]   # LRU touch, no payload
-        if bank.tree is not None and not bank.has_capacity():
+            return bank.admit(vkey, None, pod)[0]   # LRU touch, no payload
+        if bank.tree is not None and not bank.has_capacity(pod):
             raise RuntimeError(
-                "overlay bank full: every resident is pinned by an "
-                "in-flight request")
-        return self._bank_admit(vkey, self._load(name, version))
+                f"overlay bank full (pod {pod}): every resident is pinned "
+                "by an in-flight request")
+        return self._bank_admit(vkey, self._pod_load(name, version, pod),
+                                pod=pod)
 
-    def bank_acquire(self, nameish: str) -> tuple:
+    def _pod_load(self, name: str, version, pod: int):
+        """The variant an admission into ``pod`` writes: loaded where this
+        rank holds ``pod``'s slots, None elsewhere.  On a pod-local bank the
+        ranks then agree (``Mesh.raise_first``): a load or a structure
+        check that fails on any rank raises its error on every rank, so
+        every rank's tables stay the same."""
+        bank = self._ensure_bank()
+        if self.pods == 1:
+            return self._load(name, version)
+        dm, err = None, None
+        if bank.writes(pod):
+            try:
+                dm = self._load(name, version)
+                bank.check(dm)
+            except Exception as e:      # noqa: BLE001 — every rank raises it
+                err = e
+        self.mesh.raise_first(err)
+        return dm
+
+    def bank_acquire(self, nameish: str, pod: int = 0) -> tuple:
         """Admit AND pin in one step: returns (slot, version_key).  The
         caller unpins with the returned KEY, not the request's variant
         name: the serving pointer may move while the request is in flight,
         and the pin must stay on the version the request decodes."""
-        slot = self.bank_resolve(nameish)
+        slot = self.bank_resolve(nameish, pod)
         vkey = "__base__" if nameish == "__base__" \
             else self._vkey(*self._parse(nameish))
-        self.bank.pin(vkey)
+        self.bank.pin(vkey, pod)
         return slot, vkey
+
+    def bank_pods_holding(self, nameish: str) -> list:
+        """Pods where the variant's current version is bank-resident: the
+        affinity router's signal (empty before the bank exists)."""
+        if self.bank is None:
+            return []
+        return self.bank.pods_holding(self._bank_key(nameish))
 
     def spec_resolve(self) -> tuple:
         """The speculative scheduler's weights: (draft params, verify
@@ -703,13 +893,13 @@ class VariantRegistry:
         except KeyError:
             return nameish
 
-    def bank_pin(self, nameish: str) -> None:
+    def bank_pin(self, nameish: str, pod: int = 0) -> None:
         if self.bank is not None:
-            self.bank.pin(self._bank_key(nameish))
+            self.bank.pin(self._bank_key(nameish), pod)
 
-    def bank_unpin(self, nameish: str) -> None:
+    def bank_unpin(self, nameish: str, pod: int = 0) -> None:
         if self.bank is not None:
-            self.bank.unpin(self._bank_key(nameish))
+            self.bank.unpin(self._bank_key(nameish), pod)
 
     def evict(self, nameish: str) -> None:
         """Evict a variant's device residency by name (current version),
@@ -730,7 +920,8 @@ class VariantRegistry:
             self.stats["resident_bytes"] -= r.nbytes
             self.stats["evictions"] += 1
         if self.bank is not None and self.bank.holds(key):
-            # bank bytes stay allocated: the slot is reusable, not freed
+            # bank bytes stay allocated: the slot is reusable, not freed;
+            # a pod-local bank frees the key's slot in every holding pod
             before = self.bank.stats["evictions"]
             self.bank.evict(key)
             self.stats["evictions"] += self.bank.stats["evictions"] - before

@@ -11,7 +11,9 @@ import contextlib
 import dataclasses
 import pickle
 import tempfile
+import time
 
+import numpy as np
 import torch
 
 import repro_torch.configs as TC
@@ -413,6 +415,237 @@ def store_refusals(dep) -> list:
     return got
 
 
+# ---------------------------------------------------------------------------
+# async admission on a mesh; pod-local banks on a (pod, data, model) mesh
+# ---------------------------------------------------------------------------
+
+# the JAX pod-bank tests' traffic (tests/test_pod_banks.py): skewed to v0,
+# so v0 re-routes to a pod that holds it
+POD_TRAFFIC = ["v0", "v0", "v1", "v0", "v1", "v0", "v1", "v0"]
+POD_DEP = dict(batch_size=4, prompt_len=16, max_len=64, bank_size=4)
+POD_NEW_TOKENS = 4
+POD_PROMPT = np.arange(1, 9)
+# label -> Deployment keywords; "global" is one bank replicated over the
+# pods, the A/B reference of the pod-local runs
+POD_RUNS = {
+    "global": {},
+    "global int8": dict(base_dtype="int8"),
+    "pods": dict(pod_banks=True),
+    "pods gspmd": dict(pod_banks=True, kernel_dispatch="gspmd"),
+    "pods async": dict(pod_banks=True, async_admission=True),
+    "pods int8": dict(pod_banks=True, base_dtype="int8"),
+}
+
+
+class _Counted:
+    """Counts a mesh's host-group agreements (``agree_min``) and records
+    the decode step of each admission commit, around one deployment."""
+
+    def __init__(self, dep):
+        self.agreements = 0
+        self.commits = []
+        mesh, adm = dep.engine.mesh, dep.admission
+        inner_agree = mesh.agree_min
+
+        def agree(values):
+            self.agreements += 1
+            return inner_agree(values)
+        object.__setattr__(mesh, "agree_min", agree)
+        self._undo = [lambda: object.__delattr__(mesh, "agree_min")]
+        if adm is not None:
+            inner_commit = adm._commit
+
+            def commit(t):
+                ok = inner_commit(t)
+                if ok:
+                    self.commits.append((dep.metrics["decode_steps"],
+                                         t.vkey, t.pod))
+                return ok
+            adm._commit = commit
+
+    def close(self):
+        for undo in self._undo:
+            undo()
+
+
+def _slow(dm, seconds: float):
+    """A lazy artifact that takes ``seconds`` to load."""
+    def load():
+        time.sleep(seconds)
+        return dm
+    return load
+
+
+def pod_run(mesh, model, params, axes, dms, device="cpu", delay=0.0,
+            prefetch_pods=(), **kw) -> dict:
+    """The pod traffic on one Deployment of ``mesh``: tokens, statuses,
+    the router's counters, per-pod bank bytes and residents, the
+    admission bytes, async commits (with the decode step of each) and the
+    host-group agreements the run made.  ``delay`` > 0 publishes each
+    variant as a lazy artifact that takes that long to load here;
+    ``prefetch_pods`` starts each variant's ingest toward those pods too
+    (publish starts it toward pod 0)."""
+    if kw.get("async_admission"):
+        kw.setdefault("admission_pacing_s", 0.0)
+    dep = Deployment(model, params, device=device, mesh=mesh,
+                     param_axes=axes, graphs=False, **POD_DEP, **kw)
+    counted = _Counted(dep)
+    for i, dm in enumerate(dms):
+        dep.publish(f"v{i}", _slow(dm, delay) if delay else dm)
+        for pod in prefetch_pods:
+            dep.admission.prefetch(f"v{i}", pod)
+    rids = [dep.submit(POD_PROMPT, variant=v,
+                       max_new_tokens=POD_NEW_TOKENS) for v in POD_TRAFFIC]
+    dep.drain()
+    st = dep.status()
+    bank = dep.registry.bank
+    out = {"tokens": [dep.result(r).out_tokens for r in rids],
+           "status": [dep.result(r).status for r in rids],
+           "affinity": st["affinity"],
+           "bank_per_pod": st["hbm"]["bank_per_pod"],
+           "resident_per_pod": st["hbm"]["bank_resident_per_pod"],
+           "admit_bytes": (bank.stats["admit_bytes_in_pod"],
+                           bank.stats["admit_bytes_cross_pod"]),
+           "async_admits": dep.metrics["async_admits"],
+           "commits": counted.commits,
+           "agreements": counted.agreements}
+    counted.close()
+    dep.close()
+    return out
+
+
+def pod_async_checks(mesh, model, params, axes, dms, device="cpu",
+                     **kw) -> dict:
+    """Async admission's agreement on a mesh: a run whose ranks load at
+    different speeds (rank r takes r * 20 ms a variant) commits each ticket
+    at the same decode step on every rank (on pod-local banks each variant
+    goes to both pods: a ticket per (version, pod)); a variant whose load
+    fails on
+    the first rank of each pod alone fails its request on every rank, with
+    that rank's error; base traffic with no ticket live makes no
+    agreement."""
+    out = {"paced": pod_run(mesh, model, params, axes, dms, device,
+                            delay=0.02 * mesh.rank, async_admission=True,
+                            prefetch_pods=(1,) if kw.get("pod_banks")
+                            else (), **kw)}
+    dep = Deployment(model, params, device=device, mesh=mesh,
+                     param_axes=axes, graphs=False, async_admission=True,
+                     admission_pacing_s=0.0, max_retries=0, **POD_DEP,
+                     **kw)
+    counted = _Counted(dep)
+    rids = [dep.submit(POD_PROMPT, max_new_tokens=2) for _ in range(3)]
+    dep.drain()
+    out["base_agreements"] = counted.agreements
+    dm = dms[0]
+
+    def flaky():
+        if mesh.index(("data", "model")) == 0:
+            raise IOError(f"artifact unreadable on rank {mesh.rank}")
+        return dm
+    dep.registry.set_version("bad", None, flaky)
+    dep.publish("v1", dms[1])
+    rids += [dep.submit(POD_PROMPT, variant=v, max_new_tokens=2)
+             for v in ("bad", "v1", "__base__")]
+    dep.drain()
+    out["failure"] = [(dep.result(r).status, dep.result(r).error,
+                       dep.result(r).out_tokens) for r in rids]
+    counted.close()
+    dep.close()
+    return out
+
+
+def pod_bank_checks(mesh, d: dict) -> dict:
+    """``OverlayBank(pods=2)`` of 3 slots a pod on this rank's blocks, the
+    JAX package's per-pod semantics case for case
+    (``tests/test_pod_banks.py::test_pod_bank_per_pod_slots_and_eviction``),
+    every outcome recorded; and which local slot this rank wrote."""
+    from repro_torch.serving.variants import OverlayBank
+    model, params, axes, dms = setup("deepseek-7b", d)
+    local, specs, _ = _ctx(mesh, params, axes)
+    dm1, dm2 = (L.place_delta_model(dm, specs, mesh) for dm in dms)
+    bank = OverlayBank(local, 3, mesh=mesh, pods=2)
+    out = {"total_slots": bank.total_slots,
+           "base_slots": (bank.base_slot(0), bank.base_slot(1))}
+
+    def refused(fn):
+        try:
+            fn()
+        except RuntimeError as e:
+            return str(e)
+        return None
+    s_a0, pay0 = bank.admit("a@v1", dm1, pod=0)
+    s_a1, pay1 = bank.admit("a@v1", dm1, pod=1)
+    path = "layers.attn.wq"
+    out.update(
+        slots=(s_a0, s_a1), payload=(pay0, pay1),
+        pods_holding=bank.pods_holding("a@v1"),
+        slot_of_pod1=bank.slot_of("a@v1", pod=1),
+        resident=sorted(bank.resident()), pod_resident=bank.pod_resident(),
+        admit_bytes=(bank.stats["admit_bytes_in_pod"],
+                     bank.stats["admit_bytes_cross_pod"]),
+        slot_bytes=bank._slot_bytes,
+        wrote=torch.equal(bank._flat[path].packed[:, 1],
+                          DO.from_delta_entry(dm1.deltas[path]).packed),
+        per_pod=bank.per_pod_nbytes(), per_device=bank.per_device_nbytes())
+    bank.pin("a@v1", pod=0)
+    out["evict_pinned_pod0"] = refused(lambda: bank.evict("a@v1", pod=0))
+    out["evict_pinned_any"] = refused(lambda: bank.evict("a@v1"))
+    bank.evict("a@v1", pod=1)
+    out["after_evict"] = bank.pods_holding("a@v1")
+    out["cleared"] = not bank._flat[path].packed[:, 1].any().item() \
+        if bank.pod == 1 else None
+    bank.unpin("a@v1", pod=0)
+    bank.mark_staging("b@v1", pod=1)
+    out["staging"] = (bank.staging("b@v1"), bank.staging("b@v1", pod=1),
+                      bank.staging("b@v1", pod=0))
+    out["evict_staging"] = refused(lambda: bank.evict("b@v1", pod=1))
+    bank.unmark_staging("b@v1", pod=1)
+    bank.admit("b@v1", dm2, pod=0)
+    bank.admit("a@v1", dm1, pod=1)
+    ev0 = bank.stats["evictions"]
+    s_c, _ = bank.admit("c@v1", dm2, pod=0)
+    out.update(lru_slot=s_c, lru_evictions=bank.stats["evictions"] - ev0,
+               lru_holding=bank.pods_holding("a@v1"),
+               merged="c@v1" in bank._slots,
+               pod1_table=sorted(bank._pod_slots[1].items()))
+    return out
+
+
+def pod_checks(mesh, d: dict, device="cpu") -> dict:
+    """Every pod-bank check of a (pod, data, model) rank: the runs of
+    ``POD_RUNS``, async admission's agreement on the pod-local bank, the
+    per-pod bank semantics and the launcher with ``--pod-banks``."""
+    model, params, axes, dms = setup("deepseek-7b", d)
+    out = {"coords": mesh.coords,
+           "runs": {label: pod_run(mesh, model, params, axes, dms, device,
+                                   **kw)
+                    for label, kw in POD_RUNS.items()},
+           "async": pod_async_checks(mesh, model, params, axes, dms,
+                                     device, pod_banks=True),
+           "bank": pod_bank_checks(mesh, d)}
+    from repro_torch.launch import serve as SV
+    out["launcher"] = SV._mesh_rank(mesh, POD_LAUNCH_ARGV)
+    return out
+
+
+# the launcher with pod-local banks on (2, 1, 2)
+POD_LAUNCH_ARGV = ["--arch", "deepseek-7b", "--reduced", "--num-layers", "2",
+                   "--variants", "2", "--requests", "6", "--new-tokens", "3",
+                   "--batch", "4", "--mode", "fused", "--scheduler",
+                   "continuous", "--mesh", "2,1,2", "--pod-banks",
+                   "--device", "cpu"]
+
+
+def async_mesh_checks(mesh, d: dict, device="cpu") -> dict:
+    """Async admission on a (data, model) mesh: the continuous run's
+    traffic served sync and async (ranks at different ingest paces), and
+    the agreement's failure and no-ticket cases."""
+    model, params, axes, dms = setup("deepseek-7b", d)
+    return {"sync": pod_run(mesh, model, params, axes, dms, device),
+            "async": pod_async_checks(mesh, model, params, axes, dms,
+                                      device)}
+
+
 def run(mesh, path: str, plan: dict) -> dict:
     """Everything one spawn of a mesh shape checks (one spawn per shape
     serves a whole test module)."""
@@ -442,6 +675,11 @@ def run(mesh, path: str, plan: dict) -> dict:
         out["bank"] = bank_checks(mesh, data["deepseek-7b"])
     if plan.get("store"):
         out["store"] = store_tokens(mesh, data["deepseek-7b"], plan["store"])
+    if plan.get("async"):
+        out["async"] = async_mesh_checks(mesh, data["deepseek-7b"],
+                                         device=device)
+    if plan.get("pods"):
+        out["pods"] = pod_checks(mesh, data["deepseek-7b"], device=device)
     return out
 
 

@@ -48,7 +48,7 @@ TIMEOUT_S = 300
 MESHES = {
     (1, 2): {"dispatch": True, "logits": ARCHS, "bank": True,
              "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS},
-             "int8": R.INT8_RUNS, "launcher": True},
+             "int8": R.INT8_RUNS, "launcher": True, "async": True},
     (2, 1): {"logits": ARCHS,
              "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS}},
     (2, 2): {"dispatch": True, "logits": ARCHS, "bank": True,
@@ -379,14 +379,43 @@ def test_every_rank_named_its_backend(world):
         assert {g["backend"] for g in got} == {"gloo"}
 
 
+def test_mesh_async_admission_equals_sync(world):
+    """Async admission on (1, 2): the ranks load each variant at different
+    speeds, and every rank still commits each ticket at the same decode
+    step (``async_admits`` equals the commits), with the sync run's
+    tokens."""
+    ranks = world["spawns"].get((1, 2))
+    commits = [g["async"]["async"]["paced"]["commits"] for g in ranks]
+    assert commits[0] and all(c == commits[0] for c in commits)
+    for g in ranks:
+        paced = g["async"]["async"]["paced"]
+        assert paced["tokens"] == g["async"]["sync"]["tokens"]
+        assert paced["status"] == ["done"] * len(R.POD_TRAFFIC)
+        assert paced["async_admits"] == len(paced["commits"]) == 2
+        assert paced["agreements"] > 0
+        assert g["async"]["sync"]["agreements"] == 0
+
+
+def test_mesh_async_failure_on_one_rank_fails_every_rank(world):
+    """A variant whose load fails on rank 0 alone fails its request on
+    both ranks, with rank 0's error, and the ranks serve on in step; base
+    traffic with no ticket live makes no agreement."""
+    ranks = world["spawns"].get((1, 2))
+    fail = [g["async"]["async"]["failure"] for g in ranks]
+    assert all(f == fail[0] for f in fail)
+    assert [s for s, _, _ in fail[0]] == ["done"] * 3 + [
+        "failed", "done", "done"]
+    assert fail[0][3][1] == "artifact unreadable on rank 0"
+    assert all(g["async"]["async"]["base_agreements"] == 0 for g in ranks)
+
+
 _REFUSALS = {
     "speculative": (dict(speculative=True), "speculative"),
-    "async_admission": (dict(async_admission=True), "async admission"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_REFUSALS) + ["warmup", "family",
-                                                       "no_axes"])
+                                                       "no_axes", "pod"])
 def test_mesh_refusals_name_their_slice(world, case):
     """What mesh serving does not serve yet raises, naming the slice that
     brings it; nothing is switched off silently.  (A mesh object without
@@ -408,6 +437,14 @@ def test_mesh_refusals_name_their_slice(world, case):
         dep = R.Deployment(model, params, **kw)
         with pytest.raises(NotImplementedError, match="slice"):
             dep.warmup()
+        return
+    if case == "pod":
+        # pod-local banks still refuse speculative decoding, as JAX does
+        pmesh = S.Mesh(("pod", "data", "model"), (2, 1, 2))
+        with pytest.raises(ValueError, match="speculative"):
+            R.Deployment(model, params, device="cpu", mesh=pmesh,
+                         param_axes=axes, batch_size=4, pod_banks=True,
+                         speculative=True)
         return
     if case == "family":
         wcfg = R.port_config("whisper-base")
