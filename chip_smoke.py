@@ -3918,6 +3918,10 @@ MESH_FP32_TWIN = (("deepseek-moe-16b", 4, "float32"),)
 MESH_FULL_RUNS = {"continuous": (12, CONT_BUDGETS),
                   "group fused": (8, [8])}
 MESH_TIMEOUT_S = 600
+# intra-op threads of a reduced rank: the reduced groups' ranks
+# share the host's cores, and their tensors are tiny (PyTorch's default,
+# a thread a core in every rank, oversubscribes the host)
+REDUCED_THREADS = 1
 MESH_KERNELS = ("unpack_apply", "bitlinear_axes", "bitlinear_axes_banked",
                 "bitlinear_axes_stacked")
 # over an int8 base: the reduced meshes, and the full-width (1, 2) runs
@@ -3929,6 +3933,87 @@ MESH_LAUNCH_ARGV = ["--arch", "deepseek-7b", "--reduced", "--variants", "2",
                     "--requests", "4", "--new-tokens", "3", "--batch",
                     str(LANES), "--mode", "fused", "--scheduler",
                     "continuous", "--base-dtype", "int8", "--updates", "1"]
+# the audio, VLM, xLSTM and Zamba families under a mesh: reduced in the
+# (1, 2) and (2, 2) groups; in a (1, 4) group beside them zamba2-7b and
+# xlstm-350m with 2 heads (2 SSM or mLSTM heads over 4 ranks: a rank's
+# block of d_inner cuts a head) and the sequence-TP config (reduced
+# starcoder2-3b with 6 q heads)
+MESH_FAMILIES = ("whisper-base", "internvl2-76b", "xlstm-350m", "zamba2-7b")
+MESH_FAMILY_SHAPES = ((1, 2), (2, 2))
+MESH_FAMILY_RUNS = ("continuous", "group fused")
+MESH_QUAD_SHAPE = (1, 4)
+MESH_QUAD_ARCHS = ("zamba2-7b", "xlstm-350m-2h")
+MESH_SEQ_ARCH = "starcoder2-3b"
+MESH_SEQ_FIELDS = dict(num_heads=6, num_kv_heads=2, head_dim=16)
+# the reduced cases that change a config: {case: (arch, fields)};
+# xlstm-350m-2h runs one mLSTM and one sLSTM layer (its mLSTM block cuts
+# a head at half the reduced depth: every collective waits on the host)
+MESH_CASES = {MESH_SEQ_ARCH: (MESH_SEQ_ARCH, MESH_SEQ_FIELDS),
+              "xlstm-350m-2h": ("xlstm-350m", dict(num_heads=2, num_layers=2,
+                                                   mlstm_ratio=1))}
+# reduced depths on a mesh: zamba2-7b one shared-block application and a
+# trailing Mamba2 block (every collective of a step waits on the host)
+MESH_REF_LAYERS = {**REF_LAYERS, "zamba2-7b": 4}
+# prompt lengths of the sequence-TP runs: a multiple of the model axis
+# (sequence-TP) and one that is not (JAX's flat-q_dim branch)
+MESH_SEQ_PROMPTS = (16, 14)
+# full width on (1, 2), in the full-width group after ``MESH_FULL``:
+# (arch, layers (0: the config's own), compute dtype); depth cut, widths
+# the configs' own
+MESH_FAMILY_FULL = (("whisper-base", 0, None), ("xlstm-350m", 8, None),
+                    ("zamba2-7b", 7, None), ("internvl2-76b", 1, None))
+MESH_FAMILY_FULL_RUNS = {"continuous": (8, [4, 6, 8]),
+                         "group fused": (4, [6])}
+# variants and bank slots of a full-width run (``MESH_FULL``'s: 3 and 4);
+# internvl2-76b: each variant carries both 128256 x 8192 fp32 tables
+MESH_FAMILY_VARIANTS = {"internvl2-76b": 1}
+MESH_FAMILY_BANK = {"internvl2-76b": 2}
+# the weights whose all-reduced product ``allreduce_check`` holds
+ALLREDUCE_PATHS = {"qwen3-8b": ("layers.attn.wo", "layers.mlp.w_down"),
+                   "whisper-base": ("dec_layers.self_attn.wo",
+                                    "dec_layers.mlp.w_out"),
+                   "xlstm-350m": ("mlstm.w_down",),
+                   "zamba2-7b": ("mamba.w_out",),
+                   "internvl2-76b": ("layers.attn.wo", "layers.mlp.w_down")}
+MESH_PEAK_GB = 75.0           # the full-width ranks' peaks, summed; and
+# the card's memory in use by every process on it, sampled while the
+# groups of a mesh or pods phase run (``CardInUse``)
+
+
+class CardInUse:
+    """The card's memory in use by every process on it (``cudaMemGetInfo``),
+    sampled every ``period`` s on a thread from ``start`` to ``stop``:
+    ``peak_gb`` is a lower bound of the true peak."""
+
+    def __init__(self, dev, period: float = 0.05):
+        import threading
+        self.dev, self.period = dev, period
+        self.peak_gb = 0.0
+        self.total_gb = torch.cuda.mem_get_info(dev)[1] / 1e9
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _sample(self) -> None:
+        while not self._stop.is_set():
+            free, total = torch.cuda.mem_get_info(self.dev)
+            self.peak_gb = max(self.peak_gb, (total - free) / 1e9)
+            self._stop.wait(self.period)
+
+    def start(self) -> "CardInUse":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def full_plan(arch: str) -> tuple:
+    """(variants, bank slots, runs) of a full-width mesh entry."""
+    if arch in MESH_FAMILIES:
+        return (MESH_FAMILY_VARIANTS.get(arch, 2),
+                MESH_FAMILY_BANK.get(arch, 4), MESH_FAMILY_FULL_RUNS)
+    return 3, 4, MESH_FULL_RUNS
 
 
 def mesh_full_config(arch, layers, dtype):
@@ -3943,16 +4028,17 @@ def mesh_full_config(arch, layers, dtype):
     return f"{arch} {dtype}", dataclasses.replace(cfg, compute_dtype=dtype)
 
 
-def mesh_ref_setup(arch):
-    """(cfg, model, base, [2 DeltaModels], axes) of a reduced arch at fp32
-    compute, made on the CPU from seeds: every rank and the script make
-    the same."""
+def mesh_ref_setup(case):
+    """(cfg, model, base, [2 DeltaModels], axes) of a reduced arch (or a
+    case of ``MESH_CASES``) at fp32 compute, made on the CPU from seeds:
+    every rank and the script make the same."""
     import dataclasses
 
     from repro_torch.launch import serve as SV
-    cfg = dataclasses.replace(SV.make_config(arch, reduced=True),
-                              num_layers=REF_LAYERS.get(arch, 2),
-                              compute_dtype="float32")
+    arch, fields = MESH_CASES.get(case, (case, {}))
+    cfg = dataclasses.replace(SV.make_config(arch, reduced=True), **{
+        "num_layers": MESH_REF_LAYERS.get(arch, 2),
+        "compute_dtype": "float32", **fields})
     model, base, dms, axes = SV.build_variants(cfg, 2, "cpu",
                                                with_axes=True)
     return cfg, model, base, dms, axes
@@ -3989,16 +4075,81 @@ def mesh_store_run(model, base, dms, axes, mesh, device, root) -> dict:
     return out
 
 
-def mesh_ref_rank(mesh, store_root, int8: bool) -> dict:
+def mesh_family_runs(mesh, archs, out: dict) -> None:
+    """``MESH_FAMILY_RUNS`` of each reduced arch of ``archs`` on this rank,
+    both kernel dispatch modes, into ``out["runs"]``: tokens and
+    launches."""
+    from repro_torch.launch import serve as SV
+    t0 = time.perf_counter()
+    for arch in archs:
+        cfg, model, base, dms, axes = mesh_ref_setup(arch)
+        for kd in MESH_KDS:
+            for run in MESH_FAMILY_RUNS:
+                zero_counters()
+                dep = mesh_deploy(model, base, dms, axes, mesh, mesh.device,
+                                  run, kernel_dispatch=kd)
+                rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
+                dep.drain()
+                out["runs"][arch, kd, run] = {
+                    "tokens": [dep.result(r).out_tokens for r in rids],
+                    "launches": counters()}
+    out["family_s"] = round(time.perf_counter() - t0, 1)
+
+
+def mesh_quad_rank(mesh) -> dict:
+    """One rank of the reduced (1, 4) mesh: the cases of
+    ``MESH_QUAD_ARCHS`` and the sequence-TP config at each of
+    ``MESH_SEQ_PROMPTS`` (continuous), both kernel dispatch modes; with
+    the attention layouts each prompt length took."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"coords": mesh.coords, "device": str(mesh.device),
+           "backend": mesh.backend, "runs": {}, "layouts": {}}
+    mesh_family_runs(mesh, MESH_QUAD_ARCHS, out)
+    cfg, model, base, dms, axes = mesh_ref_setup(MESH_SEQ_ARCH)
+    orig = A.head_split
+    for n in MESH_SEQ_PROMPTS:
+        seen = set()
+
+        def recorded(c, s=None):
+            split = orig(c, s)
+            seen.add(split)
+            return split
+        A.head_split = recorded
+        try:
+            for kd in MESH_KDS:
+                zero_counters()
+                dep = mesh_deploy(model, base, dms, axes, mesh, mesh.device,
+                                  "continuous", kernel_dispatch=kd,
+                                  prompt_len=n)
+                rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
+                dep.drain()
+                out["runs"][MESH_SEQ_ARCH, kd, f"prompt {n} continuous"] = {
+                    "tokens": [dep.result(r).out_tokens for r in rids],
+                    "launches": counters()}
+        finally:
+            A.head_split = orig
+        out["layouts"][n] = sorted(seen)
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def mesh_ref_rank(mesh, store_root, int8: bool, families: bool) -> dict:
     """One rank of a reduced mesh on the card: both archs, every run, both
     kernel dispatch modes, over an fp32 base and (``int8``) an int8 one
     (and on (1, 2) the store lifecycle and the launcher's update run,
-    ``mesh_launcher_run``); tokens and the run's launches on this rank."""
+    ``mesh_launcher_run``); with ``families`` the runs of
+    ``MESH_FAMILIES`` (``mesh_family_runs``); tokens and the run's
+    launches on this rank."""
     from repro_torch.launch import serve as SV
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"coords": mesh.coords, "device": str(mesh.device),
            "backend": mesh.backend, "runs": {}}
     dtypes = ("fp", "int8") if int8 else ("fp",)
+    if families:
+        mesh_family_runs(mesh, MESH_FAMILIES, out)
     for arch in MESH_REF_ARCHS:
         cfg, model, base, dms, axes = mesh_ref_setup(arch)
         for bd in dtypes:
@@ -4194,13 +4345,15 @@ def int8_blocks_check(mesh, dep, base) -> dict:
 
 def mesh_full_rank(mesh, entries) -> dict:
     """One rank of the full-width (1, 2) mesh over ``entries``
-    (``MESH_FULL``'s, maybe the fp32 twin's), 3 variants, continuous over
-    a 4-slot bank and group fused, then the runs of ``MESH_INT8_FULL``
-    over an int8 base; per run its tokens, launches, tokens/s, mean step,
-    peak memory and base bytes on the rank; every delta GEMM launch of one
-    prefill and one decode step held to its plain version on the same
-    local operands (``gemms_checked``); the all-reduced wo and w_down
-    against the single-card kernel, over both bases; every int8 block
+    (``MESH_FULL``'s, maybe the fp32 twin's, then ``MESH_FAMILY_FULL``'s),
+    the variants, bank and runs of ``full_plan`` (``MESH_FULL``: 3
+    variants, continuous over a 4-slot bank and group fused), then the
+    runs of ``MESH_INT8_FULL`` over an int8 base; per run its tokens,
+    launches, tokens/s, mean step, peak memory and base bytes on the rank;
+    every delta GEMM launch of one prefill and one decode step held to its
+    plain version on the same local operands (``gemms_checked``); the
+    all-reduced products of ``ALLREDUCE_PATHS`` against the single-card
+    kernel, over both bases; every int8 block
     against the single-card quantization (``int8_blocks_check``); for
     MoE, rank 0's routing choices in a rerun of the same requests
     (``routing_recorded``)."""
@@ -4209,29 +4362,32 @@ def mesh_full_rank(mesh, entries) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = mesh.device
     out = {"coords": mesh.coords, "device": str(dev),
-           "backend": mesh.backend, "runs": {}, "checks": {}, "routing": {}}
+           "backend": mesh.backend, "runs": {}, "checks": {}, "routing": {},
+           "seconds": {}}
     for entry in entries:
+        t_entry = time.perf_counter()
         arch, cfg = mesh_full_config(*entry)
+        n_var, bank, full_runs = full_plan(entry[0])
         # the ranks build the whole base and variants in turns (their
         # fine-tunes are whole copies of the base), and each keeps them
         # on the host: only its blocks stay on the card
         for turn in range(mesh.size):
             if turn == mesh.rank:
                 model, base, dms, axes = SV.build_variants(
-                    cfg, 3, dev, with_axes=True)
+                    cfg, n_var, dev, with_axes=True)
                 base = tree_map(lambda t: t.cpu(), base)
                 dms = [tree_map(lambda t: t.cpu(), dm) for dm in dms]
                 gc.collect()
                 torch.cuda.empty_cache()
             mesh.barrier()
-        runs = [(run, "fp") for run in MESH_FULL_RUNS] + [
+        runs = [(run, "fp") for run in full_runs] + [
             (run, "int8") for run in MESH_INT8_FULL.get(arch, ())]
         for run, bd in runs:
-            n_req, budgets = MESH_FULL_RUNS[run]
+            n_req, budgets = full_runs[run]
             label = mesh_run(run, bd)
             torch.cuda.reset_peak_memory_stats(dev)
             dep = mesh_deploy(model, base, dms, axes, mesh, dev, run,
-                              base_dtype=bd)
+                              bank=bank, base_dtype=bd)
             if bd == "int8" and run == MESH_INT8_FULL[arch][0]:
                 out["checks"][arch, "int8 blocks"] = int8_blocks_check(
                     mesh, dep, base)
@@ -4271,15 +4427,16 @@ def mesh_full_rank(mesh, entries) -> dict:
                 out["routing"][arch, label] = {
                     "tokens": [dep.result(r).out_tokens for r in rids],
                     "calls": calls if mesh.rank == 0 else None}
-            if run == "continuous" and arch == "qwen3-8b":
+            if run == "continuous" and arch in ALLREDUCE_PATHS:
                 out["checks"][arch, mesh_run("all-reduce", bd)] = [
                     allreduce_check(mesh, dep, base, dms[0], p)
-                    for p in ("layers.attn.wo", "layers.mlp.w_down")]
+                    for p in ALLREDUCE_PATHS[arch]]
             del dep
             gc.collect()
             torch.cuda.empty_cache()
         del model, base, dms
         gc.collect()
+        out["seconds"][arch] = round(time.perf_counter() - t_entry, 1)
     return out
 
 
@@ -4319,14 +4476,15 @@ def mesh_single_card(dev, entries, mesh_tokens: dict,
     out = {}
     for entry in entries:
         arch, cfg = mesh_full_config(*entry)
-        model, base, dms = SV.build_variants(cfg, 3, dev)
-        runs = [(run, "fp") for run in MESH_FULL_RUNS] + [
+        n_var, bank, full_runs = full_plan(entry[0])
+        model, base, dms = SV.build_variants(cfg, n_var, dev)
+        runs = [(run, "fp") for run in full_runs] + [
             (run, "int8") for run in MESH_INT8_FULL.get(arch, ())]
         for run, bd in runs:
-            n_req, budgets = MESH_FULL_RUNS[run]
+            n_req, budgets = full_runs[run]
             label = mesh_run(run, bd)
             dep = mesh_deploy(model, base, dms, None, None, dev, run,
-                              graphs=False, base_dtype=bd)
+                              bank=bank, graphs=False, base_dtype=bd)
             mesh_warm(dep, cfg)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4404,6 +4562,18 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
     3. a rank that raises (a world that is not the mesh's size) must end
        its group with an error within the deadline.
 
+    The audio, VLM, xLSTM and Zamba families: in 1., the runs of
+    ``MESH_FAMILIES`` (continuous and group fused, both kernel dispatch
+    modes) on (1, 2) and (2, 2), and a (1, 4) group with the cases of
+    ``MESH_QUAD_ARCHS`` and the 6-head sequence-TP config at two prompt
+    lengths (the attention layouts each took asserted); in 2.,
+    ``MESH_FAMILY_FULL`` after ``MESH_FULL``, with the all-reduced
+    products of ``ALLREDUCE_PATHS``, exact budgets and the ranks' peaks
+    summed under ``MESH_PEAK_GB``.  Every group of 1. and 2. starts at
+    once, so the full-width times are taken beside the reduced ranks, and
+    the card's memory in use by every process on it, sampled while they
+    run, must stay under ``MESH_PEAK_GB`` too.
+
     Returns {run label: [launches of each rank]}."""
     import shutil
     import tempfile
@@ -4419,14 +4589,50 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
     # 1. reduced, card against the CPU
     store_root = tempfile.mkdtemp(prefix="mesh_store_", dir=os.path.join(
         ROOT, "build"))
+    print(f"mesh: this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB before the ranks "
+          "start")
+    # every group starts at once: the reduced ranks' tiny steps wait on
+    # the shared card and on the host hop of each collective, the
+    # full-width ranks mostly on host copies, so they overlap (the
+    # full-width times are taken under that contention)
+    entries = MESH_FULL + (MESH_FP32_TWIN if fp32_twin else ()) \
+        + MESH_FAMILY_FULL
+    card = CardInUse(dev).start()
     t_ref = time.perf_counter()
+    full = LM.start(mesh_full_rank, MESH_FULL_SHAPE, device="cuda",
+                    timeout_s=MESH_TIMEOUT_S, args=(entries,))
+    quad = LM.start(mesh_quad_rank, MESH_QUAD_SHAPE, device="cuda",
+                    timeout_s=MESH_TIMEOUT_S, threads=REDUCED_THREADS)
     groups = {shape: LM.start(mesh_ref_rank, shape, device="cuda",
                               timeout_s=MESH_TIMEOUT_S,
                               args=(store_root if shape == (1, 2)
-                                    else None, shape in MESH_INT8_SHAPES))
+                                    else None, shape in MESH_INT8_SHAPES,
+                                    shape in MESH_FAMILY_SHAPES),
+                              threads=REDUCED_THREADS)
               for shape in MESH_REF_SHAPES}
     t0 = time.perf_counter()
+    # the CPU plain runs are as small as the reduced ranks' and share the
+    # host's cores with every rank
+    threads = torch.get_num_threads()
+    torch.set_num_threads(REDUCED_THREADS)
     want = {}
+    for arch in dict.fromkeys(MESH_FAMILIES + MESH_QUAD_ARCHS
+                              + (MESH_SEQ_ARCH,)):
+        cfg, model, base, dms, axes = mesh_ref_setup(arch)
+        runs = ([(run, run, SV.PROMPT_LEN) for run in MESH_FAMILY_RUNS]
+                if arch != MESH_SEQ_ARCH else
+                [(f"prompt {n} continuous", "continuous", n)
+                 for n in MESH_SEQ_PROMPTS])
+        for label, run, n in runs:
+            dep = mesh_deploy(model, base, dms, axes, None, "cpu", run,
+                              prompt_len=n)
+            rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
+            dep.drain()
+            want[arch, label] = [dep.result(r).out_tokens for r in rids]
+            assert [len(t) for t in want[arch, label]] == [
+                MESH_REF_BUDGETS[i % len(MESH_REF_BUDGETS)]
+                for i in range(6)], (arch, label)
     for arch in MESH_REF_ARCHS:
         cfg, model, base, dms, axes = mesh_ref_setup(arch)
         for run in MESH_RUNS:
@@ -4441,9 +4647,12 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
             with tempfile.TemporaryDirectory() as tmp:
                 want_store = mesh_store_run(model, base, dms, axes, None,
                                             "cpu", tmp)
+    torch.set_num_threads(threads)
     print(f"mesh reference: CPU plain runs {time.perf_counter() - t0:.1f} s")
-    for shape, group in groups.items():
-        ranks = group.join()
+
+    def check_reduced(shape, ranks):
+        """Every rank's tokens and launches of a reduced group against
+        the CPU's; its launches into ``launches``."""
         for r, got in enumerate(ranks):
             for (arch, kd, run), res in got["runs"].items():
                 assert res["tokens"] == want[arch, run], (
@@ -4467,11 +4676,31 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
         for (arch, kd, run) in ranks[0]["runs"]:
             launches[f"mesh {arch} reduced {run} {kd} {shape}"] = [
                 g["runs"][arch, kd, run]["launches"] for g in ranks]
+        if shape == MESH_QUAD_SHAPE:
+            # the 6-head config: sequence-TP at a prompt length that
+            # splits over 4 ranks, every head on every rank at one that
+            # does not (JAX's flat-q_dim branch) and at decode (s = 1)
+            for g in ranks:
+                assert g["layouts"] == {
+                    n: ["seq", "whole"] if n % 4 == 0 else ["whole"]
+                    for n in MESH_SEQ_PROMPTS}, g["layouts"]
+            print(f"mesh {shape} reduced ({ranks[0]['backend']}, rank 0 "
+                  f"{ranks[0]['seconds']} s): every "
+                  f"rank's tokens == CPU plain tokens for "
+                  f"{len(ranks[0]['runs'])} runs of {MESH_QUAD_ARCHS} (2 SSM "
+                  f"or mLSTM heads over 4 ranks) and {MESH_SEQ_ARCH} with "
+                  f"{MESH_SEQ_FIELDS['num_heads']} q heads (attention "
+                  f"layouts by prompt length {ranks[0]['layouts']}; both "
+                  "kernel dispatch modes)")
+            return
         n_int8 = sum("int8" in run for _, _, run in ranks[0]["runs"])
+        n_fam = sum(a in MESH_FAMILIES for a, _, _ in ranks[0]["runs"])
         print(f"mesh {shape} reduced ({ranks[0]['backend']}, "
               f"{sorted({g['device'] for g in ranks})}): every rank's "
               f"tokens == CPU plain tokens for {len(ranks[0]['runs'])} runs "
-              f"({n_int8} over an int8 base; both kernel dispatch modes)"
+              f"({n_int8} over an int8 base; both kernel dispatch modes"
+              + (f"; {n_fam} of {MESH_FAMILIES}, rank 0 "
+                 f"{ranks[0]['family_s']} s" if n_fam else "") + ")"
               + ("; store publish/update/rollback == CPU "
                  f"{want_store['versions']}, rollback to "
                  f"{want_store['rollback']}; launch.serve --base-dtype int8"
@@ -4479,22 +4708,26 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
                  f"{ranks[0]['launcher']['lines']}, tokens == the direct "
                  "update + rollback run's on every rank"
                  if shape == (1, 2) else ""))
+    for shape, group in groups.items():
+        check_reduced(shape, group.join())
     shutil.rmtree(store_root, ignore_errors=True)
-    print(f"mesh reduced: {time.perf_counter() - t_ref:.1f} s, the three "
-          "meshes at once")
+    check_reduced(MESH_QUAD_SHAPE, quad.join())
+    print(f"mesh reduced: {time.perf_counter() - t_ref:.1f} s, the four "
+          "meshes beside the full-width ranks")
     # 2. full width: the mesh, then the same runs on one card
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"mesh full width: this process holds "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB before the ranks "
-          "start")
-    t0 = time.perf_counter()
-    entries = MESH_FULL + (MESH_FP32_TWIN if fp32_twin else ())
-    ranks = LM.spawn(mesh_full_rank, MESH_FULL_SHAPE, device="cuda",
-                     timeout_s=MESH_TIMEOUT_S, args=(entries,))
+    ranks = full.join()
+    card.stop()
     print(f"mesh full width {MESH_FULL_SHAPE} ({ranks[0]['backend']}, "
           f"{sorted({g['device'] for g in ranks})}): "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t_ref:.1f} s since the groups started; "
+          f"rank 0 per entry (build, place, serve, checks) "
+          f"{ranks[0]['seconds']}")
+    print(f"mesh: the card's memory in use by every process on it while "
+          f"the groups ran, sampled every {card.period * 1e3:.0f} ms: peak "
+          f"{card.peak_gb:.2f} GB of {card.total_gb:.2f}")
+    assert card.peak_gb < MESH_PEAK_GB, card.peak_gb
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     single = mesh_single_card(dev, entries,
                               {key: run["tokens"] for key, run
@@ -4512,6 +4745,13 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
         total = sum(len(y) for y in ref)
         same = sum(x == y for x, y in zip(toks[0], ref))
         assert [len(t) for t in toks[0]] == [len(t) for t in ref], key
+        # every request finishes with its budget
+        n_req, budgets = full_plan(arch.split()[0])[2][
+            run.removesuffix(" int8")]
+        assert [len(t) for t in toks[0]] == [
+            budgets[i % len(budgets)] for i in range(n_req)], key
+        peaks = [g["runs"][key]["peak_GB"] for g in ranks]
+        assert sum(peaks) < MESH_PEAK_GB, (key, peaks)
         per_rank = [g["runs"][key]["launches"] for g in ranks]
         for kernel in (("bitlinear_axes_banked",)
                        if run.startswith("continuous")
@@ -4546,11 +4786,17 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
             print(f"mesh {arch} {run}: MoE routing, mesh vs one card: "
                   f"{single[key]['routing']}")
     for g in ranks:
-        for label in ("all-reduce", "all-reduce int8"):
-            for c in g["checks"]["qwen3-8b", label]:
-                print(f"mesh {label} rank {g['coords']}: {c['path']} vs the "
-                      f"single-card kernel max |err| {c['max_abs_err']:.3e}"
-                      f" ({c['max_err_over_tol']:.3f} of the summed bound)")
+        for (arch, label), checks in g["checks"].items():
+            if not label.startswith("all-reduce"):
+                continue
+            for c in checks:
+                print(f"mesh {arch} {label} rank {g['coords']}: {c['path']} "
+                      "vs the single-card kernel max |err| "
+                      f"{c['max_abs_err']:.3e} ({c['max_err_over_tol']:.3f} "
+                      "of the summed bound)")
+        assert {a for a, label in g["checks"]
+                if label == "all-reduce"} == set(ALLREDUCE_PATHS), \
+            sorted(g["checks"])
         for arch in MESH_INT8_FULL:
             c = g["checks"][arch, "int8 blocks"]
             assert c["leaves"] > 0 and c["in_dim_sharded"] > 0, c
@@ -4779,7 +5025,11 @@ def pods_phase(dev) -> dict:
        against the global bank's, admission bytes, hits and misses, and
        the mean step a rank beside one card's;
     3. ``python -m repro_torch.launch.serve --mesh 2,1,1 --pod-banks``
-       (reduced deepseek-7b) as a fresh process, run beside 1.
+       (reduced deepseek-7b) as a fresh process.
+
+    The three run at once (the full-width ranks' times are taken beside
+    the other two; the card's memory in use by every process on it is
+    sampled meanwhile).
 
     Returns {run label: [launches of each rank]}."""
     from repro_torch.kernels import build
@@ -4797,10 +5047,14 @@ def pods_phase(dev) -> dict:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=ROOT, start_new_session=True)
     try:
-        # 1. reduced, card against the CPU
+        # 1. reduced, card against the CPU, beside the full-width ranks
+        # (as in the mesh phase: the two wait on different things)
         t0 = time.perf_counter()
+        card = CardInUse(dev).start()
+        full = LM.start(pods_full_rank, POD_FULL_SHAPE, device="cuda",
+                        timeout_s=MESH_TIMEOUT_S)
         group = LM.start(pods_ref_rank, POD_REF_SHAPE, device="cuda",
-                         timeout_s=MESH_TIMEOUT_S)
+                         timeout_s=MESH_TIMEOUT_S, threads=REDUCED_THREADS)
         cfg, model, base, dms, axes = mesh_ref_setup("deepseek-7b")
         want = {}
         for bd in ("fp", "int8"):
@@ -4842,14 +5096,16 @@ def pods_phase(dev) -> dict:
               f" global {r0['global']['admit_bytes']}; "
               f"{time.perf_counter() - t0:.1f} s")
         # 2. full width on (2, 1, 1), then the same cold traffic on one card
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ranks = LM.spawn(pods_full_rank, POD_FULL_SHAPE, device="cuda",
-                         timeout_s=MESH_TIMEOUT_S)
+        ranks = full.join()
+        card.stop()
         print(f"pods full width {POD_FULL_SHAPE} ({ranks[0]['backend']}, "
               f"{sorted({g['device'] for g in ranks})}): "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"{time.perf_counter() - t0:.1f} s since the groups started; "
+              "the card's memory in use by every process on it, sampled "
+              f"every {card.period * 1e3:.0f} ms: peak {card.peak_gb:.2f} "
+              f"GB of {card.total_gb:.2f}")
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         single = pods_single_card(dev)
         print(f"pods full width: single-card run "

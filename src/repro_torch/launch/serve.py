@@ -56,7 +56,8 @@ explicit SPMD, ``distributed/sharding``): under ``torchrun``
 (``WORLD_SIZE`` set) this process is one rank, else the launcher starts
 the ranks itself (``launch.mesh.spawn``: NCCL when every rank has a card
 of its own, else gloo over shared card 0) and checks that every rank
-served the same tokens.  ``--kernel-dispatch`` picks per-rank
+served the same tokens; every ``--arch`` serves there.
+``--kernel-dispatch`` picks per-rank
 kernels (``shard_map``, the default) or the gathered global kernels
 (``gspmd``).  ``--base-dtype int8`` and ``--updates`` serve under a mesh as
 on one device (each rank quantizes its blocks to the single-device bytes;

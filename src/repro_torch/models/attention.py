@@ -15,13 +15,34 @@ step).
 
 On a mesh (``distributed/sharding.py``) the head layout follows the JAX
 module's strategies by divisibility against the "model" axis
-(:func:`head_split`): head-TP when both head counts divide it (each rank
-holds whole q and KV heads, and its KV cache its own KV heads), or GQA
-with q heads sharded and K/V all-gathered once a layer when only the q
-heads divide (the cache then holds every KV head, and rank r's local q
-head j reads KV head (r·hq/M + j) // group: :func:`local_kv`).  The
-sequence-TP branch (q heads that do not divide) is a later slice and
-raises.
+(:func:`head_split`, in the JAX branch order): head-TP when both head
+counts divide it (each rank holds whole q and KV heads, and its KV cache
+its own KV heads); GQA with q heads sharded and K/V all-gathered once a
+layer when only the q heads divide (the cache then holds every KV head,
+and rank r's local q head j reads KV head (r·hq/M + j) // group:
+:func:`local_kv`); sequence-TP when the q heads do not divide and the
+sequence does (forward-only rules, as serving's always are); else the
+flat-``q_dim`` shard or, at s = 1, the unconstrained decode case, which
+the port lays out alike ("whole").  Under explicit SPMD every branch
+needs a concrete layout (:func:`layout_qkv`, :func:`attend`,
+:func:`attn_out`):
+
+* "seq": the ``wq`` product's block, cut across head boundaries by the
+  divisibility fallback on ``q_dim``, is all-gathered over "model" and the
+  rank keeps its q-sequence rows (rows r·S/M .. (r+1)·S/M, whole
+  features); K/V are made whole the same way, and each rank attends its
+  own rows with the causal mask offset by its first row.  The output rows
+  are all-gathered and the rank keeps the ``wo`` product's K-tile before
+  the row-parallel psum;
+* "whole" (JAX's flat-``q_dim`` branch, a length that does not split,
+  and decode at s = 1): q, K and V are gathered whole and every rank
+  attends every head — the same numbers as one device, since a contraction over a
+  sharded head dim would psum whole logits — and keeps ``wo``'s K-tile.
+
+Outside head-TP the cache holds every KV head (:func:`local_kv_heads`).
+The gathers are all-gathers followed by a slice (no all-to-all): the
+collectives the port already has, at the price of moving the whole q
+once a layer.
 """
 from __future__ import annotations
 
@@ -47,10 +68,15 @@ def attn_init(gen: torch.Generator, cfg) -> dict:
     return p
 
 
-def head_split(cfg) -> str:
-    """The attention layout on the active mesh: "none" (no model axis),
-    "heads" (head-TP) or "gqa" (q heads sharded, K/V whole)."""
-    from repro_torch.distributed.sharding import ctx_axis_size
+def head_split(cfg, s=None) -> str:
+    """The attention layout on the active mesh, in the JAX module's branch
+    order: "none" (no model axis), "heads" (head-TP), "gqa" (q heads
+    sharded, K/V whole), "seq" (sequence-TP: the q heads do not divide,
+    the length ``s`` > 1 does, and the rules are forward-only or ``q_dim``
+    does not divide either) or "whole" (JAX's flat-``q_dim`` shard, s = 1
+    or an unknown ``s``: every head on every rank)."""
+    from repro_torch.distributed.sharding import (ctx_axis_size,
+                                                  ctx_forward_only)
     ms = ctx_axis_size("model") or 1
     if ms == 1:
         return "none"
@@ -58,10 +84,10 @@ def head_split(cfg) -> str:
         return "heads"
     if cfg.num_heads % ms == 0:
         return "gqa"
-    raise NotImplementedError(
-        f"{cfg.num_heads} q heads do not divide a model axis of {ms}: "
-        "sequence-TP attention arrives with the slice that serves the "
-        "other families under a mesh")
+    if (s is not None and s > 1 and s % ms == 0
+            and (ctx_forward_only() or cfg.q_dim % ms)):
+        return "seq"
+    return "whole"
 
 
 def local_kv_heads(cfg) -> int:
@@ -89,37 +115,67 @@ def local_kv(t: torch.Tensor, cfg) -> torch.Tensor:
     return t.index_select(2, idx)
 
 
-def _whole_heads(t: torch.Tensor, w) -> torch.Tensor:
-    """A K/V projection output made whole over the model axis when its
-    weight's out dim was sharded (cut across head boundaries when the KV
-    heads do not divide)."""
-    from repro_torch.distributed import sharding as S
-    lay = S.active_layout()
-    if lay is None:
-        return t
-    wq = w.q if hasattr(w, "q") else w
-    _, (o_part, _) = lay.lookup(("kv_heads", "embed"), tuple(wq.shape[-2:]))
-    if o_part is None:
-        return t
-    return S.all_gather(t, o_part, t.dim() - 1)
+def seq_rows(cfg, s: int, split: str) -> tuple:
+    """(first, count) of the q rows a rank attends: its block of the
+    ``s`` rows under "seq", every row otherwise."""
+    if split != "seq":
+        return 0, s
+    from repro_torch.distributed.sharding import active_mesh
+    mesh = active_mesh()
+    n = s // mesh.axis_size("model")
+    return mesh.coord("model") * n, n
+
+
+def whole_kv(p: dict, k: torch.Tensor, v: torch.Tensor, split: str):
+    """The ``wk``/``wv`` products (the rank's blocks of their out dims) as
+    ``split`` holds K/V: the rank's heads under "none" and "heads", every
+    head otherwise."""
+    from repro_torch.models.layers import gather_out
+    if split in ("none", "heads"):
+        return k, v
+    return (gather_out(k, p["wk"], ("kv_heads", "embed")),
+            gather_out(v, p["wv"], ("kv_heads", "embed")))
+
+
+def whole_q(p: dict, q: torch.Tensor, split: str) -> torch.Tensor:
+    """The ``wq`` product (the rank's block) as ``split`` holds q before
+    its rows are cut: the rank's heads under "none", "heads" and "gqa",
+    every head otherwise."""
+    from repro_torch.models.layers import gather_out
+    if split in ("none", "heads", "gqa"):
+        return q
+    return gather_out(q, p["wq"], ("q_heads", "embed"))
+
+
+def layout_qkv(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               cfg, split: str):
+    """The flat (B, S, features) products of ``wq``/``wk``/``wv`` (the
+    rank's blocks of their out dims) in ``split``'s layout
+    (:func:`whole_q`, :func:`whole_kv`), q cut to the rank's rows under
+    "seq"."""
+    k, v = whole_kv(p, k, v, split)
+    q = whole_q(p, q, split)
+    lo, n = seq_rows(cfg, q.shape[1], split)
+    return q[:, lo:lo + n], k, v
 
 
 def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-                theta, ov=None, vidx=None):
+                theta, ov=None, vidx=None, split=None):
     """x (B,S,D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), qk-normed, RoPE'd.
     ``vidx`` (B,) selects each row's bank slot of a banked overlay.  On a
-    mesh Hq and Hkv are the rank's (:func:`head_split`)."""
+    mesh the heads and q rows are those of ``split`` (default
+    :func:`head_split` of this length; under "seq" q holds the rank's rows,
+    RoPE'd at their positions)."""
     b, s, _ = x.shape
-    split = head_split(cfg)
+    split = head_split(cfg, s) if split is None else split
     q = linear(x, p["wq"], _oget(ov, "wq"), vidx, waxes=("q_heads", "embed"))
     k = linear(x, p["wk"], _oget(ov, "wk"), vidx,
                waxes=("kv_heads", "embed"))
     v = linear(x, p["wv"], _oget(ov, "wv"), vidx,
                waxes=("kv_heads", "embed"))
-    if split == "gqa":
-        k = _whole_heads(k, p["wk"])
-        v = _whole_heads(v, p["wv"])
-    q = q.reshape(b, s, -1, cfg.head_dim)
+    q, k, v = layout_qkv(p, q, k, v, cfg, split)
+    lo, n = seq_rows(cfg, s, split)
+    q = q.reshape(b, n, -1, cfg.head_dim)
     k = k.reshape(b, s, -1, cfg.head_dim)
     v = v.reshape(b, s, -1, cfg.head_dim)
     if cfg.qk_norm:
@@ -128,9 +184,36 @@ def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
         k = rmsnorm(k, psel(p["k_norm"], _oget(ov, "k_norm"), vidx, lead=2),
                     cfg.norm_eps)
     if theta is not None:
-        q = apply_rope(q, positions, theta)
+        q = apply_rope(q, positions[..., lo:lo + n], theta)
         k = apply_rope(k, positions, theta)
     return q, k, v
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
+           split: str, s: int, window: int = 0) -> torch.Tensor:
+    """Causal :func:`flash_attention` of q (the rank's rows and heads of
+    ``s`` rows) against whole-length K/V in ``split``'s layout: GQA reads
+    its KV heads through :func:`local_kv`, sequence-TP offsets the mask by
+    the rank's first row."""
+    lo, _ = seq_rows(cfg, s, split)
+    return flash_attention(q, local_kv(k, cfg), local_kv(v, cfg),
+                           window=window, q_offset=lo)
+
+
+def attn_out(o: torch.Tensor, cfg, split: str, w_o) -> torch.Tensor:
+    """The attention output (B, rows, heads, hd) as the ``wo`` product's
+    input (B, S, K-tile): the local heads' features under "none", "heads"
+    and "gqa"; otherwise the rows made whole (all-gathered under "seq")
+    and the rank's K-tile of the features kept."""
+    b = o.shape[0]
+    o = o.reshape(b, o.shape[1], -1)
+    if split in ("none", "heads", "gqa"):
+        return o
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models.layers import rank_block, weight_parts
+    if split == "seq":
+        o = S.all_gather(o, "model", 1)
+    return rank_block(o, weight_parts(w_o, ("embed", "q_heads"))[1])
 
 
 # ---------------------------------------------------------------------------

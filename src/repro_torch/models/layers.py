@@ -79,13 +79,76 @@ def linear(x: torch.Tensor, w: torch.Tensor, ov=None, vidx=None,
 def _contracted_axes(w, waxes):
     """The mesh axes that shard the weight's in dim under the active mesh
     (each rank then holds a partial contraction), or None."""
+    return weight_parts(w, waxes)[1]
+
+
+def weight_parts(w, waxes) -> tuple:
+    """(out part, in part): the mesh axes that split the weight's out and
+    in dims under the active mesh (its placement), (None, None) off a
+    mesh."""
     from repro_torch.distributed import sharding as S
     lay = S.active_layout()
     if waxes is None or lay is None:
-        return None
+        return None, None
     wq = w.q if is_quant(w) else w
-    _, (_, i_part) = lay.lookup(tuple(waxes[-2:]), tuple(wq.shape[-2:]))
-    return i_part
+    return lay.lookup(tuple(waxes[-2:]), tuple(wq.shape[-2:]))[1]
+
+
+def gather_out(y: torch.Tensor, w, waxes) -> torch.Tensor:
+    """A product's output made whole over the mesh axes that split its
+    weight's out dim (``y`` itself when they split nothing)."""
+    from repro_torch.distributed import sharding as S
+    o_part = weight_parts(w, waxes)[0]
+    return y if o_part is None else S.all_gather(y, o_part, y.dim() - 1)
+
+
+def rank_block(t: torch.Tensor, part, dim: int = -1) -> torch.Tensor:
+    """This rank's block of dim ``dim`` of a tensor every rank holds whole
+    — a replicated per-head or per-channel vector, its banked ``psel``
+    form (B, ..., n), or an activation made whole — split over the mesh
+    axes ``part`` of the active mesh (``t`` itself for None)."""
+    from repro_torch.distributed import sharding as S
+    if part is None:
+        return t
+    mesh = S.active_mesh()
+    n = mesh.names_size(part)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {t.shape[dim]} does not split over {part}")
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.index(part) * size, size)
+
+
+def head_block(h: int, part) -> tuple:
+    """(first head, count) of the heads a rank runs when a per-head dim of
+    ``h`` heads is split over the mesh axes ``part``: its own; every head
+    for None, and when the rank's block would cut a head (``h`` does not
+    divide), so that the caller gathers the dim whole."""
+    from repro_torch.distributed import sharding as S
+    if part is None:
+        return 0, h
+    mesh = S.active_mesh()
+    n = mesh.names_size(part)
+    if h % n:
+        return 0, h
+    return mesh.index(part) * (h // n), h // n
+
+
+def dim_part(n: int, axis: str):
+    """The mesh axes that the active rules split a dim of ``n`` with
+    logical axis ``axis`` over (None off a mesh or when it stays whole):
+    the resolution that placed the weights, for the state a model sizes
+    before it sees one."""
+    from repro_torch.distributed import sharding as S
+    mesh, rules = S.active_mesh(), S.active_rules()
+    if mesh is None or rules is None:
+        return None
+    return S.resolve_spec((n,), (axis,), rules, mesh)[0]
+
+
+def local_size(n: int, part) -> int:
+    """The rank's share of a dim of ``n`` split over ``part``."""
+    from repro_torch.distributed import sharding as S
+    return n if part is None else n // S.active_mesh().names_size(part)
 
 
 def vocab_shard(table: torch.Tensor):
@@ -93,10 +156,7 @@ def vocab_shard(table: torch.Tensor):
     (vocab, d) table under the active mesh; (0, None) when the table is
     whole."""
     from repro_torch.distributed import sharding as S
-    lay = S.active_layout()
-    if lay is None:
-        return 0, None
-    _, (v_part, _) = lay.lookup(("vocab", "embed"), tuple(table.shape[-2:]))
+    v_part = weight_parts(table, ("vocab", "embed"))[0]
     if v_part is None:
         return 0, None
     return S.active_mesh().index(v_part) * table.shape[-2], v_part
@@ -172,10 +232,24 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
+            eps: float = 1e-6, part=None) -> torch.Tensor:
     """RMSNorm with fp32 statistics and an x.dtype data path; its backward
-    is the hand-written one of :class:`_RMSNorm`."""
-    return _RMSNorm.apply(x, scale, eps)
+    is the hand-written one of :class:`_RMSNorm`.
+
+    ``part`` (mesh axes) normalises over a feature dim that those axes
+    split: ``x`` and ``scale`` are the rank's blocks, and the fp32 sum of
+    squares is summed over the ranks before the rsqrt, so every rank
+    divides by the whole dim's mean square, as one device does (zamba's
+    ``gate_norm`` over the whole ``d_inner``).  Forward only: serving is
+    the one path that splits a normalised dim."""
+    if part is None:
+        return _RMSNorm.apply(x, scale, eps)
+    from repro_torch.distributed import sharding as S
+    xf = x.to(torch.float32)
+    ss = S.psum((xf * xf).sum(dim=-1, keepdim=True), part)
+    n = x.shape[-1] * S.active_mesh().names_size(part)
+    inv = torch.rsqrt(ss / n + eps)
+    return x * inv.to(x.dtype) * scale.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

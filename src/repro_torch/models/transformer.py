@@ -142,11 +142,11 @@ def block_apply(p, x, cfg, positions, theta, window, io=None, ov=None,
     projection outputs."""
     ov_a = oget(ov, "attn")
     h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1"), vidx), cfg.norm_eps)
+    split = A.head_split(cfg, x.shape[1])
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions, theta, ov=ov_a,
-                            vidx=vidx)
-    o = A.flash_attention(q, A.local_kv(k, cfg), A.local_kv(v, cfg),
-                          causal=True, window=window)
-    o = o.reshape(*x.shape[:-1], -1)
+                            vidx=vidx, split=split)
+    o = A.attn_out(A.attend(q, k, v, cfg, split, x.shape[1], window=window),
+                   cfg, split, p["attn"]["wo"])
     wo_out = linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx,
                     waxes=("embed", "q_heads"))
     if io is not None:
@@ -341,7 +341,7 @@ def _decode_block_stacked(p, x, cfg, caches, idx, pat_entry, pos, ov=None,
     o = A.decode_attention(q, A.local_kv(view["k"], cfg),
                            A.local_kv(view["v"], cfg), view["slot_pos"], pos,
                            window=window)
-    o = o.reshape(*x.shape[:-1], -1)
+    o = A.attn_out(o, cfg, A.head_split(cfg, 1), p["attn"]["wo"])
     x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx,
                    waxes=("embed", "q_heads"))
     return _ffn_part(p, x, cfg, ov=ov, vidx=vidx)[0]
@@ -393,14 +393,17 @@ def _verify_block_stacked(p, x, cfg, caches, idx, pat_entry, pos, ov=None,
     h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1"), vidx), cfg.norm_eps)
     positions = (pos.to(torch.int32)[:, None]
                  + torch.arange(t, dtype=torch.int32, device=x.device))
+    # every q row reads the cache: no sequence-TP
+    split = A.head_split(cfg)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions,
-                            pat_entry["theta"], ov=ov_a, vidx=vidx)
+                            pat_entry["theta"], ov=ov_a, vidx=vidx,
+                            split=split)
     A.cache_insert_stacked_multi(caches, idx, k, v, pos)
     view = A.cache_layer_view(caches, idx)
     o = A.verify_attention(q, A.local_kv(view["k"], cfg),
                            A.local_kv(view["v"], cfg), view["slot_pos"], pos,
                            window=0)
-    o = o.reshape(*x.shape[:-1], -1)
+    o = A.attn_out(o, cfg, split, p["attn"]["wo"])
     x = x + linear(o, p["attn"]["wo"], oget(ov_a, "wo"), vidx,
                    waxes=("embed", "q_heads"))
     return _ffn_part(p, x, cfg, ov=ov, vidx=vidx)[0]

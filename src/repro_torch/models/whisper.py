@@ -19,6 +19,14 @@ take KV chunks of the largest divisor of the frame count up to 512
 halves 512 down to a divisor (4 for 1500 frames); only the summation
 order differs.
 
+On a mesh every projection names its weight's logical axes (``waxes``,
+the JAX module's), so the delta GEMMs run per rank; the attentions take
+``attention.head_split``'s layout (head-TP when the heads divide the model
+axis, as the JAX ``_qkv``; sequence-TP or whole heads otherwise), the
+self and cross K/V caches hold the rank's heads, the tied embedding and
+logits are vocab-sharded as the transformer's, and the encoder's frames
+stay whole on every rank.
+
 ``verify_step`` serves the speculative verify; its rewind is
 ``transformer.rewind_cache`` (the self cache masks slots past ``pos``).
 """
@@ -63,15 +71,35 @@ def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return t.reshape(*t.shape[:2], n, hd)
 
 
-def _qkv(p, xq, xkv, cfg, ov=None, vidx=None):
+def _qkv(p, xq, xkv, cfg, split, ov=None, vidx=None):
     """q (B,S,Hq,hd) from ``xq``, k/v (B,T,Hkv,hd) from ``xkv``, each
-    projection cast to ``xq``'s dtype."""
-    q = linear(xq, p["wq"], oget(ov, "wq"), vidx).to(xq.dtype)
-    k = linear(xkv, p["wk"], oget(ov, "wk"), vidx).to(xq.dtype)
-    v = linear(xkv, p["wv"], oget(ov, "wv"), vidx).to(xq.dtype)
-    return (_heads(q, cfg.num_heads, cfg.head_dim),
-            _heads(k, cfg.num_kv_heads, cfg.head_dim),
-            _heads(v, cfg.num_kv_heads, cfg.head_dim))
+    projection cast to ``xq``'s dtype, in ``split``'s layout on a mesh
+    (``attention.head_split`` of the q length: head-TP when the heads
+    divide the model axis, as the JAX ``_qkv``; else sequence-TP over the
+    q rows or whole heads, with K/V whole)."""
+    q = linear(xq, p["wq"], oget(ov, "wq"), vidx,
+               waxes=("q_heads", "embed")).to(xq.dtype)
+    k = linear(xkv, p["wk"], oget(ov, "wk"), vidx,
+               waxes=("kv_heads", "embed")).to(xq.dtype)
+    v = linear(xkv, p["wv"], oget(ov, "wv"), vidx,
+               waxes=("kv_heads", "embed")).to(xq.dtype)
+    q, k, v = A.layout_qkv(p, q, k, v, cfg, split)
+    return (_heads(q, -1, cfg.head_dim), _heads(k, -1, cfg.head_dim),
+            _heads(v, -1, cfg.head_dim))
+
+
+def _attention(p, xq, xkv, cfg, causal, ov=None, vidx=None):
+    """-> (the ``wo`` product's input (B,S,K-tile), q, k, v): attention of
+    ``xq`` over ``xkv``, causal or over every key (:func:`_full_attention`:
+    the encoder's and the cross-attention)."""
+    s = xq.shape[1]
+    split = A.head_split(cfg, s)
+    q, k, v = _qkv(p, xq, xkv, cfg, split, ov=ov, vidx=vidx)
+    if causal:
+        o = A.attend(q, k, v, cfg, split, s)
+    else:
+        o = _full_attention(q, A.local_kv(k, cfg), A.local_kv(v, cfg))
+    return A.attn_out(o, cfg, split, p["wo"]), q, k, v
 
 
 def _full_attention(q, k, v):
@@ -85,11 +113,14 @@ def _mlp_part(lp, h, cfg, io=None, ov=None, vidx=None):
     and w_out's, as the JAX module does."""
     ov_m = oget(ov, "mlp")
     hm = rmsnorm(h, psel(lp["ln2"], oget(ov, "ln2"), vidx), cfg.norm_eps)
-    mid = gelu(linear(hm, lp["mlp"]["w_in"], oget(ov_m, "w_in"), vidx))
-    out = linear(mid, lp["mlp"]["w_out"], oget(ov_m, "w_out"), vidx)
+    mid = gelu(linear(hm, lp["mlp"]["w_in"], oget(ov_m, "w_in"), vidx,
+                      waxes=("ffn", "embed")))
+    out = linear(mid, lp["mlp"]["w_out"], oget(ov_m, "w_out"), vidx,
+                 waxes=("embed", "ffn"))
     if io is not None:
         io["mlp.w_in"] = (hm, linear(hm, lp["mlp"]["w_in"],
-                                     oget(ov_m, "w_in"), vidx))
+                                     oget(ov_m, "w_in"), vidx,
+                                     waxes=("ffn", "embed")))
         io["mlp.w_out"] = (mid, out)
     return h + out
 
@@ -115,10 +146,11 @@ def _enc_block(lp, x, cfg, io=None, ovl=None, vidx=None):
     """One encoder layer: bidirectional self-attention, then the MLP."""
     ov_a = oget(ovl, "attn")
     hn = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx), cfg.norm_eps)
-    q, k, v = _qkv(lp["attn"], hn, hn, cfg, ov=ov_a, vidx=vidx)
+    o, q, k, v = _attention(lp["attn"], hn, hn, cfg, False, ov=ov_a,
+                            vidx=vidx)
     b, f, _ = hn.shape
-    o = _full_attention(q, k, v).reshape(b, f, cfg.q_dim)
-    wo_out = linear(o, lp["attn"]["wo"], oget(ov_a, "wo"), vidx)
+    wo_out = linear(o, lp["attn"]["wo"], oget(ov_a, "wo"), vidx,
+                    waxes=("embed", "q_heads"))
     if io is not None:
         io["attn.wq"] = (hn, q.reshape(b, f, -1))
         io["attn.wk"] = (hn, k.reshape(b, f, -1))
@@ -153,9 +185,10 @@ def _dec_block(lp, x, enc_out, cfg, io=None, ovl=None, vidx=None):
     b, s, _ = x.shape
     ov_s = oget(ovl, "self_attn")
     hs = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx), cfg.norm_eps)
-    q, k, v = _qkv(lp["self_attn"], hs, hs, cfg, ov=ov_s, vidx=vidx)
-    o = A.flash_attention(q, k, v, causal=True).reshape(b, s, cfg.q_dim)
-    wo_out = linear(o, lp["self_attn"]["wo"], oget(ov_s, "wo"), vidx)
+    o, q, k, v = _attention(lp["self_attn"], hs, hs, cfg, True, ov=ov_s,
+                            vidx=vidx)
+    wo_out = linear(o, lp["self_attn"]["wo"], oget(ov_s, "wo"), vidx,
+                    waxes=("embed", "q_heads"))
     if io is not None:
         io["self_attn.wq"] = (hs, q.reshape(b, s, -1))
         io["self_attn.wk"] = (hs, k.reshape(b, s, -1))
@@ -164,9 +197,10 @@ def _dec_block(lp, x, enc_out, cfg, io=None, ovl=None, vidx=None):
     x = x + wo_out
     ov_x = oget(ovl, "cross_attn")
     hx = rmsnorm(x, psel(lp["ln_x"], oget(ovl, "ln_x"), vidx), cfg.norm_eps)
-    qx, kx, vx = _qkv(lp["cross_attn"], hx, enc_out, cfg, ov=ov_x, vidx=vidx)
-    ox = _full_attention(qx, kx, vx).reshape(b, s, cfg.q_dim)
-    xo_out = linear(ox, lp["cross_attn"]["wo"], oget(ov_x, "wo"), vidx)
+    ox, qx, kx, vx = _attention(lp["cross_attn"], hx, enc_out, cfg, False,
+                                ov=ov_x, vidx=vidx)
+    xo_out = linear(ox, lp["cross_attn"]["wo"], oget(ov_x, "wo"), vidx,
+                    waxes=("embed", "q_heads"))
     if io is not None:
         f = enc_out.shape[1]
         io["cross_attn.wq"] = (hx, qx.reshape(b, s, -1))
@@ -230,11 +264,11 @@ def init_cache(cfg, batch: int, max_len: int, device,
                dtype=torch.bfloat16) -> dict:
     """{"pos": (B,) int32, "self": the decoder's stacked (L, B, max_len,
     Hkv, hd) self-attention cache, "cross_k"/"cross_v": (L, B, F, Hkv,
-    hd) projections of the encoder output}."""
-    one = A.make_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
-                          device, dtype)
-    cross = (cfg.num_layers, batch, cfg.encoder_frames, cfg.num_kv_heads,
-             cfg.head_dim)
+    hd) projections of the encoder output}.  On a mesh Hkv is the rank's
+    (``attention.local_kv_heads``): its own heads under head-TP."""
+    hkv = A.local_kv_heads(cfg)
+    one = A.make_kv_cache(batch, max_len, hkv, cfg.head_dim, device, dtype)
+    cross = (cfg.num_layers, batch, cfg.encoder_frames, hkv, cfg.head_dim)
     return {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
         "self": {k: v.expand((cfg.num_layers,) + v.shape).clone()
@@ -256,7 +290,8 @@ def prefill(params, batch, cfg, max_len: int, cache_dtype=torch.bfloat16,
             overlay=None, variant_idx=None):
     """Teacher-forced pass over the prompt and the frames; returns
     (last_logits, cache).  The cross-attention K/V are projected once from
-    the encoder output, through the overlay like every projection."""
+    the encoder output, through the overlay like every projection (the
+    rank's heads on a mesh, or every head outside head-TP)."""
     vidx = variant_idx
     logits, aux = forward(params, batch, cfg, collect_kv=True,
                           overlay=overlay, variant_idx=vidx)
@@ -268,31 +303,35 @@ def prefill(params, batch, cfg, max_len: int, cache_dtype=torch.bfloat16,
                        v_all[i], 0)
     enc_out = aux["enc_out"]
     ov_layers = oget(overlay, "dec_layers")
+    split = A.head_split(cfg)
     for i in range(cfg.num_layers):
         lp = _layer(params["dec_layers"], i)["cross_attn"]
         ov_x = oget(_layer(ov_layers, i), "cross_attn")
-        k = linear(enc_out, lp["wk"], oget(ov_x, "wk"), vidx)
-        v = linear(enc_out, lp["wv"], oget(ov_x, "wv"), vidx)
-        cache["cross_k"][i] = _heads(k, cfg.num_kv_heads,
-                                     cfg.head_dim).to(cache_dtype)
-        cache["cross_v"][i] = _heads(v, cfg.num_kv_heads,
-                                     cfg.head_dim).to(cache_dtype)
+        k = linear(enc_out, lp["wk"], oget(ov_x, "wk"), vidx,
+                   waxes=("kv_heads", "embed"))
+        v = linear(enc_out, lp["wv"], oget(ov_x, "wv"), vidx,
+                   waxes=("kv_heads", "embed"))
+        k, v = A.whole_kv(lp, k, v, split)
+        cache["cross_k"][i] = _heads(k, -1, cfg.head_dim).to(cache_dtype)
+        cache["cross_v"][i] = _heads(v, -1, cfg.head_dim).to(cache_dtype)
     cache["pos"] = torch.full((b,), s, dtype=torch.int32,
                               device=logits.device)
     return logits[:, -1, :], cache
 
 
-def decode_step(params, token, cache, cfg, overlay=None, variant_idx=None):
-    """token (B,) -> (logits (B,V), cache advanced by one, updated in
-    place).  Self-attention reads the decoder cache; cross-attention sees
-    every frame (positions 0..F-1 against pos + F)."""
-    vidx = variant_idx
-    pos = cache["pos"]
-    b = token.shape[0]
-    x = embed_lookup(params["embed"], token[:, None], cfg.compute_dtype,
-                     bank=oget(overlay, "embed"), vidx=vidx)
-    table = sinusoid_table(cfg.max_seq_len, cfg.d_model, x.device)
-    x = x + table[pos.to(torch.int64)][:, None, :].to(x.dtype)
+def _cached_layers(params, x, cache, cfg, pos, overlay, vidx,
+                   verify: bool) -> torch.Tensor:
+    """The decoder layers over the live cache for ``x`` (B, T, d) at
+    per-row positions ``pos``: T = 1 through ``attention.decode_attention``
+    or T teacher-forced queries through ``attention.verify_attention``
+    (the self cache written token by token); the cross-attention sees
+    every frame (positions 0..F-1 against pos + F + t).  On a mesh every
+    q row is the rank's (no sequence-TP over a cache)."""
+    b, s, _ = x.shape
+    split = A.head_split(cfg)
+    read = A.verify_attention if verify else A.decode_attention
+    insert = A.cache_insert_stacked_multi if verify \
+        else A.cache_insert_stacked
     frame_pos = torch.arange(cfg.encoder_frames, dtype=torch.int32,
                              device=x.device)
     ov_layers = oget(overlay, "dec_layers")
@@ -302,29 +341,46 @@ def decode_step(params, token, cache, cfg, overlay=None, variant_idx=None):
         ov_x = oget(ovl, "cross_attn")
         hs = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx),
                      cfg.norm_eps)
-        q, k, v = _qkv(lp["self_attn"], hs, hs, cfg, ov=ov_s, vidx=vidx)
-        A.cache_insert_stacked(cache["self"], i, k, v, pos)
+        q, k, v = _qkv(lp["self_attn"], hs, hs, cfg, split, ov=ov_s,
+                       vidx=vidx)
+        insert(cache["self"], i, k, v, pos)
         view = A.cache_layer_view(cache["self"], i)
-        o = A.decode_attention(q, view["k"], view["v"], view["slot_pos"],
-                               pos)
-        x = x + linear(o.reshape(b, 1, cfg.q_dim), lp["self_attn"]["wo"],
-                       oget(ov_s, "wo"), vidx)
+        o = read(q, view["k"], view["v"], view["slot_pos"], pos)
+        x = x + linear(A.attn_out(o, cfg, split, lp["self_attn"]["wo"]),
+                       lp["self_attn"]["wo"], oget(ov_s, "wo"), vidx,
+                       waxes=("embed", "q_heads"))
         hx = rmsnorm(x, psel(lp["ln_x"], oget(ovl, "ln_x"), vidx),
                      cfg.norm_eps)
-        qx = _heads(linear(hx, lp["cross_attn"]["wq"], oget(ov_x, "wq"),
-                           vidx), cfg.num_heads, cfg.head_dim)
-        ox = A.decode_attention(qx, cache["cross_k"][i], cache["cross_v"][i],
-                                frame_pos, pos + cfg.encoder_frames)
-        x = x + linear(ox.reshape(b, 1, cfg.q_dim), lp["cross_attn"]["wo"],
-                       oget(ov_x, "wo"), vidx)
+        qx = linear(hx, lp["cross_attn"]["wq"], oget(ov_x, "wq"), vidx,
+                    waxes=("q_heads", "embed"))
+        qx = A.whole_q(lp["cross_attn"], qx, split)
+        ox = read(_heads(qx, -1, cfg.head_dim), cache["cross_k"][i],
+                  cache["cross_v"][i], frame_pos, pos + cfg.encoder_frames)
+        x = x + linear(A.attn_out(ox, cfg, split, lp["cross_attn"]["wo"]),
+                       lp["cross_attn"]["wo"], oget(ov_x, "wo"), vidx,
+                       waxes=("embed", "q_heads"))
         x = x + mlp2_apply(lp["mlp"],
                            rmsnorm(x, psel(lp["ln2"], oget(ovl, "ln2"),
                                            vidx), cfg.norm_eps),
                            ov=oget(ovl, "mlp"), vidx=vidx)
     x = rmsnorm(x, psel(params["dec_norm"], oget(overlay, "dec_norm"),
                         vidx), cfg.norm_eps)
-    logits = unembed_logits(x, params["embed"],
-                            bank=oget(overlay, "embed"), vidx=vidx)
+    return unembed_logits(x, params["embed"], bank=oget(overlay, "embed"),
+                          vidx=vidx)
+
+
+def decode_step(params, token, cache, cfg, overlay=None, variant_idx=None):
+    """token (B,) -> (logits (B,V), cache advanced by one, updated in
+    place).  Self-attention reads the decoder cache; cross-attention sees
+    every frame (positions 0..F-1 against pos + F)."""
+    vidx = variant_idx
+    pos = cache["pos"]
+    x = embed_lookup(params["embed"], token[:, None], cfg.compute_dtype,
+                     bank=oget(overlay, "embed"), vidx=vidx)
+    table = sinusoid_table(cfg.max_seq_len, cfg.d_model, x.device)
+    x = x + table[pos.to(torch.int64)][:, None, :].to(x.dtype)
+    logits = _cached_layers(params, x, cache, cfg, pos, overlay, vidx,
+                            verify=False)
     cache["pos"] = pos + 1
     return logits[:, 0, :], cache
 
@@ -339,44 +395,13 @@ def verify_step(params, tokens, cache, cfg, overlay=None, variant_idx=None):
     ``rewind_cache`` (the self cache has no window)."""
     vidx = variant_idx
     pos = cache["pos"]
-    b, s = tokens.shape
+    s = tokens.shape[1]
     x = embed_lookup(params["embed"], tokens, cfg.compute_dtype,
                      bank=oget(overlay, "embed"), vidx=vidx)
     table = sinusoid_table(cfg.max_seq_len, cfg.d_model, x.device)
     posn = pos.to(torch.int64)[:, None] + torch.arange(s, device=x.device)
     x = x + table[posn].to(x.dtype)
-    frame_pos = torch.arange(cfg.encoder_frames, dtype=torch.int32,
-                             device=x.device)
-    ov_layers = oget(overlay, "dec_layers")
-    for i in range(cfg.num_layers):
-        lp, ovl = _layer(params["dec_layers"], i), _layer(ov_layers, i)
-        ov_s = oget(ovl, "self_attn")
-        ov_x = oget(ovl, "cross_attn")
-        hs = rmsnorm(x, psel(lp["ln1"], oget(ovl, "ln1"), vidx),
-                     cfg.norm_eps)
-        q, k, v = _qkv(lp["self_attn"], hs, hs, cfg, ov=ov_s, vidx=vidx)
-        A.cache_insert_stacked_multi(cache["self"], i, k, v, pos)
-        view = A.cache_layer_view(cache["self"], i)
-        o = A.verify_attention(q, view["k"], view["v"], view["slot_pos"],
-                               pos)
-        x = x + linear(o.reshape(b, s, cfg.q_dim), lp["self_attn"]["wo"],
-                       oget(ov_s, "wo"), vidx)
-        hx = rmsnorm(x, psel(lp["ln_x"], oget(ovl, "ln_x"), vidx),
-                     cfg.norm_eps)
-        qx = _heads(linear(hx, lp["cross_attn"]["wq"], oget(ov_x, "wq"),
-                           vidx), cfg.num_heads, cfg.head_dim)
-        ox = A.verify_attention(qx, cache["cross_k"][i], cache["cross_v"][i],
-                                frame_pos, pos + cfg.encoder_frames)
-        x = x + linear(ox.reshape(b, s, cfg.q_dim), lp["cross_attn"]["wo"],
-                       oget(ov_x, "wo"), vidx)
-        x = x + mlp2_apply(lp["mlp"],
-                           rmsnorm(x, psel(lp["ln2"], oget(ovl, "ln2"),
-                                           vidx), cfg.norm_eps),
-                           ov=oget(ovl, "mlp"), vidx=vidx)
-    x = rmsnorm(x, psel(params["dec_norm"], oget(overlay, "dec_norm"),
-                        vidx), cfg.norm_eps)
-    logits = unembed_logits(x, params["embed"],
-                            bank=oget(overlay, "embed"), vidx=vidx)
+    logits = _cached_layers(params, x, cache, cfg, pos, overlay, vidx,
+                            verify=True)
     cache["pos"] = pos + s
     return logits, cache
-

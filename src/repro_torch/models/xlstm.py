@@ -18,6 +18,16 @@ so an overlay entry puts it through the delta kernels; the convs, the
 recurrent weights, the gate bias and the norms are extras, selected per
 row from a bank with ``psel``.
 
+On a mesh every projection names its weight's logical axes (``waxes``,
+the JAX module's): mLSTM's up/gate projections are column-parallel over
+``d_inner`` ("ssm"), its conv channel-local, and its cell runs the rank's
+heads (:func:`_mlstm_cell_in`: ``xc``/``xm`` gathered whole before the
+replicated-in ``wq``/``wk``/``wv``, ``w_if`` summed over the ranks);
+sLSTM's gate projections, recurrent weights and cell are replicated, so
+every rank runs that cell whole, and its fused gate/up FFN is gathered
+before the split (:func:`_slstm_post`).  The state holds the rank's
+heads and channels.
+
 The decode state is an explicit tree (``init_state``: fp32, independent
 of any length), which ``prefill`` returns and ``decode_step`` advances;
 the JAX module's quirks are kept: k is scaled by hd^-½ in the block and q
@@ -31,9 +41,11 @@ import torch.nn.functional as F
 
 from repro_torch.models import ssm
 from repro_torch.models.delta_overlay import oget
-from repro_torch.models.layers import (embed_init, embed_lookup, linear,
-                                       maybe_remat, psel, rmsnorm,
-                                       rmsnorm_init, unembed_logits)
+from repro_torch.models.layers import (dim_part, embed_init, embed_lookup,
+                                       gather_out, head_block, linear,
+                                       local_size, maybe_remat, psel,
+                                       rank_block, rmsnorm, rmsnorm_init,
+                                       unembed_logits, weight_parts)
 from repro_torch.models.param import (dense_init, ones_init, stack_layers,
                                       zeros_init)
 from repro_torch.models.transformer import _layer
@@ -131,76 +143,109 @@ def _mlstm_heads(cfg):
 
 
 def mlstm_block_state(cfg, batch: int, device) -> dict:
+    """One mLSTM layer's state; on a mesh the cell holds the rank's heads
+    (every head when its block of ``d_inner`` cuts one) and the conv
+    window the rank's channels."""
     h, hd = _mlstm_heads(cfg)
-    return {"cell": ssm.mlstm_init_state(batch, h, hd, device),
-            "conv": torch.zeros((batch, cfg.ssm_conv - 1, 2 * cfg.d_model),
+    di = 2 * cfg.d_model
+    part = dim_part(di, "ssm")
+    return {"cell": ssm.mlstm_init_state(batch, head_block(h, part)[1], hd,
+                                         device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1,
+                                 local_size(di, part)),
                                 dtype=F32, device=device)}
 
 
 def _mlstm_pre(p, x, cfg, ov=None, vidx=None):
-    """Projection work shared by the sequence and step paths (pre-conv)."""
+    """Projection work shared by the sequence and step paths (pre-conv):
+    the rank's channels of ``d_inner`` on a mesh."""
     xi = rmsnorm(x, psel(p["ln"], oget(ov, "ln"), vidx), cfg.norm_eps)
-    xm = linear(xi, p["w_up"], oget(ov, "w_up"), vidx)
-    z = linear(xi, p["w_gate"], oget(ov, "w_gate"), vidx)
+    xm = linear(xi, p["w_up"], oget(ov, "w_up"), vidx,
+                waxes=("ssm", "embed"))
+    z = linear(xi, p["w_gate"], oget(ov, "w_gate"), vidx,
+               waxes=("ssm", "embed"))
     return xm, z
 
 
-def _mlstm_qkv_gates(p, xc, xm, x, cfg, lead, ov=None, vidx=None):
-    """q, k (scaled by hd^-½), v reshaped to ``lead`` + (H, hd), and the
-    (i, f) gate pre-activations (..., H)."""
+def _mlstm_cell_in(p, xc, xm, x, cfg, lead, ov=None, vidx=None):
+    """q, k (scaled by hd^-½), v reshaped to ``lead`` + (H, hd), the
+    (i, f) gate pre-activations (..., H) and the (first head, count) they
+    hold.  On a mesh ``xc``/``xm`` are the rank's channels: they are
+    gathered whole for ``wq``/``wk``/``wv`` (whole in dim, out dim split),
+    while ``w_if`` contracts the rank's channels and is summed over the
+    ranks; each rank keeps its heads' q, k, v and gates, or every head
+    (q, k and v gathered) when its block cuts one."""
     hcount, hd = _mlstm_heads(cfg)
-    q = linear(xc, p["wq"], oget(ov, "wq"), vidx).reshape(*lead, hcount, hd)
-    k = _weak(linear(xc, p["wk"], oget(ov, "wk"), vidx).reshape(
-        *lead, hcount, hd), hd ** -0.5)
-    v = linear(xm, p["wv"], oget(ov, "wv"), vidx).reshape(*lead, hcount, hd)
-    gates = (linear(xc, p["w_if"], oget(ov, "w_if"), vidx)
+    part = weight_parts(p["wq"], ("ssm", None))[0]
+    h0, hl = head_block(hcount, part)
+    xc_w = gather_out(xc, p["w_up"], ("ssm", "embed"))
+    xm_w = gather_out(xm, p["w_up"], ("ssm", "embed"))
+
+    def proj(key, src):
+        y = linear(src, p[key], oget(ov, key), vidx, waxes=("ssm", None))
+        if hl == hcount:
+            y = gather_out(y, p[key], ("ssm", None))
+        return y.reshape(*lead, hl, hd)
+    q = proj("wq", xc_w)
+    k = _weak(proj("wk", xc_w), hd ** -0.5)
+    v = proj("wv", xm_w)
+    gates = (linear(xc, p["w_if"], oget(ov, "w_if"), vidx,
+                    waxes=(None, "ssm"))
              + psel(p["b_if"], oget(ov, "b_if"), vidx).to(x.dtype))
-    return q, k, v, gates
+    ig, fg = (g.narrow(-1, h0, hl) for g in gates.chunk(2, dim=-1))
+    return q, k, v, ig, fg, (h0, hl)
 
 
-def _out_norm_scale(p, ov, vidx, b, hcount, hd):
+def _out_norm_scale(p, ov, vidx, b, hcount, hd, heads=None):
+    """The per-head output norm's scale (H, hd), or (B, 1, H, hd) per row
+    when banked; ``heads`` (first, count) keeps those heads."""
     on = oget(ov, "out_norm")
     if on is None or vidx is None:
-        return p["out_norm"].reshape(hcount, hd)
-    return on.index_select(0, vidx.to(torch.int64)).reshape(b, 1, hcount,
-                                                            hd)
+        sc = p["out_norm"].reshape(hcount, hd)
+    else:
+        sc = on.index_select(0, vidx.to(torch.int64)).reshape(b, 1, hcount,
+                                                              hd)
+    return sc if heads is None else sc.narrow(-2, *heads)
+
+
+def _mlstm_out(p, h, z, x, cfg, heads, ov=None, vidx=None):
+    """x + w_down(norm(h) ⊙ silu(z)) for the cell output h (B,S,H_l,hd):
+    per-head norm, then the rank's channels (its block of ``d_inner``,
+    sliced when the rank ran every head) as ``w_down``'s K-tile."""
+    b, s = x.shape[:2]
+    hcount, hd = _mlstm_heads(cfg)
+    h = rmsnorm(h, _out_norm_scale(p, ov, vidx, b, hcount, hd, heads),
+                cfg.norm_eps).reshape(b, s, -1)
+    if heads[1] == hcount:
+        h = rank_block(h, weight_parts(p["w_down"], ("embed", "ssm"))[1])
+    return x + linear(h * F.silu(z), p["w_down"], oget(ov, "w_down"), vidx,
+                      waxes=("embed", "ssm"))
 
 
 def mlstm_block_apply(p, x, cfg, state: dict, ov=None, vidx=None):
     """Sequence path: x (B,S,D) -> (y, new state)."""
     b, s, d = x.shape
-    hcount, hd = _mlstm_heads(cfg)
     xm, z = _mlstm_pre(p, x, cfg, ov=ov, vidx=vidx)
     xc = F.silu(causal_conv(xm, _rowsel(p, "conv", ov, vidx)))
-    q, k, v, gates = _mlstm_qkv_gates(p, xc, xm, x, cfg, (b, s), ov=ov,
-                                      vidx=vidx)
-    ig, fg = gates.chunk(2, dim=-1)                        # (B,S,H)
+    q, k, v, ig, fg, heads = _mlstm_cell_in(p, xc, xm, x, cfg, (b, s),
+                                            ov=ov, vidx=vidx)
     h_seq, cell = ssm.mlstm_chunkwise(q, k, v, ig, fg, state=state["cell"])
-    h_seq = rmsnorm(h_seq, _out_norm_scale(p, ov, vidx, b, hcount, hd),
-                    cfg.norm_eps)
-    y = linear(h_seq.reshape(b, s, 2 * d) * F.silu(z), p["w_down"],
-               oget(ov, "w_down"), vidx)
-    return x + y, {"cell": cell,
-                   "conv": _tail(state["conv"], xm, cfg.ssm_conv)}
+    return (_mlstm_out(p, h_seq, z, x, cfg, heads, ov=ov, vidx=vidx),
+            {"cell": cell, "conv": _tail(state["conv"], xm, cfg.ssm_conv)})
 
 
 def mlstm_block_step(p, x, cfg, state: dict, ov=None, vidx=None):
     """Decode path: x (B,1,D)."""
-    b, _, d = x.shape
-    hcount, hd = _mlstm_heads(cfg)
+    b = x.shape[0]
     xm, z = _mlstm_pre(p, x, cfg, ov=ov, vidx=vidx)
     conv_win, xc1 = conv_step(state["conv"].to(xm.dtype), xm[:, 0],
                               _rowsel(p, "conv", ov, vidx))
     xc = F.silu(xc1)[:, None, :]
-    q, k, v, gates = _mlstm_qkv_gates(p, xc, xm, x, cfg, (b,), ov=ov,
-                                      vidx=vidx)
-    ig, fg = gates[:, 0].chunk(2, dim=-1)
-    cell, h_t = ssm.mlstm_step(state["cell"], q, k, v, ig, fg)
-    h_t = rmsnorm(h_t.reshape(b, 1, hcount, hd),
-                  _out_norm_scale(p, ov, vidx, b, hcount, hd), cfg.norm_eps)
-    y = linear(h_t.reshape(b, 1, 2 * d) * F.silu(z), p["w_down"],
-               oget(ov, "w_down"), vidx)
-    return x + y, {"cell": cell, "conv": conv_win.to(F32)}
+    q, k, v, ig, fg, heads = _mlstm_cell_in(p, xc, xm, x, cfg, (b,),
+                                            ov=ov, vidx=vidx)
+    cell, h_t = ssm.mlstm_step(state["cell"], q, k, v, ig[:, 0], fg[:, 0])
+    return (_mlstm_out(p, h_t[:, None], z, x, cfg, heads, ov=ov, vidx=vidx),
+            {"cell": cell, "conv": conv_win.to(F32)})
 
 
 # ---------------------------------------------------------------------------
@@ -246,8 +291,10 @@ def _slstm_gate_pre(p, xi, xc, cfg, ov=None, vidx=None):
     b, s = xi.shape[:2]
     h = cfg.num_heads
     hd = cfg.d_model // h
-    zo = linear(xi, p["w_zi"], oget(ov, "w_zi"), vidx)
-    if_ = linear(xc, p["w_if"], oget(ov, "w_if"), vidx)
+    zo = linear(xi, p["w_zi"], oget(ov, "w_zi"), vidx,
+                waxes=(None, "embed"))
+    if_ = linear(xc, p["w_if"], oget(ov, "w_if"), vidx,
+                 waxes=(None, "embed"))
     zx, ox = zo.chunk(2, dim=-1)
     ix, fx = if_.chunk(2, dim=-1)
     return tuple(t.reshape(b, s, h, hd) for t in (zx, ix, fx, ox))
@@ -261,14 +308,23 @@ def _slstm_rec(p, ov, vidx):
 
 
 def _slstm_post(p, h_seq, x, cfg, ov=None, vidx=None):
+    """Per-head norm, then the gated FFN.  ``w_ff1`` is one fused
+    (2·ffn, d) gate/up projection, so on a mesh a rank's block of its out
+    dim is a contiguous slice of [gate; up], not matching gate and up
+    rows: the block is gathered whole, ``silu(gate) * up`` formed whole
+    and the rank keeps its K-tile of it for the row-parallel ``w_ff2``."""
     b, s = x.shape[:2]
     hn = rmsnorm(h_seq.reshape(b, s, cfg.d_model),
                  psel(p["out_norm"], oget(ov, "out_norm"), vidx),
                  cfg.norm_eps)
-    ff = linear(hn, p["w_ff1"], oget(ov, "w_ff1"), vidx)
+    ff = gather_out(linear(hn, p["w_ff1"], oget(ov, "w_ff1"), vidx,
+                           waxes=("ffn", "embed")),
+                    p["w_ff1"], ("ffn", "embed"))
     gate, up = ff.chunk(2, dim=-1)
-    return x + linear(F.silu(gate) * up, p["w_ff2"], oget(ov, "w_ff2"),
-                      vidx)
+    mid = rank_block(F.silu(gate) * up,
+                     weight_parts(p["w_ff2"], ("embed", "ffn"))[1])
+    return x + linear(mid, p["w_ff2"], oget(ov, "w_ff2"), vidx,
+                      waxes=("embed", "ffn"))
 
 
 def slstm_block_apply(p, x, cfg, state: dict, ov=None, vidx=None):

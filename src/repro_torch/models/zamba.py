@@ -17,6 +17,16 @@ convs are extras, selected per row from a bank with ``psel``.  The shared
 block's attention is the plain ``attention.flash_attention``, as the JAX
 module's is.
 
+On a mesh every projection names its weight's logical axes (``waxes``,
+the JAX module's): ``w_z``/``w_xc`` are column-parallel over ``d_inner``
+("ssm"), ``w_bc``/``w_dt`` replicated ("ffn_small"), ``w_out``
+row-parallel; ``conv_xc`` is channel-local and ``conv_bc`` replicated; the
+scan runs the rank's heads with dt, ``a_log``, ``dt_bias`` and ``d_skip``
+sliced to them, or every head when the rank's block cuts one
+(:func:`_ssd_in`); ``gate_norm`` normalises over the whole ``d_inner``
+(:func:`_mamba_post`).  The shared block's attention takes
+``attention.head_split``'s layout and its KV caches the rank's heads.
+
 Decode state (``init_state``): per Mamba layer the SSD state and two conv
 windows (fp32, O(1) in sequence), plus one KV cache per application point
 (``attn_kv``, stacked (n_super, B, max_len, Hkv, hd), updated in place).
@@ -32,10 +42,12 @@ import torch.nn.functional as F
 from repro_torch.models import attention as A
 from repro_torch.models import ssm
 from repro_torch.models.delta_overlay import oget
-from repro_torch.models.layers import (apply_rope, embed_init, embed_lookup,
-                                       linear, maybe_remat, mlp_apply,
-                                       mlp_init, psel, rmsnorm, rmsnorm_init,
-                                       unembed_logits)
+from repro_torch.models.layers import (dim_part, embed_init, embed_lookup,
+                                       gather_out, head_block, linear,
+                                       local_size, maybe_remat, mlp_apply,
+                                       mlp_init, psel, rank_block, rmsnorm,
+                                       rmsnorm_init, unembed_logits,
+                                       weight_parts)
 from repro_torch.models.param import (dense_init, ones_init, stack_layers,
                                       zeros_init)
 from repro_torch.models.transformer import _layer
@@ -81,10 +93,16 @@ def mamba_block_init(gen: torch.Generator, cfg) -> dict:
 
 
 def mamba_block_state(cfg, batch: int, device) -> dict:
+    """One Mamba2 layer's state; on a mesh the SSD state holds the rank's
+    heads (every head when its block of ``d_inner`` cuts one) and
+    ``conv_xc`` the rank's channels (``conv_bc`` is replicated)."""
     di, h, p, n = _dims(cfg)
     k = cfg.ssm_conv - 1
-    return {"ssm": ssm.mamba_init_state(batch, h, p, n, device),
-            "conv_xc": torch.zeros((batch, k, di), dtype=F32, device=device),
+    part = dim_part(di, "ssm")
+    return {"ssm": ssm.mamba_init_state(batch, head_block(h, part)[1], p, n,
+                                        device),
+            "conv_xc": torch.zeros((batch, k, local_size(di, part)),
+                                   dtype=F32, device=device),
             "conv_bc": torch.zeros((batch, k, 2 * n), dtype=F32,
                                    device=device)}
 
@@ -95,35 +113,71 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
                                           device=x.device))
 
 
+_WAXES = {"w_z": ("ssm", "embed"), "w_xc": ("ssm", "embed"),
+          "w_bc": ("ffn_small", "embed"), "w_dt": ("ffn_small", "embed")}
+
+
 def _mamba_proj(p, x, cfg, ov=None, vidx=None):
+    """z and x_c (the rank's channels of ``d_inner`` on a mesh), B/C and
+    dt (replicated: "ffn_small")."""
     xi = rmsnorm(x, psel(p["ln"], oget(ov, "ln"), vidx), cfg.norm_eps)
-    return tuple(linear(xi, p[k], oget(ov, k), vidx)
+    return tuple(linear(xi, p[k], oget(ov, k), vidx, waxes=_WAXES[k])
                  for k in ("w_z", "w_xc", "w_bc", "w_dt"))
 
 
-def _mamba_post(p, y, z, x, cfg, ov=None, vidx=None):
+def _ssd_in(p, xc, dt, cfg, lead, ov=None, vidx=None):
+    """The scan's inputs on a mesh: x_c as (..., H_l, P) heads, and dt,
+    ``a_log`` and ``d_skip`` sliced to those heads.  A rank whose block of
+    ``d_inner`` holds whole heads scans its own; one whose block cuts a
+    head (zamba's reduced 2 heads over a model axis of 4) gathers x_c
+    whole and scans every head, as GSPMD does for JAX's ``act_ssm``
+    fallback.  -> (x heads, dt, a_log, d_skip, (first head, count))."""
+    _, h, pp, _ = _dims(cfg)
+    part = weight_parts(p["w_xc"], ("ssm", "embed"))[0]
+    h0, hl = head_block(h, part)
+    if hl == h:
+        xc = gather_out(xc, p["w_xc"], ("ssm", "embed"))
+
+    def heads(t):
+        return t.narrow(-1, h0, hl)
+    return (xc.reshape(*lead, hl, pp), heads(dt),
+            heads(_rowsel(p, "a_log", ov, vidx)),
+            heads(_rowsel(p, "d_skip", ov, vidx)), (h0, hl))
+
+
+def _mamba_post(p, y, z, x, cfg, heads, ov=None, vidx=None):
+    """x + w_out(gate_norm(y ⊙ silu(z))): on a mesh the rank's channels
+    (sliced when the rank scanned every head) form ``w_out``'s K-tile, and
+    ``gate_norm`` normalises over the whole ``d_inner`` (its sum of squares
+    summed over the ranks: ``layers.rmsnorm(part=)``)."""
     b, s, _ = x.shape
-    di = 2 * cfg.d_model
-    y = y.reshape(b, s, di) * F.silu(z)
-    y = rmsnorm(y, psel(p["gate_norm"], oget(ov, "gate_norm"), vidx),
-                cfg.norm_eps)
-    return x + linear(y, p["w_out"], oget(ov, "w_out"), vidx)
+    _, h, _, _ = _dims(cfg)
+    part = weight_parts(p["w_out"], ("embed", "ssm"))[1]
+    y = y.reshape(b, s, -1)
+    if heads[1] == h:
+        y = rank_block(y, part)
+    y = rmsnorm(y * F.silu(z),
+                rank_block(psel(p["gate_norm"], oget(ov, "gate_norm"),
+                                vidx), part),
+                cfg.norm_eps, part=part)
+    return x + linear(y, p["w_out"], oget(ov, "w_out"), vidx,
+                      waxes=("embed", "ssm"))
 
 
 def mamba_block_apply(p, x, cfg, state: dict, ov=None, vidx=None):
     """Sequence path: x (B,S,D) -> (y, new state)."""
     b, s, _ = x.shape
-    _, h, pp, n = _dims(cfg)
+    n = cfg.ssm_state
     z, xc_pre, bc_pre, dt_raw = _mamba_proj(p, x, cfg, ov=ov, vidx=vidx)
     xc = F.silu(causal_conv(xc_pre, _rowsel(p, "conv_xc", ov, vidx)))
     bc = F.silu(causal_conv(bc_pre, _rowsel(p, "conv_bc", ov, vidx)))
     dt = _softplus(dt_raw.to(F32) + psel(p["dt_bias"], oget(ov, "dt_bias"),
                                          vidx).to(F32))
-    y, ssm_state = ssm.mamba_chunkwise(
-        xc.reshape(b, s, h, pp), bc[..., :n], bc[..., n:], dt,
-        _rowsel(p, "a_log", ov, vidx), _rowsel(p, "d_skip", ov, vidx),
-        state=state["ssm"])
-    return (_mamba_post(p, y, z, x, cfg, ov=ov, vidx=vidx),
+    xh, dt, a_log, d_skip, heads = _ssd_in(p, xc, dt, cfg, (b, s), ov=ov,
+                                           vidx=vidx)
+    y, ssm_state = ssm.mamba_chunkwise(xh, bc[..., :n], bc[..., n:], dt,
+                                       a_log, d_skip, state=state["ssm"])
+    return (_mamba_post(p, y, z, x, cfg, heads, ov=ov, vidx=vidx),
             {"ssm": ssm_state,
              "conv_xc": _tail(state["conv_xc"], xc_pre, cfg.ssm_conv),
              "conv_bc": _tail(state["conv_bc"], bc_pre, cfg.ssm_conv)})
@@ -132,7 +186,7 @@ def mamba_block_apply(p, x, cfg, state: dict, ov=None, vidx=None):
 def mamba_block_step(p, x, cfg, state: dict, ov=None, vidx=None):
     """Decode path: x (B,1,D)."""
     b = x.shape[0]
-    _, h, pp, n = _dims(cfg)
+    n = cfg.ssm_state
     z, xc_pre, bc_pre, dt_raw = _mamba_proj(p, x, cfg, ov=ov, vidx=vidx)
     win_xc, xc1 = conv_step(state["conv_xc"].to(xc_pre.dtype), xc_pre[:, 0],
                             _rowsel(p, "conv_xc", ov, vidx))
@@ -141,11 +195,11 @@ def mamba_block_step(p, x, cfg, state: dict, ov=None, vidx=None):
     xc, bc = F.silu(xc1), F.silu(bc1)
     dt = _softplus(dt_raw[:, 0].to(F32)
                    + _rowsel(p, "dt_bias", ov, vidx).to(F32))
-    ssm_state, y = ssm.mamba_step(state["ssm"], xc.reshape(b, h, pp),
-                                  bc[..., :n], bc[..., n:], dt,
-                                  _rowsel(p, "a_log", ov, vidx),
-                                  _rowsel(p, "d_skip", ov, vidx))
-    return (_mamba_post(p, y[:, None], z, x, cfg, ov=ov, vidx=vidx),
+    xh, dt, a_log, d_skip, heads = _ssd_in(p, xc, dt, cfg, (b,), ov=ov,
+                                           vidx=vidx)
+    ssm_state, y = ssm.mamba_step(state["ssm"], xh, bc[..., :n],
+                                  bc[..., n:], dt, a_log, d_skip)
+    return (_mamba_post(p, y[:, None], z, x, cfg, heads, ov=ov, vidx=vidx),
             {"ssm": ssm_state, "conv_xc": win_xc.to(F32),
              "conv_bc": win_bc.to(F32)})
 
@@ -169,23 +223,19 @@ def shared_block_init(gen: torch.Generator, cfg) -> dict:
 
 
 def _shared_qkv(p, h2, cfg, positions, ov=None, vidx=None):
-    """q (B,S,Hq,hd), k/v (B,S,Hkv,hd) of the 2d-wide input, RoPE'd."""
-    b, s, _ = h2.shape
+    """q (B,S,Hq,hd), k/v (B,S,Hkv,hd) of the 2d-wide input, RoPE'd; on a
+    mesh in ``attention.head_split``'s layout of this length
+    (``attention.qkv_project``)."""
     hi = rmsnorm(h2, psel(p["ln1"], oget(ov, "ln1"), vidx), cfg.norm_eps)
-    q = linear(hi, p["wq"], oget(ov, "wq"), vidx).reshape(
-        b, s, cfg.num_heads, cfg.head_dim)
-    k = linear(hi, p["wk"], oget(ov, "wk"), vidx).reshape(
-        b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = linear(hi, p["wv"], oget(ov, "wv"), vidx).reshape(
-        b, s, cfg.num_kv_heads, cfg.head_dim)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    return A.qkv_project(p, hi, cfg, positions, cfg.rope_theta, ov=ov,
+                         vidx=vidx)
 
 
-def _shared_out(p, x, o, cfg, ov=None, vidx=None):
-    """x + wo(o), then x + MLP(ln2(x))."""
-    x = x + linear(o.reshape(*x.shape[:-1], cfg.q_dim), p["wo"],
-                   oget(ov, "wo"), vidx)
+def _shared_out(p, x, o, cfg, split, ov=None, vidx=None):
+    """x + wo(o), then x + MLP(ln2(x)); ``o`` the attention output in
+    ``split``'s layout."""
+    x = x + linear(A.attn_out(o, cfg, split, p["wo"]), p["wo"],
+                   oget(ov, "wo"), vidx, waxes=("embed", "q_heads"))
     return x + mlp_apply(p["mlp"],
                          rmsnorm(x, psel(p["ln2"], oget(ov, "ln2"), vidx),
                                  cfg.norm_eps),
@@ -195,22 +245,26 @@ def _shared_out(p, x, o, cfg, ov=None, vidx=None):
 def shared_block_apply(p, x, x0, cfg, positions, ov=None, vidx=None):
     """Sequence path -> (x, (k, v)): the block's output and the k/v its
     attention read (what a prefill caches)."""
+    s = x.shape[1]
+    split = A.head_split(cfg, s)
     q, k, v = _shared_qkv(p, torch.cat([x, x0], dim=-1), cfg, positions,
                           ov=ov, vidx=vidx)
-    o = A.flash_attention(q, k, v, causal=True)
-    return _shared_out(p, x, o, cfg, ov=ov, vidx=vidx), (k, v)
+    o = A.attend(q, k, v, cfg, split, s)
+    return _shared_out(p, x, o, cfg, split, ov=ov, vidx=vidx), (k, v)
 
 
 def shared_block_step(p, x, x0, cfg, caches: dict, idx: int, pos, ov=None,
                       vidx=None):
     """Decode path: ``pos`` (B,) per-lane positions; application point
     ``idx``'s cache of the stacked ``caches`` is updated in place."""
+    split = A.head_split(cfg, 1)
     q, k, v = _shared_qkv(p, torch.cat([x, x0], dim=-1), cfg,
                           pos.to(torch.int32)[:, None], ov=ov, vidx=vidx)
     A.cache_insert_stacked(caches, idx, k, v, pos)
     view = A.cache_layer_view(caches, idx)
-    o = A.decode_attention(q, view["k"], view["v"], view["slot_pos"], pos)
-    return _shared_out(p, x, o, cfg, ov=ov, vidx=vidx)
+    o = A.decode_attention(q, A.local_kv(view["k"], cfg),
+                           A.local_kv(view["v"], cfg), view["slot_pos"], pos)
+    return _shared_out(p, x, o, cfg, split, ov=ov, vidx=vidx)
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +308,8 @@ def init_state(cfg, batch: int, max_len: int, device,
     """{"pos", "mamba": per-layer SSD state and conv windows (fp32),
     "attn_kv": one (B, max_len) KV cache per application point, stacked}."""
     n_super = _layout(cfg)[0]
-    kv = A.make_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
-                         device, dtype)
+    kv = A.make_kv_cache(batch, max_len, A.local_kv_heads(cfg),
+                         cfg.head_dim, device, dtype)
     st = mamba_only_state(cfg, batch, device)
     st["attn_kv"] = _rep(kv, n_super)
     return st

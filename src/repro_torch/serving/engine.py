@@ -63,12 +63,15 @@ A/B reference).  The lanes split over "data" in blocks (``act_batch``):
 a rank prefills and decodes its own lanes' rows against a KV cache of its
 lanes and KV heads, and after each step the ranks all-gather the lanes'
 next tokens over "data", so every rank's scheduler sees every lane and
-makes the same decisions.  An int8 base serves under a mesh as on one
+makes the same decisions.  Every family serves under a mesh: the
+frontend stub's frames or image embeddings are built for the rank's
+lanes, and the recurrent families' states and every KV cache hold the
+rank's lanes and heads.  An int8 base serves under a mesh as on one
 card, and so does async admission (the ranks agree on each commit:
 ``serving/admission``).  A mesh refuses, naming the slice that brings
 each: CUDA graphs (a gloo collective cannot be captured), the speculative
-scheduler, ``warmup()`` (and its compile cache) and the families other
-than dense and MoE.
+scheduler, ``warmup()`` (and its compile cache) and MoE models with
+pod-local banks.
 
 Pod-local banks (DESIGN.md §17; a registry with ``pod_banks=True`` on a
 (pod, data, model) mesh): the lanes split pod-major over ("pod", "data"),
@@ -468,7 +471,7 @@ class ServingEngine:
             r.served_version = version
             r.status = "running"
 
-        batch = self._local_rows(self._prompt_batch(dict(enumerate(group))))
+        batch = self._prompt_batch(dict(enumerate(group)))
         t0 = time.perf_counter()
         with self._ctx():
             last_logits, cache = self.model.prefill(params, batch,
@@ -670,7 +673,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         with self._ctx():
             last_logits, fresh = self.model.prefill(
-                self.registry.base_params, self._local_rows(batch),
+                self.registry.base_params, batch,
                 self.max_len, overlay=self._bank_tree(),
                 variant_idx=self._local_rows(
                     torch.from_numpy(self._pod_local(pvidx)).to(
@@ -1107,17 +1110,19 @@ class ServingEngine:
         return SH.all_gather(tok, self._lane_axes, 0, self.mesh)
 
     def _prompt_batch(self, requests: dict) -> dict:
-        """Fixed-shape (batch_size, prompt_len) prefill batch: row i holds
-        requests[i]'s prompt tail, right-padded with zeros; unmapped rows
-        stay zero; plus the frontend stub's inputs.  The one place prompt
-        padding happens: both schedulers build identical batches."""
+        """This rank's lanes of the fixed-shape (batch_size, prompt_len)
+        prefill batch: row i holds requests[i]'s prompt tail,
+        right-padded with zeros; unmapped rows stay zero; plus the
+        frontend stub's inputs, built for the rank's lanes alone.  The one
+        place prompt padding happens: both schedulers build identical
+        batches."""
         toks = np.zeros((self.batch_size, self.prompt_len), np.int64)
         for i, r in requests.items():
             p = r.tokens[-self.prompt_len:]
             toks[i, :len(p)] = p
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-        batch.update(frontend_stub(self.model.cfg, self.batch_size,
-                                   self.device))
+        batch = {"tokens": self._local_rows(
+            torch.from_numpy(toks).to(self.device))}
+        batch.update(frontend_stub(self.model.cfg, self._nloc, self.device))
         return batch
 
 
@@ -1129,10 +1134,6 @@ def _refuse_on_mesh(model, registry, *, scheduler: str,
         raise ValueError("a mesh engine needs a registry placed on the mesh "
                          "(VariantRegistry(mesh=, param_shardings=, "
                          "param_axes=))")
-    if model.cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {model.cfg.family!r} under a mesh arrives with the "
-            "slice that serves the other families (sequence-TP attention)")
     if registry.pods > 1 and model.cfg.family == "moe":
         raise NotImplementedError(
             "pod_banks=True with an MoE model arrives with the slice that "

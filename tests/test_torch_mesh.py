@@ -414,7 +414,7 @@ _REFUSALS = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(_REFUSALS) + ["warmup", "family",
+@pytest.mark.parametrize("case", sorted(_REFUSALS) + ["warmup", "moe_pods",
                                                        "no_axes", "pod"])
 def test_mesh_refusals_name_their_slice(world, case):
     """What mesh serving does not serve yet raises, naming the slice that
@@ -446,14 +446,17 @@ def test_mesh_refusals_name_their_slice(world, case):
                          param_axes=axes, batch_size=4, pod_banks=True,
                          speculative=True)
         return
-    if case == "family":
-        wcfg = R.port_config("whisper-base")
-        wmodel = build_model(wcfg)
-        wparams, waxes = split(wmodel.init(0, device="cpu"))
+    if case == "moe_pods":
+        # an MoE model with pod-local banks: a capacity group crossing the
+        # lanes' split would route rows to another pod's slots
+        mmodel = build_model(R.port_config("deepseek-moe-16b"))
+        mparams, maxes = split(mmodel.init(0, device="cpu"))
+        pmesh = S.Mesh(("pod", "data", "model"), (2, 1, 2))
         with pytest.raises(NotImplementedError,
-                           match="family 'audio'.*slice"):
-            R.Deployment(wmodel, wparams, device="cpu", mesh=mesh,
-                         param_axes=waxes)
+                           match="pod_banks=True with an MoE model.*slice"):
+            R.Deployment(mmodel, mparams, device="cpu", mesh=pmesh,
+                         param_axes=maxes, batch_size=4, pod_banks=True,
+                         scheduler="continuous", graphs=False)
         return
     extra, word = _REFUSALS[case]
     with pytest.raises(NotImplementedError, match=f"{word}.*slice"):
