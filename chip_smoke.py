@@ -118,7 +118,8 @@ Phases (any failure raises and the script exits non-zero):
    1500 frames = 6000; 4 x (256 image + 32 text) = 1152, internvl2's
    w_down splitting K = 28672 56 ways in the banked GEMM), and phase 11
    runs both reduced (card against CPU tokens, identical);
-14. whisper-base at full width and full depth (after gemma3-12b): one
+14. whisper-base at full width, 2 encoder and 2 decoder layers of 6
+   (``WHISPER_LAYERS``; after gemma3-12b): one
    base prefill timed with the port's 500-key attention chunks and the
    JAX module's 4-key ones; group dense, group fused and continuous over
    a 4-slot bank, over an fp32 and an int8 base, 1500 stub frames a
@@ -238,11 +239,14 @@ Phases (any failure raises and the script exits non-zero):
    recorded, not written) and removes it and the store.
 22. mesh-sharded serving (``mesh_phase``, after the train phase): ranks
    of a (data, model) mesh over ``torch.distributed``, over an fp32 and
-   an int8 base (see its docstring); then pod-local overlay banks on a
-   (pod, data, model) mesh (``pods_phase``, right after: reduced (2, 1,
-   2) against the CPU and the global bank, full width (2, 1, 1) with every
-   per-rank banked launch checked, and the launcher with ``--pod-banks``;
-   see its docstring).
+   an int8 base, the speculative scheduler in the reduced groups and at
+   full width, ``warmup()`` in one reduced group (see its docstring); then
+   pod-local overlay banks on a (pod, data, model) mesh (``pods_phase``,
+   right after: reduced (2, 1, 2) deepseek-7b and deepseek-moe-16b against
+   the CPU and the global bank, full width (2, 1, 1) qwen3-8b, then
+   deepseek-moe-16b, with every per-rank banked and stacked launch of a
+   wave checked, and the launcher with ``--pod-banks``; see its
+   docstring).
 23. the launcher's frequent update on one card (``launcher_phase``, the
    last phase): ``python -m repro_torch.launch.serve`` at full width, 2
    layers, with ``--updates 2 --max-resident 2``: the version lines,
@@ -2090,7 +2094,10 @@ def admission_reference_phase(dev) -> None:
 # ---------------------------------------------------------------------------
 
 TRAIN_REF = ("qwen3-8b", "deepseek-moe-16b")
-TRAIN_LAYERS = 2
+# one layer (two until the mesh phase served speculative decoding): the
+# checkpoint's bytes are the vocab's tables and their Adam moments, and a
+# layer less writes and reads 2.3 GB less
+TRAIN_LAYERS = 1
 TRAIN_BATCH, TRAIN_SEQ = 2, 512
 TRAIN_STEPS, TRAIN_RESUME = 4, 2   # the base: preempted after 2, resumed
 FT_STEPS = 3
@@ -3327,9 +3334,14 @@ def chunk_prefill(model, params, dev) -> None:
           f"(max |logit| {theirs.float().abs().max().item():.4g})")
 
 
+# whisper-base's encoder and decoder layers in its phase (of 6 each: cut
+# to keep the script inside its time limit)
+WHISPER_LAYERS = 2
+
+
 def whisper_phase(dev) -> dict:
-    """whisper-base at full width and full depth (6 encoder + 6 decoder
-    layers, 1500 zero frames a lane from the engine's stub), 2 variants,
+    """whisper-base at full width, ``WHISPER_LAYERS`` encoder and decoder
+    layers (1500 zero frames a lane from the engine's stub), 2 variants,
     4 lanes: first ``chunk_prefill``, then ``six_runs`` (the continuous
     runs count ``whisper_launches`` a prefill and a step; the checked
     prefill's launches take 6000 rows at the encoder and the
@@ -3337,7 +3349,10 @@ def whisper_phase(dev) -> dict:
     {run: launches}."""
     from repro_torch.launch import serve as SV
 
-    cfg = SV.make_config("whisper-base")
+    import dataclasses
+    cfg = dataclasses.replace(SV.make_config("whisper-base"),
+                              num_layers=WHISPER_LAYERS,
+                              encoder_layers=WHISPER_LAYERS)
     per_prefill, per_step = whisper_launches(cfg)
     t0 = time.perf_counter()
     model, base, dms = SV.build_variants(cfg, 2, dev)
@@ -3905,6 +3920,18 @@ MESH_KDS = ("shard_map", "gspmd")
 MESH_RUNS = {"continuous": dict(scheduler="continuous", mode="fused"),
              "group fused": dict(scheduler="group", mode="fused"),
              "group dense": dict(scheduler="group", mode="dense")}
+# the speculative scheduler (drafts of up to 4, adaptive) on a mesh: its
+# tokens are the continuous scheduler's (the variant's greedy chain)
+MESH_SPEC_RUN = dict(scheduler="speculative", mode="fused")
+# one arch a family, served speculatively in the reduced (1, 2) and (2, 2)
+# groups (shard_map dispatch)
+MESH_SPEC_ARCHS = ("deepseek-7b", "deepseek-moe-16b", "whisper-base",
+                   "internvl2-76b", "xlstm-350m", "zamba2-7b")
+# the reduced group whose continuous deepseek-7b deployment runs
+# ``warmup()`` before its traffic
+MESH_WARM_SHAPE = (2, 1)
+# the full-width (1, 2) entries that also serve speculatively
+MESH_SPEC_FULL = ("qwen3-8b",)
 MESH_REF_BUDGETS = [2, 5, 3, 4]
 MESH_FULL_SHAPE = (1, 2)
 # (arch, layers, compute dtype or None for the config's own); depth cut
@@ -3962,6 +3989,12 @@ MESH_SEQ_PROMPTS = (16, 14)
 # the configs' own
 MESH_FAMILY_FULL = (("whisper-base", 0, None), ("xlstm-350m", 8, None),
                     ("zamba2-7b", 7, None), ("internvl2-76b", 1, None))
+# the full-width entries served by a second (1, 2) group beside the first:
+# the smallest families (a rank's peak under 2 GB), so the two groups'
+# ranks fit the card together (the card's memory in use stays under
+# ``MESH_PEAK_GB``: with zamba2-7b here too it reached 71.50 GB) and the
+# phase waits on the longer group alone
+MESH_FULL_SIDE = ("whisper-base", "xlstm-350m")
 MESH_FAMILY_FULL_RUNS = {"continuous": (8, [4, 6, 8]),
                          "group fused": (4, [6])}
 # variants and bank slots of a full-width run (``MESH_FULL``'s: 3 and 4);
@@ -4009,10 +4042,15 @@ class CardInUse:
 
 
 def full_plan(arch: str) -> tuple:
-    """(variants, bank slots, runs) of a full-width mesh entry."""
+    """(variants, bank slots, runs) of a full-width mesh entry; an entry
+    of ``MESH_SPEC_FULL`` serves the continuous run's requests
+    speculatively too."""
     if arch in MESH_FAMILIES:
         return (MESH_FAMILY_VARIANTS.get(arch, 2),
                 MESH_FAMILY_BANK.get(arch, 4), MESH_FAMILY_FULL_RUNS)
+    if arch in MESH_SPEC_FULL:
+        return 3, 4, dict(MESH_FULL_RUNS,
+                          speculative=MESH_FULL_RUNS["continuous"])
     return 3, 4, MESH_FULL_RUNS
 
 
@@ -4045,15 +4083,23 @@ def mesh_ref_setup(case):
 
 
 def mesh_deploy(model, base, dms, axes, mesh, device, run, bank=4, **kw):
-    """A Deployment of ``run`` (``MESH_RUNS``) over ``base`` with ``dms``
-    published, ``bank`` slots (a pod), on ``mesh`` (eager steps: a gloo
-    collective cannot be captured) or, with ``mesh`` None, on ``device``
-    alone."""
+    """A Deployment of ``run`` (``MESH_RUNS``, or "speculative") over
+    ``base`` with ``dms`` published, ``bank`` slots (a pod), on ``mesh``
+    (eager steps: a gloo collective cannot be captured) or, with ``mesh``
+    None, on ``device`` alone."""
     from repro_torch.launch import serve as SV
     if mesh is not None:
         kw.update(mesh=mesh, param_axes=axes, graphs=False)
+    sched = MESH_SPEC_RUN if run == "speculative" else MESH_RUNS[run]
     return SV.deploy(model, base, dms, batch=LANES, device=device,
-                     bank_size=bank, **MESH_RUNS[run], **kw)
+                     bank_size=bank, **sched, **kw)
+
+
+def ref_run(run: str) -> str:
+    """The CPU plain run whose tokens a card run of label ``run`` must
+    equal: a speculative run's are the continuous one's, a warmed run's
+    the unwarmed one's."""
+    return run.replace("speculative", "continuous").removesuffix(" warmed")
 
 
 def mesh_store_run(model, base, dms, axes, mesh, device, root) -> dict:
@@ -4132,17 +4178,32 @@ def mesh_quad_rank(mesh) -> dict:
         finally:
             A.head_split = orig
         out["layouts"][n] = sorted(seen)
+    # the 6 q heads served speculatively: the verify's T = k+1 rows read
+    # the whole cache, so it takes "whole" at every prompt length
+    zero_counters()
+    n = MESH_SEQ_PROMPTS[0]
+    dep = mesh_deploy(model, base, dms, axes, mesh, mesh.device,
+                      "speculative", prompt_len=n)
+    rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
+    dep.drain()
+    out["runs"][MESH_SEQ_ARCH, "shard_map", f"prompt {n} speculative"] = {
+        "tokens": [dep.result(r).out_tokens for r in rids],
+        "launches": counters(), "ladder": dep.status()["speculative"]}
     out["seconds"] = round(time.perf_counter() - t0, 1)
     return out
 
 
-def mesh_ref_rank(mesh, store_root, int8: bool, families: bool) -> dict:
+def mesh_ref_rank(mesh, store_root, int8: bool, families: bool,
+                  spec: bool = False, warm: bool = False) -> dict:
     """One rank of a reduced mesh on the card: both archs, every run, both
     kernel dispatch modes, over an fp32 base and (``int8``) an int8 one
     (and on (1, 2) the store lifecycle and the launcher's update run,
     ``mesh_launcher_run``); with ``families`` the runs of
-    ``MESH_FAMILIES`` (``mesh_family_runs``); tokens and the run's
-    launches on this rank."""
+    ``MESH_FAMILIES`` (``mesh_family_runs``); with ``spec`` each arch of
+    ``MESH_SPEC_ARCHS`` served speculatively (its ladder snapshot kept);
+    with ``warm`` deepseek-7b's continuous deployment warmed up first
+    (``warmup()``'s outcomes kept); tokens and the run's launches on this
+    rank."""
     from repro_torch.launch import serve as SV
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"coords": mesh.coords, "device": str(mesh.device),
@@ -4150,6 +4211,27 @@ def mesh_ref_rank(mesh, store_root, int8: bool, families: bool) -> dict:
     dtypes = ("fp", "int8") if int8 else ("fp",)
     if families:
         mesh_family_runs(mesh, MESH_FAMILIES, out)
+    for arch in MESH_SPEC_ARCHS if spec else ():
+        cfg, model, base, dms, axes = mesh_ref_setup(arch)
+        zero_counters()
+        dep = mesh_deploy(model, base, dms, axes, mesh, mesh.device,
+                          "speculative")
+        rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
+        dep.drain()
+        out["runs"][arch, "shard_map", "speculative"] = {
+            "tokens": [dep.result(r).out_tokens for r in rids],
+            "launches": counters(), "ladder": dep.status()["speculative"]}
+    if warm:
+        cfg, model, base, dms, axes = mesh_ref_setup("deepseek-7b")
+        dep = mesh_deploy(model, base, dms, axes, mesh, mesh.device,
+                          "continuous")
+        out["warmup"] = dep.warmup()
+        zero_counters()
+        rids = SV.submit_requests(dep, cfg, 6, MESH_REF_BUDGETS)
+        dep.drain()
+        out["runs"]["deepseek-7b", "shard_map", "continuous warmed"] = {
+            "tokens": [dep.result(r).out_tokens for r in rids],
+            "launches": counters()}
     for arch in MESH_REF_ARCHS:
         cfg, model, base, dms, axes = mesh_ref_setup(arch)
         for bd in dtypes:
@@ -4284,19 +4366,22 @@ def routing_recorded():
         moe.top_k = inner
 
 
-def routing_parting(mine, other) -> str:
-    """Where two runs' MoE selections (``routing_recorded``) first differ:
-    the selection, how far the two runs' scores there lie apart, and the
-    least gap, on each side, between the last score chosen and the first
-    one left out in the rows whose choice differs.  A gap under the
-    scores' distance is a near-tie that the distance decides."""
+def first_parting(mine, other):
+    """Where two runs' MoE selections (``routing_recorded``) first differ,
+    or None: {"i", "kind", "k", "rows", "dist", "gaps", "tie"}, the
+    selection, how far the two runs' scores there lie apart, the least
+    gap, on each side, between the last score chosen and the first one
+    left out in the rows whose choice differs, and whether both gaps lie
+    under the scores' distance (a near-tie that the distance decides).
+    A count or shape mismatch is {"i", "what", "tie": False}."""
     from repro_torch.models import moe
     if len(mine) != len(other):
-        return f"{len(mine)} vs {len(other)} selections"
+        return {"i": None, "what": f"{len(mine)} vs {len(other)} "
+                "selections", "tie": False}
     for i, ((a, k), (b, _)) in enumerate(zip(mine, other)):
         if a.shape != b.shape:
-            return (f"selection {i}: shapes {tuple(a.shape)} vs "
-                    f"{tuple(b.shape)}")
+            return {"i": i, "what": f"shapes {tuple(a.shape)} vs "
+                    f"{tuple(b.shape)}", "tie": False}
         ia = moe.top_k(a, k)[1].sort(-1).values
         ib = moe.top_k(b, k)[1].sort(-1).values
         rows = (ia != ib).any(-1)
@@ -4307,12 +4392,39 @@ def routing_parting(mine, other) -> str:
         def gap(t):
             v = t.sort(-1, descending=True).values[rows]
             return (v[:, k - 1] - v[:, k]).min().item()
-        kind = "router top-k" if i % 2 == 0 else "capacity"
-        return (f"selection {i} of {len(mine)} ({kind}, k={k}): "
-                f"{int(rows.sum())} row(s) differ; scores apart by "
-                f"{dist:.3g}; gap at the cut {gap(a):.3g} (mesh), "
-                f"{gap(b):.3g} (one card)")
-    return f"all {len(mine)} selections the same"
+        gaps = (gap(a), gap(b))
+        return {"i": i, "kind": "router top-k" if i % 2 == 0 else
+                "capacity", "k": k, "rows": int(rows.sum()), "dist": dist,
+                "gaps": gaps, "tie": max(gaps) < dist}
+    return None
+
+
+def tokens_or_tie(a: dict, b: dict, names: tuple) -> str:
+    """Two MoE runs of the same requests in the same lanes (each with its
+    ``tokens`` and ``routing``, ``routing_recorded``): "" when their
+    tokens are the same; else where their routing first parts, which must
+    be a near-tie: both gaps under the two runs' score distance, itself
+    under ``TIE_DIST`` (reduced MoE's router scores lie close together,
+    so another fp32 sum order can decide one; every later difference
+    follows from it)."""
+    if a["tokens"] == b["tokens"]:
+        return ""
+    p = first_parting(a["routing"], b["routing"])
+    assert p is not None and p["tie"] and p["dist"] < TIE_DIST, (names, p)
+    return routing_parting(a["routing"], b["routing"], names)
+
+
+def routing_parting(mine, other, names=("mesh", "one card")) -> str:
+    """``first_parting`` of two runs' MoE selections, as a line."""
+    p = first_parting(mine, other)
+    if p is None:
+        return f"all {len(mine)} selections the same"
+    if "what" in p:
+        return f"selection {p['i']}: {p['what']}"
+    return (f"selection {p['i']} of {len(mine)} ({p['kind']}, k={p['k']}): "
+            f"{p['rows']} row(s) differ; scores apart by {p['dist']:.3g}; "
+            f"gap at the cut {p['gaps'][0]:.3g} ({names[0]}), "
+            f"{p['gaps'][1]:.3g} ({names[1]})")
 
 
 def int8_blocks_check(mesh, dep, base) -> dict:
@@ -4356,7 +4468,9 @@ def mesh_full_rank(mesh, entries) -> dict:
     kernel, over both bases; every int8 block
     against the single-card quantization (``int8_blocks_check``); for
     MoE, rank 0's routing choices in a rerun of the same requests
-    (``routing_recorded``)."""
+    (``routing_recorded``).  The runs over one base dtype share one
+    Deployment (its placed base and published variants), each served by
+    an engine of its own (``mesh_engine``)."""
     from repro_torch.launch import serve as SV
     from repro_torch.tree import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4382,12 +4496,16 @@ def mesh_full_rank(mesh, entries) -> dict:
             mesh.barrier()
         runs = [(run, "fp") for run in full_runs] + [
             (run, "int8") for run in MESH_INT8_FULL.get(arch, ())]
-        for run, bd in runs:
+        dep = None
+        for i, (run, bd) in enumerate(runs):
             n_req, budgets = full_runs[run]
             label = mesh_run(run, bd)
             torch.cuda.reset_peak_memory_stats(dev)
-            dep = mesh_deploy(model, base, dms, axes, mesh, dev, run,
-                              bank=bank, base_dtype=bd)
+            if dep is None:
+                dep = mesh_deploy(model, base, dms, axes, mesh, dev, run,
+                                  bank=bank, base_dtype=bd)
+            else:
+                mesh_engine(dep, model, run)
             if bd == "int8" and run == MESH_INT8_FULL[arch][0]:
                 out["checks"][arch, "int8 blocks"] = int8_blocks_check(
                     mesh, dep, base)
@@ -4410,7 +4528,10 @@ def mesh_full_rank(mesh, entries) -> dict:
                 "decode_s": m["decode_seconds"], "seconds": secs,
                 "prefills": m["prefills"], "decode_steps": m["decode_steps"],
                 "peak_GB": torch.cuda.max_memory_allocated(dev) / 1e9,
-                "base_GB": dep.registry.base_nbytes() / 1e9}
+                "base_GB": dep.registry.base_nbytes() / 1e9,
+                "ladder": dep.status().get("speculative")}
+            # a speculative wave of budget 2: one prefill and one round's
+            # verify, each banked launch on the rank's lanes checked
             with gemms_checked() as log:
                 rids = SV.submit_requests(dep, cfg, LANES, [2])
                 dep.drain()
@@ -4431,13 +4552,30 @@ def mesh_full_rank(mesh, entries) -> dict:
                 out["checks"][arch, mesh_run("all-reduce", bd)] = [
                     allreduce_check(mesh, dep, base, dms[0], p)
                     for p in ALLREDUCE_PATHS[arch]]
-            del dep
-            gc.collect()
-            torch.cuda.empty_cache()
+            if i + 1 == len(runs) or runs[i + 1][1] != bd:
+                dep.close()
+                dep = None
+                gc.collect()
+                torch.cuda.empty_cache()
         del model, base, dms
         gc.collect()
         out["seconds"][arch] = round(time.perf_counter() - t_entry, 1)
     return out
+
+
+def mesh_engine(dep, model, run: str) -> None:
+    """Serve ``dep`` (its placed base, published variants and residents)
+    with a fresh engine of ``run``'s scheduler, on the same mesh, lanes
+    and lengths: a run over the same base pays no second placement."""
+    from repro_torch.serving.engine import ServingEngine
+    eng = dep.engine
+    sched = MESH_SPEC_RUN if run == "speculative" else MESH_RUNS[run]
+    assert sched["mode"] == dep.registry.mode, (run, dep.registry.mode)
+    dep.engine = ServingEngine(
+        model, dep.registry, batch_size=eng.batch_size,
+        prompt_len=eng.prompt_len, max_len=eng.max_len,
+        max_retries=eng.max_retries, scheduler=sched["scheduler"],
+        graphs=False, mesh=eng.mesh, kernel_dispatch=eng.kernel_dispatch)
 
 
 def mesh_warm(dep, cfg) -> None:
@@ -4447,7 +4585,7 @@ def mesh_warm(dep, cfg) -> None:
     from repro_torch.launch import serve as SV
     with dep.engine._ctx():
         for name in dep.variants()[1:]:
-            if dep.engine.scheduler == "continuous":
+            if dep.engine.scheduler != "group":
                 dep.registry.bank_resolve(name)
             else:
                 dep.registry.resolve(name)
@@ -4497,6 +4635,7 @@ def mesh_single_card(dev, entries, mesh_tokens: dict,
             theirs = mesh_tokens[arch, label]
             out[arch, label] = {
                 "tokens": tokens,
+                "ladder": dep.status().get("speculative"),
                 "tokens_per_s": m["tokens_generated"] / secs,
                 "mean_step_ms": 1e3 * m["decode_seconds"]
                 / max(1, m["decode_steps"]),
@@ -4562,15 +4701,27 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
     3. a rank that raises (a world that is not the mesh's size) must end
        its group with an error within the deadline.
 
+    Speculative decoding and ``warmup()`` under a mesh: in 1., each arch
+    of ``MESH_SPEC_ARCHS`` served speculatively on (1, 2) and (2, 2), and
+    the 6-head config on (1, 4), every rank's tokens equal to the CPU's
+    continuous tokens and every rank's ladder snapshot the same; on
+    ``MESH_WARM_SHAPE`` a continuous deployment warmed first (the CPU's
+    outcome keys, each "eager"; then the CPU's tokens); in 2., qwen3-8b
+    served speculatively too, every per-rank banked launch of a wave's
+    prefill and verify round checked, exact budgets, token agreement and
+    acceptance beside one card's speculative run.
+
     The audio, VLM, xLSTM and Zamba families: in 1., the runs of
     ``MESH_FAMILIES`` (continuous and group fused, both kernel dispatch
     modes) on (1, 2) and (2, 2), and a (1, 4) group with the cases of
     ``MESH_QUAD_ARCHS`` and the 6-head sequence-TP config at two prompt
     lengths (the attention layouts each took asserted); in 2.,
-    ``MESH_FAMILY_FULL`` after ``MESH_FULL``, with the all-reduced
-    products of ``ALLREDUCE_PATHS``, exact budgets and the ranks' peaks
-    summed under ``MESH_PEAK_GB``.  Every group of 1. and 2. starts at
-    once, so the full-width times are taken beside the reduced ranks, and
+    ``MESH_FAMILY_FULL``, with the all-reduced products of
+    ``ALLREDUCE_PATHS``, exact budgets and the ranks' peaks summed under
+    ``MESH_PEAK_GB``: internvl2-76b after ``MESH_FULL`` in one group, the
+    entries of ``MESH_FULL_SIDE`` in a second group beside it.  Every
+    group of 1. and 2. starts at once, so the full-width times are taken
+    beside the reduced ranks, and
     the card's memory in use by every process on it, sampled while they
     run, must stay under ``MESH_PEAK_GB`` too.
 
@@ -4598,17 +4749,21 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
     # full-width times are taken under that contention)
     entries = MESH_FULL + (MESH_FP32_TWIN if fp32_twin else ()) \
         + MESH_FAMILY_FULL
+    side = tuple(e for e in entries if e[0] in MESH_FULL_SIDE)
     card = CardInUse(dev).start()
     t_ref = time.perf_counter()
-    full = LM.start(mesh_full_rank, MESH_FULL_SHAPE, device="cuda",
-                    timeout_s=MESH_TIMEOUT_S, args=(entries,))
+    full = [LM.start(mesh_full_rank, MESH_FULL_SHAPE, device="cuda",
+                     timeout_s=MESH_TIMEOUT_S, args=(group,))
+            for group in (tuple(e for e in entries if e not in side), side)]
     quad = LM.start(mesh_quad_rank, MESH_QUAD_SHAPE, device="cuda",
                     timeout_s=MESH_TIMEOUT_S, threads=REDUCED_THREADS)
     groups = {shape: LM.start(mesh_ref_rank, shape, device="cuda",
                               timeout_s=MESH_TIMEOUT_S,
                               args=(store_root if shape == (1, 2)
                                     else None, shape in MESH_INT8_SHAPES,
-                                    shape in MESH_FAMILY_SHAPES),
+                                    shape in MESH_FAMILY_SHAPES,
+                                    shape in MESH_FAMILY_SHAPES,
+                                    shape == MESH_WARM_SHAPE),
                               threads=REDUCED_THREADS)
               for shape in MESH_REF_SHAPES}
     t0 = time.perf_counter()
@@ -4647,6 +4802,9 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
             with tempfile.TemporaryDirectory() as tmp:
                 want_store = mesh_store_run(model, base, dms, axes, None,
                                             "cpu", tmp)
+            # the outcome keys warmup() returns on one device
+            want_warm = set(mesh_deploy(model, base, dms, axes, None, "cpu",
+                                        "continuous").warmup())
     torch.set_num_threads(threads)
     print(f"mesh reference: CPU plain runs {time.perf_counter() - t0:.1f} s")
 
@@ -4655,13 +4813,24 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
         the CPU's; its launches into ``launches``."""
         for r, got in enumerate(ranks):
             for (arch, kd, run), res in got["runs"].items():
-                assert res["tokens"] == want[arch, run], (
-                    shape, r, arch, kd, run, res["tokens"], want[arch, run])
-                kernel = RUN_KERNEL[run.removesuffix(" int8").split()[-1]]
+                ref = want[arch, ref_run(run)]
+                assert res["tokens"] == ref, (
+                    shape, r, arch, kd, run, res["tokens"], ref)
+                kernel = RUN_KERNEL[ref_run(run).removesuffix(
+                    " int8").split()[-1]]
                 assert res["launches"][kernel] > 0, (shape, arch, run, res)
+                if "speculative" in run:
+                    # the ranks walked the ladder in step
+                    assert res["ladder"] == ranks[0]["runs"][
+                        arch, kd, run]["ladder"], (shape, arch, run)
+                    assert res["ladder"]["rounds"] > 0, res["ladder"]
                 if arch == "deepseek-moe-16b" \
                         and not run.startswith("group dense"):
                     assert res["launches"]["bitlinear_axes_stacked"] > 0
+            if "warmup" in got:
+                assert set(got["warmup"]) == want_warm, got["warmup"]
+                assert set(got["warmup"].values()) == {"eager"}, \
+                    got["warmup"]
             if "store" in got:
                 assert got["store"] == want_store, (got["store"], want_store)
             if "launcher" in got:
@@ -4691,16 +4860,27 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
                   f"or mLSTM heads over 4 ranks) and {MESH_SEQ_ARCH} with "
                   f"{MESH_SEQ_FIELDS['num_heads']} q heads (attention "
                   f"layouts by prompt length {ranks[0]['layouts']}; both "
-                  "kernel dispatch modes)")
+                  "kernel dispatch modes; speculative at prompt "
+                  f"{MESH_SEQ_PROMPTS[0]}: the continuous tokens, one "
+                  "ladder on every rank)")
             return
         n_int8 = sum("int8" in run for _, _, run in ranks[0]["runs"])
         n_fam = sum(a in MESH_FAMILIES for a, _, _ in ranks[0]["runs"])
+        spec = {a: (r["ladder"]["acceptance"], r["ladder"]["rounds"])
+                for (a, _, run), r in ranks[0]["runs"].items()
+                if run == "speculative"}
         print(f"mesh {shape} reduced ({ranks[0]['backend']}, "
               f"{sorted({g['device'] for g in ranks})}): every rank's "
               f"tokens == CPU plain tokens for {len(ranks[0]['runs'])} runs "
               f"({n_int8} over an int8 base; both kernel dispatch modes"
               + (f"; {n_fam} of {MESH_FAMILIES}, rank 0 "
                  f"{ranks[0]['family_s']} s" if n_fam else "") + ")"
+              + (f"; speculative == the CPU's continuous tokens, one "
+                 f"ladder on every rank, (acceptance, rounds) {spec}"
+                 if spec else "")
+              + (f"; warmup() {len(ranks[0]['warmup'])} entries, each "
+                 "'eager', the CPU's keys, then the CPU's tokens"
+                 if "warmup" in ranks[0] else "")
               + ("; store publish/update/rollback == CPU "
                  f"{want_store['versions']}, rollback to "
                  f"{want_store['rollback']}; launch.serve --base-dtype int8"
@@ -4714,9 +4894,13 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
     check_reduced(MESH_QUAD_SHAPE, quad.join())
     print(f"mesh reduced: {time.perf_counter() - t_ref:.1f} s, the four "
           "meshes beside the full-width ranks")
-    # 2. full width: the mesh, then the same runs on one card
-    ranks = full.join()
+    # 2. full width: the mesh (each rank's results of both groups
+    # merged), then the same runs on one card
+    ranks, side_ranks = (group.join() for group in full)
     card.stop()
+    for mine, other in zip(ranks, side_ranks):
+        for key in ("runs", "checks", "routing", "seconds"):
+            mine[key].update(other[key])
     print(f"mesh full width {MESH_FULL_SHAPE} ({ranks[0]['backend']}, "
           f"{sorted({g['device'] for g in ranks})}): "
           f"{time.perf_counter() - t_ref:.1f} s since the groups started; "
@@ -4754,7 +4938,7 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
         assert sum(peaks) < MESH_PEAK_GB, (key, peaks)
         per_rank = [g["runs"][key]["launches"] for g in ranks]
         for kernel in (("bitlinear_axes_banked",)
-                       if run.startswith("continuous")
+                       if run.startswith(("continuous", "speculative"))
                        else ("bitlinear_axes",)):
             assert all(p[kernel] > 0 for p in per_rank), (key, per_rank)
         if arch.startswith("deepseek-moe-16b"):
@@ -4764,6 +4948,19 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
         # every checked launch of an int8 run ran a q8 body, and only then
         assert all(c["q8"] == (c["launches"] if "int8" in run else 0)
                    for c in chk), (key, chk)
+        spec_note = ""
+        if run.startswith("speculative"):
+            ladders = [g["runs"][key]["ladder"] for g in ranks]
+            assert all(ld == ladders[0] for ld in ladders), ladders
+            # the checked wave's prefill and verify round: banked only
+            assert all(c["kernels"] == ["bitlinear_axes_banked"]
+                       for c in chk), chk
+            spec_note = (f"; acceptance {ladders[0]['acceptance']:.3f} in "
+                         f"{ladders[0]['rounds']} rounds, k now "
+                         f"{ladders[0]['current_k']}, the same ladder on "
+                         "every rank (one card "
+                         f"{single[key]['ladder']['acceptance']:.3f} in "
+                         f"{single[key]['ladder']['rounds']} rounds)")
         r0 = ranks[0]["runs"][key]
         print(f"mesh {arch} {run}: tokens agree with one card "
               f"{agree}/{total} ({same}/{len(ref)} requests whole; one "
@@ -4781,7 +4978,7 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
               f"base GB per rank {[round(g['runs'][key]['base_GB'], 3) for g in ranks]}; "
               f"checked prefill+step: {[c['launches'] for c in chk]} "
               f"launches ({chk[0]['kernels']}) within the GEMM bound, max "
-              f"|err| {max(c['max_abs_err'] for c in chk):.3e}")
+              f"|err| {max(c['max_abs_err'] for c in chk):.3e}{spec_note}")
         if "routing" in single[key]:
             print(f"mesh {arch} {run}: MoE routing, mesh vs one card: "
                   f"{single[key]['routing']}")
@@ -4833,6 +5030,23 @@ POD_REF_SHAPE = (2, 1, 2)
 POD_REF_BUDGET = 4
 POD_REF_RUNS = ("global", "pods shard_map", "pods gspmd",
                 "pods shard_map async", "pods gspmd async")
+# reduced deepseek-moe-16b in the same group: the global bank and the
+# pod-local one under both kernel dispatch modes, over both bases
+POD_MOE = "deepseek-moe-16b"
+POD_MOE_RUNS = ("global", "pods shard_map", "pods gspmd")
+# an MoE layer's tokens depend on the lanes' layout (a capacity group is
+# the whole batch), and the affinity router lays ``POD_TRAFFIC`` out
+# otherwise than one device's first-free-lane admission; this traffic's
+# two waves land in the same lanes on both (v0 in pod 0's lanes, v1 in
+# pod 1's, each at local slot 1 of its pod's bank), so the reduced MoE
+# runs can be held to the CPU's tokens
+POD_MOE_TRAFFIC = ["v0", "v0", "v1", "v1"] * 2
+# the largest distance between two runs' router scores at which a parting
+# still counts as a near-tie (fp32 sum order, not a different input)
+TIE_DIST = 1e-3
+# full width on (2, 1, 1) after the qwen3-8b ranks: deepseek-moe-16b, the
+# dense first layer and one expert layer
+POD_MOE_LAYERS = 2
 POD_FULL_SHAPE = (2, 1, 1)
 POD_FULL_LAYERS = 2
 POD_FULL_BANK = 3             # slots a pod: the base and both variants
@@ -4861,12 +5075,12 @@ def pod_kw(label: str) -> dict:
                 admission_pacing_s=0.0)
 
 
-def pod_traffic(dep, cfg, budget: int) -> list:
-    """``POD_TRAFFIC`` with the launcher's seeded prompts, drained; the
-    request ids."""
+def pod_traffic(dep, cfg, budget: int, traffic=POD_TRAFFIC) -> list:
+    """``traffic`` (default ``POD_TRAFFIC``) with the launcher's seeded
+    prompts, drained; the request ids."""
     rng = np.random.default_rng(0)
     rids = [dep.submit(rng.integers(1, cfg.vocab_size, size=8), variant=v,
-                       max_new_tokens=budget) for v in POD_TRAFFIC]
+                       max_new_tokens=budget) for v in traffic]
     dep.drain()
     return rids
 
@@ -4888,22 +5102,34 @@ def pod_stats(dep, rids, budget: int) -> dict:
 def pods_ref_rank(mesh) -> dict:
     """One rank of the reduced (2, 1, 2) mesh on the card: deepseek-7b at
     fp32 compute over an fp32 and an int8 base, the global bank and the
-    pod-local one under both kernel dispatch modes, sync and async; tokens,
-    launches, router and bank counters of each run."""
+    pod-local one under both kernel dispatch modes, sync and async; then
+    ``POD_MOE``'s runs of ``POD_MOE_RUNS`` (MoE under pod-local banks)
+    over both bases; tokens, launches, router and bank counters of each
+    run (an MoE run's label starts with the arch)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, model, base, dms, axes = mesh_ref_setup("deepseek-7b")
     out = {"coords": mesh.coords, "device": str(mesh.device),
            "backend": mesh.backend, "runs": {}}
-    for bd in ("fp", "int8"):
-        for label in POD_REF_RUNS:
-            zero_counters()
-            dep = mesh_deploy(model, base, dms, axes, mesh, mesh.device,
-                              "continuous", base_dtype=bd, **pod_kw(label))
-            rids = pod_traffic(dep, cfg, POD_REF_BUDGET)
-            out["runs"][mesh_run(label, bd)] = dict(
-                pod_stats(dep, rids, POD_REF_BUDGET), launches=counters(),
-                async_admits=dep.metrics["async_admits"])
-            dep.close()
+    for arch, labels in (("deepseek-7b", POD_REF_RUNS),
+                         (POD_MOE, POD_MOE_RUNS)):
+        cfg, model, base, dms, axes = mesh_ref_setup(arch)
+        for bd in ("fp", "int8"):
+            for label in labels:
+                zero_counters()
+                dep = mesh_deploy(model, base, dms, axes, mesh, mesh.device,
+                                  "continuous", base_dtype=bd,
+                                  **pod_kw(label))
+                with routing_recorded() as calls:
+                    rids = pod_traffic(dep, cfg, POD_REF_BUDGET,
+                                       POD_TRAFFIC if arch == "deepseek-7b"
+                                       else POD_MOE_TRAFFIC)
+                name = mesh_run(label, bd)
+                out["runs"][name if arch == "deepseek-7b"
+                            else f"{arch} {name}"] = dict(
+                    pod_stats(dep, rids, POD_REF_BUDGET),
+                    launches=counters(),
+                    async_admits=dep.metrics["async_admits"],
+                    routing=calls if arch == POD_MOE else None)
+                dep.close()
     return out
 
 
@@ -4983,6 +5209,54 @@ def pods_full_rank(mesh) -> dict:
     return out
 
 
+def pods_moe_rank(mesh) -> dict:
+    """One rank of the full-width (2, 1, 1) mesh for MoE under pod-local
+    banks: ``POD_MOE`` at ``POD_MOE_LAYERS`` layers, 2 variants, the
+    continuous scheduler over ``POD_FULL_BANK`` slots a pod, the skewed
+    traffic timed; then one more wave through ``gemms_checked`` (every
+    per-rank stacked launch on the pod's slots and every banked one on
+    pod-local ids, against its plain version on the same local
+    operands)."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    cfg = SV.make_config(POD_MOE, num_layers=POD_MOE_LAYERS)
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            model, base, dms, axes = SV.build_variants(cfg, 2, dev,
+                                                       with_axes=True)
+            base = tree_map(lambda t: t.cpu(), base)
+            dms = [tree_map(lambda t: t.cpu(), dm) for dm in dms]
+            gc.collect()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dep = mesh_deploy(model, base, dms, axes, mesh, dev, "continuous",
+                      bank=POD_FULL_BANK, pod_banks=True)
+    zero_counters()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rids = pod_traffic(dep, cfg, POD_FULL_BUDGET)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    m = dep.metrics
+    res = dict(pod_stats(dep, rids, POD_FULL_BUDGET), launches=counters(),
+               seconds=secs, mean_step_ms=1e3 * m["decode_seconds"]
+               / max(1, m["decode_steps"]), decode_steps=m["decode_steps"],
+               peak_GB=torch.cuda.max_memory_allocated(dev) / 1e9)
+    with gemms_checked() as log:
+        pod_traffic(dep, cfg, 2)
+    res["checked"] = {"launches": len(log),
+                      "kernels": sorted({name for name, _, _ in log}),
+                      "by_kernel": {k: sum(name == k for name, _, _ in log)
+                                    for k in {name for name, _, _ in log}},
+                      "max_abs_err": max(err for _, _, err in log)}
+    dep.close()
+    return {"coords": mesh.coords, "device": str(dev),
+            "backend": mesh.backend, "run": res}
+
+
 def pods_single_card(dev) -> dict:
     """The cold traffic of ``pods_full_rank`` on one card (the global bank
     of the same size, eager): its tokens and mean step."""
@@ -5027,9 +5301,19 @@ def pods_phase(dev) -> dict:
     3. ``python -m repro_torch.launch.serve --mesh 2,1,1 --pod-banks``
        (reduced deepseek-7b) as a fresh process.
 
+    MoE under pod-local banks: in 1., reduced deepseek-moe-16b over the
+    same traffic, the global bank and pod-local banks under both
+    dispatch modes, over both bases, every rank's tokens the CPU's and
+    the global bank's; in 2., once the qwen3-8b ranks have exited,
+    deepseek-moe-16b at ``POD_MOE_LAYERS`` layers on (2, 1, 1) (beside
+    the single-card qwen3-8b run): exact budgets, and every per-rank
+    stacked and banked launch of a checked wave, on the pod's slots and
+    pod-local ids, within the GEMM bound of its plain version.
+
     The three run at once (the full-width ranks' times are taken beside
     the other two; the card's memory in use by every process on it is
-    sampled meanwhile).
+    sampled meanwhile; while the MoE ranks run it must stay under
+    ``MESH_PEAK_GB``).
 
     Returns {run label: [launches of each rank]}."""
     from repro_torch.kernels import build
@@ -5055,21 +5339,45 @@ def pods_phase(dev) -> dict:
                         timeout_s=MESH_TIMEOUT_S)
         group = LM.start(pods_ref_rank, POD_REF_SHAPE, device="cuda",
                          timeout_s=MESH_TIMEOUT_S, threads=REDUCED_THREADS)
-        cfg, model, base, dms, axes = mesh_ref_setup("deepseek-7b")
-        want = {}
-        for bd in ("fp", "int8"):
-            dep = mesh_deploy(model, base, dms, axes, None, "cpu",
-                              "continuous", base_dtype=bd)
-            rids = pod_traffic(dep, cfg, POD_REF_BUDGET)
-            want[bd] = [dep.result(r).out_tokens for r in rids]
+        want, cpu_routing = {}, {}
+        for arch in ("deepseek-7b", POD_MOE):
+            cfg, model, base, dms, axes = mesh_ref_setup(arch)
+            for bd in ("fp", "int8"):
+                dep = mesh_deploy(model, base, dms, axes, None, "cpu",
+                                  "continuous", base_dtype=bd)
+                with routing_recorded() as calls:
+                    rids = pod_traffic(dep, cfg, POD_REF_BUDGET,
+                                       POD_TRAFFIC if arch == "deepseek-7b"
+                                       else POD_MOE_TRAFFIC)
+                want[arch, bd] = [dep.result(r).out_tokens for r in rids]
+                cpu_routing[arch, bd] = {"tokens": want[arch, bd],
+                                         "routing": calls}
         ranks = group.join()
+        moe_partings = {}
         for r, got in enumerate(ranks):
             for label, res in got["runs"].items():
                 bd = "int8" if label.endswith("int8") else "fp"
-                assert res["tokens"] == want[bd], (r, label, res["tokens"],
-                                                   want[bd])
+                arch = POD_MOE if label.startswith(POD_MOE) else \
+                    "deepseek-7b"
                 assert res["launches"]["bitlinear_axes_banked"] > 0, (
                     r, label, res["launches"])
+                if arch == POD_MOE:
+                    assert res["launches"]["bitlinear_axes_stacked"] > 0, (
+                        r, label, res["launches"])
+                    assert res["tokens"] == ranks[0]["runs"][label][
+                        "tokens"], (r, label, "ranks disagree")
+                    # the CPU's tokens and the global bank's on the mesh,
+                    # up to a routing near-tie (``tokens_or_tie``)
+                    glob = got["runs"][mesh_run(f"{POD_MOE} global", bd)]
+                    for ref, names in ((cpu_routing[arch, bd], "CPU"),
+                                       (glob, "global bank")):
+                        note = tokens_or_tie(res, ref, (label, names))
+                        if note and r == 0:
+                            moe_partings[label, names] = note
+                    label = label.removeprefix(f"{POD_MOE} ")
+                else:
+                    assert res["tokens"] == want[arch, bd], (
+                        r, label, res["tokens"], want[arch, bd])
                 af = res["affinity"]
                 if label.startswith("pods"):
                     assert af["pods"] == 2 and af["misses"] > 0, (label, af)
@@ -5086,15 +5394,23 @@ def pods_phase(dev) -> dict:
             launches[f"pods reduced {label} {POD_REF_SHAPE}"] = [
                 g["runs"][label]["launches"] for g in ranks]
         r0 = ranks[0]["runs"]
+        n_moe = sum(k.startswith(POD_MOE) for k in r0)
         print(f"pods {POD_REF_SHAPE} reduced ({ranks[0]['backend']}, "
               f"{sorted({g['device'] for g in ranks})}): every rank's "
               f"tokens == CPU plain tokens == the global bank's for "
-              f"{len(r0)} runs (both dispatch modes, sync and async, fp32 "
-              f"and int8 base); affinity (sync, rank 0) "
-              f"{r0['pods shard_map']['affinity']}; admission bytes "
+              f"{len(r0) - n_moe} deepseek-7b runs (both dispatch modes, "
+              f"sync and async, fp32 and int8 base); affinity (sync, rank "
+              f"0) {r0['pods shard_map']['affinity']}; admission bytes "
               f"(in-pod, cross-pod) pods {r0['pods shard_map']['admit_bytes']}"
               f" global {r0['global']['admit_bytes']}; "
               f"{time.perf_counter() - t0:.1f} s")
+        print(f"pods {POD_REF_SHAPE} reduced {POD_MOE}, {n_moe} runs over "
+              f"{POD_MOE_TRAFFIC} (both dispatch modes, fp32 and int8 base; "
+              f"affinity {r0[POD_MOE + ' pods shard_map']['affinity']}): "
+              "every rank's tokens == the CPU plain tokens and the global "
+              "bank's on the mesh"
+              + (f", except where the routing first parts at a near-tie: "
+                 f"{moe_partings}" if moe_partings else ", in every run"))
         # 2. full width on (2, 1, 1), then the same cold traffic on one card
         ranks = full.join()
         card.stop()
@@ -5106,10 +5422,46 @@ def pods_phase(dev) -> dict:
               f"GB of {card.total_gb:.2f}")
         gc.collect()
         torch.cuda.empty_cache()
+        # MoE at full width once the qwen3-8b ranks are gone, beside the
+        # single-card qwen3-8b run
         t0 = time.perf_counter()
+        card = CardInUse(dev).start()
+        moe = LM.start(pods_moe_rank, POD_FULL_SHAPE, device="cuda",
+                       timeout_s=MESH_TIMEOUT_S)
         single = pods_single_card(dev)
         print(f"pods full width: single-card run "
               f"{time.perf_counter() - t0:.1f} s")
+        moe_ranks = moe.join()
+        card.stop()
+        per = [g["run"] for g in moe_ranks]
+        assert all(p["tokens"] == per[0]["tokens"] for p in per), (
+            POD_MOE, "ranks disagree")
+        assert all(p["admit_bytes"][1] == 0 for p in per), per
+        for p in per:
+            assert p["launches"]["bitlinear_axes_stacked"] > 0, p
+            assert p["launches"]["bitlinear_axes_banked"] > 0, p
+            assert set(p["checked"]["kernels"]) == {
+                "bitlinear_axes_stacked", "bitlinear_axes_banked"}, p
+        assert card.peak_gb < MESH_PEAK_GB, card.peak_gb
+        launches[f"pods {POD_MOE} pods {POD_FULL_SHAPE}"] = [
+            p["launches"] for p in per]
+        r0 = per[0]
+        print(f"pods {POD_MOE} ({POD_MOE_LAYERS} layers) pods "
+              f"{POD_FULL_SHAPE} ({moe_ranks[0]['backend']}): every budget "
+              f"exact, the ranks' tokens the same; affinity "
+              f"{r0['affinity']}; residents per pod "
+              f"{r0['resident_per_pod']}; admission bytes (in-pod, "
+              f"cross-pod) {r0['admit_bytes']}; launches per rank "
+              f"{[{k: v for k, v in p['launches'].items() if v} for p in per]}"
+              f"; mean step ms per rank "
+              f"{[round(p['mean_step_ms'], 2) for p in per]}; "
+              f"{r0['decode_steps']} steps, {r0['seconds']:.2f} s; peak GB "
+              f"per rank {[round(p['peak_GB'], 2) for p in per]}; checked "
+              f"wave: {[p['checked']['by_kernel'] for p in per]} launches "
+              f"within the GEMM bound on the pod's slots and pod-local ids, "
+              f"max |err| {max(p['checked']['max_abs_err'] for p in per):.3e}"
+              f"; the card's memory in use peak {card.peak_gb:.2f} GB; "
+              f"{time.perf_counter() - t0:.1f} s with the single-card run")
         for label, _, bd, _ in POD_FULL_RUNS:
             per = [g["runs"][label] for g in ranks]
             toks = [p["tokens"] for p in per]

@@ -29,6 +29,15 @@ MISS, never load a wrong library.
   ``stats`` (``corrupt`` / ``env_mismatch``), moved aside into
   ``quarantine/`` and rebuilt: it never raises on the serving path.
 
+Processes may share one cache directory (the ranks of a mesh).  A store
+writes each of an entry's files beside it and moves it into place with
+``os.replace``, the library last, so a reader never sees a half-written
+meta or report, and a library without its meta is a broken entry, never
+one in flight.  Two processes that miss the same key at once both build
+and both store the same entry, each whole.  Under a mesh the ranks also
+take turns (``launch.mesh.load_kernels``): rank 0 loads, building on a
+miss, and the other ranks load after a barrier, as hits.
+
 ``REPRO_COMPILE_CACHE_DIR`` sets the process default (as in the JAX
 package); without it the default is ``build/repro_torch/`` at the root of
 the checkout.  The kernel library loads once a process, through the cache
@@ -179,10 +188,16 @@ class CompileCache:
         tmp.mkdir()
         try:
             built, report = build(tmp)
-            report_path.write_text(report)
-            meta_path.write_text(json.dumps({
-                "format": _FORMAT, "env": list(env_fingerprint()),
-                "parts": repr(parts), "code": code_fingerprint()}))
+            # each file lands whole (written beside it, then os.replace),
+            # the library last: a reader that sees the library sees its
+            # complete report and meta
+            for text, dest in ((report, report_path), (json.dumps({
+                    "format": _FORMAT, "env": list(env_fingerprint()),
+                    "parts": repr(parts), "code": code_fingerprint()}),
+                    meta_path)):
+                staged = tmp / dest.name
+                staged.write_text(text)
+                os.replace(staged, dest)
             os.replace(built, lib_path)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)

@@ -35,7 +35,11 @@ Pod-local banks (DESIGN.md §17): each rank holds its pod's bank slots
 only, and the engine hands every model call pod-local slot ids (global -
 pod * slots, ``ServingEngine._pod_local``), so the per-rank path indexes
 the rank's bank as it stands, where the JAX shard_map path subtracts the
-pod's offset inside the kernel's shard function and clips.
+pod's offset inside the kernel's shard function and clips.  An MoE
+layer's expert stacks reach the stacked entry point one bank slot at a
+time (the slot already taken from the rank's bank), and its shared
+experts the banked one with ids of the rank's pod (``models/moe``), so
+both run under the pod rules unchanged, in both dispatch modes.
 
 ``no_dispatch()`` is the port's ``kernel_dispatch="gspmd"``: every operand
 the plan shards is all-gathered, the global kernel runs on every rank and

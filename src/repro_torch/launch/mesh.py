@@ -104,19 +104,24 @@ def mesh_of_shape(shape: tuple, device=None) -> Mesh:
     return make_host_mesh(*shape, device=device)
 
 
-def load_kernels(mesh: Mesh) -> None:
-    """Load the kernel library on every rank of a mesh on cards: rank 0
-    first (a build, on a miss, writes the compile cache, which has no file
-    lock), the others after a barrier, when it only reads.  Nothing on the
-    CPU."""
-    if mesh.device.type != "cuda":
-        return
-    from repro_torch.kernels import build
+def load_kernels(mesh: Mesh, load=None) -> None:
+    """Load the kernel library on every rank of a mesh on cards, in turns:
+    rank 0 first (a build, on a miss, stores the entry in the compile
+    cache the ranks share), the others after a barrier, as hits.  So the
+    ranks build at most once between them (``core/compile_cache``: its
+    files also land whole, should processes race on a key).  ``load``
+    (any loader, run the same way) replaces the library's; without it,
+    nothing on the CPU, which has no library."""
+    if load is None:
+        if mesh.device.type != "cuda":
+            return
+        from repro_torch.kernels import build
+        load = build.library
     if mesh.rank == 0:
-        build.library()
+        load()
     mesh.barrier()
     if mesh.rank != 0:
-        build.library()
+        load()
 
 
 # ---------------------------------------------------------------------------

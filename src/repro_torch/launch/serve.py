@@ -64,11 +64,16 @@ on one device (each rank quantizes its blocks to the single-device bytes;
 with ``--store-dir`` rank 0 writes and a refused write raises on every
 rank), and the run prints each rank's base and bank bytes; so does
 ``--async-admission`` (the ranks agree on each commit).  Mesh serving runs
-its steps eagerly.  ``--pod-banks`` (a 3-value ``--mesh`` and
-``--scheduler continuous``) keeps one overlay bank per pod of
-``variants + 2`` slots and routes each request to a pod that holds its
-variant; the run adds the router's ``affinity:`` line, the bank bytes and
-residents per pod and the admission bytes in and across pods.
+its steps eagerly.  ``--speculative`` serves under a mesh, and every rank
+prints its ladder snapshot (``speculative rank R:``; the ranks walk the
+ladder in step); ``--warmup`` readies every step on every rank (each
+outcome "eager"), and ``--compile-cache DIR`` is the cache every rank
+loads the kernel library through (rank 0 first).  ``--pod-banks`` (a
+3-value ``--mesh`` and ``--scheduler continuous``, not ``--speculative``)
+keeps one overlay bank per pod of ``variants + 2`` slots and routes each
+request to a pod that holds its variant, MoE archs included; the run adds
+the router's ``affinity:`` line, the bank bytes and residents per pod and
+the admission bytes in and across pods.
 """
 from __future__ import annotations
 
@@ -298,6 +303,10 @@ def main(argv=None):
         _serve(args, None, t_start)
         return
     from repro_torch.launch import mesh as LM
+    if args.compile_cache:
+        # every rank loads the kernel library through this cache, before
+        # it serves (launch.mesh.load_kernels: rank 0 first)
+        os.environ["REPRO_COMPILE_CACHE_DIR"] = args.compile_cache
     if "WORLD_SIZE" in os.environ:
         # under torchrun: this process is one rank
         world = int(os.environ["WORLD_SIZE"])
@@ -390,6 +399,10 @@ def _serve(args, mesh, t_start: float) -> list:
     say("metrics:", dep.metrics)
     if args.speculative:
         say("speculative:", dep.status()["speculative"])
+        if mesh is not None:
+            # every rank's ladder: the ranks walk it in step
+            print(f"speculative rank {mesh.rank}:",
+                  dep.status()["speculative"], flush=True)
     say("registry:", dep.stats)
     if dep.admission is not None:
         say("admission:", dep.admission.stats)

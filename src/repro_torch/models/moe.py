@@ -27,6 +27,21 @@ whole batch, as in the JAX program: when the engine splits its lanes over
 "data" and a group would cross the split, the layer all-gathers its rows
 first and keeps its own rows of the result.
 
+Under pod-local banks (the lanes split pod-major over ("pod", "data"),
+each rank holding its pod's bank slots, the lanes' ids translated to
+them) the gathered rows carry ids of several pods' banks, and pod 1's id
+1 names another variant than pod 0's.  So each rank computes the router
+scores of its own rows from its pod's router slots, and the ranks
+all-gather the scores with the rows: routing, capacity selection and the
+aux loss run on the whole batch, as JAX routes it over the global bank.
+The banked expert passes then run on the rows of the rank's pod alone
+(the other pods' rows carry an id no slot matches, so they enter as zero
+rows), and the shared experts read those rows as the base slot; the rank
+keeps its own rows, which lie in its pod.  No id reaches a bank that does
+not hold it, and the layer computes what the global bank computes for the
+same lanes (its tokens depend on the lanes' layout, which the affinity
+router decides: a capacity group is the whole batch).
+
 Ties: ``lax.top_k`` returns the lower index first among equal values
 (unrouted tokens all score 0 in the capacity selection); ``top_k`` here
 takes a stable descending sort, which orders ties the same way, where
@@ -121,7 +136,7 @@ def _combine(yd: torch.Tensor, c_idx: torch.Tensor, top_idx: torch.Tensor,
     return yd_pad[g_idx, local, pos].sum(dim=2, dtype=acc)
 
 
-def _local_experts(w, cfg) -> tuple:
+def _local_experts(w) -> tuple:
     """(first global expert, mesh axes) of the rank's expert block on the
     active mesh; (0, None) when every rank holds every expert."""
     from repro_torch.distributed import sharding as S
@@ -222,17 +237,70 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
         if not _whole_groups(x.shape[0] * x.shape[1], ways):
             # a capacity group crosses the lanes' split: route the whole
             # batch on every rank and keep this rank's rows
-            xw = S.all_gather(x, rows, 0)
-            vw = None if vidx is None else S.all_gather(vidx, rows, 0)
-            with S.rows_whole():
-                y, aux = _moe(p, xw, cfg, ov, vw)
             b = x.shape[0]
             i = mesh.index(rows)
+            xw = S.all_gather(x, rows, 0)
+            vw = None if vidx is None else S.all_gather(vidx, rows, 0)
+            logits = None
+            pod = None if vidx is None else _pod_rows(mesh, rows, b)
+            if pod is not None:
+                # pod-local ids: the scores of the rank's own rows from its
+                # pod's router, whole over the rows; the other pods' rows
+                # leave the banked passes
+                logits = S.all_gather(_router_logits(p, x, ov, vidx), rows,
+                                      0)
+                keep = torch.zeros_like(vw, dtype=torch.bool)
+                keep[pod] = True
+                vw = torch.where(keep, vw, torch.full_like(vw, -1))
+            with S.rows_whole():
+                y, aux = _moe(p, xw, cfg, ov, vw, logits)
             return y[i * b:(i + 1) * b].contiguous(), aux
     return _moe(p, x, cfg, ov, vidx)
 
 
-def _moe(p: dict, x: torch.Tensor, cfg, ov, vidx):
+def _pod_rows(mesh, rows, b: int):
+    """The slice of the gathered rows that belong to the rank's pod when
+    the bank is pod-local, else None (the ids are those of one bank).
+    The lanes then split pod-major over ("pod", "data"), ``act_batch``'s
+    rule that the engine requires, so a pod's rows are contiguous."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels.dispatch import _bank_part
+    if _bank_part(mesh, S.active_rules()) is None:
+        return None
+    per_pod = mesh.names_size(rows) // mesh.axis_size("pod") * b
+    first = mesh.coord("pod") * per_pod
+    return slice(first, first + per_pod)
+
+
+def _router_logits(p: dict, x: torch.Tensor, ov, vidx) -> torch.Tensor:
+    """The router's fp32 scores (..., E) of tokens x (..., D), whole over
+    the experts.  With a banked router and ``vidx`` (broadcast to x's
+    leading dims) each token keeps its own variant's scores, the same
+    product per bank slot by a masked select (slot 0 = base)."""
+    from repro_torch.distributed import sharding as S
+    rb = oget(ov, "router")
+    if rb is None or vidx is None:
+        logits = (x @ p["router"].T.to(x.dtype)).to(torch.float32)
+    else:
+        vidx = vidx.reshape(vidx.shape + (1,) * (x.dim() - 1 - vidx.dim()))
+        logits = x @ rb[0].T.to(x.dtype)
+        for vi in range(1, rb.shape[0]):
+            logits = torch.where((vidx == vi)[..., None],
+                                 x @ rb[vi].T.to(x.dtype), logits)
+        logits = logits.to(torch.float32)
+    _, e_part = _local_experts(p["w_gate"])
+    if e_part is not None:
+        # the router shards its experts like the stacks: whole scores on
+        # every rank, so routing is the same everywhere
+        logits = S.all_gather(logits, e_part, logits.dim() - 1)
+    return logits
+
+
+def _moe(p: dict, x: torch.Tensor, cfg, ov, vidx, logits=None):
+    """The layer on rows that hold whole capacity groups.  ``logits``
+    (B, S, E): the router's scores when the caller computed them (pod-local
+    banks); ``vidx``'s rows of other pods then carry -1, which no expert
+    slot matches, and the shared experts read them as the base slot."""
     from repro_torch.distributed import sharding as S
     b, s, _ = x.shape
     e, k = cfg.num_experts, cfg.top_k
@@ -243,25 +311,16 @@ def _moe(p: dict, x: torch.Tensor, cfg, ov, vidx):
     vidx_gn = (None if vidx is None
                else vidx[:, None].expand(b, s).reshape(g, n))
     # this rank's experts (all of them off a mesh)
-    e_lo, e_part = _local_experts(p["w_gate"], cfg)
+    e_lo, e_part = _local_experts(p["w_gate"])
     e_l = p["w_gate"].shape[-3] if not is_quant(p["w_gate"]) \
         else p["w_gate"].q.shape[-3]
 
-    rb = oget(ov, "router")
-    if rb is None or vidx_gn is None:
-        logits = (xg @ p["router"].T.to(x.dtype)).to(torch.float32)
+    shared_vidx = vidx_gn
+    if logits is None:
+        logits = _router_logits(p, xg, ov, vidx_gn)             # (G,N,E)
     else:
-        # banked router: the same product per bank slot, each row keeping
-        # its own variant's scores (slot 0 = base)
-        logits = xg @ rb[0].T.to(x.dtype)
-        for vi in range(1, rb.shape[0]):
-            logits = torch.where((vidx_gn == vi)[..., None],
-                                 xg @ rb[vi].T.to(x.dtype), logits)
-        logits = logits.to(torch.float32)                       # (G,N,E)
-    if e_part is not None:
-        # the router shards its experts like the stacks: whole scores on
-        # every rank, so routing is the same everywhere
-        logits = S.all_gather(logits, e_part, logits.dim() - 1)
+        logits = logits.reshape(g, n, e)
+        shared_vidx = vidx_gn.clamp(min=0)
     probs = torch.softmax(logits, dim=-1)
     top_val, top_idx = top_k(probs, k)
     top_val = top_val / torch.clamp(top_val.sum(-1, keepdim=True), min=1e-9)
@@ -323,7 +382,7 @@ def _moe(p: dict, x: torch.Tensor, cfg, ov, vidx):
     if "shared" in p:
         # replicated on every rank: added once, after the all-reduce
         y = y + mlp_apply(p["shared"], xg, ov=oget(ov, "shared"),
-                          vidx=vidx_gn, ffn_ax="ffn_small")
+                          vidx=shared_vidx, ffn_ax="ffn_small")
 
     # Switch-style load-balancing loss: E · Σ_e f_e · P_e
     frac_tokens = F.one_hot(top_idx, e).to(torch.float32).sum(2).mean(

@@ -393,7 +393,10 @@ def _verify_block_stacked(p, x, cfg, caches, idx, pat_entry, pos, ov=None,
     h = rmsnorm(x, psel(p["ln1"], oget(ov, "ln1"), vidx), cfg.norm_eps)
     positions = (pos.to(torch.int32)[:, None]
                  + torch.arange(t, dtype=torch.int32, device=x.device))
-    # every q row reads the cache: no sequence-TP
+    # no length here: every q row of the verify reads the whole cache
+    # (pos..pos+T-1 against every earlier slot), so the T rows are never
+    # split over "model" as sequence-TP would split a prefill; heads
+    # that do not divide take "whole", as decode does
     split = A.head_split(cfg)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions,
                             pat_entry["theta"], ov=ov_a, vidx=vidx,

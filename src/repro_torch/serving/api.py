@@ -57,10 +57,16 @@ the A/B reference).  With ``base_dtype="int8"`` each rank quantizes its
 blocks to the single-device bytes and the kernels run their int8 bodies
 on the rank's tiles.  Every rank returns the same tokens.  Async admission
 serves on a mesh too: the ranks agree on each commit
-(``serving/admission``).  ``pod_banks=True`` on a (pod, data, model) mesh
-keeps one bank per pod (``bank_size`` slots each) and routes each request
-to a pod that holds its variant (``serving/engine``); it serves the dense
-family with the continuous scheduler, and refuses ``speculative``.
+(``serving/admission``).  So do ``speculative=True`` (every rank drafts
+and verifies its lanes, and the ranks gather each round's results, so
+their ladders walk in step) and ``warmup=True`` (every entry on every
+rank, each outcome "eager").  ``pod_banks=True`` on a (pod, data, model)
+mesh keeps one bank per pod (``bank_size`` slots each) and routes each
+request to a pod that holds its variant (``serving/engine``); it serves
+every family with the continuous scheduler, MoE included, and refuses
+``speculative``, as JAX does.  One refusal is left under a mesh:
+``graphs=True`` on a card (a gloo collective cannot be captured in a CUDA
+graph; graphs under a mesh come with the card-per-rank NCCL slice).
 """
 from __future__ import annotations
 

@@ -68,10 +68,19 @@ frontend stub's frames or image embeddings are built for the rank's
 lanes, and the recurrent families' states and every KV cache hold the
 rank's lanes and heads.  An int8 base serves under a mesh as on one
 card, and so does async admission (the ranks agree on each commit:
-``serving/admission``).  A mesh refuses, naming the slice that brings
-each: CUDA graphs (a gloo collective cannot be captured), the speculative
-scheduler, ``warmup()`` (and its compile cache) and MoE models with
-pod-local banks.
+``serving/admission``).  The speculative scheduler serves under a mesh:
+each round drafts and verifies the rank's lanes on its blocks
+(``serving/speculative``), then the ranks all-gather the lanes' verified
+tokens, accept counts and next tokens over the lanes' axes in one
+collective, so every rank's acceptance tracker sees the same counts and
+walks the ladder in step (a rank that picked another k would make other
+collectives).  ``warmup()`` serves under a mesh: every rank runs the same
+entries in the same order, each model call inside the mesh context, on
+the rank's lanes and its bank's slot ids; the steps stay eager, so every
+outcome is "eager", and ``status()["compile_cache"]`` counts the rank's
+own loads.  One refusal is left: CUDA graphs on a card, since a gloo
+collective cannot be captured (graphs under a mesh come with the
+card-per-rank NCCL slice).
 
 Pod-local banks (DESIGN.md §17; a registry with ``pod_banks=True`` on a
 (pod, data, model) mesh): the lanes split pod-major over ("pod", "data"),
@@ -87,8 +96,11 @@ A lane whose slot lies outside its pod's range raises there, on the host
 (the banked kernel traps on an id outside its bank).  An idle lane parks
 on its pod's base slot.  ``status()["affinity"]`` counts the router's hits
 and misses; ``status()["hbm"]`` adds the bank bytes and residents per pod.
-MoE models refuse pod-local banks: a capacity group that crosses the
-lanes' split gathers rows whose slots lie in another pod's bank.
+MoE models serve on pod-local banks: a capacity group that crosses the
+lanes' split routes on router scores each rank computed for its own rows
+from its pod's bank, and runs the banked expert passes on its own pod's
+rows alone (``models/moe``), so no slot id reaches a bank that does not
+hold it.
 
 ``status()["ttft"]`` reports the count, mean and max of the time from
 submit to first token over every request, and its p50 and p99 over a
@@ -171,8 +183,7 @@ class ServingEngine:
         if kernel_dispatch not in ("shard_map", "gspmd"):
             raise ValueError(f"unknown kernel_dispatch {kernel_dispatch!r}")
         if mesh is not None:
-            _refuse_on_mesh(model, registry, scheduler=scheduler,
-                            graphs=graphs)
+            _refuse_on_mesh(registry, scheduler=scheduler, graphs=graphs)
         # pod-local banks: lanes split evenly across the pods (pod-major)
         self._pods = registry.pods
         if self._pods > 1:
@@ -846,11 +857,23 @@ class ServingEngine:
 
     def _round_compute(self, k: int, bank):
         """The speculative round of draft length ``k`` as ``_run_step``
-        takes it; its tokens and accept counts land in ``_spec_out[k]``."""
+        takes it; its tokens and accept counts land in ``_spec_out[k]``.
+        Under a mesh the round runs on the rank's lanes, and every lane's
+        (k+1 verified tokens, accept count, next token) row is
+        all-gathered in one collective, so every rank's scheduler and
+        acceptance tracker see the same counts."""
         def compute():
-            ver, n_acc, next_tok, cache = self._rounds[k](
-                self.registry.base_params, bank, self._variant_idx_dev,
-                self._next_tok, _containers(self._cache))
+            with self._ctx():
+                ver, n_acc, next_tok, cache = self._rounds[k](
+                    self.registry.base_params, bank,
+                    self._local_rows(self._variant_idx_dev),
+                    self._local_rows(self._next_tok),
+                    _containers(self._cache))
+            if self._lane_axes:
+                rows = self._all_lanes(torch.cat(
+                    [ver, n_acc[:, None], next_tok[:, None]], dim=1))
+                ver, n_acc, next_tok = rows[:, :k + 1], rows[:, k + 1], \
+                    rows[:, k + 2]
             ver_out, n_out = self._spec_out[k]
             return [(ver_out, ver), (n_out, n_acc),
                     (self._next_tok, next_tok)], cache
@@ -925,12 +948,10 @@ class ServingEngine:
         kernel library is built or loaded through the compile cache on
         the way.  Returns {entry/kind: "captured" | "hit" (a graph already
         held for these addresses) | "eager"}; the keys are the JAX
-        engine's."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "warmup() under a mesh (captured steps, the compile cache) "
-                "arrives with the slice that brings CUDA graphs to mesh "
-                "serving")
+        engine's.  Under a mesh every rank runs the same entries in the
+        same order (collectives run inside them), each model call in the
+        mesh context on the rank's lanes, and every outcome is "eager"
+        (graphs are off there)."""
         pairs = tuple(self._warmup_reg) if pairs is None else tuple(pairs)
         unknown = [p for p in pairs if p not in self._warmup_reg]
         if unknown:
@@ -950,18 +971,20 @@ class ServingEngine:
     def _warmup_ctx(self) -> dict:
         """What the warmup builders share: the base, the target paths
         (``calibration.is_target``, the recipe ``compress`` follows), a
-        fixed-shape prompt batch and slot vector, and two runners that
-        record each outcome: ``eager(tag, kind, fn)`` runs ``fn`` once and
-        returns its result; ``step(tag, kind, compute, bank)`` readies a
-        slot-scheduler step without touching the live state (captured on
-        a card, computed and dropped eagerly otherwise)."""
+        fixed-shape prompt batch and slot vector (the rank's lanes, and
+        their base slots as ids of the bank the rank holds), and two
+        runners that record each outcome: ``eager(tag, kind, fn)`` runs
+        ``fn`` once in the mesh context and returns its result;
+        ``step(tag, kind, compute, bank)`` readies a slot-scheduler step
+        without touching the live state (captured on a card, computed and
+        dropped eagerly otherwise)."""
         from repro_torch.core.calibration import flatten_params, is_target
 
         base = self.registry.base_params
         outcomes: dict = {}
 
         def eager(tag, kind, fn):
-            with torch.no_grad():
+            with torch.no_grad(), self._ctx():
                 out = fn()
             outcomes[f"{tag}/{kind}"] = "eager"
             return out
@@ -985,8 +1008,8 @@ class ServingEngine:
                     p for p, leaf in flatten_params(base).items()
                     if is_target(p, leaf)),
                 "batch": self._prompt_batch({}),
-                "vidx": torch.zeros(self.batch_size, dtype=torch.int32,
-                                    device=self.device)}
+                "vidx": self._local_rows(torch.from_numpy(
+                    self._pod_local(self._base_vidx)).to(self.device))}
 
     def _warm_plain(self, ctx) -> None:
         eager, base, batch = ctx["eager"], ctx["base"], ctx["batch"]
@@ -1126,29 +1149,18 @@ class ServingEngine:
         return batch
 
 
-def _refuse_on_mesh(model, registry, *, scheduler: str,
-                    graphs: bool) -> None:
+def _refuse_on_mesh(registry, *, scheduler: str, graphs: bool) -> None:
     """What mesh serving does not serve yet raises, naming its slice;
     nothing is switched off silently."""
     if registry.mesh is None:
         raise ValueError("a mesh engine needs a registry placed on the mesh "
                          "(VariantRegistry(mesh=, param_shardings=, "
                          "param_axes=))")
-    if registry.pods > 1 and model.cfg.family == "moe":
-        raise NotImplementedError(
-            "pod_banks=True with an MoE model arrives with the slice that "
-            "brings MoE under pod-local banks (a capacity group crossing "
-            "the lanes' split would route rows whose slots lie in another "
-            "pod's bank)")
-    if scheduler == "speculative":
-        raise NotImplementedError(
-            "scheduler='speculative' under a mesh arrives with the slice "
-            "that brings speculative decoding and graphs to mesh serving")
     if graphs and registry.device.type == "cuda" and scheduler != "group":
         raise NotImplementedError(
             "graphs=True under a mesh: a gloo collective cannot be "
             "captured in a CUDA graph; pass graphs=False (graphs come with "
-            "the slice that brings them to mesh serving)")
+            "the card-per-rank NCCL slice, beside training under a mesh)")
 
 
 def _containers(tree):

@@ -25,7 +25,17 @@ token; at the first mismatch the variant's correction is taken and the
 rest is dropped with its cache writes.
 
 The round runs eagerly, one function per k: the engine pays one host sync
-per round for up to k+1 tokens a lane.  The caches of the attention
+per round for up to k+1 tokens a lane.
+
+On a mesh (``serving/engine``) a round works on the rank's lanes and
+blocks: the drafts run the base with overlay None, so each product is a
+plain per-rank product, with its fp32 psum where the in dim is sharded;
+the verify runs the banked kernel per rank on the rank's lanes' slot ids;
+``verify`` and the accept/rewind act on the rank's rows alone.  The
+engine then all-gathers (ver, n_acc, next_tok) over the lanes' axes, so
+every rank appends the same tokens and its :class:`AcceptanceTracker`
+sees the same counts: the ranks pick the same k each round and so make
+the same collectives.  The caches of the attention
 families are written in place (the JAX functions return new ones), so
 the draft works on a shallow copy of the cache dict: its ``pos`` stays
 the live one, and its K/V writes at pos..pos+k-1 go into the live

@@ -31,6 +31,12 @@ bank is pod-local (``OverlayBank(pods=)``): each pod has its own slot
 table, pins, LRU and free list over its own range of global slot ids, and
 ``bank_resolve``/``bank_acquire``/``bank_pin``/``bank_unpin`` take the pod
 the engine's affinity router chose (``bank_pods_holding`` is its signal).
+An MoE model's pod bank is the dense family's recipe over its leaves: a
+stacked entry for each expert stack, the router and every other leaf as
+extras, reserved and admitted per pod, and counted in the admission bytes
+by the same rule.  ``reserve_bank`` under pod-local banks allocates this
+pod's slots only, shaped as the first admission into the pod would
+allocate them (``OverlayBank.reserve``).
 
 The base is held in full precision or, with ``base_dtype="int8"``, as
 int8 plus one fp16 scale per output channel on every target matrix

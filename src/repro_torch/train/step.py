@@ -124,9 +124,9 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
     if param_axes is not None:
         raise NotImplementedError(
             "param_axes constrains gradients to a mesh's parameter "
-            "shardings: training under a mesh arrives with the slice that "
-            "brings the train step to the mesh (the port's mesh serves "
-            "only)")
+            "shardings: training under a mesh arrives with the "
+            "card-per-rank NCCL slice, beside CUDA graphs under a mesh "
+            "(the port's mesh serves only)")
     loss_fn = make_loss_fn(model)
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:

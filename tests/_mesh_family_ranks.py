@@ -8,6 +8,7 @@ rank serves or computes on its own blocks and returns plain data.  Nothing
 here imports JAX.
 """
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -46,6 +47,9 @@ BATCH, PROMPT, MAX_LEN = 4, 12, 32
 BUDGETS = R.BUDGETS
 NAMES = R.NAMES
 SCHEDULERS = {k: R.SCHEDULERS[k] for k in ("continuous", "group-fused")}
+# the speculative scheduler (adaptive k up to 4): its tokens are the
+# continuous scheduler's
+SPEC = dict(R.SCHEDULERS["continuous"], speculative=True, draft_k=4)
 KDS = ("shard_map", "gspmd")
 LOGIT_LEN = 8
 CACHE_DTYPE = torch.float32
@@ -72,11 +76,12 @@ def setup(arch: str, d: dict, device="cpu"):
 
 def serve(model, params, axes, dms, d: dict, mesh, sched: str,
           kd: str = "shard_map", device="cpu",
-          prompt_len: int = PROMPT) -> list:
+          prompt_len: int = PROMPT, ladder: Optional[list] = None) -> list:
     """Publish v0, v1; serve the data's requests round-robin over
     ``NAMES`` (on ``mesh``, or in one process for None); every request's
-    tokens."""
-    kw = dict(SCHEDULERS[sched])
+    tokens.  ``sched`` "speculative" serves ``SPEC`` and appends the
+    ladder snapshot to ``ladder``."""
+    kw = dict(SPEC if sched == "speculative" else SCHEDULERS[sched])
     if mesh is not None:
         kw.update(mesh=mesh, param_axes=axes, graphs=False,
                   kernel_dispatch=kd)
@@ -89,6 +94,8 @@ def serve(model, params, axes, dms, d: dict, mesh, sched: str,
             for i, p in enumerate(d["prompts"])]
     dep.drain()
     out = [dep.result(r).out_tokens for r in rids]
+    if ladder is not None:
+        ladder.append(dep.status()["speculative"])
     dep.close()
     return out
 
@@ -195,6 +202,13 @@ def run(mesh, path: str, plan: dict) -> dict:
     if plan.get("seq"):
         out["seq"], out["seq layouts"] = seq_runs(mesh, data[SEQ_ARCH],
                                                   device)
+    for arch in plan.get("spec", ()):
+        model, params, axes, dms = setup(arch, data[arch], device)
+        for kd in KDS:
+            ladder: list = []
+            tokens = serve(model, params, axes, dms, data[arch], mesh,
+                           "speculative", kd, device, ladder=ladder)
+            out[("spec", arch, kd)] = (tokens, ladder[0])
     return out
 
 

@@ -9,7 +9,9 @@ asserts on.  Nothing here imports JAX, so a rank never loads it.
 """
 import contextlib
 import dataclasses
+import pathlib
 import pickle
+import shutil
 import tempfile
 import time
 
@@ -301,6 +303,114 @@ def mesh_tokens(mesh, arch: str, d: dict, kds=("shard_map", "gspmd"),
                              kernel_dispatch=kd, base_dtype=base_dtype,
                              **SCHEDULERS[name])
             out[(kd, name)] = serve(dep, d, names_for(name, base_dtype))
+    return out
+
+
+# speculative rounds under a mesh: label -> Deployment keywords over the
+# continuous scheduler's; adaptive k up to 4 over both dispatch modes and
+# bases, and on deepseek-7b a fixed k=1 and an async-admission run
+SPEC_RUNS = {(kd, bd): dict(kernel_dispatch=kd, base_dtype=bd)
+             for kd in ("shard_map", "gspmd") for bd in ("fp", "int8")}
+SPEC_EXTRA = {("shard_map", "fp", "k1"): dict(draft_k=1),
+              ("shard_map", "fp", "async"): dict(async_admission=True,
+                                                 admission_pacing_s=0.0)}
+
+
+def spec_tokens(mesh, arch: str, d: dict, runs: dict,
+                device="cpu") -> dict:
+    """{label: (tokens, ladder snapshot)} of speculative Deployments on
+    ``mesh``, one per entry of ``runs``."""
+    model, params, axes, dms = setup(arch, d)
+    d = dict(d, dm_objs=dms)
+    out = {}
+    for label, kw in runs.items():
+        kw = {"draft_k": 4, **kw}
+        dep = deployment(model, params, axes, mesh, device=device,
+                         speculative=True, **SCHEDULERS["continuous"], **kw)
+        tokens = serve(dep, d)
+        out[label] = (tokens, dep.status()["speculative"])
+        dep.close()
+    return out
+
+
+def _stand_in_build(tmp):
+    """A build callable for the compile cache without ``nvcc``: one of
+    torch's own shared objects stands in for the kernel library."""
+    src = sorted((pathlib.Path(torch.__file__).parent / "lib")
+                 .glob("libc10.so*"))[0]
+    time.sleep(0.05)
+    dest = pathlib.Path(tmp) / "stand-in.so"
+    shutil.copyfile(src, dest)
+    return dest, "stand-in report"
+
+
+def cache_race(path: str, barrier, queue) -> None:
+    """One of several processes that load one key of the compile cache at
+    ``path`` at once (after ``barrier``): puts (its counters, the report,
+    whether the library loaded) on ``queue``."""
+    from repro_torch.core import compile_cache as CC
+    cache = CC.CompileCache(path)
+    barrier.wait()
+    lib, report = cache.load(("stand-in",), _stand_in_build)
+    queue.put((dict(cache.stats), report, lib is not None))
+
+
+def warm_checks(mesh, d: dict, cache_dir: str, device="cpu",
+                pods: bool = False) -> dict:
+    """``warmup()`` on a mesh, per scheduler (the continuous one alone on
+    pod-local banks, which refuse speculative decoding): the outcomes,
+    then the tokens of the same traffic as the unwarmed runs (the mesh
+    groups' requests; the pod traffic on pod-local banks).  The
+    Deployment names a compile cache every rank shares (fresh), whose
+    library the ranks load in turns (``launch.mesh.load_kernels``, a
+    stand-in build); then every rank loads one key of another fresh
+    directory at once.  The rank's ``status()["compile_cache"]``, both
+    caches' counters and anything quarantined."""
+    from repro_torch.core import compile_cache as CC
+    from repro_torch.launch import mesh as LM
+    model, params, axes, dms = setup("deepseek-7b", d)
+    prev = CC.set_default(None)
+    out = {}
+    try:
+        for sched in ("continuous",) if pods else ("continuous",
+                                                   "speculative"):
+            kw = dict(scheduler=sched, compile_cache_dir=f"{cache_dir}/turns")
+            if pods:
+                dep = Deployment(model, params, device=device, mesh=mesh,
+                                 param_axes=axes, graphs=False,
+                                 pod_banks=True, **POD_DEP, **kw)
+            else:
+                dep = deployment(model, params, axes, mesh, device=device,
+                                 bank_size=4, **kw)
+            if sched == "continuous":
+                LM.load_kernels(mesh, lambda: CC.get_default().load(
+                    ("stand-in",), _stand_in_build))
+            outcomes = dep.warmup()
+            if pods:
+                for i, dm in enumerate(dms):
+                    dep.publish(f"v{i}", dm)
+                rids = [dep.submit(POD_PROMPT, variant=v,
+                                   max_new_tokens=POD_NEW_TOKENS)
+                        for v in POD_TRAFFIC]
+                dep.drain()
+                tokens = [dep.result(r).out_tokens for r in rids]
+            else:
+                tokens = serve(dep, dict(d, dm_objs=dms))
+            st = dep.status()
+            out[sched] = {"outcomes": outcomes, "tokens": tokens,
+                          "cache": st["compile_cache"],
+                          "warmed": st["warmed"]}
+            dep.close()
+        mesh.barrier()
+        race = CC.CompileCache(f"{cache_dir}/race")
+        _, report = race.load(("stand-in",), _stand_in_build)
+        out["race"] = (dict(race.stats), report)
+        mesh.barrier()
+        out["quarantined"] = [
+            q.name for sub in ("turns", "race")
+            for q in (pathlib.Path(cache_dir) / sub).glob("quarantine/*")]
+    finally:
+        CC.set_default(prev)
     return out
 
 
@@ -628,6 +738,14 @@ def pod_checks(mesh, d: dict, device="cpu") -> dict:
     return out
 
 
+def moe_pod_checks(mesh, d: dict, device="cpu") -> dict:
+    """MoE under pod-local banks: deepseek-moe-16b over the pod traffic,
+    each run of ``POD_RUNS`` (the global bank beside them)."""
+    model, params, axes, dms = setup("deepseek-moe-16b", d)
+    return {label: pod_run(mesh, model, params, axes, dms, device, **kw)
+            for label, kw in POD_RUNS.items()}
+
+
 # the launcher with pod-local banks on (2, 1, 2)
 POD_LAUNCH_ARGV = ["--arch", "deepseek-7b", "--reduced", "--num-layers", "2",
                    "--variants", "2", "--requests", "6", "--new-tokens", "3",
@@ -680,6 +798,15 @@ def run(mesh, path: str, plan: dict) -> dict:
                                          device=device)
     if plan.get("pods"):
         out["pods"] = pod_checks(mesh, data["deepseek-7b"], device=device)
+    for arch, runs in plan.get("spec", {}).items():
+        out[("spec", arch)] = spec_tokens(mesh, arch, data[arch], runs,
+                                          device=device)
+    if plan.get("moe_pods"):
+        out["moe pods"] = moe_pod_checks(mesh, data["deepseek-moe-16b"],
+                                         device=device)
+    if plan.get("warm"):
+        out["warm"] = warm_checks(mesh, data["deepseek-7b"], plan["warm"],
+                                  device=device, pods=bool(plan.get("pods")))
     return out
 
 

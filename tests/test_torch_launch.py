@@ -6,9 +6,20 @@ the JAX launcher's (``src/repro/launch/serve.py:198-215``) and the tokens
 those of the same cycles driven through ``Deployment.update`` and
 ``rollback`` by hand.  ``--max-resident`` bounds the registry, and the run
 ends with the TTFT line the JAX launcher prints.  Reduced archs, one
-process, on the CPU."""
+process, on the CPU.
+
+Under a mesh (``--mesh``: the port's ranks spawned over gloo; JAX's
+launcher in a subprocess over forced host devices, started by the module
+fixture while the port serves) the speculative scheduler, ``--warmup``
+and MoE with ``--pod-banks`` print JAX's version lines and budgets, and
+both launchers refuse ``--pod-banks`` beside ``--speculative`` or a
+2-value ``--mesh``."""
 import ast
+import json
+import os
+import pathlib
 import re
+import subprocess
 import sys
 
 import numpy as np
@@ -124,3 +135,132 @@ def test_launcher_max_resident_bounds_the_registry(capsys):
     # default (2 for dense): both variants stay; capacity 1: they trade
     assert stats[0]["evictions"] == 0 and stats[0]["swaps"] == 2
     assert stats[1]["evictions"] == stats[1]["swaps"] - 1 >= 2
+
+
+# ---------------------------------------------------------------------------
+# under a mesh, against the JAX launcher on forced host devices
+# ---------------------------------------------------------------------------
+
+_COMMON = ["--reduced", "--variants", "2", "--new-tokens", "3", "--mode",
+           "fused", "--updates", "1"]
+MESH_ARGV = {
+    "speculative": ["--arch", "deepseek-7b", "--requests", "4", "--batch",
+                    "2", "--speculative", "--mesh", "1,2"] + _COMMON,
+    "warmup": ["--arch", "deepseek-7b", "--requests", "4", "--batch", "2",
+               "--scheduler", "continuous", "--warmup", "--mesh", "1,2"]
+    + _COMMON,
+    "moe pods": ["--arch", "deepseek-moe-16b", "--requests", "6", "--batch",
+                 "4", "--scheduler", "continuous", "--pod-banks", "--mesh",
+                 "2,1,2"] + _COMMON,
+}
+REFUSED_ARGV = {
+    "pod banks speculative": ["--arch", "deepseek-7b", "--reduced",
+                              "--mode", "fused", "--speculative",
+                              "--pod-banks", "--mesh", "2,1,2"],
+    "pod banks two-value mesh": ["--arch", "deepseek-7b", "--reduced",
+                                 "--mode", "fused", "--scheduler",
+                                 "continuous", "--pod-banks", "--mesh",
+                                 "1,2"],
+}
+_JAX_DRIVER = """
+import contextlib, io, json, sys, traceback
+from repro.launch import serve as JSV
+out = {}
+for label, argv in json.loads(sys.argv[1]).items():
+    buf, code = io.StringIO(), 0
+    sys.argv = ["serve"] + argv
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            JSV.main()
+    except SystemExit as e:
+        code = e.code
+    except Exception:
+        code, buf = "raised", io.StringIO(traceback.format_exc())
+    out[label] = [code, buf.getvalue()]
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_runs():
+    """The JAX launcher over every case, in one subprocess with 4 forced
+    host devices (this process's JAX has one), started here and read on
+    first use."""
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(src))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _JAX_DRIVER,
+         json.dumps({**MESH_ARGV, **REFUSED_ARGV})],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    got = {}
+
+    def read():
+        if not got:
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-3000:]
+            got.update(json.loads(out.strip().splitlines()[-1]))
+        return got
+    yield read
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def _tokens_generated(text: str) -> int:
+    m = re.search(r"^metrics: .*'tokens_generated': (\d+)", text, re.M)
+    assert m, text[-2000:]
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("case", sorted(MESH_ARGV))
+def test_mesh_launcher_prints_jax_version_lines_and_budgets(
+        case, jax_mesh_runs, capfd):
+    """The port's launcher under a mesh (its ranks spawned, rank 0
+    reporting) prints the JAX launcher's version lines, generates the same
+    number of tokens (every budget met) and reports the same number of
+    first tokens; the ranks served the same tokens.  Under
+    ``--speculative`` every rank prints the same ladder snapshot; under
+    ``--warmup`` every outcome is "eager"; with ``--pod-banks`` the
+    router's line is JAX's."""
+    SV.main(MESH_ARGV[case] + ["--device", "cpu"])
+    out = capfd.readouterr().out
+    code, jout = jax_mesh_runs()[case]
+    assert code == 0, jout[-3000:]
+    assert _version_lines(out) == _version_lines(jout) == [
+        "update 0: v0 -> version 2", "rollback: v0 -> version 1"]
+    assert _tokens_generated(out) == _tokens_generated(jout)
+    assert _ttft(out)[2] == _ttft(jout)[2]
+    assert "ranks served the same tokens" in out
+    if case == "speculative":
+        snaps = [ast.literal_eval(ln.partition(":")[2].strip())
+                 for ln in out.splitlines()
+                 if ln.startswith("speculative rank ")]
+        assert len(snaps) == 2 and snaps[0] == snaps[1]
+    if case == "warmup":
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith("warmup:"))
+        assert set(json.loads(line.partition(":")[2]).values()) == {"eager"}
+    if case == "moe pods":
+        def affinity(text):
+            return [ln for ln in text.splitlines()
+                    if ln.startswith(("affinity:", "bank residents"))]
+        assert affinity(out) == affinity(jout) and affinity(out)
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED_ARGV))
+def test_mesh_launcher_refuses_what_jax_refuses(case, jax_mesh_runs,
+                                                capsys):
+    """``--pod-banks`` beside ``--speculative`` (JAX's Deployment raises;
+    the port refuses its arguments) or a 2-value ``--mesh`` (an argument
+    error in both)."""
+    code, jout = jax_mesh_runs()[case]
+    assert code != 0
+    with pytest.raises(SystemExit) as e:
+        SV.main(REFUSED_ARGV[case] + ["--device", "cpu"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "--pod-banks" in err
+    assert ("speculative" in jout) if "speculative" in case else (
+        "3-value --mesh" in jout and "3-value --mesh" in err)

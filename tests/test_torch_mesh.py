@@ -15,6 +15,13 @@ modes, over an fp32 and an int8 base — and each rank launches its kernels
 on its own tiles, within the GEMM bound of the unsharded op.  Over an int8
 base every rank's q and scale blocks are the blocks of JAX's single-device
 ``quantize_base``, bit for bit, row-parallel weights included.
+
+The speculative scheduler serves under (1, 2) and (2, 2) too: its tokens
+are the variant's greedy chain, so every rank serves JAX's single-device
+continuous tokens, whatever k the ladder walks, and every rank reports
+the same ladder snapshot.  ``warmup()`` runs on (1, 2) with JAX's outcome
+keys, every outcome "eager", and the ranks load a compile cache they
+share without a corrupt entry.
 """
 import pickle
 import time
@@ -48,12 +55,15 @@ TIMEOUT_S = 300
 MESHES = {
     (1, 2): {"dispatch": True, "logits": ARCHS, "bank": True,
              "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS},
-             "int8": R.INT8_RUNS, "launcher": True, "async": True},
+             "int8": R.INT8_RUNS, "launcher": True, "async": True,
+             "spec": {"deepseek-7b": {**R.SPEC_RUNS, **R.SPEC_EXTRA},
+                      "deepseek-moe-16b": R.SPEC_RUNS}},
     (2, 1): {"logits": ARCHS,
              "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS}},
     (2, 2): {"dispatch": True, "logits": ARCHS, "bank": True,
              "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS},
-             "int8": R.INT8_RUNS},
+             "int8": R.INT8_RUNS,
+             "spec": {a: R.SPEC_RUNS for a in ARCHS}},
     # reduced qwen3-8b keeps 4 q heads and 2 KV heads: under model=4 the
     # GQA branch (q heads sharded, K/V gathered) with a KV head cut over
     # two ranks
@@ -68,6 +78,8 @@ INT8_CASES = [(m, a, s, kd) for m, plan in MESHES.items()
               for a, scheds in plan.get("int8", {}).items() for s in scheds
               for kd in KDS]
 INT8_MESHES = [m for m, p in MESHES.items() if p.get("int8")]
+SPEC_CASES = [(m, a, label) for m, plan in MESHES.items()
+              for a, runs in plan.get("spec", {}).items() for label in runs]
 
 
 def _arch_data(arch: str) -> dict:
@@ -94,6 +106,7 @@ class _Spawns:
             plan = dict(plan)
             if shape == (1, 2):
                 plan["store"] = store_root
+                plan["warm"] = f"{store_root}-compile-cache"
             self.groups[shape] = LM.start(
                 R.run, shape, device="cpu", timeout_s=TIMEOUT_S,
                 args=(path, plan), threads=1)
@@ -409,17 +422,82 @@ def test_mesh_async_failure_on_one_rank_fails_every_rank(world):
     assert all(g["async"]["async"]["base_agreements"] == 0 for g in ranks)
 
 
-_REFUSALS = {
-    "speculative": (dict(speculative=True), "speculative"),
-}
+@pytest.mark.parametrize("shape,arch,label", SPEC_CASES,
+                         ids=["x".join(map(str, m)) + f"-{a}-"
+                              + "-".join(label) for m, a, label in SPEC_CASES])
+def test_mesh_speculative_tokens_match_jax_single_device(world, shape, arch,
+                                                         label):
+    """The speculative scheduler under a mesh (each round's drafts and
+    verify on the rank's lanes and blocks, the lanes' results gathered
+    once a round): every rank serves JAX's single-device continuous
+    tokens (the variant's greedy chain) with every budget, over both
+    dispatch modes and bases, adaptive k up to 4, a fixed k = 1 and async
+    admission; every rank reports the same ladder snapshot, so the ranks
+    picked the same k in every round."""
+    want = _jax_tokens(world, arch, "continuous", label[1])
+    assert [len(t) for t in want] == R.BUDGETS
+    ranks = world["spawns"].get(shape)
+    snaps = [g[("spec", arch)][label][1] for g in ranks]
+    for got in ranks:
+        assert got[("spec", arch)][label][0] == want, got["coords"]
+    assert all(sn == snaps[0] for sn in snaps)
+    assert snaps[0]["rounds"] > 0 and snaps[0]["drafted"] > 0
+    assert snaps[0]["ladder"] == ([1] if "k1" in label else [1, 2, 4])
 
 
-@pytest.mark.parametrize("case", sorted(_REFUSALS) + ["warmup", "moe_pods",
-                                                       "no_axes", "pod"])
+def _jax_warmup_keys(world, scheduler: str) -> set:
+    """JAX's ``warmup()`` keys for the scheduler, on one device (its
+    executables stubbed: the keys come from its registry)."""
+    d = world["data"]["deepseek-7b"]
+    jdep = JaxDeployment(d["jmodel"], d["jparams"], batch_size=R.BATCH,
+                         prompt_len=R.PROMPT, max_len=R.MAX_LEN,
+                         bank_size=4, scheduler=scheduler)
+    jdep.engine._get_exe = lambda kind, args: None
+    keys = set(jdep.warmup())
+    jdep.close()
+    return keys
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "speculative"])
+def test_mesh_warmup_keys_and_tokens_match_jax(world, scheduler):
+    """``warmup()`` on (1, 2): every rank runs JAX's entries (the outcome
+    keys of JAX's ``warmup()`` for the scheduler), each "eager" (no graph
+    under a mesh), and then serves JAX's single-device continuous
+    tokens."""
+    want_keys = _jax_warmup_keys(world, scheduler)
+    want = _jax_tokens(world, "deepseek-7b", "continuous")
+    for got in world["spawns"].get((1, 2)):
+        w = got["warm"][scheduler]
+        assert set(w["outcomes"]) == want_keys
+        assert set(w["outcomes"].values()) == {"eager"}
+        assert w["warmed"] is True
+        assert w["tokens"] == want, got["coords"]
+
+
+def test_mesh_ranks_share_one_compile_cache(world):
+    """Ranks that share one fresh compile-cache directory: loading in
+    turns (rank 0 first, the others after a barrier) builds once between
+    them and the others hit; loading one key at once, each rank builds or
+    hits and gets the library; nothing counts as corrupt and nothing is
+    quarantined.  ``status()["compile_cache"]`` is the rank's own."""
+    ranks = world["spawns"].get((1, 2))
+    caches = [g["warm"]["continuous"]["cache"] for g in ranks]
+    assert sum(c["builds"] for c in caches) == 1
+    assert caches[0]["builds"] == 1 and caches[1]["hits"] == 1
+    for g in ranks:
+        race, report = g["warm"]["race"]
+        assert report == "stand-in report"
+        assert race["builds"] + race["hits"] == 1
+        assert race["corrupt"] == race["env_mismatch"] == 0
+        assert g["warm"]["continuous"]["cache"]["corrupt"] == 0
+        assert g["warm"]["quarantined"] == []
+
+
+@pytest.mark.parametrize("case", ["no_axes", "pod"])
 def test_mesh_refusals_name_their_slice(world, case):
-    """What mesh serving does not serve yet raises, naming the slice that
-    brings it; nothing is switched off silently.  (A mesh object without
-    processes: every refusal comes before the first collective.)"""
+    """What mesh serving does not serve raises, naming why; nothing is
+    switched off silently.  (A mesh object without processes: every
+    refusal comes before the first collective.)"""
     from repro_torch.distributed import sharding as S
     from repro_torch.models.param import split
     mesh = S.Mesh(("data", "model"), (1, 2))
@@ -428,36 +506,13 @@ def test_mesh_refusals_name_their_slice(world, case):
     model = build_model(R.port_config(arch))
     params = bridge.params_from_numpy(d["flat"], "cpu")
     _, axes = split(model.init(0, device="cpu"))
-    kw = dict(device="cpu", mesh=mesh, param_axes=axes, batch_size=4)
     if case == "no_axes":
         with pytest.raises(ValueError, match="param_axes"):
             R.Deployment(model, params, device="cpu", mesh=mesh)
         return
-    if case == "warmup":
-        dep = R.Deployment(model, params, **kw)
-        with pytest.raises(NotImplementedError, match="slice"):
-            dep.warmup()
-        return
-    if case == "pod":
-        # pod-local banks still refuse speculative decoding, as JAX does
-        pmesh = S.Mesh(("pod", "data", "model"), (2, 1, 2))
-        with pytest.raises(ValueError, match="speculative"):
-            R.Deployment(model, params, device="cpu", mesh=pmesh,
-                         param_axes=axes, batch_size=4, pod_banks=True,
-                         speculative=True)
-        return
-    if case == "moe_pods":
-        # an MoE model with pod-local banks: a capacity group crossing the
-        # lanes' split would route rows to another pod's slots
-        mmodel = build_model(R.port_config("deepseek-moe-16b"))
-        mparams, maxes = split(mmodel.init(0, device="cpu"))
-        pmesh = S.Mesh(("pod", "data", "model"), (2, 1, 2))
-        with pytest.raises(NotImplementedError,
-                           match="pod_banks=True with an MoE model.*slice"):
-            R.Deployment(mmodel, mparams, device="cpu", mesh=pmesh,
-                         param_axes=maxes, batch_size=4, pod_banks=True,
-                         scheduler="continuous", graphs=False)
-        return
-    extra, word = _REFUSALS[case]
-    with pytest.raises(NotImplementedError, match=f"{word}.*slice"):
-        R.Deployment(model, params, **kw, **extra)
+    # pod-local banks still refuse speculative decoding, as JAX does
+    pmesh = S.Mesh(("pod", "data", "model"), (2, 1, 2))
+    with pytest.raises(ValueError, match="speculative"):
+        R.Deployment(model, params, device="cpu", mesh=pmesh,
+                     param_axes=axes, batch_size=4, pod_banks=True,
+                     speculative=True)

@@ -13,7 +13,11 @@ xlstm-350m's fused sLSTM ``w_ff1`` splits 4 ways; a reduced starcoder2-3b with 6
 heads on (1, 4) takes the sequence-TP branch (a prompt length that is a
 multiple of 4), JAX's flat-``q_dim`` branch (one that is not) and the
 decode at s = 1, which the port lays out alike (every head on every
-rank).  One module fixture starts every group while the
+rank).  The speculative scheduler serves every family on (1, 2) and
+(2, 2), and the 2-head xlstm-350m and the 6-head config on (1, 4) (its
+verify at T = k+1 rows takes "whole"): every rank serves JAX's
+single-device continuous tokens, the variant's greedy chain, with the
+same ladder snapshot.  One module fixture starts every group while the
 parent runs JAX (``tests/_mesh_ranks.py``'s pattern); the rank side is
 ``tests/_mesh_family_ranks.py``.
 """
@@ -57,19 +61,24 @@ SCHEDS = tuple(F.SCHEDULERS)
 QUAD = ("zamba2-7b", "xlstm-350m", "xlstm-350m-2h")
 TIMEOUT_S = 300
 MESHES = {
-    (1, 2): {"tokens": {a: SCHEDS for a in F.ARCHS}, "logits": F.ARCHS},
-    (2, 2): {"tokens": {a: SCHEDS for a in F.ARCHS}, "logits": F.ARCHS},
+    (1, 2): {"tokens": {a: SCHEDS for a in F.ARCHS}, "logits": F.ARCHS,
+             "spec": F.ARCHS},
+    (2, 2): {"tokens": {a: SCHEDS for a in F.ARCHS}, "logits": F.ARCHS,
+             "spec": F.ARCHS},
     # reduced zamba2-7b and the 2-head xlstm-350m: 2 SSM or mLSTM heads
     # over 4 ranks (a rank's block of d_inner cuts a head); xlstm-350m:
     # its fused w_ff1 cut 4 ways; the 6-head config: sequence-TP attention
     (1, 4): {"tokens": {a: SCHEDS for a in QUAD},
-             "logits": QUAD, "seq": True},
+             "logits": QUAD, "seq": True,
+             "spec": ("xlstm-350m-2h", F.SEQ_ARCH)},
 }
 TOKEN_CASES = [(m, a, s, kd) for m, plan in MESHES.items()
                for a, scheds in plan["tokens"].items() for s in scheds
                for kd in F.KDS]
 LOGIT_CASES = [(m, a, mode) for m, plan in MESHES.items()
                for a in plan["logits"] for mode in ("fused", "banked")]
+SPEC_CASES = [(m, a, kd) for m, plan in MESHES.items() for a in plan["spec"]
+              for kd in F.KDS]
 
 
 def _ids(cases):
@@ -174,6 +183,24 @@ def test_family_tokens_on_mesh_match_jax_single_device(world, shape, arch,
     assert [len(t) for t in want] == F.BUDGETS
     for got in world["spawns"].get(shape):
         assert got[("tokens", arch)][(kd, sched)] == want, got["coords"]
+
+
+@pytest.mark.parametrize("shape,arch,kd", SPEC_CASES, ids=_ids(SPEC_CASES))
+def test_family_speculative_tokens_on_mesh_match_jax_single_device(
+        world, shape, arch, kd):
+    """Speculative rounds under a mesh for every windowless family: the
+    drafts on the base and the banked verify of T = k+1 tokens a lane run
+    on the rank's lanes and heads (the recurrent families step T times and
+    keep a snapshot a step; the 6 q heads on (1, 4) take "whole" in
+    verify), and every rank serves JAX's single-device continuous tokens
+    with the same ladder snapshot."""
+    want = _jax_tokens(world, arch, "continuous")
+    assert [len(t) for t in want] == F.BUDGETS
+    ranks = world["spawns"].get(shape)
+    for got in ranks:
+        assert got[("spec", arch, kd)][0] == want, got["coords"]
+    snaps = [g[("spec", arch, kd)][1] for g in ranks]
+    assert all(sn == snaps[0] for sn in snaps) and snaps[0]["rounds"] > 0
 
 
 _REF_LOGITS: dict = {}

@@ -6,9 +6,12 @@ Two tiers:
 
 * host-only (a ``Mesh`` without processes): the bank rule's resolution
   against the JAX package's, the global slot convention of a one-pod bank,
-  and the refusals (a registry without a pod axis, speculative decoding,
-  MoE, lanes that do not split over the pods, the launcher's argument
-  errors, a lane slot outside its pod's range);
+  the refusals (a registry without a pod axis, speculative decoding,
+  lanes that do not split over the pods, the launcher's argument errors,
+  a lane slot outside its pod's range), and the MoE layer on a rank of
+  pod 1 whose gathered rows carry pod 0's ids (the collectives stood in
+  for): no row of pod 0 reaches the rank's bank, and the rank's rows
+  equal the global bank's;
 * one spawned (pod, data, model) = (2, 1, 2) gloo group of 4 ranks
   (``launch.mesh.start``, the rank side in ``tests/_mesh_ranks.py``),
   started by the module fixture while the parent runs the JAX package:
@@ -18,8 +21,11 @@ Two tiers:
   the router's hits and misses and the admission bytes in and across
   pods; the per-pod bank semantics; async admission's agreement (every
   rank commits each ticket at the same step, a failure on one rank fails
-  it on every rank, no ticket no collective); and the launcher with
-  ``--pod-banks``.
+  it on every rank, no ticket no collective); the launcher with
+  ``--pod-banks``; MoE (deepseek-moe-16b) under pod-local banks, its tokens
+  JAX's and the global bank's, in both dispatch modes, sync and async, over
+  fp32 and int8; ``warmup()`` on the pod mesh (JAX's outcome keys, each
+  "eager", then JAX's tokens) and a compile cache the ranks share.
 
 Contract (DESIGN.md §17): pod-local banking is a layout and routing
 decision, so the tokens are the global bank's whether a request was an
@@ -34,6 +40,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import PartitionSpec as P
 
 from _port_helpers import (configs, delta_model_numpy, fine_tune_flat,
@@ -59,6 +66,7 @@ from repro_torch.serving.variants import OverlayBank, VariantRegistry
 jax.config.update("jax_platforms", "cpu")
 
 ARCH = "deepseek-7b"
+MOE = "deepseek-moe-16b"
 SHAPE = (2, 1, 2)
 NAMES = ("pod", "data", "model")
 TIMEOUT_S = 300
@@ -74,56 +82,68 @@ def _fake_mesh(shape, names):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pods")
-    jcfg, _ = configs(num_layers=2, arch=ARCH)
-    jmodel, jparams, flat = jax_base(jcfg)
-    jdms = [JC.compress(jparams, jax_tree(jparams, fine_tune_flat(
-        flat, seed, scale=0.05))) for seed in (41, 42)]
-    ship = {"flat": flat, "dms": [delta_model_numpy(d) for d in jdms]}
+    state = {}
+    for arch in (ARCH, MOE):
+        jcfg, _ = configs(num_layers=R.LAYERS.get(arch, 2), arch=arch)
+        jmodel, jparams, flat = jax_base(jcfg)
+        jdms = [JC.compress(jparams, jax_tree(jparams, fine_tune_flat(
+            flat, seed, scale=0.05))) for seed in (41, 42)]
+        state[arch] = {"jmodel": jmodel, "jparams": jparams, "jdms": jdms,
+                       "ship": {"flat": flat, "dms": [delta_model_numpy(d)
+                                                      for d in jdms]}}
     path = str(tmp / "data.pkl")
     with open(path, "wb") as f:
-        pickle.dump({ARCH: ship}, f)
+        pickle.dump({a: state[a]["ship"] for a in (ARCH, MOE)}, f)
     group = LM.start(R.run, SHAPE, device="cpu", timeout_s=TIMEOUT_S,
-                     args=(path, {"pods": True}), threads=1)
-    state = {"jmodel": jmodel, "jparams": jparams, "jdms": jdms,
-             "ship": ship, "group": group}
+                     args=(path, {"pods": True, "moe_pods": True,
+                                  "warm": str(tmp / "compile-cache")}),
+                     threads=1)
+    state.update(state[ARCH], group=group)
     yield state
-    if "ranks" not in state:
+    if "group results" not in state:
         try:
             group.join()
         except LM.RankFailure:
             pass
 
 
-def _ranks(world) -> list:
-    """Every rank's pod checks (the group joined on first use)."""
-    if "ranks" not in world:
+def _group(world) -> list:
+    """Every rank's results (the group joined on first use)."""
+    if "group results" not in world:
         try:
-            world["ranks"] = [g["pods"] for g in world["group"].join()]
+            world["group results"] = world["group"].join()
         except LM.RankFailure as e:
-            world["ranks"] = e
-    if isinstance(world["ranks"], Exception):
-        raise world["ranks"]
-    return world["ranks"]
+            world["group results"] = e
+    if isinstance(world["group results"], Exception):
+        raise world["group results"]
+    return world["group results"]
+
+
+def _ranks(world) -> list:
+    """Every rank's pod checks."""
+    return [g["pods"] for g in _group(world)]
 
 
 _JAX_TOKENS: dict = {}
 
 
-def _jax_tokens(world, base_dtype: str) -> list:
+def _jax_tokens(world, base_dtype: str, arch: str = ARCH) -> list:
     """JAX's single-device continuous Deployment over the pod traffic."""
-    if base_dtype not in _JAX_TOKENS:
-        dep = JaxDeployment(world["jmodel"], world["jparams"],
+    if (arch, base_dtype) not in _JAX_TOKENS:
+        w = world[arch]
+        dep = JaxDeployment(w["jmodel"], w["jparams"],
                             base_dtype=base_dtype, **R.POD_DEP)
-        for i, dm in enumerate(world["jdms"]):
+        for i, dm in enumerate(w["jdms"]):
             dep.publish(f"v{i}", dm)
         rids = [dep.submit(R.POD_PROMPT, variant=v,
                            max_new_tokens=R.POD_NEW_TOKENS)
                 for v in R.POD_TRAFFIC]
         dep.drain()
         assert all(dep.result(r).status == "done" for r in rids)
-        _JAX_TOKENS[base_dtype] = [dep.result(r).out_tokens for r in rids]
+        _JAX_TOKENS[(arch, base_dtype)] = [dep.result(r).out_tokens
+                                           for r in rids]
         dep.close()
-    return _JAX_TOKENS[base_dtype]
+    return _JAX_TOKENS[(arch, base_dtype)]
 
 
 def _port_setup(world):
@@ -239,16 +259,13 @@ _REFUSALS = {
     "batch": (SHAPE, dict(batch_size=3), ValueError, "divide"),
     "lanes": ((2, 2, 1), dict(batch_size=2), ValueError,
               "pod and data axes"),
-    "moe": (SHAPE, dict(arch="deepseek-moe-16b"), NotImplementedError,
-            "MoE.*slice"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_REFUSALS))
 def test_pod_banks_refusals(world, case):
     """What pod-local banks do not serve raises before any collective (a
-    mesh object without processes), naming why or the slice that brings
-    it."""
+    mesh object without processes), naming why."""
     shape, kw, exc, match = _REFUSALS[case]
     names = NAMES if len(shape) == 3 else ("data", "model")
     mesh = S.Mesh(names, shape)
@@ -450,3 +467,139 @@ def test_launcher_pod_banks_equals_one_process(world):
     assert len(want) == 6
     for got in _ranks(world):
         assert got["launcher"] == want
+
+
+# ---------------------------------------------------------------------------
+# MoE under pod-local banks; warmup and the compile cache on the pod mesh
+# ---------------------------------------------------------------------------
+
+def test_moe_rows_of_another_pod_never_reach_the_rank_bank(world,
+                                                          monkeypatch):
+    """The MoE layer on a rank of pod 1 whose capacity groups cross the
+    lanes' split (the collectives stood in for by pod 0's rows): pod 0's
+    and pod 1's banks hold different variants under the same local id.
+    Pod 0's rows reach neither the rank's router slots nor its expert
+    slots (-1) nor the shared experts' (the base slot), and the rank's
+    rows equal the whole batch's over the global bank, whose ids name
+    each pod's slots."""
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import _layer
+    from repro_torch.core import calibration as C
+    model, params, axes, dms = R.setup(MOE, world[MOE]["ship"])
+    cfg = model.cfg
+    p = _layer(params["layers"], 0)["moe"]
+    trees = []
+    for dm in (dms[0], dms[1]):        # pod 0: v0 at 1; pod 1: v1 at 1
+        bank = OverlayBank(params, 2)
+        bank.admit("v", dm)
+        trees.append(_layer(bank.tree["layers"], 0)["moe"])
+
+    def cat(a, b):
+        if isinstance(a, dict):
+            return {k: cat(a[k], b[k]) for k in a}
+        if isinstance(a, DO.OverlayEntry):
+            return DO.OverlayEntry(*(torch.cat([getattr(a, f), getattr(b, f)])
+                                     for f in ("packed", "v_row", "v_col")))
+        return torch.cat([a, b])
+    glob = cat(*trees)
+    gen = torch.Generator().manual_seed(3)
+    b, seq = 2, 5
+    x = torch.randn((2 * b, seq, cfg.d_model), generator=gen)
+    local = torch.tensor([1, 0, 1, 0], dtype=torch.int32)   # each pod's ids
+    want, _ = M._moe(p, x, cfg, glob, local + torch.tensor([0, 0, 2, 2],
+                                                           dtype=torch.int32))
+    mesh = S.Mesh(NAMES, (2, 1, 1), coords=(1, 0, 0))
+    inner_router, inner_moe = M._router_logits, M._moe
+    inner_mlp, inner_gather = M.mlp_apply, S.all_gather
+    # pod 0's blocks of what the rank gathers over the lanes' axes: its
+    # rows, their ids and their scores from pod 0's router slots
+    pod0 = {torch.float32: lambda t: (
+        x[:b] if t.shape[-1] == cfg.d_model else
+        inner_router(p, x[:b], trees[0], local[:b])),
+        torch.int32: lambda t: local[:b]}
+    seen = {"router": [], "moe": [], "shared": []}
+
+    def gather(t, axis, dim, mesh=None):
+        if S._names(axis) != ("pod", "data"):
+            return inner_gather(t, axis, dim, mesh)
+        return torch.cat([pod0[t.dtype](t), t], dim=dim)
+
+    def router(p_, x_, ov, vidx):
+        seen["router"].append(vidx.clone())
+        return inner_router(p_, x_, ov, vidx)
+
+    def moe(p_, x_, cfg_, ov, vidx, logits=None):
+        seen["moe"].append(vidx.clone())
+        return inner_moe(p_, x_, cfg_, ov, vidx, logits)
+
+    def mlp(p_, x_, ov=None, vidx=None, ffn_ax="ffn"):
+        seen["shared"].append(vidx.clone())
+        return inner_mlp(p_, x_, ov=ov, vidx=vidx, ffn_ax=ffn_ax)
+    monkeypatch.setattr(S, "all_gather", gather)
+    monkeypatch.setattr(M, "_router_logits", router)
+    monkeypatch.setattr(M, "_moe", moe)
+    monkeypatch.setattr(M, "mlp_apply", mlp)
+    rules = S.rules_for("decode", pod_banks=True)
+    lay = S.Layout.from_params(
+        {k: tuple(t.shape) for k, t in C.flatten_params(params).items()},
+        DO.flatten_axes(axes), mesh, rules)
+    with S.shard_ctx(mesh, rules, lay, ("pod", "data")):
+        got, _ = M.moe_apply(p, x[b:], cfg, ov=trees[1], vidx=local[b:])
+    assert [v.tolist() for v in seen["router"]] == [local[b:].tolist()]
+    assert [v.tolist() for v in seen["moe"]] == [[-1, -1, 1, 0]]
+    assert all(v.min() >= 0 and v.reshape(-1)[:b * seq].eq(0).all()
+               for v in seen["shared"]) and seen["shared"]
+    torch.testing.assert_close(got, want[b:], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("run", sorted(R.POD_RUNS))
+def test_moe_pod_banks_tokens_match_jax_and_global_bank(world, run):
+    """deepseek-moe-16b under pod-local banks on (2, 1, 2): every rank
+    serves JAX's single-device continuous tokens and the global bank's on
+    the same mesh, over both dispatch modes, sync and async admission, an
+    fp32 and an int8 base; every budget is met; a pod-local bank admits
+    nothing across pods."""
+    bd = "int8" if run.endswith("int8") else "fp"
+    want = _jax_tokens(world, bd, MOE)
+    assert [len(t) for t in want] == [R.POD_NEW_TOKENS] * len(want)
+    for got in _group(world):
+        runs = got["moe pods"]
+        res = runs[run]
+        assert res["status"] == ["done"] * len(want)
+        assert res["tokens"] == want, (got["coords"], run)
+        assert res["tokens"] == runs["global int8" if bd == "int8"
+                                     else "global"]["tokens"]
+        if run.startswith("pods"):
+            assert res["admit_bytes"][0] > 0 and res["admit_bytes"][1] == 0
+
+
+def test_pod_mesh_warmup_keys_and_tokens_match_jax(world):
+    """``warmup()`` on the (2, 1, 2) pod mesh: JAX's outcome keys for the
+    continuous scheduler, each "eager"; then JAX's single-device tokens
+    over the pod traffic."""
+    jdep = JaxDeployment(world["jmodel"], world["jparams"], **R.POD_DEP)
+    jdep.engine._get_exe = lambda kind, args: None
+    want_keys = set(jdep.warmup())
+    jdep.close()
+    want = _jax_tokens(world, "fp")
+    for got in _group(world):
+        w = got["warm"]["continuous"]
+        assert set(w["outcomes"]) == want_keys
+        assert set(w["outcomes"].values()) == {"eager"}
+        assert w["tokens"] == want, got["coords"]
+
+
+def test_pod_mesh_ranks_share_one_compile_cache(world):
+    """Four ranks over one fresh compile-cache directory: in turns, one
+    build between them and three hits; all at once, each builds or hits;
+    nothing corrupt, nothing quarantined."""
+    ranks = _group(world)
+    caches = [g["warm"]["continuous"]["cache"] for g in ranks]
+    assert [c["builds"] for c in caches] == [1, 0, 0, 0]
+    assert [c["hits"] for c in caches] == [0, 1, 1, 1]
+    for g in ranks:
+        race, report = g["warm"]["race"]
+        assert report == "stand-in report"
+        assert race["builds"] + race["hits"] == 1
+        assert race["corrupt"] == race["env_mismatch"] == 0
+        assert g["warm"]["quarantined"] == []

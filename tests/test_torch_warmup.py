@@ -22,7 +22,8 @@ What is held, and how:
 * the compile cache: fingerprints change with a source; a truncated,
   unlabelled or foreign library counts as ``corrupt`` / ``env_mismatch``,
   is moved aside and reads as a miss, whose rebuild raises the build's
-  "nvcc not found" error on a host without the compiler;
+  "nvcc not found" error on a host without the compiler; two processes
+  that load one key at once both get the library, none corrupt;
 * ``status()`` carries the JAX engine's ``steps`` keys, ``warmed`` and
   the kernel library's ``compile_cache`` counters.
 """
@@ -324,6 +325,33 @@ def test_a_stored_library_is_a_hit(tmp_path):
     lib, report = cache.load(("stand-in",), never)
     assert report == "report" and lib is not None
     assert cache.stats["hits"] == 1 and cache.stats["misses"] == 0
+
+
+def test_two_processes_load_one_key_at_once(tmp_path):
+    """Two processes that miss one key of one fresh cache at the same
+    moment: each builds or hits, both load the library with its report,
+    and nothing is counted corrupt or moved aside (each file of an entry
+    lands whole, the library last)."""
+    import multiprocessing as mp
+    import _mesh_ranks as R
+    ctx = mp.get_context("spawn")
+    barrier, queue = ctx.Barrier(2), ctx.Queue()
+    procs = [ctx.Process(target=R.cache_race,
+                         args=(str(tmp_path / "cache"), barrier, queue))
+             for _ in range(2)]
+    for p in procs:
+        p.start()
+    got = [queue.get(timeout=120) for _ in procs]
+    for p in procs:
+        p.join(60)
+    assert [p.exitcode for p in procs] == [0, 0]
+    for stats, report, loaded in got:
+        assert loaded and report == "stand-in report"
+        assert stats["builds"] + stats["hits"] == 1
+        assert stats["corrupt"] == stats["env_mismatch"] == 0
+    assert not (tmp_path / "cache" / "quarantine").exists()
+    assert not [q for q in (tmp_path / "cache").iterdir()
+                if q.name.startswith("tmp")]
 
 
 def test_env_var_and_deployment_name_the_default_cache(tmp_path,
