@@ -2368,13 +2368,17 @@ def train_phase(dev) -> dict:
             state.params).values())
         step = TS.make_train_step(model, total_steps=TRAIN_STEPS, **TRAIN_LR)
         src = SyntheticLM(cfg.vocab_size, seed=0)
-        ref_losses, ref_s = [], []
+        ref_losses, ref_s, ref_gn = [], [], []
         for i in range(TRAIN_STEPS):
             batch = src.lm_batch(i, TRAIN_BATCH, TRAIN_SEQ)
             t1 = time.perf_counter()
             state, m = step(state, batch)
             ref_losses.append(m["loss"].item())
             ref_s.append(time.perf_counter() - t1)
+            ref_gn.append(m["grad_norm"].item())
+        # the one-card run the mesh phase's full-width training is held to
+        TRAIN_ONE_CARD.update(losses=ref_losses[:MESH_TRAIN_FULL_STEPS],
+                              grad_norm=ref_gn[:MESH_TRAIN_FULL_STEPS])
         loss_fn = TS.make_loss_fn(model)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -4146,7 +4150,8 @@ def mesh_quad_rank(mesh) -> dict:
     """One rank of the reduced (1, 4) mesh: the cases of
     ``MESH_QUAD_ARCHS`` and the sequence-TP config at each of
     ``MESH_SEQ_PROMPTS`` (continuous), both kernel dispatch modes; with
-    the attention layouts each prompt length took."""
+    the attention layouts each prompt length took; then the cases of
+    ``MESH_TRAIN_QUAD`` trained on the mesh (``mesh_train_rank``)."""
     from repro_torch.launch import serve as SV
     from repro_torch.models import attention as A
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4189,12 +4194,14 @@ def mesh_quad_rank(mesh) -> dict:
     out["runs"][MESH_SEQ_ARCH, "shard_map", f"prompt {n} speculative"] = {
         "tokens": [dep.result(r).out_tokens for r in rids],
         "launches": counters(), "ladder": dep.status()["speculative"]}
+    out["train"] = mesh_train_rank(mesh, tuple(MESH_TRAIN_QUAD), False)
     out["seconds"] = round(time.perf_counter() - t0, 1)
     return out
 
 
 def mesh_ref_rank(mesh, store_root, int8: bool, families: bool,
-                  spec: bool = False, warm: bool = False) -> dict:
+                  spec: bool = False, warm: bool = False,
+                  drop: bool = False) -> dict:
     """One rank of a reduced mesh on the card: both archs, every run, both
     kernel dispatch modes, over an fp32 base and (``int8``) an int8 one
     (and on (1, 2) the store lifecycle and the launcher's update run,
@@ -4203,7 +4210,8 @@ def mesh_ref_rank(mesh, store_root, int8: bool, families: bool,
     ``MESH_SPEC_ARCHS`` served speculatively (its ladder snapshot kept);
     with ``warm`` deepseek-7b's continuous deployment warmed up first
     (``warmup()``'s outcomes kept); tokens and the run's launches on this
-    rank."""
+    rank; then ``MESH_TRAIN_ARCHS`` trained on the mesh, and with ``drop``
+    the drop-and-continue (``mesh_train_rank``)."""
     from repro_torch.launch import serve as SV
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"coords": mesh.coords, "device": str(mesh.device),
@@ -4251,6 +4259,7 @@ def mesh_ref_rank(mesh, store_root, int8: bool, families: bool,
                                           mesh.device, store_root)
     if store_root:
         out["launcher"] = mesh_launcher_run(mesh)
+    out["train"] = mesh_train_rank(mesh, MESH_TRAIN_ARCHS, drop)
     return out
 
 
@@ -4455,7 +4464,7 @@ def int8_blocks_check(mesh, dep, base) -> dict:
     return {"leaves": n, "in_dim_sharded": in_sharded}
 
 
-def mesh_full_rank(mesh, entries) -> dict:
+def mesh_full_rank(mesh, entries, train: bool = False) -> dict:
     """One rank of the full-width (1, 2) mesh over ``entries``
     (``MESH_FULL``'s, maybe the fp32 twin's, then ``MESH_FAMILY_FULL``'s),
     the variants, bank and runs of ``full_plan`` (``MESH_FULL``: 3
@@ -4470,7 +4479,8 @@ def mesh_full_rank(mesh, entries) -> dict:
     MoE, rank 0's routing choices in a rerun of the same requests
     (``routing_recorded``).  The runs over one base dtype share one
     Deployment (its placed base and published variants), each served by
-    an engine of its own (``mesh_engine``)."""
+    an engine of its own (``mesh_engine``).  With ``train``, qwen3-8b
+    trained at full width after the entries (``mesh_full_train``)."""
     from repro_torch.launch import serve as SV
     from repro_torch.tree import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4560,6 +4570,11 @@ def mesh_full_rank(mesh, entries) -> dict:
         del model, base, dms
         gc.collect()
         out["seconds"][arch] = round(time.perf_counter() - t_entry, 1)
+    if train:
+        t_entry = time.perf_counter()
+        torch.cuda.empty_cache()
+        out["train"] = mesh_full_train(mesh)
+        out["seconds"]["train"] = round(time.perf_counter() - t_entry, 1)
     return out
 
 
@@ -4593,6 +4608,297 @@ def mesh_warm(dep, cfg) -> None:
     dep.drain()
     dep.engine.metrics.update({k: 0 if isinstance(v, int) else 0.0
                                for k, v in dep.engine.metrics.items()})
+
+
+# ---------------------------------------------------------------------------
+# training under a mesh
+# ---------------------------------------------------------------------------
+
+# reduced cases (2 layers, fp32 compute, from seed 0 on the CPU) trained
+# in the reduced mesh groups: {case: the config's fields}; the decoder
+# and MoE archs on (1, 2), (2, 1) and (2, 2), on (1, 4) qwen3-8b (4 q and
+# 2 KV heads: the GQA layout, a KV head cut over two ranks) and the 6-head
+# starcoder2-3b (q heads that do not divide 4: the "whole" layout)
+MESH_TRAIN_ARCHS = ("deepseek-7b", "deepseek-moe-16b")
+MESH_TRAIN_QUAD = {"qwen3-8b": {}, MESH_SEQ_ARCH: MESH_SEQ_FIELDS}
+MESH_TRAIN_LR = dict(peak_lr=5e-3, warmup=2, total_steps=10)
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 4, 16, 3
+# the group that trains 2 steps, drops to the (1, 2) mesh of its first two
+# ranks and trains 1 more
+MESH_DROP_SHAPE, MESH_DROP_TO = (2, 2), (1, 2)
+# full width on the full-width (1, 2) group, after its serving entries:
+# qwen3-8b at ``train_phase``'s configuration, 2 steps of its run
+MESH_TRAIN_FULL_STEPS = 2
+# the one-card run's first losses and grad norms (``train_phase``'s
+# uninterrupted loop, or ``one_card_train`` when that phase did not run)
+TRAIN_ONE_CARD: dict = {}
+
+
+def train_case(case: str):
+    """(model, axes, initial params on the CPU, batches) of a reduced
+    train case; every rank and the script make the same."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.models.param import split
+    fields = {**MESH_TRAIN_QUAD.get(case, {}), "num_layers": 2,
+              "compute_dtype": "float32", "remat": False}
+    cfg = dataclasses.replace(SV.make_config(case, reduced=True), **fields)
+    model = build_model(cfg)
+    params, axes = split(model.init(0, device="cpu"))
+    src = SyntheticLM(cfg.vocab_size, seed=0)
+    batches = [src.lm_batch(i, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)
+               for i in range(MESH_TRAIN_STEPS)]
+    return model, axes, params, batches
+
+
+def train_run(case: str, mesh=None, device="cpu") -> dict:
+    """``MESH_TRAIN_STEPS`` of ``make_train_step(param_axes=)`` under the
+    train rules on ``mesh`` (the state placed by ``train.loop
+    .state_specs``), or in one process on ``device`` for None: each
+    step's metrics, and the step-1 gradients and final params made whole
+    (CPU tensors by path)."""
+    from repro_torch.core.calibration import flatten_params
+    from repro_torch.distributed import sharding as S
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import loop as TL
+    from repro_torch.train import step as TS
+    from repro_torch.tree import tree_map
+    model, axes, params, batches = train_case(case)
+    params = tree_map(lambda t: t.to(device), params)
+    state = TS.TrainState(0, params, adamw_init(params))
+    rules = S.rules_for("train")
+    specs = None
+    if mesh is not None:
+        specs = TL.state_specs(model, mesh, rules)
+        state = S.place(state, specs, mesh)
+    grads: list = []
+
+    def first(g):
+        if not grads:
+            grads.append(g)
+        return g
+    step = TS.make_train_step(model, param_axes=axes, grad_transform=first,
+                              **MESH_TRAIN_LR)
+    metrics = []
+    with (S.shard_ctx(mesh, rules) if mesh is not None
+          else contextlib.nullcontext()):
+        for batch in batches:
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+
+    def whole(tree):
+        if mesh is not None:
+            tree = S.unplace(tree, specs.params, mesh)
+        return {k: t.cpu() for k, t in flatten_params(tree).items()}
+    return {"metrics": metrics, "grads": whole(grads[0]),
+            "params": whole(state.params)}
+
+
+def train_drop(mesh) -> list:
+    """deepseek-7b: 2 steps on ``mesh``, ``remesh`` to ``MESH_DROP_TO``
+    and ``drop_and_continue`` onto its ranks, 1 more step there; the
+    losses this rank saw."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import loop as TL
+    from repro_torch.train import step as TS
+    from repro_torch.tree import tree_map
+    model, axes, params, batches = train_case("deepseek-7b")
+    params = tree_map(lambda t: t.to(mesh.device), params)
+    rules = S.rules_for("train")
+    specs = TL.state_specs(model, mesh, rules)
+    state = S.place(TS.TrainState(0, params, adamw_init(params)), specs,
+                    mesh)
+    step = TS.make_train_step(model, param_axes=axes, **MESH_TRAIN_LR)
+    losses = []
+    with S.shard_ctx(mesh, rules):
+        for batch in batches[:2]:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+    shape, new_specs = TL.remesh(model, state, mesh, *MESH_DROP_TO, rules)
+    sub, state = TL.drop_and_continue(state, specs, mesh, new_specs, shape)
+    if sub is not None:
+        with S.shard_ctx(sub, rules):
+            state, m = step(state, batches[2])
+            losses.append(float(m["loss"]))
+    return losses
+
+
+def train_within(got: dict, want: dict) -> dict:
+    """The worst of each measure of a mesh train run against a reference
+    (``train_reference_phase``'s tolerances): metrics' relative gaps
+    (limit 1e-5), gradients' max |diff| over the tensor's max |g| (limit
+    ``BWD_TOL``: 1e-5), params' max |diff| (limit 1e-3); asserts each."""
+    rel = {k: max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                  for g, w in zip(got["metrics"], want["metrics"]))
+           for k in ("loss", "grad_norm", "moe_aux")}
+    grad = max(((got["grads"][k] - w).abs().max()
+                / w.abs().max().clamp(min=1e-30)).item()
+               for k, w in want["grads"].items())
+    param = max((got["params"][k] - w).abs().max().item()
+                for k, w in want["params"].items())
+    out = {**{f"{k} rel": v for k, v in rel.items()}, "grad": grad,
+           "param": param}
+    assert all(v <= 1e-5 for v in rel.values()), out
+    assert grad <= BWD_TOL[torch.float32] and param <= 1e-3, out
+    assert [g["lr"] for g in got["metrics"]] == [
+        w["lr"] for w in want["metrics"]], out
+    return out
+
+
+def mesh_train_rank(mesh, cases, drop: bool) -> dict:
+    """A reduced rank's training: ``train_run`` of each case, and with
+    ``drop`` the drop-and-continue (``train_drop``)."""
+    t0 = time.perf_counter()
+    out = {case: train_run(case, mesh, mesh.device) for case in cases}
+    if drop:
+        out["drop"] = train_drop(mesh)
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def one_card_train(dev) -> dict:
+    """qwen3-8b at ``train_phase``'s configuration on one card:
+    ``MESH_TRAIN_FULL_STEPS`` steps of its uninterrupted loop (the same
+    state and batches): losses and grad norms."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.train import step as TS
+    cfg = SV.make_config(ARCH, num_layers=TRAIN_LAYERS)
+    model = build_model(cfg)
+    state = TS.init_train_state(model, 0, dev)
+    step = TS.make_train_step(model, total_steps=TRAIN_STEPS, **TRAIN_LR)
+    src = SyntheticLM(cfg.vocab_size, seed=0)
+    out = {"losses": [], "grad_norm": []}
+    for i in range(MESH_TRAIN_FULL_STEPS):
+        state, m = step(state, src.lm_batch(i, TRAIN_BATCH, TRAIN_SEQ))
+        out["losses"].append(m["loss"].item())
+        out["grad_norm"].append(m["grad_norm"].item())
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_full_train(mesh) -> dict:
+    """qwen3-8b at ``train_phase``'s configuration (``TRAIN_LAYERS``
+    layers, bf16 compute, remat, ``TRAIN_LR``) on this rank of the
+    full-width (1, 2) mesh: ``MESH_TRAIN_FULL_STEPS`` steps of the
+    uninterrupted loop's batches from its initial state (each rank draws
+    the whole params on its card in turn and keeps copies of its blocks):
+    losses, grad norms, each step's ms and the rank's peak memory."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import build_model
+    from repro_torch.models.param import split
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import loop as TL
+    from repro_torch.train import step as TS
+    from repro_torch.tree import tree_map
+    dev = mesh.device
+    cfg = SV.make_config(ARCH, num_layers=TRAIN_LAYERS)
+    model = build_model(cfg)
+    rules = S.rules_for("train")
+    specs = TL.state_specs(model, mesh, rules)
+    _, axes = split(model.init(0, device="meta"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    local = None
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            params, _ = split(model.init(0, device=dev))
+            # copies: a row block is a view that would keep the whole
+            local = tree_map(torch.clone, S.place(params, specs.params,
+                                                  mesh))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    state = TS.TrainState(0, local, adamw_init(local))
+    step = TS.make_train_step(model, param_axes=axes,
+                              total_steps=TRAIN_STEPS, **TRAIN_LR)
+    src = SyntheticLM(cfg.vocab_size, seed=0)
+    out = {"losses": [], "grad_norm": [], "step_ms": []}
+    with S.shard_ctx(mesh, rules):
+        for i in range(MESH_TRAIN_FULL_STEPS):
+            batch = src.lm_batch(i, TRAIN_BATCH, TRAIN_SEQ)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            out["losses"].append(m["loss"].item())
+            out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            out["grad_norm"].append(m["grad_norm"].item())
+    out["peak_GB"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del state, local, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cross_pod_run(mesh) -> dict:
+    """The step-1 gradients of reduced deepseek-7b on the batch of the
+    rank's pod (one process's ``value_and_grad`` on its card), their
+    ``cross_pod_grad_mean`` over "pod" and the bytes it sent against
+    ``wire_bytes``; CPU tensors by path."""
+    from repro_torch.core.calibration import flatten_params
+    from repro_torch.distributed import compression as GC
+    from repro_torch.train import step as TS
+    from repro_torch.tree import tree_map
+    model, _, params, batches = train_case("deepseek-7b")
+    params = tree_map(lambda t: t.to(mesh.device), params)
+    _, _, grads = TS.value_and_grad(TS.make_loss_fn(model), params,
+                                    batches[mesh.coord("pod")])
+    sent: list = []
+    mean = GC.cross_pod_grad_mean(grads, mesh, sent=sent)
+    flat = flatten_params(grads)
+    return {"grads": {k: t.cpu() for k, t in flat.items()},
+            "mean": {k: t.cpu() for k, t in flatten_params(mean).items()},
+            "sent": sum(sent),
+            "wire": sum(GC.wire_bytes(g)[0] for g in flat.values())}
+
+
+def check_train(shape, ranks, train_want: dict, dev) -> None:
+    """Every rank's train runs (``mesh_train_rank``) against the
+    one-process runs on the CPU and on the card (``train_want``, by (case,
+    device)); the drop-and-continue's losses against the uninterrupted
+    ones."""
+    for case in ranks[0]["train"]:
+        if case in ("drop", "seconds"):
+            continue
+        worst = {}
+        for g in ranks:
+            assert g["train"][case]["metrics"] == ranks[0]["train"][
+                case]["metrics"], (shape, case, "ranks disagree")
+            for where in ("cpu", dev):
+                worst[str(where)] = train_within(
+                    g["train"][case], train_want[case, str(where)])
+        print(f"mesh {shape} train {case}: 3 steps under "
+              "rules_for('train'), every rank's metrics, gathered "
+              "step-1 gradients and final params against one process "
+              "(last rank's worst gaps; limits: metrics 1e-5 rel, "
+              "grads 1e-5 of max |g|, params 1e-3 abs): "
+              + "; ".join(f"{w} " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in gaps.items())
+                  for w, gaps in worst.items()))
+    if "drop" in ranks[0]["train"]:
+        for where in ("cpu", dev):
+            want = [m["loss"] for m in train_want[
+                "deepseek-7b", str(where)]["metrics"]]
+            for g in ranks:
+                got = g["train"]["drop"]
+                assert len(got) == (3 if g["coords"][0] == 0 else 2), g
+                np.testing.assert_allclose(got, want[:len(got)],
+                                           rtol=1e-5)
+        print(f"mesh {shape} train drop-and-continue: 2 steps, remesh "
+              f"to {MESH_DROP_TO} and 1 more: losses "
+              f"{ranks[0]['train']['drop']} within 1e-5 rel of 3 "
+              f"uninterrupted one-process steps (card "
+              f"{[m['loss'] for m in train_want['deepseek-7b', str(dev)]['metrics']]})")
+    print(f"mesh {shape} train: rank 0 {ranks[0]['train']['seconds']} s")
 
 
 def mesh_refuse(mesh):
@@ -4752,9 +5058,15 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
     side = tuple(e for e in entries if e[0] in MESH_FULL_SIDE)
     card = CardInUse(dev).start()
     t_ref = time.perf_counter()
+    if not TRAIN_ONE_CARD:
+        # the one-card run the full-width mesh training is held to, when
+        # the train phase did not run before (``--mesh-only``)
+        TRAIN_ONE_CARD.update(one_card_train(dev))
     full = [LM.start(mesh_full_rank, MESH_FULL_SHAPE, device="cuda",
-                     timeout_s=MESH_TIMEOUT_S, args=(group,))
-            for group in (tuple(e for e in entries if e not in side), side)]
+                     timeout_s=MESH_TIMEOUT_S, args=(group, train))
+            for group, train in ((tuple(e for e in entries
+                                        if e not in side), True),
+                                 (side, False))]
     quad = LM.start(mesh_quad_rank, MESH_QUAD_SHAPE, device="cuda",
                     timeout_s=MESH_TIMEOUT_S, threads=REDUCED_THREADS)
     groups = {shape: LM.start(mesh_ref_rank, shape, device="cuda",
@@ -4763,7 +5075,8 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
                                     else None, shape in MESH_INT8_SHAPES,
                                     shape in MESH_FAMILY_SHAPES,
                                     shape in MESH_FAMILY_SHAPES,
-                                    shape == MESH_WARM_SHAPE),
+                                    shape == MESH_WARM_SHAPE,
+                                    shape == MESH_DROP_SHAPE),
                               threads=REDUCED_THREADS)
               for shape in MESH_REF_SHAPES}
     t0 = time.perf_counter()
@@ -4805,8 +5118,14 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
             # the outcome keys warmup() returns on one device
             want_warm = set(mesh_deploy(model, base, dms, axes, None, "cpu",
                                         "continuous").warmup())
+    # the reduced train cases in one process, on the CPU and on the card
+    train_want = {(case, str(where)): train_run(case, None, where)
+                  for case in MESH_TRAIN_ARCHS + tuple(MESH_TRAIN_QUAD)
+                  for where in ("cpu", dev)}
     torch.set_num_threads(threads)
-    print(f"mesh reference: CPU plain runs {time.perf_counter() - t0:.1f} s")
+    print(f"mesh reference: CPU plain runs and the reduced train cases in "
+          f"one process {time.perf_counter() - t0:.1f} s")
+
 
     def check_reduced(shape, ranks):
         """Every rank's tokens and launches of a reduced group against
@@ -4889,9 +5208,13 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
                  "update + rollback run's on every rank"
                  if shape == (1, 2) else ""))
     for shape, group in groups.items():
-        check_reduced(shape, group.join())
+        ranks = group.join()
+        check_reduced(shape, ranks)
+        check_train(shape, ranks, train_want, dev)
     shutil.rmtree(store_root, ignore_errors=True)
-    check_reduced(MESH_QUAD_SHAPE, quad.join())
+    ranks = quad.join()
+    check_reduced(MESH_QUAD_SHAPE, ranks)
+    check_train(MESH_QUAD_SHAPE, ranks, train_want, dev)
     print(f"mesh reduced: {time.perf_counter() - t_ref:.1f} s, the four "
           "meshes beside the full-width ranks")
     # 2. full width: the mesh (each rank's results of both groups
@@ -4901,6 +5224,20 @@ def mesh_phase(dev, fp32_twin: bool = False) -> dict:
     for mine, other in zip(ranks, side_ranks):
         for key in ("runs", "checks", "routing", "seconds"):
             mine[key].update(other[key])
+    one = TRAIN_ONE_CARD
+    for g in ranks:
+        tr = g["train"]
+        assert tr["losses"] == ranks[0]["train"]["losses"], "ranks disagree"
+        gaps = [abs(a - b) / abs(b) for a, b in zip(tr["losses"],
+                                                    one["losses"])]
+        assert all(x <= 2 ** -7 for x in gaps), (tr["losses"], one, gaps)
+        print(f"mesh full width train {ARCH} ({TRAIN_LAYERS} layer, bf16, "
+              f"remat) rank {g['coords']}: losses {tr['losses']} vs one "
+              f"card {one['losses']} (rel gap {max(gaps):.2e}, limit 2^-7); "
+              f"grad_norm {tr['grad_norm']} vs one card {one['grad_norm']} "
+              f"(rel gap {max(abs(a - b) / b for a, b in zip(tr['grad_norm'], one['grad_norm'])):.2e}); "
+              f"step ms {[round(x, 1) for x in tr['step_ms']]}; peak "
+              f"{tr['peak_GB']:.2f} GB")
     print(f"mesh full width {MESH_FULL_SHAPE} ({ranks[0]['backend']}, "
           f"{sorted({g['device'] for g in ranks})}): "
           f"{time.perf_counter() - t_ref:.1f} s since the groups started; "
@@ -5105,10 +5442,12 @@ def pods_ref_rank(mesh) -> dict:
     pod-local one under both kernel dispatch modes, sync and async; then
     ``POD_MOE``'s runs of ``POD_MOE_RUNS`` (MoE under pod-local banks)
     over both bases; tokens, launches, router and bank counters of each
-    run (an MoE run's label starts with the arch)."""
+    run (an MoE run's label starts with the arch); first, the compressed
+    cross-pod gradient exchange (``cross_pod_run``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"coords": mesh.coords, "device": str(mesh.device),
-           "backend": mesh.backend, "runs": {}}
+           "backend": mesh.backend, "runs": {},
+           "cross pod": cross_pod_run(mesh)}
     for arch, labels in (("deepseek-7b", POD_REF_RUNS),
                          (POD_MOE, POD_MOE_RUNS)):
         cfg, model, base, dms, axes = mesh_ref_setup(arch)
@@ -5278,6 +5617,40 @@ def pods_single_card(dev) -> dict:
     return out
 
 
+def check_cross_pod(ranks, dev) -> None:
+    """Each rank's ``cross_pod_grad_mean`` against the mean of the pods'
+    ``quantize``/``dequantize`` computed in this process on the card, in
+    rank order, bit for bit; the bytes each rank sent against
+    ``wire_bytes``."""
+    from repro_torch.distributed import compression as GC
+    coords = [g["coords"] for g in ranks]
+    n_leaves = 0
+    for g in ranks:
+        got = g["cross pod"]
+        assert got["sent"] == got["wire"], (g["coords"], got["sent"],
+                                            got["wire"])
+        pods = [ranks[coords.index((p,) + g["coords"][1:])]["cross pod"][
+            "grads"] for p in range(POD_REF_SHAPE[0])]
+        for k, mean in got["mean"].items():
+            xs = [p[k].to(dev) for p in pods]
+            if GC._compressible(xs[0]):
+                xs = [GC.dequantize(*GC.quantize(x), x.shape[-1])
+                      for x in xs]
+            acc = xs[0].float()
+            for x in xs[1:]:
+                acc = acc + x.float()
+            want = (acc / len(xs)).to(mean.dtype).cpu()
+            assert torch.equal(mean, want), (g["coords"], k)
+            n_leaves += 1
+    print(f"pods {POD_REF_SHAPE} cross_pod_grad_mean over 'pod' (reduced "
+          f"deepseek-7b step-1 gradients, each pod its own batch): every "
+          f"rank's mean == the pods' quantize/dequantize mean in rank order "
+          f"on one card, bit for bit, {n_leaves // len(ranks)} leaves a "
+          f"rank; bytes sent a rank {ranks[0]['cross pod']['sent']} == "
+          f"wire_bytes (fp32: "
+          f"{4 * sum(t.numel() for t in ranks[0]['cross pod']['grads'].values())})")
+
+
 def pods_phase(dev) -> dict:
     """Pod-local overlay banks (``OverlayBank(pods=)``, the engine's
     affinity router, the lanes' slot ids translated to their pod's bank
@@ -5353,6 +5726,7 @@ def pods_phase(dev) -> dict:
                 cpu_routing[arch, bd] = {"tokens": want[arch, bd],
                                          "routing": calls}
         ranks = group.join()
+        check_cross_pod(ranks, dev)
         moe_partings = {}
         for r, got in enumerate(ranks):
             for label, res in got["runs"].items():

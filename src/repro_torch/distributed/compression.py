@@ -11,15 +11,21 @@ SGD converging (1-bit Adam / EF-signSGD).
 ``make_ef_transform`` is the ``grad_transform`` hook of
 ``train/step.make_train_step``: it quantises and dequantises every
 compressible gradient with persistent error feedback, which simulates the
-wire format end to end on one card.  The collective exchange itself
-(``compressed_psum``, ``cross_pod_grad_mean``) needs a mesh of devices and
-is not ported yet.
+wire format end to end on one card.  ``compressed_psum`` is the exchange
+itself over a mesh axis (explicit SPMD, ``distributed/sharding.py``): the
+ranks all-gather the packed bytes and the fp16 scales, not the gradient,
+and each dequantises every rank's and takes the fp32 mean in rank order;
+``cross_pod_grad_mean`` applies it leaf by leaf over "pod" (gradients
+that differ across pods and agree within one).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.core import delta as D
+from repro_torch.distributed import sharding as S
 
 
 def _compressible(g: torch.Tensor) -> bool:
@@ -88,3 +94,40 @@ def make_ef_transform():
         return _part(out, 0), _part(out, 1)
 
     return transform, init
+
+
+def compressed_psum(g: torch.Tensor, axis, mesh=None,
+                    sent: Optional[list] = None) -> torch.Tensor:
+    """Mean of ``g`` over the ranks of the mesh axis ``axis`` exchanging
+    only (packed signs, fp16 scales): every rank's pair all-gathered in
+    rank order, dequantised, and averaged in fp32 in that order, in
+    ``g``'s dtype.  A leaf that is not compressible takes the plain mean
+    (a psum).  ``sent`` (a list) gets the bytes this rank put on the wire,
+    which ``wire_bytes(g)[0]`` predicts."""
+    mesh = mesh or S.active_mesh()
+    n = mesh.names_size(axis)
+    if not _compressible(g):
+        if sent is not None:
+            sent.append(4 * g.numel())
+        return (S.psum(g.to(torch.float32), axis, mesh) / n).to(g.dtype)
+    packed, scale = quantize(g)
+    if sent is not None:
+        sent.append(packed.numel() * packed.element_size()
+                    + scale.numel() * scale.element_size())
+    all_packed = S.all_gather(packed[None], axis, 0, mesh)   # (P, ..., c/8)
+    all_scale = S.all_gather(scale[None], axis, 0, mesh)
+    deq = dequantize(all_packed, all_scale, g.shape[-1])       # (P, ..., c)
+    acc = deq[0]
+    for p in range(1, deq.shape[0]):
+        acc = acc + deq[p]
+    return (acc / deq.shape[0]).to(g.dtype)
+
+
+def cross_pod_grad_mean(grads, mesh, axis_name: str = "pod",
+                        sent: Optional[list] = None):
+    """:func:`compressed_psum` of every leaf of ``grads`` (a tree of
+    tensors) over the mesh axis ``axis_name``; ``sent`` as there, a leaf
+    after another."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda g: compressed_psum(g, axis_name, mesh, sent),
+                    grads)

@@ -387,6 +387,18 @@ def block_slices(shape: Sequence[int], spec: tuple, mesh: Mesh) -> tuple:
     return tuple(out)
 
 
+def without_axes(spec: tuple, names) -> tuple:
+    """``spec`` with the mesh axes ``names`` taken out of every entry (an
+    entry left with none becomes None): the placement of a block once it
+    was gathered over them."""
+    drop = set(_names(names))
+    out = []
+    for part in spec:
+        kept = tuple(n for n in _names(part) if n not in drop)
+        out.append(None if not kept else kept if len(kept) > 1 else kept[0])
+    return tuple(out)
+
+
 def global_shape(local_shape: Sequence[int], spec: tuple,
                  mesh: Mesh) -> tuple:
     """The whole shape a block of ``local_shape`` was cut from."""
@@ -410,6 +422,19 @@ def place(tree, specs, mesh: Mesh, device=None):
     def one(spec, t):
         b = block(t, spec, mesh)
         return b if device is None else b.to(device)
+    return _map_axes(one, specs, tree)
+
+
+def unplace(tree, specs, mesh: Mesh):
+    """Every leaf of ``tree`` (the rank's blocks under ``specs``) made
+    whole again on every rank: the inverse of :func:`place`, one
+    all-gather for each sharded dim; collective, every rank calls it."""
+    def one(spec, t):
+        with torch.no_grad():
+            for dim, part in enumerate(spec):
+                if part is not None:
+                    t = all_gather(t, part, dim, mesh)
+        return t
     return _map_axes(one, specs, tree)
 
 
@@ -447,8 +472,20 @@ class Layout:
             {p: global_shape(t.shape, flat_specs[p], mesh)
              for p, t in local_flat.items()}, flat_axes, mesh, rules)
 
-    def add(self, shape: tuple, axes: tuple) -> None:
-        spec = resolve_spec(shape, axes, self.rules, self.mesh)
+    @classmethod
+    def from_specs(cls, flat_shapes: dict, flat_specs: dict,
+                   flat_axes: dict, mesh: Mesh) -> "Layout":
+        """The layout of leaves placed by given specs (the train step's
+        weights gathered over "data": their specs without it)."""
+        lay = cls(mesh, {})
+        for path, shape in flat_shapes.items():
+            lay.add(tuple(shape), tuple(flat_axes[path]),
+                    tuple(flat_specs[path]))
+        return lay
+
+    def add(self, shape: tuple, axes: tuple, spec: tuple = None) -> None:
+        if spec is None:
+            spec = resolve_spec(shape, axes, self.rules, self.mesh)
         local = tuple(s // self.mesh.names_size(p) if p is not None else s
                       for s, p in zip(shape, spec))
         # keyed whole and without its leading stacked-layer dims (a call
@@ -509,6 +546,24 @@ def shard_ctx(mesh, rules: dict, layout: Optional[Layout] = None,
         yield
     finally:
         _ctx.state = prev
+
+
+def captured_ctx():
+    """A context manager that re-enters the context active now (or none):
+    for model code that runs again later, perhaps on another thread — a
+    rematerialised layer's recompute in the backward runs on the autograd
+    engine's thread, outside the ``shard_ctx`` of its forward."""
+    st = _state()
+
+    @contextlib.contextmanager
+    def again():
+        prev = getattr(_ctx, "state", None)
+        _ctx.state = st
+        try:
+            yield
+        finally:
+            _ctx.state = prev
+    return again
 
 
 @contextlib.contextmanager
@@ -584,6 +639,29 @@ def local_top_k(score: torch.Tensor, k: int, axes=None) -> tuple:
 # ---------------------------------------------------------------------------
 # collectives
 # ---------------------------------------------------------------------------
+#
+# Under grad (training) the collectives carry gradients by the explicit-SPMD
+# rule of Megatron-LM's f/g pair, which keeps the gradient of a tensor that
+# every rank of a group holds whole the same whole gradient on each of
+# them:
+#
+# * ``psum`` (g): the sum is used the same way on every rank, so its
+#   gradient arrives whole on each, and each partial's gradient is that
+#   gradient: an identity backward;
+# * ``all_gather``: the rank's own block of the gradient of the whole;
+#   over the batch's axes, or with ``reduce_grad``, the ranks use the
+#   whole differently (each keeps its own rows of a result, or an FSDP
+#   weight serves each rank's own rows), so their gradients are summed
+#   first (a reduce-scatter);
+# * ``enter`` (f): where a tensor that every rank of a group holds whole
+#   enters a rank's own computation (a column-parallel product, a slice of
+#   the rank's heads, rows or features), an identity forward whose backward
+#   sums the ranks' partial gradients.
+#
+# Without grad each is the plain collective (or nothing, for ``enter``)
+# and builds no graph: serving is unchanged.  Backward sums run in fp32
+# and round once to the gradient's dtype.
+
 
 def _host_hop(mesh: Mesh, x: torch.Tensor) -> bool:
     """Under gloo a CUDA tensor crosses through the host, one copy each
@@ -592,16 +670,13 @@ def _host_hop(mesh: Mesh, x: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and x.is_cuda
 
 
-def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None,
-         op=None) -> torch.Tensor:
-    """Sum of ``x`` over the ranks of the mesh axes ``axes`` (a name or a
-    tuple), returned as a new tensor in ``x``'s dtype and device; ``op``
-    (a :class:`ReduceOp`) takes another reduction, such as the elementwise
-    MAX, exact in any order.  A group of one returns ``x``."""
-    mesh = mesh or active_mesh()
-    group = mesh.group(axes) if mesh is not None else None
-    if group is None:
-        return x
+def _tracks_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _all_reduce(x: torch.Tensor, group, mesh: Mesh, op=None) -> torch.Tensor:
+    """The all-reduce of ``x`` over ``group`` as a new tensor in ``x``'s
+    dtype and device."""
     buf = x.detach().to("cpu", copy=True) if _host_hop(mesh, x) \
         else x.detach().clone().contiguous()
     torch.distributed.all_reduce(buf, op=ReduceOp.SUM if op is None else op,
@@ -609,18 +684,129 @@ def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None,
     return buf.to(x.device)
 
 
-def all_gather(x: torch.Tensor, axis, dim: int,
-               mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """The blocks of ``x`` from every rank of the mesh axes ``axis``,
-    concatenated along ``dim`` in coordinate order (the whole dim a
-    placement split).  A group of one returns ``x``."""
-    mesh = mesh or active_mesh()
-    group = mesh.group(axis) if mesh is not None else None
-    if group is None:
-        return x
+def _sum_fp32(dy: torch.Tensor, group, mesh: Mesh) -> torch.Tensor:
+    """A gradient summed over ``group`` in fp32, rounded once to its
+    dtype."""
+    return _all_reduce(dy.to(torch.float32), group, mesh).to(dy.dtype)
+
+
+def _all_gather(x: torch.Tensor, group, mesh: Mesh, dim: int
+                ) -> torch.Tensor:
     src = x.detach().to("cpu") if _host_hop(mesh, x) else x.detach()
     src = src.contiguous()
     n = torch.distributed.get_world_size(group)
     parts = [torch.empty_like(src) for _ in range(n)]
     torch.distributed.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(x.device)
+
+
+def _own_block(t: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor:
+    size = t.shape[dim] // mesh.names_size(axis)
+    return t.narrow(dim, mesh.index(axis) * size, size)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, mesh):
+        return _all_reduce(x, group, mesh)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, mesh, axis, dim, reduce_grad):
+        ctx.args = (group, mesh, axis, dim, reduce_grad)
+        return _all_gather(x, group, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        group, mesh, axis, dim, reduce_grad = ctx.args
+        if reduce_grad:
+            dx = _reduce_scatter(dy, group, mesh, axis, dim)
+        else:
+            dx = _own_block(dy, mesh, axis, dim).contiguous()
+        return dx, None, None, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, mesh):
+        ctx.args = (group, mesh)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _sum_fp32(dy, *ctx.args), None, None
+
+
+def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None,
+         op=None) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of the mesh axes ``axes`` (a name or a
+    tuple), returned as a new tensor in ``x``'s dtype and device; ``op``
+    (a :class:`ReduceOp`) takes another reduction, such as the elementwise
+    MAX, exact in any order.  A group of one returns ``x``.  Under grad
+    the sum's backward is the identity (the sum is used alike on every
+    rank); another reduction carries no gradient."""
+    mesh = mesh or active_mesh()
+    group = mesh.group(axes) if mesh is not None else None
+    if group is None:
+        return x
+    if op is None and _tracks_grad(x):
+        return _PSum.apply(x, group, mesh)
+    return _all_reduce(x, group, mesh, op)
+
+
+def all_gather(x: torch.Tensor, axis, dim: int,
+               mesh: Optional[Mesh] = None,
+               reduce_grad: bool = False) -> torch.Tensor:
+    """The blocks of ``x`` from every rank of the mesh axes ``axis``,
+    concatenated along ``dim`` in coordinate order (the whole dim a
+    placement split).  A group of one returns ``x``.  Under grad the
+    backward keeps the rank's block of the gradient; with ``reduce_grad``,
+    and over the axes the active context's batch rows split over (each
+    rank keeps its own rows of what it computes from the whole), it sums
+    the ranks' gradients first (a reduce-scatter:
+    :func:`_reduce_scatter`)."""
+    mesh = mesh or active_mesh()
+    group = mesh.group(axis) if mesh is not None else None
+    if group is None:
+        return x
+    if _tracks_grad(x):
+        reduce_grad = reduce_grad or bool(
+            set(_names(axis)) & set(active_batch_axes()))
+        return _AllGather.apply(x, group, mesh, axis, dim, reduce_grad)
+    return _all_gather(x, group, mesh, dim)
+
+
+def enter(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
+          ) -> torch.Tensor:
+    """``x``, which every rank of the mesh axes ``axes`` holds whole, as
+    it enters a rank's own computation: the identity, whose backward sums
+    the ranks' gradients over ``axes`` (Megatron-LM's f).  ``x`` itself
+    without grad, off a mesh, for ``axes`` None or a group of one."""
+    if axes is None or not _tracks_grad(x):
+        return x
+    mesh = mesh or active_mesh()
+    group = mesh.group(axes) if mesh is not None else None
+    if group is None:
+        return x
+    return _Enter.apply(x, group, mesh)
+
+
+def _reduce_scatter(x: torch.Tensor, group, mesh: Mesh, axis,
+                    dim: int) -> torch.Tensor:
+    """The fp32 sum of ``x`` over ``group``, the rank's block of ``dim``
+    kept, in ``x``'s dtype.  NCCL reduce-scatters; gloo, which lacks a
+    reduce-scatter in some builds, all-reduces and keeps the block."""
+    xf = x.detach().to(torch.float32)
+    if mesh.backend == "nccl":
+        src = xf.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // mesh.names_size(axis),)
+                            + tuple(src.shape[1:]))
+        torch.distributed.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim).contiguous().to(x.dtype)
+    return _own_block(_all_reduce(xf, group, mesh), mesh, axis,
+                      dim).contiguous().to(x.dtype)

@@ -95,6 +95,30 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0, *,
                 device=torch.device(device), groups=groups, host_group=host)
 
 
+def sub_mesh(data: int, model: int, *, device=None):
+    """The (data, model) mesh over the first data·model ranks of the
+    initialised world, row-major: the ranks that remain after a drop.
+    Collective — every rank of the world calls it (``new_group`` is), and
+    a rank outside the sub-mesh gets None."""
+    dist = torch.distributed
+    shape = (data, model)
+    n = math.prod(shape)
+    if n > dist.get_world_size():
+        raise RuntimeError(f"a {shape} sub-mesh needs {n} ranks, the world "
+                           f"has {dist.get_world_size()}")
+    backend = dist.get_backend()
+    groups = build_groups(("data", "model"), shape, backend)
+    host = dist.new_group(list(range(n)), backend="gloo")
+    rank = dist.get_rank()
+    if rank >= n:
+        return None
+    if device is None:
+        device = rank_device(str(resolve_device()), backend, rank)
+    return Mesh(("data", "model"), shape, (rank // model, rank % model),
+                backend=backend, device=torch.device(device), groups=groups,
+                host_group=host)
+
+
 def mesh_of_shape(shape: tuple, device=None) -> Mesh:
     """``make_host_mesh`` of a (data, model) or (pod, data, model)
     shape."""

@@ -43,6 +43,14 @@ Outside head-TP the cache holds every KV head (:func:`local_kv_heads`).
 The gathers are all-gathers followed by a slice (no all-to-all): the
 collectives the port already has, at the price of moving the whole q
 once a layer.
+
+Under grad (training under a mesh) every place where a tensor that every
+rank of "model" holds whole enters a rank's own heads or rows passes it
+through ``sharding.enter`` (its backward sums the ranks' gradients): the
+GQA copies of :func:`local_kv`, the rows that "seq" cuts from q, K and V
+under "seq", and the ``q_norm``/``k_norm`` scales over local heads; the
+gathers' backward keeps the rank's block.  Training takes "seq" only when
+``q_dim`` does not divide the model axis (:func:`head_split`).
 """
 from __future__ import annotations
 
@@ -106,7 +114,8 @@ def local_kv(t: torch.Tensor, cfg) -> torch.Tensor:
     q head per KV head; ``t`` itself otherwise."""
     if head_split(cfg) != "gqa":
         return t
-    from repro_torch.distributed.sharding import active_mesh
+    from repro_torch.distributed.sharding import active_mesh, enter
+    t = enter(t, "model")
     mesh = active_mesh()
     hq_l = cfg.num_heads // mesh.axis_size("model")
     group = cfg.num_heads // cfg.num_kv_heads
@@ -155,8 +164,11 @@ def layout_qkv(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     "seq"."""
     k, v = whole_kv(p, k, v, split)
     q = whole_q(p, q, split)
+    if split != "seq":
+        return q, k, v
+    from repro_torch.distributed.sharding import enter
     lo, n = seq_rows(cfg, q.shape[1], split)
-    return q[:, lo:lo + n], k, v
+    return enter(q, "model")[:, lo:lo + n], k, v
 
 
 def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
@@ -179,10 +191,17 @@ def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     k = k.reshape(b, s, -1, cfg.head_dim)
     v = v.reshape(b, s, -1, cfg.head_dim)
     if cfg.qk_norm:
-        q = rmsnorm(q, psel(p["q_norm"], _oget(ov, "q_norm"), vidx, lead=2),
-                    cfg.norm_eps)
-        k = rmsnorm(k, psel(p["k_norm"], _oget(ov, "k_norm"), vidx, lead=2),
-                    cfg.norm_eps)
+        from repro_torch.distributed.sharding import enter
+        # a norm scale every rank holds whole enters the rank's own heads
+        # (or rows) of q, and of k under head-TP
+        q_scale = psel(p["q_norm"], _oget(ov, "q_norm"), vidx, lead=2)
+        k_scale = psel(p["k_norm"], _oget(ov, "k_norm"), vidx, lead=2)
+        if split in ("heads", "gqa", "seq"):
+            q_scale = enter(q_scale, "model")
+        if split == "heads":
+            k_scale = enter(k_scale, "model")
+        q = rmsnorm(q, q_scale, cfg.norm_eps)
+        k = rmsnorm(k, k_scale, cfg.norm_eps)
     if theta is not None:
         q = apply_rope(q, positions[..., lo:lo + n], theta)
         k = apply_rope(k, positions, theta)
@@ -196,6 +215,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
     its KV heads through :func:`local_kv`, sequence-TP offsets the mask by
     the rank's first row."""
     lo, _ = seq_rows(cfg, s, split)
+    if split == "seq":
+        # whole K/V enter the rank's own rows (its backward honours
+        # ``q_offset``)
+        from repro_torch.distributed.sharding import enter
+        k, v = enter(k, "model"), enter(v, "model")
     return flash_attention(q, local_kv(k, cfg), local_kv(v, cfg),
                            window=window, q_offset=lo)
 

@@ -51,7 +51,10 @@ def linear(x: torch.Tensor, w: torch.Tensor, ov=None, vidx=None,
     route per rank through ``kernels/dispatch``, and the plain product of
     a weight whose in dim is sharded is summed over those axes in fp32,
     since each rank holds a partial contraction (an int8 base's scale
-    applies after the sum)."""
+    applies after the sum).  Under grad (training) the plain product of a
+    weight whose out dim is sharded takes ``x`` through
+    ``sharding.enter``, and the row-parallel sum's backward is the
+    identity (``sharding.psum``)."""
     if ov is None:
         i_part = _contracted_axes(w, waxes)
         if i_part is not None:
@@ -65,6 +68,11 @@ def linear(x: torch.Tensor, w: torch.Tensor, ov=None, vidx=None,
             y = x.to(torch.float32) @ wq.T.to(x.dtype).to(torch.float32)
             y = S.psum(y, i_part).to(x.dtype)
             return y * w.scale.to(x.dtype) if is_quant(w) else y
+        if torch.is_grad_enabled():
+            # column-parallel: x, whole on every rank of the out dim's
+            # axes, enters the rank's block of the product
+            from repro_torch.distributed import sharding as S
+            x = S.enter(x, weight_parts(w, waxes)[0])
         if is_quant(w):
             return (x @ w.q.T.to(x.dtype)) * w.scale.to(x.dtype)
         return x @ w.T.to(x.dtype)
@@ -106,10 +114,12 @@ def rank_block(t: torch.Tensor, part, dim: int = -1) -> torch.Tensor:
     """This rank's block of dim ``dim`` of a tensor every rank holds whole
     — a replicated per-head or per-channel vector, its banked ``psel``
     form (B, ..., n), or an activation made whole — split over the mesh
-    axes ``part`` of the active mesh (``t`` itself for None)."""
+    axes ``part`` of the active mesh (``t`` itself for None).  Under grad
+    ``t`` enters the rank's computation through ``sharding.enter``."""
     from repro_torch.distributed import sharding as S
     if part is None:
         return t
+    t = S.enter(t, part)
     mesh = S.active_mesh()
     n = mesh.names_size(part)
     if t.shape[dim] % n:
@@ -187,10 +197,18 @@ def maybe_remat(fn, cfg, collect_io: bool = False):
     ``jax.checkpoint(body, nothing_saveable)`` around each scanned layer
     body) when ``cfg.remat`` is set, grad is enabled and no calibration IO
     is collected; else ``fn`` itself, so inference runs unchanged.  ``fn``
-    must be free of side effects: the backward runs it again."""
+    must be free of side effects: the backward runs it again, inside the
+    mesh context of its forward (``sharding.captured_ctx``), so every rank
+    recomputes the same layout and its collectives in the same order."""
     if not (cfg.remat and torch.is_grad_enabled() and not collect_io):
         return fn
-    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+    from repro_torch.distributed import sharding as S
+    ctx = S.captured_ctx()
+
+    def body(*args, **kwargs):
+        with ctx():
+            return fn(*args, **kwargs)
+    return functools.partial(torch.utils.checkpoint.checkpoint, body,
                              use_reentrant=False)
 
 
@@ -340,8 +358,11 @@ def unembed_logits(x: torch.Tensor, table: torch.Tensor, bank=None,
     On a mesh that shards the vocab each rank computes its block of the
     logits and the blocks are all-gathered over the vocab's axes, so the
     row is whole on every rank and greedy argmax ties break to the lowest
-    global index, as on one device."""
+    global index, as on one device.  Under grad ``x`` enters the rank's
+    block of the product through ``sharding.enter``."""
+    from repro_torch.distributed import sharding as S
     if bank is None or vidx is None:
+        x = S.enter(x, vocab_shard(table)[1])
         logits = x @ table.T.to(x.dtype)
         src = table
     else:
@@ -352,7 +373,6 @@ def unembed_logits(x: torch.Tensor, table: torch.Tensor, bank=None,
         src = bank
     _, part = vocab_shard(src)
     if part is not None:
-        from repro_torch.distributed import sharding as S
         logits = S.all_gather(logits, part, logits.dim() - 1)
     return logits
 

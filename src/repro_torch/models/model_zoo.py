@@ -44,6 +44,16 @@ _FAMILY_MODULES = {"dense": transformer, "moe": transformer,
                    "hybrid": zamba}
 
 
+class _ShapeGenerator(torch.Generator):
+    """A CPU generator whose ``device`` is ``meta``: the initialisers put
+    their tensors on ``gen.device``, so they build shapes and draw
+    nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -54,9 +64,11 @@ class Model:
 
     def init(self, seed: int = 0, device=None) -> dict:
         """Param tree drawn from a generator seeded with ``seed`` on
-        ``device`` (default ``cuda``)."""
+        ``device`` (default ``cuda``); on ``"meta"`` the tree's shapes
+        alone (the port's ``jax.eval_shape(model.init)``)."""
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
+        gen = _ShapeGenerator() if dev.type == "meta" \
+            else torch.Generator(device=dev)
         gen.manual_seed(seed)
         return self._mod.init(gen, self.cfg)
 

@@ -42,6 +42,14 @@ not hold it, and the layer computes what the global bank computes for the
 same lanes (its tokens depend on the lanes' layout, which the affinity
 router decides: a capacity group is the whole batch).
 
+Under grad (training under a mesh, ``sharding.rules_for("train")``) the
+whole scores and rows enter the rank's experts through ``sharding.enter``
+and the combine's sum has an identity backward.  A rank's rows of the
+batch give its share of the aux loss (the batch's token fractions times
+its rows' probabilities over the batch's count), and where a capacity
+group crosses the data split every rank computes the whole batch's loss
+and counts it 1/data, since the ranks' gradients are summed over "data".
+
 Ties: ``lax.top_k`` returns the lower index first among equal values
 (unrouted tokens all score 0 in the capacity selection); ``top_k`` here
 takes a stable descending sort, which orders ties the same way, where
@@ -186,25 +194,27 @@ def _experts(p: dict, xe: torch.Tensor, ents: dict) -> torch.Tensor:
                       waxes=("experts", "embed", "ffn"))
 
 
-def _stack_contracted(w, waxes):
-    """The mesh axes that shard an expert stack's contracted dim (experts
-    that do not divide the model axis leave it to the ffn dim), or
-    None."""
+def _stack_parts(w, waxes) -> tuple:
+    """(out part, contracted part): the mesh axes that shard an expert
+    stack's out and contracted dims (experts that do not divide the model
+    axis leave it to the ffn dim), (None, None) off a mesh."""
     from repro_torch.distributed import sharding as S
     lay = S.active_layout()
     if lay is None:
-        return None
-    return lay.lookup(tuple(waxes), tuple(w.shape[-3:]))[1][2]
+        return None, None
+    return lay.lookup(tuple(waxes), tuple(w.shape[-3:]))[1][1:]
 
 
 def _plain_stack(eq: str, xop: torch.Tensor, w, dtype, waxes):
     """A plain product over an fp expert stack (or an int8 one's payload,
     whose caller applies the scale after it); a partial contraction (see
-    ``_stack_contracted``) stays fp32 until the ranks' sum."""
-    dp = _stack_contracted(w, waxes)
-    if dp is None:
-        return torch.einsum(eq, xop, w.to(dtype))
+    ``_stack_parts``) stays fp32 until the ranks' sum.  Under grad the
+    input of a stack whose out dim is sharded enters the rank's block
+    (``sharding.enter``)."""
     from repro_torch.distributed import sharding as S
+    op, dp = _stack_parts(w, waxes)
+    if dp is None:
+        return torch.einsum(eq, S.enter(xop, op), w.to(dtype))
     y = torch.einsum(eq, xop.to(torch.float32),
                      w.to(dtype).to(torch.float32))
     return S.psum(y, dp).to(dtype)
@@ -239,6 +249,9 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
             # batch on every rank and keep this rank's rows
             b = x.shape[0]
             i = mesh.index(rows)
+            # each rank keeps its own rows of the result: under grad the
+            # ranks' gradients of the gathered rows are summed (a gather
+            # over the batch's axes reduce-scatters its gradient)
             xw = S.all_gather(x, rows, 0)
             vw = None if vidx is None else S.all_gather(vidx, rows, 0)
             logits = None
@@ -254,6 +267,11 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ov=None, vidx=None
                 vw = torch.where(keep, vw, torch.full_like(vw, -1))
             with S.rows_whole():
                 y, aux = _moe(p, xw, cfg, ov, vw, logits)
+            if not S.ctx_forward_only():
+                # training: every rank of the rows computed the whole
+                # batch's aux loss, and the gradients of the ranks' shares
+                # are summed over them; count it once
+                aux = aux / ways
             return y[i * b:(i + 1) * b].contiguous(), aux
     return _moe(p, x, cfg, ov, vidx)
 
@@ -279,8 +297,12 @@ def _router_logits(p: dict, x: torch.Tensor, ov, vidx) -> torch.Tensor:
     product per bank slot by a masked select (slot 0 = base)."""
     from repro_torch.distributed import sharding as S
     rb = oget(ov, "router")
+    _, e_part = _local_experts(p["w_gate"])
     if rb is None or vidx is None:
-        logits = (x @ p["router"].T.to(x.dtype)).to(torch.float32)
+        # the router's rows shard like the stacks' experts: x enters the
+        # rank's block of the scores
+        logits = (S.enter(x, e_part) @ p["router"].T.to(x.dtype)).to(
+            torch.float32)
     else:
         vidx = vidx.reshape(vidx.shape + (1,) * (x.dim() - 1 - vidx.dim()))
         logits = x @ rb[0].T.to(x.dtype)
@@ -288,7 +310,6 @@ def _router_logits(p: dict, x: torch.Tensor, ov, vidx) -> torch.Tensor:
             logits = torch.where((vidx == vi)[..., None],
                                  x @ rb[vi].T.to(x.dtype), logits)
         logits = logits.to(torch.float32)
-    _, e_part = _local_experts(p["w_gate"])
     if e_part is not None:
         # the router shards its experts like the stacks: whole scores on
         # every rank, so routing is the same everywhere
@@ -329,11 +350,12 @@ def _moe(p: dict, x: torch.Tensor, cfg, ov, vidx, logits=None):
     sel = F.one_hot(top_idx, e).to(torch.float32) * top_val[..., None]
     score = sel.sum(dim=2).transpose(1, 2)                      # (G,E,N)
     c_val, c_idx = top_k(score, cap)                            # (G,E,C)
-    # the rank's experts' lists
-    c_val = c_val[:, e_lo:e_lo + e_l]
+    # the rank's experts' lists (the scores and rows, whole on every rank,
+    # enter the rank's own experts)
+    c_val = S.enter(c_val, e_part)[:, e_lo:e_lo + e_l]
     c_idx = c_idx[:, e_lo:e_lo + e_l]
     g_idx = torch.arange(g, device=x.device)[:, None, None]
-    xd = xg[g_idx, c_idx]                                       # (G,E,C,D)
+    xd = S.enter(xg, e_part)[g_idx, c_idx]                      # (G,E,C,D)
 
     ents = {key: oget(ov, key) for key in EXPERT_KEYS}
     has_delta = any(v is not None for v in ents.values())
@@ -385,8 +407,19 @@ def _moe(p: dict, x: torch.Tensor, cfg, ov, vidx, logits=None):
                           vidx=shared_vidx, ffn_ax="ffn_small")
 
     # Switch-style load-balancing loss: E · Σ_e f_e · P_e
-    frac_tokens = F.one_hot(top_idx, e).to(torch.float32).sum(2).mean(
-        dim=(0, 1)) / k
-    frac_probs = probs.mean(dim=(0, 1))
+    rows = S.active_batch_axes()
+    if rows and not S.ctx_forward_only():
+        # training on the rank's rows of the batch (its groups whole): the
+        # batch's token fractions f (no gradient) and this rank's share of
+        # the batch's mean probabilities P, so the ranks' shares sum to
+        # the batch's loss
+        n_all = g * n * S.active_mesh().names_size(rows)
+        frac_tokens = S.psum(F.one_hot(top_idx, e).to(torch.float32).sum(
+            dim=(0, 1, 2)).detach(), rows) / (n_all * k)
+        frac_probs = probs.sum(dim=(0, 1)) / n_all
+    else:
+        frac_tokens = F.one_hot(top_idx, e).to(torch.float32).sum(2).mean(
+            dim=(0, 1)) / k
+        frac_probs = probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac_tokens * frac_probs)
     return y.reshape(orig), aux.to(torch.float32)

@@ -37,13 +37,45 @@ def _like(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+def _held_once(spec: tuple, mesh) -> bool:
+    """Whether this rank counts a block of ``spec``: the block is held by
+    every rank that differs from it only along the mesh axes the spec
+    does not use, and the one at coordinate 0 on each of them counts it."""
+    from repro_torch.distributed.sharding import _names
+    used = {n for part in spec for n in _names(part)}
+    return all(mesh.coord(n) == 0 for n in mesh.axis_names if n not in used)
+
+
+def _global_sq_norm(grads, mesh=None, specs=None) -> torch.Tensor:
+    """Σ g² in fp32 over every leaf of ``grads``.  On a mesh the leaves
+    are the rank's blocks of the spec tree ``specs``: each rank sums the
+    blocks it counts (``_held_once``: a block replicated over "model", or
+    over "data" where a leaf does not split, counts once) and the ranks'
+    sums are summed, so every rank gets the whole tree's."""
+    leaves = tree_leaves(grads)
+    if mesh is None:
+        return sum(torch.sum(torch.square(g.to(torch.float32)))
+                   for g in leaves)
+    from repro_torch.distributed import sharding as S
+    counted: list = []
+    S._map_axes(lambda spec, g: counted.append(g) if _held_once(spec, mesh)
+                else None, specs, grads)
+    local = sum((torch.sum(torch.square(g.to(torch.float32)))
+                 for g in counted),
+                torch.zeros((), dtype=torch.float32, device=leaves[0].device))
+    return S.psum(local, tuple(mesh.axis_names), mesh)
+
+
 def adamw_update(params, grads, state: AdamWState, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, grad_clip_norm: float = 1.0):
-    """Returns (new_params, new_state, metrics)."""
+                 weight_decay: float = 0.1, grad_clip_norm: float = 1.0,
+                 mesh=None, specs=None):
+    """Returns (new_params, new_state, metrics).  With ``mesh`` the trees
+    hold the rank's blocks of the spec tree ``specs`` (a train step under
+    a mesh): the clip's norm is the whole tree's (``_global_sq_norm``), and
+    the moments and the update stay per block."""
     with torch.no_grad():
-        gsq = sum(torch.sum(torch.square(g.to(torch.float32)))
-                  for g in tree_leaves(grads))
+        gsq = _global_sq_norm(grads, mesh, specs)
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(grad_clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)

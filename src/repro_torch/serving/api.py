@@ -66,7 +66,8 @@ request to a pod that holds its variant (``serving/engine``); it serves
 every family with the continuous scheduler, MoE included, and refuses
 ``speculative``, as JAX does.  One refusal is left under a mesh:
 ``graphs=True`` on a card (a gloo collective cannot be captured in a CUDA
-graph; graphs under a mesh come with the card-per-rank NCCL slice).
+graph; CUDA graphs under a mesh come with their own slice: NCCL, a card
+a rank).
 """
 from __future__ import annotations
 

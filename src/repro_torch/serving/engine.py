@@ -79,8 +79,8 @@ entries in the same order, each model call inside the mesh context, on
 the rank's lanes and its bank's slot ids; the steps stay eager, so every
 outcome is "eager", and ``status()["compile_cache"]`` counts the rank's
 own loads.  One refusal is left: CUDA graphs on a card, since a gloo
-collective cannot be captured (graphs under a mesh come with the
-card-per-rank NCCL slice).
+collective cannot be captured (CUDA graphs under a mesh come with a slice
+of their own: NCCL, a card a rank).
 
 Pod-local banks (DESIGN.md §17; a registry with ``pod_banks=True`` on a
 (pod, data, model) mesh): the lanes split pod-major over ("pod", "data"),
@@ -1159,8 +1159,8 @@ def _refuse_on_mesh(registry, *, scheduler: str, graphs: bool) -> None:
     if graphs and registry.device.type == "cuda" and scheduler != "group":
         raise NotImplementedError(
             "graphs=True under a mesh: a gloo collective cannot be "
-            "captured in a CUDA graph; pass graphs=False (graphs come with "
-            "the card-per-rank NCCL slice, beside training under a mesh)")
+            "captured in a CUDA graph; pass graphs=False (CUDA graphs under "
+            "a mesh come with their own slice: NCCL, a card a rank)")
 
 
 def _containers(tree):

@@ -14,8 +14,12 @@ Contract:
   (``distributed/compression.py``), its error state threaded through the
   steps.
 
-Elastic re-meshing (the JAX module's ``remesh``) needs a device mesh and
-is not ported yet.
+``Trainer`` is single-device, as the JAX module's is.  Elastic re-meshing
+after losing ranks is :func:`remesh` (the new mesh's shape and the state's
+spec tree, as the JAX function returns its shardings) and
+:func:`drop_and_continue` (the caller's ``device_put`` of the JAX
+docstring: the old blocks gathered whole, the smaller mesh's groups formed
+from the ranks that remain, the state placed by ``remesh``'s specs).
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ import signal
 import threading
 import time
 from typing import Optional
+
+import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import SyntheticLM
@@ -122,3 +128,52 @@ class Trainer:
         return {"state": state, "losses": losses,
                 "completed": self.cfg.total_steps, "interrupted": False,
                 "step_seconds": step_seconds}
+
+
+# ---------------------------------------------------------------------------
+# elastic re-meshing
+# ---------------------------------------------------------------------------
+
+def state_specs(model: Model, mesh, rules: dict, param_axes=None):
+    """The spec tree of a TrainState on ``mesh`` under ``rules``: the
+    params' specs for the params and both moments, () (replicated) for
+    the step and the count."""
+    from repro_torch.distributed.sharding import tree_pspecs
+    from repro_torch.models.param import split
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.step import TrainState
+    shapes, axes = split(model.init(0, device="meta"))
+    p_specs = tree_pspecs(shapes, axes if param_axes is None else param_axes,
+                          rules, mesh)
+    return TrainState(step=(), params=p_specs,
+                      opt=AdamWState(mu=p_specs, nu=p_specs, count=()))
+
+
+def remesh(model: Model, state, old_mesh, new_data: int, new_model: int,
+           rules: dict):
+    """Recompute the state's placement for a resized (data, model) mesh —
+    drop-and-continue after losing ranks.  Returns ((new_data,
+    new_model), the state's spec tree on that mesh), the counterpart of
+    the JAX function's (mesh, state shardings); :func:`drop_and_continue`
+    moves a state onto it."""
+    from repro_torch.distributed.sharding import Mesh
+    shape = (new_data, new_model)
+    return shape, state_specs(model, Mesh(("data", "model"), shape), rules)
+
+
+def drop_and_continue(state, old_specs, old_mesh, new_specs, new_shape):
+    """Every rank of ``old_mesh`` gathers its state's blocks whole
+    (``old_specs``), the ranks form the (data, model) mesh of
+    ``new_shape`` from the first data·model ranks
+    (``launch.mesh.sub_mesh``), and each of those keeps its blocks of
+    ``new_specs`` (copies: the whole state is freed).  Collective over the
+    old mesh.  Returns (the new mesh, the placed state), or (None, None) on
+    a rank that was dropped."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import mesh as LM
+    from repro_torch.tree import tree_map
+    whole = S.unplace(state, old_specs, old_mesh)
+    mesh = LM.sub_mesh(*new_shape, device=old_mesh.device)
+    if mesh is None:
+        return None, None
+    return mesh, tree_map(torch.clone, S.place(whole, new_specs, mesh))

@@ -37,6 +37,9 @@ FIELDS = {"whisper-base": dict(num_layers=2),
           # 6 q heads over a model axis of 4: sequence-TP attention
           "starcoder2-3b": dict(num_layers=2, num_heads=6, num_kv_heads=2,
                                 head_dim=16)}
+# the cases trained under a mesh: their config's fields (2 layers)
+TRAIN_FIELDS = {"starcoder2-3b": dict(num_heads=6, num_kv_heads=2,
+                                      head_dim=16)}
 # the arch of each case of ``FIELDS`` whose name is not one
 ARCH_OF = {"xlstm-350m-2h": "xlstm-350m"}
 SEQ_ARCH = "starcoder2-3b"
@@ -202,6 +205,10 @@ def run(mesh, path: str, plan: dict) -> dict:
     if plan.get("seq"):
         out["seq"], out["seq layouts"] = seq_runs(mesh, data[SEQ_ARCH],
                                                   device)
+    for case in plan.get("train", ()):
+        out[("train", case)] = R.mesh_train(
+            mesh, data[f"train {case}"], arch_of(case),
+            fields=TRAIN_FIELDS[case], device=device)
     for arch in plan.get("spec", ()):
         model, params, axes, dms = setup(arch, data[arch], device)
         for kd in KDS:

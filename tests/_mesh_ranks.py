@@ -807,7 +807,169 @@ def run(mesh, path: str, plan: dict) -> dict:
     if plan.get("warm"):
         out["warm"] = warm_checks(mesh, data["deepseek-7b"], plan["warm"],
                                   device=device, pods=bool(plan.get("pods")))
+    for arch in plan.get("train", ()):
+        out[("train", arch)] = mesh_train(mesh, data[f"train {arch}"], arch,
+                                          device=device)
+    for arch in plan.get("train_wide", ()):
+        out[("train wide", arch)] = mesh_train(
+            mesh, data[f"train wide {arch}"], arch, device=device, steps=1)
+    if plan.get("drop"):
+        arch = plan["drop"]
+        out["drop"] = drop_continue(mesh, data[f"train {arch}"], arch,
+                                    device=device)
+    if plan.get("cross_pod"):
+        out["cross pod"] = cross_pod_checks(mesh, data["train deepseek-7b"],
+                                            device=device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# training under a mesh
+# ---------------------------------------------------------------------------
+
+# ``tests/test_torch_train.py``'s schedule; the global batch splits over
+# "data"
+TRAIN_LR = dict(peak_lr=5e-3, warmup=2, total_steps=10)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 16, 3
+# rows long enough that each data rank's 2 x 2048 tokens hold whole MoE
+# capacity groups (4096 tokens): the aux loss's per-rank shares
+WIDE_SEQ = 2048
+
+
+def train_config(arch: str, fields: dict = None):
+    """Reduced ``arch`` at 2 layers, fp32 compute, no remat (``fields``
+    override more)."""
+    kw = {"num_layers": 2, "compute_dtype": "float32", "remat": False,
+          **(fields or {})}
+    return dataclasses.replace(TC.get_config(arch).reduced(), **kw)
+
+
+def assert_train_matches(got: dict, want: dict) -> None:
+    """The mesh-training bar: losses, ``moe_aux`` and ``grad_norm`` within
+    1e-5 rel, the same ``lr``; the step-1 gradients, made whole, within
+    1e-5 of each tensor's largest |g| (``BWD_TOL``); the final params
+    within 1e-3 abs (``tests/test_torch_train.py``)."""
+    assert len(got["metrics"]) == len(want["metrics"])
+    for g, w in zip(got["metrics"], want["metrics"]):
+        for k in ("loss", "grad_norm", "moe_aux", "total_loss"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-12,
+                                       err_msg=k)
+        assert g["lr"] == w["lr"]
+    assert set(got["grads"]) == set(want["grads"])
+    for k, w in want["grads"].items():
+        err = np.abs(got["grads"][k] - w).max()
+        assert err <= 1e-5 * np.abs(w).max(), (k, err, np.abs(w).max())
+    for k, w in want["params"].items():
+        np.testing.assert_allclose(got["params"][k], w, rtol=0, atol=1e-3,
+                                   err_msg=k)
+
+
+def port_train_data(arch: str, fields: dict = None, seq: int = TRAIN_SEQ,
+                    steps: int = TRAIN_STEPS) -> dict:
+    """The port's own train data of ``arch`` (no JAX): its initial params
+    from seed 0 as numpy and ``steps`` batches of ``SyntheticLM(seed=0)``
+    of ``seq`` tokens a row."""
+    from repro_torch.data.pipeline import SyntheticLM
+    model = build_model(train_config(arch, fields))
+    params, _ = split(model.init(0, device="cpu"))
+    src = SyntheticLM(model.cfg.vocab_size, seed=0)
+    return {"flat": bridge.params_to_numpy(params),
+            "batches": [{k: np.asarray(v) for k, v in src.lm_batch(
+                i, TRAIN_BATCH, seq).items()} for i in range(steps)]}
+
+
+def _whole(tree, specs, mesh) -> dict:
+    if mesh is None:
+        return bridge.params_to_numpy(tree)
+    return bridge.params_to_numpy(S.unplace(tree, specs, mesh))
+
+
+def mesh_train(mesh, d: dict, arch: str, fields: dict = None,
+               device="cpu", steps: int = TRAIN_STEPS) -> dict:
+    """``steps`` of ``make_train_step(param_axes=)`` on ``mesh`` under the
+    train rules (in one process for ``mesh`` None), from the data's flat
+    params (placed) over its batches: each step's metrics, the step-1
+    gradients and the final params made whole (numpy)."""
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import loop as TL
+    from repro_torch.train import step as TS
+    model = build_model(train_config(arch, fields))
+    _, axes = split(model.init(0, device="meta"))
+    rules = S.rules_for("train")
+    params = bridge.params_from_numpy(d["flat"], device)
+    state = TS.TrainState(0, params, adamw_init(params))
+    specs = None
+    if mesh is not None:
+        specs = TL.state_specs(model, mesh, rules)
+        state = S.place(state, specs, mesh)
+    grads: list = []
+
+    def first(g):
+        if not grads:
+            grads.append(g)
+        return g
+    step = TS.make_train_step(model, param_axes=axes, grad_transform=first,
+                              **TRAIN_LR)
+    metrics = []
+    ctx = S.shard_ctx(mesh, rules) if mesh is not None \
+        else contextlib.nullcontext()
+    with ctx:
+        for batch in d["batches"][:steps]:
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics,
+            "grads": _whole(grads[0], specs and specs.params, mesh),
+            "params": _whole(state.params, specs and specs.params, mesh)}
+
+
+def drop_continue(mesh, d: dict, arch: str, device="cpu") -> list:
+    """2 steps on ``mesh``, a drop to the (1, 2) mesh of its first two
+    ranks (``train.loop.remesh`` and ``drop_and_continue``), 1 more step
+    there: the losses this rank saw."""
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import loop as TL
+    from repro_torch.train import step as TS
+    model = build_model(train_config(arch))
+    _, axes = split(model.init(0, device="meta"))
+    rules = S.rules_for("train")
+    specs = TL.state_specs(model, mesh, rules)
+    params = bridge.params_from_numpy(d["flat"], device)
+    state = S.place(TS.TrainState(0, params, adamw_init(params)), specs,
+                    mesh)
+    step = TS.make_train_step(model, param_axes=axes, **TRAIN_LR)
+    losses = []
+    with S.shard_ctx(mesh, rules):
+        for batch in d["batches"][:2]:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+    shape, new_specs = TL.remesh(model, state, mesh, 1, 2, rules)
+    sub, state = TL.drop_and_continue(state, specs, mesh, new_specs, shape)
+    if sub is not None:
+        with S.shard_ctx(sub, rules):
+            state, m = step(state, d["batches"][2])
+            losses.append(float(m["loss"]))
+    return losses
+
+
+def cross_pod_checks(mesh, d: dict, device="cpu") -> dict:
+    """The step-1 gradients of the rank's pod's batch (one process's
+    ``value_and_grad``, the pods' batches differ), their packed signs and
+    fp16 scales, ``cross_pod_grad_mean`` of them over "pod" and the bytes
+    this rank sent; numpy."""
+    from repro_torch.distributed import compression as GC
+    from repro_torch.train import step as TS
+    model = build_model(train_config("deepseek-7b"))
+    params = bridge.params_from_numpy(d["flat"], device)
+    batch = d["batches"][mesh.coord("pod")]
+    _, _, grads = TS.value_and_grad(TS.make_loss_fn(model), params, batch)
+    sent: list = []
+    mean = GC.cross_pod_grad_mean(grads, mesh, sent=sent)
+    flat = C.flatten_params(grads)
+    return {"grads": bridge.params_to_numpy(grads),
+            "quantized": {k: tuple(t.cpu().numpy() for t in GC.quantize(g))
+                          for k, g in flat.items() if GC._compressible(g)},
+            "mean": bridge.params_to_numpy(mean), "sent": sum(sent),
+            "wire": sum(GC.wire_bytes(g)[0] for g in flat.values())}
 
 
 def refuse_world(mesh):

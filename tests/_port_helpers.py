@@ -64,3 +64,40 @@ def delta_model_numpy(dm) -> dict:
                            "scalar": e.scalar}
                        for p, e in dm.deltas.items()},
             "extras": {p: np.asarray(v) for p, v in dm.extras.items()}}
+
+
+# ---------------------------------------------------------------------------
+# training under a mesh: the JAX single-device reference and its bar
+# ---------------------------------------------------------------------------
+
+from _mesh_ranks import TRAIN_BATCH, TRAIN_LR, TRAIN_SEQ, TRAIN_STEPS  # noqa
+
+
+def train_data(arch: str, **fields) -> dict:
+    """Reduced ``arch`` at 2 layers, fp32: the JAX model, and what the
+    port's ranks read (JAX's initial params as numpy, the batches)."""
+    from repro.data.pipeline import SyntheticLM
+    jcfg, _ = configs(2, arch=arch, **fields)
+    jmodel, _, flat = jax_base(jcfg)
+    src = SyntheticLM(jcfg.vocab_size, seed=0)
+    batches = [{k: np.asarray(v) for k, v in src.lm_batch(
+        i, TRAIN_BATCH, TRAIN_SEQ).items()} for i in range(TRAIN_STEPS)]
+    return {"jmodel": jmodel, "ship": {"flat": flat, "batches": batches}}
+
+
+def jax_train_reference(jmodel, batches) -> dict:
+    """JAX's single-device ``make_train_step`` from its initial params over
+    ``batches``: each step's metrics, the step-1 gradients and the final
+    params (numpy)."""
+    from repro.train import step as JS
+    state = JS.init_train_state(jmodel, jax.random.PRNGKey(0))
+    (_, _), grads = jax.value_and_grad(JS.make_loss_fn(jmodel), has_aux=True)(
+        state.params, batches[0])
+    step = jax.jit(JS.make_train_step(jmodel, **TRAIN_LR))
+    metrics = []
+    for batch in batches:
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "grads": numpy_flat(grads),
+            "params": numpy_flat(state.params)}
+

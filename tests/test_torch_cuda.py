@@ -1786,6 +1786,45 @@ def test_mesh_refuses_graphs_on_the_card(cuda):
                    mesh=S.Mesh(("data", "model"), (1, 2), device=cuda))
 
 
+MESH_TRAIN_ARCHS = ("deepseek-7b", "deepseek-moe-16b")
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2), (1, 4)],
+                         ids=["1x2", "2x1", "2x2", "1x4"])
+def test_mesh_train_on_card_matches_cpu(cuda, tmp_path, shape):
+    """``make_train_step(param_axes=)`` under the train rules on the card
+    (ranks on card 0 over gloo): every rank's metrics, gathered step-1
+    gradients and final params within the mesh-training bar
+    (``_mesh_ranks.assert_train_matches``) of the single-process CPU
+    plain run from the same params and batches.  deepseek-7b and
+    deepseek-moe-16b on (1, 2), (2, 1), (2, 2); on (1, 4) reduced
+    qwen3-8b (the GQA layout) and the 6-head starcoder2-3b ("whole")."""
+    import pickle
+
+    from repro_torch.launch import mesh as LM
+    import _mesh_family_ranks as MF
+    import _mesh_ranks as MR
+    if shape == (1, 4):
+        cases = {"qwen3-8b": (MR.run, None),
+                 **{c: (MF.run, f) for c, f in MF.TRAIN_FIELDS.items()}}
+    else:
+        cases = {a: (MR.run, None) for a in MESH_TRAIN_ARCHS}
+    data = {f"train {c}": MR.port_train_data(MF.arch_of(c), f)
+            for c, (_, f) in cases.items()}
+    path = str(tmp_path / "train.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+    for run in dict.fromkeys(r for r, _ in cases.values()):
+        mine = tuple(c for c, (r, _) in cases.items() if r is run)
+        got = LM.spawn(run, shape, device="cuda", timeout_s=900,
+                       args=(path, {"train": mine}))
+        for c in mine:
+            want = MR.mesh_train(None, data[f"train {c}"], MF.arch_of(c),
+                                 fields=cases[c][1])
+            for g in got:
+                MR.assert_train_matches(g[("train", c)], want)
+
+
 # ---------------------------------------------------------------------------
 # an int8 base under a mesh: the q8 bodies on a rank's blocks
 # ---------------------------------------------------------------------------

@@ -22,6 +22,13 @@ continuous tokens, whatever k the ladder walks, and every rank reports
 the same ladder snapshot.  ``warmup()`` runs on (1, 2) with JAX's outcome
 keys, every outcome "eager", and the ranks load a compile cache they
 share without a corrupt entry.
+
+Training rides the same groups: ``make_train_step(param_axes=)`` under
+``rules_for("train")`` takes 3 steps of deepseek-7b and deepseek-moe-16b
+on (1, 2), (2, 1) and (2, 2) and of qwen3-8b (the GQA layout) on (1, 4),
+each held to one JAX single-device run per arch
+(``_mesh_ranks.assert_train_matches``); on (2, 2) a drop to (1, 2)
+after 2 steps continues with the uninterrupted losses.
 """
 import pickle
 import time
@@ -33,7 +40,8 @@ import pytest
 import torch
 
 from _port_helpers import (configs, delta_model_numpy, fine_tune_flat,
-                           jax_base, jax_tree)
+                           jax_base, jax_train_reference, jax_tree,
+                           train_data)
 from repro.core import calibration as JC
 from repro.core import loader as JL
 from repro.core import quantize as JQ
@@ -57,19 +65,24 @@ MESHES = {
              "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS},
              "int8": R.INT8_RUNS, "launcher": True, "async": True,
              "spec": {"deepseek-7b": {**R.SPEC_RUNS, **R.SPEC_EXTRA},
-                      "deepseek-moe-16b": R.SPEC_RUNS}},
+                      "deepseek-moe-16b": R.SPEC_RUNS},
+             "train": ARCHS},
     (2, 1): {"logits": ARCHS,
-             "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS}},
+             "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS},
+             "train": ARCHS, "train_wide": ("deepseek-moe-16b",)},
     (2, 2): {"dispatch": True, "logits": ARCHS, "bank": True,
              "tokens": {a: tuple(R.SCHEDULERS) for a in ARCHS},
              "int8": R.INT8_RUNS,
-             "spec": {a: R.SPEC_RUNS for a in ARCHS}},
+             "spec": {a: R.SPEC_RUNS for a in ARCHS},
+             "train": ARCHS, "drop": "deepseek-7b"},
     # reduced qwen3-8b keeps 4 q heads and 2 KV heads: under model=4 the
     # GQA branch (q heads sharded, K/V gathered) with a KV head cut over
     # two ranks
     (1, 4): {"dispatch": True, "logits": ("qwen3-8b",),
-             "tokens": {"qwen3-8b": ("continuous", "group-fused")}},
+             "tokens": {"qwen3-8b": ("continuous", "group-fused")},
+             "train": ("qwen3-8b",)},
 }
+TRAIN_ARCHS = ARCHS + ("qwen3-8b",)
 TOKEN_CASES = [(m, a, s, kd) for m, plan in MESHES.items()
                for a, scheds in plan["tokens"].items() for s in scheds
                for kd in KDS]
@@ -80,6 +93,8 @@ INT8_CASES = [(m, a, s, kd) for m, plan in MESHES.items()
 INT8_MESHES = [m for m, p in MESHES.items() if p.get("int8")]
 SPEC_CASES = [(m, a, label) for m, plan in MESHES.items()
               for a, runs in plan.get("spec", {}).items() for label in runs]
+TRAIN_CASES = [(m, a) for m, plan in MESHES.items()
+               for a in plan.get("train", ())]
 
 
 def _arch_data(arch: str) -> dict:
@@ -135,6 +150,9 @@ class _Spawns:
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh")
     data = {a: _arch_data(a) for a in ARCHS + ("qwen3-8b",)}
+    data.update({f"train {a}": train_data(a) for a in TRAIN_ARCHS})
+    data["train wide deepseek-moe-16b"] = {"ship": R.port_train_data(
+        "deepseek-moe-16b", seq=R.WIDE_SEQ, steps=1)}
     path = str(tmp / "data.pkl")
     with open(path, "wb") as f:
         pickle.dump({a: d["ship"] for a, d in data.items()}, f)
@@ -516,3 +534,62 @@ def test_mesh_refusals_name_their_slice(world, case):
         R.Deployment(model, params, device="cpu", mesh=pmesh,
                      param_axes=axes, batch_size=4, pod_banks=True,
                      speculative=True)
+
+
+_JAX_TRAIN: dict = {}
+
+
+def _jax_train(world, arch: str) -> dict:
+    """JAX's single-device train steps of one arch, shared by every
+    mesh."""
+    if arch not in _JAX_TRAIN:
+        d = world["data"][f"train {arch}"]
+        _JAX_TRAIN[arch] = jax_train_reference(d["jmodel"],
+                                               d["ship"]["batches"])
+    return _JAX_TRAIN[arch]
+
+
+@pytest.mark.parametrize("shape,arch", TRAIN_CASES,
+                         ids=["x".join(map(str, m)) + f"-{a}"
+                              for m, a in TRAIN_CASES])
+def test_mesh_train_steps_match_jax_single_device(world, shape, arch):
+    """``make_train_step(param_axes=)`` under ``rules_for("train")`` (TP
+    over "model", FSDP over "data", the batch's rows over "data"): every
+    rank's metrics, step-1 gradients and final params, made whole, at the
+    bar of ``assert_train_matches`` against JAX's single-device step on the
+    same params and batches; the metrics the same on every rank, bit for
+    bit."""
+    want = _jax_train(world, arch)
+    ranks = world["spawns"].get(shape)
+    for got in ranks:
+        R.assert_train_matches(got[("train", arch)], want)
+        assert got[("train", arch)]["metrics"] == \
+            ranks[0][("train", arch)]["metrics"]
+
+
+def test_drop_and_continue_matches_uninterrupted_steps(world):
+    """2 steps on (2, 2), ``remesh`` to (1, 2) and ``drop_and_continue``
+    onto the first two ranks, 1 more step there: the losses within 1e-5
+    rel of JAX's 3 uninterrupted single-device steps; the dropped ranks
+    stop after 2."""
+    want = [m["loss"] for m in _jax_train(world, "deepseek-7b")["metrics"]]
+    for got in world["spawns"].get((2, 2)):
+        kept = got["coords"][0] == 0
+        assert len(got["drop"]) == (3 if kept else 2), got["coords"]
+        np.testing.assert_allclose(got["drop"], want[:len(got["drop"])],
+                                   rtol=1e-5)
+
+
+def test_mesh_train_moe_groups_within_each_rank_match_one_process(world):
+    """deepseek-moe-16b on (2, 1) with 2 x 2048 tokens a data rank: each
+    rank's rows hold whole capacity groups (4096 tokens), so the layer
+    routes its own rows and the aux loss is each rank's share (the
+    batch's token fractions times its rows' probabilities); one step's
+    metrics, gradients and params within ``assert_train_matches``'s bar of
+    the port's single-process step (itself held to JAX's at 16 tokens a
+    row)."""
+    d = world["data"]["train wide deepseek-moe-16b"]["ship"]
+    want = R.mesh_train(None, d, "deepseek-moe-16b", steps=1)
+    assert want["metrics"][0]["moe_aux"] > 0
+    for got in world["spawns"].get((2, 1)):
+        R.assert_train_matches(got[("train wide", "deepseek-moe-16b")], want)

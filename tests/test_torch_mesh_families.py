@@ -17,7 +17,9 @@ rank).  The speculative scheduler serves every family on (1, 2) and
 (2, 2), and the 2-head xlstm-350m and the 6-head config on (1, 4) (its
 verify at T = k+1 rows takes "whole"): every rank serves JAX's
 single-device continuous tokens, the variant's greedy chain, with the
-same ladder snapshot.  One module fixture starts every group while the
+same ladder snapshot.  The 6-head config trains under a mesh on (1, 4)
+too (every head on every rank, the "whole" layout), held to JAX's
+single-device train step.  One module fixture starts every group while the
 parent runs JAX (``tests/_mesh_ranks.py``'s pattern); the rank side is
 ``tests/_mesh_family_ranks.py``.
 """
@@ -31,7 +33,8 @@ import pytest
 import torch
 
 from _port_helpers import (configs, delta_model_numpy, fine_tune_flat,
-                           jax_base, jax_tree)
+                           jax_base, jax_train_reference, jax_tree,
+                           train_data)
 from repro.configs import get_config
 from repro.core import calibration as JC
 from repro.core import loader as JL
@@ -70,7 +73,8 @@ MESHES = {
     # its fused w_ff1 cut 4 ways; the 6-head config: sequence-TP attention
     (1, 4): {"tokens": {a: SCHEDS for a in QUAD},
              "logits": QUAD, "seq": True,
-             "spec": ("xlstm-350m-2h", F.SEQ_ARCH)},
+             "spec": ("xlstm-350m-2h", F.SEQ_ARCH),
+             "train": tuple(F.TRAIN_FIELDS)},
 }
 TOKEN_CASES = [(m, a, s, kd) for m, plan in MESHES.items()
                for a, scheds in plan["tokens"].items() for s in scheds
@@ -143,6 +147,8 @@ class _Spawns:
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("families")
     data = {a: _arch_data(a) for a in F.ARCHS + QUAD[2:] + (F.SEQ_ARCH,)}
+    data.update({f"train {c}": train_data(F.arch_of(c), **fields)
+                 for c, fields in F.TRAIN_FIELDS.items()})
     path = str(tmp / "data.pkl")
     with open(path, "wb") as f:
         pickle.dump({a: d["ship"] for a, d in data.items()}, f)
@@ -474,3 +480,26 @@ def test_family_waxes_literals_match_param_declarations(arch, monkeypatch):
         assert waxes is not None, (name, shape)
         assert tuple(waxes) in declared[shape], (name, shape, waxes,
                                                  declared[shape])
+
+
+TRAIN_CASES = [(m, c) for m, plan in MESHES.items()
+               for c in plan.get("train", ())]
+
+
+@pytest.mark.parametrize("shape,case", TRAIN_CASES,
+                         ids=["x".join(map(str, m)) + f"-{c}"
+                              for m, c in TRAIN_CASES])
+def test_mesh_train_steps_match_jax_single_device(world, shape, case):
+    """The 6-head starcoder2-3b trained on (1, 4): its q heads do not
+    divide the model axis while ``q_dim`` does, so training takes the
+    "whole" layout (q, K and V gathered, every head on every rank, the
+    ``wo`` input's K-tile kept); every rank's metrics, step-1 gradients
+    and final params within ``assert_train_matches``'s bar of JAX's
+    single-device step, the metrics the same on every rank."""
+    d = world["data"][f"train {case}"]
+    want = jax_train_reference(d["jmodel"], d["ship"]["batches"])
+    ranks = world["spawns"].get(shape)
+    for got in ranks:
+        F.R.assert_train_matches(got[("train", case)], want)
+        assert got[("train", case)]["metrics"] == \
+            ranks[0][("train", case)]["metrics"]

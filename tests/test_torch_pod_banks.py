@@ -25,7 +25,11 @@ Two tiers:
   ``--pod-banks``; MoE (deepseek-moe-16b) under pod-local banks, its tokens
   JAX's and the global bank's, in both dispatch modes, sync and async, over
   fp32 and int8; ``warmup()`` on the pod mesh (JAX's outcome keys, each
-  "eager", then JAX's tokens) and a compile cache the ranks share.
+  "eager", then JAX's tokens) and a compile cache the ranks share;
+  the compressed cross-pod gradient exchange (``cross_pod_grad_mean``):
+  each rank's packed signs and fp16 scales JAX's ``quantize``'s, its mean
+  JAX's dequantized mean over the pods in rank order, bit for bit, and
+  its bytes on the wire ``wire_bytes``'s.
 
 Contract (DESIGN.md §17): pod-local banking is a layout and routing
 decision, so the tokens are the global bank's whether a request was an
@@ -44,7 +48,7 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from _port_helpers import (configs, delta_model_numpy, fine_tune_flat,
-                           jax_base, jax_tree)
+                           jax_base, jax_tree, train_data)
 from repro.core import calibration as JC
 from repro.distributed import sharding as JS
 from repro.models import build_model as jax_build_model
@@ -91,12 +95,15 @@ def world(tmp_path_factory):
         state[arch] = {"jmodel": jmodel, "jparams": jparams, "jdms": jdms,
                        "ship": {"flat": flat, "dms": [delta_model_numpy(d)
                                                       for d in jdms]}}
+    state["train"] = train_data(ARCH)
     path = str(tmp / "data.pkl")
     with open(path, "wb") as f:
-        pickle.dump({a: state[a]["ship"] for a in (ARCH, MOE)}, f)
+        pickle.dump({**{a: state[a]["ship"] for a in (ARCH, MOE)},
+                     f"train {ARCH}": state["train"]["ship"]}, f)
     group = LM.start(R.run, SHAPE, device="cpu", timeout_s=TIMEOUT_S,
                      args=(path, {"pods": True, "moe_pods": True,
-                                  "warm": str(tmp / "compile-cache")}),
+                                  "warm": str(tmp / "compile-cache"),
+                                  "cross_pod": True}),
                      threads=1)
     state.update(state[ARCH], group=group)
     yield state
@@ -603,3 +610,35 @@ def test_pod_mesh_ranks_share_one_compile_cache(world):
         assert race["builds"] + race["hits"] == 1
         assert race["corrupt"] == race["env_mismatch"] == 0
         assert g["warm"]["quarantined"] == []
+
+
+def test_cross_pod_grad_mean_equals_jax_quantized_mean(world):
+    """``cross_pod_grad_mean`` over "pod" on (2, 1, 2), each pod's step-1
+    gradients of its own batch: every compressible leaf's packed signs
+    are JAX's ``quantize`` bytes and its fp16 scales JAX's bits; the mean
+    equals JAX's mean of the pods' dequantized gradients in rank order
+    (the plain mean for a leaf that is not compressible), bit for bit;
+    the bytes a rank sent equal ``wire_bytes``'s sum."""
+    import jax.numpy as jnp
+    from repro.distributed import compression as JGC
+    ranks = [g["cross pod"] for g in _group(world)]
+    coords = [g["coords"] for g in _group(world)]
+    for r, (got, c) in enumerate(zip(ranks, coords)):
+        assert got["sent"] == got["wire"]
+        for k, (packed, scale) in got["quantized"].items():
+            jp, js = JGC.quantize(jnp.asarray(got["grads"][k]))
+            np.testing.assert_array_equal(packed, np.asarray(jp))
+            np.testing.assert_array_equal(scale.view(np.uint16),
+                                          np.asarray(js).view(np.uint16))
+        pods = [ranks[coords.index((p,) + c[1:])]["grads"]
+                for p in range(SHAPE[0])]
+        for k, mean in got["mean"].items():
+            g = jnp.stack([jnp.asarray(p[k]) for p in pods])
+            if JGC._compressible(g[0]):
+                deq = jnp.stack([JGC.dequantize(*JGC.quantize(x),
+                                                x.shape[-1]) for x in g])
+                want = np.asarray(jnp.mean(deq, axis=0))
+            else:
+                want = np.asarray(jnp.mean(g, axis=0))
+            np.testing.assert_array_equal(mean.view(np.uint32),
+                                          want.view(np.uint32), err_msg=k)

@@ -368,3 +368,53 @@ def test_context_helpers_match_jax_without_and_with_a_mesh():
         assert S.active_rules() == JS.rules_for("decode")
         assert S.logical_constraint(x, "act_batch", None) is x
     assert S.active_mesh() is None
+
+
+# ---------------------------------------------------------------------------
+# remesh: the state's spec tree on a resized mesh
+# ---------------------------------------------------------------------------
+
+REMESH_ARCHS = ("starcoder2-3b", "deepseek-moe-16b")
+REMESH_SHAPES = {"1x1": (1, 1), "1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
+
+
+def _jax_specs(tree) -> dict:
+    from jax.sharding import PartitionSpec
+    flat = JC.flatten_params(tree, is_leaf=lambda x: isinstance(
+        x, PartitionSpec) or hasattr(x, "spec"))
+    return {k: tuple(getattr(v, "spec", v)) for k, v in flat.items()}
+
+
+@pytest.mark.parametrize("shape", sorted(REMESH_SHAPES))
+@pytest.mark.parametrize("arch", REMESH_ARCHS)
+def test_remesh_spec_tree_equal_jax(arch, shape):
+    """``train.loop.remesh``'s state spec tree under the train rules: the
+    params' specs for the params and both moments, () for the step and the
+    count.  On (1, 1) against JAX's ``remesh`` itself (its shardings'
+    specs); on the larger shapes, which need more devices than the JAX
+    tests have, against JAX's ``tree_pspecs`` of ``eval_shape(init)`` on a
+    fake mesh of that shape, the resolution JAX's ``remesh`` runs."""
+    from repro.train import loop as JTL
+    from repro_torch.train import loop as TL
+    d, m = REMESH_SHAPES[shape]
+    jcfg, tcfg = configs(2, arch=arch)
+    model = build_model(tcfg)
+    got_shape, got = TL.remesh(model, None, None, d, m, S.rules_for("train"))
+    assert got_shape == (d, m)
+    assert got.step == () and got.opt.count == ()
+    flat = DO.flatten_axes(got.params)
+    assert DO.flatten_axes(got.opt.mu) == flat == DO.flatten_axes(got.opt.nu)
+    jmodel = jax_build_model(jcfg)
+    if (d, m) == (1, 1):
+        jmesh, jsh = JTL.remesh(jmodel, None, None, 1, 1, JS.rules_for("train"))
+        assert tuple(jmesh.devices.shape) == (1, 1)
+        assert tuple(jsh.step.spec) == tuple(jsh.opt.count.spec) == ()
+        want = _jax_specs(jsh.params)
+        assert _jax_specs(jsh.opt.mu) == want == _jax_specs(jsh.opt.nu)
+    else:
+        shapes, axes = jax_split(jax.eval_shape(jmodel.init,
+                                                jax.random.PRNGKey(0)))
+        want = _jax_specs(JS.tree_pspecs(shapes, axes, JS.rules_for("train"),
+                                         _fake_mesh((d, m),
+                                                    ("data", "model"))))
+    assert flat == want

@@ -47,6 +47,7 @@ from repro_torch.distributed import compression as GC  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models.param import split  # noqa: E402
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
 from repro_torch.optim.schedule import cosine_schedule  # noqa: E402
 from repro_torch.train import step as S  # noqa: E402
@@ -320,8 +321,53 @@ def test_eval_step_and_param_axes():
     metrics = S.make_eval_step(model)(params, batch)
     assert set(metrics) == {"loss", "moe_aux"}
     assert not metrics["loss"].requires_grad
-    with pytest.raises(NotImplementedError):
-        S.make_train_step(model, param_axes={})
+    # off a mesh param_axes is a no-op, as JAX's sharding constraint is
+    # outside one: the same step, bit for bit
+    _, axes = split(model.init(0, device="meta"))
+    state = S.TrainState(step=0, params=params, opt=adamw_init(params))
+    plain, pm = S.make_train_step(model, **LR)(state, batch)
+    axed, am = S.make_train_step(model, param_axes=axes, **LR)(state, batch)
+    assert set(pm) == set(am)
+    for k in pm:
+        assert torch.equal(torch.as_tensor(pm[k]), torch.as_tensor(am[k])), k
+    assert (axed.step, axed.opt.count) == (plain.step, plain.opt.count)
+    for got, want in ((axed.params, plain.params), (axed.opt.mu, plain.opt.mu),
+                      (axed.opt.nu, plain.opt.nu)):
+        got, want = bridge.params_to_numpy(got), bridge.params_to_numpy(want)
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+MESH_REFUSED = ("whisper-base", "internvl2-76b", "xlstm-350m", "zamba2-7b")
+
+
+@pytest.mark.parametrize("arch", MESH_REFUSED + ("serving-rules",))
+def test_mesh_train_refusals_name_their_slice(arch):
+    """Under a mesh the audio, VLM, xLSTM and Zamba families raise
+    NotImplementedError naming the slice that brings them; a train step
+    under forward-only (serving) rules raises too.  (A mesh without
+    processes: each refusal comes before the first collective.)"""
+    from repro_torch.distributed import sharding as SH
+    name = "deepseek-7b" if arch == "serving-rules" else arch
+    cfg = dataclasses.replace(TC.get_config(name).reduced(), num_layers=(
+        7 if name == "zamba2-7b" else 8 if name == "xlstm-350m" else 2),
+        compute_dtype="float32")
+    model = build_model(cfg)
+    params, axes = split(model.init(0, device="cpu"))
+    state = S.TrainState(step=0, params=params, opt=adamw_init(params))
+    batch = _family_batch(cfg, np.random.default_rng(4))
+    step = S.make_train_step(model, param_axes=axes)
+    mesh = SH.Mesh(("data", "model"), (1, 2))
+    if arch == "serving-rules":
+        with SH.shard_ctx(mesh, SH.rules_for("decode")), \
+                pytest.raises(ValueError, match="train rules"):
+            step(state, batch)
+        return
+    with SH.shard_ctx(mesh, SH.rules_for("train")), \
+            pytest.raises(NotImplementedError,
+                          match="whisper, the VLM, xLSTM and Zamba"):
+        step(state, batch)
 
 
 # ---------------------------------------------------------------------------
