@@ -407,22 +407,26 @@ def global_shape(local_shape: Sequence[int], spec: tuple,
                                  tuple(spec) + (None,) * len(local_shape)))
 
 
-def block(t: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
-    """This rank's block of a global tensor, contiguous (a clone when it
-    is a proper slice, ``t`` itself when the spec shards nothing)."""
+def block(t: torch.Tensor, spec: tuple, mesh: Mesh,
+          device=None) -> torch.Tensor:
+    """This rank's block of a global tensor, on ``device`` (``t``'s when
+    None): a contiguous copy whenever the spec shards a dim (a view of a
+    leading-dim cut would keep the whole tensor alive; a move copies the
+    cut alone, with no copy on ``t``'s device first), ``t`` itself (moved)
+    when it shards nothing."""
     if all(p is None for p in spec):
-        return t
-    return t[block_slices(t.shape, spec, mesh)].contiguous()
+        return t if device is None else t.to(device)
+    return t[block_slices(t.shape, spec, mesh)].to(
+        device or t.device, copy=True, memory_format=torch.contiguous_format)
 
 
 def place(tree, specs, mesh: Mesh, device=None):
     """Every leaf of ``tree`` cut to this rank's block under the
     same-structured spec tree ``specs`` (and moved to ``device`` when
-    given): the counterpart of ``jax.device_put(tree, shardings)``."""
-    def one(spec, t):
-        b = block(t, spec, mesh)
-        return b if device is None else b.to(device)
-    return _map_axes(one, specs, tree)
+    given; :func:`block`): the counterpart of ``jax.device_put(tree,
+    shardings)``."""
+    return _map_axes(lambda spec, t: block(t, spec, mesh, device), specs,
+                     tree)
 
 
 def unplace(tree, specs, mesh: Mesh):

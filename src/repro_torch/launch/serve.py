@@ -330,11 +330,20 @@ def main(argv=None):
     print(f"mesh: {len(tokens)} ranks served the same tokens")
 
 
+def _line(*parts) -> None:
+    """``print(*parts)`` as one write, flushed: a mesh's ranks print to one
+    stream, and ``print`` writes each part and the newline apart, so
+    another rank's line could land inside this one."""
+    sys.stdout.write(" ".join(map(str, parts)) + "\n")
+    sys.stdout.flush()
+
+
 def _serve(args, mesh, t_start: float) -> list:
     """Build, publish and serve (on this rank of ``mesh``, if any); the
     report prints once (rank 0).  Returns every request's tokens."""
     ap = _parser()
-    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    say = print if mesh is None else _line if mesh.rank == 0 \
+        else (lambda *a: None)
     if args.speculative:
         if args.mode != "fused":
             ap.error("--speculative verifies through the packed overlay "
@@ -401,8 +410,8 @@ def _serve(args, mesh, t_start: float) -> list:
         say("speculative:", dep.status()["speculative"])
         if mesh is not None:
             # every rank's ladder: the ranks walk it in step
-            print(f"speculative rank {mesh.rank}:",
-                  dep.status()["speculative"], flush=True)
+            _line(f"speculative rank {mesh.rank}:",
+                  dep.status()["speculative"])
     say("registry:", dep.stats)
     if dep.admission is not None:
         say("admission:", dep.admission.stats)

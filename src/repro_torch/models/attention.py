@@ -208,18 +208,24 @@ def qkv_project(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     return q, k, v
 
 
+def seq_kv(k: torch.Tensor, v: torch.Tensor, split: str) -> tuple:
+    """Whole-length K/V as they enter the rank's own q rows under "seq"
+    (``sharding.enter``: under grad the ranks' gradients are summed);
+    themselves otherwise."""
+    if split != "seq":
+        return k, v
+    from repro_torch.distributed.sharding import enter
+    return enter(k, "model"), enter(v, "model")
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
            split: str, s: int, window: int = 0) -> torch.Tensor:
     """Causal :func:`flash_attention` of q (the rank's rows and heads of
     ``s`` rows) against whole-length K/V in ``split``'s layout: GQA reads
     its KV heads through :func:`local_kv`, sequence-TP offsets the mask by
-    the rank's first row."""
+    the rank's first row (the backward honours ``q_offset``)."""
     lo, _ = seq_rows(cfg, s, split)
-    if split == "seq":
-        # whole K/V enter the rank's own rows (its backward honours
-        # ``q_offset``)
-        from repro_torch.distributed.sharding import enter
-        k, v = enter(k, "model"), enter(v, "model")
+    k, v = seq_kv(k, v, split)
     return flash_attention(q, local_kv(k, cfg), local_kv(v, cfg),
                            window=window, q_offset=lo)
 

@@ -143,6 +143,22 @@ def head_block(h: int, part) -> tuple:
     return mesh.index(part) * (h // n), h // n
 
 
+def narrow_heads(t: torch.Tensor, heads: tuple, part,
+                 dim: int = -1) -> torch.Tensor:
+    """Heads ``heads`` ((first, count) of :func:`head_block`) of a
+    per-head tensor that every rank of the mesh axes ``part`` holds whole
+    (gates after a psum, a replicated per-head vector).  When they are the
+    rank's own, ``t`` enters first (``sharding.enter``): each rank's
+    gradient covers its heads only, and the ranks' are summed.  When the
+    rank runs every head it is ``t`` itself, whose gradient every rank
+    already holds whole."""
+    h0, hl = heads
+    if hl == t.shape[dim]:
+        return t
+    from repro_torch.distributed import sharding as S
+    return S.enter(t, part).narrow(dim, h0, hl)
+
+
 def dim_part(n: int, axis: str):
     """The mesh axes that the active rules split a dim of ``n`` with
     logical axis ``axis`` over (None off a mesh or when it stays whole):
@@ -235,18 +251,56 @@ class _RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, scale, inv = ctx.saved_tensors
-        sc = scale.to(x.dtype)
-        # t = Σ_D dy·scale·x (fp32 rowwise scalar)
-        t = ((dy * sc).to(torch.float32) * x.to(torch.float32)).sum(
-            dim=-1, keepdim=True)
-        coef = (inv ** 3 * (t / x.shape[-1])).to(x.dtype)
-        dx = dy * sc * inv.to(x.dtype) - x * coef
-        # scale broadcasts as a suffix of x.shape (per-head (H, hd) norms
-        # too): reduce the leading broadcast dims
-        lead = tuple(range(x.dim() - scale.dim()))
-        dscale = ((dy * x).to(torch.float32) * inv).sum(dim=lead)
-        return dx.to(x.dtype), dscale.to(scale.dtype), None
+        return _rms_grads(ctx, dy, dy.shape[-1]) + (None,)
+
+
+def _rms_grads(ctx, dy, n: int, sum_rows=None) -> tuple:
+    """(dx, dscale) of ``y = x · inv · scale`` normalised over ``n``
+    features; ``sum_rows`` sums the rowwise fp32 term over the ranks that
+    hold the other features (:class:`_RMSNormPart`)."""
+    x, scale, inv = ctx.saved_tensors
+    sc = scale.to(x.dtype)
+    # t = Σ_D dy·scale·x (fp32 rowwise scalar)
+    t = ((dy * sc).to(torch.float32) * x.to(torch.float32)).sum(
+        dim=-1, keepdim=True)
+    if sum_rows is not None:
+        t = sum_rows(t)
+    coef = (inv ** 3 * (t / n)).to(x.dtype)
+    dx = dy * sc * inv.to(x.dtype) - x * coef
+    # scale broadcasts as a suffix of x.shape (per-head (H, hd) norms
+    # too): reduce the leading broadcast dims
+    lead = tuple(range(x.dim() - scale.dim()))
+    dscale = ((dy * x).to(torch.float32) * inv).sum(dim=lead)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class _RMSNormPart(torch.autograd.Function):
+    """:class:`_RMSNorm` over a feature dim that a mesh group splits: ``x``
+    and ``scale`` are the rank's blocks of ``n`` features in all.  The fp32
+    sum of squares is summed over ``group`` before the rsqrt, and in the
+    backward so is the rowwise term ``t = Σ_D dy·scale·x`` before the
+    coefficient is formed (each rank's ``dx`` reads every rank's
+    features); ``dscale`` stays the rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, n, group, mesh):
+        from repro_torch.distributed import sharding as S
+        xf = x.to(torch.float32)
+        ss = (xf * xf).sum(dim=-1, keepdim=True)
+        if group is not None:
+            ss = S._all_reduce(ss, group, mesh)
+        inv = torch.rsqrt(ss / n + eps)
+        ctx.save_for_backward(x, scale, inv)
+        ctx.args = (n, group, mesh)
+        return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.distributed import sharding as S
+        n, group, mesh = ctx.args
+        sum_rows = None if group is None else (
+            lambda t: S._all_reduce(t, group, mesh))
+        return _rms_grads(ctx, dy, n, sum_rows) + (None,) * 4
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -258,16 +312,15 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     split: ``x`` and ``scale`` are the rank's blocks, and the fp32 sum of
     squares is summed over the ranks before the rsqrt, so every rank
     divides by the whole dim's mean square, as one device does (zamba's
-    ``gate_norm`` over the whole ``d_inner``).  Forward only: serving is
-    the one path that splits a normalised dim."""
+    ``gate_norm`` over the whole ``d_inner``); the backward sums its
+    rowwise term likewise (:class:`_RMSNormPart`)."""
     if part is None:
         return _RMSNorm.apply(x, scale, eps)
     from repro_torch.distributed import sharding as S
-    xf = x.to(torch.float32)
-    ss = S.psum((xf * xf).sum(dim=-1, keepdim=True), part)
-    n = x.shape[-1] * S.active_mesh().names_size(part)
-    inv = torch.rsqrt(ss / n + eps)
-    return x * inv.to(x.dtype) * scale.to(x.dtype)
+    mesh = S.active_mesh()
+    return _RMSNormPart.apply(x, scale, eps,
+                              x.shape[-1] * mesh.names_size(part),
+                              mesh.group(part), mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,17 @@ def _causal(c: int, device) -> torch.Tensor:
     return torch.tril(torch.ones((c, c), dtype=torch.bool, device=device))
 
 
+def _masked_exp(x: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
+    """exp(x) where ``causal`` holds, 0 elsewhere, masked in the exponent:
+    above the diagonal a chunk's decay exponent grows with the distance
+    and overflows fp32 past a few hundred steps (a 256-step chunk of
+    forget gates at init), and exp's backward multiplies the masked 0
+    gradient by that inf, which is NaN.  The values are the same as
+    masking after the exp."""
+    return torch.exp(torch.where(causal, x, torch.full(
+        (), float("-inf"), dtype=x.dtype, device=x.device)))
+
+
 # ===========================================================================
 # mLSTM
 # ===========================================================================
@@ -95,9 +106,8 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, state: dict | None = None,
         rm = torch.maximum(m_p[:, None, :],
                            torch.cummax(a, dim=1).values)  # (B,c,H)
         # intra-chunk decay D_{is} = exp(a_s − rm_i), s ≤ i
-        dmat = torch.exp(a[:, None, :, :] - rm[:, :, None, :])   # (B,i,s,H)
-        dmat = torch.where(causal, dmat, torch.zeros((), dtype=F32,
-                                                     device=q.device))
+        dmat = _masked_exp(a[:, None, :, :] - rm[:, :, None, :],
+                           causal)                               # (B,i,s,H)
         scores = torch.einsum("bihd,bshd->bish", qc, kc)         # (B,i,s,H)
         w = scores * dmat
         o_intra = torch.einsum("bish,bshd->bihd", w, vc)
@@ -244,9 +254,8 @@ def mamba_chunkwise(x, bm, cm, dt, a_log, d_skip,
         lcum = torch.cumsum(ldak, dim=1)                 # inclusive
         # intra: M_{is} = (C_i·B_s)·exp(L_i − L_s)·dt_s for s ≤ i
         cb = torch.einsum("bin,bsn->bis", low(ck), low(bk))          # (B,i,s)
-        decay = torch.exp(lcum[:, :, None, :] - lcum[:, None, :, :])  # (B,i,s,H)
-        decay = torch.where(causal, decay, torch.zeros((), dtype=F32,
-                                                       device=x.device))
+        decay = _masked_exp(lcum[:, :, None, :] - lcum[:, None, :, :],
+                            causal)                              # (B,i,s,H)
         m = low(cb[..., None] * decay * dtk[:, None, :, :])
         y = torch.einsum("bish,bshp->bihp", m, low(xk))
         # inter: exp(L_i)·C_i·S_prev

@@ -98,6 +98,7 @@ def _attention(p, xq, xkv, cfg, causal, ov=None, vidx=None):
     if causal:
         o = A.attend(q, k, v, cfg, split, s)
     else:
+        k, v = A.seq_kv(k, v, split)
         o = _full_attention(q, A.local_kv(k, cfg), A.local_kv(v, cfg))
     return A.attn_out(o, cfg, split, p["wo"]), q, k, v
 

@@ -43,8 +43,9 @@ from repro_torch.models import ssm
 from repro_torch.models.delta_overlay import oget
 from repro_torch.models.layers import (dim_part, embed_init, embed_lookup,
                                        gather_out, head_block, linear,
-                                       local_size, maybe_remat, psel,
-                                       rank_block, rmsnorm, rmsnorm_init,
+                                       local_size, maybe_remat,
+                                       narrow_heads, psel, rank_block,
+                                       rmsnorm, rmsnorm_init,
                                        unembed_logits, weight_parts)
 from repro_torch.models.param import (dense_init, ones_init, stack_layers,
                                       zeros_init)
@@ -192,20 +193,25 @@ def _mlstm_cell_in(p, xc, xm, x, cfg, lead, ov=None, vidx=None):
     gates = (linear(xc, p["w_if"], oget(ov, "w_if"), vidx,
                     waxes=(None, "ssm"))
              + psel(p["b_if"], oget(ov, "b_if"), vidx).to(x.dtype))
-    ig, fg = (g.narrow(-1, h0, hl) for g in gates.chunk(2, dim=-1))
+    ig, fg = (narrow_heads(g, (h0, hl), part)
+              for g in gates.chunk(2, dim=-1))
     return q, k, v, ig, fg, (h0, hl)
 
 
 def _out_norm_scale(p, ov, vidx, b, hcount, hd, heads=None):
     """The per-head output norm's scale (H, hd), or (B, 1, H, hd) per row
-    when banked; ``heads`` (first, count) keeps those heads."""
+    when banked; ``heads`` (first, count) keeps those heads (entering the
+    rank's own: ``layers.narrow_heads``)."""
     on = oget(ov, "out_norm")
     if on is None or vidx is None:
         sc = p["out_norm"].reshape(hcount, hd)
     else:
         sc = on.index_select(0, vidx.to(torch.int64)).reshape(b, 1, hcount,
                                                               hd)
-    return sc if heads is None else sc.narrow(-2, *heads)
+    if heads is None:
+        return sc
+    return narrow_heads(sc, heads, weight_parts(p["wq"], ("ssm", None))[0],
+                        dim=-2)
 
 
 def _mlstm_out(p, h, z, x, cfg, heads, ov=None, vidx=None):

@@ -45,9 +45,9 @@ from repro_torch.models.delta_overlay import oget
 from repro_torch.models.layers import (dim_part, embed_init, embed_lookup,
                                        gather_out, head_block, linear,
                                        local_size, maybe_remat, mlp_apply,
-                                       mlp_init, psel, rank_block, rmsnorm,
-                                       rmsnorm_init, unembed_logits,
-                                       weight_parts)
+                                       mlp_init, narrow_heads, psel,
+                                       rank_block, rmsnorm, rmsnorm_init,
+                                       unembed_logits, weight_parts)
 from repro_torch.models.param import (dense_init, ones_init, stack_layers,
                                       zeros_init)
 from repro_torch.models.transformer import _layer
@@ -125,22 +125,28 @@ def _mamba_proj(p, x, cfg, ov=None, vidx=None):
                  for k in ("w_z", "w_xc", "w_bc", "w_dt"))
 
 
-def _ssd_in(p, xc, dt, cfg, lead, ov=None, vidx=None):
-    """The scan's inputs on a mesh: x_c as (..., H_l, P) heads, and dt,
-    ``a_log`` and ``d_skip`` sliced to those heads.  A rank whose block of
-    ``d_inner`` holds whole heads scans its own; one whose block cuts a
-    head (zamba's reduced 2 heads over a model axis of 4) gathers x_c
-    whole and scans every head, as GSPMD does for JAX's ``act_ssm``
-    fallback.  -> (x heads, dt, a_log, d_skip, (first head, count))."""
+def _ssd_in(p, xc, bc, dt, cfg, lead, ov=None, vidx=None):
+    """The scan's inputs on a mesh: x_c as (..., H_l, P) heads, B/C, and
+    dt, ``a_log`` and ``d_skip`` sliced to those heads.  A rank whose block
+    of ``d_inner`` holds whole heads scans its own: the replicated B/C,
+    dt, ``a_log`` and ``d_skip`` enter its computation there
+    (``layers.narrow_heads``, ``sharding.enter``: under grad their
+    gradients are summed over the ranks).  One whose block cuts a head
+    (zamba's reduced 2 heads over a model axis of 4) gathers x_c whole and
+    scans every head, as GSPMD does for JAX's ``act_ssm`` fallback.  ->
+    (x heads, B/C, dt, a_log, d_skip, (first head, count))."""
+    from repro_torch.distributed import sharding as S
     _, h, pp, _ = _dims(cfg)
     part = weight_parts(p["w_xc"], ("ssm", "embed"))[0]
     h0, hl = head_block(h, part)
     if hl == h:
         xc = gather_out(xc, p["w_xc"], ("ssm", "embed"))
+    else:
+        bc = S.enter(bc, part)
 
     def heads(t):
-        return t.narrow(-1, h0, hl)
-    return (xc.reshape(*lead, hl, pp), heads(dt),
+        return narrow_heads(t, (h0, hl), part)
+    return (xc.reshape(*lead, hl, pp), bc, heads(dt),
             heads(_rowsel(p, "a_log", ov, vidx)),
             heads(_rowsel(p, "d_skip", ov, vidx)), (h0, hl))
 
@@ -173,8 +179,8 @@ def mamba_block_apply(p, x, cfg, state: dict, ov=None, vidx=None):
     bc = F.silu(causal_conv(bc_pre, _rowsel(p, "conv_bc", ov, vidx)))
     dt = _softplus(dt_raw.to(F32) + psel(p["dt_bias"], oget(ov, "dt_bias"),
                                          vidx).to(F32))
-    xh, dt, a_log, d_skip, heads = _ssd_in(p, xc, dt, cfg, (b, s), ov=ov,
-                                           vidx=vidx)
+    xh, bc, dt, a_log, d_skip, heads = _ssd_in(p, xc, bc, dt, cfg, (b, s),
+                                               ov=ov, vidx=vidx)
     y, ssm_state = ssm.mamba_chunkwise(xh, bc[..., :n], bc[..., n:], dt,
                                        a_log, d_skip, state=state["ssm"])
     return (_mamba_post(p, y, z, x, cfg, heads, ov=ov, vidx=vidx),
@@ -195,8 +201,8 @@ def mamba_block_step(p, x, cfg, state: dict, ov=None, vidx=None):
     xc, bc = F.silu(xc1), F.silu(bc1)
     dt = _softplus(dt_raw[:, 0].to(F32)
                    + _rowsel(p, "dt_bias", ov, vidx).to(F32))
-    xh, dt, a_log, d_skip, heads = _ssd_in(p, xc, dt, cfg, (b,), ov=ov,
-                                           vidx=vidx)
+    xh, bc, dt, a_log, d_skip, heads = _ssd_in(p, xc, bc, dt, cfg, (b,),
+                                               ov=ov, vidx=vidx)
     ssm_state, y = ssm.mamba_step(state["ssm"], xh, bc[..., :n],
                                   bc[..., n:], dt, a_log, d_skip)
     return (_mamba_post(p, y[:, None], z, x, cfg, heads, ov=ov, vidx=vidx),

@@ -29,8 +29,6 @@ import threading
 import time
 from typing import Optional
 
-import torch
-
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
@@ -166,14 +164,13 @@ def drop_and_continue(state, old_specs, old_mesh, new_specs, new_shape):
     (``old_specs``), the ranks form the (data, model) mesh of
     ``new_shape`` from the first data·model ranks
     (``launch.mesh.sub_mesh``), and each of those keeps its blocks of
-    ``new_specs`` (copies: the whole state is freed).  Collective over the
-    old mesh.  Returns (the new mesh, the placed state), or (None, None) on
-    a rank that was dropped."""
+    ``new_specs`` (``sharding.place`` copies them: the whole state is
+    freed).  Collective over the old mesh.  Returns (the new mesh, the
+    placed state), or (None, None) on a rank that was dropped."""
     from repro_torch.distributed import sharding as S
     from repro_torch.launch import mesh as LM
-    from repro_torch.tree import tree_map
     whole = S.unplace(state, old_specs, old_mesh)
     mesh = LM.sub_mesh(*new_shape, device=old_mesh.device)
     if mesh is None:
         return None, None
-    return mesh, tree_map(torch.clone, S.place(whole, new_specs, mesh))
+    return mesh, S.place(whole, new_specs, mesh)

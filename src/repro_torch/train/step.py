@@ -24,7 +24,8 @@ SPMD, one process a rank (``distributed/sharding.py``):
   block of ``tree_pspecs(shapes, param_axes, rules, mesh)`` (``place``):
   TP over "model", FSDP over "data" (``"embed": ["data"]``);
 * the batch: every rank is given the whole batch and keeps its rows of
-  ``act_batch`` (split over "data");
+  ``act_batch`` (split over "data"), of every field: the tokens and
+  labels, the audio family's "frames", the VLM's "image_embeds";
 * FSDP: after the cast to the compute dtype (so the wire carries it) each
   leaf is all-gathered over "data" and the forward runs on the blocks
   whole over "data"; the gradients come back summed into the rank's blocks
@@ -40,9 +41,13 @@ SPMD, one process a rank (``distributed/sharding.py``):
 * the metrics (``loss``, ``moe_aux``, ``grad_norm``, ``lr``) are the same
   on every rank.
 
-The decoder and MoE families train under a mesh; the audio, VLM, xLSTM
-and Zamba families raise.  Off a mesh ``param_axes`` is a no-op, as JAX's
-sharding constraint is outside one.
+Every family trains under a mesh, as the JAX step does (its step is
+mesh-agnostic GSPMD): the decoder, MoE and VLM transformers, whisper's
+encoder-decoder, xLSTM and Zamba.  The model code carries the gradients
+across its collectives (``sharding.psum``, ``all_gather``, ``enter``),
+the split RMSNorm included (``layers.rmsnorm(part=)``).  Off a mesh
+``param_axes`` is a no-op, as JAX's sharding constraint is outside
+one.
 """
 from __future__ import annotations
 
@@ -153,21 +158,9 @@ def value_and_grad(loss_fn, params, batch):
             tree_map(grad_of, leaves))
 
 
-# the families that train under a mesh, and the mesh axis FSDP shards
-# the parameters' "embed" dims over (``sharding.PARAM_RULES``)
-MESH_FAMILIES = ("dense", "moe")
+# the mesh axis FSDP shards the parameters' "embed" dims over
+# (``sharding.PARAM_RULES``)
 FSDP_AXIS = "data"
-
-
-def check_mesh_family(cfg) -> None:
-    """Refuse, naming its slice, a family that does not train under a
-    mesh yet."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"training under a mesh covers the decoder and MoE families; "
-            f"the {cfg.family} family ({cfg.name}) trains under a mesh "
-            "with the slice that brings whisper, the VLM, xLSTM and Zamba "
-            "to mesh training")
 
 
 class _MeshTrain:
@@ -295,7 +288,6 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
             if rules.get("_forward_only"):
                 raise ValueError("a train step under a mesh needs the train "
                                  "rules (sharding.rules_for('train'))")
-            check_mesh_family(model.cfg)
             specs = mesh_train.plan(mesh, rules)[0]
             total, metrics, grads = mesh_train.value_and_grad(
                 state.params, batch, mesh, rules)

@@ -844,38 +844,65 @@ def train_config(arch: str, fields: dict = None):
     return dataclasses.replace(TC.get_config(arch).reduced(), **kw)
 
 
-def assert_train_matches(got: dict, want: dict) -> None:
+def assert_train_matches(got: dict, want: dict,
+                         limits: tuple = (1e-5, 1e-5)) -> None:
     """The mesh-training bar: losses, ``moe_aux`` and ``grad_norm`` within
     1e-5 rel, the same ``lr``; the step-1 gradients, made whole, within
     1e-5 of each tensor's largest |g| (``BWD_TOL``); the final params
-    within 1e-3 abs (``tests/test_torch_train.py``)."""
+    within 1e-3 abs (``tests/test_torch_train.py``).  ``limits`` (the
+    later steps' metrics rel, the step-1 gradients) replace the two
+    1e-5s for a case whose fp32 steps part from the reference by more
+    (``_mesh_family_ranks.TRAIN_LIMITS``)."""
+    later, grad_tol = limits
     assert len(got["metrics"]) == len(want["metrics"])
-    for g, w in zip(got["metrics"], want["metrics"]):
+    for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
         for k in ("loss", "grad_norm", "moe_aux", "total_loss"):
-            np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-12,
-                                       err_msg=k)
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-5 if i == 0
+                                       else later, atol=1e-12,
+                                       err_msg=f"{k} step {i + 1}")
         assert g["lr"] == w["lr"]
     assert set(got["grads"]) == set(want["grads"])
     for k, w in want["grads"].items():
         err = np.abs(got["grads"][k] - w).max()
-        assert err <= 1e-5 * np.abs(w).max(), (k, err, np.abs(w).max())
+        assert err <= grad_tol * np.abs(w).max(), (k, err, np.abs(w).max())
     for k, w in want["params"].items():
         np.testing.assert_allclose(got["params"][k], w, rtol=0, atol=1e-3,
                                    err_msg=k)
+
+
+def with_frontend(batches: list, cfg, seed: int = 0) -> list:
+    """``batches`` with the family's stubbed frontend inputs added to each,
+    drawn with numpy from ``seed`` (a seed or a ``Generator``, which goes
+    on from where it stands): the audio family's "frames" (B,
+    encoder_frames, d_model), the VLM's "image_embeds" (B,
+    num_image_tokens, d_model), fp32; the others' batches as they are."""
+    rng = np.random.default_rng(seed)
+    for b in batches:
+        n = b["tokens"].shape[0]
+        if cfg.family == "audio":
+            b["frames"] = rng.standard_normal(
+                (n, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            b["image_embeds"] = rng.standard_normal(
+                (n, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    return batches
 
 
 def port_train_data(arch: str, fields: dict = None, seq: int = TRAIN_SEQ,
                     steps: int = TRAIN_STEPS) -> dict:
     """The port's own train data of ``arch`` (no JAX): its initial params
     from seed 0 as numpy and ``steps`` batches of ``SyntheticLM(seed=0)``
-    of ``seq`` tokens a row."""
+    of ``seq`` tokens a row (with the family's frontend inputs:
+    :func:`with_frontend`)."""
     from repro_torch.data.pipeline import SyntheticLM
     model = build_model(train_config(arch, fields))
     params, _ = split(model.init(0, device="cpu"))
     src = SyntheticLM(model.cfg.vocab_size, seed=0)
     return {"flat": bridge.params_to_numpy(params),
-            "batches": [{k: np.asarray(v) for k, v in src.lm_batch(
-                i, TRAIN_BATCH, seq).items()} for i in range(steps)]}
+            "batches": with_frontend([{k: np.asarray(v) for k, v in
+                                       src.lm_batch(i, TRAIN_BATCH,
+                                                    seq).items()}
+                                      for i in range(steps)], model.cfg)}
 
 
 def _whole(tree, specs, mesh) -> dict:

@@ -70,18 +70,22 @@ def delta_model_numpy(dm) -> dict:
 # training under a mesh: the JAX single-device reference and its bar
 # ---------------------------------------------------------------------------
 
-from _mesh_ranks import TRAIN_BATCH, TRAIN_LR, TRAIN_SEQ, TRAIN_STEPS  # noqa
+from _mesh_ranks import (TRAIN_BATCH, TRAIN_LR, TRAIN_SEQ,  # noqa
+                         TRAIN_STEPS, with_frontend)
 
 
 def train_data(arch: str, **fields) -> dict:
-    """Reduced ``arch`` at 2 layers, fp32: the JAX model, and what the
-    port's ranks read (JAX's initial params as numpy, the batches)."""
+    """Reduced ``arch``, fp32, at 2 layers unless ``fields`` say: the JAX
+    model, and what the port's ranks read (JAX's initial params as numpy,
+    the batches, with the family's frontend inputs drawn with numpy from
+    seed 0)."""
     from repro.data.pipeline import SyntheticLM
-    jcfg, _ = configs(2, arch=arch, **fields)
+    jcfg, _ = configs(arch=arch, **{"num_layers": 2, **fields})
     jmodel, _, flat = jax_base(jcfg)
     src = SyntheticLM(jcfg.vocab_size, seed=0)
-    batches = [{k: np.asarray(v) for k, v in src.lm_batch(
-        i, TRAIN_BATCH, TRAIN_SEQ).items()} for i in range(TRAIN_STEPS)]
+    batches = with_frontend([{k: np.asarray(v) for k, v in src.lm_batch(
+        i, TRAIN_BATCH, TRAIN_SEQ).items()} for i in range(TRAIN_STEPS)],
+        jcfg)
     return {"jmodel": jmodel, "ship": {"flat": flat, "batches": batches}}
 
 
@@ -91,8 +95,9 @@ def jax_train_reference(jmodel, batches) -> dict:
     params (numpy)."""
     from repro.train import step as JS
     state = JS.init_train_state(jmodel, jax.random.PRNGKey(0))
-    (_, _), grads = jax.value_and_grad(JS.make_loss_fn(jmodel), has_aux=True)(
-        state.params, batches[0])
+    # jitted: eager JAX takes the recurrent families' backward op by op
+    (_, _), grads = jax.jit(jax.value_and_grad(
+        JS.make_loss_fn(jmodel), has_aux=True))(state.params, batches[0])
     step = jax.jit(JS.make_train_step(jmodel, **TRAIN_LR))
     metrics = []
     for batch in batches:

@@ -1797,18 +1797,21 @@ def test_mesh_train_on_card_matches_cpu(cuda, tmp_path, shape):
     gradients and final params within the mesh-training bar
     (``_mesh_ranks.assert_train_matches``) of the single-process CPU
     plain run from the same params and batches.  deepseek-7b and
-    deepseek-moe-16b on (1, 2), (2, 1), (2, 2); on (1, 4) reduced
-    qwen3-8b (the GQA layout) and the 6-head starcoder2-3b ("whole")."""
+    deepseek-moe-16b on (1, 2), (2, 1), (2, 2), with whisper-base,
+    internvl2-76b, xlstm-350m and zamba2-7b on (1, 2) and (2, 2); on
+    (1, 4) reduced qwen3-8b (the GQA layout), the head-cut cases and the
+    6-head starcoder2-3b ("whole"); the recurrent families' later
+    metrics or step-1 gradients to ``TRAIN_LIMITS_CARD``."""
     import pickle
 
     from repro_torch.launch import mesh as LM
     import _mesh_family_ranks as MF
     import _mesh_ranks as MR
-    if shape == (1, 4):
-        cases = {"qwen3-8b": (MR.run, None),
-                 **{c: (MF.run, f) for c, f in MF.TRAIN_FIELDS.items()}}
-    else:
-        cases = {a: (MR.run, None) for a in MESH_TRAIN_ARCHS}
+    fams = {(1, 2): MF.ARCHS, (2, 2): MF.ARCHS,
+            (1, 4): MF.TRAIN_QUAD}.get(shape, ())
+    cases = {a: (MR.run, None) for a in (
+        ("qwen3-8b",) if shape == (1, 4) else MESH_TRAIN_ARCHS)}
+    cases.update({c: (MF.run, MF.TRAIN_FIELDS[c]) for c in fams})
     data = {f"train {c}": MR.port_train_data(MF.arch_of(c), f)
             for c, (_, f) in cases.items()}
     path = str(tmp_path / "train.pkl")
@@ -1822,7 +1825,24 @@ def test_mesh_train_on_card_matches_cpu(cuda, tmp_path, shape):
             want = MR.mesh_train(None, data[f"train {c}"], MF.arch_of(c),
                                  fields=cases[c][1])
             for g in got:
-                MR.assert_train_matches(g[("train", c)], want)
+                MR.assert_train_matches(
+                    g[("train", c)], want,
+                    MF.TRAIN_LIMITS_CARD.get(c, (1e-5, 1e-5)))
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4)], ids=["1x2", "1x4"])
+def test_sharded_rmsnorm_backward_on_card_matches_whole(cuda, shape):
+    """``layers.rmsnorm(part=)`` under grad on card ranks (gloo): each
+    rank's ``dx`` and ``dscale`` within 1e-6 of its blocks of the whole
+    norm's gradients on the card (relative to their largest |value|), and
+    its forward without grad bit-identical to the forward-only formula."""
+    from repro_torch.launch import mesh as LM
+    import _mesh_family_ranks as MF
+    for g in LM.spawn(MF.rmsnorm_grad_check, shape, device="cuda",
+                      timeout_s=300):
+        assert g["device"].startswith("cuda")
+        assert g["dx"] < 1e-6 and g["dscale"] < 1e-6, g
+        assert g["forward bits"], g
 
 
 # ---------------------------------------------------------------------------

@@ -374,8 +374,12 @@ def test_context_helpers_match_jax_without_and_with_a_mesh():
 # remesh: the state's spec tree on a resized mesh
 # ---------------------------------------------------------------------------
 
-REMESH_ARCHS = ("starcoder2-3b", "deepseek-moe-16b")
+REMESH_ARCHS = ("starcoder2-3b", "deepseek-moe-16b", "whisper-base",
+                "internvl2-76b", "xlstm-350m", "zamba2-7b")
 REMESH_SHAPES = {"1x1": (1, 1), "1x2": (1, 2), "2x2": (2, 2), "1x4": (1, 4)}
+# depths that hold every block kind (an xLSTM super-block is 4 layers; a
+# Zamba shared-block application and a trailing Mamba2 block)
+REMESH_LAYERS = {"xlstm-350m": 4, "zamba2-7b": 4}
 
 
 def _jax_specs(tree) -> dict:
@@ -397,7 +401,7 @@ def test_remesh_spec_tree_equal_jax(arch, shape):
     from repro.train import loop as JTL
     from repro_torch.train import loop as TL
     d, m = REMESH_SHAPES[shape]
-    jcfg, tcfg = configs(2, arch=arch)
+    jcfg, tcfg = configs(REMESH_LAYERS.get(arch, 2), arch=arch)
     model = build_model(tcfg)
     got_shape, got = TL.remesh(model, None, None, d, m, S.rules_for("train"))
     assert got_shape == (d, m)
@@ -418,3 +422,39 @@ def test_remesh_spec_tree_equal_jax(arch, shape):
                                          _fake_mesh((d, m),
                                                     ("data", "model"))))
     assert flat == want
+
+
+# ---------------------------------------------------------------------------
+# block: a placed block owns its storage
+# ---------------------------------------------------------------------------
+
+def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("coord", [0, 1])
+def test_block_copies_whenever_the_spec_shards(coord):
+    """``sharding.block`` on a (1, 2) mesh without processes: a cut of a
+    leading dim (whose slice is a contiguous view) and a ``d_out`` cut of
+    a (1, d_out, d_in) stack are copies that share no storage with the
+    whole tensor, so placing a tree frees it (also when ``place`` moves it
+    to a device, here the one it is on); a spec that shards nothing
+    returns the tensor itself."""
+    mesh = S.Mesh(("data", "model"), (1, 2), coords=(0, coord))
+    t = torch.arange(24.0).reshape(4, 6)
+    rows = S.block(t, ("model", None), mesh)
+    assert not _shares_storage(rows, t) and rows.is_contiguous()
+    assert torch.equal(rows, t[2 * coord:2 * coord + 2])
+    stack = torch.arange(48.0).reshape(1, 8, 6)
+    d_out = S.block(stack, (None, "model", None), mesh)
+    assert not _shares_storage(d_out, stack)
+    assert torch.equal(d_out, stack[:, 4 * coord:4 * coord + 4])
+    assert S.block(t, (None, None), mesh) is t
+    specs = {"a": ("model", None), "b": (None, None, None)}
+    placed = S.place({"a": t, "b": stack}, specs, mesh)
+    assert not _shares_storage(placed["a"], t) and placed["b"] is stack
+    # a "move" to the device the leaf is on copies the block too
+    moved = S.place({"a": t, "b": stack}, specs, mesh, device="cpu")
+    assert not _shares_storage(moved["a"], t)
+    assert moved["a"].is_contiguous() and torch.equal(moved["a"], rows)
+    assert moved["b"] is stack

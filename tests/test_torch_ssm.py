@@ -11,7 +11,10 @@ Bounds, and why:
   round their outputs to bf16, and here they agree bit for bit; outputs
   reach ~400, where one bf16 step is 2): the port rounds the intra-chunk
   operands to bf16 as JAX does, and the same function with that rounding
-  dropped lands at least 0.25 away, so the test fails if it goes.
+  dropped lands at least 0.25 away, so the test fails if it goes;
+* the chunkwise forms at a 256-step chunk, output and gradients, within
+  2e-4 of the largest |value| of the same function in float64: the long
+  chunk's own fp32 error reaches 6.7e-5 of it.
 """
 import pytest
 
@@ -228,3 +231,45 @@ def test_mamba_chunkwise_bf16_rounds_its_intra_chunk_operands_as_jax():
                                      dt_t, a_t, ds_t, chunk=16)
     assert np.abs(unrounded.to(torch.bfloat16).float().numpy()
                   - want).max() >= 0.25
+
+
+def _long_chunk_inputs(cell: str, s: int = 256):
+    """Inputs whose decay exponent above a 256-step chunk's diagonal
+    passes fp32's exp range: forget gates near their init (log σ ≈ -0.7 a
+    step) for mLSTM, dt·a ≈ -1 a step for Mamba2."""
+    if cell == "mlstm":
+        q, k, v = _arrays(51, *[(B, s, H, 8)] * 3)
+        ig, fg = _arrays(52, (B, s, H), (B, s, H), scale=0.3)
+        return q, k, v, ig, fg
+    x, bm, cm, dt, a_log, d_skip = _mamba_inputs(53, s)
+    return x, bm, cm, dt, np.abs(a_log) + 0.5, d_skip
+
+
+@pytest.mark.parametrize("cell", ["mlstm", "mamba"])
+def test_chunkwise_backward_over_a_long_chunk_is_finite(cell, monkeypatch):
+    """Training at 512 tokens takes 256-step chunks, where the masked
+    half of the intra-chunk decay overflows fp32 before the mask: the
+    mask is applied in the exponent, so every gradient is finite.  The
+    output and every gradient lie within 2e-4 of their largest |value| of
+    the same function evaluated in float64 (where nothing overflows; the
+    long chunk's own fp32 error reaches 6.7e-5 of it, 16-step chunks'
+    7e-6), and the output within as much of JAX's."""
+    fn = S.mlstm_chunkwise if cell == "mlstm" else S.mamba_chunkwise
+    jfn = JS.mlstm_chunkwise if cell == "mlstm" else JS.mamba_chunkwise
+    arrs = _long_chunk_inputs(cell)
+    dy = _arrays(54, (B, 256) + arrs[0].shape[2:])[0]
+
+    def grads(dtype):
+        ts = [torch.from_numpy(a).to(dtype).requires_grad_(True)
+              for a in arrs]
+        y, _ = fn(*ts, chunk=256)
+        return y, torch.autograd.grad(y, ts, torch.from_numpy(dy).to(dtype))
+    y, got = grads(torch.float32)
+    monkeypatch.setattr(S, "F32", torch.float64)
+    y64, want = grads(torch.float64)
+    _close(y.detach(), y64.detach().numpy(), rel=2e-4)
+    _close(y.detach(), np.asarray(jfn(*(jnp.asarray(a) for a in arrs),
+                                      chunk=256)[0]), rel=2e-4)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        _close(g, w.numpy(), rel=2e-4)

@@ -33,7 +33,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _port_helpers import configs, jax_base, numpy_flat  # noqa: E402
+from _port_helpers import (configs, jax_base, numpy_flat,  # noqa: E402
+                           with_frontend)
 
 import repro_torch.configs as TC  # noqa: E402
 from repro.data.pipeline import SyntheticLM  # noqa: E402
@@ -277,16 +278,11 @@ OTHER_FAMILIES = ("deepseek-7b", "starcoder2-3b", "gemma3-12b",
 
 def _family_batch(cfg, rng) -> dict:
     """The batch each family's forward takes: tokens and labels, plus the
-    audio frames or the image embeddings of the stubbed frontends."""
+    audio frames or the image embeddings of the stubbed frontends
+    (``with_frontend``, drawn from ``rng`` after the tokens)."""
     toks = rng.integers(0, cfg.vocab_size, (2, 17))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    if cfg.family == "audio":
-        batch["frames"] = rng.standard_normal(
-            (2, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
-    if cfg.family == "vlm":
-        batch["image_embeds"] = rng.standard_normal(
-            (2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
-    return batch
+    return with_frontend([{"tokens": toks[:, :-1], "labels": toks[:, 1:]}],
+                         cfg, rng)[0]
 
 
 @pytest.mark.parametrize("arch", OTHER_FAMILIES)
@@ -339,34 +335,22 @@ def test_eval_step_and_param_axes():
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-MESH_REFUSED = ("whisper-base", "internvl2-76b", "xlstm-350m", "zamba2-7b")
-
-
-@pytest.mark.parametrize("arch", MESH_REFUSED + ("serving-rules",))
+@pytest.mark.parametrize("arch", ("serving-rules",))
 def test_mesh_train_refusals_name_their_slice(arch):
-    """Under a mesh the audio, VLM, xLSTM and Zamba families raise
-    NotImplementedError naming the slice that brings them; a train step
-    under forward-only (serving) rules raises too.  (A mesh without
-    processes: each refusal comes before the first collective.)"""
+    """A train step under a mesh with forward-only (serving) rules raises,
+    naming the train rules it needs.  (A mesh without processes: the
+    refusal comes before the first collective.)"""
     from repro_torch.distributed import sharding as SH
-    name = "deepseek-7b" if arch == "serving-rules" else arch
-    cfg = dataclasses.replace(TC.get_config(name).reduced(), num_layers=(
-        7 if name == "zamba2-7b" else 8 if name == "xlstm-350m" else 2),
-        compute_dtype="float32")
+    cfg = dataclasses.replace(TC.get_config("deepseek-7b").reduced(),
+                              num_layers=2, compute_dtype="float32")
     model = build_model(cfg)
     params, axes = split(model.init(0, device="cpu"))
     state = S.TrainState(step=0, params=params, opt=adamw_init(params))
     batch = _family_batch(cfg, np.random.default_rng(4))
     step = S.make_train_step(model, param_axes=axes)
     mesh = SH.Mesh(("data", "model"), (1, 2))
-    if arch == "serving-rules":
-        with SH.shard_ctx(mesh, SH.rules_for("decode")), \
-                pytest.raises(ValueError, match="train rules"):
-            step(state, batch)
-        return
-    with SH.shard_ctx(mesh, SH.rules_for("train")), \
-            pytest.raises(NotImplementedError,
-                          match="whisper, the VLM, xLSTM and Zamba"):
+    with SH.shard_ctx(mesh, SH.rules_for("decode")), \
+            pytest.raises(ValueError, match="train rules"):
         step(state, batch)
 
 
